@@ -1,11 +1,11 @@
-"""Binary protobuf I/O — the .caffemodel reader, without protoc.
+"""Binary protobuf I/O — .caffemodel and .solverstate, without protoc.
 
-Own copy of the wire-format reader in the JAX package's
+Own copy of the wire-format reader and writers in the JAX package's
 caffe_mpi_tpu/io.py (the port imports nothing of that package). The
 reference serializes weights as a binary NetParameter holding per-layer
 BlobProtos (net.cpp ToProto/CopyTrainedLayersFrom, blob.cpp ToProto); this
-module reads that wire format directly over the field numbers pinned in the
-reference schema (src/caffe/proto/caffe.proto):
+module reads and writes that wire format directly over the field numbers
+pinned in the reference schema (src/caffe/proto/caffe.proto):
 
   NetParameter: name=1, layer=100 (LayerParameter), layers=2 (V1, read-only)
   LayerParameter: name=1, type=2, blobs=7
@@ -14,12 +14,19 @@ reference schema (src/caffe/proto/caffe.proto):
              double_data=8, raw_data_type=10, raw_data=12,
              legacy num/channels/height/width = 1..4
 
+  SolverState: iter=1 (varint), learned_net=2 (string), history=3
+               (repeated BlobProto), current_step=4 (varint)
+
 Reads BVLC & NVCaffe .caffemodel files (incl. fp16 raw_data, mapped to
-f32). Only what `serve -weights` needs is here; writing arrives with
-snapshots.
+f32), and writes .caffemodel, .binaryproto and .solverstate files the
+reference and the JAX package read. Every file is written to a temporary
+path beside it and moved into place with `os.replace`, so a reader never
+sees half a file.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -35,6 +42,31 @@ def _read_varint(buf: bytes, pos: int) -> tuple[int, int]:
         if not b & 0x80:
             return result, pos
         shift += 7
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        if v < 0x80:
+            out.append(v)
+            return bytes(out)
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+
+
+def _tag(field: int, wire: int) -> bytes:
+    return _varint((field << 3) | wire)
+
+
+def _write_atomic(path: str, data: bytes) -> None:
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _fields(buf: bytes):
@@ -117,6 +149,26 @@ def parse_blob(buf: bytes) -> np.ndarray:
     return data.reshape(shape) if shape else data
 
 
+def encode_blob(arr: np.ndarray) -> bytes:
+    """ndarray -> BlobProto: its shape, then packed float32 data."""
+    out = bytearray()
+    dims = b"".join(_varint(d) for d in arr.shape)
+    shape_msg = _tag(1, 2) + _varint(len(dims)) + dims
+    out += _tag(7, 2) + _varint(len(shape_msg)) + shape_msg
+    raw = np.ascontiguousarray(arr, "<f4").tobytes()
+    out += _tag(5, 2) + _varint(len(raw)) + raw
+    return bytes(out)
+
+
+def load_blob_binaryproto(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return parse_blob(f.read())
+
+
+def save_blob_binaryproto(path: str, arr: np.ndarray) -> None:
+    _write_atomic(path, encode_blob(arr))
+
+
 # -- NetParameter weights (.caffemodel) -------------------------------------
 
 def parse_caffemodel(buf: bytes) -> dict[str, list[np.ndarray]]:
@@ -155,6 +207,33 @@ def parse_caffemodel(buf: bytes) -> dict[str, list[np.ndarray]]:
     return out
 
 
+def encode_caffemodel(weights: dict[str, list[np.ndarray]],
+                      net_name: str = "",
+                      layer_types: dict[str, str] | None = None) -> bytes:
+    """{layer: [blobs]} -> binary NetParameter (net.cpp ToProto)."""
+    out = bytearray()
+    if net_name:
+        nm = net_name.encode("utf-8")
+        out += _tag(1, 2) + _varint(len(nm)) + nm
+    for lname, blobs in weights.items():
+        msg = bytearray()
+        nm = lname.encode("utf-8")
+        msg += _tag(1, 2) + _varint(len(nm)) + nm
+        if layer_types and lname in layer_types:
+            tp = layer_types[lname].encode("utf-8")
+            msg += _tag(2, 2) + _varint(len(tp)) + tp
+        for blob in blobs:
+            b = encode_blob(blob)
+            msg += _tag(7, 2) + _varint(len(b)) + b
+        out += _tag(100, 2) + _varint(len(msg)) + bytes(msg)
+    return bytes(out)
+
+
+def save_caffemodel(path: str, weights: dict[str, list[np.ndarray]],
+                    net_name: str = "", layer_types=None) -> None:
+    _write_atomic(path, encode_caffemodel(weights, net_name, layer_types))
+
+
 def load_caffemodel(path: str) -> dict[str, list[np.ndarray]]:
     with open(path, "rb") as f:
         return parse_caffemodel(f.read())
@@ -167,3 +246,50 @@ def load_weights(path: str) -> dict[str, list[np.ndarray]]:
         raise ValueError(f"{path}: HDF5 weights are not ported yet; give a "
                          "binary .caffemodel")
     return load_caffemodel(path)
+
+
+# -- SolverState (.solverstate) ---------------------------------------------
+# History blobs are the optimizer slots of the learnable params in net
+# order, slot-major: history[i + s*N] = slot s of param i (Adam/AdaDelta
+# append the second bank after the first; sgd_solver.cpp PreSolve +
+# adam_solver.cpp:37-39).
+
+def encode_solverstate(it: int, learned_net: str,
+                       history: list[np.ndarray],
+                       current_step: int = 0) -> bytes:
+    out = bytearray()
+    out += _tag(1, 0) + _varint(it)
+    if learned_net:
+        nm = learned_net.encode("utf-8")
+        out += _tag(2, 2) + _varint(len(nm)) + nm
+    for blob in history:
+        b = encode_blob(np.asarray(blob))
+        out += _tag(3, 2) + _varint(len(b)) + b
+    if current_step:
+        out += _tag(4, 0) + _varint(current_step)
+    return bytes(out)
+
+
+def parse_solverstate(buf: bytes) -> tuple[int, str, list[np.ndarray], int]:
+    it, learned_net, history, current_step = 0, "", [], 0
+    for field, wire, val in _fields(buf):
+        if field == 1 and wire == 0:
+            it = int(val)
+        elif field == 2 and wire == 2:
+            learned_net = bytes(val).decode("utf-8")
+        elif field == 3 and wire == 2:
+            history.append(parse_blob(val))
+        elif field == 4 and wire == 0:
+            current_step = int(val)
+    return it, learned_net, history, current_step
+
+
+def save_solverstate(path: str, it: int, learned_net: str,
+                     history: list[np.ndarray], current_step: int = 0) -> None:
+    _write_atomic(path, encode_solverstate(it, learned_net, history,
+                                           current_step))
+
+
+def load_solverstate(path: str) -> tuple[int, str, list[np.ndarray], int]:
+    with open(path, "rb") as f:
+        return parse_solverstate(f.read())

@@ -2,6 +2,10 @@
 
 Reference: src/caffe/layers/{relu,dropout}_layer.{cpp,cu}; JAX package
 caffe_mpi_tpu/layers/activations.py. Each is one torch expression.
+
+Dropout is the one layer that draws random numbers: `needs_rng` tells
+`Net.forward` to hand it the net's generator and, where the caller gives
+one, the mask to use instead of a draw.
 """
 
 from __future__ import annotations
@@ -29,13 +33,28 @@ class ReLULayer(_Elementwise):
 
 @register("Dropout")
 class DropoutLayer(_Elementwise):
-    """Identity at TEST (dropout_layer.cpp scales at train time, so the
-    test-time forward passes x through). Train-time inverted dropout
-    arrives with the training path."""
+    """Inverted dropout (dropout_layer.cpp): at train time
+    y = where(mask, x / keep, 0) with mask ~ Bernoulli(keep); at TEST the
+    identity. The mask is drawn from `generator` on x's device unless
+    `mask` (a bool tensor of x's shape) is given."""
 
-    def forward(self, bottoms):
-        if self.training:
-            raise NotImplementedError(
-                f"dropout layer {self.name!r}: train-time dropout is not "
-                "ported yet; the port runs nets in TEST phase")
-        return [self.f(bottoms[0])]
+    needs_rng = True
+
+    def forward(self, bottoms, *, generator=None, mask=None):
+        x = self.f(bottoms[0])
+        if not self.training:
+            return [x]
+        ratio = (self.lp.dropout_param.dropout_ratio
+                 if self.lp.dropout_param else 0.5)
+        keep = 1.0 - ratio
+        if mask is None:
+            if generator is None:
+                raise ValueError(f"dropout layer {self.name!r} needs a "
+                                 "generator or a mask in train mode")
+            mask = torch.rand(x.shape, generator=generator,
+                              device=x.device) < keep
+        elif mask.shape != x.shape or mask.dtype != torch.bool:
+            raise ValueError(f"dropout layer {self.name!r}: mask "
+                             f"{tuple(mask.shape)} {mask.dtype}, want bool "
+                             f"{tuple(x.shape)}")
+        return [torch.where(mask.to(x.device), x / keep, 0.0)]

@@ -47,6 +47,8 @@ class Layer(nn.Module):
     """Base class. Subclasses set `type_name` and implement setup/forward."""
 
     type_name: str = ""
+    # True for a layer whose forward takes `generator=` and `mask=`
+    needs_rng: bool = False
 
     def __init__(self, lp: LayerParameter, policy: DtypePolicy,
                  phase: str = "TRAIN", device: torch.device | None = None):
@@ -112,6 +114,14 @@ class Layer(nn.Module):
     def f(self, x: torch.Tensor) -> torch.Tensor:
         """Cast to forward compute dtype."""
         return self.policy.cast_in(x)
+
+    def is_loss(self) -> bool:
+        return False
+
+    def default_loss_weight(self, top_idx: int) -> float:
+        """Weight of top `top_idx` in the net's loss when the prototxt
+        gives no `loss_weight` (reference layer.hpp SetLossWeights)."""
+        return 0.0
 
 
 # ---------------------------------------------------------------------------

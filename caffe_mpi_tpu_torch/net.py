@@ -11,7 +11,13 @@ memory), param sharing by ParamSpec.name (the sharing layers hold the same
 `nn.Parameter`), phase filtering, per-layer dtype policy, and .caffemodel
 import/export in each layer's `caffe_blobs` order.
 
-The port runs nets in TEST phase only so far: no loss, no backward.
+In TRAIN phase the net sums its loss as the reference does: every top with
+a nonzero loss weight (the prototxt's `loss_weight`, else the layer's
+default: 1 for a loss layer's first top) adds weight x sum(top). A
+bottom whose `propagate_down` is false is detached. Dropout draws its mask
+from the generator `forward` is given. Parameters are `nn.Parameter`s
+that the solver switches to `requires_grad` for training; autograd does
+the backward.
 """
 
 from __future__ import annotations
@@ -33,11 +39,12 @@ class Net(nn.Module):
     """Build from a NetParameter on `device` (default: the card)."""
 
     def __init__(self, param: NetParameter, phase: str = "TEST", *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", level: int = 0,
+                 stages: tuple[str, ...] = ()):
         super().__init__()
         self.device = resolve_device(device)
         param = normalize_net(param)
-        state = NetState(phase=phase)
+        state = NetState(phase=phase, level=level, stage=list(stages))
         param = filter_net(param, state)
         self.param = param
         self.phase = phase
@@ -50,6 +57,8 @@ class Net(nn.Module):
         # param sharing: ParamSpec.name -> (owner layer, param name)
         self._shared_owner: dict[str, tuple[str, str]] = {}
         self.param_aliases: dict[tuple[str, str], tuple[str, str]] = {}
+        # (blob, loss weight) for every top that adds to the loss
+        self.loss_blobs: list[tuple[str, float]] = []
 
         for lp in param.layer:
             policy = DtypePolicy.resolve(
@@ -82,6 +91,12 @@ class Net(nn.Module):
                 self.blob_shapes[t] = tuple(s)
             if isinstance(layer, InputLayerBase):
                 self.feed_blobs.extend(lp.top)
+            # loss weights (reference layer.hpp SetLossWeights)
+            for ti, t in enumerate(lp.top):
+                w = (lp.loss_weight[ti] if ti < len(lp.loss_weight)
+                     else layer.default_loss_weight(ti))
+                if w:
+                    self.loss_blobs.append((t, float(w)))
             self._share_params(layer)
             layers.append(layer)
             self._layer_index.setdefault(layer.name, layer)
@@ -127,17 +142,49 @@ class Net(nn.Module):
                     if (layer.name, p) in self.param_aliases}
             layer.init_params(gen, skip)
 
-    def forward(self, feeds: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        """Run the graph (reference Net::Forward). Returns every named blob."""
+    def forward(self, feeds: dict[str, torch.Tensor], *,
+                generator: torch.Generator | None = None,
+                dropout_masks: dict[str, torch.Tensor] | None = None
+                ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        """Run the graph (reference Net::Forward). Returns (every named
+        blob, the loss: sum of weight x sum(top) over the loss tops, a
+        float32 scalar). `generator` feeds Dropout's draws in TRAIN phase;
+        `dropout_masks` {layer name: bool mask} replaces a layer's draw."""
         env: dict[str, torch.Tensor] = {}
+        masks = dropout_masks or {}
         for layer in self.layers:
             if isinstance(layer, InputLayerBase):
                 bottoms = layer.gather_feeds(feeds)
             else:
                 bottoms = [env[b] for b in layer.lp.bottom]
-            for t, v in zip(layer.lp.top, layer(bottoms)):
+                # per-bottom gradient blocking (LayerParameter.
+                # propagate_down; reference net.cpp backward-need analysis)
+                pd = layer.lp.propagate_down
+                bottoms = [b.detach() if i < len(pd) and not pd[i] else b
+                           for i, b in enumerate(bottoms)]
+            if layer.needs_rng:
+                tops = layer(bottoms, generator=generator,
+                             mask=masks.get(layer.name))
+            else:
+                tops = layer(bottoms)
+            for t, v in zip(layer.lp.top, tops):
                 env[t] = v
-        return env
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        for blob, w in self.loss_blobs:
+            loss = loss + w * env[blob].float().sum()
+        return env, loss
+
+    def math_precision(self) -> str:
+        """The one `DtypePolicy.precision` every layer of the net shares.
+        The backward runs under one TF32 setting, so a net whose layers
+        ask for different ones is refused."""
+        kinds = {layer.policy.precision for layer in self.layers}
+        if len(kinds) != 1:
+            raise NotImplementedError(
+                f"net {self.name!r} mixes math precisions {sorted(kinds)} "
+                "across layers; the port's backward runs under one TF32 "
+                "setting")
+        return kinds.pop()
 
     # -- introspection (pycaffe parity helpers) -------------------------
     def learnable_param_decls(self):

@@ -135,7 +135,7 @@ class BucketedForward:
                              f"{self.ladder}")
         net = self.net_for(bucket)
         x = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
-        env = net({self.input_blob(): x.to(self.device)})
+        env, _ = net({self.input_blob(): x.to(self.device)})
         return env[self.out_blob()].float()
 
     @staticmethod

@@ -1,11 +1,22 @@
-"""caffe CLI for the port — serve.
+"""caffe CLI for the port — train, serve.
 
 Reference: tools/caffe.cpp; JAX package caffe_mpi_tpu/tools/cli.py
-(`cmd_serve`, `_serve_smoke`). The port has the `serve` command only so
-far, without the HTTP front: `-smoke N` drives N synthetic requests through
-the engine and prints its telemetry as one JSON line.
+(`cmd_train`, `_synthetic_feed`, `cmd_serve`, `_serve_smoke`).
+
+`train` runs a solver prototxt. The port has no data plane yet, so it
+trains nets fed through Input layers on `-synthetic` data drawn as the JAX
+CLI draws it: a numpy RandomState(seed) in the net's feed order, normals
+for float blobs and class ids in [0, 10) for the label bottom of a
+classification loss or accuracy; seed 0 for the train net, 1 for the test
+nets. Each feed is uploaded to the device once and reused every iteration.
+At the end it prints one JSON line {"train": {...}}: the loss and wall time
+of every iteration, their median and images per second.
+
+`serve` has no HTTP front yet: `-smoke N` drives N synthetic requests
+through the engine and prints its telemetry as one JSON line.
 
 Usage (gflags-compatible single-dash long flags accepted):
+    python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt -synthetic [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli serve -model deploy.prototxt [-weights w.caffemodel] -smoke N [-serve_buckets 1,4,10] [-serve_window_ms W] [-serve_queue_limit Q] [-device cuda|cpu]
 """
 
@@ -14,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 
 import numpy as np
@@ -23,12 +35,27 @@ log = logging.getLogger("caffe")
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="caffe", description=__doc__)
-    p.add_argument("command", choices=["serve"])
+    p.add_argument("command", choices=["train", "serve"])
+    p.add_argument("-solver", "--solver", default="",
+                   help="solver prototxt (train)")
+    p.add_argument("-synthetic", "--synthetic", action="store_true",
+                   help="train on random data shaped from the net's Input "
+                   "layers")
+    p.add_argument("-max_iter", "--max-iter", dest="max_iter", type=int,
+                   default=0, help="override the solver's max_iter")
+    p.add_argument("-test_iter", "--test-iter", dest="test_iter", type=int,
+                   default=0, help="override the solver's test_iter")
+    p.add_argument("-snapshot_prefix", "--snapshot-prefix",
+                   dest="snapshot_prefix", default="",
+                   help="override the solver's snapshot_prefix")
+    p.add_argument("-snapshot", "--snapshot", default="",
+                   help=".solverstate to resume from (train)")
     p.add_argument("-model", "--model", default="",
                    help="deploy net prototxt")
     p.add_argument("-weights", "--weights", default="",
                    help=".caffemodel to load (default: weights drawn from "
-                   "torch.Generator seed 0)")
+                   "a torch.Generator: seed 0 for serve, the solver's "
+                   "random_seed for train)")
     p.add_argument("-serve_window_ms", "--serve-window-ms",
                    dest="serve_window_ms", type=float, default=-1.0,
                    help="batching window in ms (default: the "
@@ -44,9 +71,114 @@ def _parser() -> argparse.ArgumentParser:
                    "its stats as JSON and exit (the port has no HTTP front "
                    "yet, so serve needs -smoke)")
     p.add_argument("-device", "--device", default="cuda",
-                   help="device to serve on (default: cuda; 'cpu' runs "
+                   help="device to run on (default: cuda; 'cpu' runs "
                    "on the CPU)")
     return p
+
+
+# layer types whose second bottom is a class id (the JAX package's
+# utils/model_shapes.py _CLASSIFICATION_CONSUMERS)
+_CLASSIFICATION_CONSUMERS = frozenset((
+    "SoftmaxWithLoss", "Accuracy", "MultinomialLogisticLoss",
+    "InfogainLoss", "HingeLoss",
+))
+
+
+def synthetic_feed(net, seed: int = 0) -> dict:
+    """Random feeds shaped from the net's Input layers, on the net's
+    device, drawn as the JAX CLI's `_synthetic_feed` draws them."""
+    import torch
+    from ..layers.data_layers import InputLayerBase
+    r = np.random.RandomState(seed)
+    int_range: dict[str, int] = {}
+    for layer in net.layers:
+        lp = layer.lp
+        if lp.type in _CLASSIFICATION_CONSUMERS and len(lp.bottom) > 1:
+            int_range.setdefault(lp.bottom[1], 10)
+    feeds = {}
+    for layer in net.layers:
+        if not isinstance(layer, InputLayerBase):
+            continue
+        for key, shape, _kind in layer.feed_specs():
+            if key in int_range:
+                a = r.randint(0, max(int_range[key], 1), shape)
+            else:
+                a = r.randn(*shape).astype(np.float32)
+            feeds[key] = torch.from_numpy(a).to(net.device)
+    return feeds
+
+
+def train(args):
+    """Build the solver from `args`, resume or load weights, train to
+    max_iter with a test pass at every test_interval and at the end, and
+    snapshot after training. Returns (solver, summary dict)."""
+    from ..proto import SolverParameter
+    from ..solver import Solver
+    if not args.solver:
+        raise ValueError("train requires -solver")
+    if not args.synthetic:
+        raise ValueError("the port has no data plane yet: pass -synthetic "
+                         "to train on random data")
+    sp = SolverParameter.from_file(args.solver)
+    if args.max_iter:
+        sp.max_iter = args.max_iter
+    if args.test_iter:
+        sp.test_iter = [args.test_iter] * max(len(sp.test_iter), 1)
+    if args.snapshot_prefix:
+        sp.snapshot_prefix = args.snapshot_prefix
+    # net paths in the solver are relative to the working directory, as
+    # the reference's are; an inline or missing one resolves beside the
+    # solver file
+    model_dir = "" if (sp.net and os.path.exists(sp.net)) \
+        else os.path.dirname(os.path.abspath(args.solver))
+    solver = Solver(sp, model_dir=model_dir, device=args.device)
+    if args.snapshot:
+        solver.restore(args.snapshot)
+    elif args.weights:
+        for w in args.weights.split(","):
+            solver.load_weights(w)
+    feeds = synthetic_feed(solver.net)
+    test_feed_fns = None
+    if solver.test_nets:
+        test_feed_fns = []
+        for tnet in solver.test_nets:
+            tfeeds = synthetic_feed(tnet, seed=1)
+            test_feed_fns.append(lambda it, tfeeds=tfeeds: tfeeds)
+    start = solver.iter
+    solver.step(sp.max_iter - solver.iter, lambda it: feeds, test_feed_fns)
+    scores = None
+    if test_feed_fns and sp.test_interval:
+        # final evaluation, as the JAX CLI runs it after the last iteration
+        scores = solver.test_all(test_feed_fns)
+    snapshot = None
+    if sp.snapshot_prefix and solver.should_snapshot_after_train():
+        snapshot = solver.snapshot()
+    batch = solver._batch_images() * max(sp.iter_size, 1)
+    med = float(np.median(solver.iter_ms)) if solver.iter_ms \
+        else float("nan")
+    summary = {
+        "solver": args.solver, "device": str(solver.device),
+        "start_iter": start, "iters": solver.iter - start, "batch": batch,
+        "losses": list(solver.losses), "iter_ms": list(solver.iter_ms),
+        "median_iter_ms": med,
+        "img_per_s": batch / (med / 1e3), "test_scores": scores,
+        "snapshot": snapshot,
+    }
+    return solver, summary
+
+
+def cmd_train(args) -> int:
+    try:
+        _, summary = train(args)
+    except ValueError as e:
+        log.error("%s", e)
+        return 1
+    print(json.dumps({"train": summary}))
+    losses = summary["losses"]
+    if not losses or not all(np.isfinite(losses)):
+        log.error("train: losses not all finite: %s", losses)
+        return 1
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -112,11 +244,15 @@ def _serve_smoke(args, engine) -> int:
     return 0
 
 
+def parse_args(argv=None) -> argparse.Namespace:
+    return _parser().parse_args(argv)
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
-    args = _parser().parse_args(argv)
-    return {"serve": cmd_serve}[args.command](args)
+    args = parse_args(argv)
+    return {"train": cmd_train, "serve": cmd_serve}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
-"""Carry the JAX package's parameter trees into the port's `Net`.
+"""Carry the JAX package's parameter trees (and its solver's history) into
+the port's `Net` (and `Solver`).
 
 The JAX `Net.init` returns `params[layer][name]` and `state[layer][name]`
 trees (caffe_mpi_tpu/net.py:306-325). The port registers the same names in
 the same layouts, so loading them is a checked copy: every array must name
 a param the port's net declares, with the same shape, and every param the
-port's net owns must be given. Arrays arrive as numpy (or anything
+port's net owns must be given. The JAX `Solver.opt_state` tree,
+`opt_state[layer][name]` = a tuple of slot arrays, loads into the port's
+solver history the same way. Arrays arrive as numpy (or anything
 `np.asarray` takes); this module imports no JAX.
 """
 
@@ -39,3 +42,33 @@ def load_jax_params(net: Net, params: dict, state: dict | None = None) -> None:
                if (l, p) not in given]
     if missing:
         raise KeyError(f"no array given for params {missing}")
+
+
+@torch.no_grad()
+def load_jax_opt_state(solver, opt_state: dict) -> None:
+    """Copy the JAX `Solver`'s history slots into the port's `Solver`:
+    every owned learnable param's slots must be given, as many as the
+    solver type keeps, each of the param's shape."""
+    given = set()
+    for lname, blobs in opt_state.items():
+        for pname, slots in blobs.items():
+            key = (lname, pname)
+            cur = solver.history.get(key)
+            if cur is None:
+                raise KeyError(f"solver has no history for {lname}.{pname}")
+            if len(slots) != len(cur):
+                raise ValueError(f"{lname}.{pname}: {len(slots)} slots given"
+                                 f", the {solver.type} solver keeps "
+                                 f"{len(cur)}")
+            new = []
+            for arr, t in zip(slots, cur):
+                a = np.asarray(arr, np.float32)
+                if a.shape != tuple(t.shape):
+                    raise ValueError(f"{lname}.{pname} slot: shape "
+                                     f"{a.shape} != {tuple(t.shape)}")
+                new.append(torch.from_numpy(np.array(a)).to(t.device))
+            solver.history[key] = tuple(new)
+            given.add(key)
+    missing = sorted(set(solver.history) - given)
+    if missing:
+        raise KeyError(f"no history given for params {missing}")

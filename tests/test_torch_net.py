@@ -104,7 +104,7 @@ def _port_net():
 def _port_forward(net, x):
     with torch.inference_mode():
         return {k: v.numpy() for k, v in
-                net({"data": torch.from_numpy(x)}).items()}
+                net({"data": torch.from_numpy(x)})[0].items()}
 
 
 def test_shapes_and_param_layouts_match(jax_side):

@@ -80,7 +80,7 @@ def test_mixed_bursts_match_net_and_jax_engine(deploy):
             pad = np.zeros((10 - len(chunk), 3, 67, 67), np.float32)
             with torch.inference_mode():
                 out = net({"data": torch.from_numpy(
-                    np.concatenate([chunk, pad]))})["prob"].numpy()
+                    np.concatenate([chunk, pad]))})[0]["prob"].numpy()
             want.append(out[:len(chunk)])
         np.testing.assert_allclose(rows, np.concatenate(want), rtol=0,
                                    atol=1e-6)
