@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # every kernel source of the port; chip_smoke.py builds them all at once
-SOURCES = ("lrn.cu",)
+SOURCES = ("lrn.cu", "flash_attention.cu")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -38,8 +38,8 @@ _KERNEL_SOURCE = "lrn.cu"
 _FWD = {torch.float32: "lrn_fwd_f32", torch.bfloat16: "lrn_fwd_bf16"}
 _BWD = {torch.float32: "lrn_bwd_f32", torch.bfloat16: "lrn_bwd_bf16"}
 # the TPU kernels these replace, for reports
-REPLACES = "caffe_mpi_tpu/ops/lrn.py:54 _fwd_kernel"
-REPLACES_BWD = "caffe_mpi_tpu/ops/lrn.py:62 _bwd_kernel"
+REPLACES = "caffe_mpi_tpu/ops/lrn.py:61 _fwd_kernel"
+REPLACES_BWD = "caffe_mpi_tpu/ops/lrn.py:70 _bwd_kernel"
 
 
 def _window_sum(t: torch.Tensor, size: int) -> torch.Tensor:

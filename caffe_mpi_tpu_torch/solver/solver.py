@@ -3,9 +3,9 @@
 Reference: src/caffe/solver.cpp + solvers/*; JAX package
 caffe_mpi_tpu/solver/solver.py, whose jitted step holds the whole iteration.
 The port runs each iteration eagerly from the host: forward and loss
-through the train `Net`, `loss.backward()` through autograd (the LRN
-backward is the CUDA kernel K2 on the card), then the update rule over every
-learnable parameter.
+through the train `Net`, `loss.backward()` through autograd (on the card
+the LRN backward is the CUDA kernel K2 and the flash-attention backward
+K4 and K5), then the update rule over every learnable parameter.
 
 Kept as the JAX solver keeps it:
 - `iter_size` accumulation and the 1/(iter_size * global_grad_scale)

@@ -5,12 +5,13 @@ Reference: tools/caffe.cpp; JAX package caffe_mpi_tpu/tools/cli.py
 
 `train` runs a solver prototxt. The port has no data plane yet, so it
 trains nets fed through Input layers on `-synthetic` data drawn as the JAX
-CLI draws it: a numpy RandomState(seed) in the net's feed order, normals
-for float blobs and class ids in [0, 10) for the label bottom of a
-classification loss or accuracy; seed 0 for the train net, 1 for the test
-nets. Each feed is uploaded to the device once and reused every iteration.
-At the end it prints one JSON line {"train": {...}}: the loss and wall time
-of every iteration, their median and images per second.
+CLI draws it: a numpy RandomState(seed) in the net's feed order, token
+ids in [0, input_dim) for a blob an Embed consumes, class ids in [0, 10)
+for the label bottom of a classification loss or accuracy, normals for
+the other blobs; seed 0 for the train net, 1 for the test nets. Each feed
+is uploaded to the device once and reused every iteration. At the end it
+prints one JSON line {"train": {...}}: the loss and wall time of every
+iteration, their median and images (batch items) per second.
 
 `serve` has no HTTP front yet: `-smoke N` drives N synthetic requests
 through the engine and prints its telemetry as one JSON line.
@@ -86,14 +87,17 @@ _CLASSIFICATION_CONSUMERS = frozenset((
 
 def synthetic_feed(net, seed: int = 0) -> dict:
     """Random feeds shaped from the net's Input layers, on the net's
-    device, drawn as the JAX CLI's `_synthetic_feed` draws them."""
+    device, drawn as the JAX CLI's `_synthetic_feed` draws them: integer
+    feeds are chosen by consumer, not by blob name."""
     import torch
     from ..layers.data_layers import InputLayerBase
     r = np.random.RandomState(seed)
     int_range: dict[str, int] = {}
     for layer in net.layers:
         lp = layer.lp
-        if lp.type in _CLASSIFICATION_CONSUMERS and len(lp.bottom) > 1:
+        if lp.type == "Embed" and lp.bottom:
+            int_range[lp.bottom[0]] = lp.embed_param.input_dim
+        elif lp.type in _CLASSIFICATION_CONSUMERS and len(lp.bottom) > 1:
             int_range.setdefault(lp.bottom[1], 10)
     feeds = {}
     for layer in net.layers:

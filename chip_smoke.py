@@ -15,7 +15,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
              the plain version and the library call that computes the same
              function: K1, the LRN forward, against F.local_response_norm;
              K2, the LRN backward, against torch.autograd.grad through
-             F.local_response_norm.
+             F.local_response_norm; K3, the flash-attention forward,
+             against F.scaled_dot_product_attention, and K4 and K5, its dQ
+             and dK/dV kernels, against torch.autograd.grad through it (one
+             call for both) — at transformer_lm's shape (BH 32, S 64, D
+             32), non-causal, bf16, the deploy net's BH 40, S 100 with D
+             20, S = 200 padded to 256, a bias masking a whole tile, and S
+             1024/2048 at D 32, 64 and 128. Then autograd through flash_attention on the card
+             against the CPU.
 4. serve   — serves AlexNet (models/alexnet/deploy.prototxt, full width,
              weights drawn from a seeded torch.Generator) through the
              port's ServingEngine: mixed bursts from several threads with
@@ -50,8 +57,29 @@ Phases, in order; any failure exits nonzero and prints no result line:
              solver set them for the backward), for the record: it moves
              the fc gradients past their limit.
 
-It prints one {"kernels": [...]} line, one {"serving": ...} line, one
-{"train": ...} line, the card line again, and last {"ok": true, ...}.
+7. transformer — trains models/transformer_lm (full width, batch 8,
+             sequence 64, Adam) from a temporary copy of its solver and net
+             with `use_flash: true`, through the CLI's `train`: 20
+             iterations and a final test pass of 2 batches, launch counts
+             set to 0 just before and read just after (K3 twice a forward,
+             K4 and K5 twice an iteration), finite losses, a nonzero
+             gradient on blk0/attn.qkv_weight with the attention output's
+             graph through the kernels' autograd Function, a torch.profiler
+             breakdown, and a resume from the snapshot (weights and both
+             Adam slots bitwise, one more step).
+8. induction — the induction task of tests/test_sequence_layers.py with
+             use_flash: 300 Adam steps on the card, held-out accuracy
+             >= 0.9.
+9. transformer parity — one Adam step of transformer_lm at batch 8 on the
+             card against the CPU, TF32 off: MoE routes equal first, then
+             the loss within 1e-5 of its size, each gradient within 1e-4 of
+             its largest element, each update within Adam's sensitivity to
+             that limit; and the deploy net's prob rows (batch 10, BH 40)
+             within 1e-5 of the largest.
+
+It prints one {"kernels": [...]} line (K1-K5), one {"serving": ...} line,
+one {"train": ...} line, one {"transformer": ...} line, the card line
+again, and last {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -80,12 +108,13 @@ PREPROCESS = dict(raw_scale=255.0, mean=np.array([104.0, 117.0, 123.0]),
                   channel_swap=(2, 1, 0))
 
 # (name substring, memory bytes/s, float32 flop/s outside the tensor
-# cores), NVIDIA data sheets; the first match against nvidia-smi's name wins
+# cores, dense bf16 tensor-core flop/s with f32 accumulation), NVIDIA data
+# sheets; the first match against nvidia-smi's name wins
 CARD_RATES = (
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H200", 4.8e12, 67e12),
-    ("H100", 3.35e12, 67e12),  # SXM5, "NVIDIA H100 80GB HBM3"
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H200", 4.8e12, 67e12, 989e12),
+    ("H100", 3.35e12, 67e12, 989e12),  # SXM5, "NVIDIA H100 80GB HBM3"
 )
 
 LRN = dict(size=5, alpha=1e-4, beta=0.75, k=1.0)  # AlexNet norm1/norm2
@@ -113,9 +142,9 @@ def device_phase() -> tuple[str, tuple[float, float]]:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
-    for key, mem_rate, f32_rate in CARD_RATES:
+    for key, *rates in CARD_RATES:
         if key in name:
-            return card, (mem_rate, f32_rate)
+            return card, tuple(rates)
     fail(f"no published rates for {name!r}; add it to CARD_RATES")
 
 
@@ -161,7 +190,7 @@ def lrn_bound(shape, dtype, size, rates, tensors=2,
     rate, against the float32 operations an element (K1: 2*size+6 — window
     squares and adds, scale, log, exp, products; K2: 3*size+10 — the same
     scale, the ratio and its window sum, dx) over the f32 peak."""
-    mem_rate, f32_rate = rates
+    mem_rate, f32_rate = rates[:2]
     elems = float(np.prod(shape))
     itemsize = torch.empty((), dtype=dtype).element_size()
     t_bytes = tensors * elems * itemsize / mem_rate * 1e3
@@ -325,6 +354,234 @@ def kernel_bwd_phase(rates) -> dict:
     return _kernel_entry("lrn_bwd", "caffe_mpi_tpu_torch/csrc/lrn.cu",
                          lrn_op.REPLACES_BWD, cases, max_err,
                          {"launches_per_iteration": 2})
+
+
+# -- 3b. flash attention (K3, K4, K5) ------------------------------------------
+
+# kernel against plain: (rtol, atol as a share of the plain output's
+# largest element). f32: both sum in f32 in other orders, over up to 2048
+# keys or queries; bf16: one bf16 ulp of the output, as the LRN kernels
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-5)}
+# the training path's attention: transformer_lm at batch 8, 4 heads,
+# sequence 64, head dim 32
+FLASH_PATH = dict(bh=32, s=64, d=32)
+
+
+def _flash_cases():
+    """(label, BH, S, D, dtype, causal, sk_valid, bias). The first is the
+    path's shape; then the edge shapes: non-causal, bf16, the deploy net's
+    batch 10, a ragged length with an odd head dim, S = 200 padded to 256
+    as flash_attention pads it, a bias masking a whole 128-wide tile, and
+    long sequences at three head dims."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    yield "path", 32, 64, 32, f32, True, None, False
+    yield "path_noncausal", 32, 64, 32, f32, False, None, False
+    yield "path_bf16", 32, 64, 32, bf16, True, None, False
+    yield "deploy_b10", 40, 64, 32, f32, True, None, False
+    # lengths up to 128 go unpadded: ragged 64-row tiles, odd head dim
+    yield "ragged_s100_d20", 8, 100, 20, f32, True, None, False
+    yield "pad_s200", 32, 256, 32, f32, True, 200, False
+    yield "pad_s200_noncausal", 32, 256, 32, f32, False, 200, False
+    yield "bias_tile", 32, 256, 32, f32, False, None, True
+    yield "bias_tile_causal_bf16", 32, 256, 64, bf16, True, None, True
+    for s in (1024, 2048):
+        for d in (32, 64, 128):
+            yield f"s{s}_d{d}", 32, s, d, f32, True, None, False
+    yield "s2048_d128_noncausal", 32, 2048, 128, f32, False, None, False
+    yield "s2048_d128_bf16", 32, 2048, 128, bf16, True, None, False
+
+
+def flash_bound(kind, bh, s, d, dtype, causal, sk_valid, bias, rates):
+    """Least time for one kernel's work: each input read once and each
+    output written once over the memory rate, against 4 (K3), 6 (K4) or 8
+    (K5) flops x D for every unmasked (query, key) pair over the f32 peak
+    (f32 inputs) or the bf16 tensor-core peak (bf16 inputs). K5 has no
+    sk_valid mask, so its pairs run over every key."""
+    mem_rate, f32_rate, bf16_rate = rates
+    isz = torch.empty((), dtype=dtype).element_size()
+    mat = bh * s * d * isz                 # one (BH, S, D) tensor
+    rows = bh * s * 4                      # one f32 (BH, S) vector
+    extra = s * 4 if bias else 0
+    nbytes = {"fwd": 4 * mat + rows, "dq": 5 * mat + 2 * rows,
+              "dkv": 6 * mat + 2 * rows}[kind] + extra
+    limit = s if (kind == "dkv" or sk_valid is None) else sk_valid
+    per_row = np.minimum(np.arange(s) + 1, limit) if causal \
+        else np.full(s, limit)
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * bh * d \
+        * float(per_row.sum())
+    peak = f32_rate if dtype == torch.float32 else bf16_rate
+    t_bytes, t_ops = nbytes / mem_rate * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _flash_close(name, got, want, dtype):
+    """Max abs error of got against want; fails past FLASH_TOL."""
+    rtol, share = FLASH_TOL[dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max())
+    if not bool(torch.all(diff <= share * float(w.abs().max())
+                          + rtol * w.abs())):
+        fail(f"{name}: kernel against plain max abs error {err:.3g} "
+             f"(largest plain element {float(w.abs().max()):.3g})")
+    return err
+
+
+def flash_kernel_phase(rates) -> list[dict]:
+    """K3, K4 and K5 against their plain versions at the path's shape and
+    the edge shapes, each timed beside its plain version, the library
+    call (F.scaled_dot_product_attention for K3; torch.autograd.grad
+    through it for K4 and K5 together) and its bound; then autograd
+    through flash_attention on the card against the CPU."""
+    import torch.nn.functional as F
+    from caffe_mpi_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = {"fwd": [], "dq": [], "dkv": []}
+    max_err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for label, bh, s, d, dtype, causal, sk_valid, bias in _flash_cases():
+        q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        kb, mask = None, None
+        if sk_valid is not None:  # as flash_attention pads: zero rows
+            for t in (q, k, v, do):
+                t[:, sk_valid:] = 0
+            cols = torch.arange(s, device="cuda")
+            mask = cols[None, :] < sk_valid
+            if causal:
+                mask = mask & (cols[:, None] >= cols[None, :])
+        if bias:
+            kb = torch.zeros((1, s), device="cuda")
+            kb[0, :128] = torch.linspace(-1.0, 1.0, 128, device="cuda")
+            kb[0, 128:] = -float("inf")
+            mask = kb.reshape(1, 1, s).expand(bh, s, s)
+            if causal:
+                mask = mask.masked_fill(~torch.ones(
+                    (s, s), dtype=torch.bool, device="cuda").tril(),
+                    -float("inf"))
+        kw = dict(causal=causal, k_bias=kb)
+        kq = dict(kw, sk_valid=sk_valid)
+        o, lse = fa.flash_fwd(q, k, v, **kq)
+        o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **kq)
+        delta = fa._delta(do, o)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kq)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kq)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        keep = slice(None) if sk_valid is None else slice(0, sk_valid)
+        errs = {
+            "fwd": max(_flash_close(f"K3 {label} O", o, o_ref, dtype),
+                       _flash_close(f"K3 {label} lse", lse, lse_ref,
+                                    torch.float32)),
+            "dq": _flash_close(f"K4 {label} dQ", dq, dq_ref, dtype),
+            # K5's rows past sk_valid are sliced off by flash_attention
+            "dkv": max(_flash_close(f"K5 {label} dK", dk[:, keep],
+                                    dk_ref[:, keep], dtype),
+                       _flash_close(f"K5 {label} dV", dv[:, keep],
+                                    dv_ref[:, keep], dtype)),
+        }
+        plain_max = {"fwd": float(o_ref.float().abs().max()),
+                     "dq": float(dq_ref.float().abs().max()),
+                     "dkv": max(float(dk_ref[:, keep].float().abs().max()),
+                                float(dv_ref[:, keep].float().abs().max()))}
+        lib_kw = dict(attn_mask=mask, is_causal=causal and mask is None)
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        og = F.scaled_dot_product_attention(qg, kg, vg, **lib_kw)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            og, (qg, kg, vg), do, retain_graph=True))
+        timings = {
+            "fwd": (time_ms(lambda: fa.flash_fwd(q, k, v, **kq)),
+                    time_ms(lambda: fa.flash_fwd_ref(q, k, v, **kq)),
+                    time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, **lib_kw))),
+            "dq": (time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                   **kq)),
+                   time_ms(lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse,
+                                                       delta, **kq)),
+                   lib_bwd),
+            "dkv": (time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
+                                                     delta, **kw)),
+                    time_ms(lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse,
+                                                         delta, **kw)),
+                    lib_bwd),
+        }
+        for kind, (ms, plain, library) in timings.items():
+            bound, by = flash_bound(kind, bh, s, d, dtype, causal, sk_valid,
+                                    bias, rates)
+            max_err[kind] = max(max_err[kind], errs[kind])
+            case = {"case": label, "shape": [bh, s, d],
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "causal": causal, "sk_valid": sk_valid, "bias": bias,
+                    "max_abs_err": errs[kind],
+                    "plain_max_abs": plain_max[kind], "kernel_ms": ms,
+                    "plain_ms": plain, "library_ms": library,
+                    "bound_ms": bound, "bound_by": by,
+                    "share_of_bound": bound / ms}
+            cases[kind].append(case)
+            log(f"flash_{kind} {json.dumps(case)}")
+        del q, k, v, do, qg, kg, vg, og, o, lse, dq, dk, dv
+        torch.cuda.empty_cache()
+
+    # autograd: flash_attention on the card launches K3 once forward and
+    # K4, K5 once backward, and its gradients are the CPU's
+    b, s, h, d = 8, 64, 4, 32
+    xs = [torch.randn((b, s, h, d), generator=gen, device="cuda")
+          for _ in range(4)]
+    tc = [x.clone().requires_grad_() for x in xs[:3]]
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    out = fa.flash_attention(*tc, causal=True)
+    if "_FlashFunctionBackward" not in _graph_nodes(out):
+        fail("flash_attention on the card returned no _FlashFunction graph")
+    (out * xs[3]).sum().backward()
+    after = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+             fa.flash_bwd_dkv.launches)
+    if [a - b_ for a, b_ in zip(after, before)] != [1, 1, 1]:
+        fail(f"flash_attention forward+backward launched {before} -> "
+             f"{after}, want one of each")
+    th = [x.cpu().requires_grad_() for x in xs[:3]]
+    (fa.flash_attention(*th, causal=True) * xs[3].cpu()).sum().backward()
+    for name, a, c in zip("qkv", tc, th):
+        _flash_close(f"autograd d{name}", a.grad.cpu(), c.grad,
+                     torch.float32)
+
+    out = []
+    for kind, name, rep, per in (
+            ("fwd", "flash_fwd", fa.REPLACES, "launches_per_forward"),
+            ("dq", "flash_bwd_dq", fa.REPLACES_DQ, "launches_per_iteration"),
+            ("dkv", "flash_bwd_dkv", fa.REPLACES_DKV,
+             "launches_per_iteration")):
+        head = cases[kind][0]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "caffe_mpi_tpu_torch/csrc/flash_attention.cu",
+            "replaces": rep,
+            "launches": None,  # the transformer path's count
+            "max_abs_err": max_err[kind],
+            "shape": head["shape"], "dtype": head["dtype"],
+            "ms": head["kernel_ms"], "kernel_ms": head["kernel_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library": "F.scaled_dot_product_attention" if kind == "fwd"
+            else "torch.autograd.grad through F.scaled_dot_product_attention"
+            " (dQ, dK, dV together)",
+            per: 2, "cases": cases[kind],
+        })
+    return out
+
+
+def _graph_nodes(t, limit: int = 4000) -> list[str]:
+    """Names of the autograd nodes reachable from t's grad_fn."""
+    seen, todo, names = set(), [t.grad_fn], []
+    while todo and len(names) < limit:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.append(type(node).__name__)
+        todo.extend(n for n, _ in node.next_functions)
+    return names
 
 
 # -- 4. serve -----------------------------------------------------------------
@@ -564,7 +821,8 @@ def train_phase(k1: dict, k2: dict, card: str) -> dict:
     }
 
 
-def profile_steps(solver, feed_fn, n: int = 3) -> dict:
+def profile_steps(solver, feed_fn, n: int = 3,
+                  ours=("lrn_fwd_kernel", "lrn_bwd_kernel")) -> dict:
     """Where a training step's device time goes: `n` more iterations under
     torch.profiler, device time summed by kernel and by the aten op that
     launched it, beside the steps' wall time under the profiler (which
@@ -602,8 +860,8 @@ def profile_steps(solver, feed_fn, n: int = 3) -> dict:
     return {
         "wall_ms_per_step": wall_ms / n, "device_ms_per_step": device_ms,
         "device_busy_profiled": device_ms / (wall_ms / n),
-        "lrn_ms_per_step": {k: sum(ms for ms, name in kernels if k in name)
-                            for k in ("lrn_fwd_kernel", "lrn_bwd_kernel")},
+        "ours_ms_per_step": {k: sum(ms for ms, name in kernels
+                                    if k in name) for k in ours},
         "top_kernels_ms": [[round(ms, 4), name[:90]]
                            for ms, name in kernels[:15]],
         "top_aten_ops_ms": [[round(ms, 4), name] for ms, name in ops[:15]],
@@ -729,18 +987,364 @@ def parity_phase() -> dict:
     return res
 
 
+# -- 7. transformer -------------------------------------------------------------
+
+TLM_DIR = os.path.join(ROOT, "models", "transformer_lm")
+TLM_ITERS = 20
+TLM_SEQ = 64
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel")
+
+# The induction task of tests/test_sequence_layers.py (a one-block
+# transformer_lm learns x[t+1] = x[t-3]), with use_flash; the net as
+# models/generate_models.py writes transformer_lm(batch=8, seq=32,
+# vocab=32, dim=32, heads=2, n_blocks=1, ffn_hidden=64, moe_experts=4).
+INDUCTION_NET = """name: "transformer_lm"
+layer { name: "tokens" type: "Input" top: "tokens" top: "label" input_param { shape { dim: 8 dim: 32 } shape { dim: 8 dim: 32 } } }
+layer { name: "embed" type: "Embed" bottom: "tokens" top: "embed" embed_param { input_dim: 32 num_output: 32 bias_term: false weight_filler { type: "gaussian" std: 0.02 } } }
+layer { name: "pos" type: "Parameter" top: "pos" parameter_param { shape { dim: 32 dim: 32 } } }
+layer { name: "x0" type: "Bias" bottom: "embed" bottom: "pos" top: "x0" bias_param { axis: 1 } }
+layer { name: "blk0/ln1" type: "LayerNorm" bottom: "x0" top: "blk0/ln1" }
+layer { name: "blk0/attn" type: "Attention" bottom: "blk0/ln1" top: "blk0/attn" attention_param { num_heads: 2 causal: true use_flash: true weight_filler { type: "gaussian" std: 0.02 } } }
+layer { name: "blk0/res1" type: "Eltwise" bottom: "x0" bottom: "blk0/attn" top: "blk0/res1" }
+layer { name: "blk0/ln2" type: "LayerNorm" bottom: "blk0/res1" top: "blk0/ln2" }
+layer { name: "blk0/moe" type: "MoE" bottom: "blk0/ln2" top: "blk0/moe" top: "blk0/moe_aux" loss_weight: 0.0 loss_weight: 0.01 moe_param { num_experts: 4 hidden_dim: 64 capacity_factor: 2.0 } }
+layer { name: "blk0/res2" type: "Eltwise" bottom: "blk0/res1" bottom: "blk0/moe" top: "blk0/res2" }
+layer { name: "ln_f" type: "LayerNorm" bottom: "blk0/res2" top: "ln_f" }
+layer { name: "logits" type: "InnerProduct" bottom: "ln_f" top: "logits" inner_product_param { num_output: 32 axis: 2 weight_filler { type: "gaussian" std: 0.02 } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "logits" bottom: "label" top: "loss" softmax_param { axis: 2 } }
+layer { name: "accuracy" type: "Accuracy" bottom: "logits" bottom: "label" top: "accuracy" include { phase: TEST } accuracy_param { axis: 2 } }
+"""
+
+
+def _with_flash(text: str) -> str:
+    """The prototxt with `use_flash: true` after each `causal: true`, as the
+    JAX package's own tests switch it on."""
+    if "causal: true" not in text:
+        fail("no causal Attention layer to switch use_flash on in")
+    return text.replace("causal: true", "causal: true\n    use_flash: true")
+
+
+def _flash_solver(tmp: str) -> str:
+    """Copies of models/transformer_lm/solver.prototxt and its
+    train_val.prototxt in `tmp`, the net with use_flash; the solver's
+    path."""
+    with open(os.path.join(TLM_DIR, "train_val.prototxt")) as f:
+        net = _with_flash(f.read())
+    net_path = os.path.join(tmp, "train_val.prototxt")
+    with open(net_path, "w") as f:
+        f.write(net)
+    with open(os.path.join(TLM_DIR, "solver.prototxt")) as f:
+        text = f.read()
+    old = 'net: "models/transformer_lm/train_val.prototxt"'
+    if old not in text:
+        fail(f"models/transformer_lm/solver.prototxt does not name {old}")
+    path = os.path.join(tmp, "solver.prototxt")
+    with open(path, "w") as f:
+        f.write(text.replace(old, f'net: "{net_path}"'))
+    return path
+
+
+def _flash_counts() -> tuple[int, int, int]:
+    from caffe_mpi_tpu_torch.ops import flash_attention as fa
+    return (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches)
+
+
+def _reset_flash_counts() -> None:
+    from caffe_mpi_tpu_torch.ops import flash_attention as fa
+    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = \
+        fa.flash_bwd_dkv.launches = 0
+
+
+def transformer_phase(flash: list[dict], card: str) -> dict:
+    """Train transformer_lm (full width, batch 8, sequence 64, Adam) with
+    use_flash through the CLI's `train`: 20 iterations, a final test pass
+    of TEST_ITER batches, a snapshot in a temporary directory. K3 must
+    launch twice a forward, K4 and K5 twice an iteration; every loss
+    finite; blk0/attn.qkv_weight's gradient nonzero and its output's graph
+    through _FlashFunction. Then resume the snapshot through the same
+    entry point: weights and both Adam slots bitwise, one more step."""
+    from caffe_mpi_tpu_torch.solver import Solver
+    from caffe_mpi_tpu_torch.tools import cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tlm_")
+    try:
+        solver_path = _flash_solver(tmp)
+        prefix = os.path.join(tmp, "transformer_lm")
+        argv = ["train", "-solver", solver_path, "-synthetic",
+                "-test_iter", str(TEST_ITER), "-snapshot_prefix", prefix,
+                "-device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_flash_counts()
+        solver, summary = cli.train(cli.parse_args(
+            argv + ["-max_iter", str(TLM_ITERS)]))
+        torch.cuda.synchronize()
+        counts = _flash_counts()
+        losses = summary["losses"]
+        log(f"transformer train: {json.dumps(summary)}")
+        if summary["batch"] != 8 or len(losses) != TLM_ITERS:
+            fail(f"transformer ran {len(losses)} iterations at batch "
+                 f"{summary['batch']}, want {TLM_ITERS} at 8")
+        if not np.all(np.isfinite(losses)):
+            fail(f"transformer losses not all finite: {losses}")
+        # forwards: every iteration and the final test pass; the solver
+        # tests at iteration 0 only under test_initialization, and its
+        # test_interval (1000) is past the run
+        sp = solver.sp
+        if sp.test_initialization or sp.test_interval <= TLM_ITERS:
+            fail("the schedule below assumes test_initialization: false "
+                 f"and test_interval > {TLM_ITERS}")
+        forwards = TLM_ITERS + TEST_ITER
+        want = (2 * forwards, 2 * TLM_ITERS, 2 * TLM_ITERS)
+        if counts != want:
+            fail(f"K3/K4/K5 launched {counts} times, want {want}")
+        for entry, n in zip(flash, counts):
+            entry["launches"] = n
+            entry["launches_by_path"] = {"train_transformer_lm": n}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        grad = solver.net.layer_by_name("blk0/attn").qkv_weight.grad
+        if grad is None or float(grad.abs().max()) == 0.0:
+            fail("blk0/attn.qkv_weight got no gradient")
+        qkv_grad_max = float(grad.abs().max())
+        feeds = cli.synthetic_feed(solver.net)
+        env, _ = solver.net(feeds)
+        if "_FlashFunctionBackward" not in _graph_nodes(env["blk0/attn"]):
+            fail("blk0/attn's output has no graph through _FlashFunction")
+        del env
+        trained = _state(solver)
+        profile = profile_steps(solver, lambda it: feeds, ours=FLASH_KERNELS)
+        log(f"transformer profile: {json.dumps(profile)}")
+        del solver, feeds
+
+        resumed, again = cli.train(cli.parse_args(
+            argv + ["-max_iter", str(TLM_ITERS + 1), "-snapshot",
+                    summary["snapshot"]]))
+        if again["start_iter"] != TLM_ITERS or again["iters"] != 1 or \
+                not np.isfinite(again["losses"][0]):
+            fail(f"transformer resume: {again}")
+        check = Solver(resumed.sp, model_dir=resumed.model_dir,
+                       device="cuda")
+        check.restore(summary["snapshot"])
+        restored = _state(check)
+        if any(len(h) != 2 for h in check.history.values()):
+            fail("the Adam solver did not restore two slots a param")
+        bad = [k for k in trained if not torch.equal(trained[k],
+                                                     restored[k])]
+        if bad:
+            fail(f"restored transformer state differs: {bad[:5]}")
+        del resumed, check
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    med = summary["median_iter_ms"]
+    return {
+        "solver": "models/transformer_lm/solver.prototxt",
+        "net": "models/transformer_lm/train_val.prototxt with use_flash",
+        "batch": 8, "seq": TLM_SEQ, "iters": TLM_ITERS, "losses": losses,
+        "median_step_ms": med, "seq_per_s": summary["img_per_s"],
+        "tokens_per_s": summary["img_per_s"] * TLM_SEQ,
+        "step_ms": summary["iter_ms"], "test_scores": summary["test_scores"],
+        "launches": dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                             counts)),
+        "qkv_weight_grad_max_abs": qkv_grad_max,
+        "resumed_loss": again["losses"][0], "peak_mem_GB": peak_gb,
+        "profile": profile,
+        "device_busy": profile["device_ms_per_step"] / med
+        if isinstance(profile["device_ms_per_step"], float) else None,
+        "card": card,
+    }
+
+
+def induction_phase() -> dict:
+    """The induction task with use_flash on the card: 300 Adam steps, then
+    held-out next-token accuracy past position 8 must reach 0.9, the JAX
+    test's bar — the kernels' gradients train a net that has to attend
+    backwards."""
+    from caffe_mpi_tpu_torch.proto import NetParameter, SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+
+    sp = SolverParameter.from_text(
+        'base_lr: 0.003 momentum: 0.9 momentum2: 0.999 type: "Adam" '
+        'lr_policy: "fixed" max_iter: 400 display: 0')
+    sp.net_param = NetParameter.from_text(INDUCTION_NET)
+    solver = Solver(sp, device="cuda")
+    b, s, v = 8, 32, 32
+
+    def feed(it):
+        r = np.random.RandomState(it)
+        seq = np.tile(r.randint(0, v, (b, 4)), (1, s // 4 + 2))[:, :s + 1]
+        return {"tokens": torch.from_numpy(seq[:, :s]).cuda(),
+                "label": torch.from_numpy(seq[:, 1:s + 1]).cuda()}
+
+    steps = 300
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    solver.step(steps, feed)
+    f = feed(10_001)
+    with torch.no_grad():
+        blobs, _ = solver.net(f)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _flash_counts()
+    if counts != (steps + 1, steps, steps):
+        fail(f"induction: K3/K4/K5 launched {counts}, want "
+             f"{(steps + 1, steps, steps)}")
+    pred = blobs["logits"].argmax(-1).cpu().numpy()
+    lab = f["label"].cpu().numpy()
+    acc = float((pred[:, 8:] == lab[:, 8:]).mean())
+    res = {"steps": steps, "accuracy": acc, "bar": 0.9,
+           "first_loss": solver.losses[0], "last_loss": solver.losses[-1],
+           "seconds": secs, "launches": list(counts)}
+    log(f"induction: {json.dumps(res)}")
+    if acc < 0.9:
+        fail(f"induction task reached {acc:.3f} held-out accuracy, < 0.9")
+    return res
+
+
+# limits of the card-against-CPU step, and why: gradients within 1e-4 of
+# their largest element (f32 sums in other orders, no max pool here);
+# the loss within 1e-5 of its size; the deploy net's prob rows within
+# 1e-5 of the largest
+TLM_GRAD_LIMIT = 1e-4
+
+
+def transformer_parity_phase() -> dict:
+    """One Adam step of transformer_lm at full width and batch 8 on the
+    card against the CPU, TF32 off through default_forward_math: FLOAT,
+    from the same weights and feeds. The MoE routes are compared first
+    (a near tie can flip under another summation order, and a flipped
+    route changes what is compared); then the loss, every gradient, and
+    every updated parameter within Adam's sensitivity to the gradient
+    limit: at step 1 the update is lr * g / (|g| + c), c = eps /
+    sqrt(1 - beta2), which moves by at most lr / c per unit of gradient,
+    plus two f32 ulps of the largest weight. Then the deploy net (batch
+    10, BH = 40) forward on both, its prob rows compared."""
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.ops.moe import routing
+    from caffe_mpi_tpu_torch.proto import NetParameter, SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    from caffe_mpi_tpu_torch.tools import cli
+
+    def param():
+        sp = SolverParameter.from_file(os.path.join(TLM_DIR,
+                                                    "solver.prototxt"))
+        with open(os.path.join(TLM_DIR, "train_val.prototxt")) as f:
+            net = NetParameter.from_text(_with_flash(f.read()))
+        net.default_forward_math = "FLOAT"
+        sp.net, sp.net_param = "", net
+        sp.test_iter, sp.test_interval = [], 0
+        return sp
+
+    def one_step(device, feeds_cpu):
+        solver = Solver(param(), device=device)
+        feeds = {k: v.to(device) for k, v in feeds_cpu.items()}
+        moe = solver.net.layer_by_name("blk1/moe")
+        with torch.no_grad(), moe.policy.math(solver.device):
+            env, _ = solver.net(feeds)
+            x = env["blk1/ln2"]
+            routes = routing(moe.expert_params(), x.reshape(-1, x.shape[-1]),
+                             top_k=max(moe.p.top_k, 1)).cpu()
+        del env
+        w0 = {f"{l}.{p}": t.detach().cpu().clone()
+              for l, p, _, t in solver._decls}
+        solver.step(1, lambda it: feeds)
+        out = {"loss": solver.losses[0], "w0": w0, "grad": {}, "w": {},
+               "lr_mult": {}, "routes": routes}
+        for l, p, decl, t in solver._decls:
+            key = f"{l}.{p}"
+            out["w"][key] = t.detach().cpu()
+            out["grad"][key] = t.grad.detach().cpu()
+            out["lr_mult"][key] = decl.lr_mult
+        return out, solver.sp
+
+    probe = Solver(param(), device="cpu")
+    feeds = cli.synthetic_feed(probe.net, seed=0)
+    del probe
+    cpu, sp = one_step("cpu", feeds)
+    _reset_flash_counts()
+    card, _ = one_step("cuda", feeds)
+    counts = _flash_counts()
+    # the routing forward and the step's forward; one backward
+    if counts != (4, 2, 2):
+        fail(f"card step launched K3/K4/K5 {counts}, want (4, 2, 2)")
+    flips = int((card["routes"] != cpu["routes"]).any(-1).sum())
+    if flips:
+        fail(f"{flips} of {cpu['routes'].shape[0]} tokens routed "
+             "differently on the card and the CPU")
+    if any(not torch.equal(cpu["w0"][k], card["w0"][k]) for k in cpu["w0"]):
+        fail("card and CPU solvers did not start from the same weights")
+    c = max(sp.delta, 1e-4) / np.sqrt(1.0 - sp.momentum2)
+    eps = torch.finfo(torch.float32).eps
+    params, bad = {}, []
+    for key, gref in cpu["grad"].items():
+        gmax = float(gref.abs().max())
+        grad = float((card["grad"][key] - gref).abs().max()) / gmax \
+            if gmax else float(card["grad"][key].abs().max())
+        w_limit = (sp.base_lr * cpu["lr_mult"][key] * TLM_GRAD_LIMIT * gmax
+                   / c + 2 * eps * float(cpu["w0"][key].abs().max()))
+        w = float((card["w"][key] - cpu["w"][key]).abs().max())
+        params[key] = {"grad": grad, "grad_max_abs": gmax, "w": w,
+                       "w_limit": w_limit}
+        if not grad <= TLM_GRAD_LIMIT:
+            bad.append(f"grad {key}: {grad:.3g} > {TLM_GRAD_LIMIT}")
+        if not w <= w_limit:
+            bad.append(f"updated {key}: {w:.3g} > {w_limit:.3g}")
+    res = {"batch": 8, "loss_cpu": cpu["loss"], "loss_card": card["loss"],
+           "tokens": int(cpu["routes"].shape[0]), "route_flips": flips,
+           "adam_c": c, "params": params}
+
+    # the deploy net, batch 10 (BH = 40), prob rows on both
+    with open(os.path.join(TLM_DIR, "deploy.prototxt")) as f:
+        dtext = _with_flash(f.read())
+    nets = {}
+    for device in ("cpu", "cuda"):
+        dp = NetParameter.from_text(dtext)
+        dp.default_forward_math = "FLOAT"
+        net = Net(dp, device=device)
+        net.init(0)
+        nets[device] = net
+    tokens = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, nets["cpu"].blob_shapes["tokens"]))
+    with torch.inference_mode():
+        ref = nets["cpu"]({"tokens": tokens})[0]["prob"]
+        _reset_flash_counts()
+        got = nets["cuda"]({"tokens": tokens.cuda()})[0]["prob"].cpu()
+    if _flash_counts() != (2, 0, 0):
+        fail(f"deploy forward launched K3/K4/K5 {_flash_counts()}, "
+             "want (2, 0, 0)")
+    diff = float((got - ref).abs().max())
+    res["deploy"] = {"shape": list(ref.shape), "prob_max_abs_diff": diff,
+                     "prob_max": float(ref.abs().max()),
+                     "bh": int(ref.shape[0]) * 4}
+    log(f"transformer parity: {json.dumps(res)}")
+    if abs(card["loss"] - cpu["loss"]) > 1e-5 * abs(cpu["loss"]):
+        fail(f"transformer loss on the card {card['loss']} vs CPU "
+             f"{cpu['loss']}")
+    if bad:
+        fail(f"transformer parity: {bad}")
+    if not np.isfinite(diff) or diff > 1e-5 * float(ref.abs().max()):
+        fail(f"deploy prob rows differ by {diff:.3g}")
+    return res
+
+
 def main() -> int:
     os.chdir(ROOT)
     card, rates = device_phase()
     build_phase()
     k1 = kernel_phase(rates)
     k2 = kernel_bwd_phase(rates)
+    flash = flash_kernel_phase(rates)
     serving = serve_phase(k1, card)
     train = train_phase(k1, k2, card)
     train["parity"] = parity_phase()
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    transformer = transformer_phase(flash, card)
+    transformer["induction"] = induction_phase()
+    transformer["parity"] = transformer_parity_phase()
+    print(json.dumps({"kernels": [k1, k2, *flash]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"transformer": transformer}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -179,4 +179,4 @@ def test_cuda_source_has_the_backward_and_names_its_tpu_kernel():
     assert "caffe_mpi_tpu/ops/lrn.py:_bwd_kernel" in src
     assert 'extern "C" int lrn_bwd_f32' in src
     assert 'extern "C" int lrn_bwd_bf16' in src
-    assert lrn_op.REPLACES_BWD.startswith("caffe_mpi_tpu/ops/lrn.py:62")
+    assert lrn_op.REPLACES_BWD.startswith("caffe_mpi_tpu/ops/lrn.py:70")
