@@ -18,47 +18,94 @@
 //        off by the caller, as in the TPU kernel), dV = P^T dO,
 //        dK = scale * dS^T Q
 //
-// delta = rowsum(dO * O) in f32 comes from the caller (torch ops). Blocks
-// are read as f32 whatever the I/O type (float32 or bfloat16); O, dQ, dK,
-// dV are stored in the input type, lse in f32.
-//
-// What bounds them on this card: at the training path's shape (BH = 32,
-// S = 64, D = 32) each kernel does well under a microsecond of work, so a
-// launch sets its time. At long sequences they are bound by operations
-// (4, 6 and 8 BH*Sq*Sk*D flops over the unmasked pairs for K3, K4, K5,
-// against a few bytes per row), which this first design does in f32 FMA
-// on the CUDA cores, not on the tensor cores (no wgmma, no TMA; a later
-// PR's work).
-//
-// Design. The TPU kernels hold a 128-row Q tile and all of K and V in
-// VMEM and loop over 128-wide key tiles inside one grid step. Here a block
-// of 256 threads owns a 64-row tile: of queries for K3 and K4, of keys for
-// K5, and loops over the other side's 64-row tiles, staging them in shared
-// memory as f32 (row stride D|1, odd, so that neighbouring threads reading
-// neighbouring rows hit different banks). Thread (ty, tx), ty and tx in
-// 0..15, computes the 4 x 4 scores of rows ty + 16i and columns tx + 16j,
-// so a row of the score tile lies in one half-warp and its max and sum are
-// taken with four xor shuffles. The probabilities go through shared memory
-// to the product with V (or, in the backward, K, Q and dO); each thread
-// accumulates rows ty + 16i, columns tx + 16c of its output in registers,
-// c < ceil(D/16) (a template parameter: D up to 128). K4 and K5 are
-// separate kernels, as in the JAX package, so no block writes another's
-// rows: no atomics, and the results are deterministic.
-//
-// Tile skip, derived for 64-row tiles: causal K3/K4 visit the key tiles
-// that hold a column <= the tile's last row, and never the tiles past
-// sk_valid; causal K5 starts at the query tile holding its first key. A
-// skipped tile is fully masked, so skipping it changes nothing.
-//
-// The online softmax keeps m = -inf until a row meets an unmasked score,
-// and exponentiates against m_use = (m == -inf ? 0 : m), so no -inf - -inf
-// is ever formed; a masked score is -inf and gives exp(-inf) = 0.
-// Score, scale and bias are rounded as the plain version rounds them
-// (q.k summed in f32, then times scale, then plus the bias); no fast-math.
-//
+// delta = rowsum(dO * O) in f32 comes from the caller (torch ops). O, dQ,
+// dK, dV are stored in the input type (float32 or bfloat16), lse in f32.
 // The C functions return the launch's cudaGetLastError() (or the error of
 // setting the kernel's shared-memory size) so the ctypes wrapper can raise.
+//
+// K3 (first design). A block of 256 threads owns a 64-row query tile and
+// loops over 64-row key tiles staged in shared memory as f32 (row stride
+// D|1); thread (ty, tx) computes the 4 x 4 scores of rows ty + 16i and
+// columns tx + 16j in f32 FMA on the CUDA cores, a score row lies in one
+// half-warp (max and sum by four xor shuffles), and the probabilities go
+// through shared memory to the product with V. Causal K3 visits the key
+// tiles holding a column <= the tile's last row, never those past
+// sk_valid. The online softmax keeps m = -inf until a row meets an
+// unmasked score and exponentiates against m_use = (m == -inf ? 0 : m), so
+// no -inf - -inf is formed; a masked score is -inf and gives exp(-inf) = 0.
+//
+// K4 and K5 (second design, on the tensor cores). What bounds them: at
+// the training path's shape (BH 32, S 64, D 32) a kernel moves under half
+// a microsecond of bytes, so launch and the serial chain of one warp set
+// its time, and the warps in flight matter most; at S >= 1024 operations
+// bound them (6 and 8 x D flops an unmasked pair), and the products must
+// run on the tensor cores. The design:
+// - Every product is mma.sync. f32 inputs: m16n8k8 TF32 in the 3xTF32
+//   split — the scheme of PyTorch's own f32 attention
+//   (OpMultiplyAddFastF32), f32-level error: big = x with its low 13
+//   mantissa bits cleared (exact), small = x - big rounded to nearest TF32
+//   (cvt.rna's rounding, as an integer add and mask: both are TF32 values,
+//   so the tensor cores, which truncate, take them as they are), acc +=
+//   small.big' + big.small' + big.big' in f32. bf16 inputs: m16n8k16 with
+//   f32 accumulators; Q K^T and dO V^T multiply bf16 as they are (exact
+//   products); an f32 operand (P or dS) meeting a bf16 one is split into
+//   two bf16 parts, hi = bf16(x), lo = bf16(x - hi), two products, so P is
+//   never rounded to bf16.
+// - The tensor cores' accumulation rounds toward zero. Summed into one
+//   register over 2048 keys or queries, that bias put f32 dK and dV 2.5-3x
+//   past FLASH_TOL, and dQ near it (flash_variants.py one_sum); so in f32
+//   each tile's products of dS,
+//   P^T or dS^T go into a zeroed fragment, added to dQ, dK or dV once by
+//   an f32 add, rounded to nearest.
+// - A block owns 16 W rows (W = 8, 4, 2 or 1 row groups of 16): queries
+//   for K4, keys for K5. It walks the other side's tiles, copying tile
+//   j + 1 with cp.async (16 bytes a thread where the row's bytes and the
+//   pointers allow, 8 or 4 else, single elements for a bf16 row of odd
+//   width) into the second of two buffers while tile j multiplies. A warp
+//   takes BN rows of a tile: 64, or 32 from DK 64 up (registers and shared
+//   memory) and in split row groups. The launcher takes the largest W
+//   whose grid still gives every SM a block; at W = 1 (a small grid, as
+//   the path's 128 blocks) two warps share a row group and split each
+//   tile, then add their partial sums through shared memory in a fixed
+//   order.
+// - Shared tiles hold the input type, rows of DK (the head dim padded to
+//   16, 24 (f32 only), 32, 64 or 128: a multiple of the mma's k) at a
+//   stride 4 words past a multiple of 8, so a fragment load touches 32
+//   banks. The copies write whole DK-wide rows: columns past D and rows
+//   past the length come from cp.async's zero fill, so D 20 and S 100 read
+//   zeros and no pass zeroes the tiles first.
+// - Operands stay in registers: K4 computes S and dP for its 16 rows as C
+//   fragments, forms dS there and feeds it as the A operand of dQ += dS K.
+//   K5 computes S^T = K Q^T and dP^T = V dO^T with keys as rows, so P^T and
+//   dS^T are C fragments that feed dV += P^T dO and dK += dS^T Q. No score
+//   tile passes through shared memory. For f32, a C fragment's columns
+//   (2t, 2t+1) serve as the A fragment's k positions (t, t+4), and the B
+//   operand's rows are read in the same order (a sum over k in any order);
+//   for bf16 two C tiles are an A fragment as they stand.
+// - Masks come from the C fragment's (row, column), lane = 4g + t: rows g
+//   and g + 8 of the warp's 16, columns 2t and 2t + 1 of each 8-wide tile.
+//   K4 never forms exp(0 - lse) at a padded column; K5 masks a query past
+//   Sq whatever its lse.
+// - Tile skip: causal K4 visits the key tiles holding a column <= the
+//   block's last row; causal K5 starts at the query tile holding its first
+//   key. Inside a visited tile, a warp whose rows are all masked skips its
+//   products (a branch around the whole product: branches inside the
+//   unrolled loops cost more than they saved).
+// - Separate kernels, each block writing its own rows: no atomics, and the
+//   results are deterministic.
+// Shared memory a block (bytes): (32 W + 4 BN SPLIT) x (DK + 4) x 4 for
+// f32, x (DK + 8) x 2 for bf16, plus 8 BN SPLIT (K4's key bias) or 16 BN
+// SPLIT (K5's lse and delta); at D 128, W 8: 203,008 (K4) and 203,264
+// (K5) in f32, 104,704 and 104,960 in bf16 — one block of 8 warps an SM
+// in f32. Registers (nvcc -Xptxas -v) at D 128, W 8: K4 173 (f32) and 130
+// (bf16), K5 255 and 236, no spills; 5 of the 72 instantiations (none
+// with 8 row groups) spill 4-24 bytes.
+//
+// Scores are rounded as the plain version rounds them (the dot product,
+// then times scale, then plus the bias); no fast-math.
 
+#include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -237,248 +284,626 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// K4 and K5: tensor-core products (mma.sync), cp.async staging.
+
+// cp.async of `vec` bytes (16, 8 or 4) from global to shared memory; a
+// copy that is not `live` reads nothing and writes zeros (zero fill).
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int vec,
+                                         bool live) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = live ? vec : 0;
+  if (vec == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n) : "memory");
+  else if (vec == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + rows) of a (n, D) matrix into shared memory, row stride
+// ld, each row written out to DK columns: columns D..DK and rows at or
+// past n land as zeros (cp.async's zero fill), so the mma's padded k reads
+// zeros and no pass zeroes the tiles first. `vec` is the copy width in
+// bytes (16, 8 or 4, dividing D's bytes; 0 for single elements, a bf16
+// row of odd width). The lanes of a warp split a row into chunks, rows go
+// to warps in turn: no division a chunk.
+template <typename T, int NT, int DK>
+__device__ __forceinline__ void stage_async(T* dst, const T* src, int r0,
+                                            int n, int rows, int D, int ld,
+                                            int vec) {
+  if (vec == 0) {  // element copies, synchronous: four loads in flight
+    // a lane; the tile's rows are one contiguous run of rows * D elements
+    const size_t first = static_cast<size_t>(r0) * D;
+    const int live = max(0, min(rows, n - r0));
+    for (int i0 = threadIdx.x; i0 < rows * DK; i0 += 4 * NT) {
+      T val[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * NT, r = i / DK, c = i % DK;
+        val[u] = (r < live && c < D) ? src[first + r * D + c] : T(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * NT;
+        if (i < rows * DK) dst[(i / DK) * ld + i % DK] = val[u];
+      }
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kWarps = NT / 32;
+  const int per = vec / static_cast<int>(sizeof(T));  // elements a chunk
+  const int cpr = D / per, cpr_all = DK / per;        // chunks a row
+  // lanes a row: the least power of two >= cpr_all, at most 32
+  int shift = 0;
+  while ((1 << shift) < cpr_all && shift < 5) ++shift;
+  const int sub = lane >> shift, c0 = lane & ((1 << shift) - 1);
+  const int step = kWarps * (32 >> shift);
+  for (int r = warp * (32 >> shift) + sub; r < rows; r += step) {
+    const bool live = r0 + r < n;
+    const T* row = src + static_cast<size_t>(live ? r0 + r : 0) * D;
+    for (int c = c0; c < cpr_all; c += (1 << shift))
+      cp_async(dst + r * ld + c * per, row + (c < cpr ? c * per : 0), vec,
+               live && c < cpr);
+  }
+}
+
+// f32 values a float: (n, 1) vectors such as lse and delta, zero past n
+template <int NT>
+__device__ __forceinline__ void stage_vec_async(float* dst, const float* src,
+                                                int r0, int n, int rows) {
+  for (int r = threadIdx.x; r < rows; r += NT) {
+    const bool live = r0 + r < n;
+    cp_async(dst + r, src + (live ? r0 + r : 0), 4, live);
+  }
+}
+
+// mma.sync fragments, lane = 4 g + t. C (16 x 8, f32): c0 (g, 2t),
+// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
+__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: x = big + small, each a TF32 value that the tensor cores take
+// as it is (they truncate what is not TF32): big keeps x's sign, exponent
+// and top 10 mantissa bits (its low 13 bits cleared: exact), small =
+// x - big (exact in f32) rounded to the nearest TF32, ties away from zero
+// — cvt.rna's rounding, done as an integer add and mask (rounding both
+// parts with cvt.rna made K4 and K5 1.3x slower at S 2048, D 128 on an
+// H100: flash_variants.py cvt_rna). x - big - small is at most 2^-22 of
+// |x|. The product
+// keeps big*big' + big*small' + small*big', summed in f32, small terms
+// first.
+template <int N>
+__device__ __forceinline__ void split_tf32(const float* x, unsigned* big,
+                                           unsigned* small) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    big[i] = __float_as_uint(x[i]) & 0xffffe000u;
+    small[i] =
+        (__float_as_uint(x[i] - __uint_as_float(big[i])) + 0x1000u) &
+        0xffffe000u;
+  }
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+__device__ __forceinline__ unsigned pack_raw(unsigned short lo,
+                                             unsigned short hi) {
+  return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+}
+
+// Operand fragments by input type. Shared tiles hold the input type as it
+// is (f32 or bf16), rows of DK (the head dim padded to 16, zeros past D)
+// at stride ld = DK + 4 floats or DK + 8 bf16: 4 words past a multiple of
+// 8, so the 8 rows x 4 columns a fragment load touches fall in 32
+// different banks. Three products per kernel step:
+//   Ss: acc += A . B^T, A rows from shared memory (16 x KS), B rows
+//       from shared memory (8 rows n, k along the row): Q K^T, dO V^T in
+//       K4; K Q^T, V dO^T in K5.
+//   Cs: acc += A . B, A an f32 C fragment the warp computed (P, dS, or
+//       their transposes) and B[k][n] = smem[k][n]: dS K in K4, P^T dO and
+//       dS^T Q in K5. For f32 the C fragment's columns (2t, 2t+1) serve as
+//       the A fragment's k positions (t, t+4) unchanged — a product sums
+//       over k in any order, so B's rows are read in that same order; for
+//       bf16 two C tiles are the A fragment as they stand.
+template <typename T>
+struct Ops;
+
+template <>
+struct Ops<float> {
+  static constexpr int KS = 8;  // k of m16n8k8
+  static constexpr int kPad = 4;
+  struct A { unsigned big[4], small[4]; };
+  struct B { unsigned big[2], small[2]; };
+  // A rows [0, 16) of `s` (row stride ld), columns k0..k0+7
+  static __device__ __forceinline__ void load_a(A& a, const float* s, int ld,
+                                                int g, int t) {
+    const float x[4] = {s[g * ld + t], s[(g + 8) * ld + t],
+                        s[g * ld + t + 4], s[(g + 8) * ld + t + 4]};
+    split_tf32<4>(x, a.big, a.small);
+  }
+  // B[k][n] = s[n][k], rows n 0..7
+  static __device__ __forceinline__ void load_b(B& b, const float* s, int ld,
+                                                int g, int t) {
+    const float x[2] = {s[g * ld + t], s[g * ld + t + 4]};
+    split_tf32<2>(x, b.big, b.small);
+  }
+  // B[k][n] = s[k][n], k positions t, t+4 read from rows 2t, 2t+1
+  static __device__ __forceinline__ void load_bt(B& b, const float* s, int ld,
+                                                 int g, int t) {
+    const float x[2] = {s[2 * t * ld + g], s[(2 * t + 1) * ld + g]};
+    split_tf32<2>(x, b.big, b.small);
+  }
+  // the A fragment of k-step j from C tile j (8 columns): k positions
+  // (t, t+4) hold columns (2t, 2t+1)
+  static __device__ __forceinline__ void a_from_c(A& a, const float* c) {
+    const float x[4] = {c[0], c[2], c[1], c[3]};
+    split_tf32<4>(x, a.big, a.small);
+  }
+  static __device__ __forceinline__ void mma(float* acc, const A& a,
+                                             const B& b) {
+    mma_tf32(acc, a.small, b.big);
+    mma_tf32(acc, a.big, b.small);
+    mma_tf32(acc, a.big, b.big);
+  }
+  // a C fragment times shared memory: the same three products
+  static __device__ __forceinline__ void mma_c(float* acc, const A& a,
+                                               const B& b) {
+    mma(acc, a, b);
+  }
+};
+
+template <>
+struct Ops<__nv_bfloat16> {
+  static constexpr int KS = 16;  // k of m16n8k16
+  static constexpr int kPad = 8;
+  // from shared memory only `hi` is used (bf16 inputs are exact); from an
+  // f32 C fragment, x = hi + lo, both bf16, two products
+  struct A { unsigned hi[4], lo[4]; };
+  struct B { unsigned v[2]; };
+  static __device__ __forceinline__ unsigned word(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const unsigned*>(p);
+  }
+  static __device__ __forceinline__ void load_a(A& a,
+                                                const __nv_bfloat16* s,
+                                                int ld, int g, int t) {
+    a.hi[0] = word(s + g * ld + 2 * t);
+    a.hi[1] = word(s + (g + 8) * ld + 2 * t);
+    a.hi[2] = word(s + g * ld + 2 * t + 8);
+    a.hi[3] = word(s + (g + 8) * ld + 2 * t + 8);
+  }
+  static __device__ __forceinline__ void load_b(B& b, const __nv_bfloat16* s,
+                                                int ld, int g, int t) {
+    b.v[0] = word(s + g * ld + 2 * t);
+    b.v[1] = word(s + g * ld + 2 * t + 8);
+  }
+  static __device__ __forceinline__ void load_bt(B& b,
+                                                 const __nv_bfloat16* s,
+                                                 int ld, int g, int t) {
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(s);
+    b.v[0] = pack_raw(u[2 * t * ld + g], u[(2 * t + 1) * ld + g]);
+    b.v[1] = pack_raw(u[(2 * t + 8) * ld + g], u[(2 * t + 9) * ld + g]);
+  }
+  // the A fragment of k-step j from C tiles 2j, 2j+1 (c[0..7])
+  static __device__ __forceinline__ void a_from_c(A& a, const float* c) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x0 = c[2 * i], x1 = c[2 * i + 1];
+      __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      a.hi[i] = *reinterpret_cast<unsigned*>(&h);
+      a.lo[i] = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+    }
+    // c[0..3] is tile 2j: (g, 2t..), (g+8, 2t..); c[4..7] tile 2j+1:
+    // columns 8 + 2t.. — the A order is (g, k 2t), (g+8, 2t), (g, 2t+8),
+    // (g+8, 2t+8), which is the order of the pairs above
+  }
+  static __device__ __forceinline__ void mma(float* acc, const A& a,
+                                             const B& b) {
+    mma_bf16(acc, a.hi, b.v);
+  }
+  static __device__ __forceinline__ void mma_c(float* acc, const A& a,
+                                               const B& b) {
+    mma_bf16(acc, a.lo, b.v);
+    mma_bf16(acc, a.hi, b.v);
+  }
+};
+
+// acc += c . b for one warp and one tile of BN rows (keys in K4, queries
+// in K5), k running over the tile's rows: `c` the warp's C fragments (dS;
+// P^T or dS^T), `b` the tile's rows in shared memory (K; dO or Q). f32:
+// each n-tile's products summed over the tile into a zeroed fragment,
+// then added to the accumulator once, rounded to nearest — the tensor
+// cores' accumulation truncates, and summed in one register over 2048
+// keys or queries that bias put dQ, dK and dV past FLASH_TOL; the tile's
+// A fragments are split first. bf16: k-steps outside, one A fragment
+// live at a time.
+template <typename T, int BN, int ND>
+__device__ __forceinline__ void c_products(float (*acc)[4],
+                                           const float (*c)[4], const T* b,
+                                           int ld, int g, int t) {
+  using O = Ops<T>;
+  if constexpr (std::is_same<T, float>::value) {
+    typename O::A a[BN / O::KS];
+#pragma unroll
+    for (int kk = 0; kk < BN; kk += O::KS)
+      O::a_from_c(a[kk / O::KS], c[kk / 8]);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < BN; kk += O::KS) {
+        typename O::B bf;
+        O::load_bt(bf, b + kk * ld + n * 8, ld, g, t);
+        O::mma_c(part, a[kk / O::KS], bf);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = __fadd_rn(acc[n][e], part[e]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < BN; kk += O::KS) {
+      typename O::A a;
+      O::a_from_c(a, c[kk / 8]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        typename O::B bf;
+        O::load_bt(bf, b + kk * ld + n * 8, ld, g, t);
+        O::mma_c(acc[n], a, bf);
+      }
+    }
+  }
+}
+
+
+// Key tiles of BN a query tile of BM rows visits: those below sk_valid
+// and, when causal, those holding a column <= the tile's last row.
+template <int BM, int BN>
+__device__ __forceinline__ int dq_key_tiles(int q0, int Sq, int sk_valid,
+                                            int causal) {
+  const int n_k = (sk_valid + BN - 1) / BN;
+  if (!causal) return n_k;
+  return min(n_k, (min(q0 + BM, Sq) - 1) / BN + 1);
+}
+
+// The split warps' partial sums into the first split's registers, in a
+// fixed order through shared memory (`red`, after the tiles are done):
+// acc[ND][4] of each of the SPLIT warps of row group rg, lane by lane.
+template <int WARPS, int SPLIT, int ND>
+__device__ __forceinline__ void reduce_split(float (*acc)[4], float* red,
+                                             int rg, int part, int lane) {
+  if (SPLIT == 1) return;
+  constexpr int kFrag = ND * 4 * 32;  // floats a warp
+  if (part > 0) {
+    float* dst = red + ((part - 1) * WARPS + rg) * kFrag;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[(n * 4 + e) * 32 + lane] = acc[n][e];
+  }
+  __syncthreads();
+  if (part == 0) {
+#pragma unroll
+    for (int p = 1; p < SPLIT; ++p) {
+      const float* src = red + ((p - 1) * WARPS + rg) * kFrag;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = __fadd_rn(acc[n][e], src[(n * 4 + e) * 32 + lane]);
+    }
+  }
+}
+
+// K4. A block owns BM = 16 WARPS query rows, 16 a row group of SPLIT
+// warps (SPLIT 2 only for one row group, where the grid is small: the
+// two warps take the two halves of every key tile and add their partial
+// dQ at the end, in a fixed order). It walks the key tiles of BN x SPLIT
+// keys, tile j + 1 copied in (cp.async, double buffer) while tile j
+// multiplies. A warp computes its 16 x BN scores S and dP on the tensor
+// cores, turns them into dS in registers (the C fragment's own rows and
+// columns carry the mask), and feeds dS as the A operand of dQ += dS K;
+// dQ (16 x DK a warp) stays in registers.
+template <typename T, int WARPS, int SPLIT, int DK, int BN>
+__global__ void __launch_bounds__(WARPS * SPLIT * 32)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const float* __restrict__ bias, T* __restrict__ dq,
                     int Sq, int Sk, int D, int sk_valid, int causal,
-                    float scale) {
-  extern __shared__ float smem[];
-  const int ld = D | 1;
-  float* sQ = smem;
-  float* sdO = sQ + kTile * ld;
-  float* sK = sdO + kTile * ld;
-  float* sV = sK + kTile * ld;
-  float* sS = sV + kTile * ld;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+                    float scale, int vec) {
+  using O = Ops<T>;
+  constexpr int BM = 16 * WARPS, NT = 32 * WARPS * SPLIT;
+  constexpr int BK = BN * SPLIT, ld = DK + O::kPad;  // keys a block tile
+  constexpr int NS = BN / 8, ND = DK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sdO = sQ + BM * ld;
+  T* sK = sdO + BM * ld;  // two buffers of BK rows
+  T* sV = sK + 2 * BK * ld;
+  float* sB = reinterpret_cast<float*>(sV + 2 * BK * ld);  // two of BK
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp % WARPS, part = warp / WARPS;  // row group, key half
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * BM;
+  const int wr0 = q0 + rg * 16;  // the warp's first row
   const size_t base = static_cast<size_t>(bh) * Sq;
   const T* kb = k + static_cast<size_t>(bh) * Sk * D;
   const T* vb = v + static_cast<size_t>(bh) * Sk * D;
-  stage(sQ, q + base * D, q0, Sq, D, ld);
-  stage(sdO, dout + base * D, q0, Sq, D, ld);
-  float lr[4], dr[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lr[i] = row < Sq ? lse[base + row] : 0.f;
-    dr[i] = row < Sq ? delta[base + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  stage_async<T, NT, DK>(sQ, q + base * D, q0, Sq, BM, D, ld, vec);
+  stage_async<T, NT, DK>(sdO, dout + base * D, q0, Sq, BM, D, ld, vec);
+  const int n_iter = dq_key_tiles<BM, BK>(q0, Sq, sk_valid, causal);
+  if (n_iter > 0) {
+    stage_async<T, NT, DK>(sK, kb, 0, Sk, BK, D, ld, vec);
+    stage_async<T, NT, DK>(sV, vb, 0, Sk, BK, D, ld, vec);
+    if (bias != nullptr) stage_vec_async<NT>(sB, bias, 0, Sk, BK);
   }
-  const int n_iter = key_tiles(q0, Sq, sk_valid, causal);
+  cp_commit();
+
+  float lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wr0 + g + 8 * h;
+    lr[h] = row < Sq ? lse[base + row] : 0.f;
+    dr[h] = row < Sq ? delta[base + row] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
   for (int j = 0; j < n_iter; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();
-    stage(sK, kb, k0, Sk, D, ld);
-    stage(sV, vb, k0, Sk, D, ld);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sQ[(ty + 16 * i) * ld + d];
-        dov[i] = sdO[(ty + 16 * i) * ld + d];
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        kv[jj] = sK[(tx + 16 * jj) * ld + d];
-        vv[jj] = sV[(tx + 16 * jj) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
-          dp[i][jj] = fmaf(dov[i], vv[jj], dp[i][jj]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int col = k0 + tx + 16 * jj;
-        const bool ok = col < sk_valid && (!causal || row >= col);
-        // a padded column's p = exp(0 - lse) can overflow: never formed
-        const float p =
-            ok ? expf(score(s[i][jj], scale, bias, col, Sk) - lr[i]) : 0.f;
-        sS[(ty + 16 * i) * kPLD + tx + 16 * jj] =
-            __fmul_rn(p, __fsub_rn(dp[i][jj], dr[i]));
-      }
+    if (j + 1 < n_iter) {
+      const int nb = (j + 1) & 1, k1 = (j + 1) * BK;
+      stage_async<T, NT, DK>(sK + nb * BK * ld, kb, k1, Sk, BK, D, ld, vec);
+      stage_async<T, NT, DK>(sV + nb * BK * ld, vb, k1, Sk, BK, D, ld, vec);
+      if (bias != nullptr)
+        stage_vec_async<NT>(sB + nb * BK, bias, k1, Sk, BK);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
-    const int kn = min(kTile, Sk - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float dsv[4];
+    // this warp's BN keys of the block tile
+    const int k0 = j * BK + part * BN;
+    const T* cK = sK + ((j & 1) * BK + part * BN) * ld;
+    const T* cV = sV + ((j & 1) * BK + part * BN) * ld;
+    const float* cB =
+        bias != nullptr ? sB + (j & 1) * BK + part * BN : nullptr;
+    // a warp whose 16 rows are all above its first key, or past Sq, or
+    // whose keys are all past sk_valid, has nothing unmasked here
+    if (wr0 < Sq && k0 < sk_valid && !(causal && k0 > wr0 + 15)) {
+      float s[NS][4], dp[NS][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sS[(ty + 16 * i) * kPLD + kk];
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        if (col < D) {
-          const float kv = sK[kk * ld + col];
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
+      for (int kk = 0; kk < DK; kk += O::KS) {
+        typename O::A aq, ado;
+        O::load_a(aq, sQ + rg * 16 * ld + kk, ld, g, t);
+        O::load_a(ado, sdO + rg * 16 * ld + kk, ld, g, t);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          typename O::B bk, bv;
+          O::load_b(bk, cK + n * 8 * ld + kk, ld, g, t);
+          O::load_b(bv, cV + n * 8 * ld + kk, ld, g, t);
+          O::mma(s[n], aq, bk);
+          O::mma(dp[n], ado, bv);
         }
       }
-    }
-  }
+      // dS in place of s; a masked (or padded) column's p is never formed
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) store(dq + (base + row) * D + col, __fmul_rn(acc[i][c], scale));
+        for (int e = 0; e < 4; ++e) {
+          const int row = wr0 + g + 8 * (e >> 1);
+          const int c = n * 8 + 2 * t + (e & 1);
+          const int col = k0 + c;
+          const bool ok = row < Sq && col < sk_valid && (!causal || row >= col);
+          float sc = __fmul_rn(s[n][e], scale);
+          if (cB != nullptr) sc = __fadd_rn(sc, cB[c]);
+          const float p = ok ? expf(sc - lr[e >> 1]) : 0.f;
+          s[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], dr[e >> 1]));
+        }
+      // dQ += dS K: k runs over this warp's keys
+      c_products<T, BN, ND>(acc, s, cK, ld, g, t);
     }
+    __syncthreads();  // this buffer is the next copy's target
   }
+  reduce_split<WARPS, SPLIT, ND>(acc, reinterpret_cast<float*>(smem_raw), rg,
+                                 part, lane);
+  if (part > 0) return;
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = wr0 + g + 8 * (e >> 1);
+      const int col = n * 8 + 2 * t + (e & 1);
+      if (row < Sq && col < D)
+        store(dq + (base + row) * D + col, __fmul_rn(acc[n][e], scale));
+    }
 }
 
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
+// K5. A block owns BM = 16 WARPS key rows, 16 a row group of SPLIT warps
+// (SPLIT 2 only for one row group: the two warps take the two halves of
+// every query tile and add their partial dK and dV at the end, in a fixed
+// order). It walks the query tiles of BN x SPLIT queries (Q, dO, lse and
+// delta copied in by cp.async, double buffer). With keys as rows, a warp
+// computes S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out as C
+// fragments in registers and feed dV += P^T dO and dK += dS^T Q as A
+// operands, with no pass through shared memory; dK and dV (16 x DK each a
+// warp) stay in registers. The causal mask only, as the TPU kernel.
+template <typename T, int WARPS, int SPLIT, int DK, int BN>
+__global__ void __launch_bounds__(WARPS * SPLIT * 32)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      const float* __restrict__ bias, T* __restrict__ dk,
                      T* __restrict__ dv, int Sq, int Sk, int D, int causal,
-                     float scale) {
-  extern __shared__ float smem[];
-  const int ld = D | 1;
-  float* sK = smem;
-  float* sV = sK + kTile * ld;
-  float* sQ = sV + kTile * ld;
-  float* sdO = sQ + kTile * ld;
-  float* sP = sdO + kTile * ld;
-  float* sS = sP + kTile * kPLD;
-  float* sL = sS + kTile * kPLD;
-  float* sD = sL + kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+                     float scale, int vec) {
+  using O = Ops<T>;
+  constexpr int BM = 16 * WARPS, NT = 32 * WARPS * SPLIT;
+  constexpr int BQ = BN * SPLIT, ld = DK + O::kPad;  // queries a block tile
+  constexpr int NS = BN / 8, ND = DK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + BM * ld;
+  T* sQ = sV + BM * ld;  // two buffers of BQ rows
+  T* sdO = sQ + 2 * BQ * ld;
+  float* sL = reinterpret_cast<float*>(sdO + 2 * BQ * ld);  // two of BQ
+  float* sD = sL + 2 * BQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp % WARPS, part = warp / WARPS;  // row group, query half
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * BM;
+  const int kw0 = k0 + rg * 16;  // the warp's first key
   const size_t qbase = static_cast<size_t>(bh) * Sq;
   const size_t kbase = static_cast<size_t>(bh) * Sk;
-  stage(sK, k + kbase * D, k0, Sk, D, ld);
-  stage(sV, v + kbase * D, k0, Sk, D, ld);
-  float dka[4][NC], dva[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dka[i][c] = dva[i][c] = 0.f;
-  const int n_q = (Sq + kTile - 1) / kTile;
-  // causal: query tiles before the one holding this tile's first key are
+  const T* qb = q + qbase * D;
+  const T* db = dout + qbase * D;
+  stage_async<T, NT, DK>(sK, k + kbase * D, k0, Sk, BM, D, ld, vec);
+  stage_async<T, NT, DK>(sV, v + kbase * D, k0, Sk, BM, D, ld, vec);
+  const int n_q = (Sq + BQ - 1) / BQ;
+  // causal: query tiles before the one holding this block's first key are
   // fully masked
-  const int start = causal ? k0 / kTile : 0;
-  for (int t = start; t < n_q; ++t) {
-    const int q0 = t * kTile;
-    __syncthreads();
-    stage(sQ, q + qbase * D, q0, Sq, D, ld);
-    stage(sdO, dout + qbase * D, q0, Sq, D, ld);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      sL[r] = q0 + r < Sq ? lse[qbase + q0 + r] : 0.f;
-      sD[r] = q0 + r < Sq ? delta[qbase + q0 + r] : 0.f;
+  const int start = causal ? min(k0 / BQ, n_q) : 0;
+  if (start < n_q) {
+    const int q0 = start * BQ;
+    stage_async<T, NT, DK>(sQ, qb, q0, Sq, BQ, D, ld, vec);
+    stage_async<T, NT, DK>(sdO, db, q0, Sq, BQ, D, ld, vec);
+    stage_vec_async<NT>(sL, lse + qbase, q0, Sq, BQ);
+    stage_vec_async<NT>(sD, delta + qbase, q0, Sq, BQ);
+  }
+  cp_commit();
+
+  float kbias[2];  // the key bias of the lane's rows g, g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kr = kw0 + g + 8 * h;
+    kbias[h] = (bias != nullptr && kr < Sk) ? bias[kr] : 0.f;
+  }
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = start; it < n_q; ++it) {
+    const int b = (it - start) & 1;
+    if (it + 1 < n_q) {
+      const int nb = b ^ 1, q1 = (it + 1) * BQ;
+      stage_async<T, NT, DK>(sQ + nb * BQ * ld, qb, q1, Sq, BQ, D, ld, vec);
+      stage_async<T, NT, DK>(sdO + nb * BQ * ld, db, q1, Sq, BQ, D, ld, vec);
+      stage_vec_async<NT>(sL + nb * BQ, lse + qbase, q1, Sq, BQ);
+      stage_vec_async<NT>(sD + nb * BQ, delta + qbase, q1, Sq, BQ);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
-    // rows: keys ty + 16i; columns: queries tx + 16jj
-    float s[4][4], dp[4][4];
+    // this warp's BN queries of the block tile
+    const int q0 = it * BQ + part * BN;
+    const T* cQ = sQ + (b * BQ + part * BN) * ld;
+    const T* cdO = sdO + (b * BQ + part * BN) * ld;
+    const float* cL = sL + b * BQ + part * BN;
+    const float* cD = sD + b * BQ + part * BN;
+    // a warp whose 16 keys all come after its last query, or lie past Sk,
+    // or whose queries are all past Sq, has nothing unmasked here
+    if (kw0 < Sk && q0 < Sq && !(causal && q0 + BN - 1 < kw0)) {
+      float st[NS][4], dpt[NS][4];  // rows: keys; columns: queries
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], dov[4];
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = sK[(ty + 16 * i) * ld + d];
-        vv[i] = sV[(ty + 16 * i) * ld + d];
-      }
+      for (int kk = 0; kk < DK; kk += O::KS) {
+        typename O::A ak, av;
+        O::load_a(ak, sK + rg * 16 * ld + kk, ld, g, t);
+        O::load_a(av, sV + rg * 16 * ld + kk, ld, g, t);
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        qv[jj] = sQ[(tx + 16 * jj) * ld + d];
-        dov[jj] = sdO[(tx + 16 * jj) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          s[i][jj] = fmaf(qv[jj], kv[i], s[i][jj]);
-          dp[i][jj] = fmaf(dov[jj], vv[i], dp[i][jj]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = k0 + ty + 16 * i;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int qc = tx + 16 * jj;
-        const bool ok = q0 + qc < Sq && (!causal || q0 + qc >= kr);
-        const float p =
-            ok ? expf(score(s[i][jj], scale, bias, kr, Sk) - sL[qc]) : 0.f;
-        sP[(ty + 16 * i) * kPLD + qc] = p;
-        sS[(ty + 16 * i) * kPLD + qc] = __fmul_rn(p, __fsub_rn(dp[i][jj], sD[qc]));
-      }
-    }
-    __syncthreads();
-    const int qn = min(kTile, Sq - q0);
-    for (int qq = 0; qq < qn; ++qq) {
-      float pv[4], dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sP[(ty + 16 * i) * kPLD + qq];
-        dsv[i] = sS[(ty + 16 * i) * kPLD + qq];
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        if (col < D) {
-          const float dov = sdO[qq * ld + col];
-          const float qv = sQ[qq * ld + col];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dva[i][c] = fmaf(pv[i], dov, dva[i][c]);
-            dka[i][c] = fmaf(dsv[i], qv, dka[i][c]);
-          }
+        for (int n = 0; n < NS; ++n) {
+          typename O::B bq, bdo;
+          O::load_b(bq, cQ + n * 8 * ld + kk, ld, g, t);
+          O::load_b(bdo, cdO + n * 8 * ld + kk, ld, g, t);
+          O::mma(st[n], ak, bq);
+          O::mma(dpt[n], av, bdo);
         }
       }
+      // P^T in st, dS^T in dpt; a query row past Sq stays masked
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kr = kw0 + g + 8 * (e >> 1);
+          const int qc = n * 8 + 2 * t + (e & 1);
+          const bool ok = q0 + qc < Sq && (!causal || q0 + qc >= kr);
+          float sc = __fmul_rn(st[n][e], scale);
+          if (bias != nullptr) sc = __fadd_rn(sc, kbias[e >> 1]);
+          const float p = ok ? expf(sc - cL[qc]) : 0.f;
+          st[n][e] = p;
+          dpt[n][e] = __fmul_rn(p, __fsub_rn(dpt[n][e], cD[qc]));
+        }
+      // dV += P^T dO, then dK += dS^T Q
+      c_products<T, BN, ND>(dva, st, cdO, ld, g, t);
+      c_products<T, BN, ND>(dka, dpt, cQ, ld, g, t);
     }
+    __syncthreads();  // this buffer is the next copy's target
   }
+  float* red = reinterpret_cast<float*>(smem_raw);
+  reduce_split<WARPS, SPLIT, ND>(dva, red, rg, part, lane);
+  __syncthreads();  // dV's partials are read before dK's are written
+  reduce_split<WARPS, SPLIT, ND>(dka, red, rg, part, lane);
+  if (part > 0) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty + 16 * i;
-    if (kr >= Sk) continue;
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) {
-        store(dk + (kbase + kr) * D + col, __fmul_rn(dka[i][c], scale));
-        store(dv + (kbase + kr) * D + col, dva[i][c]);
+    for (int e = 0; e < 4; ++e) {
+      const int kr = kw0 + g + 8 * (e >> 1);
+      const int col = n * 8 + 2 * t + (e & 1);
+      if (kr < Sk && col < D) {
+        store(dk + (kbase + kr) * D + col, __fmul_rn(dka[n][e], scale));
+        store(dv + (kbase + kr) * D + col, dva[n][e]);
       }
     }
-  }
 }
 
-// Shared memory of each kernel, in floats.
+// Shared memory of the forward, in bytes.
 inline size_t fwd_smem(int D) {
   return (3 * kTile * (D | 1) + kTile * kPLD) * sizeof(float);
-}
-inline size_t dq_smem(int D) {
-  return (4 * kTile * (D | 1) + kTile * kPLD) * sizeof(float);
-}
-inline size_t dkv_smem(int D) {
-  return (4 * kTile * (D | 1) + 2 * kTile * kPLD + 2 * kTile) * sizeof(float);
 }
 
 template <typename K>
@@ -503,38 +928,6 @@ int fwd_nc(const void* q, const void* k, const void* v, const float* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NC>
-int dq_nc(const void* q, const void* k, const void* v, const void* dout,
-          const float* lse, const float* delta, const float* bias, void* dq,
-          int BH, int Sq, int Sk, int D, int sk_valid, int causal,
-          float scale, cudaStream_t st) {
-  const size_t bytes = dq_smem(D);
-  auto kern = flash_bwd_dq_kernel<T, NC>;
-  if (int e = prepare(kern, bytes)) return e;
-  dim3 grid((Sq + kTile - 1) / kTile, BH);
-  kern<<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, bias,
-      static_cast<T*>(dq), Sq, Sk, D, sk_valid, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int NC>
-int dkv_nc(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* delta, const float* bias, void* dk,
-           void* dv, int BH, int Sq, int Sk, int D, int causal, float scale,
-           cudaStream_t st) {
-  const size_t bytes = dkv_smem(D);
-  auto kern = flash_bwd_dkv_kernel<T, NC>;
-  if (int e = prepare(kern, bytes)) return e;
-  dim3 grid((Sk + kTile - 1) / kTile, BH);
-  kern<<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, bias,
-      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, D, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Head dims up to 128, in four register widths; the wrapper raises beyond.
 #define FLASH_DISPATCH(FN, T, ...)                                    \
   if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue); \
@@ -552,14 +945,145 @@ int fwd(const void* q, const void* k, const void* v, const float* bias,
                  causal, scale, st)
 }
 
+// -- K4 and K5 launchers ----------------------------------------------------
+
+struct BwdArgs {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta, *bias;
+  void *dq, *dk, *dv;
+  int BH, Sq, Sk, D, sk_valid, causal;
+  float scale;
+  int vec;
+  cudaStream_t st;
+};
+
+// BN, the keys (K4) or queries (K5) a warp takes in one tile: 32 from DK
+// 64 up, where registers and shared memory are scarce, and for split row
+// groups (so that both warps have work at S 64), else 64.
+template <int SPLIT, int DK>
+constexpr int bwd_bn() { return (DK >= 64 || SPLIT > 1) ? 32 : 64; }
+
+// Shared memory of K4 and K5, in bytes: the input-type tiles (16 W rows
+// of two operands, two buffers of BN x SPLIT rows of two more), then f32
+// vectors: two buffers of BN x SPLIT key-bias values (K4), or of lse and
+// delta (K5).
+template <typename T, int W, int SPLIT, int DK, int BN, int NVEC>
+constexpr size_t bwd_smem() {
+  return (2 * 16 * W + 4 * BN * SPLIT) * (DK + Ops<T>::kPad) * sizeof(T) +
+         NVEC * 2 * BN * SPLIT * sizeof(float);
+}
+
+inline int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// Row groups a block (16 rows each) over `rows` rows of BH heads: the
+// largest of 8, 4, 2, 1 whose grid still gives every SM a block. One row
+// group takes two warps that split the other side's tiles between them
+// (SPLIT 2), so that a small grid has twice the warps in flight. (Two
+// blocks an SM, the first rule tried, took 4-row-group blocks at S 1024
+// and lost to one block of 8: shared memory holds one block of either at
+// D 128 in f32.)
+inline int pick_warps(int rows, int BH) {
+  const long sms = num_sms();
+  for (int w = 8; w > 1; w >>= 1) {
+    const long blocks = static_cast<long>((rows + 16 * w - 1) / (16 * w)) * BH;
+    if (blocks >= sms) return w;
+  }
+  return 1;
+}
+
+// The widest cp.async (16, 8 or 4 bytes) that divides a row and every
+// base pointer; 0 for element copies.
+inline int copy_vec(const BwdArgs& a, size_t isz) {
+  const size_t row = static_cast<size_t>(a.D) * isz;
+  const uintptr_t any = reinterpret_cast<uintptr_t>(a.q) |
+                        reinterpret_cast<uintptr_t>(a.k) |
+                        reinterpret_cast<uintptr_t>(a.v) |
+                        reinterpret_cast<uintptr_t>(a.dout);
+  for (int vec = 16; vec >= 4; vec >>= 1)
+    if (row % vec == 0 && any % vec == 0) return vec;
+  return 0;
+}
+
+template <typename T, int W, int DK>
+int dq_launch(const BwdArgs& a) {
+  constexpr int SPLIT = W == 1 ? 2 : 1, BN = bwd_bn<SPLIT, DK>();
+  constexpr size_t bytes = bwd_smem<T, W, SPLIT, DK, BN, 1>();
+  auto kern = flash_bwd_dq_kernel<T, W, SPLIT, DK, BN>;
+  if (int e = prepare(kern, bytes)) return e;
+  dim3 grid((a.Sq + 16 * W - 1) / (16 * W), a.BH);
+  kern<<<grid, 32 * W * SPLIT, bytes, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.bias, static_cast<T*>(a.dq), a.Sq, a.Sk, a.D, a.sk_valid,
+      a.causal, a.scale, a.vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int W, int DK>
+int dkv_launch(const BwdArgs& a) {
+  constexpr int SPLIT = W == 1 ? 2 : 1, BN = bwd_bn<SPLIT, DK>();
+  constexpr size_t bytes = bwd_smem<T, W, SPLIT, DK, BN, 2>();
+  auto kern = flash_bwd_dkv_kernel<T, W, SPLIT, DK, BN>;
+  if (int e = prepare(kern, bytes)) return e;
+  dim3 grid((a.Sk + 16 * W - 1) / (16 * W), a.BH);
+  kern<<<grid, 32 * W * SPLIT, bytes, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.bias, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq,
+      a.Sk, a.D, a.causal, a.scale, a.vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launchers by head dim, DK: D padded to 16, 24 (f32 only: the bf16
+// mma's k is 16), 32, 64 or 128 — then by the warps a block.
+struct DqLaunch {
+  template <typename T, int W, int DK>
+  static int run(const BwdArgs& a) { return dq_launch<T, W, DK>(a); }
+};
+struct DkvLaunch {
+  template <typename T, int W, int DK>
+  static int run(const BwdArgs& a) { return dkv_launch<T, W, DK>(a); }
+};
+
+template <class L, typename T, int W>
+int by_dk(const BwdArgs& a) {
+  if (a.D <= 16) return L::template run<T, W, 16>(a);
+  if constexpr (std::is_same<T, float>::value)
+    if (a.D <= 24) return L::template run<T, W, 24>(a);
+  if (a.D <= 32) return L::template run<T, W, 32>(a);
+  if (a.D <= 64) return L::template run<T, W, 64>(a);
+  return L::template run<T, W, 128>(a);
+}
+
+template <class L, typename T>
+int by_warps(BwdArgs& a, int rows) {
+  if (a.D < 1 || a.D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  a.vec = copy_vec(a, sizeof(T));
+  switch (pick_warps(rows, a.BH)) {
+    case 8: return by_dk<L, T, 8>(a);
+    case 4: return by_dk<L, T, 4>(a);
+    case 2: return by_dk<L, T, 2>(a);
+    default: return by_dk<L, T, 1>(a);
+  }
+}
+
 template <typename T>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, const float* bias, void* dq,
            int BH, int Sq, int Sk, int D, int sk_valid, int causal,
            float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(dq_nc, T, q, k, v, dout, lse, delta, bias, dq, BH, Sq, Sk, D,
-                 sk_valid, causal, scale, st)
+  BwdArgs a{q, k, v, dout, lse, delta, bias, dq, nullptr, nullptr,
+            BH, Sq, Sk, D, sk_valid, causal, scale, 0,
+            static_cast<cudaStream_t>(stream)};
+  return by_warps<DqLaunch, T>(a, Sq);
 }
 
 template <typename T>
@@ -567,11 +1091,11 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* delta, const float* bias, void* dk,
             void* dv, int BH, int Sq, int Sk, int D, int causal, float scale,
             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(dkv_nc, T, q, k, v, dout, lse, delta, bias, dk, dv, BH, Sq,
-                 Sk, D, causal, scale, st)
+  BwdArgs a{q, k, v, dout, lse, delta, bias, nullptr, dk, dv,
+            BH, Sq, Sk, D, Sk, causal, scale, 0,
+            static_cast<cudaStream_t>(stream)};
+  return by_warps<DkvLaunch, T>(a, Sk);
 }
-
 }  // namespace
 
 extern "C" {

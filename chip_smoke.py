@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (caffe_mpi_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py          # from the root of the repository
+    python3 chip_smoke.py --parent DIR   # also time the parent's K4, K5
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
@@ -15,14 +16,18 @@ Phases, in order; any failure exits nonzero and prints no result line:
              the plain version and the library call that computes the same
              function: K1, the LRN forward, against F.local_response_norm;
              K2, the LRN backward, against torch.autograd.grad through
-             F.local_response_norm; K3, the flash-attention forward,
-             against F.scaled_dot_product_attention, and K4 and K5, its dQ
-             and dK/dV kernels, against torch.autograd.grad through it (one
-             call for both) — at transformer_lm's shape (BH 32, S 64, D
-             32), non-causal, bf16, the deploy net's BH 40, S 100 with D
-             20, S = 200 padded to 256, a bias masking a whole tile, and S
-             1024/2048 at D 32, 64 and 128. Then autograd through flash_attention on the card
-             against the CPU.
+             F.local_response_norm; K3, the flash-attention forward, and
+             K4 and K5, its dQ and dK/dV kernels (on the tensor cores),
+             against F.scaled_dot_product_attention and torch.autograd.grad
+             through it (one call for dQ, dK and dV) on 4-D views, each
+             fused backend pinned alone, the fastest named, the math path
+             beside it — at transformer_lm's shape (BH 32, S 64, D 32),
+             non-causal, bf16, the deploy net's BH 40, S 100 with D 20,
+             S = 200 padded to 256, a bias masking a whole tile, and S
+             1024/2048 at D 32, 64 and 128. With `--parent DIR` (a
+             checkout of the parent commit) the parent's K4 and K5 are
+             built and timed in turns with this tree's. Then autograd
+             through flash_attention on the card against the CPU.
 4. serve   — serves AlexNet (models/alexnet/deploy.prototxt, full width,
              weights drawn from a seeded torch.Generator) through the
              port's ServingEngine: mixed bursts from several threads with
@@ -109,13 +114,24 @@ PREPROCESS = dict(raw_scale=255.0, mean=np.array([104.0, 117.0, 123.0]),
 
 # (name substring, memory bytes/s, float32 flop/s outside the tensor
 # cores, dense bf16 tensor-core flop/s with f32 accumulation), NVIDIA data
-# sheets; the first match against nvidia-smi's name wins
+# sheets; the first match against nvidia-smi's name wins. The LRN kernels'
+# work is elementwise, so their bounds take the CUDA cores' f32 rate.
 CARD_RATES = (
     ("H100 NVL", 3.9e12, 60e12, 835e12),
     ("H100 PCIe", 2.0e12, 51e12, 756e12),
     ("H200", 4.8e12, 67e12, 989e12),
     ("H100", 3.35e12, 67e12, 989e12),  # SXM5, "NVIDIA H100 80GB HBM3"
 )
+
+
+def f32_product_rate(rates) -> float:
+    """The rate of an f32 matrix product held at f32 accuracy on the tensor
+    cores: 3xTF32, three TF32 products (dense TF32 is half the bf16 rate)
+    for each — 164.8 TFLOP/s on the H100 SXM. K4 and K5 multiply f32 that
+    way, as PyTorch's own f32 attention does, so the flash bounds take this
+    rate for f32 inputs; taken at the CUDA cores' 67 TFLOP/s, a 3xTF32
+    kernel could read past 100% of its bound."""
+    return rates[2] / 2 / 3
 
 LRN = dict(size=5, alpha=1e-4, beta=0.75, k=1.0)  # AlexNet norm1/norm2
 
@@ -394,10 +410,11 @@ def _flash_cases():
 def flash_bound(kind, bh, s, d, dtype, causal, sk_valid, bias, rates):
     """Least time for one kernel's work: each input read once and each
     output written once over the memory rate, against 4 (K3), 6 (K4) or 8
-    (K5) flops x D for every unmasked (query, key) pair over the f32 peak
-    (f32 inputs) or the bf16 tensor-core peak (bf16 inputs). K5 has no
-    sk_valid mask, so its pairs run over every key."""
-    mem_rate, f32_rate, bf16_rate = rates
+    (K5) flops x D for every unmasked (query, key) pair over the 3xTF32
+    rate (f32 inputs, `f32_product_rate`) or the bf16 tensor-core peak
+    (bf16 inputs). K5 has no sk_valid mask, so its pairs run over every
+    key."""
+    mem_rate, bf16_rate = rates[0], rates[2]
     isz = torch.empty((), dtype=dtype).element_size()
     mat = bh * s * d * isz                 # one (BH, S, D) tensor
     rows = bh * s * 4                      # one f32 (BH, S) vector
@@ -409,7 +426,7 @@ def flash_bound(kind, bh, s, d, dtype, causal, sk_valid, bias, rates):
         else np.full(s, limit)
     flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * bh * d \
         * float(per_row.sum())
-    peak = f32_rate if dtype == torch.float32 else bf16_rate
+    peak = f32_product_rate(rates) if dtype == torch.float32 else bf16_rate
     t_bytes, t_ops = nbytes / mem_rate * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -427,13 +444,140 @@ def _flash_close(name, got, want, dtype):
     return err
 
 
-def flash_kernel_phase(rates) -> list[dict]:
+# PyTorch's fused attention backends, each timed pinned alone
+# (FLASH_ATTENTION takes 16-bit inputs without a mask only); MATH, the
+# unfused path, is timed beside them.
+FUSED_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_library(q, k, v, do, mask, causal) -> dict:
+    """The library yardstick of K3 (forward) and K4 + K5 (one backward call
+    computing dQ, dK and dV): F.scaled_dot_product_attention on 4-D views
+    (1, BH, S, D) of the same tensors — the fused backends take only 4-D
+    inputs, and a 3-D call falls back to the math path — with the mask as
+    (1, 1 or BH, S, S). Each fused backend runs pinned alone under
+    sdpa_kernel, so a backend that refuses the case raises and is skipped
+    by name instead of falling back to math quietly. The fastest fused
+    forward and backward are the library's times; the math path's stand
+    beside them."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4, do4 = (t.unsqueeze(0) for t in (q, k, v, do))
+    m4 = None if mask is None else mask.reshape(1, -1, *mask.shape[-2:])
+    kw = dict(attn_mask=m4, is_causal=causal and mask is None)
+    times, refused = {}, {}
+    for name in (*FUSED_BACKENDS, "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            refused[name] = "not in this PyTorch"
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, **kw))
+                qg, kg, vg = (t.detach().clone().requires_grad_()
+                              for t in (q4, k4, v4))
+                og = F.scaled_dot_product_attention(qg, kg, vg, **kw)
+            bwd = time_ms(lambda: torch.autograd.grad(
+                og, (qg, kg, vg), do4, retain_graph=True))
+            del qg, kg, vg, og
+        except RuntimeError as e:
+            refused[name] = str(e).strip().splitlines()[0][:160]
+            continue
+        times[name] = (fwd, bwd)
+    fused = {n: t for n, t in times.items() if n != "MATH"}
+    out = {"refused": refused}
+    for i, kind in enumerate(("fwd", "bwd")):
+        best = min(fused, key=lambda n: fused[n][i]) if fused else None
+        out[kind] = {"library_ms": fused[best][i] if best else None,
+                     "library_backend": best,
+                     "library_math_ms": times["MATH"][i]
+                     if "MATH" in times else None,
+                     "library_fused_ms": {n: t[i] for n, t in fused.items()}}
+    return out
+
+
+def build_flash_lib(src: str, out: str, extra=()) -> str:
+    """A flash_attention.cu (`src`) built with the port's nvcc flags and
+    `extra` into the shared library `out`; returns nvcc's output (the
+    `-Xptxas -v` lines where asked for). Fails on an nvcc error."""
+    from caffe_mpi_tpu_torch.ops import build
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, *extra,
+                           "-o", out, src], capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        fail(f"nvcc failed on {src}: {proc.stderr[-2000:]}")
+    return proc.stdout + proc.stderr
+
+
+def bind_flash_bwd(path: str):
+    """The K4 and K5 C entry points of a built flash_attention library;
+    every version of the source takes the same arguments."""
+    import ctypes
+    lib = ctypes.CDLL(path)
+    P, I, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for dt in ("f32", "bf16"):
+        getattr(lib, f"flash_bwd_dq_{dt}").argtypes = [P] * 8 + [I] * 6 \
+            + [F_, P]
+        getattr(lib, f"flash_bwd_dkv_{dt}").argtypes = [P] * 9 + [I] * 5 \
+            + [F_, P]
+    return lib
+
+
+def parent_flash_lib(parent: str):
+    """The flash kernels of a parent checkout (`--parent DIR`), built from
+    DIR/caffe_mpi_tpu_torch/csrc/flash_attention.cu into a temporary
+    directory, so that one call times the parent's K4 and K5 beside this
+    tree's on the same card and inputs."""
+    src = os.path.join(parent, "caffe_mpi_tpu_torch",
+                       "csrc", "flash_attention.cu")
+    if not os.path.isfile(src):
+        fail(f"--parent: no {src}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parent_")
+    try:
+        out = os.path.join(tmp, "libparent_flash.so")
+        build_flash_lib(src, out)
+        return bind_flash_bwd(out)  # loaded: the file can go
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def call_flash_bwd(lib, kind, q, k, v, do, lse, delta, causal, sk_valid,
+                   kb):
+    """One launch of a bound library's K4 (kind "dq") or K5 ("dkv");
+    returns (dq,) or (dk, dv)."""
+    import math
+    dt = "f32" if q.dtype == torch.float32 else "bf16"
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr(),
+              None if kb is None else kb.data_ptr())
+    if kind == "dq":
+        out = (torch.empty_like(q),)
+        err = getattr(lib, f"flash_bwd_dq_{dt}")(
+            *common, out[0].data_ptr(), bh, sq, sk, d,
+            sk if sk_valid is None else sk_valid, int(causal),
+            1.0 / math.sqrt(d), stream)
+    else:
+        out = (torch.empty_like(k), torch.empty_like(v))
+        err = getattr(lib, f"flash_bwd_dkv_{dt}")(
+            *common, out[0].data_ptr(), out[1].data_ptr(), bh, sq, sk, d,
+            int(causal), 1.0 / math.sqrt(d), stream)
+    if err:
+        fail(f"{kind} kernel launch failed: cudaError {err}")
+    return out
+
+
+def flash_kernel_phase(rates, parent_lib=None) -> list[dict]:
     """K3, K4 and K5 against their plain versions at the path's shape and
     the edge shapes, each timed beside its plain version, the library
-    call (F.scaled_dot_product_attention for K3; torch.autograd.grad
-    through it for K4 and K5 together) and its bound; then autograd
-    through flash_attention on the card against the CPU."""
-    import torch.nn.functional as F
+    call (`sdpa_library`: the fastest pinned fused backend, and the math
+    path) and its bound; with `parent_lib`, the parent's K4 and K5 too,
+    timed in turns with this tree's (parent, kernel, kernel, parent). Then
+    autograd through flash_attention on the card against the CPU."""
     from caffe_mpi_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -485,28 +629,32 @@ def flash_kernel_phase(rates) -> list[dict]:
                      "dq": float(dq_ref.float().abs().max()),
                      "dkv": max(float(dk_ref[:, keep].float().abs().max()),
                                 float(dv_ref[:, keep].float().abs().max()))}
-        lib_kw = dict(attn_mask=mask, is_causal=causal and mask is None)
-        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        og = F.scaled_dot_product_attention(qg, kg, vg, **lib_kw)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
-            og, (qg, kg, vg), do, retain_graph=True))
-        timings = {
-            "fwd": (time_ms(lambda: fa.flash_fwd(q, k, v, **kq)),
-                    time_ms(lambda: fa.flash_fwd_ref(q, k, v, **kq)),
-                    time_ms(lambda: F.scaled_dot_product_attention(
-                        q, k, v, **lib_kw))),
-            "dq": (time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
-                                                   **kq)),
-                   time_ms(lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse,
-                                                       delta, **kq)),
-                   lib_bwd),
-            "dkv": (time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
-                                                     delta, **kw)),
-                    time_ms(lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse,
-                                                         delta, **kw)),
-                    lib_bwd),
-        }
-        for kind, (ms, plain, library) in timings.items():
+        lib = sdpa_library(q, k, v, do, mask, causal)
+        runs = {
+            "fwd": lambda: fa.flash_fwd(q, k, v, **kq),
+            "dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kq),
+            "dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)}
+        plains = {
+            "fwd": lambda: fa.flash_fwd_ref(q, k, v, **kq),
+            "dq": lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kq),
+            "dkv": lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                **kw)}
+        for kind in ("fwd", "dq", "dkv"):
+            parent = None
+            if parent_lib is not None and kind != "fwd":
+                def run_parent(kind=kind):
+                    return call_flash_bwd(parent_lib, kind, q, k, v, do,
+                                          lse, delta, causal, sk_valid, kb)
+                p1 = time_ms(run_parent)
+                ms = time_ms(runs[kind])
+                ms2 = time_ms(runs[kind])
+                p2 = time_ms(run_parent)
+                parent = {"parent_kernel_ms": (p1 + p2) / 2,
+                          "parent_kernel_ms_turns": [p1, p2],
+                          "kernel_ms_turns": [ms, ms2]}
+                ms = (ms + ms2) / 2
+            else:
+                ms = time_ms(runs[kind])
             bound, by = flash_bound(kind, bh, s, d, dtype, causal, sk_valid,
                                     bias, rates)
             max_err[kind] = max(max_err[kind], errs[kind])
@@ -515,12 +663,22 @@ def flash_kernel_phase(rates) -> list[dict]:
                     "causal": causal, "sk_valid": sk_valid, "bias": bias,
                     "max_abs_err": errs[kind],
                     "plain_max_abs": plain_max[kind], "kernel_ms": ms,
-                    "plain_ms": plain, "library_ms": library,
+                    "plain_ms": time_ms(plains[kind]),
+                    **{key: val for key, val in
+                       lib["fwd" if kind == "fwd" else "bwd"].items()},
+                    "library_refused": lib["refused"],
                     "bound_ms": bound, "bound_by": by,
                     "share_of_bound": bound / ms}
+            if parent:
+                case.update(parent,
+                            speedup_over_parent=parent["parent_kernel_ms"]
+                            / ms)
+            if case["share_of_bound"] > 1:
+                fail(f"{kind} {label}: {ms:.4g} ms under its bound "
+                     f"{bound:.4g} ms")
             cases[kind].append(case)
             log(f"flash_{kind} {json.dumps(case)}")
-        del q, k, v, do, qg, kg, vg, og, o, lse, dq, dk, dv
+        del q, k, v, do, o, lse, dq, dk, dv
         torch.cuda.empty_cache()
 
     # autograd: flash_attention on the card launches K3 once forward and
@@ -563,9 +721,14 @@ def flash_kernel_phase(rates) -> list[dict]:
             "ms": head["kernel_ms"], "kernel_ms": head["kernel_ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "library": "F.scaled_dot_product_attention" if kind == "fwd"
-            else "torch.autograd.grad through F.scaled_dot_product_attention"
-            " (dQ, dK, dV together)",
+            "library_backend": head["library_backend"],
+            "library_math_ms": head["library_math_ms"],
+            "library": "F.scaled_dot_product_attention on (1, BH, S, D), "
+            "the fastest fused backend pinned alone" + (
+                "" if kind == "fwd" else "; torch.autograd.grad through it "
+                "(dQ, dK, dV together)"),
+            **({"parent_kernel_ms": head["parent_kernel_ms"]}
+               if "parent_kernel_ms" in head else {}),
             per: 2, "cases": cases[kind],
         })
     return out
@@ -1328,13 +1491,21 @@ def transformer_parity_phase() -> dict:
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR", default=None,
+                    help="a checkout of the parent commit: its K4 and K5 "
+                    "are built and timed beside this tree's in each case")
+    args = ap.parse_args(argv)
+    parent = os.path.abspath(args.parent) if args.parent else None
     os.chdir(ROOT)
     card, rates = device_phase()
     build_phase()
+    parent_lib = parent_flash_lib(parent) if parent else None
     k1 = kernel_phase(rates)
     k2 = kernel_bwd_phase(rates)
-    flash = flash_kernel_phase(rates)
+    flash = flash_kernel_phase(rates, parent_lib)
     serving = serve_phase(k1, card)
     train = train_phase(k1, k2, card)
     train["parity"] = parity_phase()

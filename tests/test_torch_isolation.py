@@ -1,6 +1,6 @@
-"""The port stands alone: caffe_mpi_tpu_torch and chip_smoke.py import no
-JAX and nothing of the JAX package, and entry points never carry on quietly
-on the CPU.
+"""The port stands alone: caffe_mpi_tpu_torch, chip_smoke.py and
+flash_variants.py import no JAX and nothing of the JAX package, and entry
+points never carry on quietly on the CPU.
 
 The package name `caffe_mpi_tpu_torch` starts with `caffe_mpi_tpu`, so the
 scan matches module names exactly (`caffe_mpi_tpu`, or the prefix
@@ -21,7 +21,8 @@ _FORBIDDEN = ("jax", "jaxlib", "caffe_mpi_tpu")
 
 
 def _port_files():
-    out = [os.path.join(_ROOT, "chip_smoke.py")]
+    out = [os.path.join(_ROOT, f) for f in ("chip_smoke.py",
+                                            "flash_variants.py")]
     for dirpath, dirnames, files in os.walk(_PKG):
         dirnames[:] = [d for d in dirnames if d not in ("__pycache__",
                                                         "_build")]
@@ -108,3 +109,12 @@ def test_chip_smoke_without_card_fails_and_prints_no_result():
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_flash_variants_without_card_fails_and_times_nothing():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "flash_variants.py"], cwd=_ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"case"' not in proc.stdout
