@@ -23,16 +23,46 @@
 // The C functions return the launch's cudaGetLastError() (or the error of
 // setting the kernel's shared-memory size) so the ctypes wrapper can raise.
 //
-// K3 (first design). A block of 256 threads owns a 64-row query tile and
-// loops over 64-row key tiles staged in shared memory as f32 (row stride
-// D|1); thread (ty, tx) computes the 4 x 4 scores of rows ty + 16i and
-// columns tx + 16j in f32 FMA on the CUDA cores, a score row lies in one
-// half-warp (max and sum by four xor shuffles), and the probabilities go
-// through shared memory to the product with V. Causal K3 visits the key
-// tiles holding a column <= the tile's last row, never those past
-// sk_valid. The online softmax keeps m = -inf until a row meets an
-// unmasked score and exponentiates against m_use = (m == -inf ? 0 : m), so
-// no -inf - -inf is formed; a masked score is -inf and gives exp(-inf) = 0.
+// K3 (second design, on the tensor cores). What bounds it: at S >=
+// 1024 operations (4 x D flops an unmasked pair: 34.4 GFLOP at (BH 32, S
+// 2048, D 128) causal), so both products must run on the tensor cores (the
+// first design's f32 FMA on the CUDA cores ran 28x slower than cuDNN in
+// bf16 there); at the training path's shape (32, 64, 32) launch and one
+// warp's serial chain. The design is K4's machinery (below):
+// - S = Q K^T and O += P V are mma.sync: 3xTF32 for f32 inputs, bf16 Q K^T
+//   as it is, and P, an f32 C fragment, split into bf16 hi and lo parts
+//   against bf16 V, so P is never rounded to bf16 once.
+// - The online softmax runs on the C fragments in registers: a lane holds
+//   rows g and g + 8, columns 2t and 2t + 1 of each 8-wide tile, so a
+//   row's max and sum take two xor shuffles over the four lanes of g; P
+//   goes from accumulator to A operand without shared memory.
+// - Each key tile's P V goes into a zeroed fragment and O = O alpha +
+//   tile, an f32 multiply and add rounded to nearest: the tensor cores'
+//   truncating accumulation never sums more than one tile.
+// - A warp owns 16 query rows, a block W of them (pick_warps: the largest
+//   of 8, 4, 2, 1 whose grid gives every SM a block; W is a launch
+//   argument, so K3 has 18 instantiations). At W = 1 (the path's 128 row
+//   groups for 132 SMs) two warps share a row group, each takes half of
+//   every key tile with its own (m, l, O), and the two states are merged
+//   through shared memory in a fixed order, rescaled to their common max:
+//   no atomics, deterministic.
+// - Q is copied once to shared memory and read as fragments at each
+//   k-step; K, V and the key bias come in tiles of BN x SPLIT keys (BN 64,
+//   or 32 a warp when split), double-buffered with cp.async
+//   (zero fill past D and Sk). bf16 fragments are read with ldmatrix: x4
+//   for Q and K, x4.trans for V as the B operand of P V; f32 ones as
+//   values, which the 3xTF32 split needs.
+// - The forward's contract is the first design's: masks (causal,
+//   sk_valid, the f32 key bias), causal tile skips, no tile past
+//   sk_valid, a warp with nothing unmasked in a tile skips it; m stays
+//   -inf until a row meets an unmasked score and exponents are taken
+//   against m_use = (m == -inf ? 0 : m), so no -inf - -inf is formed; a
+//   fully masked row gives O = 0 and lse = log(1e-30).
+// Shared memory a block (bytes): (16 W + 4 BN SPLIT) x (DK + 4) x 4 in f32,
+// x (DK + 8) x 2 in bf16, plus 8 BN SPLIT of key bias; at D 128, W 8:
+// 203,264 (f32: one block an SM) and 104,960 (bf16). Registers (nvcc
+// -Xptxas -v): at D 128 with one warp a row group 179 (f32) and 128 (bf16,
+// 24 bytes spilled), no spills in the other 16 instantiations.
 //
 // K4 and K5 (second design, on the tensor cores). What bounds them: at
 // the training path's shape (BH 32, S 64, D 32) a kernel moves under half
@@ -111,181 +141,15 @@
 
 namespace {
 
-constexpr int kTile = 64;         // rows of a query or key tile
-constexpr int kThreads = 256;     // 16 x 16 threads, a 4 x 4 micro-tile each
-constexpr int kPLD = kTile + 1;   // row stride of a score tile in smem
-
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Rows [r0, r0 + kTile) of a (n, D) matrix into shared memory as f32 with
-// row stride ld; rows at or past n are zero.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0, int n,
-                                      int D, int ld) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    dst[r * ld + c] =
-        (r0 + r < n) ? load(src + static_cast<size_t>(r0 + r) * D + c) : 0.f;
-  }
-}
-
-// Max and sum over the 16 threads of a half-warp (one score row).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// Key tiles a query tile visits: those below sk_valid and, when causal,
-// those holding a column <= the tile's last row.
-__device__ __forceinline__ int key_tiles(int q0, int Sq, int sk_valid,
-                                         int causal) {
-  const int n_k = (sk_valid + kTile - 1) / kTile;
-  if (!causal) return n_k;
-  return min(n_k, (min(q0 + kTile, Sq) - 1) / kTile + 1);
-}
-
-// The scaled, biased score; the caller masks it.
-__device__ __forceinline__ float score(float dot, float scale,
-                                       const float* bias, int col, int Sk) {
-  float v = __fmul_rn(dot, scale);
-  if (bias != nullptr && col < Sk) v = __fadd_rn(v, bias[col]);
-  return v;
-}
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
-                 int D, int sk_valid, int causal, float scale) {
-  extern __shared__ float smem[];
-  const int ld = D | 1;
-  float* sQ = smem;
-  float* sK = sQ + kTile * ld;
-  float* sV = sK + kTile * ld;
-  float* sP = sV + kTile * ld;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const T* kb = k + static_cast<size_t>(bh) * Sk * D;
-  const T* vb = v + static_cast<size_t>(bh) * Sk * D;
-  stage(sQ, q + static_cast<size_t>(bh) * Sq * D, q0, Sq, D, ld);
-
-  float acc[4][NC], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = neg_inf();
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-  const int n_iter = key_tiles(q0, Sq, sk_valid, causal);
-  for (int j = 0; j < n_iter; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();  // the previous tile's reads of sK, sV, sP are done
-    stage(sK, kb, k0, Sk, D, ld);
-    stage(sV, vb, k0, Sk, D, ld);
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * ld + d];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) kv[jj] = sK[(tx + 16 * jj) * ld + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float tmax = neg_inf();
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int col = k0 + tx + 16 * jj;
-        const bool ok = col < sk_valid && (!causal || row >= col);
-        s[i][jj] = ok ? score(s[i][jj], scale, bias, col, Sk) : neg_inf();
-        tmax = fmaxf(tmax, s[i][jj]);
-      }
-      tmax = row_max(tmax);
-      const float m_new = fmaxf(m[i], tmax);
-      const float m_use = (m_new == neg_inf()) ? 0.f : m_new;
-      const float alpha = expf(m[i] - m_use);  // 0 while m[i] is -inf
-      float rs = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = expf(s[i][jj] - m_use);  // masked: exp(-inf) = 0
-        sP[(ty + 16 * i) * kPLD + tx + 16 * jj] = p;
-        rs = __fadd_rn(rs, p);
-      }
-      l[i] = __fadd_rn(__fmul_rn(l[i], alpha), row_sum(rs));
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] = __fmul_rn(acc[i][c], alpha);
-    }
-    __syncthreads();
-    const int kn = min(kTile, Sk - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * kPLD + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        if (col < D) {
-          const float vv = sV[kk * ld + col];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-        }
-      }
-    }
-  }
-  const size_t base = static_cast<size_t>(bh) * Sq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D)
-        store(o + (base + row) * D + col, __fdiv_rn(acc[i][c], l_safe));
-    }
-    if (tx == 0) {
-      const float m_use = (m[i] == neg_inf()) ? 0.f : m[i];
-      lse[base + row] = __fadd_rn(m_use, logf(l_safe));
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K4 and K5: tensor-core products (mma.sync), cp.async staging.
+// Tensor-core products (mma.sync) and cp.async staging, shared by K3-K5.
 
 // cp.async of `vec` bytes (16, 8 or 4) from global to shared memory; a
 // copy that is not `live` reads nothing and writes zeros (zero fill).
@@ -318,38 +182,38 @@ __device__ __forceinline__ void cp_wait() {
 // bytes (16, 8 or 4, dividing D's bytes; 0 for single elements, a bf16
 // row of odd width). The lanes of a warp split a row into chunks, rows go
 // to warps in turn: no division a chunk.
-template <typename T, int NT, int DK>
-__device__ __forceinline__ void stage_async(T* dst, const T* src, int r0,
-                                            int n, int rows, int D, int ld,
-                                            int vec) {
+template <typename T, int DK>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int r0,
+                                           int n, int rows, int D, int ld,
+                                           int vec, int nt) {
   if (vec == 0) {  // element copies, synchronous: four loads in flight
     // a lane; the tile's rows are one contiguous run of rows * D elements
     const size_t first = static_cast<size_t>(r0) * D;
     const int live = max(0, min(rows, n - r0));
-    for (int i0 = threadIdx.x; i0 < rows * DK; i0 += 4 * NT) {
+    for (int i0 = threadIdx.x; i0 < rows * DK; i0 += 4 * nt) {
       T val[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int i = i0 + u * NT, r = i / DK, c = i % DK;
+        const int i = i0 + u * nt, r = i / DK, c = i % DK;
         val[u] = (r < live && c < D) ? src[first + r * D + c] : T(0.f);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int i = i0 + u * NT;
+        const int i = i0 + u * nt;
         if (i < rows * DK) dst[(i / DK) * ld + i % DK] = val[u];
       }
     }
     return;
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int kWarps = NT / 32;
+  const int warps = nt / 32;
   const int per = vec / static_cast<int>(sizeof(T));  // elements a chunk
   const int cpr = D / per, cpr_all = DK / per;        // chunks a row
   // lanes a row: the least power of two >= cpr_all, at most 32
   int shift = 0;
   while ((1 << shift) < cpr_all && shift < 5) ++shift;
   const int sub = lane >> shift, c0 = lane & ((1 << shift) - 1);
-  const int step = kWarps * (32 >> shift);
+  const int step = warps * (32 >> shift);
   for (int r = warp * (32 >> shift) + sub; r < rows; r += step) {
     const bool live = r0 + r < n;
     const T* row = src + static_cast<size_t>(live ? r0 + r : 0) * D;
@@ -360,10 +224,9 @@ __device__ __forceinline__ void stage_async(T* dst, const T* src, int r0,
 }
 
 // f32 values a float: (n, 1) vectors such as lse and delta, zero past n
-template <int NT>
-__device__ __forceinline__ void stage_vec_async(float* dst, const float* src,
-                                                int r0, int n, int rows) {
-  for (int r = threadIdx.x; r < rows; r += NT) {
+__device__ __forceinline__ void stage_vec(float* dst, const float* src,
+                                          int r0, int n, int rows, int nt) {
+  for (int r = threadIdx.x; r < rows; r += nt) {
     const bool live = r0 + r < n;
     cp_async(dst + r, src + (live ? r0 + r : 0), 4, live);
   }
@@ -582,6 +445,335 @@ __device__ __forceinline__ void c_products(float (*acc)[4],
 }
 
 
+// ---------------------------------------------------------------------------
+// K3: the forward on the tensor cores.
+
+// ldmatrix: four 8 x 8 matrices of 16-bit values from shared memory, lane
+// l giving the address of row l % 8 of matrix l / 8 (16 bytes, aligned);
+// lane 4g + t receives row g, columns 2t and 2t + 1 of each, or with
+// .trans rows 2t and 2t + 1 of column g.
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+// K3 reads its bf16 fragments with ldmatrix (flash_variants.py
+// no_ldmatrix: the scalar 16-bit loads of K4 and K5 instead); f32
+// fragments are read as values, which the 3xTF32 split needs anyway.
+constexpr bool kFwdLdmatrix = true;
+template <typename T>
+constexpr bool kLdsm = kFwdLdmatrix && std::is_same<T, __nv_bfloat16>::value;
+
+// Max and sum of a score row: the four lanes 4g .. 4g + 3 hold it.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// s = Q K^T for one warp: Q's 16 rows (`sq`, row stride ld) against BN
+// key rows (`ck`), as NS = BN / 8 C fragments.
+template <typename T, int BN, int DK>
+__device__ __forceinline__ void fwd_scores(float (*s)[4], const T* sq,
+                                           const T* ck, int ld, int lane) {
+  using O = Ops<T>;
+  constexpr int NS = BN / 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DK; kk += O::KS) {
+    typename O::A aq;
+    if constexpr (kLdsm<T>) {
+      // A: rows lane % 16, columns kk + 8 (lane / 16)
+      ldsm_x4(aq.hi, sq + (lane & 15) * ld + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        // B of key tiles n and n + 1: key rows n * 8 + lane % 8 (+ 8 for
+        // lanes 16-31), columns kk + 8 ((lane / 8) % 2)
+        unsigned r[4];
+        ldsm_x4(r, ck + (n * 8 + (lane & 7) + ((lane >> 4) << 3)) * ld + kk +
+                       ((lane >> 3) & 1) * 8);
+        typename O::B b0, b1;
+        b0.v[0] = r[0];
+        b0.v[1] = r[1];
+        b1.v[0] = r[2];
+        b1.v[1] = r[3];
+        O::mma(s[n], aq, b0);
+        O::mma(s[n + 1], aq, b1);
+      }
+    } else {
+      O::load_a(aq, sq + kk, ld, g, t);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        typename O::B bk;
+        O::load_b(bk, ck + n * 8 * ld + kk, ld, g, t);
+        O::mma(s[n], aq, bk);
+      }
+    }
+  }
+}
+
+// acc = acc * alpha + P V for one warp and one tile: P the warp's C
+// fragments (16 x BN, as A operands: 3xTF32 for f32, hi + lo bf16 parts
+// for bf16, so P is never rounded once), V the tile's BN rows in shared
+// memory. Each n-tile's products go into a zeroed fragment, then one
+// rescale and one f32 add, both rounded to nearest: the tensor cores'
+// accumulation truncates, and the rescale gives this shape for free.
+template <typename T, int BN, int ND>
+__device__ __forceinline__ void fwd_pv(float (*acc)[4], const float (*p)[4],
+                                       const T* cv, int ld, int lane,
+                                       const float* alpha) {
+  using O = Ops<T>;
+  const int g = lane >> 2, t = lane & 3;
+  typename O::A a[BN / O::KS];
+#pragma unroll
+  for (int kk = 0; kk < BN; kk += O::KS) O::a_from_c(a[kk / O::KS], p[kk / 8]);
+  if constexpr (kLdsm<T>) {
+#pragma unroll
+    for (int n = 0; n < ND; n += 2) {
+      float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < BN; kk += O::KS) {
+        // B of V's columns n * 8 .. n * 8 + 15 (two n-tiles), rows kk +
+        // lane % 16, transposed
+        unsigned r[4];
+        ldsm_x4_trans(r, cv + (kk + (lane & 15)) * ld + n * 8 +
+                             (lane >> 4) * 8);
+        typename O::B b0, b1;
+        b0.v[0] = r[0];
+        b0.v[1] = r[1];
+        b1.v[0] = r[2];
+        b1.v[1] = r[3];
+        O::mma_c(part[0], a[kk / O::KS], b0);
+        O::mma_c(part[1], a[kk / O::KS], b1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n + h][e] =
+              __fadd_rn(__fmul_rn(acc[n + h][e], alpha[e >> 1]), part[h][e]);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < BN; kk += O::KS) {
+        typename O::B bv;
+        O::load_bt(bv, cv + kk * ld + n * 8, ld, g, t);
+        O::mma_c(part, a[kk / O::KS], bv);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = __fadd_rn(__fmul_rn(acc[n][e], alpha[e >> 1]), part[e]);
+    }
+  }
+}
+
+// Key tiles of `bk` keys a query tile of `bm` rows visits: those below
+// sk_valid and, when causal, those holding a column <= the tile's last row.
+__device__ __forceinline__ int key_tiles(int q0, int bm, int bk, int Sq,
+                                         int sk_valid, int causal) {
+  const int n_k = (sk_valid + bk - 1) / bk;
+  if (!causal) return n_k;
+  return min(n_k, (min(q0 + bm, Sq) - 1) / bk + 1);
+}
+
+// K3. A block owns W row groups of 16 query rows (W = blockDim / (32
+// SPLIT), chosen by the launcher), a warp one row group; at SPLIT 2 (one
+// row group, a small grid) two warps share it and take the two halves of
+// every key tile, each with its own (m, l, O), merged at the end. Q is
+// copied once into shared memory; the key tiles of BN x SPLIT keys (K, V
+// and the key bias) are double-buffered with cp.async, tile j + 1 copied
+// while tile j multiplies. A warp computes its 16 x BN scores on the
+// tensor cores, masks them in the C fragments (rows g, g + 8; columns 2t,
+// 2t + 1), runs the online softmax there (m stays -inf until a row meets
+// an unmasked score; exponents against m_use = (m == -inf ? 0 : m), so no
+// -inf - -inf is formed) and feeds P as the A operand of O += P V; O
+// (16 x DK a warp) stays in registers.
+template <typename T, int SPLIT, int DK, int BN>
+__global__ void __launch_bounds__(256)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
+                 int D, int sk_valid, int causal, float scale, int vec) {
+  using O = Ops<T>;
+  constexpr int BK = BN * SPLIT, ld = DK + O::kPad;  // keys a block tile
+  constexpr int NS = BN / 8, ND = DK / 8;
+  const int nt = blockDim.x, W = nt / (32 * SPLIT), BM = 16 * W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sK = sQ + BM * ld;  // two buffers of BK rows
+  T* sV = sK + 2 * BK * ld;
+  float* sB = reinterpret_cast<float*>(sV + 2 * BK * ld);  // two of BK
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp % W, part = warp / W;  // row group, key half
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BM;
+  const int wr0 = q0 + rg * 16;  // the warp's first row
+  const size_t base = static_cast<size_t>(bh) * Sq;
+  const T* kb = k + static_cast<size_t>(bh) * Sk * D;
+  const T* vb = v + static_cast<size_t>(bh) * Sk * D;
+  stage_rows<T, DK>(sQ, q + base * D, q0, Sq, BM, D, ld, vec, nt);
+  const int n_iter = key_tiles(q0, BM, BK, Sq, sk_valid, causal);
+  if (n_iter > 0) {
+    stage_rows<T, DK>(sK, kb, 0, Sk, BK, D, ld, vec, nt);
+    stage_rows<T, DK>(sV, vb, 0, Sk, BK, D, ld, vec, nt);
+    if (bias != nullptr) stage_vec(sB, bias, 0, Sk, BK, nt);
+  }
+  cp_commit();
+
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_iter; ++j) {
+    if (j + 1 < n_iter) {
+      const int nb = (j + 1) & 1, k1 = (j + 1) * BK;
+      stage_rows<T, DK>(sK + nb * BK * ld, kb, k1, Sk, BK, D, ld, vec, nt);
+      stage_rows<T, DK>(sV + nb * BK * ld, vb, k1, Sk, BK, D, ld, vec, nt);
+      if (bias != nullptr) stage_vec(sB + nb * BK, bias, k1, Sk, BK, nt);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    // this warp's BN keys of the block tile
+    const int k0 = j * BK + part * BN;
+    const T* cK = sK + ((j & 1) * BK + part * BN) * ld;
+    const T* cV = sV + ((j & 1) * BK + part * BN) * ld;
+    const float* cB =
+        bias != nullptr ? sB + (j & 1) * BK + part * BN : nullptr;
+    // a warp whose 16 rows are all above its first key, or past Sq, or
+    // whose keys are all past sk_valid, has nothing unmasked here
+    if (wr0 < Sq && k0 < sk_valid && !(causal && k0 > wr0 + 15)) {
+      float s[NS][4];
+      fwd_scores<T, BN, DK>(s, sQ + rg * 16 * ld, cK, ld, lane);
+      float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = wr0 + g + 8 * (e >> 1);
+          const int c = n * 8 + 2 * t + (e & 1);
+          const int col = k0 + c;
+          const bool ok = col < sk_valid && (!causal || row >= col);
+          float sc = __fmul_rn(s[n][e], scale);
+          if (cB != nullptr) sc = __fadd_rn(sc, cB[c]);
+          s[n][e] = ok ? sc : neg_inf();
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+      float alpha[2], m_use[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], quad_max(mx[h]));
+        m_use[h] = (m_new == neg_inf()) ? 0.f : m_new;
+        alpha[h] = expf(m[h] - m_use[h]);  // 0 while m[h] is -inf
+        m[h] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = expf(s[n][e] - m_use[e >> 1]);  // masked: exp(-inf) = 0
+          rs[e >> 1] = __fadd_rn(rs[e >> 1], s[n][e]);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        l[h] = __fadd_rn(__fmul_rn(l[h], alpha[h]), quad_sum(rs[h]));
+      fwd_pv<T, BN, ND>(acc, s, cV, ld, lane, alpha);
+    }
+    __syncthreads();  // this buffer is the next copy's target
+  }
+  if constexpr (SPLIT > 1) {
+    // the second warp's (m, l, O) into the first's, rescaled to their
+    // common max, in a fixed order through shared memory
+    constexpr int kF = ND * 4 + 4;  // floats a lane
+    float* red = reinterpret_cast<float*>(smem_raw) + rg * kF * 32;
+    __syncthreads();
+    if (part == 1) {
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[(n * 4 + e) * 32 + lane] = acc[n][e];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        red[(ND * 4 + h) * 32 + lane] = m[h];
+        red[(ND * 4 + 2 + h) * 32 + lane] = l[h];
+      }
+    }
+    __syncthreads();
+    if (part == 0) {
+      float a0[2], a1[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m1 = red[(ND * 4 + h) * 32 + lane];
+        const float l1 = red[(ND * 4 + 2 + h) * 32 + lane];
+        const float m_new = fmaxf(m[h], m1);
+        const float mu = (m_new == neg_inf()) ? 0.f : m_new;
+        a0[h] = expf(m[h] - mu);
+        a1[h] = expf(m1 - mu);
+        l[h] = __fadd_rn(__fmul_rn(l[h], a0[h]), __fmul_rn(l1, a1[h]));
+        m[h] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] =
+              __fadd_rn(__fmul_rn(acc[n][e], a0[e >> 1]),
+                        __fmul_rn(red[(n * 4 + e) * 32 + lane], a1[e >> 1]));
+    }
+  }
+  if (part > 0) return;
+  float l_safe[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l_safe[h] = fmaxf(l[h], 1e-30f);
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = wr0 + g + 8 * (e >> 1);
+      const int col = n * 8 + 2 * t + (e & 1);
+      if (row < Sq && col < D)
+        store(o + (base + row) * D + col, __fdiv_rn(acc[n][e], l_safe[e >> 1]));
+    }
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wr0 + g + 8 * h;
+      if (row < Sq) {
+        const float m_use = (m[h] == neg_inf()) ? 0.f : m[h];
+        lse[base + row] = __fadd_rn(m_use, logf(l_safe[h]));
+      }
+    }
+  }
+}
+
 // Key tiles of BN a query tile of BM rows visits: those below sk_valid
 // and, when causal, those holding a column <= the tile's last row.
 template <int BM, int BN>
@@ -658,13 +850,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = static_cast<size_t>(bh) * Sq;
   const T* kb = k + static_cast<size_t>(bh) * Sk * D;
   const T* vb = v + static_cast<size_t>(bh) * Sk * D;
-  stage_async<T, NT, DK>(sQ, q + base * D, q0, Sq, BM, D, ld, vec);
-  stage_async<T, NT, DK>(sdO, dout + base * D, q0, Sq, BM, D, ld, vec);
+  stage_rows<T, DK>(sQ, q + base * D, q0, Sq, BM, D, ld, vec, NT);
+  stage_rows<T, DK>(sdO, dout + base * D, q0, Sq, BM, D, ld, vec, NT);
   const int n_iter = dq_key_tiles<BM, BK>(q0, Sq, sk_valid, causal);
   if (n_iter > 0) {
-    stage_async<T, NT, DK>(sK, kb, 0, Sk, BK, D, ld, vec);
-    stage_async<T, NT, DK>(sV, vb, 0, Sk, BK, D, ld, vec);
-    if (bias != nullptr) stage_vec_async<NT>(sB, bias, 0, Sk, BK);
+    stage_rows<T, DK>(sK, kb, 0, Sk, BK, D, ld, vec, NT);
+    stage_rows<T, DK>(sV, vb, 0, Sk, BK, D, ld, vec, NT);
+    if (bias != nullptr) stage_vec(sB, bias, 0, Sk, BK, NT);
   }
   cp_commit();
 
@@ -684,10 +876,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < n_iter; ++j) {
     if (j + 1 < n_iter) {
       const int nb = (j + 1) & 1, k1 = (j + 1) * BK;
-      stage_async<T, NT, DK>(sK + nb * BK * ld, kb, k1, Sk, BK, D, ld, vec);
-      stage_async<T, NT, DK>(sV + nb * BK * ld, vb, k1, Sk, BK, D, ld, vec);
+      stage_rows<T, DK>(sK + nb * BK * ld, kb, k1, Sk, BK, D, ld, vec, NT);
+      stage_rows<T, DK>(sV + nb * BK * ld, vb, k1, Sk, BK, D, ld, vec, NT);
       if (bias != nullptr)
-        stage_vec_async<NT>(sB + nb * BK, bias, k1, Sk, BK);
+        stage_vec(sB + nb * BK, bias, k1, Sk, BK, NT);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -794,18 +986,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kbase = static_cast<size_t>(bh) * Sk;
   const T* qb = q + qbase * D;
   const T* db = dout + qbase * D;
-  stage_async<T, NT, DK>(sK, k + kbase * D, k0, Sk, BM, D, ld, vec);
-  stage_async<T, NT, DK>(sV, v + kbase * D, k0, Sk, BM, D, ld, vec);
+  stage_rows<T, DK>(sK, k + kbase * D, k0, Sk, BM, D, ld, vec, NT);
+  stage_rows<T, DK>(sV, v + kbase * D, k0, Sk, BM, D, ld, vec, NT);
   const int n_q = (Sq + BQ - 1) / BQ;
   // causal: query tiles before the one holding this block's first key are
   // fully masked
   const int start = causal ? min(k0 / BQ, n_q) : 0;
   if (start < n_q) {
     const int q0 = start * BQ;
-    stage_async<T, NT, DK>(sQ, qb, q0, Sq, BQ, D, ld, vec);
-    stage_async<T, NT, DK>(sdO, db, q0, Sq, BQ, D, ld, vec);
-    stage_vec_async<NT>(sL, lse + qbase, q0, Sq, BQ);
-    stage_vec_async<NT>(sD, delta + qbase, q0, Sq, BQ);
+    stage_rows<T, DK>(sQ, qb, q0, Sq, BQ, D, ld, vec, NT);
+    stage_rows<T, DK>(sdO, db, q0, Sq, BQ, D, ld, vec, NT);
+    stage_vec(sL, lse + qbase, q0, Sq, BQ, NT);
+    stage_vec(sD, delta + qbase, q0, Sq, BQ, NT);
   }
   cp_commit();
 
@@ -825,10 +1017,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int b = (it - start) & 1;
     if (it + 1 < n_q) {
       const int nb = b ^ 1, q1 = (it + 1) * BQ;
-      stage_async<T, NT, DK>(sQ + nb * BQ * ld, qb, q1, Sq, BQ, D, ld, vec);
-      stage_async<T, NT, DK>(sdO + nb * BQ * ld, db, q1, Sq, BQ, D, ld, vec);
-      stage_vec_async<NT>(sL + nb * BQ, lse + qbase, q1, Sq, BQ);
-      stage_vec_async<NT>(sD + nb * BQ, delta + qbase, q1, Sq, BQ);
+      stage_rows<T, DK>(sQ + nb * BQ * ld, qb, q1, Sq, BQ, D, ld, vec,
+                        NT);
+      stage_rows<T, DK>(sdO + nb * BQ * ld, db, q1, Sq, BQ, D, ld, vec,
+                        NT);
+      stage_vec(sL + nb * BQ, lse + qbase, q1, Sq, BQ, NT);
+      stage_vec(sD + nb * BQ, delta + qbase, q1, Sq, BQ, NT);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -901,48 +1095,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// Shared memory of the forward, in bytes.
-inline size_t fwd_smem(int D) {
-  return (3 * kTile * (D | 1) + kTile * kPLD) * sizeof(float);
-}
-
 template <typename K>
 int prepare(K kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes)));
-}
-
-template <typename T, int NC>
-int fwd_nc(const void* q, const void* k, const void* v, const float* bias,
-           void* o, float* lse, int BH, int Sq, int Sk, int D, int sk_valid,
-           int causal, float scale, cudaStream_t st) {
-  const size_t bytes = fwd_smem(D);
-  auto kern = flash_fwd_kernel<T, NC>;
-  if (int e = prepare(kern, bytes)) return e;
-  dim3 grid((Sq + kTile - 1) / kTile, BH);
-  kern<<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(o), lse, Sq, Sk, D,
-      sk_valid, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Head dims up to 128, in four register widths; the wrapper raises beyond.
-#define FLASH_DISPATCH(FN, T, ...)                                    \
-  if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue); \
-  if (D <= 16) return FN<T, 1>(__VA_ARGS__);                          \
-  if (D <= 32) return FN<T, 2>(__VA_ARGS__);                          \
-  if (D <= 64) return FN<T, 4>(__VA_ARGS__);                          \
-  return FN<T, 8>(__VA_ARGS__);
-
-template <typename T>
-int fwd(const void* q, const void* k, const void* v, const float* bias,
-        void* o, float* lse, int BH, int Sq, int Sk, int D, int sk_valid,
-        int causal, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(fwd_nc, T, q, k, v, bias, o, lse, BH, Sq, Sk, D, sk_valid,
-                 causal, scale, st)
 }
 
 // -- K4 and K5 launchers ----------------------------------------------------
@@ -999,18 +1156,17 @@ inline int pick_warps(int rows, int BH) {
   return 1;
 }
 
-// The widest cp.async (16, 8 or 4 bytes) that divides a row and every
-// base pointer; 0 for element copies.
-inline int copy_vec(const BwdArgs& a, size_t isz) {
-  const size_t row = static_cast<size_t>(a.D) * isz;
-  const uintptr_t any = reinterpret_cast<uintptr_t>(a.q) |
-                        reinterpret_cast<uintptr_t>(a.k) |
-                        reinterpret_cast<uintptr_t>(a.v) |
-                        reinterpret_cast<uintptr_t>(a.dout);
+// The widest cp.async (16, 8 or 4 bytes) that divides a row of D
+// elements and every base pointer (`any`, their bits or-ed); 0 for
+// element copies.
+inline int copy_vec(int D, size_t isz, uintptr_t any) {
+  const size_t row = static_cast<size_t>(D) * isz;
   for (int vec = 16; vec >= 4; vec >>= 1)
     if (row % vec == 0 && any % vec == 0) return vec;
   return 0;
 }
+
+inline uintptr_t bits(const void* p) { return reinterpret_cast<uintptr_t>(p); }
 
 template <typename T, int W, int DK>
 int dq_launch(const BwdArgs& a) {
@@ -1066,13 +1222,92 @@ int by_dk(const BwdArgs& a) {
 template <class L, typename T>
 int by_warps(BwdArgs& a, int rows) {
   if (a.D < 1 || a.D > 128) return static_cast<int>(cudaErrorInvalidValue);
-  a.vec = copy_vec(a, sizeof(T));
+  a.vec = copy_vec(a.D, sizeof(T),
+                   bits(a.q) | bits(a.k) | bits(a.v) | bits(a.dout));
   switch (pick_warps(rows, a.BH)) {
     case 8: return by_dk<L, T, 8>(a);
     case 4: return by_dk<L, T, 4>(a);
     case 2: return by_dk<L, T, 2>(a);
     default: return by_dk<L, T, 1>(a);
   }
+}
+
+// -- K3 launcher -------------------------------------------------------------
+
+struct FwdArgs {
+  const void *q, *k, *v;
+  const float* bias;
+  void* o;
+  float* lse;
+  int BH, Sq, Sk, D, sk_valid, causal;
+  float scale;
+  int vec;
+  cudaStream_t st;
+};
+
+// Shared memory of K3, in bytes: Q's 16 W rows and two buffers of BN x
+// SPLIT rows of K and of V in the input type, two of the key bias; at
+// SPLIT 2 at least the merge's (O, m, l) of the second warps.
+template <typename T, int SPLIT, int DK, int BN>
+size_t fwd_smem(int W) {
+  const size_t tiles =
+      (16 * W + 4 * BN * SPLIT) * (DK + Ops<T>::kPad) * sizeof(T) +
+      2 * BN * SPLIT * sizeof(float);
+  const size_t merge =
+      SPLIT > 1 ? static_cast<size_t>(W) * 32 * (DK / 2 + 4) * sizeof(float)
+                : 0;
+  return tiles > merge ? tiles : merge;
+}
+
+// W row groups a block (pick_warps); one row group takes two warps that
+// split every key tile (SPLIT 2), 32 keys each so that both have work at
+// S 64. One warp a row group takes 64 keys a tile at every head dim:
+// against 32 from DK 64 up, as K4 and K5, 1.11-1.13x faster at S 2048,
+// DK 128 in f32 and bf16 on an H100 (flash_variants.py k3_bn32).
+template <typename T, int DK>
+int fwd_launch(const FwdArgs& a, int W) {
+  if (W == 1) {
+    constexpr int SPLIT = 2, BN = 32;
+    auto kern = flash_fwd_kernel<T, SPLIT, DK, BN>;
+    const size_t bytes = fwd_smem<T, SPLIT, DK, BN>(W);
+    if (int e = prepare(kern, bytes)) return e;
+    dim3 grid((a.Sq + 15) / 16, a.BH);
+    kern<<<grid, 32 * SPLIT, bytes, a.st>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), a.bias, static_cast<T*>(a.o), a.lse,
+        a.Sq, a.Sk, a.D, a.sk_valid, a.causal, a.scale, a.vec);
+  } else {
+    constexpr int SPLIT = 1, BN = 64;
+    auto kern = flash_fwd_kernel<T, SPLIT, DK, BN>;
+    const size_t bytes = fwd_smem<T, SPLIT, DK, BN>(W);
+    if (int e = prepare(kern, bytes)) return e;
+    dim3 grid((a.Sq + 16 * W - 1) / (16 * W), a.BH);
+    kern<<<grid, 32 * W, bytes, a.st>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), a.bias, static_cast<T*>(a.o), a.lse,
+        a.Sq, a.Sk, a.D, a.sk_valid, a.causal, a.scale, a.vec);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// By head dim, padded as by_dk: 16, 24 (f32 only), 32, 64 or 128. The
+// warps a block are a launch argument, not a template one: 18
+// instantiations.
+template <typename T>
+int fwd(const void* q, const void* k, const void* v, const float* bias,
+        void* o, float* lse, int BH, int Sq, int Sk, int D, int sk_valid,
+        int causal, float scale, void* stream) {
+  if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a{q, k, v, bias, o, lse, BH, Sq, Sk, D, sk_valid, causal, scale,
+            copy_vec(D, sizeof(T), bits(q) | bits(k) | bits(v)),
+            static_cast<cudaStream_t>(stream)};
+  const int W = pick_warps(Sq, BH);
+  if (D <= 16) return fwd_launch<T, 16>(a, W);
+  if constexpr (std::is_same<T, float>::value)
+    if (D <= 24) return fwd_launch<T, 24>(a, W);
+  if (D <= 32) return fwd_launch<T, 32>(a, W);
+  if (D <= 64) return fwd_launch<T, 64>(a, W);
+  return fwd_launch<T, 128>(a, W);
 }
 
 template <typename T>

@@ -21,7 +21,7 @@ Kernels: `flash_fwd` (K3), `flash_bwd_dq` (K4), `flash_bwd_dkv` (K5). For
 tensors on the card each launches its kernel from `csrc/flash_attention.cu`
 (float32 or bfloat16, head dim up to 128, any lengths); for tensors on the
 CPU each takes its plain version (`*_ref`): plain torch, f32 math (f64 for
-float64), over 64-wide key tiles with K3's online softmax. K4 and K5
+float64), over 64-wide key tiles with K3's online softmax. K3, K4 and K5
 multiply on the tensor cores (3xTF32 for f32, bf16 with f32 operands
 split in two), so on the card they agree with the plain versions to
 rounding, not bitwise. There is no fallback: a CUDA tensor the kernels cannot take, a
@@ -57,8 +57,8 @@ REPLACES = "caffe_mpi_tpu/ops/flash_attention.py:66 _fwd_kernel"
 REPLACES_DQ = "caffe_mpi_tpu/ops/flash_attention.py:127 _bwd_dq_kernel"
 REPLACES_DKV = "caffe_mpi_tpu/ops/flash_attention.py:168 _bwd_dkv_kernel"
 
-TILE = 64        # K3's query and key tile (csrc kTile), the plain versions'
-                 # key tile (K4 and K5 take 16-128 rows and 32-64 keys)
+TILE = 64        # the plain versions' key tile (the kernels take 16-128
+                 # rows and 32-64 keys a warp)
 PAD_TILE = 128   # the JAX package's tile, which sets the padding rule
 MAX_HEAD_DIM = 128
 

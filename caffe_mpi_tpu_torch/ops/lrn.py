@@ -40,6 +40,7 @@ _BWD = {torch.float32: "lrn_bwd_f32", torch.bfloat16: "lrn_bwd_bf16"}
 # the TPU kernels these replace, for reports
 REPLACES = "caffe_mpi_tpu/ops/lrn.py:61 _fwd_kernel"
 REPLACES_BWD = "caffe_mpi_tpu/ops/lrn.py:70 _bwd_kernel"
+MAX_BWD_SIZE = 15  # K2's widest window (its half-width is a template)
 
 
 def _window_sum(t: torch.Tensor, size: int) -> torch.Tensor:
@@ -133,6 +134,9 @@ def _launch(x: torch.Tensor, size: int, alpha: float, beta: float,
 
 def _launch_bwd(x: torch.Tensor, dy: torch.Tensor, size: int, alpha: float,
                 beta: float, k: float) -> torch.Tensor:
+    if size > MAX_BWD_SIZE:
+        raise ValueError(f"lrn backward kernel takes local_size up to "
+                         f"{MAX_BWD_SIZE}, got {size}")
     fn = _kernel(_BWD, x, [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P])
     n, c, h, w = x.shape
     x, dy = x.contiguous(), dy.contiguous()

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (caffe_mpi_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py          # from the root of the repository
-    python3 chip_smoke.py --parent DIR   # also time the parent's K4, K5
+    python3 chip_smoke.py --parent DIR   # also time the parent's K2-K5
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
@@ -25,8 +25,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
              non-causal, bf16, the deploy net's BH 40, S 100 with D 20,
              S = 200 padded to 256, a bias masking a whole tile, and S
              1024/2048 at D 32, 64 and 128. With `--parent DIR` (a
-             checkout of the parent commit) the parent's K4 and K5 are
-             built and timed in turns with this tree's. Then autograd
+             checkout of the parent commit) the parent's K2-K5 are built
+             and timed in turns with this tree's. Then autograd
              through flash_attention on the card against the CPU.
 4. serve   — serves AlexNet (models/alexnet/deploy.prototxt, full width,
              weights drawn from a seeded torch.Generator) through the
@@ -243,6 +243,8 @@ def _kernel_entry(name, source, replaces, cases, max_err, per) -> dict:
         "ms": head["kernel_ms"], "kernel_ms": head["kernel_ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        **({"parent_kernel_ms": head["parent_kernel_ms"]}
+           if "parent_kernel_ms" in head else {}),
         **per, "cases": cases,
     }
 
@@ -297,11 +299,13 @@ def kernel_phase(rates) -> dict:
                          {"launches_per_forward": 2})
 
 
-def kernel_bwd_phase(rates) -> dict:
+def kernel_bwd_phase(rates, parent_lrn=None) -> dict:
     """K2, the LRN backward, at the edge shapes and at AlexNet's norm1 and
     norm2 for the training batch 256. The library call is the backward of
     F.local_response_norm, timed as torch.autograd.grad over a graph built
-    once; each case frees its tensors before the next."""
+    once; each case frees its tensors before the next. With `parent_lrn`
+    (a parent checkout's built lrn library), the parent's K2 is timed in
+    turns with this tree's (parent, kernel, kernel, parent)."""
     import torch.nn.functional as F
     from caffe_mpi_tpu_torch.ops import lrn as lrn_op
 
@@ -346,8 +350,10 @@ def kernel_bwd_phase(rates) -> dict:
             bound, by = lrn_bound(shape, dtype, LRN["size"], rates,
                                   tensors=3, ops_per_elem=3 * LRN["size"]
                                   + 10)
-            ms = time_ms(lambda: lrn_op.lrn_across_channels_bwd(x, dy,
-                                                                *args))
+            ms, parent = in_turns(
+                lambda: lrn_op.lrn_across_channels_bwd(x, dy, *args),
+                None if parent_lrn is None else
+                lambda: call_lrn_bwd(parent_lrn, x, dy, *args))
             plain = time_ms(
                 lambda: lrn_op.lrn_across_channels_bwd_ref(x, dy, *args))
             xg = x.detach().requires_grad_()
@@ -362,7 +368,11 @@ def kernel_bwd_phase(rates) -> dict:
                 "library_ms": library, "bound_ms": bound, "bound_by": by,
                 "kernel_GB_s": 3 * x.numel() * x.element_size()
                 / (ms * 1e-3) / 1e9,
+                "share_of_bound": bound / ms, **parent,
             }
+            if case["share_of_bound"] > 1:
+                fail(f"lrn_bwd {layer} {case['dtype']}: {ms:.4g} ms under "
+                     f"its bound {bound:.4g} ms")
             cases.append(case)
             log(f"lrn_bwd {json.dumps(case)}")
             del x, dy
@@ -498,8 +508,25 @@ def sdpa_library(q, k, v, do, mask, causal) -> dict:
     return out
 
 
-def build_flash_lib(src: str, out: str, extra=()) -> str:
-    """A flash_attention.cu (`src`) built with the port's nvcc flags and
+def in_turns(run, run_parent=None) -> tuple[float, dict]:
+    """The kernel's time; with `run_parent`, the parent's kernel and this
+    tree's timed in turns (parent, kernel, kernel, parent) on the same
+    inputs: (mean of the kernel's two, the parent's fields)."""
+    if run_parent is None:
+        return time_ms(run), {}
+    p1 = time_ms(run_parent)
+    ms = time_ms(run)
+    ms2 = time_ms(run)
+    p2 = time_ms(run_parent)
+    ms_mean = (ms + ms2) / 2
+    return ms_mean, {"parent_kernel_ms": (p1 + p2) / 2,
+                     "parent_kernel_ms_turns": [p1, p2],
+                     "kernel_ms_turns": [ms, ms2],
+                     "speedup_over_parent": (p1 + p2) / 2 / ms_mean}
+
+
+def build_lib(src: str, out: str, extra=()) -> str:
+    """A kernel source (`src`) built with the port's nvcc flags and
     `extra` into the shared library `out`; returns nvcc's output (the
     `-Xptxas -v` lines where asked for). Fails on an nvcc error."""
     from caffe_mpi_tpu_torch.ops import build
@@ -511,13 +538,15 @@ def build_flash_lib(src: str, out: str, extra=()) -> str:
     return proc.stdout + proc.stderr
 
 
-def bind_flash_bwd(path: str):
-    """The K4 and K5 C entry points of a built flash_attention library;
+def bind_flash(path: str):
+    """The K3, K4 and K5 C entry points of a built flash_attention library;
     every version of the source takes the same arguments."""
     import ctypes
     lib = ctypes.CDLL(path)
     P, I, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for dt in ("f32", "bf16"):
+        getattr(lib, f"flash_fwd_{dt}").argtypes = [P] * 6 + [I] * 6 \
+            + [F_, P]
         getattr(lib, f"flash_bwd_dq_{dt}").argtypes = [P] * 8 + [I] * 6 \
             + [F_, P]
         getattr(lib, f"flash_bwd_dkv_{dt}").argtypes = [P] * 9 + [I] * 5 \
@@ -525,22 +554,68 @@ def bind_flash_bwd(path: str):
     return lib
 
 
-def parent_flash_lib(parent: str):
-    """The flash kernels of a parent checkout (`--parent DIR`), built from
-    DIR/caffe_mpi_tpu_torch/csrc/flash_attention.cu into a temporary
-    directory, so that one call times the parent's K4 and K5 beside this
-    tree's on the same card and inputs."""
-    src = os.path.join(parent, "caffe_mpi_tpu_torch",
-                       "csrc", "flash_attention.cu")
-    if not os.path.isfile(src):
-        fail(f"--parent: no {src}")
+def bind_lrn_bwd(path: str):
+    """The K2 C entry points of a built lrn library."""
+    import ctypes
+    lib = ctypes.CDLL(path)
+    P, I, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for dt in ("f32", "bf16"):
+        getattr(lib, f"lrn_bwd_{dt}").argtypes = [P, P, P, I, I, I, I, F_,
+                                                  F_, F_, F_, P]
+    return lib
+
+
+def parent_libs(parent: str):
+    """The kernels of a parent checkout (`--parent DIR`), built from
+    DIR/caffe_mpi_tpu_torch/csrc/flash_attention.cu and lrn.cu (in
+    parallel) into a temporary directory, so that one call times the
+    parent's K2-K5 beside this tree's on the same card and inputs:
+    (flash library, lrn library)."""
+    srcs = [os.path.join(parent, "caffe_mpi_tpu_torch", "csrc", name)
+            for name in ("flash_attention.cu", "lrn.cu")]
+    for src in srcs:
+        if not os.path.isfile(src):
+            fail(f"--parent: no {src}")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_parent_")
     try:
-        out = os.path.join(tmp, "libparent_flash.so")
-        build_flash_lib(src, out)
-        return bind_flash_bwd(out)  # loaded: the file can go
+        outs = [os.path.join(tmp, f"libparent_{i}.so") for i in range(2)]
+        with ThreadPoolExecutor(2) as ex:
+            list(ex.map(build_lib, srcs, outs))
+        return bind_flash(outs[0]), bind_lrn_bwd(outs[1])  # loaded
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def call_lrn_bwd(lib, x, dy, size, alpha, beta, k):
+    """One launch of a bound library's K2; returns dx."""
+    n, c, h, w = x.shape
+    dx = torch.empty_like(x)
+    dt = "f32" if x.dtype == torch.float32 else "bf16"
+    err = getattr(lib, f"lrn_bwd_{dt}")(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c, h * w, size,
+        alpha / size, beta, k, 2.0 * alpha * beta / size,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"parent lrn_bwd launch failed: cudaError {err}")
+    return dx
+
+
+def call_flash_fwd(lib, q, k, v, causal, sk_valid, kb):
+    """One launch of a bound library's K3; returns (o, lse)."""
+    import math
+    dt = "f32" if q.dtype == torch.float32 else "bf16"
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    err = getattr(lib, f"flash_fwd_{dt}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if kb is None else kb.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        bh, sq, sk, d, sk if sk_valid is None else sk_valid, int(causal),
+        1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"fwd kernel launch failed: cudaError {err}")
+    return o, lse
 
 
 def call_flash_bwd(lib, kind, q, k, v, do, lse, delta, causal, sk_valid,
@@ -575,8 +650,9 @@ def flash_kernel_phase(rates, parent_lib=None) -> list[dict]:
     """K3, K4 and K5 against their plain versions at the path's shape and
     the edge shapes, each timed beside its plain version, the library
     call (`sdpa_library`: the fastest pinned fused backend, and the math
-    path) and its bound; with `parent_lib`, the parent's K4 and K5 too,
-    timed in turns with this tree's (parent, kernel, kernel, parent). Then
+    path) and its bound; with `parent_lib`, the parent's K3, K4 and K5
+    too, timed in turns with this tree's (parent, kernel, kernel, parent).
+    Then
     autograd through flash_attention on the card against the CPU."""
     from caffe_mpi_tpu_torch.ops import flash_attention as fa
 
@@ -640,21 +716,16 @@ def flash_kernel_phase(rates, parent_lib=None) -> list[dict]:
             "dkv": lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                 **kw)}
         for kind in ("fwd", "dq", "dkv"):
-            parent = None
-            if parent_lib is not None and kind != "fwd":
+            run_parent = None
+            if parent_lib is not None and kind == "fwd":
+                def run_parent():
+                    return call_flash_fwd(parent_lib, q, k, v, causal,
+                                          sk_valid, kb)
+            elif parent_lib is not None:
                 def run_parent(kind=kind):
                     return call_flash_bwd(parent_lib, kind, q, k, v, do,
                                           lse, delta, causal, sk_valid, kb)
-                p1 = time_ms(run_parent)
-                ms = time_ms(runs[kind])
-                ms2 = time_ms(runs[kind])
-                p2 = time_ms(run_parent)
-                parent = {"parent_kernel_ms": (p1 + p2) / 2,
-                          "parent_kernel_ms_turns": [p1, p2],
-                          "kernel_ms_turns": [ms, ms2]}
-                ms = (ms + ms2) / 2
-            else:
-                ms = time_ms(runs[kind])
+            ms, parent = in_turns(runs[kind], run_parent)
             bound, by = flash_bound(kind, bh, s, d, dtype, causal, sk_valid,
                                     bias, rates)
             max_err[kind] = max(max_err[kind], errs[kind])
@@ -668,11 +739,7 @@ def flash_kernel_phase(rates, parent_lib=None) -> list[dict]:
                        lib["fwd" if kind == "fwd" else "bwd"].items()},
                     "library_refused": lib["refused"],
                     "bound_ms": bound, "bound_by": by,
-                    "share_of_bound": bound / ms}
-            if parent:
-                case.update(parent,
-                            speedup_over_parent=parent["parent_kernel_ms"]
-                            / ms)
+                    "share_of_bound": bound / ms, **parent}
             if case["share_of_bound"] > 1:
                 fail(f"{kind} {label}: {ms:.4g} ms under its bound "
                      f"{bound:.4g} ms")
@@ -1495,17 +1562,18 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", default=None,
-                    help="a checkout of the parent commit: its K4 and K5 "
-                    "are built and timed beside this tree's in each case")
+                    help="a checkout of the parent commit: its K2-K5 are "
+                    "built and timed beside this tree's in each case")
     args = ap.parse_args(argv)
     parent = os.path.abspath(args.parent) if args.parent else None
     os.chdir(ROOT)
     card, rates = device_phase()
     build_phase()
-    parent_lib = parent_flash_lib(parent) if parent else None
+    parent_flash, parent_lrn = parent_libs(parent) if parent else (None,
+                                                                   None)
     k1 = kernel_phase(rates)
-    k2 = kernel_bwd_phase(rates)
-    flash = flash_kernel_phase(rates, parent_lib)
+    k2 = kernel_bwd_phase(rates, parent_lrn)
+    flash = flash_kernel_phase(rates, parent_flash)
     serving = serve_phase(k1, card)
     train = train_phase(k1, k2, card)
     train["parity"] = parity_phase()

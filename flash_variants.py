@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Time variants of the flash-attention backward kernels (K4, K5) on one
-NVIDIA card, each checked against the plain versions.
+"""Time variants of the port's CUDA kernels on one NVIDIA card: the
+flash-attention forward (K3) and backward (K4, K5), and the LRN backward
+(K2), each checked against its plain version.
 
     python3 flash_variants.py [--parent DIR] [--cases a,b] [--ptxas DIR]
                               [VARIANT ...]
 
-Each VARIANT is a named text substitution in
-caffe_mpi_tpu_torch/csrc/flash_attention.cu (VARIANTS below; with none
-given, the source as it is). Every variant, the source as it is, and with
---parent DIR the parent checkout's flash_attention.cu, is built with nvcc
-(all at once, with -Xptxas -v; with --ptxas DIR its register and spill
-lines go to DIR/ptxas_<name>.txt), then each case of chip_smoke.py's
-_flash_cases() (or those named in --cases) runs K4 and K5 of every build
-on the same inputs: held against flash_bwd_dq_ref / flash_bwd_dkv_ref at
-FLASH_TOL (a miss is reported, not fatal) and timed with chip_smoke's
-time_ms. One JSON line a case on stdout; exit 1 if this tree's build
-missed FLASH_TOL anywhere.
+Each VARIANT is a named set of text substitutions in one kernel source,
+caffe_mpi_tpu_torch/csrc/flash_attention.cu or lrn.cu (VARIANTS below;
+with none given, the sources as they are). Every variant, the sources as
+they are ("tree"), and with --parent DIR the parent checkout's sources,
+are built with nvcc (all at once, with -Xptxas -v; with --ptxas DIR the
+register and spill lines go to DIR/ptxas_<build>_<source stem>.txt). Then
+each case of chip_smoke.py's _flash_cases() runs K3, K4 and K5 of every
+build that has a flash library, and each LRN case (norm1 and norm2 at
+batch 256, f32 and bf16) runs K2 of every build that has an LRN library,
+on the same inputs: held against the plain versions (FLASH_TOL, or the
+LRN kernels' TOL; a miss is reported, not fatal) and timed with
+chip_smoke's time_ms. --cases keeps the cases named (flash labels such
+as s2048_d128, LRN labels such as norm1_float32). One JSON line a case on
+stdout; exit 1 if the tree's build missed a limit anywhere.
 """
 
 from __future__ import annotations
@@ -35,20 +39,26 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from caffe_mpi_tpu_torch.ops import build  # noqa: E402
 from caffe_mpi_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from caffe_mpi_tpu_torch.ops import lrn as lrn_op  # noqa: E402
 
-# name: (text in the source, its replacement, what the variant tests)
+FLASH, LRN = "flash_attention.cu", "lrn.cu"
+
+# name: (source, [(text in the source, its replacement), ...], what the
+# variant tests)
 VARIANTS = {
-    "cvt_rna": (
+    "cvt_rna": (FLASH, [(
         "    big[i] = __float_as_uint(x[i]) & 0xffffe000u;\n"
         "    small[i] =\n"
         "        (__float_as_uint(x[i] - __uint_as_float(big[i])) + 0x1000u) &\n"
         "        0xffffe000u;",
         "    asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(big[i]) : \"f\"(x[i]));\n"
         "    asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(small[i])\n"
-        "        : \"f\"(x[i] - __uint_as_float(big[i])));",
+        "        : \"f\"(x[i] - __uint_as_float(big[i])));")],
         "both 3xTF32 parts rounded by the cvt.rna instruction"),
-    "one_sum": (
-        "    typename O::A a[BN / O::KS];",
+    "one_sum": (FLASH, [(
+        "    typename O::A a[BN / O::KS];\n#pragma unroll\n"
+        "    for (int kk = 0; kk < BN; kk += O::KS)\n"
+        "      O::a_from_c(a[kk / O::KS], c[kk / 8]);",
         "    if (true) {\n#pragma unroll\n"
         "      for (int kk = 0; kk < BN; kk += O::KS) {\n"
         "        typename O::A a1;\n        O::a_from_c(a1, c[kk / 8]);\n"
@@ -56,68 +66,103 @@ VARIANTS = {
         "          typename O::B bf;\n"
         "          O::load_bt(bf, b + kk * ld + n * 8, ld, g, t);\n"
         "          O::mma_c(acc[n], a1, bf);\n        }\n      }\n"
-        "      return;\n    }\n    typename O::A a[BN / O::KS];",
+        "      return;\n    }\n    typename O::A a[BN / O::KS];\n"
+        "#pragma unroll\n    for (int kk = 0; kk < BN; kk += O::KS)\n"
+        "      O::a_from_c(a[kk / O::KS], c[kk / 8]);")],
         "f32 dQ, dK, dV summed in their registers, no per-tile sums"),
-    "no_split": (
-        "constexpr int SPLIT = W == 1 ? 2 : 1",
-        "constexpr int SPLIT = 1",
-        "one warp a row group at W = 1"),
+    "no_split": (FLASH, [
+        ("constexpr int SPLIT = W == 1 ? 2 : 1",
+         "constexpr int SPLIT = 1"),
+        ("  if (W == 1) {\n    constexpr int SPLIT = 2",
+         "  if (false) {\n    constexpr int SPLIT = 2")],
+        "one warp a row group at W = 1 (K3, K4 and K5)"),
+    "no_ldmatrix": (FLASH, [
+        ("constexpr bool kFwdLdmatrix = true;",
+         "constexpr bool kFwdLdmatrix = false;")],
+        "K3's bf16 fragments by scalar 16-bit loads, as K4 and K5"),
+    "p_bf16": (FLASH, [
+        ("        O::mma_c(part[0], a[kk / O::KS], b0);\n"
+         "        O::mma_c(part[1], a[kk / O::KS], b1);",
+         "        O::mma(part[0], a[kk / O::KS], b0);\n"
+         "        O::mma(part[1], a[kk / O::KS], b1);")],
+        "K3's bf16 P rounded once to bf16 (one product, no hi/lo split)"),
+    "k3_bn32": (FLASH, [
+        ("    constexpr int SPLIT = 1, BN = 64;",
+         "    constexpr int SPLIT = 1, BN = DK >= 64 ? 32 : 64;")],
+        "K3 takes key tiles of 32 from head dim 64 up, as K4 and K5"),
+    "k3_w4": (FLASH, [
+        ("  const int W = pick_warps(Sq, BH);",
+         "  const int W = pick_warps(Sq, BH) > 4 ? 4 : pick_warps(Sq, BH);")],
+        "K3 blocks of at most 4 row groups (two blocks an SM in f32 at D 128)"),
+    "lrn_occ3": (LRN, [
+        ("template <typename T, int H>\n__global__ void "
+         "__launch_bounds__(kThreads)\nlrn_bwd_kernel(",
+         "template <typename T, int H>\n__global__ void "
+         "__launch_bounds__(kThreads, 3)\nlrn_bwd_kernel(")],
+        "K2 held to three blocks an SM (at most 85 registers)"),
+    "lrn_r8": (LRN, [("constexpr int kRun = 16;", "constexpr int kRun = 8;")],
+               "K2 with runs of 8 channels a thread"),
+    "lrn_r32": (LRN, [("constexpr int kRun = 16;",
+                       "constexpr int kRun = 32;")],
+                "K2 with runs of 32 channels a thread"),
 }
 
 
-def _build(name: str, src: str, out_dir: str, ptxas_dir) -> str:
-    """Build one source; its -Xptxas -v lines go to `ptxas_dir`, if any."""
-    path = os.path.join(out_dir, f"{name}.cu")
+def _build(name: str, source: str, text: str, out_dir: str,
+           ptxas_dir) -> str:
+    """Build one source text; its -Xptxas -v lines go to `ptxas_dir`."""
+    stem = os.path.splitext(source)[0]
+    path = os.path.join(out_dir, f"{name}_{source}")
     with open(path, "w") as f:
-        f.write(src)
-    lib = os.path.join(out_dir, f"lib{name}.so")
-    log = cs.build_flash_lib(path, lib, extra=("-Xptxas", "-v"))
+        f.write(text)
+    lib = os.path.join(out_dir, f"lib{name}_{stem}.so")
+    log = cs.build_lib(path, lib, extra=("-Xptxas", "-v"))
     if ptxas_dir:
         os.makedirs(ptxas_dir, exist_ok=True)
-        with open(os.path.join(ptxas_dir, f"ptxas_{name}.txt"), "w") as f:
+        with open(os.path.join(ptxas_dir, f"ptxas_{name}_{stem}.txt"),
+                  "w") as f:
             f.write(log)
     return lib
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("variants", nargs="*", choices=sorted(VARIANTS))
-    ap.add_argument("--parent", metavar="DIR")
-    ap.add_argument("--cases", default="")
-    ap.add_argument("--ptxas", metavar="DIR")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("flash_variants: no card")
-    with open(os.path.join(build.CSRC_DIR, "flash_attention.cu")) as f:
-        src = f.read()
-    sources = {"tree": src}
-    for name in args.variants:
-        old, new, _ = VARIANTS[name]
-        if old not in src:
-            raise SystemExit(f"variant {name}: its text is not in the source")
-        sources[name] = src.replace(old, new)
-    if args.parent:
-        with open(os.path.join(os.path.abspath(args.parent),
-                               "caffe_mpi_tpu_torch", "csrc",
-                               "flash_attention.cu")) as f:
-            sources["parent"] = f.read()
-    tmp = tempfile.mkdtemp(prefix="flash_variants_")
-    try:
-        with ThreadPoolExecutor(len(sources)) as ex:
-            paths = dict(zip(sources, ex.map(
-                lambda item: _build(item[0], item[1], tmp, args.ptxas),
-                sources.items())))
-        libs = {n: cs.bind_flash_bwd(p) for n, p in paths.items()}
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(json.dumps({"card": torch.cuda.get_device_name(0),
-                      "builds": list(libs),
-                      "variants": {n: VARIANTS[n][2]
-                                   for n in args.variants}}), flush=True)
+def _sources(variants, parent) -> dict:
+    """{(build name, source): source text}."""
+    tree = {}
+    for source in (FLASH, LRN):
+        with open(os.path.join(build.CSRC_DIR, source)) as f:
+            tree[source] = f.read()
+    out = {("tree", src): text for src, text in tree.items()}
+    for name in variants:
+        source, subs, _ = VARIANTS[name]
+        text = tree[source]
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"variant {name}: its text is not in "
+                                 f"{source}")
+            text = text.replace(old, new)
+        out[(name, source)] = text
+    if parent:
+        for source in (FLASH, LRN):
+            with open(os.path.join(os.path.abspath(parent),
+                                   "caffe_mpi_tpu_torch", "csrc",
+                                   source)) as f:
+                out[("parent", source)] = f.read()
+    return out
 
-    only = set(filter(None, args.cases.split(",")))
+
+def _check(name, got, want, dtype, tol):
+    """Max abs error, or the failure's text past the limit."""
+    try:
+        if tol == "flash":
+            return cs._flash_close(name, got, want, dtype)
+        torch.testing.assert_close(got.float(), want.float(), **cs.TOL[dtype])
+        return float((got.float() - want.float()).abs().max())
+    except (SystemExit, AssertionError) as e:
+        return str(e).splitlines()[0][:200]
+
+
+def _flash_rows(libs, only):
     gen = torch.Generator(device="cuda").manual_seed(3)
-    missed = 0
     for label, bh, s, d, dtype, causal, skv, bias in cs._flash_cases():
         if only and label not in only:
             continue
@@ -135,31 +180,132 @@ def main(argv=None) -> int:
         kw = dict(causal=causal, k_bias=kb)
         o, lse = fa.flash_fwd_ref(q, k, v, **kq)
         delta = fa._delta(do, o)
-        refs = {"dq": (fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kq),),
+        refs = {"fwd": (o, lse),
+                "dq": (fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kq),),
                 "dkv": fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)}
         keep = slice(None) if skv is None else slice(0, skv)
         row = {"case": label, "shape": [bh, s, d],
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
                "max_abs_err": {}, "ms": {}}
-        call_args = (q, k, v, do, lse, delta, causal, skv, kb)
+        bwd_args = (q, k, v, do, lse, delta, causal, skv, kb)
         for name, lib in libs.items():
-            for kind in ("dq", "dkv"):
-                got = cs.call_flash_bwd(lib, kind, *call_args)
+            calls = {
+                "fwd": lambda lib=lib: cs.call_flash_fwd(lib, q, k, v,
+                                                         causal, skv, kb),
+                "dq": lambda lib=lib: cs.call_flash_bwd(lib, "dq",
+                                                        *bwd_args),
+                "dkv": lambda lib=lib: cs.call_flash_bwd(lib, "dkv",
+                                                         *bwd_args)}
+            for kind, call in calls.items():
+                got = call()
                 torch.cuda.synchronize()
-                try:
-                    row["max_abs_err"][f"{name}_{kind}"] = max(
-                        cs._flash_close(f"{name} {label} {kind}", g[:, keep],
-                                        r[:, keep], dtype)
-                        for g, r in zip(got, refs[kind]))
-                except SystemExit as e:
-                    row["max_abs_err"][f"{name}_{kind}"] = str(e)
-                    missed += name == "tree"
-                row["ms"][f"{name}_{kind}"] = cs.time_ms(
-                    lambda: cs.call_flash_bwd(lib, kind, *call_args),
-                    reps=15)
-        print(json.dumps(row), flush=True)
+                errs = []
+                for i, (g, r) in enumerate(zip(got, refs[kind])):
+                    # lse is f32; K5's rows past sk_valid are sliced off
+                    dt = torch.float32 if kind == "fwd" and i else dtype
+                    rows = keep if kind == "dkv" else slice(None)
+                    errs.append(_check(f"{name} {label} {kind}",
+                                       g[:, rows], r[:, rows], dt, "flash"))
+                bad = [e for e in errs if isinstance(e, str)]
+                row["max_abs_err"][f"{name}_{kind}"] = bad[0] if bad \
+                    else max(errs)
+                row["ms"][f"{name}_{kind}"] = cs.time_ms(call, reps=15)
+        yield row, _tree_missed(row)
         del q, k, v, do, o, lse, delta, refs
         torch.cuda.empty_cache()
+
+
+def _lrn_rows(libs, only, rates):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    args = (cs.LRN["size"], cs.LRN["alpha"], cs.LRN["beta"], cs.LRN["k"])
+    # the edge shapes at every window size, checked only
+    edge = {name: 0.0 for name in libs}
+    for shape in cs.EDGE_SHAPES:
+        for size in (3, 5, 7):
+            for dtype in cs.TOL:
+                x = (torch.randn(shape, generator=gen, device="cuda")
+                     * 4).to(dtype)
+                dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                hyper = (size, 1e-2, 0.75, 2.0)
+                ref = lrn_op.lrn_across_channels_bwd_ref(x, dy, *hyper)
+                for name, lib in libs.items():
+                    if isinstance(edge[name], str):  # keep the first miss
+                        continue
+                    err = _check(f"{name} edge", cs.call_lrn_bwd(
+                        lib, x, dy, *hyper), ref, dtype, "lrn")
+                    edge[name] = err if isinstance(err, str) \
+                        else max(edge[name], err)
+    yield {"case": "lrn_edge_shapes", "max_abs_err": edge}, \
+        isinstance(edge.get("tree"), str)
+    for layer, shape in cs._alexnet_lrn_shapes((256,)):
+        for dtype in cs.TOL:
+            label = f"{layer}_{str(dtype).replace('torch.', '')}"
+            if only and label not in only:
+                continue
+            x = (torch.randn(shape, generator=gen, device="cuda") * 4).to(dtype)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            ref = lrn_op.lrn_across_channels_bwd_ref(x, dy, *args)
+            bound, by = cs.lrn_bound(shape, dtype, cs.LRN["size"],
+                                     rates, tensors=3,
+                                     ops_per_elem=3 * cs.LRN["size"] + 10)
+            row = {"case": label, "shape": list(shape),
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "bound_ms": bound, "bound_by": by,
+                   "max_abs_err": {}, "ms": {}}
+            for name, lib in libs.items():
+                got = cs.call_lrn_bwd(lib, x, dy, *args)
+                torch.cuda.synchronize()
+                row["max_abs_err"][f"{name}_lrn_bwd"] = _check(
+                    f"{name} {label}", got, ref, dtype, "lrn")
+                row["ms"][f"{name}_lrn_bwd"] = cs.time_ms(
+                    lambda lib=lib: cs.call_lrn_bwd(lib, x, dy, *args),
+                    reps=15)
+            yield row, _tree_missed(row)
+            del x, dy, ref
+            torch.cuda.empty_cache()
+
+
+def _tree_missed(row) -> bool:
+    """Whether the tree's build missed a limit in this row."""
+    return any(isinstance(err, str) for key, err in
+               row["max_abs_err"].items() if key.startswith("tree_"))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("variants", nargs="*", choices=sorted(VARIANTS))
+    ap.add_argument("--parent", metavar="DIR")
+    ap.add_argument("--cases", default="")
+    ap.add_argument("--ptxas", metavar="DIR")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_variants: no card")
+    card, rates = cs.device_phase()
+    sources = _sources(args.variants, args.parent)
+    tmp = tempfile.mkdtemp(prefix="flash_variants_")
+    try:
+        with ThreadPoolExecutor(len(sources)) as ex:
+            paths = dict(zip(sources, ex.map(
+                lambda item: _build(item[0][0], item[0][1], item[1], tmp,
+                                    args.ptxas),
+                sources.items())))
+        flash_libs = {n: cs.bind_flash(p) for (n, src), p in paths.items()
+                      if src == FLASH}
+        lrn_libs = {n: cs.bind_lrn_bwd(p) for (n, src), p in paths.items()
+                    if src == LRN}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"card": card, "builds": [list(b) for b in paths],
+                      "variants": {n: VARIANTS[n][2]
+                                   for n in args.variants}}), flush=True)
+
+    only = set(filter(None, args.cases.split(",")))
+    missed = 0
+    for rows in (_flash_rows(flash_libs, only),
+                 _lrn_rows(lrn_libs, only, rates)):
+        for row, miss in rows:
+            print(json.dumps(row), flush=True)
+            missed += miss
     return 1 if missed else 0
 
 

@@ -17,6 +17,7 @@ held against the same plain version on the card by chip_smoke.py.
 """
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -180,3 +181,15 @@ def test_cuda_source_has_the_backward_and_names_its_tpu_kernel():
     assert 'extern "C" int lrn_bwd_f32' in src
     assert 'extern "C" int lrn_bwd_bf16' in src
     assert lrn_op.REPLACES_BWD.startswith("caffe_mpi_tpu/ops/lrn.py:70")
+
+
+def test_bwd_kernel_windows_reach_the_wrappers_limit():
+    """K2 takes its window's half-width as a template argument: the
+    launcher's cases run 0..7, which is the wrapper's MAX_BWD_SIZE, and a
+    CUDA tensor past it is refused before any launch."""
+    path = os.path.join(_ROOT, "caffe_mpi_tpu_torch", "csrc", "lrn.cu")
+    with open(path) as f:
+        src = f.read()
+    halves = [int(h) for h in re.findall(r"LRN_BWD_CASE\((\d)\)", src)]
+    assert sorted(set(halves)) == list(range(8))
+    assert lrn_op.MAX_BWD_SIZE == 2 * max(halves) + 1
