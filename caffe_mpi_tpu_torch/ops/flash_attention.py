@@ -19,7 +19,9 @@ TPU kernel. A row with no unmasked key gets O = 0 and lse = log(1e-30).
 
 Kernels: `flash_fwd` (K3), `flash_bwd_dq` (K4), `flash_bwd_dkv` (K5). For
 tensors on the card each launches its kernel from `csrc/flash_attention.cu`
-(float32 or bfloat16, head dim up to 128, any lengths); for tensors on the
+(float32 or bfloat16, head dim up to 128, any lengths, any batch x heads:
+the kernels put B*H on the grid's second axis, so the wrapper launches
+runs of at most 65,535, each a launch); for tensors on the
 CPU each takes its plain version (`*_ref`): plain torch, f32 math (f64 for
 float64), over 64-wide key tiles with K3's online softmax. K3, K4 and K5
 multiply on the tensor cores (3xTF32 for f32, bf16 with f32 operands
@@ -28,6 +30,11 @@ rounding, not bitwise. There is no fallback: a CUDA tensor the kernels cannot ta
 failed build or a refused launch raises. Each of the three has a
 `.launches` count, raised by one where it launches its kernel and nowhere
 else.
+
+The one limit the kernels keep is the head dim, 1..128 (`MAX_HEAD_DIM`):
+their tensor-core tilings hold a row group's O in registers, which at
+D 128 already takes K3 179 registers a thread; a wider head needs the
+`wgmma` design with O in shared memory. The JAX package takes any D.
 
 Entries, as in the JAX package:
 - `flash_attention(q, k, v, causal=)`: (B, S, H, D) -> (B, S, H, D),
@@ -60,7 +67,8 @@ REPLACES_DKV = "caffe_mpi_tpu/ops/flash_attention.py:168 _bwd_dkv_kernel"
 TILE = 64        # the plain versions' key tile (the kernels take 16-128
                  # rows and 32-64 keys a warp)
 PAD_TILE = 128   # the JAX package's tile, which sets the padding rule
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128  # O of a row group in registers (module docstring)
+MAX_GRID_Y = 65535  # batch x heads a launch: the grid's second axis
 
 
 # -- shapes -------------------------------------------------------------------
@@ -242,9 +250,6 @@ def _kernel(table: dict, name: str, q, tensors, k_bias, argtypes):
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"{name} kernel takes head dims 1..{MAX_HEAD_DIM}, "
                          f"got {d}")
-    if q.shape[0] > 65535:
-        raise ValueError(f"{name} kernel grid takes at most 65535 batch x "
-                         f"heads, got {q.shape[0]}")
     if k_bias is not None and (k_bias.dtype != torch.float32
                                or k_bias.device != q.device):
         raise ValueError(f"{name}: k_bias must be float32 on {q.device}")
@@ -255,16 +260,28 @@ def _kernel(table: dict, name: str, q, tensors, k_bias, argtypes):
     return fn
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+def _bh_chunks(bh: int) -> list[tuple[int, int]]:
+    """(first head, heads) of each launch: runs of at most MAX_GRID_Y."""
+    return [(i, min(MAX_GRID_Y, bh - i)) for i in range(0, bh, MAX_GRID_Y)]
 
 
-def _run(fn, name, *args):
-    with torch.cuda.device(args[-1]):
-        stream = torch.cuda.current_stream(args[-1]).cuda_stream
-        err = fn(*args[:-1], stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+def _run(fn, counter, blocks, bh, rest, device):
+    """Launch `fn` once a chunk of batch x heads (`_bh_chunks`), raising
+    `counter.launches` (the entry point's) by one a launch. `blocks` are
+    the pointer arguments
+    as (tensor or None, elements a head) pairs, each moved on to the
+    chunk's first head; `rest` the arguments after BH."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for b0, m in _bh_chunks(bh):
+            ptrs = [None if t is None
+                    else t.data_ptr() + b0 * per * t.element_size()
+                    for t, per in blocks]
+            err = fn(*ptrs, m, *rest, stream)
+            if err != 0:
+                raise RuntimeError(f"{counter.__name__} kernel launch "
+                                   f"failed: cudaError {err}")
+            counter.launches += 1
 
 
 def _bias(k_bias):
@@ -282,10 +299,10 @@ def _launch_fwd(q, k, v, causal, sk_valid, k_bias):
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    _run(fn, "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-         _ptr(k_bias), out.data_ptr(), lse.data_ptr(), bh, sq, sk, d,
-         sk_valid, int(causal), 1.0 / math.sqrt(d), q.device)
-    flash_fwd.launches += 1
+    _run(fn, flash_fwd,
+         [(q, sq * d), (k, sk * d), (v, sk * d), (k_bias, 0), (out, sq * d),
+          (lse, sq)], bh,
+         (sq, sk, d, sk_valid, int(causal), 1.0 / math.sqrt(d)), q.device)
     return out, lse
 
 
@@ -296,14 +313,14 @@ def _launch_dq(q, k, v, do, lse, delta, causal, sk_valid, k_bias):
     lse, delta = (t.float().contiguous() for t in (lse, delta))
     k_bias = _bias(k_bias)
     bh, sq, d = q.shape
+    sk = k.shape[1]
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
-    _run(fn, "flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(k_bias),
-         dq.data_ptr(), bh, sq, k.shape[1], d, sk_valid, int(causal),
-         1.0 / math.sqrt(d), q.device)
-    flash_bwd_dq.launches += 1
+    _run(fn, flash_bwd_dq,
+         [(q, sq * d), (k, sk * d), (v, sk * d), (do, sq * d), (lse, sq),
+          (delta, sq), (k_bias, 0), (dq, sq * d)], bh,
+         (sq, sk, d, sk_valid, int(causal), 1.0 / math.sqrt(d)), q.device)
     return dq
 
 
@@ -314,14 +331,14 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, k_bias):
     lse, delta = (t.float().contiguous() for t in (lse, delta))
     k_bias = _bias(k_bias)
     bh, sq, d = q.shape
+    sk = k.shape[1]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    _run(fn, "flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(k_bias),
-         dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], d, int(causal),
-         1.0 / math.sqrt(d), q.device)
-    flash_bwd_dkv.launches += 1
+    _run(fn, flash_bwd_dkv,
+         [(q, sq * d), (k, sk * d), (v, sk * d), (do, sq * d), (lse, sq),
+          (delta, sq), (k_bias, 0), (dk, sk * d), (dv, sk * d)], bh,
+         (sq, sk, d, int(causal), 1.0 / math.sqrt(d)), q.device)
     return dk, dv
 
 
@@ -336,8 +353,8 @@ def _sk_valid(k, sk_valid):
 
 def flash_fwd(q, k, v, *, causal=False, sk_valid=None, k_bias=None):
     """K3: (B*H, Sq, D) x (B*H, Sk, D) -> (out in q's dtype, lse f32
-    (B*H, Sq)). On the card: the CUDA kernel; on the CPU: the plain
-    version."""
+    (B*H, Sq)). On the card: the CUDA kernel (D up to MAX_HEAD_DIM, 128;
+    a wider head raises); on the CPU: the plain version."""
     _check_block(q, k, v, k_bias)
     sk_valid = _sk_valid(k, sk_valid)
     if q.device.type == "cuda":
@@ -348,7 +365,8 @@ def flash_fwd(q, k, v, *, causal=False, sk_valid=None, k_bias=None):
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, sk_valid=None,
                  k_bias=None):
-    """K4: dQ from the global (lse, delta) of these query rows."""
+    """K4: dQ from the global (lse, delta) of these query rows. On the
+    card D is at most MAX_HEAD_DIM (128), as for K3."""
     _check_block(q, k, v, k_bias)
     _check_bwd(q, do, lse, delta)
     sk_valid = _sk_valid(k, sk_valid)
@@ -360,7 +378,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, sk_valid=None,
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, k_bias=None):
-    """K5: (dK, dV) from the global (lse, delta) of the query rows."""
+    """K5: (dK, dV) from the global (lse, delta) of the query rows. On
+    the card D is at most MAX_HEAD_DIM (128), as for K3."""
     _check_block(q, k, v, k_bias)
     _check_bwd(q, do, lse, delta)
     if q.device.type == "cuda":
@@ -426,7 +445,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q, k, v: (B, S, H, D) -> (B, S, H, D), differentiable. Lengths over
     128 are padded to a multiple of 128: padded key columns are masked,
     padded query rows sliced off (their gradients vanish through the zero
-    cotangent)."""
+    cotangent). On the card D is at most MAX_HEAD_DIM (128): the one limit
+    the kernels keep where the JAX package computes (module docstring);
+    any B*H and any lengths are taken."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     sq_p, sk_p = _pad_len(sq), _pad_len(sk)

@@ -23,6 +23,12 @@ plain torch, f32 math (f64 for a float64 tensor), the window sums as
 `_window_sum` does. There is no fallback: a CUDA tensor the kernels cannot
 take, a failed build or a refused launch raises.
 
+The kernels take any odd `local_size` (a register kernel for windows up
+to 15, a runtime-window kernel beyond: the shape picks it in
+`csrc/lrn.cu`) and any image count: their grid has one axis of
+2**31 - 1 blocks, and a tensor that would pass it is cut into launches
+over runs of images (`_image_chunks`).
+
 `lrn_across_channels.launches` and `lrn_across_channels_bwd.launches`
 count kernel launches (one per launch, nowhere else), so a run can show
 that its path went through the kernels.
@@ -40,7 +46,10 @@ _BWD = {torch.float32: "lrn_bwd_f32", torch.bfloat16: "lrn_bwd_bf16"}
 # the TPU kernels these replace, for reports
 REPLACES = "caffe_mpi_tpu/ops/lrn.py:61 _fwd_kernel"
 REPLACES_BWD = "caffe_mpi_tpu/ops/lrn.py:70 _bwd_kernel"
-MAX_BWD_SIZE = 15  # K2's widest window (its half-width is a template)
+# the kernels' one grid axis, and the fewest channels and positions a
+# block of theirs takes (csrc/lrn.cu kSmallRun, half of kThreads)
+_GRID_BLOCKS = 2**31 - 1
+_MIN_RUN, _MIN_POSITIONS = 8, 128
 
 
 def _window_sum(t: torch.Tensor, size: int) -> torch.Tensor:
@@ -100,10 +109,6 @@ def _kernel(table: dict, x: torch.Tensor, argtypes: list):
     fn_name = table.get(x.dtype)
     if fn_name is None:
         raise TypeError(f"lrn kernel takes float32 or bfloat16, got {x.dtype}")
-    n, c = x.shape[:2]
-    if n > 65535 or c > 65535 * 8:
-        raise ValueError(f"lrn kernel grid takes at most 65535 images and "
-                         f"{65535 * 8} channels, got {n} and {c}")
     fn = getattr(build.load(_KERNEL_SOURCE), fn_name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -114,44 +119,53 @@ def _kernel(table: dict, x: torch.Tensor, argtypes: list):
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
 
+def _image_chunks(n: int, c: int, hw: int) -> list[tuple[int, int]]:
+    """(first image, images) of each launch: as many images as the grid's
+    one axis holds at the most blocks an image can take."""
+    per_image = -(-c // _MIN_RUN) * -(-hw // _MIN_POSITIONS)
+    per = max(1, _GRID_BLOCKS // per_image)
+    return [(i, min(per, n - i)) for i in range(0, n, per)]
+
+
+def _run(fn, counter, tensors, *args) -> None:
+    """Launch `fn` over `tensors` (all of one shape, x first) once a chunk
+    of images, raising `counter.launches` (the entry point's) by one a
+    launch."""
+    x = tensors[0]
+    n, c, h, w = x.shape
+    step = c * h * w * x.element_size()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for i0, m in _image_chunks(n, c, h * w):
+            err = fn(*(t.data_ptr() + i0 * step for t in tensors), m, c,
+                     h * w, *args, stream)
+            if err != 0:
+                raise RuntimeError(f"{counter.__name__} kernel launch "
+                                   f"failed: cudaError {err}")
+            counter.launches += 1
+
+
 def _launch(x: torch.Tensor, size: int, alpha: float, beta: float,
             k: float) -> torch.Tensor:
     fn = _kernel(_FWD, x, [_P, _P, _I, _I, _I, _I, _F, _F, _F, _P])
-    n, c, h, w = x.shape
     x = x.contiguous()
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), n, c, h * w, size,
-                 alpha / size, beta, k, stream)
-    if err != 0:
-        raise RuntimeError(f"lrn kernel launch failed: cudaError {err}")
-    lrn_across_channels.launches += 1
+    _run(fn, lrn_across_channels, (x, y), size,
+         alpha / size, beta, k)
     return y
 
 
 def _launch_bwd(x: torch.Tensor, dy: torch.Tensor, size: int, alpha: float,
                 beta: float, k: float) -> torch.Tensor:
-    if size > MAX_BWD_SIZE:
-        raise ValueError(f"lrn backward kernel takes local_size up to "
-                         f"{MAX_BWD_SIZE}, got {size}")
     fn = _kernel(_BWD, x, [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P])
-    n, c, h, w = x.shape
     x, dy = x.contiguous(), dy.contiguous()
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c, h * w,
-                 size, alpha / size, beta, k, 2.0 * alpha * beta / size,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"lrn backward kernel launch failed: cudaError "
-                           f"{err}")
-    lrn_across_channels_bwd.launches += 1
+    _run(fn, lrn_across_channels_bwd, (x, dy, dx),
+         size, alpha / size, beta, k, 2.0 * alpha * beta / size)
     return dx
 
 

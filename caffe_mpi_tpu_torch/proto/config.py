@@ -1237,6 +1237,22 @@ class ServingParameter(Message):
     replica_deadline: float = 5.0
 
 
+def refuse_unported(param: Message, table, kind: str, **values) -> None:
+    """Raise NotImplementedError for the first field of `table` ((name,
+    ROADMAP.md section 1 item) pairs) that `param` sets to another value
+    than its default: a field the JAX package honours and the port does
+    not yet, refused instead of accepted and ignored. `values` gives a
+    field's value in its normal form where the raw one has spellings."""
+    defaults = {f.name: f.default for f in dataclasses.fields(param)}
+    for name, item in table:
+        value = values.get(name, getattr(param, name))
+        if value != defaults[name]:
+            raise NotImplementedError(
+                f"{kind} field {name}: {value!r} is not ported yet "
+                f"(ROADMAP.md §1 item {item}); the port runs only its "
+                f"default {defaults[name]!r}")
+
+
 SOLVER_TYPE_NAMES = {
     # legacy solver_type enum value -> modern type string
     "SGD": "SGD", "NESTEROV": "Nesterov", "ADAGRAD": "AdaGrad",

@@ -30,11 +30,21 @@ import torch
 from .. import caffe_io
 from ..core.device import resolve_device
 from ..net import Net
-from ..proto.config import NetParameter, ServingParameter
+from ..proto.config import NetParameter, ServingParameter, refuse_unported
 from ..proto.upgrade import normalize_net
 from .plan import plan_ladder
 
 log = logging.getLogger(__name__)
+
+# ServingParameter fields that the JAX serving path honours and the port
+# does not yet, each with the ROADMAP.md section 1 item that will port it
+UNPORTED_FIELDS = (
+    ("serve_dtype", 5), ("serve_hbm_mb", 5), ("serve_deadline_ms", 5),
+    ("serve_stall_s", 5), ("serve_decoded_cache_mb", 5),
+    ("serve_program_bank", 5), ("serve_replicas", 5),
+    ("serve_retry_budget", 5), ("replica_deadline", 5),
+)
+SERVE_DTYPES = ("", "f32", "bf16")  # the JAX engine's; "" is f32
 
 
 class BucketedForward:
@@ -219,14 +229,22 @@ class ServingEngine:
     Knobs (ServingParameter): `serve_window_ms` — batching window;
     `serve_buckets` — explicit bucket ladder; `serve_queue_limit` — bounded
     backlog, over-limit submits shed with a typed ShedError (0 = unbounded).
+    The fields in `UNPORTED_FIELDS` raise NotImplementedError at any value
+    but their default, before anything is built; an unknown `serve_dtype`
+    raises ValueError, as the JAX engine does.
     """
 
     def __init__(self, serving_param: ServingParameter | None = None, *,
                  window_ms: float | None = None, buckets=None,
                  queue_limit: int | None = None,
                  device: str | torch.device = "cuda"):
-        self.device = resolve_device(device)
         sp = serving_param or ServingParameter()
+        if sp.serve_dtype not in SERVE_DTYPES:
+            raise ValueError(f"unknown serve_dtype {sp.serve_dtype!r} "
+                             "(expected 'f32' or 'bf16')")
+        refuse_unported(sp, UNPORTED_FIELDS, "serving",
+                        serve_dtype=sp.serve_dtype or "f32")
+        self.device = resolve_device(device)
         self.window_ms = float(window_ms if window_ms is not None
                                else sp.serve_window_ms)
         if self.window_ms < 0:

@@ -31,7 +31,11 @@ convolutions and products as well as the forward ones.
 
 Not ported yet (ROADMAP.md): the non-finite guard, dynamic loss scaling,
 bf16 `precision`, `step_chunk`, meshes and ZeRO, gpipe, the watchdog,
-snapshot manifests and HDF5 snapshots.
+snapshot manifests and HDF5 snapshots. Each of their fields is in
+`UNPORTED_FIELDS`: a value other than its default raises
+NotImplementedError before anything is built, so no field is accepted
+and then ignored. An unknown `precision` raises ValueError, as the JAX
+`Solver` does.
 """
 
 from __future__ import annotations
@@ -49,11 +53,29 @@ import torch
 from .. import io as caffe_io
 from ..core.device import resolve_device
 from ..net import Net
-from ..proto.config import NetParameter, SolverParameter, solver_type
+from ..proto.config import (NetParameter, SolverParameter, refuse_unported,
+                            solver_type)
 from . import lr_policy
 from .updates import UPDATE_FNS, Hyper, n_slots
 
 log = logging.getLogger("caffe_mpi_tpu_torch.solver")
+
+# SolverParameter fields that the JAX package honours and the port does
+# not yet, each with the ROADMAP.md section 1 item that will port it.
+# Fields neither package honours (solver_mode, device_id, ...) stay
+# accepted.
+UNPORTED_FIELDS = (
+    ("precision", 4), ("loss_scale", 4), ("loss_scale_window", 4),
+    ("solver_data_type", 4), ("train_guard", 4), ("guard_max_skips", 4),
+    ("guard_loss_spike", 4), ("guard_ema_decay", 4), ("anomaly_action", 4),
+    ("anomaly_lr_mult", 4), ("step_chunk", 4), ("test_chunk", 4),
+    ("watchdog_deadline", 4), ("snapshot_keep", 4),
+    ("decoded_cache_mb", 3),
+    ("zero_stage", 6), ("reduce_overlap", 6), ("reduce_buckets", 6),
+    ("grad_bucket_mb", 6), ("hosts", 6), ("coordinator", 6),
+    ("host_deadline", 6), ("min_hosts", 6),
+)
+PRECISIONS = ("f32", "bf16")  # the JAX Solver's; "" is f32
 
 FeedFn = Callable[[int], dict]
 # (iteration, micro-batch) -> {dropout layer name: bool mask}
@@ -87,6 +109,11 @@ def _load_net_param(sp: SolverParameter, phase: str, model_dir: str = "",
 class Solver:
     def __init__(self, sp: SolverParameter, *, model_dir: str = "",
                  device: str | torch.device = "cuda"):
+        precision = str(sp.precision or "f32").lower()
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {sp.precision!r} (expected "
+                             "'f32' or 'bf16')")
+        refuse_unported(sp, UNPORTED_FIELDS, "solver", precision=precision)
         self.sp = sp
         self.type = solver_type(sp)
         if self.type not in UPDATE_FNS:

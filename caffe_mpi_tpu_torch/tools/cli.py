@@ -16,6 +16,12 @@ iteration, their median and images (batch items) per second.
 `serve` has no HTTP front yet: `-smoke N` drives N synthetic requests
 through the engine and prints its telemetry as one JSON line.
 
+The JAX CLI's flags for solver and serving fields the port does not
+honour yet (`-precision`, `-step_chunk`, `-serve_dtype`, ...: one flag a
+field of the Solver's and the engine's UNPORTED_FIELDS) are accepted and
+land on their parameter, which the Solver or the engine refuses at any
+value but its default; the command then exits 1.
+
 Usage (gflags-compatible single-dash long flags accepted):
     python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt -synthetic [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli serve -model deploy.prototxt [-weights w.caffemodel] -smoke N [-serve_buckets 1,4,10] [-serve_window_ms W] [-serve_queue_limit Q] [-device cuda|cpu]
@@ -74,7 +80,35 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-device", "--device", default="cuda",
                    help="device to run on (default: cuda; 'cpu' runs "
                    "on the CPU)")
+    for param, table in _unported():
+        for name, item in table:
+            default = getattr(param(), name)
+            kind = dict(action="store_const", const=True) \
+                if isinstance(default, bool) else dict(type=type(default))
+            p.add_argument(f"-{name}", f"--{name.replace('_', '-')}",
+                           dest=name, default=None, **kind,
+                           help=f"{param.__name__}.{name}: not ported yet "
+                           f"(ROADMAP.md §1 item {item}); any value but "
+                           f"{default!r} is refused")
     return p
+
+
+def _unported():
+    """(parameter class, its UNPORTED_FIELDS) for the solver and serving."""
+    from ..proto.config import ServingParameter, SolverParameter
+    from ..serving import engine
+    from ..solver import solver
+    return ((SolverParameter, solver.UNPORTED_FIELDS),
+            (ServingParameter, engine.UNPORTED_FIELDS))
+
+
+def _apply_unported(args, param) -> None:
+    """The unported fields' flags that were given, onto `param`."""
+    for cls, table in _unported():
+        if isinstance(param, cls):
+            for name, _ in table:
+                if getattr(args, name) is not None:
+                    setattr(param, name, getattr(args, name))
 
 
 # layer types whose second bottom is a class id (the JAX package's
@@ -130,6 +164,7 @@ def train(args):
         sp.test_iter = [args.test_iter] * max(len(sp.test_iter), 1)
     if args.snapshot_prefix:
         sp.snapshot_prefix = args.snapshot_prefix
+    _apply_unported(args, sp)
     # net paths in the solver are relative to the working directory, as
     # the reference's are; an inline or missing one resolves beside the
     # solver file
@@ -174,7 +209,7 @@ def train(args):
 def cmd_train(args) -> int:
     try:
         _, summary = train(args)
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         log.error("%s", e)
         return 1
     print(json.dumps({"train": summary}))
@@ -203,7 +238,12 @@ def cmd_serve(args) -> int:
         sp.serve_buckets = args.serve_buckets
     if args.serve_queue_limit >= 0:
         sp.serve_queue_limit = args.serve_queue_limit
-    engine = ServingEngine(sp, device=args.device)
+    _apply_unported(args, sp)
+    try:
+        engine = ServingEngine(sp, device=args.device)
+    except (ValueError, NotImplementedError) as e:
+        log.error("%s", e)
+        return 1
     try:
         engine.load_model("default", args.model, args.weights or None)
         return _serve_smoke(args, engine)

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (caffe_mpi_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py          # from the root of the repository
-    python3 chip_smoke.py --parent DIR   # also time the parent's K2-K5
+    python3 chip_smoke.py --parent DIR   # also time the parent's K1-K5
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
@@ -12,7 +12,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
              sm_90a (one nvcc per source, all started together).
 3. kernels — holds each kernel against its plain PyTorch version on the card
              at the shapes the serving and training paths give it (and at
-             edge shapes), in float32 and bfloat16, and times the kernel,
+             edge shapes: the LRN kernels at windows 1 to 17, both sides
+             of the templated windows' edge, and at 70,000 images; the
+             flash kernels at 70,000 batch x heads), in float32 and
+             bfloat16, and times the kernel,
              the plain version and the library call that computes the same
              function: K1, the LRN forward, against F.local_response_norm;
              K2, the LRN backward, against torch.autograd.grad through
@@ -25,7 +28,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
              non-causal, bf16, the deploy net's BH 40, S 100 with D 20,
              S = 200 padded to 256, a bias masking a whole tile, and S
              1024/2048 at D 32, 64 and 128. With `--parent DIR` (a
-             checkout of the parent commit) the parent's K2-K5 are built
+             checkout of the parent commit) the parent's K1-K5 are built
              and timed in turns with this tree's. Then autograd
              through flash_attention on the card against the CPU.
 4. serve   — serves AlexNet (models/alexnet/deploy.prototxt, full width,
@@ -221,6 +224,11 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
 # edge shapes of the CPU tests: C < size, 1x1 maps, HW not a multiple of
 # 128; checked at every window size
 EDGE_SHAPES = ((2, 96, 13, 13), (1, 3, 5, 5), (2, 16, 1, 1), (1, 8, 7, 9))
+# every templated window's edge, and past it the runtime-window kernels
+EDGE_SIZES = (1, 3, 5, 7, 15, 17)
+# more images than a second grid axis holds (65,535); two runs of 16
+# channels, so the one-axis grid folds runs and images
+MANY_IMAGES = (70000, 20, 2, 2)
 
 
 def _alexnet_lrn_shapes(batches):
@@ -249,9 +257,42 @@ def _kernel_entry(name, source, replaces, cases, max_err, per) -> dict:
     }
 
 
-def kernel_phase(rates) -> dict:
-    """K1, the LRN forward, at the edge shapes and at AlexNet's norm1 and
-    norm2 for every serving bucket (1, 4, 10) and the training batch 256."""
+def _held(kind, got, want, dtype) -> tuple[float, bool]:
+    """(max abs error, bitwise) of a kernel's output against its plain
+    version's; fails past TOL."""
+    try:
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    except AssertionError as e:
+        fail(f"{kind} against its plain version: {str(e).splitlines()[0]}")
+    return float((got.float() - want.float()).abs().max()), \
+        bool(torch.equal(got, want))
+
+
+def _edge_checks(kind, check) -> dict:
+    """`check(shape, dtype, size, alpha, beta, k)` -> (max abs error,
+    bitwise) at every edge shape and window size, and at MANY_IMAGES
+    (sizes 5 and 17), in both types: the worst error and whether every
+    case was bitwise."""
+    out = {"max_abs_err": 0.0, "bitwise": True, "cases": 0}
+    cases = [(shape, size) for shape in EDGE_SHAPES for size in EDGE_SIZES]
+    cases += [(MANY_IMAGES, 5), (MANY_IMAGES, 17)]
+    for shape, size in cases:
+        for dtype in TOL:
+            err, exact = check(shape, dtype, size, 1e-2, 0.75, 2.0)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["bitwise"] &= exact
+            out["cases"] += 1
+    log(f"{kind} edges: {json.dumps(out)} (sizes {list(EDGE_SIZES)}, "
+        f"{MANY_IMAGES[0]} images at 5 and 17)")
+    return out
+
+
+def kernel_phase(rates, parent_lrn=None) -> dict:
+    """K1, the LRN forward, at the edge shapes and windows, at 70,000
+    images, and at AlexNet's norm1 and norm2 for every serving bucket (1,
+    4, 10) and the training batch 256, each case timed against its bound;
+    with `parent_lrn` (a parent checkout's built lrn library), the
+    parent's K1 is timed in turns with this tree's."""
     import torch.nn.functional as F
     from caffe_mpi_tpu_torch.ops import lrn as lrn_op
 
@@ -262,27 +303,29 @@ def kernel_phase(rates) -> dict:
         y = lrn_op.lrn_across_channels(x, size, alpha, beta, k)
         r = lrn_op.lrn_across_channels_ref(x, size, alpha, beta, k)
         torch.cuda.synchronize()
-        torch.testing.assert_close(y.float(), r.float(), **TOL[dtype])
-        return x, float((y.float() - r.float()).abs().max())
+        return _held("lrn_fwd", y, r, dtype)
 
-    max_err = 0.0
-    for shape in EDGE_SHAPES:
-        for size in (3, 5, 7):
-            for dtype in TOL:
-                _, err = check(shape, dtype, size, 1e-2, 0.75, 2.0)
-                max_err = max(max_err, err)
+    edges = _edge_checks("lrn_fwd", check)
+    max_err, bitwise = edges["max_abs_err"], edges["bitwise"]
     cases = []
     args = (LRN["size"], LRN["alpha"], LRN["beta"], LRN["k"])
     for layer, shape in _alexnet_lrn_shapes((1, 4, 10, 256)):
         for dtype in TOL:
-            x, err = check(shape, dtype, **LRN)
-            max_err = max(max_err, err)
+            x = (torch.randn(shape, generator=gen, device="cuda") * 4).to(
+                dtype)
+            err, exact = _held(
+                "lrn_fwd", lrn_op.lrn_across_channels(x, *args),
+                lrn_op.lrn_across_channels_ref(x, *args), dtype)
+            max_err, bitwise = max(max_err, err), bitwise and exact
             bound, by = lrn_bound(shape, dtype, LRN["size"], rates)
-            ms = time_ms(lambda: lrn_op.lrn_across_channels(x, *args))
+            ms, parent = in_turns(
+                lambda: lrn_op.lrn_across_channels(x, *args),
+                None if parent_lrn is None else
+                lambda: call_lrn_fwd(parent_lrn, x, *args))
             case = {
                 "layer": layer, "shape": list(shape),
                 "dtype": str(dtype).replace("torch.", ""),
-                "max_abs_err": err, "kernel_ms": ms,
+                "max_abs_err": err, "bitwise": exact, "kernel_ms": ms,
                 "plain_ms": time_ms(
                     lambda: lrn_op.lrn_across_channels_ref(x, *args)),
                 "library_ms": time_ms(
@@ -290,43 +333,48 @@ def kernel_phase(rates) -> dict:
                 "bound_ms": bound, "bound_by": by,
                 "kernel_GB_s": 2 * x.numel() * x.element_size()
                 / (ms * 1e-3) / 1e9,
+                "share_of_bound": bound / ms, **parent,
             }
+            if case["share_of_bound"] > 1:
+                fail(f"lrn_fwd {layer} {case['dtype']}: {ms:.4g} ms under "
+                     f"its bound {bound:.4g} ms")
             cases.append(case)
             log(f"lrn {json.dumps(case)}")
             del x
+            torch.cuda.empty_cache()
     return _kernel_entry("lrn_fwd", "caffe_mpi_tpu_torch/csrc/lrn.cu",
                          lrn_op.REPLACES, cases, max_err,
-                         {"launches_per_forward": 2})
+                         {"launches_per_forward": 2, "bitwise": bitwise,
+                          "edges": edges})
 
 
 def kernel_bwd_phase(rates, parent_lrn=None) -> dict:
-    """K2, the LRN backward, at the edge shapes and at AlexNet's norm1 and
-    norm2 for the training batch 256. The library call is the backward of
-    F.local_response_norm, timed as torch.autograd.grad over a graph built
-    once; each case frees its tensors before the next. With `parent_lrn`
-    (a parent checkout's built lrn library), the parent's K2 is timed in
-    turns with this tree's (parent, kernel, kernel, parent)."""
+    """K2, the LRN backward, at the edge shapes and windows, at 70,000
+    images, and at AlexNet's norm1 and norm2 for the training batch 256.
+    The library call is the backward of F.local_response_norm, timed as
+    torch.autograd.grad over a graph built once; each case frees its
+    tensors before the next. With `parent_lrn` (a parent checkout's built
+    lrn library), the parent's K2 is timed in turns with this tree's
+    (parent, kernel, kernel, parent)."""
     import torch.nn.functional as F
     from caffe_mpi_tpu_torch.ops import lrn as lrn_op
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     args = (LRN["size"], LRN["alpha"], LRN["beta"], LRN["k"])
 
-    def check(shape, dtype, size, alpha, beta, k):
+    def inputs(shape, dtype):
         x = (torch.randn(shape, generator=gen, device="cuda") * 4).to(dtype)
-        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return x, torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def check(shape, dtype, size, alpha, beta, k):
+        x, dy = inputs(shape, dtype)
         dx = lrn_op.lrn_across_channels_bwd(x, dy, size, alpha, beta, k)
         r = lrn_op.lrn_across_channels_bwd_ref(x, dy, size, alpha, beta, k)
         torch.cuda.synchronize()
-        torch.testing.assert_close(dx.float(), r.float(), **TOL[dtype])
-        return x, dy, float((dx.float() - r.float()).abs().max())
+        return _held("lrn_bwd", dx, r, dtype)
 
-    max_err = 0.0
-    for shape in EDGE_SHAPES:
-        for size in (3, 5, 7):
-            for dtype in TOL:
-                *_, err = check(shape, dtype, size, 1e-2, 0.75, 2.0)
-                max_err = max(max_err, err)
+    edges = _edge_checks("lrn_bwd", check)
+    max_err, bitwise = edges["max_abs_err"], edges["bitwise"]
     # autograd reaches K2: a graph through K1 on the card gives the
     # gradient the plain pair gives on the CPU
     xc = torch.randn((2, 16, 6, 6), generator=gen, device="cuda")
@@ -345,8 +393,11 @@ def kernel_bwd_phase(rates, parent_lrn=None) -> dict:
     cases = []
     for layer, shape in _alexnet_lrn_shapes((256,)):
         for dtype in TOL:
-            x, dy, err = check(shape, dtype, **LRN)
-            max_err = max(max_err, err)
+            x, dy = inputs(shape, dtype)
+            err, exact = _held(
+                "lrn_bwd", lrn_op.lrn_across_channels_bwd(x, dy, *args),
+                lrn_op.lrn_across_channels_bwd_ref(x, dy, *args), dtype)
+            max_err, bitwise = max(max_err, err), bitwise and exact
             bound, by = lrn_bound(shape, dtype, LRN["size"], rates,
                                   tensors=3, ops_per_elem=3 * LRN["size"]
                                   + 10)
@@ -364,7 +415,8 @@ def kernel_bwd_phase(rates, parent_lrn=None) -> dict:
             case = {
                 "layer": layer, "shape": list(shape),
                 "dtype": str(dtype).replace("torch.", ""),
-                "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain,
+                "max_abs_err": err, "bitwise": exact, "kernel_ms": ms,
+                "plain_ms": plain,
                 "library_ms": library, "bound_ms": bound, "bound_by": by,
                 "kernel_GB_s": 3 * x.numel() * x.element_size()
                 / (ms * 1e-3) / 1e9,
@@ -379,7 +431,8 @@ def kernel_bwd_phase(rates, parent_lrn=None) -> dict:
             torch.cuda.empty_cache()
     return _kernel_entry("lrn_bwd", "caffe_mpi_tpu_torch/csrc/lrn.cu",
                          lrn_op.REPLACES_BWD, cases, max_err,
-                         {"launches_per_iteration": 2})
+                         {"launches_per_iteration": 2, "bitwise": bitwise,
+                          "edges": edges})
 
 
 # -- 3b. flash attention (K3, K4, K5) ------------------------------------------
@@ -554,12 +607,15 @@ def bind_flash(path: str):
     return lib
 
 
-def bind_lrn_bwd(path: str):
-    """The K2 C entry points of a built lrn library."""
+def bind_lrn(path: str):
+    """The K1 and K2 C entry points of a built lrn library; every version
+    of the source takes the same arguments."""
     import ctypes
     lib = ctypes.CDLL(path)
     P, I, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for dt in ("f32", "bf16"):
+        getattr(lib, f"lrn_fwd_{dt}").argtypes = [P, P, I, I, I, I, F_, F_,
+                                                  F_, P]
         getattr(lib, f"lrn_bwd_{dt}").argtypes = [P, P, P, I, I, I, I, F_,
                                                   F_, F_, F_, P]
     return lib
@@ -569,7 +625,7 @@ def parent_libs(parent: str):
     """The kernels of a parent checkout (`--parent DIR`), built from
     DIR/caffe_mpi_tpu_torch/csrc/flash_attention.cu and lrn.cu (in
     parallel) into a temporary directory, so that one call times the
-    parent's K2-K5 beside this tree's on the same card and inputs:
+    parent's K1-K5 beside this tree's on the same card and inputs:
     (flash library, lrn library)."""
     srcs = [os.path.join(parent, "caffe_mpi_tpu_torch", "csrc", name)
             for name in ("flash_attention.cu", "lrn.cu")]
@@ -581,9 +637,22 @@ def parent_libs(parent: str):
         outs = [os.path.join(tmp, f"libparent_{i}.so") for i in range(2)]
         with ThreadPoolExecutor(2) as ex:
             list(ex.map(build_lib, srcs, outs))
-        return bind_flash(outs[0]), bind_lrn_bwd(outs[1])  # loaded
+        return bind_flash(outs[0]), bind_lrn(outs[1])  # loaded
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def call_lrn_fwd(lib, x, size, alpha, beta, k):
+    """One launch of a bound library's K1; returns y."""
+    n, c, h, w = x.shape
+    y = torch.empty_like(x)
+    dt = "f32" if x.dtype == torch.float32 else "bf16"
+    err = getattr(lib, f"lrn_fwd_{dt}")(
+        x.data_ptr(), y.data_ptr(), n, c, h * w, size, alpha / size, beta, k,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"lrn_fwd launch failed: cudaError {err}")
+    return y
 
 
 def call_lrn_bwd(lib, x, dy, size, alpha, beta, k):
@@ -596,7 +665,7 @@ def call_lrn_bwd(lib, x, dy, size, alpha, beta, k):
         alpha / size, beta, k, 2.0 * alpha * beta / size,
         torch.cuda.current_stream().cuda_stream)
     if err:
-        fail(f"parent lrn_bwd launch failed: cudaError {err}")
+        fail(f"lrn_bwd launch failed: cudaError {err}")
     return dx
 
 
@@ -770,6 +839,7 @@ def flash_kernel_phase(rates, parent_lib=None) -> list[dict]:
     for name, a, c in zip("qkv", tc, th):
         _flash_close(f"autograd d{name}", a.grad.cpu(), c.grad,
                      torch.float32)
+    many = _many_heads_check(fa, gen)
 
     out = []
     for kind, name, rep, per in (
@@ -797,7 +867,53 @@ def flash_kernel_phase(rates, parent_lib=None) -> list[dict]:
             **({"parent_kernel_ms": head["parent_kernel_ms"]}
                if "parent_kernel_ms" in head else {}),
             per: 2, "cases": cases[kind],
+            "many_heads": many[kind],
         })
+    return out
+
+
+# more batch x heads than the grid's second axis holds, at a tiny S and D
+MANY_HEADS = (70000, 16, 8)
+
+
+def _many_heads_check(fa, gen) -> dict:
+    """K3, K4 and K5 at MANY_HEADS batch x heads, causal, in both types,
+    against their plain versions (FLASH_TOL): the wrapper launches each in
+    runs of at most 65,535 heads, so each launch count moves by two."""
+    bh = MANY_HEADS[0]
+    runs = -(-bh // fa.MAX_GRID_Y)
+    out = {kind: {"shape": list(MANY_HEADS), "launches_a_call": runs,
+                  "max_abs_err": {}} for kind in ("fwd", "dq", "dkv")}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(MANY_HEADS, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        before = _flash_counts()
+        o, lse = fa.flash_fwd(q, k, v, causal=True)
+        delta = fa._delta(do, o)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+        torch.cuda.synchronize()
+        moved = [a - b for a, b in zip(_flash_counts(), before)]
+        if moved != [runs] * 3:
+            fail(f"flash kernels at BH {bh} launched {moved}, want {runs} "
+                 "each")
+        o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal=True)
+        dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=True)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                              causal=True)
+        label, dt = f"BH {bh}", str(dtype).replace("torch.", "")
+        errs = {
+            "fwd": max(_flash_close(f"K3 {label} O", o, o_ref, dtype),
+                       _flash_close(f"K3 {label} lse", lse, lse_ref,
+                                    torch.float32)),
+            "dq": _flash_close(f"K4 {label} dQ", dq, dq_ref, dtype),
+            "dkv": max(_flash_close(f"K5 {label} dK", dk, dk_ref, dtype),
+                       _flash_close(f"K5 {label} dV", dv, dv_ref, dtype))}
+        for kind, err in errs.items():
+            out[kind]["max_abs_err"][dt] = err
+        del q, k, v, do, o, lse, dq, dk, dv, o_ref, dq_ref, dk_ref, dv_ref
+        torch.cuda.empty_cache()
+    log(f"flash at BH {bh}: {json.dumps(out)}")
     return out
 
 
@@ -1562,7 +1678,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", default=None,
-                    help="a checkout of the parent commit: its K2-K5 are "
+                    help="a checkout of the parent commit: its K1-K5 are "
                     "built and timed beside this tree's in each case")
     args = ap.parse_args(argv)
     parent = os.path.abspath(args.parent) if args.parent else None
@@ -1571,7 +1687,7 @@ def main(argv=None) -> int:
     build_phase()
     parent_flash, parent_lrn = parent_libs(parent) if parent else (None,
                                                                    None)
-    k1 = kernel_phase(rates)
+    k1 = kernel_phase(rates, parent_lrn)
     k2 = kernel_bwd_phase(rates, parent_lrn)
     flash = flash_kernel_phase(rates, parent_flash)
     serving = serve_phase(k1, card)

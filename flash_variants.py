@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA kernels on one NVIDIA card: the
-flash-attention forward (K3) and backward (K4, K5), and the LRN backward
-(K2), each checked against its plain version.
+flash-attention forward (K3) and backward (K4, K5), and the LRN forward
+(K1) and backward (K2), each checked against its plain version.
 
     python3 flash_variants.py [--parent DIR] [--cases a,b] [--ptxas DIR]
                               [VARIANT ...]
@@ -13,12 +13,15 @@ they are ("tree"), and with --parent DIR the parent checkout's sources,
 are built with nvcc (all at once, with -Xptxas -v; with --ptxas DIR the
 register and spill lines go to DIR/ptxas_<build>_<source stem>.txt). Then
 each case of chip_smoke.py's _flash_cases() runs K3, K4 and K5 of every
-build that has a flash library, and each LRN case (norm1 and norm2 at
-batch 256, f32 and bf16) runs K2 of every build that has an LRN library,
-on the same inputs: held against the plain versions (FLASH_TOL, or the
-LRN kernels' TOL; a miss is reported, not fatal) and timed with
-chip_smoke's time_ms. --cases keeps the cases named (flash labels such
-as s2048_d128, LRN labels such as norm1_float32). One JSON line a case on
+build that has a flash library; each K1 case (norm1 and norm2 at the
+serving batches 1, 4, 10 and the training batch 256) runs K1, and each
+K2 case (norm1 and norm2 at batch 256) K2, of every build that has an
+LRN library, in f32 and bf16, on the same inputs: held against the plain
+versions (FLASH_TOL, or the LRN kernels' TOL; a miss is reported, not
+fatal) and timed with chip_smoke's time_ms. Both LRN kernels are first
+checked at chip_smoke's edge shapes and windows. --cases keeps the cases
+named (flash labels such as s2048_d128, K2 labels such as norm1_float32,
+K1 labels such as k1_norm1_b256_float32). One JSON line a case on
 stdout; exit 1 if the tree's build missed a limit anywhere.
 """
 
@@ -105,6 +108,33 @@ VARIANTS = {
     "lrn_r32": (LRN, [("constexpr int kRun = 16;",
                        "constexpr int kRun = 32;")],
                 "K2 with runs of 32 channels a thread"),
+    "k1_r8": (LRN, [("  const FwdShape order[] = {{32, kThreads},\n"
+                     "                            {16, kThreads},",
+                     "  const FwdShape order[] = {{kSmallRun, kThreads},\n"
+                     "                            {kSmallRun, kThreads},")],
+              "K1 with runs of 8 channels a thread at every grid"),
+    "k1_r16": (LRN, [("  const FwdShape order[] = {{32, kThreads},",
+                      "  const FwdShape order[] = {{16, kThreads},")],
+               "K1 with runs of at most 16 channels a thread"),
+    "k1_old": (LRN, [("  if (half > kMaxHalf) {  // K1's runtime window",
+                      "  if (true) {  // K1's runtime window")],
+               "K1's first design at every window: each output's window "
+               "reloaded, in a runtime loop (runs of 8, one-axis grid)"),
+    "k1_r32": (LRN, [("    if (blocks(N, C, HW, s.run, s.threads) >=\n"
+                      "        static_cast<long long>(kFwdWaves) * num_sms())"
+                      "\n      return s;",
+                      "    return s;")],
+               "K1 with runs of 32 in blocks of 256 at every grid (no "
+               "small-grid rule)"),
+    "k1_waves2": (LRN, [("constexpr int kFwdWaves = 8;",
+                         "constexpr int kFwdWaves = 2;")],
+                  "K1's longest run whose grid gives each SM 2 blocks (8 "
+                  "in the tree)"),
+    "k1_occ4": (LRN, [("template <typename T, int H, int R>\n__global__ "
+                       "void __launch_bounds__(kThreads)\nlrn_fwd_kernel(",
+                       "template <typename T, int H, int R>\n__global__ "
+                       "void __launch_bounds__(kThreads, 4)\nlrn_fwd_kernel(")],
+                "K1 held to four blocks an SM (at most 64 registers)"),
 }
 
 
@@ -218,48 +248,63 @@ def _flash_rows(libs, only):
 def _lrn_rows(libs, only, rates):
     gen = torch.Generator(device="cuda").manual_seed(1)
     args = (cs.LRN["size"], cs.LRN["alpha"], cs.LRN["beta"], cs.LRN["k"])
-    # the edge shapes at every window size, checked only
-    edge = {name: 0.0 for name in libs}
+    calls = {"lrn_fwd": lambda lib, x, dy, *a: cs.call_lrn_fwd(lib, x, *a),
+             "lrn_bwd": cs.call_lrn_bwd}
+    refs = {"lrn_fwd": lambda x, dy, *a: lrn_op.lrn_across_channels_ref(
+                x, *a),
+            "lrn_bwd": lrn_op.lrn_across_channels_bwd_ref}
+    # the edge shapes at every edge window, checked only
+    edge = {f"{name}_{kind}": 0.0 for name in libs for kind in calls}
     for shape in cs.EDGE_SHAPES:
-        for size in (3, 5, 7):
+        for size in cs.EDGE_SIZES:
             for dtype in cs.TOL:
                 x = (torch.randn(shape, generator=gen, device="cuda")
                      * 4).to(dtype)
                 dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 hyper = (size, 1e-2, 0.75, 2.0)
-                ref = lrn_op.lrn_across_channels_bwd_ref(x, dy, *hyper)
-                for name, lib in libs.items():
-                    if isinstance(edge[name], str):  # keep the first miss
-                        continue
-                    err = _check(f"{name} edge", cs.call_lrn_bwd(
-                        lib, x, dy, *hyper), ref, dtype, "lrn")
-                    edge[name] = err if isinstance(err, str) \
-                        else max(edge[name], err)
+                for kind, call in calls.items():
+                    ref = refs[kind](x, dy, *hyper)
+                    for name, lib in libs.items():
+                        key = f"{name}_{kind}"
+                        if isinstance(edge[key], str):  # keep the first miss
+                            continue
+                        try:
+                            got = call(lib, x, dy, *hyper)
+                        except SystemExit as e:  # a refused window, as the
+                            edge[key] = str(e)   # parent's K2 past 15
+                            continue
+                        err = _check(f"{key} edge", got, ref, dtype, "lrn")
+                        edge[key] = err if isinstance(err, str) \
+                            else max(edge[key], err)
     yield {"case": "lrn_edge_shapes", "max_abs_err": edge}, \
-        isinstance(edge.get("tree"), str)
-    for layer, shape in cs._alexnet_lrn_shapes((256,)):
+        _tree_missed({"max_abs_err": edge})
+    cases = [("lrn_fwd", f"k1_{layer}_b{shape[0]}", shape)
+             for layer, shape in cs._alexnet_lrn_shapes((1, 4, 10, 256))]
+    cases += [("lrn_bwd", layer, shape)
+              for layer, shape in cs._alexnet_lrn_shapes((256,))]
+    for kind, layer, shape in cases:
         for dtype in cs.TOL:
             label = f"{layer}_{str(dtype).replace('torch.', '')}"
             if only and label not in only:
                 continue
             x = (torch.randn(shape, generator=gen, device="cuda") * 4).to(dtype)
             dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            ref = lrn_op.lrn_across_channels_bwd_ref(x, dy, *args)
-            bound, by = cs.lrn_bound(shape, dtype, cs.LRN["size"],
-                                     rates, tensors=3,
-                                     ops_per_elem=3 * cs.LRN["size"] + 10)
-            row = {"case": label, "shape": list(shape),
+            ref = refs[kind](x, dy, *args)
+            bound, by = cs.lrn_bound(shape, dtype, cs.LRN["size"], rates) \
+                if kind == "lrn_fwd" else cs.lrn_bound(
+                    shape, dtype, cs.LRN["size"], rates, tensors=3,
+                    ops_per_elem=3 * cs.LRN["size"] + 10)
+            row = {"case": label, "kernel": kind, "shape": list(shape),
                    "dtype": str(dtype).replace("torch.", ""),
                    "bound_ms": bound, "bound_by": by,
                    "max_abs_err": {}, "ms": {}}
             for name, lib in libs.items():
-                got = cs.call_lrn_bwd(lib, x, dy, *args)
+                got = calls[kind](lib, x, dy, *args)
                 torch.cuda.synchronize()
-                row["max_abs_err"][f"{name}_lrn_bwd"] = _check(
+                row["max_abs_err"][f"{name}_{kind}"] = _check(
                     f"{name} {label}", got, ref, dtype, "lrn")
-                row["ms"][f"{name}_lrn_bwd"] = cs.time_ms(
-                    lambda lib=lib: cs.call_lrn_bwd(lib, x, dy, *args),
-                    reps=15)
+                row["ms"][f"{name}_{kind}"] = cs.time_ms(
+                    lambda lib=lib: calls[kind](lib, x, dy, *args), reps=15)
             yield row, _tree_missed(row)
             del x, dy, ref
             torch.cuda.empty_cache()
@@ -291,7 +336,7 @@ def main(argv=None) -> int:
                 sources.items())))
         flash_libs = {n: cs.bind_flash(p) for (n, src), p in paths.items()
                       if src == FLASH}
-        lrn_libs = {n: cs.bind_lrn_bwd(p) for (n, src), p in paths.items()
+        lrn_libs = {n: cs.bind_lrn(p) for (n, src), p in paths.items()
                     if src == LRN}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -307,3 +307,52 @@ def test_cuda_source_holds_the_three_kernels_and_is_built():
     for kernel in ("_fwd_kernel", "_bwd_dq_kernel", "_bwd_dkv_kernel"):
         assert kernel in src
     assert "flash_attention.cu" in build.SOURCES
+
+
+@pytest.mark.parametrize("bh", [1, 65535, 65536, 70000, 3 * 65535 + 7])
+def test_heads_past_the_grid_axis_are_launched_in_runs(bh):
+    """B*H sits on the kernels' grid y axis (65,535 at most): the wrapper
+    cuts it into runs that cover every head once, each at most that."""
+    chunks = pf._bh_chunks(bh)
+    assert [c[0] for c in chunks] == list(range(0, bh, pf.MAX_GRID_Y))
+    assert sum(m for _, m in chunks) == bh
+    assert all(1 <= m <= 65535 for _, m in chunks)
+    assert len(chunks) == -(-bh // 65535)
+
+
+def test_the_head_dim_is_the_one_limit_the_kernels_keep():
+    """D above 128 is refused for a CUDA tensor, as the docstrings state;
+    the plain versions take it on the CPU."""
+    assert pf.MAX_HEAD_DIM == 128
+    for fn in (pf.flash_attention, pf.flash_fwd, pf.flash_bwd_dq,
+               pf.flash_bwd_dkv):
+        assert "128" in fn.__doc__
+    q = torch.zeros(1, 4, 130)
+    out, lse = pf.flash_fwd(q, q, q)
+    assert out.shape == (1, 4, 130) and lse.shape == (1, 4)
+
+
+def test_a_launch_cut_into_head_runs_moves_each_pointer_and_counts(
+        monkeypatch):
+    """The flash wrappers' launch loop with the C function replaced by a
+    recorder and runs of 2 heads: each run of heads moves every pointer
+    by its own per-head stride (none for the shared key bias) and is one
+    counted launch."""
+    import contextlib
+    import types
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(pf, "MAX_GRID_Y", 2)
+    calls = []
+    q, lse = torch.zeros(5, 4, 8), torch.zeros(5, 4)
+    kb = torch.zeros(1, 6)
+    before = pf.flash_fwd.launches
+    pf._run(lambda *a: calls.append(a) or 0, pf.flash_fwd,
+            [(q, 4 * 8), (kb, 0), (None, 0), (lse, 4)], 5, (4, 6), "cpu")
+    assert pf.flash_fwd.launches == before + 3
+    assert calls == [(q.data_ptr() + b * 4 * 8 * 4, kb.data_ptr(), None,
+                      lse.data_ptr() + b * 4 * 4, m, 4, 6, 7)
+                     for b, m in ((0, 2), (2, 2), (4, 1))]
+    pf.flash_fwd.launches = before

@@ -13,6 +13,7 @@ by chip_smoke.py.
 """
 
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +31,9 @@ from caffe_mpi_tpu_torch.proto import LayerParameter
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(2, 96, 13, 13), (1, 3, 5, 5), (2, 16, 1, 1), (1, 8, 7, 9)]
-SIZES = [3, 5, 7]
+SIZES = [3, 5, 7, 17]  # 17: past the kernels' templated windows
+# more images than the kernels' old 65,535-image grid axis held
+MANY_IMAGES = (70000, 3, 1, 1)
 ALPHA, BETA, K = 0.05, 0.75, 2.0
 F32 = dict(rtol=1e-5, atol=1e-6)
 BF16 = dict(rtol=8e-3, atol=1e-6)
@@ -79,6 +82,44 @@ def test_plain_matches_jax_lax_layer_f32(shape, size, monkeypatch):
         {}, {}, [jnp.asarray(x)], train=False, rng=None)
     (got,) = _port_layer(_lrn_text(size), shape)([torch.from_numpy(x)])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("size", [5, 17])
+def test_plain_matches_jax_lax_layer_past_65535_images(size, monkeypatch):
+    """The plain version at more images than a CUDA grid's second axis
+    holds, against the JAX lax layer as the test above runs it (the
+    Pallas kernel in interpret mode would take 70,000 programs)."""
+    monkeypatch.delenv("CAFFE_LRN_PALLAS", raising=False)  # f32 -> lax
+    x = _x(MANY_IMAGES, seed=5)
+    (want,), _ = _jax_layer(_lrn_text(size), MANY_IMAGES).apply(
+        {}, {}, [jnp.asarray(x)], train=False, rng=None)
+    (got,) = _port_layer(_lrn_text(size), MANY_IMAGES)(
+        [torch.from_numpy(x)])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("module", ["lrn.py", "flash_attention.py"])
+def test_no_grid_axis_cap_is_left_in_the_wrappers(module):
+    """The wrappers cut a launch into runs instead of refusing more than
+    65,535 images or batch x heads."""
+    path = os.path.join(_ROOT, "caffe_mpi_tpu_torch", "ops", module)
+    with open(path) as f:
+        src = f.read()
+    assert not re.search(r"[<>]=?\s*(65535|MAX_GRID_Y)\b", src)
+    assert "at most 65535" not in src
+
+
+@pytest.mark.parametrize("n,c,hw", [(70000, 3, 1), (1, 96, 3025),
+                                    (256, 96, 3025), (2**31 - 1, 1, 1),
+                                    (2**31 - 1, 17, 1), (300000, 96, 3025)])
+def test_image_chunks_cover_the_images_within_the_grid(n, c, hw):
+    chunks = lrn_op._image_chunks(n, c, hw)
+    assert chunks[0][0] == 0 and sum(m for _, m in chunks) == n
+    assert all(a + m == b for (a, m), (b, _) in zip(chunks, chunks[1:]))
+    most = -(-c // 8) * -(-hw // 128)  # runs of 8, blocks of 128
+    assert all(m * most <= 2**31 - 1 for _, m in chunks)
+    # as few launches as runs of the most images a launch holds
+    assert len(chunks) == -(-n // ((2**31 - 1) // most))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -143,3 +184,40 @@ def test_cuda_source_exists_and_names_the_tpu_kernel():
     assert 'extern "C" int lrn_fwd_f32' in src
     assert 'extern "C" int lrn_fwd_bf16' in src
     assert lrn_op.REPLACES.startswith("caffe_mpi_tpu/ops/lrn.py:")
+
+
+def test_a_launch_cut_into_image_runs_moves_each_pointer_and_counts(
+        monkeypatch):
+    """The wrapper's launch loop with the C function replaced by a recorder
+    and the grid cut to 3 images a launch: every run of images gets its
+    own pointers and count, and each is one counted launch."""
+    import contextlib
+    import types
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(lrn_op, "_image_chunks",
+                        lambda n, c, hw: [(i, min(3, n - i))
+                                          for i in range(0, n, 3)])
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return 0
+
+    x, y = torch.zeros(8, 4, 2, 3), torch.zeros(8, 4, 2, 3)
+    before = lrn_op.lrn_across_channels.launches
+    lrn_op._run(fn, lrn_op.lrn_across_channels, (x, y), 5, 0.1, 0.75, 2.0)
+    assert lrn_op.lrn_across_channels.launches == before + 3
+    step = 4 * 2 * 3 * 4
+    assert [c[:5] for c in calls] == [
+        (x.data_ptr() + i * step, y.data_ptr() + i * step, m, 4, 6)
+        for i, m in ((0, 3), (3, 3), (6, 2))]
+    assert all(c[5:] == (5, 0.1, 0.75, 2.0, 7) for c in calls)
+    lrn_op.lrn_across_channels.launches = before
+    with pytest.raises(RuntimeError, match="lrn_across_channels kernel "
+                       "launch failed: cudaError 9"):
+        lrn_op._run(lambda *a: 9, lrn_op.lrn_across_channels, (x, y), 5,
+                    0.1, 0.75, 2.0)
+    assert lrn_op.lrn_across_channels.launches == before

@@ -36,7 +36,8 @@ from caffe_mpi_tpu_torch.proto import LayerParameter
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(2, 96, 13, 13), (1, 3, 5, 5), (2, 16, 1, 1), (1, 8, 7, 9)]
-SIZES = [3, 5, 7]
+SIZES = [3, 5, 7, 17, 19]  # 17, 19: K2's runtime-window kernel
+MANY_IMAGES = (70000, 3, 1, 1)  # past the old 65,535-image grid axis
 ALPHA, BETA, K = 0.05, 0.75, 2.0
 F32 = dict(rtol=1e-5, atol=1e-6)
 BF16 = dict(rtol=8e-3, atol=1e-6)
@@ -95,6 +96,18 @@ def test_plain_bwd_matches_pallas_bwd_kernel_f32(shape, size):
 def test_autograd_matches_jax_grad_of_lax_layer(shape, size, monkeypatch):
     monkeypatch.delenv("CAFFE_LRN_PALLAS", raising=False)  # f32 -> lax
     x, dy = _arr(shape, 2), _arr(shape, 3, 1.0)
+    text = _lrn_text(size)
+    np.testing.assert_allclose(_port_layer_grad(text, x, dy),
+                               _jax_layer_grad(text, x, dy), **LAX)
+
+
+@pytest.mark.parametrize("size", [5, 17])
+def test_autograd_past_65535_images_matches_jax_grad_of_lax_layer(
+        size, monkeypatch):
+    """The plain backward at more images than a CUDA grid's second axis
+    holds, against jax.grad of the lax layer as the test above runs it."""
+    monkeypatch.delenv("CAFFE_LRN_PALLAS", raising=False)  # f32 -> lax
+    x, dy = _arr(MANY_IMAGES, 12), _arr(MANY_IMAGES, 13, 1.0)
     text = _lrn_text(size)
     np.testing.assert_allclose(_port_layer_grad(text, x, dy),
                                _jax_layer_grad(text, x, dy), **LAX)
@@ -184,12 +197,18 @@ def test_cuda_source_has_the_backward_and_names_its_tpu_kernel():
 
 
 def test_bwd_kernel_windows_reach_the_wrappers_limit():
-    """K2 takes its window's half-width as a template argument: the
-    launcher's cases run 0..7, which is the wrapper's MAX_BWD_SIZE, and a
-    CUDA tensor past it is refused before any launch."""
+    """The window picks K2's kernel: the register kernel takes its
+    half-width as a template argument, cases 0..kMaxHalf = 7 (local_size
+    1..15); a wider window launches the runtime-window kernel from the
+    same C function. The wrapper refuses no odd size."""
     path = os.path.join(_ROOT, "caffe_mpi_tpu_torch", "csrc", "lrn.cu")
     with open(path) as f:
         src = f.read()
     halves = [int(h) for h in re.findall(r"LRN_BWD_CASE\((\d)\)", src)]
     assert sorted(set(halves)) == list(range(8))
-    assert lrn_op.MAX_BWD_SIZE == 2 * max(halves) + 1
+    assert int(re.search(r"kMaxHalf = (\d+);", src).group(1)) == max(halves)
+    body = src[src.index("int launch_bwd("):]
+    body = body[:body.index("\n}\n")]
+    assert "if (half > kMaxHalf) {" in body
+    assert "lrn_bwd_any_kernel<T><<<" in body
+    assert not hasattr(lrn_op, "MAX_BWD_SIZE")
