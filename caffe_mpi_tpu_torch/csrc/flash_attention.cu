@@ -1331,6 +1331,285 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             static_cast<cudaStream_t>(stream)};
   return by_warps<DkvLaunch, T>(a, Sk);
 }
+// -- Wide heads (D > 128): K3, K4 and K5, one warp a row ---------------------
+//
+// The tensor-core kernels above hold a row group's accumulators in
+// registers and take D <= 128. These three take any D (up to what shared
+// memory holds: 8 x D floats a warp for K5, with W warps a block), for
+// the same function and masks, by a simple design that is right first
+// and slow: it runs on the CUDA cores in f32 (bf16 inputs are widened
+// once), and its times are in PERF.md. What bounds it: the serial chain
+// of dot products, each D / 32 FMAs a lane and a five-step xor shuffle
+// (whose result is the same bit for bit on every lane, so every branch
+// on a score is warp-uniform).
+// - One warp owns one query row (K3, K4) or one key row (K5); its lanes
+//   take the row's columns d = lane, lane + 32, ...
+// - The warp's own row(s) are widened to f32 once into its slice of
+//   shared memory, beside its f32 accumulators (O; dQ; dK and dV). Each
+//   lane owns its columns of them: no atomics, no block-wide sync, and
+//   the results are deterministic.
+// - K3 takes two passes over the keys: the row's max m and sum l first
+//   (an online max over scalars), lse = m + log(l), then O = sum of
+//   exp(s - lse) v over the keys, already normalised, so O is never
+//   rescaled. A row with nothing unmasked gives O = 0 and lse =
+//   log(1e-30), as above.
+// - K4 visits the keys of K3's mask (< sk_valid, <= the row when
+//   causal), K5 the queries of the causal mask only (every query at or
+//   past the key when causal); a zero probability skips the key's or
+//   query's products.
+// - W = 4 warps a block, halved while the block's shared memory would
+//   pass the card's 227 KB.
+
+template <typename T>
+__device__ __forceinline__ float widen(T x);
+template <>
+__device__ __forceinline__ float widen<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// sum over the warp of `x`; every lane gets the same bits
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// <a, b> over D columns: `a` widened in shared memory, `b` a row in memory
+template <typename T>
+__device__ __forceinline__ float row_dot(const float* a, const T* b, int D,
+                                         int lane) {
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc += a[d] * widen(b[d]);
+  return warp_sum(acc);
+}
+
+template <typename T>
+__device__ __forceinline__ void widen_row(float* dst, const T* src, int D,
+                                          int lane) {
+  for (int d = lane; d < D; d += 32) dst[d] = widen(src[d]);
+}
+
+// the score of (row, key j) as the plain version rounds it: the dot
+// product, times scale, plus the key bias
+template <typename T>
+__device__ __forceinline__ float wide_score(const float* qrow, const T* krow,
+                                            const float* bias, int j, int D,
+                                            int lane, float scale) {
+  float s = row_dot(qrow, krow, D, lane) * scale;
+  if (bias != nullptr) s += bias[j];
+  return s;
+}
+
+template <typename T>
+__global__ void flash_fwd_wide_kernel(const T* __restrict__ q,
+                                      const T* __restrict__ k,
+                                      const T* __restrict__ v,
+                                      const float* __restrict__ bias,
+                                      T* __restrict__ o,
+                                      float* __restrict__ lse, int Sq,
+                                      int Sk, int D, int sk_valid,
+                                      int causal, float scale) {
+  extern __shared__ float wide_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= Sq) return;
+  const size_t bh = blockIdx.y;
+  float* qs = wide_smem + static_cast<size_t>(warp) * 2 * D;
+  float* os = qs + D;
+  widen_row(qs, q + (bh * Sq + row) * D, D, lane);
+  for (int d = lane; d < D; d += 32) os[d] = 0.f;
+  __syncwarp();
+  const T* kb = k + bh * Sk * D;
+  const T* vb = v + bh * Sk * D;
+  int n = sk_valid < Sk ? sk_valid : Sk;
+  if (causal && row + 1 < n) n = row + 1;
+  float m = neg_inf(), l = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const float s = wide_score(qs, kb + static_cast<size_t>(j) * D, bias, j,
+                               D, lane, scale);
+    if (s == neg_inf()) continue;
+    if (s > m) {
+      l = l * expf(m - s) + 1.f;
+      m = s;
+    } else {
+      l += expf(s - m);
+    }
+  }
+  const float row_lse = (m == neg_inf() ? 0.f : m) + logf(fmaxf(l, 1e-30f));
+  for (int j = 0; j < n; ++j) {
+    const float s = wide_score(qs, kb + static_cast<size_t>(j) * D, bias, j,
+                               D, lane, scale);
+    const float p = expf(s - row_lse);
+    if (p == 0.f) continue;
+    const T* vr = vb + static_cast<size_t>(j) * D;
+    for (int d = lane; d < D; d += 32) os[d] += p * widen(vr[d]);
+  }
+  T* orow = o + (bh * Sq + row) * D;
+  for (int d = lane; d < D; d += 32) store(orow + d, os[d]);
+  if (lane == 0) lse[bh * Sq + row] = row_lse;
+}
+
+template <typename T>
+__global__ void flash_bwd_dq_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const float* __restrict__ bias,
+    T* __restrict__ dq, int Sq, int Sk, int D, int sk_valid, int causal,
+    float scale) {
+  extern __shared__ float wide_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= Sq) return;
+  const size_t bh = blockIdx.y;
+  float* qs = wide_smem + static_cast<size_t>(warp) * 3 * D;
+  float* dos = qs + D;
+  float* acc = dos + D;
+  widen_row(qs, q + (bh * Sq + row) * D, D, lane);
+  widen_row(dos, dout + (bh * Sq + row) * D, D, lane);
+  for (int d = lane; d < D; d += 32) acc[d] = 0.f;
+  __syncwarp();
+  const T* kb = k + bh * Sk * D;
+  const T* vb = v + bh * Sk * D;
+  const float row_lse = lse[bh * Sq + row], row_delta = delta[bh * Sq + row];
+  int n = sk_valid < Sk ? sk_valid : Sk;
+  if (causal && row + 1 < n) n = row + 1;
+  for (int j = 0; j < n; ++j) {
+    const T* kr = kb + static_cast<size_t>(j) * D;
+    const float p =
+        expf(wide_score(qs, kr, bias, j, D, lane, scale) - row_lse);
+    if (p == 0.f) continue;
+    const float dp = row_dot(dos, vb + static_cast<size_t>(j) * D, D, lane);
+    const float ds = p * (dp - row_delta);
+    for (int d = lane; d < D; d += 32) acc[d] += ds * widen(kr[d]);
+  }
+  T* out = dq + (bh * Sq + row) * D;
+  for (int d = lane; d < D; d += 32) store(out + d, acc[d] * scale);
+}
+
+template <typename T>
+__global__ void flash_bwd_dkv_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const float* __restrict__ bias,
+    T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int D,
+    int causal, float scale) {
+  extern __shared__ float wide_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (key >= Sk) return;
+  const size_t bh = blockIdx.y;
+  float* ks = wide_smem + static_cast<size_t>(warp) * 4 * D;
+  float* vs = ks + D;
+  float* dks = vs + D;
+  float* dvs = dks + D;
+  widen_row(ks, k + (bh * Sk + key) * D, D, lane);
+  widen_row(vs, v + (bh * Sk + key) * D, D, lane);
+  for (int d = lane; d < D; d += 32) dks[d] = dvs[d] = 0.f;
+  __syncwarp();
+  const T* qb = q + bh * Sq * D;
+  const T* db = dout + bh * Sq * D;
+  const float kbias = bias != nullptr ? bias[key] : 0.f;
+  for (int i = causal ? key : 0; i < Sq; ++i) {
+    const T* qr = qb + static_cast<size_t>(i) * D;
+    float s = row_dot(ks, qr, D, lane) * scale;
+    if (bias != nullptr) s += kbias;
+    const float p = expf(s - lse[bh * Sq + i]);
+    if (p == 0.f) continue;
+    const T* dr = db + static_cast<size_t>(i) * D;
+    const float dp = row_dot(vs, dr, D, lane);
+    const float ds = p * (dp - delta[bh * Sq + i]);
+    for (int d = lane; d < D; d += 32) {
+      dvs[d] += p * widen(dr[d]);
+      dks[d] += ds * widen(qr[d]);
+    }
+  }
+  T* dkr = dk + (bh * Sk + key) * D;
+  T* dvr = dv + (bh * Sk + key) * D;
+  for (int d = lane; d < D; d += 32) {
+    store(dkr + d, dks[d] * scale);
+    store(dvr + d, dvs[d]);
+  }
+}
+
+// W warps a block for `rows_per_warp` f32 rows of D a warp: 4, halved
+// while the block's shared memory would pass the card's 227 KB; 0 when
+// even one warp's does not fit.
+inline int wide_warps(int D, int rows_per_warp, size_t* bytes) {
+  for (int w = 4; w >= 1; w >>= 1) {
+    *bytes = static_cast<size_t>(w) * rows_per_warp * D * sizeof(float);
+    if (*bytes <= 232448) return w;
+  }
+  return 0;
+}
+
+template <typename K>
+int wide_launch(K kern, int rows, int BH, int D, int rows_per_warp,
+                dim3* grid, int* threads, size_t* bytes) {
+  const int w = wide_warps(D, rows_per_warp, bytes);
+  if (w == 0 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (int e = prepare(kern, *bytes)) return e;
+  *grid = dim3((rows + w - 1) / w, BH);
+  *threads = 32 * w;
+  return 0;
+}
+
+template <typename T>
+int fwd_wide(const void* q, const void* k, const void* v, const float* bias,
+             void* o, float* lse, int BH, int Sq, int Sk, int D,
+             int sk_valid, int causal, float scale, void* stream) {
+  auto kern = flash_fwd_wide_kernel<T>;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid;
+  int threads;
+  size_t bytes;
+  if (int e = wide_launch(kern, Sq, BH, D, 2, &grid, &threads, &bytes))
+    return e;
+  kern<<<grid, threads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), bias, static_cast<T*>(o), lse, Sq, Sk, D,
+      sk_valid, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_dq_wide(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                const float* bias, void* dq, int BH, int Sq, int Sk, int D,
+                int sk_valid, int causal, float scale, void* stream) {
+  auto kern = flash_bwd_dq_wide_kernel<T>;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid;
+  int threads;
+  size_t bytes;
+  if (int e = wide_launch(kern, Sq, BH, D, 3, &grid, &threads, &bytes))
+    return e;
+  kern<<<grid, threads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      bias, static_cast<T*>(dq), Sq, Sk, D, sk_valid, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_dkv_wide(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 const float* bias, void* dk, void* dv, int BH, int Sq,
+                 int Sk, int D, int causal, float scale, void* stream) {
+  auto kern = flash_bwd_dkv_wide_kernel<T>;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid;
+  int threads;
+  size_t bytes;
+  if (int e = wide_launch(kern, Sk, BH, D, 4, &grid, &threads, &bytes))
+    return e;
+  kern<<<grid, threads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      bias, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, D, causal,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
 }  // namespace
 
 extern "C" {
@@ -1383,6 +1662,61 @@ int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                        int Sk, int D, int causal, float scale, void* stream) {
   return bwd_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, bias, dk, dv, BH,
                                 Sq, Sk, D, causal, scale, stream);
+}
+
+// The wide-head entry points (D > 128; any D the wrappers route here),
+// with the same arguments as the ones above.
+int flash_fwd_wide_f32(const void* q, const void* k, const void* v,
+                       const float* bias, void* o, float* lse, int BH,
+                       int Sq, int Sk, int D, int sk_valid, int causal,
+                       float scale, void* stream) {
+  return fwd_wide<float>(q, k, v, bias, o, lse, BH, Sq, Sk, D, sk_valid,
+                         causal, scale, stream);
+}
+
+int flash_fwd_wide_bf16(const void* q, const void* k, const void* v,
+                        const float* bias, void* o, float* lse, int BH,
+                        int Sq, int Sk, int D, int sk_valid, int causal,
+                        float scale, void* stream) {
+  return fwd_wide<__nv_bfloat16>(q, k, v, bias, o, lse, BH, Sq, Sk, D,
+                                 sk_valid, causal, scale, stream);
+}
+
+int flash_bwd_dq_wide_f32(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, const float* bias, void* dq,
+                          int BH, int Sq, int Sk, int D, int sk_valid,
+                          int causal, float scale, void* stream) {
+  return bwd_dq_wide<float>(q, k, v, dout, lse, delta, bias, dq, BH, Sq, Sk,
+                            D, sk_valid, causal, scale, stream);
+}
+
+int flash_bwd_dq_wide_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, const float* bias, void* dq,
+                           int BH, int Sq, int Sk, int D, int sk_valid,
+                           int causal, float scale, void* stream) {
+  return bwd_dq_wide<__nv_bfloat16>(q, k, v, dout, lse, delta, bias, dq, BH,
+                                    Sq, Sk, D, sk_valid, causal, scale,
+                                    stream);
+}
+
+int flash_bwd_dkv_wide_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, const float* bias, void* dk,
+                           void* dv, int BH, int Sq, int Sk, int D,
+                           int causal, float scale, void* stream) {
+  return bwd_dkv_wide<float>(q, k, v, dout, lse, delta, bias, dk, dv, BH, Sq,
+                             Sk, D, causal, scale, stream);
+}
+
+int flash_bwd_dkv_wide_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, const float* bias, void* dk,
+                            void* dv, int BH, int Sq, int Sk, int D,
+                            int causal, float scale, void* stream) {
+  return bwd_dkv_wide<__nv_bfloat16>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                     BH, Sq, Sk, D, causal, scale, stream);
 }
 
 }  // extern "C"

@@ -7,6 +7,11 @@ makes each a pure `apply(params, state, bottoms)` (caffe_mpi_tpu/layers/
 base.py). Here a layer is an `nn.Module`: shape inference (`setup`) declares
 its learnables, which are registered as `nn.Parameter`s under the JAX names
 (`weight`, `bias`) and layouts, and `forward(bottoms) -> tops` runs it.
+Non-learnable state (BatchNorm's running `mean` and `var`) is declared
+with `declare_state` and registered as float32 buffers under the JAX
+state names; a layer updates its buffers in place during a TRAIN forward,
+so nets that hold the very same buffer tensors (test nets, serving
+buckets) see each update.
 
 Caffe's positional param blobs (blobs_[0]=weight, blobs_[1]=bias...) are kept
 as an *ordered* dict of declarations so .caffemodel import/export can map by
@@ -58,6 +63,7 @@ class Layer(nn.Module):
         self.phase = phase
         self.device = torch.device(device or "cpu")
         self.decls: dict[str, ParamDecl] = {}
+        self.state_shapes: dict[str, Shape] = {}
         self.in_shapes: list[Shape] = []
         self.out_shapes: list[Shape] = []
 
@@ -84,16 +90,25 @@ class Layer(nn.Module):
             torch.empty(decl.shape, dtype=dtype, device=self.device),
             requires_grad=False))
 
+    def declare_state(self, name: str, shape: Shape) -> None:
+        """Declare a non-learnable float32 state blob, zero-initialised as
+        the JAX layers' `init_state` returns it, registered as a buffer."""
+        self.state_shapes[name] = tuple(shape)
+        self.register_buffer(name, torch.zeros(
+            tuple(shape), dtype=torch.float32, device=self.device))
+
     # -- initialization ----------------------------------------------------
     @torch.no_grad()
     def init_params(self, gen: torch.Generator, skip=()) -> None:
         """Fill every declared param not in `skip` from `gen` (drawn on the
-        CPU, then copied to the layer's device)."""
+        CPU, then copied to the layer's device), and zero the state."""
         for name, decl in self.decls.items():
             if name in skip:
                 continue
             p = getattr(self, name)
             p.copy_(fill(decl.filler, gen, decl.shape, p.dtype))
+        for name in self.state_shapes:
+            getattr(self, name).zero_()
 
     # -- execution ---------------------------------------------------------
     def forward(self, bottoms: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -101,9 +116,11 @@ class Layer(nn.Module):
 
     # -- interop -----------------------------------------------------------
     def caffe_blobs(self) -> list[tuple[str, str]]:
-        """Ordered ('param'|'state', name) pairs matching the reference
-        layer's positional blobs_ vector — the .caffemodel contract.
-        Default: declared params in order (weight, bias for most layers)."""
+        """Ordered (kind, name) pairs matching the reference layer's
+        positional blobs_ vector — the .caffemodel contract. Kinds, as in
+        the JAX package: "param" (a declared param), "state" (a state
+        buffer) and "correction" (a synthesized scalar, name ""). Default:
+        declared params in order (weight, bias for most layers)."""
         return [("param", n) for n in self.decls]
 
     # -- conveniences ------------------------------------------------------

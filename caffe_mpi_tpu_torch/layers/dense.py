@@ -1,9 +1,9 @@
-"""Dense layers: InnerProduct, Embed, Bias.
+"""Dense layers: InnerProduct, Embed, Scale, Bias.
 
-Reference: src/caffe/layers/{inner_product,embed,bias}_layer.{cpp,cu}; JAX
-package caffe_mpi_tpu/layers/dense.py. The cuBLAS gemm stays a library
-call (`torch.matmul`), as the JAX package left it to XLA; Embed is a
-gather, Bias broadcast arithmetic.
+Reference: src/caffe/layers/{inner_product,embed,scale,bias}_layer.
+{cpp,cu}; JAX package caffe_mpi_tpu/layers/dense.py. The cuBLAS gemm
+stays a library call (`torch.matmul`), as the JAX package left it to XLA;
+Embed is a gather, Scale and Bias broadcast arithmetic.
 """
 
 from __future__ import annotations
@@ -74,26 +74,67 @@ def _broadcast_along(vec: torch.Tensor, nd: int, axis: int) -> torch.Tensor:
     return vec.reshape(shape)
 
 
-@register("Bias")
-class BiasLayer(Layer):
-    """y = x + b, b broadcast from `axis`: the second bottom, or a learned
+class _ScaleBiasBase(Layer):
+    """Scale's and Bias's shared shape logic (scale_layer.cpp,
+    bias_layer.cpp): the operand is the second bottom, or a learned
     `operand` of the bottom's shape[axis : axis + num_axes] (num_axes -1:
-    to the end)."""
+    to the end), broadcast from `axis`."""
 
-    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
-        p = self.lp.bias_param
-        axis, num_axes = (p.axis, p.num_axes) if p else (1, 1)
+    def _setup(self, in_shapes, axis: int, num_axes: int, filler,
+               default_fill: float) -> list[Shape]:
         nd = len(in_shapes[0])
         self.axis = axis % nd if axis < 0 else axis
         self.two_bottom = len(in_shapes) > 1
-        if not self.two_bottom:
+        if self.two_bottom:
+            self.op_shape = tuple(in_shapes[1])
+        else:
             end = nd if num_axes == -1 else self.axis + num_axes
-            self.declare("operand", tuple(in_shapes[0][self.axis:end]),
-                         (p.filler if p else None)
-                         or FillerParameter(type="constant"))
+            self.op_shape = tuple(in_shapes[0][self.axis:end])
+            self.declare("operand", self.op_shape, filler or FillerParameter(
+                type="constant", value=default_fill))
         return [in_shapes[0]]
+
+    def _operand(self, bottoms, nd: int) -> torch.Tensor:
+        b = bottoms[1] if self.two_bottom else self.operand
+        return _broadcast_along(self.f(b), nd, self.axis)
+
+
+@register("Scale")
+class ScaleLayer(_ScaleBiasBase):
+    """y = x * s [+ b]: s the second bottom or a learned `operand`
+    (filler default constant 1), b a learned `bias` of the operand's
+    shape when `bias_term` (bias_filler default constant 0)."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        p = self.lp.scale_param
+        out = self._setup(in_shapes, p.axis if p else 1,
+                          p.num_axes if p else 1,
+                          p.filler if p else None, default_fill=1.0)
+        self.bias_term = bool(p and p.bias_term)
+        if self.bias_term:
+            self.declare("bias", self.op_shape, p.bias_filler
+                         or FillerParameter(type="constant"))
+        return out
 
     def forward(self, bottoms):
         x = self.f(bottoms[0])
-        b = bottoms[1] if self.two_bottom else self.operand
-        return [x + _broadcast_along(self.f(b), x.dim(), self.axis)]
+        y = x * self._operand(bottoms, x.dim())
+        if self.bias_term:
+            y = y + _broadcast_along(self.f(self.bias), x.dim(), self.axis)
+        return [y]
+
+
+@register("Bias")
+class BiasLayer(_ScaleBiasBase):
+    """y = x + b, b the second bottom or a learned `operand` (filler
+    default constant 0)."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        p = self.lp.bias_param
+        return self._setup(in_shapes, p.axis if p else 1,
+                           p.num_axes if p else 1,
+                           p.filler if p else None, default_fill=0.0)
+
+    def forward(self, bottoms):
+        x = self.f(bottoms[0])
+        return [x + self._operand(bottoms, x.dim())]

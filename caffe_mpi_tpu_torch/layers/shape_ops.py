@@ -1,8 +1,9 @@
-"""Shape and combination layers: Eltwise.
+"""Shape and combination layers: Concat, Eltwise.
 
-Reference: src/caffe/layers/eltwise_layer.{cpp,cu}; JAX package
-caffe_mpi_tpu/layers/shape_ops.py. Elementwise PROD, MAX, or SUM with
-optional per-bottom coefficients, as torch expressions.
+Reference: src/caffe/layers/{concat,eltwise}_layer.{cpp,cu}; JAX package
+caffe_mpi_tpu/layers/shape_ops.py. Concat is `torch.cat`; Eltwise is
+elementwise PROD, MAX, or SUM with optional per-bottom coefficients, as
+torch expressions.
 """
 
 from __future__ import annotations
@@ -10,6 +11,25 @@ from __future__ import annotations
 import torch
 
 from .base import Layer, Shape, register
+
+
+@register("Concat")
+class ConcatLayer(Layer):
+    """Join the bottoms along `axis` (default 1; the legacy `concat_dim`
+    when `axis` is unset; negative counts from the end)."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        p = self.lp.concat_param
+        axis = p.axis if p else 1
+        if p and not p.has("axis") and p.has("concat_dim"):
+            axis = p.concat_dim
+        self.axis = axis % len(in_shapes[0]) if axis < 0 else axis
+        out = list(in_shapes[0])
+        out[self.axis] = sum(s[self.axis] for s in in_shapes)
+        return [tuple(out)]
+
+    def forward(self, bottoms):
+        return [torch.cat([self.f(b) for b in bottoms], dim=self.axis)]
 
 
 @register("Eltwise")

@@ -9,7 +9,8 @@ declaration order IS execution order, in-place tops (a top that reuses its
 bottom's name rebinds the environment entry; nothing is overwritten in
 memory), param sharing by ParamSpec.name (the sharing layers hold the same
 `nn.Parameter`), phase filtering, per-layer dtype policy, and .caffemodel
-import/export in each layer's `caffe_blobs` order.
+import/export in each layer's `caffe_blobs` order, state blobs (BatchNorm's
+running mean and variance) and the correction scalar included.
 
 In TRAIN phase the net sums its loss as the reference does: every top with
 a nonzero loss weight (the prototxt's `loss_weight`, else the layer's
@@ -196,15 +197,25 @@ class Net(nn.Module):
                     continue
                 yield layer.name, pname, decl
 
+    def state_buffers(self):
+        """Yield (layer_name, state name, buffer) for every state blob, in
+        declaration order: the layers' running statistics, which test nets
+        and serving buckets share with the net that updates them."""
+        for layer in self.layers:
+            for sname in layer.state_shapes:
+                yield layer.name, sname, getattr(layer, sname)
+
     # -- .caffemodel interop (reference net.cpp:1055-1248) ----------------
     @torch.no_grad()
     def export_weights(self) -> dict[str, list[np.ndarray]]:
         """{layer_name: positional float32 blob list} in the reference's
-        blobs_ order (Net::ToProto)."""
+        blobs_ order (Net::ToProto): params, state blobs, and a [1.0]
+        correction scalar where the layer has one."""
         out: dict[str, list[np.ndarray]] = {}
         for layer in self.layers:
-            blobs = [getattr(layer, pname).detach().float().cpu().numpy()
-                     for kind, pname in layer.caffe_blobs() if kind == "param"]
+            blobs = [np.ones((1,), np.float32) if kind == "correction"
+                     else getattr(layer, name).detach().float().cpu().numpy()
+                     for kind, name in layer.caffe_blobs()]
             if blobs:
                 out[layer.name] = blobs
         return out
@@ -213,22 +224,37 @@ class Net(nn.Module):
     def import_weights(self, weights: dict[str, list],
                        strict: bool = False) -> None:
         """Load by layer-name matching (Net::CopyTrainedLayersFrom:
-        unmatched layers keep their initialization unless strict)."""
+        unmatched layers keep their initialization unless strict). As the
+        JAX `Net.import_weights`: a state blob is multiplied by 1/c, c the
+        layer's correction blob (BVLC stores the statistics scaled by it;
+        c = 0 zeroes them), and a layer given fewer blobs than it has
+        (a 3-blob BatchNorm into one with scale_bias) takes the leading
+        ones."""
         matched = set()
         for layer in self.layers:
             blobs = weights.get(layer.name)
             if blobs is None:
                 continue
             matched.add(layer.name)
-            for (kind, pname), blob in zip(layer.caffe_blobs(), blobs):
+            spec = layer.caffe_blobs()[: len(blobs)]
+            factor = 1.0
+            for (kind, _), blob in zip(spec, blobs):
+                if kind == "correction":
+                    c = float(np.asarray(blob).reshape(-1)[0])
+                    factor = 0.0 if c == 0.0 else 1.0 / c
+            for (kind, name), blob in zip(spec, blobs):
+                if kind == "correction":
+                    continue
                 blob = np.asarray(blob, np.float32)
-                cur = getattr(layer, pname)
+                cur = getattr(layer, name)
                 if tuple(cur.shape) != blob.shape:
                     if blob.size != cur.numel():
                         raise ValueError(
-                            f"layer {layer.name!r} blob {pname!r}: shape "
+                            f"layer {layer.name!r} blob {name!r}: shape "
                             f"{blob.shape} incompatible with {tuple(cur.shape)}")
                     blob = blob.reshape(tuple(cur.shape))
+                if kind == "state":
+                    blob = blob * np.float32(factor)
                 cur.copy_(torch.from_numpy(np.ascontiguousarray(blob)))
         if strict:
             missing = {l.name for l in self.layers if l.decls} - matched

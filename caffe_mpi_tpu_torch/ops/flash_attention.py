@@ -19,22 +19,25 @@ TPU kernel. A row with no unmasked key gets O = 0 and lse = log(1e-30).
 
 Kernels: `flash_fwd` (K3), `flash_bwd_dq` (K4), `flash_bwd_dkv` (K5). For
 tensors on the card each launches its kernel from `csrc/flash_attention.cu`
-(float32 or bfloat16, head dim up to 128, any lengths, any batch x heads:
-the kernels put B*H on the grid's second axis, so the wrapper launches
-runs of at most 65,535, each a launch); for tensors on the
+(float32 or bfloat16, any head dim, any lengths, any batch x heads: the
+kernels put B*H on the grid's second axis, so the wrapper launches runs
+of at most 65,535, each a launch); for tensors on the
 CPU each takes its plain version (`*_ref`): plain torch, f32 math (f64 for
 float64), over 64-wide key tiles with K3's online softmax. K3, K4 and K5
 multiply on the tensor cores (3xTF32 for f32, bf16 with f32 operands
 split in two), so on the card they agree with the plain versions to
-rounding, not bitwise. There is no fallback: a CUDA tensor the kernels cannot take, a
-failed build or a refused launch raises. Each of the three has a
-`.launches` count, raised by one where it launches its kernel and nowhere
-else.
+rounding, not bitwise. There is no fallback: a CUDA tensor the kernels
+cannot take, a failed build or a refused launch raises. Each of the three
+has a `.launches` count, raised by one where it launches its kernel and
+nowhere else.
 
-The one limit the kernels keep is the head dim, 1..128 (`MAX_HEAD_DIM`):
-their tensor-core tilings hold a row group's O in registers, which at
-D 128 already takes K3 179 registers a thread; a wider head needs the
-`wgmma` design with O in shared memory. The JAX package takes any D.
+Two kernels stand behind each entry, chosen by the head dim: up to
+`TENSOR_CORE_HEAD_DIM` (128) the tensor-core kernels, whose tilings hold
+a row group's accumulators in registers (K3 at D 128 takes 179 a thread);
+past it the wide kernels (`*_wide_*` in the same source), one warp a row
+with its accumulators in shared memory, on the CUDA cores in f32: any D,
+as the JAX package takes, and slow (PERF.md). A wide launch is a K3, K4
+or K5 launch and counts as one.
 
 Entries, as in the JAX package:
 - `flash_attention(q, k, v, causal=)`: (B, S, H, D) -> (B, S, H, D),
@@ -67,7 +70,7 @@ REPLACES_DKV = "caffe_mpi_tpu/ops/flash_attention.py:168 _bwd_dkv_kernel"
 TILE = 64        # the plain versions' key tile (the kernels take 16-128
                  # rows and 32-64 keys a warp)
 PAD_TILE = 128   # the JAX package's tile, which sets the padding rule
-MAX_HEAD_DIM = 128  # O of a row group in registers (module docstring)
+TENSOR_CORE_HEAD_DIM = 128  # wider heads take the wide kernels (docstring)
 MAX_GRID_Y = 65535  # batch x heads a launch: the grid's second axis
 
 
@@ -236,7 +239,8 @@ def _check_bwd(q, do, lse, delta) -> None:
 
 
 def _kernel(table: dict, name: str, q, tensors, k_bias, argtypes):
-    """The C function for q's dtype, after the checks the kernels need."""
+    """The C function for q's dtype and head dim (the wide kernel past
+    TENSOR_CORE_HEAD_DIM), after the checks the kernels need."""
     from . import build
     fn_name = table.get(q.dtype)
     if fn_name is None:
@@ -246,10 +250,11 @@ def _kernel(table: dict, name: str, q, tensors, k_bias, argtypes):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name}: every tensor must be {q.dtype} on "
                              f"{q.device}, got {t.dtype} on {t.device}")
-    d = q.shape[2]
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{name} kernel takes head dims 1..{MAX_HEAD_DIM}, "
-                         f"got {d}")
+    if q.shape[2] < 1:
+        raise ValueError(f"{name} kernel takes head dims from 1, got "
+                         f"{q.shape[2]}")
+    if q.shape[2] > TENSOR_CORE_HEAD_DIM:
+        fn_name = fn_name.replace(f"{name}_", f"{name}_wide_")
     if k_bias is not None and (k_bias.dtype != torch.float32
                                or k_bias.device != q.device):
         raise ValueError(f"{name}: k_bias must be float32 on {q.device}")
@@ -353,8 +358,8 @@ def _sk_valid(k, sk_valid):
 
 def flash_fwd(q, k, v, *, causal=False, sk_valid=None, k_bias=None):
     """K3: (B*H, Sq, D) x (B*H, Sk, D) -> (out in q's dtype, lse f32
-    (B*H, Sq)). On the card: the CUDA kernel (D up to MAX_HEAD_DIM, 128;
-    a wider head raises); on the CPU: the plain version."""
+    (B*H, Sq)). On the card: the CUDA kernel (the tensor-core one up to D
+    128, the wide one past it); on the CPU: the plain version."""
     _check_block(q, k, v, k_bias)
     sk_valid = _sk_valid(k, sk_valid)
     if q.device.type == "cuda":
@@ -366,7 +371,7 @@ def flash_fwd(q, k, v, *, causal=False, sk_valid=None, k_bias=None):
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, sk_valid=None,
                  k_bias=None):
     """K4: dQ from the global (lse, delta) of these query rows. On the
-    card D is at most MAX_HEAD_DIM (128), as for K3."""
+    card the kernel is chosen by D, as for K3."""
     _check_block(q, k, v, k_bias)
     _check_bwd(q, do, lse, delta)
     sk_valid = _sk_valid(k, sk_valid)
@@ -379,7 +384,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, sk_valid=None,
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, k_bias=None):
     """K5: (dK, dV) from the global (lse, delta) of the query rows. On
-    the card D is at most MAX_HEAD_DIM (128), as for K3."""
+    the card the kernel is chosen by D, as for K3."""
     _check_block(q, k, v, k_bias)
     _check_bwd(q, do, lse, delta)
     if q.device.type == "cuda":
@@ -445,9 +450,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q, k, v: (B, S, H, D) -> (B, S, H, D), differentiable. Lengths over
     128 are padded to a multiple of 128: padded key columns are masked,
     padded query rows sliced off (their gradients vanish through the zero
-    cotangent). On the card D is at most MAX_HEAD_DIM (128): the one limit
-    the kernels keep where the JAX package computes (module docstring);
-    any B*H and any lengths are taken."""
+    cotangent). Any head dim, any B*H and any lengths are taken (module
+    docstring)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     sq_p, sk_p = _pad_len(sq), _pad_len(sk)

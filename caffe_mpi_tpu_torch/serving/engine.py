@@ -8,12 +8,13 @@ device across requests.
 
 The port keeps that shape on the card: a deploy net is built once per
 bucket of a fixed ladder (1, 4, ..., the declared batch), every bucket net
-sharing one set of `nn.Parameter`s, which are placed on the device when the
-model loads and never moved per request. PyTorch compiles nothing, so the
-warm step runs each bucket once before traffic (cuDNN's plan choice and
-kernel loading happen there) and `stats()` reports `warmed_buckets`. Scores
-are copied device->host on the dispatching stream into pinned memory, and
-an event recorded after the copy orders the harvest's read behind it.
+sharing one set of `nn.Parameter`s and state buffers, which are placed on
+the device when the model loads and never moved per request. PyTorch
+compiles nothing, so the warm step runs each bucket once before traffic
+(cuDNN's plan choice and kernel loading happen there) and `stats()`
+reports `warmed_buckets`. Scores are copied device->host on the
+dispatching stream into pinned memory, and an event recorded after the
+copy orders the harvest's read behind it.
 """
 
 from __future__ import annotations
@@ -51,8 +52,9 @@ class BucketedForward:
     """Padded static-batch forward over a bucket ladder.
 
     One deploy NetParameter, one `Net` per bucket size (the Input batch dim
-    rewritten per bucket). Layer params are shape-identical across buckets,
-    so every bucket net holds the very `nn.Parameter`s of the first one.
+    rewritten per bucket). Layer params and state (BatchNorm's running
+    statistics) are shape-identical across buckets, so every bucket net
+    holds the very `nn.Parameter`s and buffers of the first one.
     """
 
     def __init__(self, net_param: NetParameter, *, ladder=None,
@@ -96,8 +98,8 @@ class BucketedForward:
             if self._nets:
                 owner = next(iter(self._nets.values()))
                 for src, dst in zip(owner.layers, net.layers):
-                    for pname in src.decls:
-                        setattr(dst, pname, getattr(src, pname))
+                    for name in (*src.decls, *src.state_shapes):
+                        setattr(dst, name, getattr(src, name))
             self._nets[bucket] = net
             return net
 

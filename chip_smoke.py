@@ -13,9 +13,12 @@ Phases, in order; any failure exits nonzero and prints no result line:
 3. kernels — holds each kernel against its plain PyTorch version on the card
              at the shapes the serving and training paths give it (and at
              edge shapes: the LRN kernels at windows 1 to 17, both sides
-             of the templated windows' edge, and at 70,000 images; the
-             flash kernels at 70,000 batch x heads), in float32 and
-             bfloat16, and times the kernel,
+             of the templated windows' edge, and at 70,000 images, and at
+             GoogLeNet's pool1/norm1 and conv2/norm2 at batch 128; the
+             flash kernels at 70,000 batch x heads, and at head dims 160
+             and 256, past the tensor-core kernels' 128, where the wrappers
+             launch the wide kernels), in float32 and bfloat16, and times
+             the kernel,
              the plain version and the library call that computes the same
              function: K1, the LRN forward, against F.local_response_norm;
              K2, the LRN backward, against torch.autograd.grad through
@@ -84,10 +87,32 @@ Phases, in order; any failure exits nonzero and prints no result line:
              its largest element, each update within Adam's sensitivity to
              that limit; and the deploy net's prob rows (batch 10, BH 40)
              within 1e-5 of the largest.
+10. resnet50 — trains models/resnet50/solver.prototxt as written (batch
+             32, 224x224, 53 BatchNorms with scale_bias, poly LR with
+             ramp-up) through the CLI's `train`: 20 iterations, a test
+             pass of 2 batches at iteration 0 and at the end through the
+             statistics the test net shares, launch counts set to 0 just
+             before and read just after (ResNet-50 runs none of K1-K5);
+             finite losses, every running mean and variance moved from 0
+             and finite, a torch.profiler split of a step (convolution
+             forward and backward, BatchNorm, elementwise, the rest; the
+             card's busy share). Then a resume from the snapshot (weights,
+             history and running statistics bitwise, one more step), the
+             deploy net served from the snapshot's caffemodel at buckets
+             1, 4 and 10, every row against the TEST-phase Net's forward
+             on the card, and one SGD step at batch 16 on the card against
+             the CPU (limits at RESNET_SPREAD_FACTOR), with BatchNorm's
+             two designs held against each other on the card.
+11. googlenet — trains models/googlenet/solver.prototxt as written (batch
+             128, three losses weighted 0.3, 0.3 and 1) through the CLI's
+             `train`: 20 iterations, finite losses, K1 twice a forward and
+             K2 twice an iteration, counts set to 0 just before and read
+             just after.
 
 It prints one {"kernels": [...]} line (K1-K5), one {"serving": ...} line,
-one {"train": ...} line, one {"transformer": ...} line, the card line
-again, and last {"ok": true, ...}.
+one {"train": ...} line, one {"transformer": ...} line, one
+{"resnet50": ...} line, one {"googlenet": ...} line, the card line again,
+and last {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -237,6 +262,13 @@ def _alexnet_lrn_shapes(batches):
         yield "norm2", (b, 256, 27, 27)
 
 
+# GoogLeNet's two LRNs at its training batch, local_size 5, alpha 1e-4,
+# beta 0.75, as AlexNet's (models/googlenet/train_val.prototxt
+# pool1/norm1, conv2/norm2)
+GOOGLENET_LRN_SHAPES = (("googlenet/pool1/norm1", (128, 64, 56, 56)),
+                        ("googlenet/conv2/norm2", (128, 192, 56, 56)))
+
+
 def _kernel_entry(name, source, replaces, cases, max_err, per) -> dict:
     """The kernels-line entry: the head case is norm1 at batch 256 in f32,
     the shape the training path gives the kernel."""
@@ -309,7 +341,8 @@ def kernel_phase(rates, parent_lrn=None) -> dict:
     max_err, bitwise = edges["max_abs_err"], edges["bitwise"]
     cases = []
     args = (LRN["size"], LRN["alpha"], LRN["beta"], LRN["k"])
-    for layer, shape in _alexnet_lrn_shapes((1, 4, 10, 256)):
+    for layer, shape in (*_alexnet_lrn_shapes((1, 4, 10, 256)),
+                         *GOOGLENET_LRN_SHAPES):
         for dtype in TOL:
             x = (torch.randn(shape, generator=gen, device="cuda") * 4).to(
                 dtype)
@@ -391,7 +424,8 @@ def kernel_bwd_phase(rates, parent_lrn=None) -> dict:
         .backward()
     torch.testing.assert_close(xr.grad.cpu(), xh.grad, rtol=1e-5, atol=1e-6)
     cases = []
-    for layer, shape in _alexnet_lrn_shapes((256,)):
+    for layer, shape in (*_alexnet_lrn_shapes((256,)),
+                         *GOOGLENET_LRN_SHAPES):
         for dtype in TOL:
             x, dy = inputs(shape, dtype)
             err, exact = _held(
@@ -444,6 +478,8 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-5)}
 # the training path's attention: transformer_lm at batch 8, 4 heads,
 # sequence 64, head dim 32
 FLASH_PATH = dict(bh=32, s=64, d=32)
+# head dims past the tensor-core kernels' 128, which the wide kernels take
+WIDE_HEAD_DIMS = (160, 256)
 
 
 def _flash_cases():
@@ -468,6 +504,12 @@ def _flash_cases():
             yield f"s{s}_d{d}", 32, s, d, f32, True, None, False
     yield "s2048_d128_noncausal", 32, 2048, 128, f32, False, None, False
     yield "s2048_d128_bf16", 32, 2048, 128, bf16, True, None, False
+    # past the tensor-core kernels' 128: the wide kernels
+    for d in WIDE_HEAD_DIMS:
+        yield f"wide_s1024_d{d}", 32, 1024, d, f32, True, None, False
+        yield f"wide_s1024_d{d}_bf16", 32, 1024, d, bf16, True, None, False
+    yield "wide_pad_s200_d160", 8, 256, 160, f32, True, 200, False
+    yield "wide_bias_tile_d256_bf16", 8, 256, 256, bf16, False, None, True
 
 
 def flash_bound(kind, bh, s, d, dtype, causal, sk_valid, bias, rates):
@@ -1076,12 +1118,15 @@ def serve_phase(kernel: dict, card: str) -> dict:
 # -- 5. train -----------------------------------------------------------------
 
 def _state(solver) -> dict:
-    """Every owned parameter and history slot of a solver, on the host."""
+    """Every owned parameter, history slot and state buffer (running
+    statistics) of a solver, on the host."""
     out = {}
     for lname, pname, _, p in solver._decls:
         out[f"{lname}.{pname}"] = p.detach().cpu().clone()
         for i, h in enumerate(solver.history[(lname, pname)]):
             out[f"{lname}.{pname}.h{i}"] = h.cpu().clone()
+    for lname, sname, buf in solver.net.state_buffers():
+        out[f"{lname}.{sname}"] = buf.cpu().clone()
     return out
 
 
@@ -1168,12 +1213,15 @@ def train_phase(k1: dict, k2: dict, card: str) -> dict:
 
 
 def profile_steps(solver, feed_fn, n: int = 3,
-                  ours=("lrn_fwd_kernel", "lrn_bwd_kernel")) -> dict:
+                  ours=("lrn_fwd_kernel", "lrn_bwd_kernel"),
+                  groups=None) -> dict:
     """Where a training step's device time goes: `n` more iterations under
     torch.profiler, device time summed by kernel and by the aten op that
     launched it, beside the steps' wall time under the profiler (which
-    slows the host). If the profiler sees no device time, the breakdown is
-    reported as not measured."""
+    slows the host). `groups` {group: aten op names}: the device time a
+    step of those ops (each op's inclusive device time: name leaf ops
+    only), and "other", the rest of the device time. If the profiler sees
+    no device time, the breakdown is reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev(evt, self_only):
@@ -1203,9 +1251,16 @@ def profile_steps(solver, feed_fn, n: int = 3,
     ops = sorted(((dev(e, False) / 1e3 / n, e.key) for e in events
                   if e.key.startswith("aten::") and dev(e, False) > 0),
                  reverse=True)
+    split = None
+    if groups:
+        by_op = {e.key: dev(e, False) / 1e3 / n for e in events}
+        split = {g: sum(by_op.get(op, 0.0) for op in ops)
+                 for g, ops in groups.items()}
+        split["other"] = device_ms - sum(split.values())
     return {
         "wall_ms_per_step": wall_ms / n, "device_ms_per_step": device_ms,
         "device_busy_profiled": device_ms / (wall_ms / n),
+        "groups_ms_per_step": split,
         "ours_ms_per_step": {k: sum(ms for ms, name in kernels
                                     if k in name) for k in ours},
         "top_kernels_ms": [[round(ms, 4), name[:90]]
@@ -1604,8 +1659,17 @@ def transformer_parity_phase() -> dict:
             out["lr_mult"][key] = decl.lr_mult
         return out, solver.sp
 
+    # the frozen statistics: the batch's own, from a CPU forward with
+    # moving_average_fraction 0, so the frozen net's activations are at
+    # the trained net's scale
     probe = Solver(param(), device="cpu")
     feeds = cli.synthetic_feed(probe.net, seed=0)
+    for layer in _batch_norms(probe.net):
+        layer.p.moving_average_fraction = 0.0
+    with torch.no_grad():
+        probe.net(feeds)
+    frozen_stats = {l.name: (l.mean.clone(), l.var.clone())
+                    for l in _batch_norms(probe.net)}
     del probe
     cpu, sp = one_step("cpu", feeds)
     _reset_flash_counts()
@@ -1674,6 +1738,475 @@ def transformer_parity_phase() -> dict:
     return res
 
 
+
+# -- 10. resnet50 ----------------------------------------------------------------
+
+RESNET_DIR = os.path.join(ROOT, "models", "resnet50")
+RESNET_ITERS = 20
+RESNET_BATCH = 32
+RESNET_BNS = 53
+# device time of a step by the aten op that launched it (inclusive device
+# time of these leaf ops, so no kernel is counted twice): convolution
+# forward and backward (cuDNN, layout conversions included), BatchNorm
+# (cuDNN's forward and backward, and the var_mean of the running update),
+# elementwise ops (ReLU forward and backward, residual adds, gradient
+# accumulation, the running update's and the SGD update's arithmetic);
+# "other" is the rest (pooling, fc, the loss, copies)
+RESNET_GROUPS = {
+    "conv_forward": ("aten::cudnn_convolution",),
+    "conv_backward": ("aten::convolution_backward",),
+    "batch_norm": ("aten::cudnn_batch_norm", "aten::native_batch_norm",
+                   "aten::cudnn_batch_norm_backward",
+                   "aten::native_batch_norm_backward", "aten::var_mean"),
+    "elementwise": ("aten::relu", "aten::relu_", "aten::threshold_backward",
+                    "aten::add", "aten::add_", "aten::mul", "aten::mul_",
+                    "aten::sub", "aten::div"),
+}
+
+
+def _kernel_counts() -> tuple[int, ...]:
+    """K1-K5's launch counts."""
+    from caffe_mpi_tpu_torch.ops import lrn as lrn_op
+    return (lrn_op.lrn_across_channels.launches,
+            lrn_op.lrn_across_channels_bwd.launches, *_flash_counts())
+
+
+def _reset_kernel_counts() -> None:
+    from caffe_mpi_tpu_torch.ops import lrn as lrn_op
+    lrn_op.lrn_across_channels.launches = 0
+    lrn_op.lrn_across_channels_bwd.launches = 0
+    _reset_flash_counts()
+
+
+def _train_cli(solver_path, prefix, iters, extra=()):
+    from caffe_mpi_tpu_torch.tools import cli
+    return cli.train(cli.parse_args(
+        ["train", "-solver", solver_path, "-synthetic", "-test_iter",
+         str(TEST_ITER), "-snapshot_prefix", prefix, "-device", "cuda",
+         "-max_iter", str(iters), *extra]))
+
+
+def _batch_norms(net):
+    return [l for l in net.layers if l.lp.type == "BatchNorm"]
+
+
+def resnet50_phase(card: str) -> dict:
+    """Train models/resnet50/solver.prototxt as written (batch 32, 224^2,
+    53 BatchNorms with scale_bias, poly LR with ramp-up) through the CLI's
+    `train`: 20 iterations, a test pass of TEST_ITER batches at iteration
+    0 and at the end through the statistics the test net shares, with
+    every launch count set to 0 just before and read just after (ResNet-50
+    has no LRN and no attention: all five stay 0). Every loss finite,
+    every running mean and variance moved from 0 and finite. A profile
+    of a step. Then the snapshot resumes through the same entry point:
+    weights, history and running statistics bitwise, one more step. Then
+    the card-against-CPU step and the served deploy rows."""
+    from caffe_mpi_tpu_torch.layers import norm
+    from caffe_mpi_tpu_torch.solver import Solver
+    from caffe_mpi_tpu_torch.tools import cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resnet50_")
+    solver_path = os.path.join(RESNET_DIR, "solver.prototxt")
+    try:
+        prefix = os.path.join(tmp, "resnet50")
+        torch.cuda.reset_peak_memory_stats()
+        _reset_kernel_counts()
+        solver, summary = _train_cli(solver_path, prefix, RESNET_ITERS)
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        losses = summary["losses"]
+        log(f"resnet50 train: {json.dumps(summary)}")
+        if summary["batch"] != RESNET_BATCH or len(losses) != RESNET_ITERS:
+            fail(f"resnet50 ran {len(losses)} iterations at batch "
+                 f"{summary['batch']}, want {RESNET_ITERS} at "
+                 f"{RESNET_BATCH}")
+        if not np.all(np.isfinite(losses)):
+            fail(f"resnet50 losses not all finite: {losses}")
+        if any(counts):
+            fail(f"resnet50 launched K1-K5 {counts}, want none")
+        bns = _batch_norms(solver.net)
+        if len(bns) != RESNET_BNS or not all(l.scale_bias for l in bns):
+            fail(f"{len(bns)} BatchNorms, want {RESNET_BNS} with scale_bias")
+        stats = {"min_abs_max": float("inf"), "all_finite": True}
+        for l in bns:
+            for buf in (l.mean, l.var):
+                stats["all_finite"] &= bool(torch.isfinite(buf).all())
+                stats["min_abs_max"] = min(stats["min_abs_max"],
+                                           float(buf.abs().max()))
+        if not stats["all_finite"] or stats["min_abs_max"] == 0.0:
+            fail(f"running statistics did not all move and stay finite: "
+                 f"{stats}")
+        tnet = solver.test_nets[0]
+        if any(getattr(tnet.layer_by_name(ln), sn) is not buf
+               for ln, sn, buf in solver.net.state_buffers()):
+            fail("the test net does not share the train net's statistics")
+        if not summary["test_scores"] or not all(
+                np.isfinite(v) for v in summary["test_scores"][0].values()):
+            fail(f"resnet50 test scores: {summary['test_scores']}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        trained = _state(solver)
+        feeds = cli.synthetic_feed(solver.net)
+        profile = profile_steps(solver, lambda it: feeds, ours=(),
+                                groups=RESNET_GROUPS)
+        log(f"resnet50 profile: {json.dumps(profile)}")
+        del solver, feeds
+
+        resumed, again = _train_cli(solver_path, prefix, RESNET_ITERS + 1,
+                                    ["-snapshot", summary["snapshot"]])
+        if again["start_iter"] != RESNET_ITERS or again["iters"] != 1 or \
+                not np.isfinite(again["losses"][0]):
+            fail(f"resnet50 resume: {again}")
+        check = Solver(resumed.sp, model_dir=resumed.model_dir,
+                       device="cuda")
+        check.restore(summary["snapshot"])
+        restored = _state(check)
+        bad = [k for k in trained if not torch.equal(trained[k],
+                                                     restored[k])]
+        if bad:
+            fail(f"restored resnet50 state differs: {bad[:5]}")
+        n_stats = sum(1 for k in trained if k.endswith((".mean", ".var")))
+        del resumed, check
+        torch.cuda.empty_cache()
+        caffemodel = summary["snapshot"].replace(".solverstate",
+                                                 ".caffemodel")
+        serving = _resnet_serve(caffemodel)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    med = summary["median_iter_ms"]
+    return {
+        "solver": "models/resnet50/solver.prototxt", "batch": RESNET_BATCH,
+        "iters": RESNET_ITERS, "losses": losses, "median_step_ms": med,
+        "img_per_s": summary["img_per_s"], "step_ms": summary["iter_ms"],
+        "test_scores": summary["test_scores"],
+        "launches_k1_k5": list(counts), "batch_norms": len(bns),
+        "statistics": stats, "resumed_statistics_bitwise": n_stats,
+        "resumed_loss": again["losses"][0], "peak_mem_GB": peak_gb,
+        "batch_norm_design": norm.BATCH_STATS, "profile": profile,
+        "device_busy": profile["device_ms_per_step"] / med
+        if isinstance(profile["device_ms_per_step"], float) else None,
+        "serving": serving, "card": card,
+    }
+
+
+def _strict(param):
+    """A NetParameter with TF32 off (default_forward_math: FLOAT)."""
+    param.default_forward_math = "FLOAT"
+    return param
+
+
+# served deploy rows against the TEST net's forward, both on the card with
+# TF32 off: f32 sums in other orders (cuDNN picks its algorithm by batch)
+SERVE_LIMIT = 1e-4
+
+
+def _resnet_serve(caffemodel: str) -> dict:
+    """models/resnet50/deploy.prototxt (TF32 off, its Softmax cut so the
+    fc1000 logits are compared: random weights leave the softmax nearly
+    uniform) with the trained snapshot's caffemodel through ServingEngine
+    at its ladder (1, 4, 10), bursts of 1, 3, 10 and 7 rows from four
+    threads; every served row against the TEST-phase Net's forward of the
+    same rows on the card, within SERVE_LIMIT of the largest logit. Every
+    bucket net must hold the first bucket's statistics, and they must be
+    the snapshot's (a bucket at zero statistics would give other rows)."""
+    from caffe_mpi_tpu_torch import io as port_io
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    from caffe_mpi_tpu_torch.serving import ServingEngine
+
+    param = _strict(NetParameter.from_file(os.path.join(RESNET_DIR,
+                                                        "deploy.prototxt")))
+    param.layer = [lp for lp in param.layer if lp.type != "Softmax"]
+    bursts = (1, 3, 10, 7)
+    rng = np.random.RandomState(4)
+    rows = rng.randn(sum(bursts), 3, 224, 224).astype(np.float32)
+    weights = port_io.load_weights(caffemodel)
+    with ServingEngine(device="cuda") as engine:
+        model = engine.load_model("resnet50", copy.deepcopy(param),
+                                  caffemodel)
+        ladder = model.fwd.ladder
+        owner = model.fwd.net_for(ladder[0])
+        for b in ladder[1:]:
+            other = model.fwd.net_for(b)
+            if any(getattr(other.layer_by_name(ln), sn) is not buf
+                   for ln, sn, buf in owner.state_buffers()):
+                fail(f"serving bucket {b} does not share the statistics")
+        first_bn = _batch_norms(owner)[0]
+        if not np.array_equal(first_bn.mean.cpu().numpy(),
+                              np.asarray(weights[first_bn.name][0])):
+            fail("served statistics are not the snapshot's")
+        starts = np.cumsum((0,) + bursts[:-1])
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            futs = [ex.submit(engine.classify, "resnet50",
+                              rows[a:a + b], preprocess=False)
+                    for a, b in zip(starts, bursts)]
+            served = np.concatenate([f.result(timeout=600) for f in futs])
+        engine.drain()
+        dispatches = engine.stats()["dispatches"]
+        out_blob = model.fwd.out_blob()
+    ref_param = copy.deepcopy(param)
+    for lp in ref_param.layer:
+        if lp.type == "Input":
+            lp.input_param.shape[0].dim[0] = len(rows)
+    ref_net = Net(ref_param, "TEST", device="cuda")
+    ref_net.import_weights(weights)
+    with torch.inference_mode():
+        ref = ref_net({"data": torch.from_numpy(rows).cuda()})[0][
+            out_blob].float().cpu().numpy()
+    diff = float(np.abs(served - ref).max())
+    res = {"model": "models/resnet50/deploy.prototxt (TF32 off, logits)",
+           "ladder": list(ladder), "bursts": list(bursts),
+           "dispatches": dispatches, "rows": int(len(rows)),
+           "max_abs_diff": diff, "ref_max_abs": float(np.abs(ref).max()),
+           "limit": SERVE_LIMIT}
+    log(f"resnet50 serving: {json.dumps(res)}")
+    if not np.all(np.isfinite(served)) or \
+            diff > SERVE_LIMIT * float(np.abs(ref).max()):
+        fail(f"served resnet50 rows against the TEST net: {res}")
+    return res
+
+
+RESNET_PARITY_BATCH = 16
+RESNET_BELOW_POOL1 = ("conv1.", "conv1/bn.")
+# Limits of the card-against-CPU step (TF32 off). ResNet-50's gradients
+# at its initial weights amplify rounding: on the CPU alone, a 1e-7
+# relative change of the input moves conv and BatchNorm gradients by up
+# to ~17% of their largest element, with the running statistics or with
+# the batch's own frozen in place of them (the first chip run of this
+# check measured the card's differences at 1.05x the CPU's own). So each
+# group's gradients (conv1 and conv1/bn below pool1, the layers above it)
+# and the running statistics are held to RESNET_SPREAD_FACTOR x the
+# largest change the CPU shows in that group under that one rounding of
+# its input; fc, above every BatchNorm, to 1e-4 of its largest element
+# (AlexNet's fc limit); the loss to 1e-5 of its size.
+RESNET_SPREAD_FACTOR = 2.0
+RESNET_FC_LIMIT = 1e-4
+
+
+def _resnet_group(key: str) -> str:
+    if key.startswith(RESNET_BELOW_POOL1):
+        return "below_pool1"
+    return "fc" if key.startswith("fc.") else "above"
+
+
+def resnet50_parity_phase() -> dict:
+    """One SGD step of ResNet-50 at full width, batch cut to
+    RESNET_PARITY_BATCH (for this check only), on the card against the
+    CPU from the same weights and feeds, TF32 off, within the limits
+    above; each updated parameter within lr x lr_mult x its limit x the
+    gradient's largest element, plus two f32 ulps of the largest weight.
+    Then BatchNorm's two batch-statistics designs against each other on
+    the card (`_bn_designs_check`)."""
+    from caffe_mpi_tpu_torch.proto import NetParameter, SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver, lr_policy
+    from caffe_mpi_tpu_torch.tools import cli
+
+    def param():
+        sp = SolverParameter.from_file(os.path.join(RESNET_DIR,
+                                                    "solver.prototxt"))
+        net = _strict(NetParameter.from_file(os.path.join(ROOT, sp.net)))
+        for lp in net.layer:
+            if lp.type == "Input":
+                for shape in lp.input_param.shape:
+                    shape.dim[0] = RESNET_PARITY_BATCH
+        sp.net, sp.net_param = "", net
+        sp.test_iter, sp.test_interval = [], 0
+        return sp
+
+    def one_step(device, feeds_cpu):
+        solver = Solver(param(), device=device)
+        feeds = {k: v.to(device) for k, v in feeds_cpu.items()}
+        w0 = {f"{l}.{p}": t.detach().cpu().clone()
+              for l, p, _, t in solver._decls}
+        solver.step(1, lambda it: feeds)
+        out = {"loss": solver.losses[0], "w0": w0, "grad": {}, "w": {},
+               "lr_mult": {}, "rate": lr_policy.schedule(solver.sp, 0)[0],
+               "stats": {f"{l}.{n}": b.cpu().clone()
+                         for l, n, b in solver.net.state_buffers()}}
+        for l, p, decl, t in solver._decls:
+            key = f"{l}.{p}"
+            out["w"][key] = t.detach().cpu()
+            out["grad"][key] = t.grad.detach().cpu()
+            out["lr_mult"][key] = decl.lr_mult
+        return out
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    probe = Solver(param(), device="cpu")
+    feeds = cli.synthetic_feed(probe.net, seed=0)
+    del probe
+    perturbed = dict(feeds)
+    perturbed["data"] = feeds["data"] * (1 + 1e-7 * torch.randn(
+        feeds["data"].shape, generator=torch.Generator().manual_seed(1)))
+    t0 = time.perf_counter()
+    cpu = one_step("cpu", feeds)
+    cpu_secs = time.perf_counter() - t0
+    cpu_self = one_step("cpu", perturbed)
+    card = one_step("cuda", feeds)
+    if any(not torch.equal(cpu["w0"][k], card["w0"][k]) for k in cpu["w0"]):
+        fail("card and CPU solvers did not start from the same weights")
+    rows = {key: {"group": _resnet_group(key),
+                  "grad": rel(card["grad"][key], gref),
+                  "grad_cpu_self": rel(cpu_self["grad"][key], gref),
+                  "w": float((card["w"][key] - cpu["w"][key]).abs().max())}
+            for key, gref in cpu["grad"].items()}
+    groups = ("below_pool1", "above", "fc")
+    self_worst = {g: max(r["grad_cpu_self"] for r in rows.values()
+                         if r["group"] == g) for g in groups}
+    limits = {g: RESNET_SPREAD_FACTOR * self_worst[g] for g in groups}
+    limits["fc"] = RESNET_FC_LIMIT
+    eps = torch.finfo(torch.float32).eps
+    bad = []
+    for key, r in rows.items():
+        limit = limits[r["group"]]
+        r["w_limit"] = (cpu["rate"] * cpu["lr_mult"][key] * limit
+                        * float(cpu["grad"][key].abs().max())
+                        + 2 * eps * float(cpu["w0"][key].abs().max()))
+        if not r["grad"] <= limit:
+            bad.append(f"grad {key}: {r['grad']:.3g} > {limit:.3g}")
+        if not r["w"] <= r["w_limit"]:
+            bad.append(f"updated {key}: {r['w']:.3g} > {r['w_limit']:.3g}")
+    stats = max(rel(card["stats"][k], v) for k, v in cpu["stats"].items())
+    stats_self = max(rel(cpu_self["stats"][k], v)
+                     for k, v in cpu["stats"].items())
+    if not stats <= RESNET_SPREAD_FACTOR * stats_self:
+        bad.append(f"statistics: {stats:.3g} > {RESNET_SPREAD_FACTOR} x "
+                   f"{stats_self:.3g}")
+    if abs(card["loss"] - cpu["loss"]) > 1e-5 * abs(cpu["loss"]):
+        bad.append(f"loss on the card {card['loss']} vs CPU {cpu['loss']}")
+    res = {"batch": RESNET_PARITY_BATCH, "loss_cpu": cpu["loss"],
+           "loss_card": card["loss"], "loss_cpu_self": cpu_self["loss"],
+           "limits": limits,
+           "worst_grad": {g: max(r["grad"] for r in rows.values()
+                                 if r["group"] == g) for g in groups},
+           "worst_grad_cpu_self": self_worst, "worst_statistic": stats,
+           "worst_statistic_cpu_self": stats_self, "cpu_step_s": cpu_secs}
+    log(f"resnet50 parity: {json.dumps({**res, 'params': rows})}")
+    res["batch_norm_designs"] = _bn_designs_check()
+    if bad:
+        fail(f"resnet50 parity: {bad[:10]}")
+    return res
+
+
+# BatchNorm's "fused" design (cuDNN) against its "composite" one on the
+# card: y, the gradients and the running statistics within 1e-5 of each
+# one's largest element (the same f32 math, reductions in other orders)
+BN_DESIGN_SHAPES = ((16, 64, 112, 112), (2, 8, 3, 3))
+BN_DESIGN_TOL = 1e-5
+
+
+def _bn_designs_check() -> dict:
+    """A BatchNorm(scale_bias) layer at conv1/bn's shape at the parity
+    batch and at a small one (where the variance's n / (n - 1) would
+    show), in TRAIN, run by both designs from the same input, scale, bias
+    and statistics."""
+    from caffe_mpi_tpu_torch.core.types import DtypePolicy
+    from caffe_mpi_tpu_torch.layers import create_layer, norm
+    from caffe_mpi_tpu_torch.proto import LayerParameter
+
+    lp = LayerParameter.from_text(
+        'name: "bn" type: "BatchNorm" bottom: "x" top: "y" '
+        'batch_norm_param { scale_bias: true eps: 0.0001 '
+        'moving_average_fraction: 0.9 }')
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out, shipped = {}, norm.BATCH_STATS
+    try:
+        for shape in BN_DESIGN_SHAPES:
+            x = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
+            dy = torch.randn(shape, generator=gen, device="cuda")
+            c = shape[1]
+            init = [torch.randn(c, generator=gen, device="cuda")
+                    for _ in range(3)] + [
+                torch.rand(c, generator=gen, device="cuda") + 0.5]
+            got = {}
+            for design in norm.DESIGNS:
+                norm.BATCH_STATS = design
+                layer = create_layer(lp, DtypePolicy(), "TRAIN",
+                                     torch.device("cuda"))
+                layer.setup([shape])
+                with torch.no_grad():
+                    for t, v in zip((layer.scale, layer.bias, layer.mean,
+                                     layer.var), init):
+                        t.copy_(v)
+                layer.scale.requires_grad_(True)
+                layer.bias.requires_grad_(True)
+                xg = x.clone().requires_grad_(True)
+                y = layer([xg])[0]
+                y.backward(dy)
+                got[design] = {"y": y.detach(), "dx": xg.grad,
+                               "dscale": layer.scale.grad,
+                               "dbias": layer.bias.grad,
+                               "mean": layer.mean.clone(),
+                               "var": layer.var.clone()}
+            errs = {k: float((got["fused"][k] - got["composite"][k]).abs()
+                             .max()) / float(got["composite"][k].abs().max())
+                    for k in got["fused"]}
+            out["x".join(map(str, shape))] = errs
+            if not all(e <= BN_DESIGN_TOL for e in errs.values()):
+                fail(f"BatchNorm designs differ at {shape}: {errs}")
+    finally:
+        norm.BATCH_STATS = shipped
+    log(f"batch norm designs on the card: {json.dumps(out)}")
+    return out
+
+
+# -- 11. googlenet ---------------------------------------------------------------
+
+GOOGLENET_ITERS = 20
+GOOGLENET_BATCH = 128
+
+
+def googlenet_phase(k1: dict, k2: dict, card: str) -> dict:
+    """Train models/googlenet/solver.prototxt as written (batch 128, three
+    losses weighted 0.3, 0.3 and 1) through the CLI's `train`: 20
+    iterations and a test pass of TEST_ITER batches at iteration 0 and at
+    the end, launch counts set to 0 just before and read just after: K1
+    twice a forward (pool1/norm1, conv2/norm2), K2 twice an iteration, no
+    flash kernel; every loss finite."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_googlenet_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_kernel_counts()
+        solver, summary = _train_cli(
+            os.path.join(ROOT, "models", "googlenet", "solver.prototxt"),
+            os.path.join(tmp, "googlenet"), GOOGLENET_ITERS)
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        weights = sorted(w for _, w in solver.net.loss_blobs)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del solver
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    losses = summary["losses"]
+    log(f"googlenet train: {json.dumps(summary)}")
+    if summary["batch"] != GOOGLENET_BATCH or \
+            len(losses) != GOOGLENET_ITERS:
+        fail(f"googlenet ran {len(losses)} iterations at batch "
+             f"{summary['batch']}")
+    if not np.all(np.isfinite(losses)):
+        fail(f"googlenet losses not all finite: {losses}")
+    if weights != [0.3, 0.3, 1.0]:
+        fail(f"googlenet loss weights {weights}, want 0.3, 0.3, 1")
+    forwards = GOOGLENET_ITERS + 2 * TEST_ITER
+    want = (2 * forwards, 2 * GOOGLENET_ITERS, 0, 0, 0)
+    if counts != want:
+        fail(f"googlenet launched K1-K5 {counts}, want {want}")
+    k1["launches_by_path"]["train_googlenet"] = counts[0]
+    k2["launches_by_path"]["train_googlenet"] = counts[1]
+    med = summary["median_iter_ms"]
+    return {
+        "solver": "models/googlenet/solver.prototxt",
+        "batch": GOOGLENET_BATCH, "iters": GOOGLENET_ITERS,
+        "losses": losses, "median_step_ms": med,
+        "img_per_s": summary["img_per_s"], "step_ms": summary["iter_ms"],
+        "test_scores": summary["test_scores"],
+        "launches_k1_k5": list(counts), "loss_weights": weights,
+        "peak_mem_GB": peak_gb, "card": card,
+    }
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1696,10 +2229,15 @@ def main(argv=None) -> int:
     transformer = transformer_phase(flash, card)
     transformer["induction"] = induction_phase()
     transformer["parity"] = transformer_parity_phase()
+    resnet50 = resnet50_phase(card)
+    googlenet = googlenet_phase(k1, k2, card)
+    resnet50["parity"] = resnet50_parity_phase()
     print(json.dumps({"kernels": [k1, k2, *flash]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"transformer": transformer}), flush=True)
+    print(json.dumps({"resnet50": resnet50}), flush=True)
+    print(json.dumps({"googlenet": googlenet}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

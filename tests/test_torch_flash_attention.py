@@ -304,6 +304,7 @@ def test_cuda_source_holds_the_three_kernels_and_is_built():
     for fn in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         for dtype in ("f32", "bf16"):
             assert f"int {fn}_{dtype}(" in src
+            assert f"int {fn}_wide_{dtype}(" in src
     for kernel in ("_fwd_kernel", "_bwd_dq_kernel", "_bwd_dkv_kernel"):
         assert kernel in src
     assert "flash_attention.cu" in build.SOURCES
@@ -320,16 +321,76 @@ def test_heads_past_the_grid_axis_are_launched_in_runs(bh):
     assert len(chunks) == -(-bh // 65535)
 
 
-def test_the_head_dim_is_the_one_limit_the_kernels_keep():
-    """D above 128 is refused for a CUDA tensor, as the docstrings state;
-    the plain versions take it on the CPU."""
-    assert pf.MAX_HEAD_DIM == 128
-    for fn in (pf.flash_attention, pf.flash_fwd, pf.flash_bwd_dq,
-               pf.flash_bwd_dkv):
-        assert "128" in fn.__doc__
-    q = torch.zeros(1, 4, 130)
-    out, lse = pf.flash_fwd(q, q, q)
-    assert out.shape == (1, 4, 130) and lse.shape == (1, 4)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [160, 256])
+def test_plain_kernels_match_the_pallas_kernels_at_wide_heads(d, causal):
+    """Past the tensor-core kernels' 128 the card takes the wide kernels,
+    held against these plain versions; here the plain K3, K4 and K5 at
+    D 160 and 256 against the Pallas kernels, with a ragged sk_valid (S
+    256, 200 valid: K3 and K4 take the mask, K5 none)."""
+    q, k, v, do = _inputs((2, 256, d), seed=d + causal, scale=0.5)
+    for t in (q, k, v, do):
+        t[:, 200:] = 0.0
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o, lse = jf._fwd_impl(jq, jk, jv, causal, True, sk_valid=200)
+    dq, dk, dv = jf._bwd_impl(jq, jk, jv, o, lse, jdo, causal, True,
+                              sk_valid=200)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    po, plse = pf.flash_fwd(tq, tk, tv, causal=causal, sk_valid=200)
+    np.testing.assert_allclose(po.numpy(), np.asarray(o), **O_TOL)
+    np.testing.assert_allclose(plse.numpy(), np.asarray(lse)[:, 0],
+                               **LSE_TOL)
+    grads = pf._bwd(tq, tk, tv, po, plse, tdo, causal, sk_valid=200)
+    for got, want in zip(grads, (dq, dk, dv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("d,wide", [(128, False), (129, True), (256, True)])
+def test_each_head_dim_reaches_its_kernels_entry_point(d, wide,
+                                                       monkeypatch):
+    """The wrappers with the built library replaced by recorders: up to
+    D 128 the tensor-core entry points, past it the wide ones, with the
+    same arguments and one counted launch each."""
+    import contextlib
+    import types
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+    calls = []
+
+    def recorder(fn_name):
+        def fn(*args):
+            calls.append((fn_name, args))
+            return 0
+        fn.argtypes = None
+        return fn
+
+    names = [f"{fn}{w}_{dt}" for fn in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")
+             for w in ("", "_wide") for dt in ("f32", "bf16")]
+    lib = types.SimpleNamespace(**{n: recorder(n) for n in names})
+    monkeypatch.setattr(build, "load", lambda source: lib)
+    q = torch.zeros(3, 8, d)
+    lse = torch.zeros(3, 8)
+    counts = [f.launches for f in (pf.flash_fwd, pf.flash_bwd_dq,
+                                   pf.flash_bwd_dkv)]
+    pf._launch_fwd(q, q, q, True, 8, None)
+    pf._launch_dq(q, q, q, q, lse, lse, True, 8, None)
+    pf._launch_dkv(q, q, q, q, lse, lse, True, None)
+    suffix = "_wide_f32" if wide else "_f32"
+    assert [c[0] for c in calls] == [f"flash_fwd{suffix}",
+                                     f"flash_bwd_dq{suffix}",
+                                     f"flash_bwd_dkv{suffix}"]
+    for fn_name, args in calls:
+        assert args[-1] == 7 and d in args
+    assert [f.launches for f in (pf.flash_fwd, pf.flash_bwd_dq,
+                                 pf.flash_bwd_dkv)] == [c + 1 for c in counts]
+    for f, c in zip((pf.flash_fwd, pf.flash_bwd_dq, pf.flash_bwd_dkv),
+                    counts):
+        f.launches = c
+    assert pf.TENSOR_CORE_HEAD_DIM == 128
+    assert not hasattr(pf, "MAX_HEAD_DIM")
 
 
 def test_a_launch_cut_into_head_runs_moves_each_pointer_and_counts(

@@ -1,6 +1,6 @@
-"""The port stands alone: caffe_mpi_tpu_torch, chip_smoke.py and
-flash_variants.py import no JAX and nothing of the JAX package, and entry
-points never carry on quietly on the CPU.
+"""The port stands alone: caffe_mpi_tpu_torch, chip_smoke.py,
+flash_variants.py and resnet_variants.py import no JAX and nothing of the
+JAX package, and entry points never carry on quietly on the CPU.
 
 The package name `caffe_mpi_tpu_torch` starts with `caffe_mpi_tpu`, so the
 scan matches module names exactly (`caffe_mpi_tpu`, or the prefix
@@ -22,7 +22,8 @@ _FORBIDDEN = ("jax", "jaxlib", "caffe_mpi_tpu")
 
 def _port_files():
     out = [os.path.join(_ROOT, f) for f in ("chip_smoke.py",
-                                            "flash_variants.py")]
+                                            "flash_variants.py",
+                                            "resnet_variants.py")]
     for dirpath, dirnames, files in os.walk(_PKG):
         dirnames[:] = [d for d in dirnames if d not in ("__pycache__",
                                                         "_build")]
@@ -118,3 +119,12 @@ def test_flash_variants_without_card_fails_and_times_nothing():
                           timeout=300)
     assert proc.returncode != 0
     assert '"case"' not in proc.stdout
+
+
+def test_resnet_variants_without_card_fails_and_times_nothing():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "resnet_variants.py"],
+                          cwd=_ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"run"' not in proc.stdout
