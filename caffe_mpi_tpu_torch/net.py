@@ -41,9 +41,16 @@ class Net(nn.Module):
 
     def __init__(self, param: NetParameter, phase: str = "TEST", *,
                  device: str | torch.device = "cuda", level: int = 0,
-                 stages: tuple[str, ...] = ()):
+                 stages: tuple[str, ...] = (), model_dir: str = "",
+                 data_shape_probe=None):
+        """model_dir: the base of the Data layers' sources and mean files.
+        data_shape_probe(lp) -> (C, H, W) binds a Data layer's record
+        shape before its setup (default: open its dataset once,
+        data/feeder.py); a probe shape without a raw record shape keeps
+        that layer's transform on the host."""
         super().__init__()
         self.device = resolve_device(device)
+        self.model_dir = model_dir
         param = normalize_net(param)
         state = NetState(phase=phase, level=level, stage=list(stages))
         param = filter_net(param, state)
@@ -55,6 +62,8 @@ class Net(nn.Module):
         self._layer_index: dict[str, Layer] = {}
         self.blob_shapes: dict[str, tuple] = {}
         self.feed_blobs: list[str] = []  # blob names fed by the caller
+        # feed key -> (shape, kind), in feed order (InputLayerBase)
+        self.feed_specs: dict[str, tuple[tuple, str]] = {}
         # param sharing: ParamSpec.name -> (owner layer, param name)
         self._shared_owner: dict[str, tuple[str, str]] = {}
         self.param_aliases: dict[tuple[str, str], tuple[str, str]] = {}
@@ -70,6 +79,14 @@ class Net(nn.Module):
                 lp.backward_math, param.default_backward_math,
             )
             layer = create_layer(lp, policy, phase, self.device)
+            if lp.type == "Data":
+                # the JAX Net's probe binding (caffe_mpi_tpu/net.py:155-167)
+                if data_shape_probe is None:
+                    from .data.feeder import data_shape_probe as probe
+                    layer.bound_shape = probe(lp, model_dir)
+                else:
+                    layer.bound_shape = data_shape_probe(lp)
+                layer.model_dir = model_dir
             in_shapes = []
             for b in lp.bottom:
                 if b not in self.blob_shapes:
@@ -92,6 +109,8 @@ class Net(nn.Module):
                 self.blob_shapes[t] = tuple(s)
             if isinstance(layer, InputLayerBase):
                 self.feed_blobs.extend(lp.top)
+                for key, shape, kind in layer.feed_specs():
+                    self.feed_specs[key] = (tuple(shape), kind)
             # loss weights (reference layer.hpp SetLossWeights)
             for ti, t in enumerate(lp.top):
                 w = (lp.loss_weight[ti] if ti < len(lp.loss_weight)

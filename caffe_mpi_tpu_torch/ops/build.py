@@ -1,13 +1,15 @@
-"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+"""Build and load the port's native sources (compiler -> shared library ->
+ctypes).
 
-Each kernel source under `caffe_mpi_tpu_torch/csrc/` has a plain C
-interface. At first use it is compiled with nvcc for `sm_90a` into a shared
-library under `caffe_mpi_tpu_torch/_build/` (listed in .gitignore), in a
-directory keyed by a hash of the source and the flags, and loaded with
-ctypes. Nothing is built when a module is imported, and nothing here falls
-back: a missing nvcc or a failed build raises.
+Each source under `caffe_mpi_tpu_torch/csrc/` has a plain C interface. At
+first use it is compiled into a shared library under
+`caffe_mpi_tpu_torch/_build/` (listed in .gitignore), in a directory keyed
+by a hash of the source and the flags, and loaded with ctypes: a CUDA
+kernel source (`.cu`) with nvcc for `sm_90a`, a host source (`.cc`) with
+the host C++ compiler. Nothing is built when a module is imported, and
+nothing here falls back: a missing compiler or a failed build raises.
 
-    python -m caffe_mpi_tpu_torch.ops.build      # build every kernel now
+    python -m caffe_mpi_tpu_torch.ops.build      # build every source now
 """
 
 from __future__ import annotations
@@ -27,9 +29,11 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
-# every kernel source of the port; chip_smoke.py builds them all at once
-SOURCES = ("lrn.cu", "flash_attention.cu")
+# every source of the port: the kernels, and the host crc32c of the LMDB
+# sidecar; chip_smoke.py builds them all at once
+SOURCES = ("lrn.cu", "flash_attention.cu", "crc32c.cc")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -46,9 +50,22 @@ def nvcc_path() -> str:
                        "built")
 
 
+def cxx_path() -> str:
+    for name in ("c++", "g++"):
+        cand = shutil.which(name)
+        if cand:
+            return cand
+    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the "
+                       "port's host sources cannot be built")
+
+
+def _flags(source: str) -> tuple[str, ...]:
+    return NVCC_FLAGS if source.endswith(".cu") else CXX_FLAGS
+
+
 def _lib_path(source: str) -> str:
     with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(_flags(source)).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}",
                         f"lib{stem}.so")
@@ -67,14 +84,16 @@ def build(source: str) -> tuple[str, float]:
         if os.path.isfile(out):
             return out, 0.0
         tmp = out + f".tmp{os.getpid()}"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+        compiler = nvcc_path() if source.endswith(".cu") else cxx_path()
+        cmd = [compiler, *_flags(source), "-o", tmp,
                os.path.join(CSRC_DIR, source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {source} (exit {proc.returncode}):\n"
+                f"{os.path.basename(compiler)} failed on {source} "
+                f"(exit {proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
         return out, time.perf_counter() - t0
@@ -92,7 +111,7 @@ def load(source: str) -> ctypes.CDLL:
 
 
 def build_all() -> dict[str, float]:
-    """Build every kernel source in parallel (one nvcc each); returns
+    """Build every source in parallel (one compiler each); returns
     {source: compile seconds}."""
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(max_workers=len(SOURCES)) as ex:

@@ -133,7 +133,8 @@ class Solver:
         ts = sp.train_state
         self.net = Net(_load_net_param(sp, "TRAIN", model_dir), "TRAIN",
                        device=self.device, level=ts.level if ts else 0,
-                       stages=tuple(ts.stage) if ts else ())
+                       stages=tuple(ts.stage) if ts else (),
+                       model_dir=model_dir)
         # the one TF32 setting the backward runs under (raises on a mix)
         self.net.math_precision()
         self._math = self.net.layers[0].policy
@@ -146,7 +147,7 @@ class Solver:
             self.test_nets.append(Net(
                 _load_net_param(sp, "TEST", model_dir, i), "TEST",
                 device=self.device, level=st.level if st else 0,
-                stages=tuple(st.stage) if st else ()))
+                stages=tuple(st.stage) if st else (), model_dir=model_dir))
 
         seed = sp.random_seed if sp.random_seed >= 0 else 0
         self.net.init(seed)

@@ -9,7 +9,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
 1. device  — requires torch.cuda.is_available(); prints the card's name and
              power limit as nvidia-smi reports them.
 2. build   — builds every CUDA kernel of the port from csrc/ with nvcc for
-             sm_90a (one nvcc per source, all started together).
+             sm_90a, and the host crc32c of the LMDB sidecar with the
+             host C++ compiler (one compiler per source, all started
+             together).
 3. kernels — holds each kernel against its plain PyTorch version on the card
              at the shapes the serving and training paths give it (and at
              edge shapes: the LRN kernels at windows 1 to 17, both sides
@@ -109,10 +111,27 @@ Phases, in order; any failure exits nonzero and prints no result line:
              K2 twice an iteration, counts set to 0 just before and read
              just after.
 
+12. lmdb  — trains examples/imagenet/caffenet_train_val.prototxt as written
+             (batch 256, crop 227, mirror, a mean file) from a train LMDB
+             of 1,280 raw 3x256x256 Datums and a val LMDB of 100, both
+             written by the port's writer from seeded clusters, with the
+             mean from the port's compute_image_mean, through the CLI's
+             `train` without -synthetic (20 iterations, test passes of 2
+             batches at iteration 10 and at the end, the device
+             transform on): finite losses, test scores, K1 twice a
+             forward and K2 twice an iteration (counts set to 0 just
+             before, read just after). Then the card's busy share under
+             the profiler, the same solver on a synthetic feed, `test`
+             on the val LMDB from the snapshot's caffemodel, `time` on
+             the net (whole step, MFU), `device_query`, one batch of the
+             card's device transform against the host DataTransformer
+             (bitwise), and 8 iterations over a JPEG-encoded LMDB of 256
+             records.
+
 It prints one {"kernels": [...]} line (K1-K5), one {"serving": ...} line,
 one {"train": ...} line, one {"transformer": ...} line, one
-{"resnet50": ...} line, one {"googlenet": ...} line, the card line again,
-and last {"ok": true, ...}.
+{"resnet50": ...} line, one {"googlenet": ...} line, one {"lmdb": ...}
+line, the card line again, and last {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -139,17 +158,6 @@ TEST_ITER = 2
 # mean-subtracted — so the served activations are at a realistic scale
 PREPROCESS = dict(raw_scale=255.0, mean=np.array([104.0, 117.0, 123.0]),
                   channel_swap=(2, 1, 0))
-
-# (name substring, memory bytes/s, float32 flop/s outside the tensor
-# cores, dense bf16 tensor-core flop/s with f32 accumulation), NVIDIA data
-# sheets; the first match against nvidia-smi's name wins. The LRN kernels'
-# work is elementwise, so their bounds take the CUDA cores' f32 rate.
-CARD_RATES = (
-    ("H100 NVL", 3.9e12, 60e12, 835e12),
-    ("H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H200", 4.8e12, 67e12, 989e12),
-    ("H100", 3.35e12, 67e12, 989e12),  # SXM5, "NVIDIA H100 80GB HBM3"
-)
 
 
 def f32_product_rate(rates) -> float:
@@ -185,11 +193,17 @@ def device_phase() -> tuple[str, tuple[float, float]]:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    # (memory bytes/s, float32 flop/s outside the tensor cores, dense bf16
+    # tensor-core flop/s), NVIDIA data sheets: the repo's one table. The
+    # LRN kernels' work is elementwise, so their bounds take the CUDA
+    # cores' f32 rate.
+    from caffe_mpi_tpu_torch.utils.flops import card_rates
     name = torch.cuda.get_device_name(0)
-    for key, *rates in CARD_RATES:
-        if key in name:
-            return card, tuple(rates)
-    fail(f"no published rates for {name!r}; add it to CARD_RATES")
+    rates = card_rates(name)
+    if rates is None:
+        fail(f"no published rates for {name!r}; add it to CARD_RATES in "
+             "caffe_mpi_tpu_torch/utils/flops.py")
+    return card, rates
 
 
 # -- 2. build -----------------------------------------------------------------
@@ -199,7 +213,7 @@ def build_phase() -> None:
     t0 = time.perf_counter()
     secs = build.build_all()
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s "
-        "wall, nvcc for sm_90a)")
+        "wall, nvcc for sm_90a, c++ for host code)")
 
 
 # -- 3. kernels ---------------------------------------------------------------
@@ -2206,6 +2220,269 @@ def googlenet_phase(k1: dict, k2: dict, card: str) -> dict:
         "peak_mem_GB": peak_gb, "card": card,
     }
 
+# -- 12. lmdb -------------------------------------------------------------------
+
+CAFFENET = os.path.join(ROOT, "examples", "imagenet",
+                        "caffenet_train_val.prototxt")
+CAFFENET_SOLVER = os.path.join(ROOT, "examples", "imagenet",
+                               "caffenet_solver.prototxt")
+LMDB_SHAPE = (3, 256, 256)
+LMDB_TRAIN, LMDB_VAL, LMDB_JPEG = 1280, 100, 256
+LMDB_ITERS, LMDB_TEST_INTERVAL = 20, 10
+JPEG_ITERS = 8
+SYNTHETIC_ITERS = 10
+CAFFENET_BATCH = 256
+
+
+def _write_clusters(path, n, seed, codec=None):
+    """An LMDB of `n` Datums (raw, or JPEG-encoded) from seeded separable
+    clusters (examples/common.py synthetic_clusters: one random uint8
+    template a class, plus bounded noise), by the port's writer, drawn
+    in chunks of 64."""
+    from caffe_mpi_tpu_torch.data import datasets, lmdb_io
+    templates = np.random.RandomState(42).randint(
+        0, 256, (10, *LMDB_SHAPE)).astype(np.int16)
+
+    def records():
+        for lo in range(0, n, 64):
+            k = min(64, n - lo)
+            rng = np.random.RandomState(seed + lo)
+            labels = rng.randint(0, 10, k)
+            imgs = np.clip(templates[labels] + rng.randint(
+                -40, 41, (k, *LMDB_SHAPE)).astype(np.int16), 0,
+                255).astype(np.uint8)
+            for i in range(k):
+                enc = (datasets.encode_datum(imgs[i], int(labels[i]))
+                       if codec is None else datasets.encode_datum_image(
+                           imgs[i], int(labels[i]), codec))
+                yield f"{lo + i:08d}".encode(), enc
+    lmdb_io.write_lmdb(path, records())
+
+
+def _caffenet_copy(tmp, train_db, val_db, mean, tag):
+    """Copies of the CaffeNet example net and solver over these files."""
+    with open(CAFFENET) as f:
+        net = f.read()
+    for a, b in (("examples/imagenet/ilsvrc12_train_lmdb", train_db),
+                 ("examples/imagenet/ilsvrc12_val_lmdb", val_db),
+                 ("examples/imagenet/imagenet_mean.binaryproto", mean)):
+        if a not in net:
+            fail(f"{CAFFENET} no longer names {a}")
+        net = net.replace(a, b)
+    net_path = os.path.join(tmp, f"caffenet_{tag}.prototxt")
+    with open(net_path, "w") as f:
+        f.write(net)
+    with open(CAFFENET_SOLVER) as f:
+        solver = f.read()
+    for a, b in (("examples/imagenet/caffenet_train_val.prototxt", net_path),
+                 ("test_iter: 1000", "test_iter: 2"),
+                 ("test_interval: 1000",
+                  f"test_interval: {LMDB_TEST_INTERVAL}"),
+                 ("max_iter: 450000", f"max_iter: {LMDB_ITERS}")):
+        if a not in solver:
+            fail(f"{CAFFENET_SOLVER} no longer sets {a}")
+        solver = solver.replace(a, b)
+    solver_path = os.path.join(tmp, f"caffenet_solver_{tag}.prototxt")
+    with open(solver_path, "w") as f:
+        f.write(solver)
+    return net_path, solver_path
+
+
+def _device_transform_check(solver, train_db) -> dict:
+    """One TRAIN batch of the train LMDB through the card's device
+    transform against the host DataTransformer over the same records and
+    decisions: bitwise. Times both (the host over 256 records, the card's
+    one gather)."""
+    from caffe_mpi_tpu_torch.data import device_transform as dt
+    from caffe_mpi_tpu_torch.data.datasets import open_dataset
+    from caffe_mpi_tpu_torch.data.feeder import Feeder
+    from caffe_mpi_tpu_torch.data.transformer import DataTransformer
+    data = solver.net.layers[0]
+    tf = DataTransformer(data.lp.transform_param, "TRAIN")
+    feeder = Feeder(open_dataset("LMDB", train_db), tf, CAFFENET_BATCH,
+                    device_transform=True, threads=1, lookahead=1)
+    try:
+        batch = feeder(0)
+    finally:
+        feeder.close()
+    raw, aug = batch["data"], batch["data__aug"]
+    flats = list(range(CAFFENET_BATCH))
+    t0 = time.perf_counter()
+    host = np.stack([tf(r, rng=tf.record_rng(f))
+                     for r, f in zip(raw, flats)])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    raw_d, aug_d = torch.from_numpy(raw).cuda(), torch.from_numpy(aug).cuda()
+    mean = torch.from_numpy(tf.mean).cuda()
+    tp = data.lp.transform_param
+
+    def run():
+        return dt.device_transform(raw_d, aug_d, crop=tp.crop_size,
+                                   mean=mean, scale=tp.scale)
+    got = run().cpu()
+    if not torch.equal(got, torch.from_numpy(host)):
+        fail("the card's device transform differs from the host "
+             f"DataTransformer (max {float((got - torch.from_numpy(host)).abs().max())})")
+    mirrored = int(aug[:, 2].sum())
+    if not 0 < mirrored < CAFFENET_BATCH:
+        fail(f"{mirrored} of {CAFFENET_BATCH} records mirrored")
+    return {"bitwise": True, "records": CAFFENET_BATCH,
+            "mirrored": mirrored, "device_ms": time_ms(run),
+            "host_ms": host_ms}
+
+
+def lmdb_phase(k1: dict, k2: dict, card: str) -> dict:
+    """Train CaffeNet (examples/imagenet/caffenet_train_val.prototxt as
+    written: batch 256, crop 227, mirror, a mean file) from a train LMDB
+    of 1,280 raw 3x256x256 Datums and a val LMDB of 100 that the port's
+    writer makes from seeded clusters, the mean from the port's
+    compute_image_mean, through the CLI's `train` (no -synthetic): 20
+    iterations, a test pass of 2 batches at iteration 10 and at the end,
+    the device transform on. Checks finite losses, test scores, K1 twice
+    a forward and K2 twice an iteration (counts set to 0 just before, read
+    just after). Then: the card's busy share under the profiler, the same
+    solver on a synthetic feed (the same net and device transform, no
+    host feed), `test` on the val LMDB from the snapshot's caffemodel,
+    `time` on the net, `device_query`, one batch of the device transform
+    against the host DataTransformer bitwise, and a shorter run over a
+    JPEG-encoded LMDB of 256 records (a PIL decode a record on the
+    host)."""
+    import contextlib
+
+    from caffe_mpi_tpu_torch.data.feeder import DeviceFeed
+    from caffe_mpi_tpu_torch.tools import cli, compute_image_mean
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lmdb_")
+    try:
+        t0 = time.perf_counter()
+        train_db = os.path.join(tmp, "train_lmdb")
+        val_db = os.path.join(tmp, "val_lmdb")
+        jpeg_db = os.path.join(tmp, "train_jpeg_lmdb")
+        _write_clusters(train_db, LMDB_TRAIN, seed=7)
+        _write_clusters(val_db, LMDB_VAL, seed=100_000)
+        write_s = time.perf_counter() - t0
+        _write_clusters(jpeg_db, LMDB_JPEG, seed=7, codec="jpeg")
+        mean = os.path.join(tmp, "mean.binaryproto")
+        with contextlib.redirect_stdout(sys.stderr):
+            compute_image_mean.main([train_db, mean])
+        db_mb = os.path.getsize(os.path.join(train_db, "data.mdb")) / 1e6
+        log(f"lmdb: wrote {LMDB_TRAIN} + {LMDB_VAL} raw records "
+            f"({db_mb:.1f} MB) in {write_s:.1f} s")
+        net_path, solver_path = _caffenet_copy(tmp, train_db, val_db, mean,
+                                               "raw")
+        prefix = os.path.join(tmp, "caffenet")
+        torch.cuda.reset_peak_memory_stats()
+        _reset_kernel_counts()
+        solver, summary = cli.train(cli.parse_args(
+            ["train", "-solver", solver_path, "-snapshot_prefix", prefix,
+             "-device", "cuda"]))
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"lmdb train: {json.dumps(summary)}")
+        losses = summary["losses"]
+        if summary["batch"] != CAFFENET_BATCH or len(losses) != LMDB_ITERS:
+            fail(f"lmdb train ran {len(losses)} iterations at batch "
+                 f"{summary['batch']}")
+        if not np.all(np.isfinite(losses)):
+            fail(f"lmdb train losses not all finite: {losses}")
+        if summary["data"] != "dataset" or not summary["device_transform"]:
+            fail(f"lmdb train fed {summary['data']}, device transform "
+                 f"{summary['device_transform']}")
+        scores = summary["test_scores"]
+        if not scores or set(scores[0]) != {"accuracy", "loss"} or \
+                not all(np.isfinite(list(scores[0].values()))):
+            fail(f"lmdb train test scores {scores}")
+        forwards = LMDB_ITERS + 2 * 2  # two test passes of 2 batches
+        want = (2 * forwards, 2 * LMDB_ITERS, 0, 0, 0)
+        if counts != want:
+            fail(f"lmdb train launched K1-K5 {counts}, want {want}")
+        k1["launches_by_path"]["train_caffenet_lmdb"] = counts[0]
+        k2["launches_by_path"]["train_caffenet_lmdb"] = counts[1]
+
+        feed = DeviceFeed(cli.build_feeder(solver.net, "TRAIN"),
+                          solver.device)
+        try:
+            profile = profile_steps(solver, feed)
+        finally:
+            feed.close()
+        log(f"lmdb profile: {json.dumps(profile)}")
+        syn = cli.synthetic_feed(solver.net)
+        n0 = len(solver.iter_ms)
+        solver.step(SYNTHETIC_ITERS, lambda it: syn)
+        syn_ms = float(np.median(solver.iter_ms[n0 + 1:]))
+        syn_window = cli.window_img_per_s(CAFFENET_BATCH,
+                                          solver.iter_ms[n0 + 1:])
+        transform = _device_transform_check(solver, train_db)
+        log(f"device transform: {json.dumps(transform)}")
+        del solver, syn
+
+        with contextlib.redirect_stdout(sys.stderr):
+            tested = cli.test_net(cli.parse_args(
+                ["test", "-model", net_path, "-weights",
+                 summary["snapshot"].replace(".solverstate", ".caffemodel"),
+                 "-iterations", "2", "-device", "cuda"]))
+            timed = cli.time_net(cli.parse_args(
+                ["time", "-model", net_path, "-iterations", "10", "-phase",
+                 "TRAIN", "-device", "cuda"]))
+        if set(tested) != {"accuracy", "loss"} or \
+                not all(np.isfinite(list(tested.values()))):
+            fail(f"cli test on the val LMDB: {tested}")
+        if not (timed["forward_backward_ms"] and timed["mfu"]):
+            fail(f"cli time gave no whole step or MFU: {timed}")
+        log(f"cli test: {json.dumps(tested)}")
+        log(f"cli time: {json.dumps(timed)}")
+        from caffe_mpi_tpu_torch.tools import device_query
+        devices = device_query.query()
+        if len(devices) != torch.cuda.device_count() or \
+                devices[0]["name"] != torch.cuda.get_device_name(0):
+            fail(f"device_query: {devices}")
+
+        jnet, jsolver = _caffenet_copy(tmp, jpeg_db, val_db, mean, "jpeg")
+        torch.cuda.empty_cache()
+        jpeg_solver, jpeg = cli.train(cli.parse_args(
+            ["train", "-solver", jsolver, "-max_iter", str(JPEG_ITERS),
+             "-snapshot_prefix", os.path.join(tmp, "jpeg"), "-device",
+             "cuda"]))
+        del jpeg_solver
+        log(f"lmdb jpeg train: {json.dumps(jpeg)}")
+        if len(jpeg["losses"]) != JPEG_ITERS or \
+                not np.all(np.isfinite(jpeg["losses"])):
+            fail(f"jpeg train losses {jpeg['losses']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    med = summary["median_iter_ms"]
+    return {
+        "solver": "examples/imagenet/caffenet_solver.prototxt (copy: "
+        f"max_iter {LMDB_ITERS}, test_iter 2, test_interval "
+        f"{LMDB_TEST_INTERVAL})",
+        "batch": CAFFENET_BATCH, "records": LMDB_TRAIN,
+        "record_shape": list(LMDB_SHAPE), "train_db_MB": db_mb,
+        "write_s": write_s, "iters": LMDB_ITERS, "losses": losses,
+        "test_scores": scores, "median_step_ms": med,
+        "lmdb_img_per_s": summary["img_per_s"],
+        "lmdb_window_img_per_s": summary["window_img_per_s"],
+        "step_ms": summary["iter_ms"],
+        "feed_ms_per_batch": summary["feed_ms_per_batch"],
+        "feed_threads": summary["feed_threads"],
+        "synthetic_step_ms": syn_ms,
+        "synthetic_img_per_s": CAFFENET_BATCH / (syn_ms / 1e3),
+        "synthetic_window_img_per_s": syn_window,
+        "jpeg_records": LMDB_JPEG, "jpeg_iters": JPEG_ITERS,
+        "jpeg_img_per_s": jpeg["img_per_s"],
+        "jpeg_window_img_per_s": jpeg["window_img_per_s"],
+        "jpeg_median_step_ms": jpeg["median_iter_ms"],
+        "jpeg_feed_ms_per_batch": jpeg["feed_ms_per_batch"],
+        "device_busy": profile.get("device_busy_profiled"),
+        "profile": profile, "launches_k1_k5": list(counts),
+        "device_transform": transform, "cli_test": tested,
+        "time_step_ms": timed["forward_backward_ms"],
+        "time_forward_ms": timed["forward_ms"], "time_mfu": timed["mfu"],
+        "time_tflops": timed["tflops"], "time_peak_rate": timed["peak_rate"],
+        "time_peak_mem_MiB": timed["peak_mem_MiB"],
+        "device_query": devices[0],
+        "peak_mem_GB": peak_gb, "card": card,
+    }
+
 
 def main(argv=None) -> int:
     import argparse
@@ -2232,12 +2509,14 @@ def main(argv=None) -> int:
     resnet50 = resnet50_phase(card)
     googlenet = googlenet_phase(k1, k2, card)
     resnet50["parity"] = resnet50_parity_phase()
+    lmdb = lmdb_phase(k1, k2, card)
     print(json.dumps({"kernels": [k1, k2, *flash]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"transformer": transformer}), flush=True)
     print(json.dumps({"resnet50": resnet50}), flush=True)
     print(json.dumps({"googlenet": googlenet}), flush=True)
+    print(json.dumps({"lmdb": lmdb}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

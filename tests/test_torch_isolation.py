@@ -1,6 +1,7 @@
 """The port stands alone: caffe_mpi_tpu_torch, chip_smoke.py,
-flash_variants.py and resnet_variants.py import no JAX and nothing of the
-JAX package, and entry points never carry on quietly on the CPU.
+flash_variants.py, resnet_variants.py, feed_variants.py and
+mkl_first_call.py import no JAX and nothing of the JAX package, and entry
+points never carry on quietly on the CPU.
 
 The package name `caffe_mpi_tpu_torch` starts with `caffe_mpi_tpu`, so the
 scan matches module names exactly (`caffe_mpi_tpu`, or the prefix
@@ -23,7 +24,9 @@ _FORBIDDEN = ("jax", "jaxlib", "caffe_mpi_tpu")
 def _port_files():
     out = [os.path.join(_ROOT, f) for f in ("chip_smoke.py",
                                             "flash_variants.py",
-                                            "resnet_variants.py")]
+                                            "resnet_variants.py",
+                                            "feed_variants.py",
+                                            "mkl_first_call.py")]
     for dirpath, dirnames, files in os.walk(_PKG):
         dirnames[:] = [d for d in dirnames if d not in ("__pycache__",
                                                         "_build")]
@@ -128,3 +131,30 @@ def test_resnet_variants_without_card_fails_and_times_nothing():
                           text=True, timeout=300)
     assert proc.returncode != 0
     assert '"run"' not in proc.stdout
+
+
+def test_feed_variants_without_card_fails_and_times_nothing():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "feed_variants.py"], cwd=_ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"run"' not in proc.stdout
+
+
+def test_mkl_first_call_script_runs_and_the_port_arm_holds():
+    """The witness of the first-call race in MKL's vector math runs; with
+    the port imported first, no thread's first call differs."""
+    import json
+    import shutil
+    if shutil.which("c++") is None:
+        pytest.skip("no c++ to build the race helper")
+    proc = subprocess.run(
+        [sys.executable, "mkl_first_call.py", "--procs", "2", "--burners",
+         "0", "--jobs", "2"], cwd=_ROOT, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert set(out) == {"base", "port"}
+    assert out["base"]["procs"] == out["port"]["procs"] == 2
+    assert out["port"]["procs_differing"] == 0

@@ -3,7 +3,9 @@ in the port, in TRAIN and in TEST, with the JAX `Net`'s blob shapes, param
 shapes and state shapes: shape inference only, nothing initialised or run.
 A net that still needs a layer type the port has not registered raises
 naming that type. The ResNet-50 and GoogLeNet solvers train and resume
-through the CLI at full width on a cut batch."""
+through the CLI at full width on a cut batch. The examples' three
+Data-layer nets (mnist, cifar10, imagenet) build as written over tiny
+LMDBs in tmp_path, with the JAX `Net`'s shapes and feed specs."""
 
 import glob
 import os
@@ -103,3 +105,24 @@ def test_zoo_solver_trains_and_resumes_through_the_cli(model, batch,
         assert torch.equal(a, b)
     for (_, _, _, a), (_, _, _, b) in zip(trained._decls, check._decls):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("phase", ["TRAIN", "TEST"])
+@pytest.mark.parametrize("name", ["mnist", "cifar10", "imagenet"])
+def test_example_data_nets_build_with_the_jax_shapes(name, phase, tmp_path):
+    """As written (batch sizes, crop 227, mean files), over 8-record
+    LMDBs; the Data layer probes its dataset and takes the device
+    transform in both packages."""
+    from test_torch_cli_tools import example_net
+    text = example_net(tmp_path, name, narrow=False, n=8)
+    net = Net(NetParameter.from_file(text), phase, device="cpu")
+    jnet = JaxNet(JaxNP.from_file(text), phase)
+    assert net.blob_shapes == jnet.blob_shapes
+    assert net.feed_specs == jnet.feed_specs
+    assert [l.name for l in net.layers] == [l.name for l in jnet.layers]
+    data, jdata = net.layers[0], jnet.layers[0]
+    assert data.lp.type == jdata.lp.type == "Data"
+    assert data.dev_transform and jdata.dev_transform
+    for layer, jl in zip(net.layers, jnet.layers):
+        assert {n: d.shape for n, d in layer.decls.items()} == \
+            {n: tuple(d.shape) for n, d in jl.params.items()}, layer.name

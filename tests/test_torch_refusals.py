@@ -216,3 +216,81 @@ def test_cli_has_a_flag_for_every_refused_field():
     args = cli.parse_args(["train"])
     for name, _ in SOLVER_FIELDS + SERVING_FIELDS:
         assert getattr(args, name) is None, name
+
+
+# -- the data plane -----------------------------------------------------------
+
+DATA_ITEM = r"ROADMAP\.md §1 item 3\b"
+
+
+def _lmdb(tmp_path):
+    from caffe_mpi_tpu_torch.data.datasets import encode_datum
+    from caffe_mpi_tpu_torch.data.lmdb_io import write_lmdb
+    import numpy as np
+    img = np.zeros((1, 4, 4), np.uint8)
+    write_lmdb(str(tmp_path / "db"), [(b"%08d" % i, encode_datum(img, i))
+                                      for i in range(3)])
+    return str(tmp_path / "db")
+
+
+def _data_net(source, data_param="", transform=""):
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    return NetParameter.from_text(
+        'layer { name: "d" type: "Data" top: "data" top: "label" '
+        f'transform_param {{ {transform} }} data_param {{ source: "{source}" '
+        f'batch_size: 2 {data_param} }} }}')
+
+
+def test_leveldb_backend_is_refused(tmp_path):
+    from caffe_mpi_tpu_torch.data.datasets import open_dataset
+    from caffe_mpi_tpu_torch.net import Net
+    with pytest.raises(NotImplementedError,
+                       match=rf"backend: LEVELDB .*{DATA_ITEM}"):
+        open_dataset("LEVELDB", str(tmp_path))
+    # the prototxt default backend is LEVELDB, as in the reference
+    with pytest.raises(NotImplementedError, match=DATA_ITEM):
+        Net(_data_net(str(tmp_path)), "TRAIN", device="cpu")
+    Net(_data_net(_lmdb(tmp_path), "backend: LMDB"), "TRAIN", device="cpu")
+
+
+def test_data_param_cache_is_refused(tmp_path):
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.tools import cli as port_cli
+    net = Net(_data_net(_lmdb(tmp_path), "backend: LMDB cache: true"),
+              "TRAIN", device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=rf"data_param\.cache .*{DATA_ITEM}"):
+        port_cli.build_feeder(net, "TRAIN")
+    net = Net(_data_net(_lmdb(tmp_path), "backend: LMDB"), "TRAIN",
+              device="cpu")
+    port_cli.build_feeder(net, "TRAIN").close()
+
+
+def test_decoded_cache_mb_stays_refused():
+    assert ("decoded_cache_mb", 3) in SOLVER_FIELDS
+    sp = SolverParameter()
+    sp.decoded_cache_mb = 64.0
+    with pytest.raises(NotImplementedError,
+                       match=rf"decoded_cache_mb: .*{DATA_ITEM}"):
+        Solver(sp, device="cpu")
+    from caffe_mpi_tpu_torch.data.datasets import DecodedCacheDataset
+    with pytest.raises(NotImplementedError, match=DATA_ITEM):
+        DecodedCacheDataset(None, 64.0)
+
+
+@pytest.mark.parametrize("kind,param", [
+    ("ImageData", 'image_data_param { source: "list.txt" batch_size: 2 '
+                  'new_height: 8 new_width: 8 }'),
+    ("WindowData", 'window_data_param { source: "w.txt" batch_size: 2 '
+                   'crop_size: 8 }'),
+    ("HDF5Data", 'hdf5_data_param { source: "h5.txt" batch_size: 2 }'),
+])
+def test_unported_data_layer_types_are_refused(kind, param):
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    net = NetParameter.from_text(
+        f'layer {{ name: "d" type: "{kind}" top: "data" top: "label" '
+        f'{param} }}')
+    with pytest.raises(NotImplementedError,
+                       match=rf"the {kind} layer is not ported .*{DATA_ITEM}"):
+        Net(net, "TRAIN", device="cpu")
