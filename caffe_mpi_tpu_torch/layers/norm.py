@@ -22,9 +22,10 @@ synchronisation.
 Two designs compute the batch-statistics forward; `BATCH_STATS` picks one
 (chip_smoke.py's resnet50 phase times both on ResNet-50):
 - "fused": `F.batch_norm(x, None, None, scale, bias, training=True)`,
-  cuDNN's fused forward and backward on the card, plus one
-  `torch.var_mean` pass for the update (float32 inputs; others take the
-  composite);
+  cuDNN's fused forward and backward on the card (PyTorch's own fused
+  kernels for a bfloat16 input, whose scale and bias are bfloat16 as the
+  JAX layer casts them), plus one `torch.var_mean` pass in float32 for
+  the update (float32 and bfloat16 inputs; others take the composite);
 - "composite": the JAX layer's arithmetic as torch ops, the statistics
   from one `torch.var_mean` that serves both the normalisation and the
   update, autograd through each op.
@@ -40,6 +41,7 @@ from .base import Layer, Shape, register
 
 DESIGNS = ("fused", "composite")
 BATCH_STATS = "fused"
+FUSED_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @register("BatchNorm")
@@ -90,7 +92,7 @@ class BatchNormLayer(Layer):
                                self.eps)]
         dims = [i for i in range(x.dim()) if i != 1]
         f = self.p.moving_average_fraction
-        if BATCH_STATS == "fused" and x.dtype == torch.float32:
+        if BATCH_STATS == "fused" and x.dtype in FUSED_DTYPES:
             y = F.batch_norm(x, None, None, scale, bias, training=True,
                              eps=self.eps)
             with torch.no_grad():

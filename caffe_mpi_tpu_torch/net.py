@@ -23,6 +23,8 @@ the backward.
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 from torch import nn
@@ -33,7 +35,10 @@ from .core.types import DtypePolicy
 from .layers.base import Layer, create_layer
 from .layers.data_layers import InputLayerBase
 from .proto.config import NetParameter, NetState
+from .proto.netshape import BF16_INELIGIBLE
 from .proto.upgrade import filter_net, normalize_net
+
+log = logging.getLogger("caffe_mpi_tpu_torch.net")
 
 
 class Net(nn.Module):
@@ -42,12 +47,22 @@ class Net(nn.Module):
     def __init__(self, param: NetParameter, phase: str = "TEST", *,
                  device: str | torch.device = "cuda", level: int = 0,
                  stages: tuple[str, ...] = (), model_dir: str = "",
-                 data_shape_probe=None):
+                 data_shape_probe=None, solver_storage: str = "FLOAT",
+                 precision: str = ""):
         """model_dir: the base of the Data layers' sources and mean files.
         data_shape_probe(lp) -> (C, H, W) binds a Data layer's record
         shape before its setup (default: open its dataset once,
         data/feeder.py); a probe shape without a raw record shape keeps
-        that layer's transform on the host."""
+        that layer's transform on the host.
+        solver_storage: the solver's `solver_data_type`, the storage type
+        of the learnable params (the master weights): FLOAT (float32),
+        FLOAT16 (bfloat16 storage; the solver updates in float32 and
+        casts back) or DOUBLE (float32); integer types are refused.
+        precision: the solver's `precision`. "" or "f32" keeps the
+        prototxt's types; "bf16" makes FLOAT16 the net-level default
+        forward and backward type where the prototxt sets none, and a
+        layer's own forward_type/backward_type still wins (the JAX
+        `Net`'s rules, caffe_mpi_tpu/net.py)."""
         super().__init__()
         self.device = resolve_device(device)
         self.model_dir = model_dir
@@ -70,14 +85,45 @@ class Net(nn.Module):
         # (blob, loss weight) for every top that adds to the loss
         self.loss_blobs: list[tuple[str, float]] = []
 
+        if solver_storage not in ("", "FLOAT", "FLOAT16", "DOUBLE"):
+            raise ValueError(
+                f"unsupported solver_data_type {solver_storage!r}: learnable "
+                "params must be floating point (FLOAT, FLOAT16, or DOUBLE)")
+        solver_storage = solver_storage or "FLOAT"
+        if precision not in ("", "f32", "bf16"):
+            raise ValueError(f"unknown precision {precision!r} "
+                             "(expected 'f32' or 'bf16')")
+        net_fwd = param.default_forward_type
+        net_bwd = param.default_backward_type
+        if precision == "bf16":
+            if not param.has("default_forward_type"):
+                net_fwd = "FLOAT16"
+            if not param.has("default_backward_type"):
+                net_bwd = "FLOAT16"
+            if "FLOAT16" not in (net_fwd, net_bwd):
+                log.warning(
+                    "precision: bf16 requested, but the net prototxt "
+                    "explicitly sets default_forward_type/"
+                    "default_backward_type (%s/%s) and the prototxt "
+                    "wins: bf16 did not engage net-wide (per-layer "
+                    "forward_type overrides may still apply)",
+                    net_fwd, net_bwd)
+
         for lp in param.layer:
             policy = DtypePolicy.resolve(
-                lp.forward_type, lp.backward_type,
-                param.default_forward_type, param.default_backward_type,
-                "FLOAT",
+                lp.forward_type, lp.backward_type, net_fwd, net_bwd,
+                solver_storage,
                 lp.forward_math, param.default_forward_math,
                 lp.backward_math, param.default_backward_math,
             )
+            if policy.forward == torch.bfloat16 \
+                    and lp.type in BF16_INELIGIBLE:
+                log.warning(
+                    "layer %s (%s): FLOAT16 compute requested but the "
+                    "layer is bf16-ineligible (host callback / IO, "
+                    "proto/netshape.py BF16_INELIGIBLE); it will compute "
+                    "in f32. Pin `forward_type: FLOAT` to silence.",
+                    lp.name, lp.type)
             layer = create_layer(lp, policy, phase, self.device)
             if lp.type == "Data":
                 # the JAX Net's probe binding (caffe_mpi_tpu/net.py:155-167)

@@ -6,13 +6,16 @@ the same formulas in f32 on the device inside the jitted step. The port
 runs each iteration from the host, so it evaluates them on the host in
 double precision: fixed/step/exp/inv/multistep/poly(+min_lr)/sigmoid, the
 linear warm-up ramp (rampup_interval/rampup_lr), and the momentum policies
-fixed/poly/opt.
+fixed/poly/opt. `table` gives a chunk's rows of them as float32 for the
+device.
 """
 
 from __future__ import annotations
 
 import bisect
 import math
+
+import numpy as np
 
 from ..proto.config import SolverParameter
 
@@ -66,3 +69,12 @@ def momentum(p: SolverParameter, it: int) -> float:
 def schedule(p: SolverParameter, it: int) -> tuple[float, float]:
     """(lr, momentum) at iteration `it`."""
     return learning_rate(p, it), momentum(p, it)
+
+
+def table(p: SolverParameter, it0: int, n: int):
+    """The per-iteration scalars of iterations it0 .. it0 + n - 1 as one
+    (n, 3) float32 array, a row (lr, momentum, t = iteration + 1): what a
+    chunk of iterations uploads to the device at its start, so that an
+    iteration (or its CUDA graph) reads its row there."""
+    return np.array([(*schedule(p, it), it + 1)
+                     for it in range(it0, it0 + n)], np.float32)

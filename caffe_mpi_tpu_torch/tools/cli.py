@@ -43,14 +43,23 @@ raises without a card.
 `serve` has no HTTP front yet: `-smoke N` drives N synthetic requests
 through the engine and prints its telemetry as one JSON line.
 
+`train` takes the JAX CLI's mixed-precision, guard and chunk flags:
+`-precision f32|bf16`, `-loss_scale` (0 dynamic, > 0 static; -1 keeps
+the prototxt's), `-loss_scale_window`, `-train_guard`,
+`-guard_max_skips` (-1 keeps the prototxt's) and `-step_chunk` (0 keeps
+the prototxt's); a numeric divergence the guard declares exits 88
+(EXIT_NUMERIC). Its summary adds the precision, the chunk length, the
+guard's skips, overflows and loss scale, and the chunks run (one
+dispatch and one host sync each).
+
 The JAX CLI's flags for solver and serving fields the port does not
-honour yet (`-precision`, `-step_chunk`, `-serve_dtype`, ...: one flag a
-field of the Solver's and the engine's UNPORTED_FIELDS) are accepted and
-land on their parameter, which the Solver or the engine refuses at any
-value but its default; the command then exits 1.
+honour yet (`-test_chunk`, `-anomaly_action`, `-serve_dtype`, ...: one
+flag a field of the Solver's and the engine's UNPORTED_FIELDS) are
+accepted and land on their parameter, which the Solver or the engine
+refuses at any value but its default; the command then exits 1.
 
 Usage (gflags-compatible single-dash long flags accepted):
-    python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt [-synthetic] [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate] [-device cuda|cpu]
+    python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt [-synthetic] [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate] [-precision bf16] [-loss_scale S] [-step_chunk K] [-train_guard] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli test -model train_val.prototxt [-weights w.caffemodel] [-iterations N] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli time -model train_val.prototxt [-iterations N] [-phase TRAIN|TEST] [-profile DIR] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli device_query
@@ -115,6 +124,41 @@ def _parser() -> argparse.ArgumentParser:
                    help="fire N synthetic requests through the engine, print "
                    "its stats as JSON and exit (the port has no HTTP front "
                    "yet, so serve needs -smoke)")
+    p.add_argument("-step_chunk", "--step_chunk", "--step-chunk",
+                   dest="step_chunk", type=int, default=0,
+                   help="run up to K iterations a chunk, one host sync "
+                   "each; on the card a chunk replays a CUDA graph of one "
+                   "iteration (overrides solver step_chunk; 0 = the "
+                   "prototxt's, default 1). Chunks stop at display, "
+                   "test_interval and snapshot boundaries")
+    p.add_argument("-precision", "--precision", default="",
+                   help="train: compute precision f32 or bf16 (overrides "
+                   "solver precision; '' = the prototxt's, default f32). "
+                   "bf16 computes activations and gradients in bfloat16 "
+                   "with float32 master params and slots, loss scaling "
+                   "per -loss_scale")
+    p.add_argument("-loss_scale", "--loss-scale", dest="loss_scale",
+                   type=float, default=-1.0,
+                   help="bf16 loss scale: 0 = dynamic (an overflow step is "
+                   "skipped and the scale halves, regrowing 2x after "
+                   "loss_scale_window clean steps), > 0 = that static "
+                   "scale (overrides solver loss_scale; -1 = the "
+                   "prototxt's, default dynamic)")
+    p.add_argument("-loss_scale_window", "--loss-scale-window",
+                   dest="loss_scale_window", type=int, default=0,
+                   help="clean steps before the dynamic loss scale grows "
+                   "2x (overrides solver loss_scale_window; 0 = the "
+                   "prototxt's, default 200)")
+    p.add_argument("-train_guard", "--train-guard", dest="train_guard",
+                   action="store_true",
+                   help="arm the skip-step guard: a step with a non-finite "
+                   "loss or update keeps params, slots and statistics; "
+                   "guard_max_skips consecutive skips exit 88")
+    p.add_argument("-guard_max_skips", "--guard-max-skips",
+                   dest="guard_max_skips", type=int, default=-1,
+                   help="consecutive skipped steps before exit 88; 0 = "
+                   "never (overrides solver guard_max_skips; -1 = the "
+                   "prototxt's, default 3)")
     p.add_argument("-device", "--device", default="cuda",
                    help="device to run on (default: cuda; 'cpu' runs "
                    "on the CPU)")
@@ -248,6 +292,18 @@ def train(args):
         sp.test_iter = [args.test_iter] * max(len(sp.test_iter), 1)
     if args.snapshot_prefix:
         sp.snapshot_prefix = args.snapshot_prefix
+    if args.step_chunk:
+        sp.step_chunk = args.step_chunk
+    if args.precision:
+        sp.precision = args.precision
+    if args.loss_scale >= 0:  # 0 is dynamic; -1 keeps the prototxt's
+        sp.loss_scale = args.loss_scale
+    if args.loss_scale_window:
+        sp.loss_scale_window = args.loss_scale_window
+    if args.train_guard:
+        sp.train_guard = True
+    if args.guard_max_skips >= 0:  # 0 is "never exit"
+        sp.guard_max_skips = args.guard_max_skips
     _apply_unported(args, sp)
     # net paths in the solver are relative to the working directory, as
     # the reference's are (and so are its Data layers' sources); an
@@ -295,20 +351,35 @@ def train(args):
         "feed_ms_per_batch": None if feeder is None
         else feeder.feed_ms_per_batch(),
         "feed_threads": None if feeder is None else feeder.threads,
+        "precision": solver.precision, "step_chunk": solver.step_chunk,
+        "skipped_iters": list(solver.skipped_iters),
+        "skipped_steps": solver.skipped_steps,
+        "overflow_steps": solver.overflow_steps,
+        "loss_scale": solver.loss_scale_value,
+        "dispatch_count": solver.dispatch_count,
+        "host_sync_count": solver.host_sync_count,
+        "graph_replays": solver.graph_replays,
     }
     return solver, summary
 
 
 def cmd_train(args) -> int:
+    from ..utils.resilience import EXIT_NUMERIC, NumericAnomalyError
     try:
         _, summary = train(args)
     except (ValueError, NotImplementedError) as e:
         log.error("%s", e)
         return 1
+    except NumericAnomalyError as e:
+        log.error("%s; exiting %d", e, EXIT_NUMERIC)
+        return EXIT_NUMERIC
     print(json.dumps({"train": summary}))
-    losses = summary["losses"]
-    if not losses or not all(np.isfinite(losses)):
-        log.error("train: losses not all finite: %s", losses)
+    # a step the guard skipped may have a non-finite loss
+    skipped = set(summary["skipped_iters"])
+    losses = [l for i, l in enumerate(summary["losses"])
+              if summary["start_iter"] + i not in skipped]
+    if not summary["losses"] or not all(np.isfinite(losses)):
+        log.error("train: losses not all finite: %s", summary["losses"])
         return 1
     return 0
 

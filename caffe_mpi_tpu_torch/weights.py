@@ -73,14 +73,14 @@ def load_jax_opt_state(solver, opt_state: dict) -> None:
                 raise ValueError(f"{lname}.{pname}: {len(slots)} slots given"
                                  f", the {solver.type} solver keeps "
                                  f"{len(cur)}")
-            new = []
             for arr, t in zip(slots, cur):
                 a = np.asarray(arr, np.float32)
                 if a.shape != tuple(t.shape):
                     raise ValueError(f"{lname}.{pname} slot: shape "
                                      f"{a.shape} != {tuple(t.shape)}")
-                new.append(torch.from_numpy(np.array(a)).to(t.device))
-            solver.history[key] = tuple(new)
+            for arr, t in zip(slots, cur):
+                # in place: a captured iteration holds these very tensors
+                t.copy_(torch.from_numpy(np.array(arr, np.float32)))
             given.add(key)
     missing = sorted(set(solver.history) - given)
     if missing:

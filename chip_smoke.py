@@ -128,10 +128,45 @@ Phases, in order; any failure exits nonzero and prints no result line:
              (bitwise), and 8 iterations over a JPEG-encoded LMDB of 256
              records.
 
+13. bf16  — trains AlexNet at batch 256 from
+             models/alexnet/solver_fp16.prototxt (FLOAT16 net defaults)
+             and from solver.prototxt under `-precision bf16` (dynamic
+             loss scale, the skip-step guard armed), 20 iterations each,
+             and transformer_lm with use_flash under `-precision bf16`,
+             through the CLI's `train`, launch counts set to 0 just
+             before and read just after: K1/K2 (K3-K5) as many times as
+             in f32, every launch's input bfloat16 (recorded at the
+             kernels' launchers), finite losses, no skipped or overflow
+             step; step ms and img/s beside the f32 runs; `time` on the
+             fp16 net with its MFU against the dense bf16 peak; and
+             ResNet-50 (b32) and GoogLeNet (b128, K1/K2 in bf16) from
+             their solver_fp16.prototxt, 20 iterations each.
+14. chunk — `-step_chunk 10` on AlexNet (b256), ResNet-50 (b32) and
+             transformer_lm (use_flash): two eager runs (step_chunk 1)
+             and one of CUDA graph replays from the same seed and feeds;
+             the graph's losses and final params, slots and statistics
+             within twice the eager runs' spread (each tensor's distance
+             from the nearer eager run as a share of its largest
+             element, the worst over all tensors, plus 1e-6), its
+             Dropout masks the eager
+             path's (and in the graph's static inputs), its kernel
+             launches the eager run's (the captured counts added at each
+             replay); then, warm, 20 iterations at K = 1 and K = 10 in
+             mirrored order under the CUDA sync debugger (one host sync
+             a chunk at K = 10, or the phase fails; the K = 1 count and
+             every sync's source line reported), step ms, and the card's
+             busy share under the profiler.
+15. overflow — AlexNet b256 under bf16 and step_chunk 10 with NaN
+             batches at iterations 3 and 4: both skipped (params and
+             slots bitwise unchanged), counted as overflows, the scale
+             2^15 -> 2^13, then regrown to 2^15 by 8 clean steps
+             (loss_scale_window 4), finite losses.
+
 It prints one {"kernels": [...]} line (K1-K5), one {"serving": ...} line,
 one {"train": ...} line, one {"transformer": ...} line, one
 {"resnet50": ...} line, one {"googlenet": ...} line, one {"lmdb": ...}
-line, the card line again, and last {"ok": true, ...}.
+line, one {"bf16": ...} line, one {"chunk": ...} line (the overflow
+phase inside it), the card line again, and last {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -1780,16 +1815,14 @@ RESNET_GROUPS = {
 
 def _kernel_counts() -> tuple[int, ...]:
     """K1-K5's launch counts."""
-    from caffe_mpi_tpu_torch.ops import lrn as lrn_op
-    return (lrn_op.lrn_across_channels.launches,
-            lrn_op.lrn_across_channels_bwd.launches, *_flash_counts())
+    from caffe_mpi_tpu_torch.ops import launch_counters
+    return tuple(c.launches for c in launch_counters())
 
 
 def _reset_kernel_counts() -> None:
-    from caffe_mpi_tpu_torch.ops import lrn as lrn_op
-    lrn_op.lrn_across_channels.launches = 0
-    lrn_op.lrn_across_channels_bwd.launches = 0
-    _reset_flash_counts()
+    from caffe_mpi_tpu_torch.ops import launch_counters
+    for c in launch_counters():
+        c.launches = 0
 
 
 def _train_cli(solver_path, prefix, iters, extra=()):
@@ -2484,6 +2517,406 @@ def lmdb_phase(k1: dict, k2: dict, card: str) -> dict:
     }
 
 
+# -- 13. bf16 ------------------------------------------------------------------
+
+ALEXNET_FP16 = os.path.join(ROOT, "models", "alexnet", "solver_fp16.prototxt")
+ALEXNET_FP16_NET = os.path.join(ROOT, "models", "alexnet",
+                                "train_val_fp16.prototxt")
+# the kernels' launchers (where each wrapper launches its kernel), whose
+# input dtype the bf16 phases record
+LAUNCHERS = (("lrn", "_launch", "lrn_fwd"), ("lrn", "_launch_bwd", "lrn_bwd"),
+             ("flash_attention", "_launch_fwd", "flash_fwd"),
+             ("flash_attention", "_launch_dq", "flash_bwd_dq"),
+             ("flash_attention", "_launch_dkv", "flash_bwd_dkv"))
+
+
+class _LaunchDtypes:
+    """Within the context, the dtypes each kernel launcher was called
+    with ({kernel: [dtype, ...]}), recorded around the launchers."""
+
+    def __enter__(self):
+        import importlib
+        self.seen = {name: set() for _, _, name in LAUNCHERS}
+        self._saved = []
+        for mod_name, attr, name in LAUNCHERS:
+            mod = importlib.import_module(f"caffe_mpi_tpu_torch.ops.{mod_name}")
+            orig = getattr(mod, attr)
+
+            def rec(x, *a, _orig=orig, _name=name, **k):
+                self.seen[_name].add(str(x.dtype).replace("torch.", ""))
+                return _orig(x, *a, **k)
+            self._saved.append((mod, attr, orig))
+            setattr(mod, attr, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in self._saved:
+            setattr(mod, attr, orig)
+        return False
+
+    def dtypes(self) -> dict:
+        return {k: sorted(v) for k, v in self.seen.items() if v}
+
+
+def _bf16_run(tag, solver_path, prefix, iters, extra, want_counts):
+    """One CLI train run with the kernel counts set to 0 just before and
+    read just after, and the launchers' dtypes recorded: finite losses,
+    the counts `want_counts`, every launch in bf16, no skipped step."""
+    _reset_kernel_counts()
+    with _LaunchDtypes() as probe:
+        solver, summary = _train_cli(solver_path, prefix, iters, extra)
+        torch.cuda.synchronize()
+    counts = _kernel_counts()
+    losses = summary["losses"]
+    log(f"bf16 {tag}: {json.dumps(summary)}")
+    if len(losses) != iters or not np.all(np.isfinite(losses)):
+        fail(f"bf16 {tag}: losses {losses}")
+    if counts != want_counts:
+        fail(f"bf16 {tag}: K1-K5 launched {counts}, want {want_counts}")
+    dtypes = probe.dtypes()
+    if set(dtypes) != {name for (_, _, name), n in zip(LAUNCHERS, counts)
+                       if n} or any(v != ["bfloat16"]
+                                    for v in dtypes.values()):
+        fail(f"bf16 {tag}: kernels launched in {dtypes}, want bfloat16")
+    if summary["skipped_steps"] or summary["overflow_steps"]:
+        fail(f"bf16 {tag}: {summary['skipped_steps']} skipped, "
+             f"{summary['overflow_steps']} overflow steps, want none")
+    nets = {str(l.policy.forward) for l in solver.net.layers}
+    del solver
+    torch.cuda.empty_cache()
+    return {"losses": losses, "median_step_ms": summary["median_iter_ms"],
+            "img_per_s": summary["img_per_s"], "step_ms": summary["iter_ms"],
+            "launches_k1_k5": list(counts), "launch_dtypes": dtypes,
+            "layer_dtypes": sorted(nets), "precision": summary["precision"],
+            "loss_scale": summary["loss_scale"],
+            "skipped_steps": summary["skipped_steps"],
+            "overflow_steps": summary["overflow_steps"]}
+
+
+def bf16_phase(k1: dict, k2: dict, flash: list[dict], f32: dict,
+               card: str) -> dict:
+    """(a) AlexNet at batch 256 from models/alexnet/solver_fp16.prototxt
+    (the fp16 net's FLOAT16 defaults) and from solver.prototxt under
+    `-precision bf16` (dynamic loss scale, the guard armed): 20
+    iterations each through the CLI's `train`, K1 twice a forward and K2
+    twice an iteration, every launch in bf16, no overflow; step ms and
+    img/s beside the f32 run's; `time` on the fp16 net, MFU against the
+    dense bf16 peak. (b) transformer_lm with use_flash under `-precision
+    bf16`: 20 iterations, K3 twice a forward, K4 and K5 twice an
+    iteration, every launch in bf16. (c) ResNet-50 (b32, 53 BatchNorms,
+    bf16 statistics kept f32) and GoogLeNet (b128, K1/K2 in bf16) from
+    their solver_fp16.prototxt: 20 iterations each. `f32` holds the f32
+    phases' results by net, for their step ms."""
+    from caffe_mpi_tpu_torch.tools import cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        lrn_counts = (2 * (TRAIN_ITERS + 2 * TEST_ITER), 2 * TRAIN_ITERS,
+                      0, 0, 0)
+        fp16 = _bf16_run("alexnet fp16 prototxt", ALEXNET_FP16,
+                         os.path.join(tmp, "fp16"), TRAIN_ITERS, (),
+                         lrn_counts)
+        bf16 = _bf16_run("alexnet -precision bf16", SOLVER,
+                         os.path.join(tmp, "bf16"), TRAIN_ITERS,
+                         ("-precision", "bf16"), lrn_counts)
+        r50 = _bf16_run("resnet50 fp16 prototxt",
+                        os.path.join(RESNET_DIR, "solver_fp16.prototxt"),
+                        os.path.join(tmp, "r50"), RESNET_ITERS, (),
+                        (0, 0, 0, 0, 0))
+        goog = _bf16_run(
+            "googlenet fp16 prototxt",
+            os.path.join(ROOT, "models", "googlenet", "solver_fp16.prototxt"),
+            os.path.join(tmp, "goog"), GOOGLENET_ITERS, (),
+            (2 * (GOOGLENET_ITERS + 2 * TEST_ITER), 2 * GOOGLENET_ITERS, 0,
+             0, 0))
+        for run, net in ((fp16, "train"), (bf16, "train"),
+                         (r50, "resnet50"), (goog, "googlenet")):
+            run["f32_median_step_ms"] = f32[net]["median_step_ms"]
+            run["speedup_over_f32"] = f32[net]["median_step_ms"] \
+                / run["median_step_ms"]
+        k1["launches_by_path"]["train_alexnet_bf16"] = bf16[
+            "launches_k1_k5"][0]
+        k2["launches_by_path"]["train_alexnet_bf16"] = bf16[
+            "launches_k1_k5"][1]
+        timed = cli.time_net(cli.parse_args(
+            ["time", "-model", ALEXNET_FP16_NET, "-phase", "TRAIN",
+             "-iterations", "10", "-device", "cuda"]))
+        if not timed["peak_rate"] or timed["peak_rate"]["name"] != \
+                "dense bf16" or not timed["mfu"]:
+            fail(f"time on the fp16 net: MFU {timed['mfu']} against "
+                 f"{timed['peak_rate']}, want the dense bf16 peak")
+        tlm_solver = _flash_solver(tmp)
+        forwards = TLM_ITERS + TEST_ITER
+        tlm = _bf16_run("transformer_lm -precision bf16", tlm_solver,
+                        os.path.join(tmp, "tlm"), TLM_ITERS,
+                        ("-precision", "bf16"),
+                        (0, 0, 2 * forwards, 2 * TLM_ITERS, 2 * TLM_ITERS))
+        tlm["tokens_per_s"] = tlm["img_per_s"] * TLM_SEQ
+        tlm["f32_median_step_ms"] = f32["transformer"]["median_step_ms"]
+        for entry, n in zip(flash, tlm["launches_k1_k5"][2:]):
+            entry["launches_by_path"]["train_transformer_lm_bf16"] = n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"alexnet_fp16_prototxt": fp16, "alexnet_precision_bf16": bf16,
+            "resnet50_fp16_prototxt": r50, "googlenet_fp16_prototxt": goog,
+            "time_fp16": {k: timed[k] for k in (
+                "model", "batch", "forward_ms", "forward_backward_ms",
+                "tflops", "mfu", "peak_rate", "peak_mem_MiB")},
+            "transformer_lm_bf16": tlm, "card": card}
+
+
+# -- 14. chunk -----------------------------------------------------------------
+
+CHUNK = 10
+CHUNK_ITERS = 20
+# graph against eager: each tensor's distance from the nearer eager run,
+# as a share of its largest element, at most twice the largest such share
+# between the two eager runs, plus 1e-6 (f32 ulps where the eager runs
+# agree bitwise); the same for the losses
+CHUNK_SPREAD, CHUNK_FLOOR = 2.0, 1e-6
+
+
+class _MaskLog:
+    """Within the context, every iteration's Dropout masks as the solver
+    drew them (the masks both the eager iteration and a graph replay
+    read), kept on the device."""
+
+    def __enter__(self):
+        from caffe_mpi_tpu_torch.solver import solver as solver_mod
+        self.cls, self.masks = solver_mod.Solver, {}
+        self.orig = self.cls._masks
+        log_ = self.masks
+
+        def rec(solver, it, given):
+            out = self.orig(solver, it, given)
+            log_[it] = [{k: v.clone() for k, v in m.items()} for m in out]
+            return out
+        self.cls._masks = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._masks = self.orig
+        return False
+
+
+def _chunk_run(path, prefix, k, extra=()):
+    """A CLI train run at step_chunk k: (solver, summary, K1-K5 counts,
+    state on the host, masks by iteration)."""
+    _reset_kernel_counts()
+    with _MaskLog() as masks:
+        solver, summary = _train_cli(path, prefix, CHUNK_ITERS,
+                                     ("-step_chunk", str(k), *extra))
+        torch.cuda.synchronize()
+    if len(summary["losses"]) != CHUNK_ITERS or \
+            not np.all(np.isfinite(summary["losses"])):
+        fail(f"chunk {path} K={k}: losses {summary['losses']}")
+    return solver, summary, _kernel_counts(), _state(solver), masks.masks
+
+
+def _timed_steps(solver, feed_fn, n: int = CHUNK_ITERS) -> dict:
+    """n more iterations: ms an iteration (host clock to the last chunk's
+    read-back), and the host syncs the CUDA sync debugger reported
+    against the chunks run."""
+    import warnings
+    d0 = solver.dispatch_count
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            solver.step(n, feed_fn)
+            ms = (time.perf_counter() - t0) * 1e3 / n
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return {"ms_per_iter": ms, "chunks": solver.dispatch_count - d0,
+            "host_syncs": len(where), "sync_sites": sorted(set(where))}
+
+
+def _chunk_case(name, path, card, extra=()) -> dict:
+    """step_chunk 10 against 1 on one solver: two eager runs (K = 1) and
+    one of graph replays (K = 10) from the same seed and feeds; the
+    graph's losses and final params, slots and statistics within the
+    eager runs' spread, its Dropout masks the eager path's, its kernel
+    launches the eager run's (captured x replays), one host sync a chunk;
+    then step ms and the card's busy share at K = 1 and K = 10."""
+    from caffe_mpi_tpu_torch.tools import cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chunk_")
+    try:
+        e1, s1, c1, st1, m1 = _chunk_run(path, os.path.join(tmp, "e1"), 1,
+                                         extra)
+        del e1
+        torch.cuda.empty_cache()
+        e2, s2, c2, st2, m2 = _chunk_run(path, os.path.join(tmp, "e2"), 1,
+                                         extra)
+        g, sg, cg, stg, mg = _chunk_run(path, os.path.join(tmp, "g"), CHUNK,
+                                        extra)
+        if not g.graph_replays or not g._graphs:
+            fail(f"chunk {name}: no graph replayed")
+        if c1 != c2 or cg != c1:
+            fail(f"chunk {name}: K1-K5 launches eager {c1} / {c2}, graph "
+                 f"{cg}")
+        graph = next(iter(g._graphs.values()))
+        deltas = {c.__name__: n for c, n in graph.deltas.items()}
+        # masks: the graph run's every iteration equal to the eager run's,
+        # and the graph's static buffers hold the last iteration's
+        bad_masks = [it for it in m1 if any(
+            not torch.equal(a[k], b[k]) for a, b in zip(m1[it], mg[it])
+            for k in a)]
+        last = mg[max(mg)]
+        if bad_masks or any(not torch.equal(graph.masks[i][k], last[i][k])
+                            for i in range(len(last)) for k in last[i]):
+            fail(f"chunk {name}: graph masks differ at {bad_masks[:5]}")
+        # each tensor's distance as a share of its largest element: the
+        # graph run's from the nearer eager run against the eager runs'
+        # own, the largest over all tensors on each side
+        worst, bad = {}, []
+        for key in st1:
+            scale = max(float(st1[key].float().abs().max()), 1e-30)
+            spread = float((st2[key].float() - st1[key].float()).abs()
+                           .max()) / scale
+            diff = min(float((stg[key].float() - st[key].float()).abs()
+                             .max()) for st in (st1, st2)) / scale
+            worst[key] = (diff, spread)
+        diff = max(d for d, _ in worst.values())
+        spread = max(sp for _, sp in worst.values())
+        limit = CHUNK_SPREAD * spread + CHUNK_FLOOR
+        if diff > limit:
+            bad.append(f"state: {diff:.3g} > {limit:.3g} of the largest "
+                       "element")
+        l1, l2, lg = (np.array(x["losses"]) for x in (s1, s2, sg))
+        l_diff = float(np.max(np.minimum(np.abs(lg - l1), np.abs(lg - l2))
+                              / np.abs(l1)))
+        l_limit = CHUNK_SPREAD * float(np.max(np.abs(l2 - l1)
+                                              / np.abs(l1))) + CHUNK_FLOOR
+        if l_diff > l_limit:
+            bad.append(f"losses {lg.tolist()} vs eager {l1.tolist()}")
+        if bad:
+            fail(f"chunk {name}: graph against eager: {bad}")
+        del st1, st2, stg, m1, m2, mg
+        feeds = cli.synthetic_feed(g.net)
+        feed_fn = lambda it: feeds  # noqa: E731
+        # timed in mirrored order, warm: eager, graph, graph, eager
+        timing = {"k1": [], "k10": []}
+        for which in ("k1", "k10", "k10", "k1"):
+            timing[which].append(_timed_steps(e2 if which == "k1" else g,
+                                              feed_fn))
+        for t in timing["k10"]:
+            if t["host_syncs"] != t["chunks"]:
+                fail(f"chunk {name}: {t['host_syncs']} host syncs in "
+                     f"{t['chunks']} chunks at K = {CHUNK} "
+                     f"({t['sync_sites']}), want one a chunk")
+        prof = {"k1": profile_steps(e2, feed_fn, n=CHUNK),
+                "k10": profile_steps(g, feed_fn, n=CHUNK)}
+        out = {
+            "losses_eager": s1["losses"], "losses_graph": sg["losses"],
+            "launches_k1_k5": list(cg), "captured_launches": deltas,
+            "graph_replays": g.graph_replays,
+            "dispatch_count": sg["dispatch_count"],
+            "host_sync_count": sg["host_sync_count"],
+            "state_diff": diff, "state_spread": spread,
+            "state_limit": limit, "loss_diff": l_diff,
+            "loss_limit": l_limit,
+            "worst": sorted(((k, d, sp) for k, (d, sp) in worst.items()),
+                            key=lambda r: -r[1])[:5],
+            "step_ms": {k: [t["ms_per_iter"] for t in v]
+                        for k, v in timing.items()},
+            "host_syncs": {k: [[t["host_syncs"], t["chunks"]] for t in v]
+                           for k, v in timing.items()},
+            "sync_sites": {k: sorted({x for t in v for x in t["sync_sites"]})
+                           for k, v in timing.items()},
+            "device_busy": {k: (p["device_ms_per_step"]
+                                / p["wall_ms_per_step"])
+                            if isinstance(p["device_ms_per_step"], float)
+                            else "not measured" for k, p in prof.items()},
+            "device_ms_per_step": {k: p["device_ms_per_step"]
+                                   for k, p in prof.items()},
+            "card": card,
+        }
+        k1_ms = float(np.median(out["step_ms"]["k1"]))
+        k10_ms = float(np.median(out["step_ms"]["k10"]))
+        out["median_step_ms"] = {"k1": k1_ms, "k10": k10_ms}
+        out["speedup_k10"] = k1_ms / k10_ms
+        log(f"chunk {name}: {json.dumps(out)}")
+        del e2, g
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def chunk_phase(k1: dict, k2: dict, flash: list[dict], card: str) -> dict:
+    """step_chunk 10 as CUDA graph replays on AlexNet (b256, K1/K2 in the
+    graph), ResNet-50 (b32, 53 BatchNorms' statistics updated in the
+    graph) and transformer_lm with use_flash (K3-K5 in the graph, Adam)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chunk_tlm_")
+    try:
+        res = {
+            "alexnet": _chunk_case("alexnet", SOLVER, card),
+            "resnet50": _chunk_case(
+                "resnet50", os.path.join(RESNET_DIR, "solver.prototxt"),
+                card),
+            "transformer_lm": _chunk_case("transformer_lm",
+                                          _flash_solver(tmp), card),
+        }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = res["alexnet"]["launches_k1_k5"]
+    k1["launches_by_path"]["train_alexnet_chunk10"] = counts[0]
+    k2["launches_by_path"]["train_alexnet_chunk10"] = counts[1]
+    for entry, n in zip(flash, res["transformer_lm"]["launches_k1_k5"][2:]):
+        entry["launches_by_path"]["train_transformer_lm_chunk10"] = n
+    return res
+
+
+# -- 15. overflow --------------------------------------------------------------
+
+def overflow_phase() -> dict:
+    """A dynamic-scale overflow injected on the card: AlexNet at batch 256
+    under precision bf16 and step_chunk 10 (graph replays), NaN batches at
+    iterations 3 and 4. Both are skipped (params and slots bitwise
+    unchanged across them), counted as overflows, and halve the scale to
+    2^13; 8 clean steps (loss_scale_window 4) grow it back to 2^15, with
+    finite losses."""
+    from caffe_mpi_tpu_torch.proto import SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    from caffe_mpi_tpu_torch.tools import cli
+
+    sp = SolverParameter.from_file(SOLVER)
+    sp.precision, sp.step_chunk, sp.loss_scale_window = "bf16", CHUNK, 4
+    solver = Solver(sp, device="cuda")
+    feeds = cli.synthetic_feed(solver.net)
+    bad = dict(feeds, data=torch.full_like(feeds["data"], float("nan")))
+    feed_fn = lambda it: bad if it in (3, 4) else feeds  # noqa: E731
+    solver.step(3, feed_fn)
+    before = _state(solver)
+    solver.step(2, feed_fn)
+    after = _state(solver)
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    scale_after_burst = solver.loss_scale_value
+    solver.step(8, feed_fn)
+    res = {"skipped_iters": solver.skipped_iters,
+           "overflow_steps": solver.overflow_steps,
+           "scale_after_burst": scale_after_burst,
+           "scale_after_recovery": solver.loss_scale_value,
+           "losses": solver.losses, "graph_replays": solver.graph_replays,
+           "changed_by_skipped_steps": changed[:5]}
+    log(f"overflow: {json.dumps(res)}")
+    accepted = [l for i, l in enumerate(solver.losses) if i not in (3, 4)]
+    if solver.skipped_iters != [3, 4] or solver.overflow_steps != 2 or \
+            scale_after_burst != 2.0 ** 13 or changed or \
+            solver.loss_scale_value != 2.0 ** 15 or \
+            not np.all(np.isfinite(accepted)) or not solver.graph_replays:
+        fail(f"overflow on the card: {res}")
+    del solver
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2510,6 +2943,11 @@ def main(argv=None) -> int:
     googlenet = googlenet_phase(k1, k2, card)
     resnet50["parity"] = resnet50_parity_phase()
     lmdb = lmdb_phase(k1, k2, card)
+    bf16 = bf16_phase(k1, k2, flash, {
+        "train": train, "transformer": transformer, "resnet50": resnet50,
+        "googlenet": googlenet}, card)
+    chunk = chunk_phase(k1, k2, flash, card)
+    chunk["overflow"] = overflow_phase()
     print(json.dumps({"kernels": [k1, k2, *flash]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
@@ -2517,6 +2955,8 @@ def main(argv=None) -> int:
     print(json.dumps({"resnet50": resnet50}), flush=True)
     print(json.dumps({"googlenet": googlenet}), flush=True)
     print(json.dumps({"lmdb": lmdb}), flush=True)
+    print(json.dumps({"bf16": bf16}), flush=True)
+    print(json.dumps({"chunk": chunk}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

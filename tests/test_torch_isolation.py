@@ -26,7 +26,8 @@ def _port_files():
                                             "flash_variants.py",
                                             "resnet_variants.py",
                                             "feed_variants.py",
-                                            "mkl_first_call.py")]
+                                            "mkl_first_call.py",
+                                            "step_variants.py")]
     for dirpath, dirnames, files in os.walk(_PKG):
         dirnames[:] = [d for d in dirnames if d not in ("__pycache__",
                                                         "_build")]
@@ -140,6 +141,15 @@ def test_feed_variants_without_card_fails_and_times_nothing():
                           timeout=300)
     assert proc.returncode != 0
     assert '"run"' not in proc.stdout
+
+
+def test_step_variants_without_card_fails_and_times_nothing():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "step_variants.py"], cwd=_ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"summary"' not in proc.stdout
 
 
 def test_mkl_first_call_script_runs_and_the_port_arm_holds():

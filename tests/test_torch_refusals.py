@@ -18,6 +18,7 @@ import os
 import re
 
 import pytest
+import torch
 
 from caffe_mpi_tpu.proto import SolverParameter as JaxSP
 from caffe_mpi_tpu.proto.config import ServingParameter as JaxServing
@@ -80,6 +81,40 @@ def test_unported_solver_field_is_refused_and_its_default_passes(name, item):
     sp = _solver_param()
     setattr(sp, name, default)
     Solver(sp, device="cpu")
+
+
+# fields ported since the refusal table began, each with a check that
+# the solver took its non-default value
+PORTED = {
+    "precision": ('precision: "bf16"', lambda s: s.precision == "bf16"),
+    "loss_scale": ('precision: "bf16" loss_scale: 8',
+                   lambda s: s.loss_scale_value == 8.0
+                   and not s._guard_on),
+    "loss_scale_window": ('precision: "bf16" loss_scale_window: 7',
+                          lambda s: s._ls_window == 7),
+    "solver_data_type": ('solver_data_type: "FLOAT16"',
+                         lambda s: s.net.layer_by_name("ip").weight.dtype
+                         == torch.bfloat16),
+    "train_guard": ("train_guard: true", lambda s: s._guard_on),
+    "guard_max_skips": ("train_guard: true guard_max_skips: 0",
+                        lambda s: s.sp.guard_max_skips == 0),
+    "guard_loss_spike": ("train_guard: true guard_loss_spike: 3",
+                         lambda s: s.sp.guard_loss_spike == 3.0),
+    "guard_ema_decay": ("train_guard: true guard_ema_decay: 0.5",
+                        lambda s: s.sp.guard_ema_decay == 0.5),
+    "step_chunk": ("step_chunk: 4", lambda s: s.step_chunk == 4
+                   and tuple(s._table.shape) == (4, 3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_solver_field_is_taken_at_a_non_default_value(name):
+    assert name not in {n for n, _ in SOLVER_FIELDS}
+    text, check = PORTED[name]
+    solver = Solver(_solver_param(text), device="cpu")
+    assert check(solver)
+    solver.step(1, lambda it: {
+        "data": torch.zeros(2, 3), "label": torch.zeros(2, dtype=torch.long)})
 
 
 @pytest.mark.parametrize("text", ['precision: "f32"', 'precision: "F32"',
@@ -186,8 +221,9 @@ def _write_solver(tmp_path):
     return str(path)
 
 
-@pytest.mark.parametrize("flags", [["-precision", "bf16"],
-                                   ["-step_chunk", "4"], ["-train_guard"],
+@pytest.mark.parametrize("flags", [["-test_chunk", "4"],
+                                   ["-anomaly_action", "abort"],
+                                   ["-snapshot_keep", "2"],
                                    ["-min_hosts", "2"],
                                    ["-precision", "nonsense"]])
 def test_cli_train_flag_of_an_unported_field_exits_one(tmp_path, flags):
