@@ -10,39 +10,43 @@ which subsumes the reference's forward-only cursor and makes the
 round-robin record striping of its CursorManager (data_reader.hpp:28-53)
 an index calculation (feeder.py).
 
-Ported: the Datum codec both ways (raw, encoded and float Datums), LMDB
-through the dependency-free reader of lmdb_io.py with the crc sidecar
-verified on every read, the single-file datumfile container, and the
-synthetic template dataset. A record that fails its checksum or does not
-parse raises RecordIntegrityError: the JAX Feeder's quarantine, which
-substitutes a healthy record, is not ported yet (ROADMAP.md §1 item 3),
-so a corrupt record stops the run, loudly. Not ported (each raises
-NotImplementedError naming ROADMAP.md §1 item 3): `backend: LEVELDB`, the
-whole-DB RAM cache (`data_param.cache`, CachedDataset) and the bounded
-decoded-record cache (`decoded_cache_mb`, DecodedCacheDataset).
+Ported: the Datum codec both ways (raw, encoded and float Datums); LMDB
+through the native mmap cursor (native.NativeLMDB, csrc/native/
+lmdb_reader.cc) with the crc sidecar verified on every read, crc32c
+computed in C over the mapping; the single-file datumfile container
+through the native reader (native.NativeDatumDB) beside the Python one;
+the whole-DB RAM cache (`data_param.cache`, CachedDataset); the bounded
+decoded-record cache (`decoded_cache_mb`, DecodedCacheDataset); and the
+synthetic template dataset. `get_datum` gives a record's verified wire
+fields without decoding the image (the Feeder's fused decode), and
+`gather_raw` a whole batch of raw Datums in one native call (its raw
+gather). The pure-Python LMDB reader of lmdb_io.py is the plain version:
+`LMDBDataset(path, reader="python")`, for the tests and a caller who
+asks; the main path does not use it.
+
+A record that fails its checksum or does not parse raises
+RecordIntegrityError (utils/resilience.py); the Feeder quarantines it.
+Not ported (NotImplementedError naming ROADMAP.md §1 item 3):
+`backend: LEVELDB`.
 """
 
 from __future__ import annotations
 
+import mmap
 import os
 import struct
+import threading
 from typing import NamedTuple, Protocol
 
 import numpy as np
 
 from ..io import _tag as _dfield, _varint as _dvarint
+from ..utils.resilience import FAULTS
+from ..utils.resilience import RecordIntegrityError  # noqa: F401 (re-export)
 from .lmdb_io import LMDBError, LMDBReader, crc32c, read_crc_sidecar
 
 # the ROADMAP.md section 1 item that ports what is refused here
 DATA_PLANE_ITEM = 3
-
-
-class RecordIntegrityError(RuntimeError):
-    """A record failed its crc32c, its page structure, or its parse."""
-
-    def __init__(self, source: str, index: int, reason: str):
-        super().__init__(f"{source}: record {index}: {reason}")
-        self.source, self.index, self.reason = source, index, reason
 
 
 class Dataset(Protocol):
@@ -76,7 +80,8 @@ def _read_varint(buf: bytes, pos: int) -> tuple[int, int]:
 
 class DatumFields(NamedTuple):
     """A parsed Datum with the image payload still in its stored form
-    (bytes, or a view into the buffer parsed)."""
+    (bytes, or a view into the buffer parsed): the fused native decode
+    (feeder.py) takes encoded payloads from here a batch at a time."""
     channels: int
     height: int
     width: int
@@ -212,22 +217,41 @@ def encode_datum_float(arr: np.ndarray, label: int) -> bytes:
     return bytes(out)
 
 
-def _decode_verified(raw: bytes, index: int, source: str,
-                     expect_crc: int | None = None):
-    """Datum decode, the record's crc32c checked against `expect_crc` (the
-    sidecar's) first; a mismatch or a parse failure raises
-    RecordIntegrityError."""
+def _decode_verified(raw, index: int, source: str,
+                     expect_crc: int | None = None,
+                     actual_crc: int | None = None, *,
+                     fields: bool = False):
+    """Datum decode with integrity verification. `expect_crc` (the
+    sidecar's) is compared against `actual_crc` — computed here over the
+    bytes when the caller has none (the native LMDB path computes it in C
+    over the mapping). A mismatch or a parse failure raises
+    RecordIntegrityError, the signal the Feeder quarantines on. The fault
+    sites work on the FETCHED bytes, free when CAFFE_TPU_FAULTS is
+    unset. fields=True returns the wire fields, the image not decoded."""
+    if FAULTS.active("record_corrupt") or FAULTS.active("record_decode"):
+        poisoned = FAULTS.corrupt_bytes("record_corrupt", raw, index)
+        poisoned = FAULTS.corrupt_bytes("record_decode", poisoned, index)
+        if poisoned is not raw:
+            raw, actual_crc = poisoned, None  # re-checksum injected rot
     if expect_crc is not None:
-        actual = crc32c(raw)
-        if actual != expect_crc:
+        if actual_crc is None:
+            actual_crc = crc32c(raw)
+        if actual_crc != expect_crc:
             raise RecordIntegrityError(
                 source, index, f"crc32c mismatch (sidecar {expect_crc:08x}, "
-                f"computed {actual:08x})")
+                f"computed {actual_crc:08x})")
     try:
-        return parse_datum(raw)
+        f = parse_datum_fields(raw)
+        return f if fields else materialize_datum(f)
     except Exception as e:
         raise RecordIntegrityError(
             source, index, f"undecodable Datum: {e!r}") from e
+
+
+def _faults_on_records() -> bool:
+    """Whether a fault site rewrites fetched records: the native gather
+    and the C-side crc cannot see that, so the per-record path runs."""
+    return FAULTS.active("record_corrupt") or FAULTS.active("record_decode")
 
 
 # ---------------------------------------------------------------------------
@@ -236,42 +260,104 @@ def _decode_verified(raw: bytes, index: int, source: str,
 
 class LMDBDataset:
     """LMDBs written by the reference's convert_imageset (db_lmdb.cpp), the
-    JAX package or the port, through lmdb_io.LMDBReader. The tree is
-    walked once at open for each record's place in the file (a structural
-    fault raises there); a read is then a zero-copy view of the mmap, and
-    a raw record's pixels are copied once, into the batch. Where the crc
-    sidecar (`data.mdb.crc32c`) is present, every value read is checked
-    against its crc32c; sidecar-less (reference-written) DBs load
-    unverified."""
+    JAX package or the port. reader="native" (the default) reads through
+    native.NativeLMDB: the tree is walked once at open into a table of
+    each record's place in the mapping, a value's crc32c is computed in C
+    over the mapping, and `gather_raw` reads a batch of raw Datums in one
+    call. reader="python" reads through lmdb_io.LMDBReader, the plain
+    version (a zero-copy view of its mmap a record). Where the crc sidecar
+    (`data.mdb.crc32c`) is present, every value read is checked against
+    its crc32c; sidecar-less (reference-written) DBs load unverified."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, reader: str = "native"):
         self.path = path
-        self._reader = LMDBReader(path)
-        try:
-            spans = list(self._reader.spans())
-        except LMDBError as e:
-            raise RecordIntegrityError(path, -1, f"structural: {e}") from e
-        self.keys = [k for k, _ in spans]
-        self._spans = [s for _, s in spans]
+        self._native = self._reader = None
+        if reader == "native":
+            from ..native import NativeLMDB
+            try:
+                self._native = NativeLMDB(path)
+            except ValueError as e:
+                # the native walk names no reason: ask the plain reader
+                # for it, and refuse the file either way
+                try:
+                    list(LMDBReader(path).keys())
+                except LMDBError as why:
+                    raise RecordIntegrityError(
+                        path, -1, f"structural: {why}") from why
+                raise RecordIntegrityError(path, -1,
+                                           f"structural: {e}") from e
+            # records are read by slicing this process's own mapping of
+            # the file at the native table's offsets: no ctypes call (and
+            # no GIL hand-off) a record but the crc32c's
+            data = os.path.join(path, "data.mdb") if os.path.isdir(path) \
+                else path
+            with open(data, "rb") as f:
+                self._mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            koff, klen, self._voff, self._vlen = self._native.spans()
+            self.keys = [self._mm[o:o + n] for o, n in zip(koff.tolist(),
+                                                           klen.tolist())]
+        elif reader == "python":
+            self._reader = LMDBReader(path)
+            try:
+                spans = list(self._reader.spans())
+            except LMDBError as e:
+                raise RecordIntegrityError(path, -1,
+                                           f"structural: {e}") from e
+            self.keys = [k for k, _ in spans]
+            self._spans = [s for _, s in spans]
+        else:
+            raise ValueError(f"unknown LMDB reader {reader!r}")
         self._crcs = read_crc_sidecar(path, expect_count=len(self.keys))
         # whether the records are encoded images (the first one says)
-        self.encoded = bool(spans) and parse_datum_fields(
-            self._reader.view(*self._spans[0])).encoded
+        self.encoded = bool(self.keys) and parse_datum_fields(
+            self._value(0)).encoded
 
     def __len__(self) -> int:
         return len(self.keys)
 
+    def _value(self, index: int):
+        if self._native is not None:
+            off = int(self._voff[index])
+            return self._mm[off:off + int(self._vlen[index])]
+        return self._reader.view(*self._spans[index])
+
     def get(self, index: int) -> tuple[np.ndarray, int]:
+        return self._get(index, fields=False)
+
+    def get_datum(self, index: int) -> DatumFields:
+        """Verified wire fields WITHOUT decoding the image — the fused
+        native decode's fetch; verification is get()'s."""
+        return self._get(index, fields=True)
+
+    def _get(self, index: int, fields: bool):
         expect = int(self._crcs[index]) if self._crcs is not None else None
-        raw = self._reader.view(*self._spans[index])
-        return _decode_verified(raw, index, self.path, expect)
+        raw = self._value(index)
+        actual = None
+        if self._native is not None and expect is not None \
+                and not _faults_on_records():
+            actual = self._native.value_crc32c(index)
+        return _decode_verified(raw, index, self.path, expect, actual,
+                                fields=fields)
+
+    def gather_raw(self, idx, shape, out: np.ndarray,
+                   num_threads: int = 1):
+        """Records `idx` as raw `shape` uint8 Datums into `out` in one
+        native call, each checked against its sidecar crc32c over the
+        mapping; returns (labels, statuses) (native.gather_raw). None on
+        the plain reader, or while a fault site rewrites records."""
+        if self._native is None or _faults_on_records():
+            return None
+        idx = np.asarray(idx, np.int64)
+        crcs = None if self._crcs is None else self._crcs[idx]
+        return self._native.gather_raw(idx, shape, out, crcs, num_threads)
 
 
 class DatumFileDataset:
     """Single-file Datum container: MAGIC, raw back-to-back Datum messages,
     then an index [int64 count][count x (int64 offset, int64 size)]
     [int64 index_offset]. Written by tools/convert_imageset
-    `-backend datumfile`."""
+    `-backend datumfile`. This is the Python reader; open_dataset reads
+    the file through the native one beside it (_HybridDatumDataset)."""
 
     MAGIC = b"CAFFEDATUMv1"
 
@@ -288,15 +374,23 @@ class DatumFileDataset:
         count = struct.unpack("<q", self.f.read(8))[0]
         self.offsets = np.frombuffer(self.f.read(count * 16),
                                      "<i8").reshape(-1, 2)
+        self.encoded = bool(len(self.offsets)) and self.get_datum(0).encoded
 
     def __len__(self) -> int:
         return len(self.offsets)
 
-    def get(self, index: int) -> tuple[np.ndarray, int]:
+    def _raw(self, index: int) -> bytes:
         off, size = self.offsets[index]
         # pread: positioned read, safe under the Feeder's threads
-        return _decode_verified(os.pread(self._fd, int(size), int(off)),
-                                index, self.path)
+        return os.pread(self._fd, int(size), int(off))
+
+    def get(self, index: int) -> tuple[np.ndarray, int]:
+        return _decode_verified(self._raw(index), index, self.path)
+
+    def get_datum(self, index: int) -> DatumFields:
+        """Verified wire fields without decoding the image."""
+        return _decode_verified(self._raw(index), index, self.path,
+                                fields=True)
 
     @classmethod
     def write(cls, path: str, records) -> int:
@@ -312,6 +406,37 @@ class DatumFileDataset:
             f.write(np.asarray(offsets, "<i8").tobytes())
             f.write(struct.pack("<q", index_off))
         return len(offsets)
+
+
+class _HybridDatumDataset:
+    """A datumfile through the native mmap reader, the Python reader for
+    the records the native one declines (encoded and float Datums, and
+    any that fail to parse, which raise there)."""
+
+    def __init__(self, native_db, py_ds: DatumFileDataset):
+        self.native = native_db
+        self.py = py_ds
+        self.path = py_ds.path
+        self.encoded = py_ds.encoded
+
+    def __len__(self) -> int:
+        return len(self.py)
+
+    def get(self, index: int):
+        try:
+            return self.native.get(index)
+        except ValueError:
+            return self.py.get(index)
+
+    def get_datum(self, index: int) -> DatumFields:
+        # encoded/float records live on the python reader either way
+        return self.py.get_datum(index)
+
+    def gather_raw(self, idx, shape, out: np.ndarray, num_threads: int = 1):
+        """As LMDBDataset.gather_raw (the datumfile has no checksums)."""
+        if _faults_on_records():
+            return None
+        return self.native.gather_raw(idx, shape, out, num_threads)
 
 
 class SyntheticDataset:
@@ -338,17 +463,93 @@ class SyntheticDataset:
 
 
 class CachedDataset:
-    """The whole-DB RAM cache (`data_param { cache: true }`): not ported."""
+    """Whole-dataset RAM cache (`data_param { cache: true }`; reference
+    DataReader's DataCache, data_reader.hpp:55-101): every record read
+    once at open, epoch shuffling left to the Feeder's permutations."""
 
-    def __init__(self, *args, **kwargs):
-        raise unported("data_param.cache (the whole-DB RAM cache)")
+    def __init__(self, base: Dataset):
+        self.path = getattr(base, "path", "") or type(base).__name__
+        self.records = [base.get(i) for i in range(len(base))]
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def get(self, index: int) -> tuple[np.ndarray, int]:
+        return self.records[index]
 
 
 class DecodedCacheDataset:
-    """The bounded decoded-record cache (`decoded_cache_mb`): not ported."""
+    """Bounded decoded-record cache (the solver's `decoded_cache_mb`):
+    post-decode, pre-augment CHW uint8 arrays kept up to `budget_mb`, so
+    every epoch after the first skips the DB read, the crc check and the
+    image decode for the cached span — the costly stages of a JPEG or PNG
+    LMDB, which otherwise decodes the whole dataset every epoch.
 
-    def __init__(self, *args, **kwargs):
-        raise unported("decoded_cache_mb (the decoded-record cache)")
+    Admission is first-fit and keyed by record index: once the budget is
+    reached nothing is evicted or replaced, so under the Feeder's
+    per-epoch permutations the same records hit every epoch. Misses go
+    through the base dataset's crc and quarantine path, and only records
+    that decoded are admitted. Thread-safe; cached arrays are read-only
+    (every consumer copies before it writes)."""
+
+    def __init__(self, base: Dataset, budget_mb: float):
+        self.base = base
+        self.path = getattr(base, "path", "") or type(base).__name__
+        self._budget = int(budget_mb * 2**20)
+        self._bytes = 0
+        self._full = False
+        self._cache: dict[int, tuple[np.ndarray, int]] = {}
+        self._lock = threading.Lock()
+        base_datum = getattr(base, "get_datum", None)
+        if base_datum is not None:
+            # the fused decode's fields API only where the base has it
+            # (the Feeder probes with getattr)
+            self.get_datum = base_datum
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def lookup(self, index: int):
+        """Cached (arr, label) or None — the fused decode asks before it
+        fetches the encoded bytes."""
+        with self._lock:
+            hit = self._cache.get(index)
+        if hit is not None:
+            from .decode import STATS
+            STATS.count("cache_hits")
+        return hit
+
+    def admitting(self) -> bool:
+        """False once the budget is reached: callers skip decode side
+        buffers that could never be admitted."""
+        return not self._full
+
+    def insert(self, index: int, arr: np.ndarray, label: int) -> None:
+        """Admit a decoded record (first-fit under the byte budget)."""
+        if arr.dtype != np.uint8 or self._full:
+            return
+        arr = np.array(arr)  # own copy: must not pin batch buffers or
+        #                      views of a mapping
+        arr.setflags(write=False)
+        with self._lock:
+            if index in self._cache:
+                return
+            if self._bytes + arr.nbytes > self._budget:
+                self._full = True
+                return
+            self._cache[index] = (arr, int(label))
+            self._bytes += arr.nbytes
+        from .decode import STATS
+        STATS.count("cache_inserts")
+        STATS.count("cache_bytes", arr.nbytes)
+
+    def get(self, index: int) -> tuple[np.ndarray, int]:
+        hit = self.lookup(index)
+        if hit is not None:
+            return hit
+        arr, label = self.base.get(index)
+        self.insert(index, arr, label)
+        return arr, label
 
 
 def open_dataset(backend: str, source: str) -> Dataset:
@@ -357,7 +558,9 @@ def open_dataset(backend: str, source: str) -> Dataset:
     if backend == "LMDB":
         return LMDBDataset(source)
     if backend == "DATUMFILE":
-        return DatumFileDataset(source)
+        from ..native import NativeDatumDB
+        py = DatumFileDataset(source)
+        return _HybridDatumDataset(NativeDatumDB(source), py)
     if backend == "LEVELDB":
         raise unported("backend: LEVELDB")
     raise ValueError(f"unknown db backend {backend!r}")

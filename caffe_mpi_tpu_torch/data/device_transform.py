@@ -41,7 +41,26 @@ def aug_key(top: str) -> str:
 def compute_aug(tf, flats, in_hw, batch: int) -> np.ndarray:
     """Host-side decisions: (B, 3) int32 [off_h, off_w, mirror]. `tf` is the
     host DataTransformer; the draws replay its call sequence (off_h, off_w,
-    then mirror, from the per-record Philox stream)."""
+    then mirror, from the per-record Philox stream). TRAIN draws come from
+    the native library in one call (native.philox_aug, bit for bit
+    numpy's); compute_aug_plain is the numpy version, for the records the
+    native one does not take (a seed past 64 bits, a crop past the
+    record, where numpy raises)."""
+    tp = tf.tp
+    h, w = in_hw
+    seed = tf.seed or 0
+    flats = np.asarray(flats, np.int64)
+    if tf.phase == "TRAIN" and (tp.crop_size or tp.mirror) and \
+            0 <= seed < 1 << 64 and tp.crop_size <= min(h, w) and \
+            len(flats) == batch and (flats >= 0).all():
+        from .. import native
+        return native.philox_aug(flats, seed, h, w, tp.crop_size,
+                                 bool(tp.mirror))
+    return compute_aug_plain(tf, flats, in_hw, batch)
+
+
+def compute_aug_plain(tf, flats, in_hw, batch: int) -> np.ndarray:
+    """compute_aug in numpy: a Generator a record (the JAX package's)."""
     tp = tf.tp
     h, w = in_hw
     crop = tp.crop_size

@@ -28,10 +28,12 @@ bulk sorted-insert B+tree writer — what convert_imageset needs — not a
 transactional store. Its output is byte for byte the JAX writer's for the
 same items, and so is the per-record crc32c sidecar both publish.
 
-crc32c (Castagnoli) is the checksum of that sidecar: `csrc/crc32c.cc`
-(host code, a slice-by-8 table loop) built by the host C++ compiler at
-first use (ops/build.py), on the card's machine and the CPU alike. A
-missing compiler or a failed build raises; it does not fall back.
+crc32c (Castagnoli) is the checksum of that sidecar: the native data
+plane's (`csrc/native/lmdb_reader.cc`: SSE4.2's crc32 instruction where
+the CPU has it, else a slice-by-8 table loop), built by the host C++
+compiler at first use (ops/build.py), on the card's machine and the CPU
+alike. A missing compiler or a failed build raises; it does not fall
+back.
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ import logging
 import mmap
 import os
 import struct
-import threading
 
 import numpy as np
 
@@ -274,27 +275,12 @@ class LMDBReader:
 # crc32c (Castagnoli, reflected polynomial 0x82F63B78)
 # ---------------------------------------------------------------------------
 
-_CRC = None
-_CRC_LOCK = threading.Lock()
-
-
 def crc32c(data) -> int:
-    """crc32c of bytes-like `data`, bytes or a memoryview: csrc/crc32c.cc,
-    built with the host C++ compiler at first use and read through the
-    buffer's address (no copy; ctypes lets go of the GIL for the call)."""
-    global _CRC
-    if _CRC is None:
-        with _CRC_LOCK:
-            if _CRC is None:
-                import ctypes
-
-                from ..ops import build
-                fn = build.load("crc32c.cc").caffe_crc32c
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
-                fn.restype = ctypes.c_uint32
-                _CRC = fn
-    a = np.frombuffer(data, np.uint8)
-    return int(_CRC(a.ctypes.data, a.size))
+    """crc32c of bytes-like `data`, bytes or a memoryview, by the native
+    library, read through the buffer's address (no copy; ctypes lets go
+    of the GIL for the call)."""
+    from ..native import crc32c as native_crc32c
+    return native_crc32c(data)
 
 
 def _atomic_output_write(path: str, chunks) -> None:

@@ -114,7 +114,6 @@ log = logging.getLogger("caffe_mpi_tpu_torch.solver")
 UNPORTED_FIELDS = (
     ("anomaly_action", 4), ("anomaly_lr_mult", 4), ("test_chunk", 4),
     ("watchdog_deadline", 4), ("snapshot_keep", 4),
-    ("decoded_cache_mb", 3),
     ("zero_stage", 6), ("reduce_overlap", 6), ("reduce_buckets", 6),
     ("grad_bucket_mb", 6), ("hosts", 6), ("coordinator", 6),
     ("host_deadline", 6), ("min_hosts", 6),

@@ -229,15 +229,17 @@ def synthetic_feed(net, seed: int = 0) -> dict:
     return feeds
 
 
-def build_feeder(net, phase: str):
+def build_feeder(net, phase: str, solver_param=None):
     """The Feeder of the net's Data layer, or None for a net fed through
-    Input layers (the JAX CLI's `_build_feeders`, on one device)."""
+    Input layers (the JAX CLI's `_build_feeders`, on one device);
+    solver_param gives the run's `decoded_cache_mb`."""
     from ..data.feeder import feeder_from_layer
     for layer in net.layers:
         if layer.lp.type in ("Data", "ImageData", "HDF5Data", "WindowData"):
             return feeder_from_layer(
                 layer.lp, phase, model_dir=net.model_dir,
-                device_transform=getattr(layer, "dev_transform", False))
+                device_transform=getattr(layer, "dev_transform", False),
+                solver_param=solver_param)
     return None
 
 
@@ -246,7 +248,7 @@ def _feed_fns(solver, synthetic: bool):
     Feeder or None)."""
     from ..data.feeder import DeviceFeed
     opened = []
-    feeder = build_feeder(solver.net, "TRAIN")
+    feeder = build_feeder(solver.net, "TRAIN", solver.sp)
     if feeder is None:
         if not synthetic:
             raise ValueError("net has no Data layer; pass -synthetic to "
@@ -260,7 +262,7 @@ def _feed_fns(solver, synthetic: bool):
     if solver.test_nets:
         test_fns = []
         for tnet in solver.test_nets:
-            f = build_feeder(tnet, "TEST")
+            f = build_feeder(tnet, "TEST", solver.sp)
             if f is None:
                 tfeeds = synthetic_feed(tnet, seed=1)
                 test_fns.append(lambda it, tfeeds=tfeeds: tfeeds)
@@ -283,6 +285,7 @@ def train(args):
     snapshot after training. Returns (solver, summary dict)."""
     from ..proto import SolverParameter
     from ..solver import Solver
+    from ..utils.resilience import QUARANTINE, quarantine_journal_path
     if not args.solver:
         raise ValueError("train requires -solver")
     sp = SolverParameter.from_file(args.solver)
@@ -318,6 +321,10 @@ def train(args):
             solver.load_weights(w)
     feed_fn, test_feed_fns, opened, feeder = _feed_fns(solver,
                                                        args.synthetic)
+    # corrupt records the feeders substitute are journaled beside the
+    # snapshots, <prefix>.quarantine.json (appended to on a resume)
+    QUARANTINE.configure(quarantine_journal_path(
+        sp.snapshot_prefix or "snapshot"))
     start = solver.iter
     try:
         solver.step(sp.max_iter - solver.iter, feed_fn, test_feed_fns)
@@ -329,6 +336,8 @@ def train(args):
     finally:
         for f in opened:
             f.close()
+        # the journal's debounced tail is written on every exit path
+        QUARANTINE.flush()
     snapshot = None
     if sp.snapshot_prefix and solver.should_snapshot_after_train():
         snapshot = solver.snapshot()
@@ -351,6 +360,8 @@ def train(args):
         "feed_ms_per_batch": None if feeder is None
         else feeder.feed_ms_per_batch(),
         "feed_threads": None if feeder is None else feeder.threads,
+        "feed_lookahead": None if feeder is None else feeder.lookahead,
+        "quarantined": QUARANTINE.count(),
         "precision": solver.precision, "step_chunk": solver.step_chunk,
         "skipped_iters": list(solver.skipped_iters),
         "skipped_steps": solver.skipped_steps,
@@ -364,10 +375,13 @@ def train(args):
 
 
 def cmd_train(args) -> int:
-    from ..utils.resilience import EXIT_NUMERIC, NumericAnomalyError
+    from ..data.feeder import FeedError
+    from ..utils.resilience import (EXIT_NUMERIC, DataIntegrityError,
+                                    NumericAnomalyError)
     try:
         _, summary = train(args)
-    except (ValueError, NotImplementedError) as e:
+    except (ValueError, NotImplementedError, FeedError,
+            DataIntegrityError) as e:
         log.error("%s", e)
         return 1
     except NumericAnomalyError as e:
@@ -423,9 +437,12 @@ def test_net(args) -> dict[str, float]:
 
 
 def cmd_test(args) -> int:
+    from ..data.feeder import FeedError
+    from ..utils.resilience import DataIntegrityError
     try:
         scores = test_net(args)
-    except (ValueError, NotImplementedError) as e:
+    except (ValueError, NotImplementedError, FeedError,
+            DataIntegrityError) as e:
         log.error("%s", e)
         return 1
     for b, avg in scores.items():

@@ -9,9 +9,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
 1. device  — requires torch.cuda.is_available(); prints the card's name and
              power limit as nvidia-smi reports them.
 2. build   — builds every CUDA kernel of the port from csrc/ with nvcc for
-             sm_90a, and the host crc32c of the LMDB sidecar with the
-             host C++ compiler (one compiler per source, all started
-             together).
+             sm_90a, and the native data-plane library (csrc/native/:
+             the LMDB sidecar's crc32c among it) with the host C++
+             compiler (one compiler per library, all started together).
 3. kernels — holds each kernel against its plain PyTorch version on the card
              at the shapes the serving and training paths give it (and at
              edge shapes: the LRN kernels at windows 1 to 17, both sides
@@ -125,8 +125,19 @@ Phases, in order; any failure exits nonzero and prints no result line:
              on the val LMDB from the snapshot's caffemodel, `time` on
              the net (whole step, MFU), `device_query`, one batch of the
              card's device transform against the host DataTransformer
-             (bitwise), and 8 iterations over a JPEG-encoded LMDB of 256
-             records.
+             (bitwise), three batches of the Feeder's native raw gather
+             (csrc/native: crc32c over the mapping, the Datum walk, one
+             copy a record, one call a batch) against the plain Python
+             build (bitwise), the decoded-record cache's second epoch (all
+             hits, no decode), 8 iterations over a JPEG-encoded LMDB of
+             256 records with the device transform and 8 with
+             `use_gpu_transform: false` (the native host transform), each
+             with decode.STATS (native decode where the codecs are built,
+             PIL where not) and K1/K2 counted, and 3 iterations over a
+             copy of the train LMDB with one corrupted record (quarantined,
+             journaled, the run goes on). First it prints the native
+             library's codec probe and decode_available() on a line of
+             their own.
 
 13. bf16  — trains AlexNet at batch 256 from
              models/alexnet/solver_fp16.prototxt (FLOAT16 net defaults)
@@ -162,7 +173,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
              2^15 -> 2^13, then regrown to 2^15 by 8 clean steps
              (loss_scale_window 4), finite losses.
 
-It prints one {"kernels": [...]} line (K1-K5), one {"serving": ...} line,
+It prints one {"native_codec": ...} line (during phase 12), one
+{"kernels": [...]} line (K1-K5), one {"serving": ...} line,
 one {"train": ...} line, one {"transformer": ...} line, one
 {"resnet50": ...} line, one {"googlenet": ...} line, one {"lmdb": ...}
 line, one {"bf16": ...} line, one {"chunk": ...} line (the overflow
@@ -2363,6 +2375,188 @@ def _device_transform_check(solver, train_db) -> dict:
             "host_ms": host_ms}
 
 
+def native_codec_line() -> dict:
+    """The native library's codec probe (libjpeg's and libpng's headers
+    on this machine) and decode_available(), printed on a line of their
+    own: where the headers are missing the library is built with stubbed
+    decode entry points and encoded records decode through PIL."""
+    from caffe_mpi_tpu_torch import native
+    from caffe_mpi_tpu_torch.ops import build
+    probe = build.codec_probe()
+    line = {"native_codec": {
+        "headers": probe, "decode_available": native.decode_available(),
+        "abi": native.lib().caffe_tpu_native_abi_version()}}
+    if not line["native_codec"]["decode_available"]:
+        line["native_codec"]["note"] = (
+            "this machine lacks the libjpeg/libpng headers: the native "
+            "library is built with -DCAFFE_TPU_NO_CODEC and JPEG records "
+            "decode through PIL")
+    print(json.dumps(line), flush=True)
+    return line["native_codec"]
+
+
+def _jpeg_host_copy(tmp, jpeg_db, val_db, mean, tag):
+    """The CaffeNet copies over the JPEG LMDB with the train layer's
+    transform on the host (`use_gpu_transform: false`): the native host
+    transform, and fused decode-and-transform where the codecs are
+    built."""
+    net_path, solver_path = _caffenet_copy(tmp, jpeg_db, val_db, mean, tag)
+    with open(net_path) as f:
+        text = f.read()
+    if "mirror: true" not in text:
+        fail(f"{CAFFENET} no longer mirrors its train layer")
+    with open(net_path, "w") as f:
+        f.write(text.replace("mirror: true",
+                             "mirror: true use_gpu_transform: false", 1))
+    return net_path, solver_path
+
+
+def _gather_check(solver, train_db) -> dict:
+    """Two TRAIN batches of the train LMDB through the Feeder's native
+    raw gather (one call a batch: crc32c over the mapping, the Datum
+    walk, one copy a record), and through the plain Python build of the
+    same batches (the pure-Python LMDB reader, one record at a time):
+    bitwise equal, on this host. Times both builds (one thread). Then four
+    batches gathered into pinned memory and uploaded by a DeviceFeed
+    without its staging copy, read back from the card: bitwise the plain
+    build's."""
+    from caffe_mpi_tpu_torch.data.datasets import LMDBDataset, open_dataset
+    from caffe_mpi_tpu_torch.data.feeder import DeviceFeed, Feeder
+    from caffe_mpi_tpu_torch.data.transformer import DataTransformer
+    data = solver.net.layers[0]
+    tf = DataTransformer(data.lp.transform_param, "TRAIN")
+    kw = dict(device_transform=True, threads=1, lookahead=1)
+    fast = Feeder(open_dataset("LMDB", train_db), tf, CAFFENET_BATCH, **kw)
+    plain = Feeder(LMDBDataset(train_db, reader="python"), tf,
+                   CAFFENET_BATCH, **kw)
+    plain._gather_ok = False
+    ms = {"gather": [], "plain": []}
+    try:
+        for it in (0, 1, 2):
+            batches = {}
+            for name, f in (("gather", fast), ("plain", plain)):
+                t0 = time.perf_counter()
+                batches[name] = f._build_batch_inner(it)
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+            for key, want in batches["plain"].items():
+                got = batches["gather"][key]
+                if got.dtype != want.dtype or not np.array_equal(got, want):
+                    fail(f"the native raw gather's {key} of batch {it} "
+                         "differs from the plain Python build")
+        if fast._raw_shape != LMDB_SHAPE:
+            fail(f"the Feeder did not gather natively ({fast._raw_shape})")
+        # through a DeviceFeed: the stack gathered into pinned memory goes
+        # up without the staging copy, and arrives bitwise
+        feed = DeviceFeed(Feeder(open_dataset("LMDB", train_db), tf,
+                                 CAFFENET_BATCH, **kw), torch.device("cuda"))
+        try:
+            for it in (0, 1, 2, 3):
+                got = {k: v.cpu().numpy() for k, v in feed(it).items()}
+                for key, want in plain._build_batch_inner(it).items():
+                    if not np.array_equal(got[key], want):
+                        fail(f"the pinned upload's {key} of batch {it} "
+                             "differs from the plain Python build")
+            pinned = feed.feeder.pin_memory
+        finally:
+            feed.close()
+    finally:
+        fast.close()
+        plain.close()
+    if not pinned:
+        fail("the DeviceFeed did not ask its Feeder for pinned batches")
+    return {"bitwise": True, "batches": 3, "pinned_upload_batches": 4,
+            "gather_build_ms": float(np.median(ms["gather"][1:])),
+            "plain_build_ms": float(np.median(ms["plain"][1:]))}
+
+
+def _corrupt_copy(src, dst, index):
+    """A copy of the LMDB `src` with one byte of record `index`'s pixels
+    flipped (its crc32c in the sidecar no longer matches)."""
+    from caffe_mpi_tpu_torch.data.lmdb_io import LMDBReader
+    shutil.copytree(src, dst)
+    with LMDBReader(dst) as r:
+        spans = [s for _, s in r.spans()]
+    off, size = spans[index]
+    with open(os.path.join(dst, "data.mdb"), "r+b") as f:
+        f.seek(off + size - 100)
+        b = f.read(1)
+        f.seek(off + size - 100)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+QUARANTINE_RECORD, QUARANTINE_ITERS = 300, 3
+
+
+def _quarantine_check(tmp, train_db, val_db, mean) -> dict:
+    """CaffeNet through the CLI's `train` from a copy of the train LMDB
+    whose record QUARANTINE_RECORD has one byte flipped: the record fails
+    its crc32c, the Feeder substitutes the next record and journals it in
+    <prefix>.quarantine.json, and the run goes on to its last iteration
+    with finite losses."""
+    from caffe_mpi_tpu_torch.tools import cli
+    bad_db = os.path.join(tmp, "corrupt_lmdb")
+    _corrupt_copy(train_db, bad_db, QUARANTINE_RECORD)
+    _, solver_path = _caffenet_copy(tmp, bad_db, val_db, mean, "corrupt")
+    prefix = os.path.join(tmp, "corrupt")
+    solver, summary = cli.train(cli.parse_args(
+        ["train", "-solver", solver_path, "-max_iter",
+         str(QUARANTINE_ITERS), "-test_iter", "1", "-snapshot_prefix",
+         prefix, "-device", "cuda"]))
+    del solver
+    journal = prefix + ".quarantine.json"
+    if not os.path.isfile(journal):
+        fail(f"no quarantine journal at {journal}")
+    with open(journal) as f:
+        records = json.load(f)["records"]
+    got = [(r["index"], r["substitute"]) for r in records]
+    want = [(QUARANTINE_RECORD, QUARANTINE_RECORD + 1)]
+    if got != want or summary["quarantined"] != 1 or \
+            "crc32c mismatch" not in records[0]["reason"]:
+        fail(f"quarantine journal {records}, want {want}")
+    if len(summary["losses"]) != QUARANTINE_ITERS or \
+            not np.all(np.isfinite(summary["losses"])):
+        fail(f"the run over the corrupt LMDB: {summary['losses']}")
+    return {"record": QUARANTINE_RECORD, "journal": got,
+            "reason": records[0]["reason"], "iters": QUARANTINE_ITERS,
+            "losses": summary["losses"]}
+
+
+def _cache_check(solver, jpeg_db) -> dict:
+    """The decoded-record cache (`decoded_cache_mb`) over the JPEG LMDB:
+    a first epoch fills it, the second decodes nothing (every record a
+    cache hit) and gives the first epoch's batch bitwise."""
+    from caffe_mpi_tpu_torch.data import decode
+    from caffe_mpi_tpu_torch.data.datasets import (DecodedCacheDataset,
+                                                   open_dataset)
+    from caffe_mpi_tpu_torch.data.feeder import Feeder
+    from caffe_mpi_tpu_torch.data.transformer import DataTransformer
+    data = solver.net.layers[0]
+    tf = DataTransformer(data.lp.transform_param, "TRAIN")
+    ds = DecodedCacheDataset(open_dataset("LMDB", jpeg_db), 512.0)
+    feeder = Feeder(ds, tf, CAFFENET_BATCH, device_transform=True,
+                    threads=1, lookahead=1)
+    try:
+        decode.STATS.reset()
+        t0 = time.perf_counter()
+        first = feeder._build_batch_inner(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        one = decode.STATS.snapshot()
+        decode.STATS.reset()
+        t0 = time.perf_counter()
+        second = feeder._build_batch_inner(1)  # epoch 2: the same records
+        second_ms = (time.perf_counter() - t0) * 1e3
+        two = decode.STATS.snapshot()
+    finally:
+        feeder.close()
+    if one["cache_inserts"] != LMDB_JPEG or two["cache_hits"] != LMDB_JPEG \
+            or two["decode_calls"] != 0:
+        fail(f"decoded cache: epoch 1 {one}, epoch 2 {two}")
+    if not np.array_equal(first["data"], second["data"]):
+        fail("the decoded cache's second epoch differs from the first")
+    return {"epoch1": one, "epoch2": two, "epoch1_build_ms": first_ms,
+            "epoch2_build_ms": second_ms}
+
+
 def lmdb_phase(k1: dict, k2: dict, card: str) -> dict:
     """Train CaffeNet (examples/imagenet/caffenet_train_val.prototxt as
     written: batch 256, crop 227, mirror, a mean file) from a train LMDB
@@ -2376,13 +2570,21 @@ def lmdb_phase(k1: dict, k2: dict, card: str) -> dict:
     solver on a synthetic feed (the same net and device transform, no
     host feed), `test` on the val LMDB from the snapshot's caffemodel,
     `time` on the net, `device_query`, one batch of the device transform
-    against the host DataTransformer bitwise, and a shorter run over a
-    JPEG-encoded LMDB of 256 records (a PIL decode a record on the
-    host)."""
+    against the host DataTransformer bitwise, three batches of the
+    Feeder's native raw gather against the plain Python build bitwise,
+    the decoded-record cache's second epoch (every record a hit, no
+    decode), two shorter runs over a JPEG-encoded LMDB of 256 records
+    (the device transform, and the host transform: native, fused with
+    the decode where the codecs are built), each with its decode counts
+    and K1/K2 counts set to 0 just before and read just after, and a run
+    over a copy of the train LMDB with one corrupted record, which is
+    quarantined and journaled while the run goes on. The native
+    library's codec probe is printed on a line of its own first."""
     import contextlib
 
     from caffe_mpi_tpu_torch.data.feeder import DeviceFeed
     from caffe_mpi_tpu_torch.tools import cli, compute_image_mean
+    codec = native_codec_line()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_lmdb_")
     try:
         t0 = time.perf_counter()
@@ -2446,6 +2648,10 @@ def lmdb_phase(k1: dict, k2: dict, card: str) -> dict:
                                           solver.iter_ms[n0 + 1:])
         transform = _device_transform_check(solver, train_db)
         log(f"device transform: {json.dumps(transform)}")
+        gather = _gather_check(solver, train_db)
+        log(f"native raw gather: {json.dumps(gather)}")
+        cache = _cache_check(solver, jpeg_db)
+        log(f"decoded cache: {json.dumps(cache)}")
         del solver, syn
 
         with contextlib.redirect_stdout(sys.stderr):
@@ -2469,17 +2675,49 @@ def lmdb_phase(k1: dict, k2: dict, card: str) -> dict:
                 devices[0]["name"] != torch.cuda.get_device_name(0):
             fail(f"device_query: {devices}")
 
-        jnet, jsolver = _caffenet_copy(tmp, jpeg_db, val_db, mean, "jpeg")
+        from caffe_mpi_tpu_torch.data import decode
+        jpeg_runs = {}
+        for tag, copy_fn in (("jpeg", _caffenet_copy),
+                             ("jpeg_host", _jpeg_host_copy)):
+            _, jsolver = copy_fn(tmp, jpeg_db, val_db, mean, tag)
+            torch.cuda.empty_cache()
+            decode.STATS.reset()
+            _reset_kernel_counts()
+            jpeg_solver, run = cli.train(cli.parse_args(
+                ["train", "-solver", jsolver, "-max_iter", str(JPEG_ITERS),
+                 "-snapshot_prefix", os.path.join(tmp, tag), "-device",
+                 "cuda"]))
+            torch.cuda.synchronize()
+            jcounts = _kernel_counts()
+            run["decode_stats"] = decode.STATS.snapshot()
+            # JPEG_ITERS < the test interval: one final test pass
+            jwant = (2 * (JPEG_ITERS + 2), 2 * JPEG_ITERS, 0, 0, 0)
+            if jcounts != jwant:
+                fail(f"{tag} train launched K1-K5 {jcounts}, want {jwant}")
+            k1["launches_by_path"][f"train_caffenet_{tag}_lmdb"] = jcounts[0]
+            k2["launches_by_path"][f"train_caffenet_{tag}_lmdb"] = jcounts[1]
+            del jpeg_solver
+            log(f"lmdb {tag} train: {json.dumps(run)}")
+            if len(run["losses"]) != JPEG_ITERS or \
+                    not np.all(np.isfinite(run["losses"])):
+                fail(f"{tag} train losses {run['losses']}")
+            st = run["decode_stats"]
+            native_n = st["native_records"] + st["fused_records"]
+            if codec["decode_available"]:
+                if st["pil_records"] or native_n < JPEG_ITERS * \
+                        CAFFENET_BATCH:
+                    fail(f"{tag}: native decode counts {st}")
+            elif native_n or st["pil_records"] < JPEG_ITERS * \
+                    CAFFENET_BATCH:
+                fail(f"{tag}: PIL decode counts {st} without the codecs")
+            jpeg_runs[tag] = run
+        jpeg, jpeg_host = jpeg_runs["jpeg"], jpeg_runs["jpeg_host"]
+        if not jpeg["device_transform"] or jpeg_host["device_transform"]:
+            fail("the jpeg run transformed on the host or the jpeg_host "
+                 "run on the card")
         torch.cuda.empty_cache()
-        jpeg_solver, jpeg = cli.train(cli.parse_args(
-            ["train", "-solver", jsolver, "-max_iter", str(JPEG_ITERS),
-             "-snapshot_prefix", os.path.join(tmp, "jpeg"), "-device",
-             "cuda"]))
-        del jpeg_solver
-        log(f"lmdb jpeg train: {json.dumps(jpeg)}")
-        if len(jpeg["losses"]) != JPEG_ITERS or \
-                not np.all(np.isfinite(jpeg["losses"])):
-            fail(f"jpeg train losses {jpeg['losses']}")
+        quarantine = _quarantine_check(tmp, train_db, val_db, mean)
+        log(f"quarantine: {json.dumps(quarantine)}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2505,6 +2743,16 @@ def lmdb_phase(k1: dict, k2: dict, card: str) -> dict:
         "jpeg_window_img_per_s": jpeg["window_img_per_s"],
         "jpeg_median_step_ms": jpeg["median_iter_ms"],
         "jpeg_feed_ms_per_batch": jpeg["feed_ms_per_batch"],
+        "jpeg_feed_threads": jpeg["feed_threads"],
+        "jpeg_decode_stats": jpeg["decode_stats"],
+        "jpeg_host_img_per_s": jpeg_host["img_per_s"],
+        "jpeg_host_window_img_per_s": jpeg_host["window_img_per_s"],
+        "jpeg_host_median_step_ms": jpeg_host["median_iter_ms"],
+        "jpeg_host_feed_ms_per_batch": jpeg_host["feed_ms_per_batch"],
+        "jpeg_host_decode_stats": jpeg_host["decode_stats"],
+        "native_codec": codec, "native_gather": gather,
+        "decoded_cache": cache, "quarantine": quarantine,
+        "feed_lookahead": summary["feed_lookahead"],
         "device_busy": profile.get("device_busy_profiled"),
         "profile": profile, "launches_k1_k5": list(counts),
         "device_transform": transform, "cli_test": tested,

@@ -9,8 +9,8 @@ the card's.
 
 It writes the LMDBs of chip_smoke.py's lmdb phase (1,280 raw 3x256x256
 Datums from seeded clusters, a 100-record val LMDB, their mean) under
-TMPDIR, builds only what CaffeNet needs (the kernels of lrn.cu, and
-crc32c.cc for the sidecar), and runs the port's Solver on a copy of
+TMPDIR, builds only what CaffeNet needs (the kernels of lrn.cu and the
+native data-plane library), and runs the port's Solver on a copy of
 examples/imagenet/caffenet_solver.prototxt (batch 256, crop 227, mirror,
 mean file; no test pass) whose train Data layer sets `threads`: `--warm`
 iterations, then `--iters` more through a DeviceFeed, and reports the
@@ -21,13 +21,17 @@ Configurations (`--configs`, default all), each run in `--pairs` mirrored
 pairs (default 1) so drift shows as the gap between a configuration's
 runs:
 
-- t1, t2, t4, t8: 1, 2, 4 or 8 Feeder threads, the device transform on
-  (feeder.DEFAULT_THREADS, the default for raw records, is 2);
-- host_t4: 4 threads with `use_gpu_transform: false`, the transform on
-  the host (float32 batches, four times the bytes to upload);
-- jpeg_t2, jpeg_t4, jpeg_t8: 2, 4 or 8 threads over a 256-record
-  JPEG-encoded LMDB of the same clusters (one PIL decode a record;
-  feeder.ENCODED_THREADS, the default for encoded records, is 8);
+- t1, t2, t4, t8: 1, 2, 4 or 8 Feeder threads, the device transform on;
+- auto: `threads: 0`, the default: auto mode (feeder.auto_threads(),
+  min(cpu_count, 8) workers, and the lookahead retuned at run time);
+- host_t4, host_auto: 4 threads or auto mode with `use_gpu_transform:
+  false`, the transform on the host (the native batch transform; float32
+  batches, four times the bytes to upload);
+- jpeg_t2, jpeg_t4, jpeg_t8, jpeg_auto: 2, 4 or 8 threads or `threads:
+  0` over a 256-record JPEG-encoded LMDB of the same clusters (the native
+  decode where the library has the codecs, one PIL decode a record where
+  not; there `threads: 0` pins feeder.ENCODED_THREADS, as jpeg_t8);
+  jpeg_host_auto: `threads: 0` with the transform on the host;
 - synthetic: the same solver on one synthetic batch (no host feed), the
   step the feed is held against.
 
@@ -52,8 +56,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
-THREADS = {"t1": 1, "t2": 2, "t4": 4, "t8": 8, "host_t4": 4, "jpeg_t2": 2,
-           "jpeg_t4": 4, "jpeg_t8": 8}
+THREADS = {"t1": 1, "t2": 2, "t4": 4, "t8": 8, "auto": 0, "host_t4": 4,
+           "host_auto": 0, "jpeg_t2": 2, "jpeg_t4": 4, "jpeg_t8": 8,
+           "jpeg_auto": 0, "jpeg_host_auto": 0}
 CONFIGS = ("synthetic", *THREADS)
 
 
@@ -72,7 +77,7 @@ def _solver(tmp: str, files: tuple, name: str):
     if train not in text:
         cs.fail(f"{cs.CAFFENET} no longer says {train!r}")
     text = text.replace(train, f"{train} threads: {threads}")
-    if name == "host_t4":
+    if "host" in name:
         text = text.replace("mirror: true", "mirror: true "
                             "use_gpu_transform: false", 1)
     with open(net, "w") as f:
@@ -112,6 +117,7 @@ def run(tmp: str, files: tuple, name: str, warm: int, iters: int) -> dict:
             "step_ms": steps,
             "device_transform": bool(data.dev_transform),
             "feed_threads": None if feeder is None else feeder.threads,
+            "feed_lookahead": None if feeder is None else feeder.lookahead,
             "feed_ms_per_batch": None if feeder is None
             else feeder.feed_ms_per_batch()}
 
@@ -134,7 +140,7 @@ def main(argv=None) -> int:
 
     from caffe_mpi_tpu_torch.ops import build
     with ThreadPoolExecutor(2) as ex:
-        list(ex.map(build.build, ("lrn.cu", "crc32c.cc")))
+        list(ex.map(build.build, ("lrn.cu", build.NATIVE)))
     from caffe_mpi_tpu_torch.tools import compute_image_mean
     tmp = tempfile.mkdtemp(prefix="feed_variants_")
     try:

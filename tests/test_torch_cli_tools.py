@@ -202,7 +202,7 @@ def test_cli_train_from_an_lmdb_runs_tests_and_reports_the_feed(tmp_path):
     trained, summary = cli.train(cli.parse_args(argv))
     assert summary["data"] == "dataset" and summary["device_transform"]
     assert summary["feed_ms_per_batch"] > 0
-    assert summary["feed_threads"] == pfeeder.DEFAULT_THREADS
+    assert summary["feed_threads"] == pfeeder.auto_threads()
     assert summary["iters"] == 3 and np.all(np.isfinite(summary["losses"]))
     assert set(summary["test_scores"][0]) == {"accuracy"}
     assert os.path.exists(str(tmp_path / "lenet_iter_3.caffemodel"))

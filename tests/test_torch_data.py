@@ -77,7 +77,10 @@ def test_datum_codec_is_bytes_equal_both_ways(kind):
         assert parr.dtype == jarr.dtype
 
 
-def test_decode_matches_the_jax_pil_path():
+def test_decode_matches_the_jax_pil_path(monkeypatch):
+    # the PIL path (the native decoder's contract, within 1 LSB of PIL
+    # for JPEG, is held in test_torch_native_decode.py)
+    monkeypatch.setenv("CAFFE_NATIVE_DECODE", "0")
     imgs, _ = _records(2, (3, 16, 12))
     for img in imgs:
         for codec in ("jpeg", "png"):
@@ -99,13 +102,15 @@ def test_crc32c_equals_the_jax_crc32c(n):
 
 
 def test_crc32c_source_is_built_by_the_host_compiler():
-    """csrc/crc32c.cc is host code: the host C++ compiler builds it (no
-    nvcc here), into the hashed library that crc32c loads."""
+    """crc32c is host code, the native data plane's (csrc/native): the host
+    C++ compiler builds it (no nvcc here), into the hashed library that
+    crc32c loads."""
     from caffe_mpi_tpu_torch.ops import build
-    assert build._flags("crc32c.cc") == build.CXX_FLAGS
+    assert build._flags(build.NATIVE)[:len(build.CXX_FLAGS)] == \
+        build.CXX_FLAGS
     data = np.random.RandomState(9).bytes(70001)
     assert plmdb.crc32c(data[1:]) == jax_crc32c(data[1:])  # unaligned
-    assert os.path.isfile(build._lib_path("crc32c.cc"))
+    assert os.path.isfile(build._lib_path(build.NATIVE))
 
 
 # -- LMDB ---------------------------------------------------------------------
@@ -270,11 +275,12 @@ def _db(tmp_path, n, shape, name="db"):
 def test_feeder_batches_are_bitwise_the_jax_feeders(tmp_path, spec, rank,
                                                     device):
     """Iterations 0..5 of batch 5 at world 2 over 24 records, shuffle on:
-    the epoch boundary falls inside iteration 2. The JAX Feeder runs its
-    classic path: where its native library is built it would transform on
-    the host in C++, whose TRAIN crops and mirrors are drawn otherwise
-    than its Python path's per-record Philox streams (which its device
-    transform and the port both use)."""
+    the epoch boundary falls inside iteration 2. Both Feeders run their
+    classic host transform (`_native = False`): the native one draws TRAIN
+    crops and mirrors from splitmix64, otherwise than the per-record
+    Philox streams of the Python path (which the device transform uses
+    too); tests/test_torch_native.py holds the native paths against each
+    other. The port's records still come through its native raw gather."""
     shape = (3, 32, 32)
     db = _db(tmp_path, 24, shape)
     tp, jtp = _tp(spec, _mean_file(tmp_path, shape))
@@ -284,7 +290,7 @@ def test_feeder_batches_are_bitwise_the_jax_feeders(tmp_path, spec, rank,
                           DataTransformer(tp, "TRAIN"), 5, **kw)
     jax = jfeeder.Feeder(jds.open_dataset("LMDB", db),
                          JaxTF(jtp, "TRAIN"), 5, **kw)
-    jax._native = False  # the classic path
+    port._native = jax._native = False  # the classic transform
     try:
         for it in range(6):
             got, want = port(it), jax(it)
@@ -293,9 +299,11 @@ def test_feeder_batches_are_bitwise_the_jax_feeders(tmp_path, spec, rank,
                 assert got[key].dtype == want[key].dtype, key
                 np.testing.assert_array_equal(got[key], want[key],
                                               err_msg=f"{key} it {it}")
+        assert port._raw_shape == shape  # the batches were gathered
         # a resumed feeder (a fresh one, asked for iteration 4 first)
         again = pfeeder.Feeder(pds.open_dataset("LMDB", db),
                                DataTransformer(tp, "TRAIN"), 5, **kw)
+        again._native = False
         for key, v in jax(4).items():
             np.testing.assert_array_equal(again(4)[key], v)
         again.close()
@@ -305,7 +313,12 @@ def test_feeder_batches_are_bitwise_the_jax_feeders(tmp_path, spec, rank,
     assert port.feed_ms_per_batch() > 0
 
 
-def test_default_threads_follow_the_kind_of_record(tmp_path):
+def test_default_threads_follow_the_kind_of_record(tmp_path, monkeypatch):
+    """threads 0 is auto mode, as in the JAX Feeder (min(cpu_count, 8)
+    workers and the lookahead retune), for raw records and for encoded
+    ones the native library decodes; encoded records that decode through
+    PIL take ENCODED_THREADS pinned workers (the card measured them ahead
+    of auto). A count pins the workers and turns the retune off."""
     imgs, labels = _records(8, (3, 16, 16))
     for name, enc in (("raw", pds.encode_datum),
                       ("jpeg", pds.encode_datum_image)):
@@ -313,14 +326,25 @@ def test_default_threads_follow_the_kind_of_record(tmp_path):
     raw = pds.open_dataset("LMDB", str(tmp_path / "raw"))
     jpeg = pds.open_dataset("LMDB", str(tmp_path / "jpeg"))
     assert not raw.encoded and jpeg.encoded
-    for ds, want in ((raw, pfeeder.DEFAULT_THREADS),
-                     (jpeg, pfeeder.ENCODED_THREADS)):
-        feeder = pfeeder.Feeder(ds, None, 4)
-        assert feeder.threads == want
+    for ds, jax_ds in ((raw, jds.open_dataset("LMDB", str(tmp_path / "raw"))),
+                       (jpeg, jds.open_dataset("LMDB",
+                                               str(tmp_path / "jpeg")))):
+        feeder, jax = pfeeder.Feeder(ds, None, 4), jfeeder.Feeder(jax_ds,
+                                                                  None, 4)
+        assert feeder.auto and jax.auto
+        assert feeder.threads == jax.threads == pfeeder.auto_threads()
         feeder.close()
+        jax.close()
         feeder = pfeeder.Feeder(ds, None, 4, threads=3)
-        assert feeder.threads == 3
+        assert feeder.threads == 3 and not feeder.auto
         feeder.close()
+    monkeypatch.setenv("CAFFE_NATIVE_DECODE", "0")  # PIL decodes
+    feeder = pfeeder.Feeder(jpeg, None, 4)
+    assert feeder.threads == pfeeder.ENCODED_THREADS and not feeder.auto
+    feeder.close()
+    feeder = pfeeder.Feeder(raw, None, 4)
+    assert feeder.auto
+    feeder.close()
 
 
 def test_device_feed_on_the_cpu_gives_the_feeders_batches(tmp_path):

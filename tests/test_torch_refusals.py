@@ -290,28 +290,41 @@ def test_leveldb_backend_is_refused(tmp_path):
 
 
 def test_data_param_cache_is_refused(tmp_path):
+    """No longer refused: `data_param { cache: true }` wraps the dataset in
+    the whole-DB RAM cache, as the JAX feeder_from_layer does."""
+    from caffe_mpi_tpu_torch.data.datasets import CachedDataset
     from caffe_mpi_tpu_torch.net import Net
     from caffe_mpi_tpu_torch.tools import cli as port_cli
     net = Net(_data_net(_lmdb(tmp_path), "backend: LMDB cache: true"),
               "TRAIN", device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=rf"data_param\.cache .*{DATA_ITEM}"):
-        port_cli.build_feeder(net, "TRAIN")
+    feeder = port_cli.build_feeder(net, "TRAIN")
+    assert isinstance(feeder.ds, CachedDataset) and len(feeder.ds) == 3
+    feeder.close()
     net = Net(_data_net(_lmdb(tmp_path), "backend: LMDB"), "TRAIN",
               device="cpu")
-    port_cli.build_feeder(net, "TRAIN").close()
+    feeder = port_cli.build_feeder(net, "TRAIN")
+    assert not isinstance(feeder.ds, CachedDataset)
+    feeder.close()
 
 
-def test_decoded_cache_mb_stays_refused():
-    assert ("decoded_cache_mb", 3) in SOLVER_FIELDS
+def test_decoded_cache_mb_stays_refused(tmp_path):
+    """No longer refused: the solver's `decoded_cache_mb` wraps a Data
+    layer's dataset in the bounded decoded-record cache, and a negative
+    budget raises ValueError, as in the JAX feeder_from_layer."""
+    from caffe_mpi_tpu_torch.data.datasets import DecodedCacheDataset
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.tools import cli as port_cli
+    assert "decoded_cache_mb" not in dict(SOLVER_FIELDS)
     sp = SolverParameter()
     sp.decoded_cache_mb = 64.0
-    with pytest.raises(NotImplementedError,
-                       match=rf"decoded_cache_mb: .*{DATA_ITEM}"):
-        Solver(sp, device="cpu")
-    from caffe_mpi_tpu_torch.data.datasets import DecodedCacheDataset
-    with pytest.raises(NotImplementedError, match=DATA_ITEM):
-        DecodedCacheDataset(None, 64.0)
+    net = Net(_data_net(_lmdb(tmp_path), "backend: LMDB"), "TRAIN",
+              device="cpu")
+    feeder = port_cli.build_feeder(net, "TRAIN", sp)
+    assert isinstance(feeder.ds, DecodedCacheDataset)
+    feeder.close()
+    sp.decoded_cache_mb = -1.0
+    with pytest.raises(ValueError, match="decoded_cache_mb must be >= 0"):
+        port_cli.build_feeder(net, "TRAIN", sp)
 
 
 @pytest.mark.parametrize("kind,param", [
@@ -320,6 +333,7 @@ def test_decoded_cache_mb_stays_refused():
     ("WindowData", 'window_data_param { source: "w.txt" batch_size: 2 '
                    'crop_size: 8 }'),
     ("HDF5Data", 'hdf5_data_param { source: "h5.txt" batch_size: 2 }'),
+    ("DetectNetTransformation", 'detectnet_groundtruth_param { stride: 16 }'),
 ])
 def test_unported_data_layer_types_are_refused(kind, param):
     from caffe_mpi_tpu_torch.net import Net
