@@ -1,8 +1,10 @@
-"""The data plane: LMDB records, Datum codec, host transform, feeders.
+"""The data plane: LMDB and LevelDB records, Datum codec, image lists,
+host transform, feeders, R-CNN windows, DetectNet augmentation.
 
 Own copies of the JAX package's caffe_mpi_tpu/data/ modules (lmdb_io,
-datasets, decode, transformer, device_transform, feeder), numpy on the
-host; `feeder.DeviceFeed` uploads each batch to the card.
+leveldb_io, datasets, decode, transformer, device_transform, feeder,
+window, detectnet), numpy on the host; `feeder.DeviceFeed` uploads each
+batch to the card.
 """
 
 from .datasets import (LMDBDataset, SyntheticDataset, encode_datum,

@@ -26,8 +26,12 @@ asks; the main path does not use it.
 
 A record that fails its checksum or does not parse raises
 RecordIntegrityError (utils/resilience.py); the Feeder quarantines it.
-Not ported (NotImplementedError naming ROADMAP.md §1 item 3):
-`backend: LEVELDB`.
+
+LevelDB reads through the pure-Python SSTable and write-ahead-log reader
+of leveldb_io.py (each block's masked crc32c verified), as the JAX
+package reads it: there is no native LevelDB path. ImageFolderDataset is
+the ImageData layer's list of image files, decoded and resized by
+decode.decode_file.
 """
 
 from __future__ import annotations
@@ -439,6 +443,73 @@ class _HybridDatumDataset:
         return self.native.gather_raw(idx, shape, out, num_threads)
 
 
+class LevelDBDataset:
+    """LevelDB datasets written by the reference's convert tools
+    (db_leveldb.cpp), through the dependency-free reader of leveldb_io.py:
+    every table and write-ahead log merged, key order, Datum values. A
+    block that fails its masked crc32c, or a value that does not parse,
+    raises RecordIntegrityError for the Feeder's quarantine."""
+
+    def __init__(self, path: str):
+        from .leveldb_io import LevelDBReader
+        self.path = path
+        self._reader = LevelDBReader(path)
+
+    def __len__(self) -> int:
+        return len(self._reader)
+
+    def get(self, index: int) -> tuple[np.ndarray, int]:
+        return self._get(index, fields=False)
+
+    def get_datum(self, index: int) -> DatumFields:
+        """Verified wire fields without image materialization (the fused
+        decode); block crc verification as in get()."""
+        return self._get(index, fields=True)
+
+    def _get(self, index: int, fields: bool):
+        from .leveldb_io import LevelDBError
+        try:
+            # positional: values decode on demand from the mmap'd tables
+            raw = self._reader.value_at(index)
+        except LevelDBError as e:
+            raise RecordIntegrityError(self.path, index, str(e)) from e
+        return _decode_verified(raw, index, self.path, fields=fields)
+
+
+class ImageFolderDataset:
+    """An index file of `relative/path.jpg label` lines (the reference
+    ImageData layer's source format, image_data_layer.cpp), each image
+    decoded and, given new_height and new_width, resized bilinearly
+    (decode.decode_file)."""
+
+    encoded = True  # every record decodes (the Feeder's auto workers)
+
+    def __init__(self, source: str, root: str = "", new_height: int = 0,
+                 new_width: int = 0, is_color: bool = True):
+        self.root = root
+        self.new_hw = (new_height, new_width)
+        self.is_color = is_color
+        self.items: list[tuple[str, int]] = []
+        with open(source) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                path, _, label = line.rpartition(" ")
+                self.items.append((path, int(label)))
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def get(self, index: int) -> tuple[np.ndarray, int]:
+        from .decode import decode_file
+        path, label = self.items[index]
+        with open(os.path.join(self.root, path), "rb") as f:
+            data = f.read()
+        return decode_file(data, is_color=self.is_color,
+                           new_h=self.new_hw[0], new_w=self.new_hw[1]), label
+
+
 class SyntheticDataset:
     """Deterministic class-template images — a test stand-in."""
 
@@ -562,5 +633,5 @@ def open_dataset(backend: str, source: str) -> Dataset:
         py = DatumFileDataset(source)
         return _HybridDatumDataset(NativeDatumDB(source), py)
     if backend == "LEVELDB":
-        raise unported("backend: LEVELDB")
+        return LevelDBDataset(source)
     raise ValueError(f"unknown db backend {backend!r}")

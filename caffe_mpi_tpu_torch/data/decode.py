@@ -2,7 +2,8 @@
 the native libjpeg/libpng decoder.
 
 Own copy of the JAX package's caffe_mpi_tpu/data/decode.py (`STATS`,
-`native_mode`, `native_enabled`, `decode_image`, `to_float_image`).
+`native_mode`, `native_enabled`, `decode_image`, `to_float_image`,
+`decode_file`).
 Reference: src/caffe/util/io.cpp DecodeDatumToCVMat (an encoded Datum ->
 cv::Mat, BGR), called per record from the C++ reader threads. Here the
 same work runs in csrc/native/decode.cc behind ctypes (native/), and this
@@ -121,3 +122,33 @@ def to_float_image(arr: np.ndarray) -> np.ndarray:
     if arr.ndim != 3 or arr.shape[0] != 3:
         raise ValueError(f"expected (3, h, w) BGR uint8, got {arr.shape}")
     return arr[::-1].transpose(1, 2, 0).astype(np.float32) / 255.0
+
+
+def decode_file(data: bytes, *, is_color: bool = True, new_h: int = 0,
+                new_w: int = 0) -> np.ndarray:
+    """Image file bytes -> CHW uint8, with the ImageData layer's optional
+    bilinear resize to (new_h, new_w) (reference io.cpp
+    ReadImageToCVMat). The native path takes color images, resizing by
+    the reference's cv::resize INTER_LINEAR convention; PIL takes the
+    rest (grayscale by PIL's "L" luma weights; PIL's BILINEAR, which
+    antialiases on a downscale), as in the JAX package."""
+    if is_color and native_enabled():
+        from .. import native
+        if new_h and new_w:
+            arr = native.decode_resize_native(data, new_h, new_w)
+        else:
+            arr = native.decode_image_native(data)
+        if arr is not None:
+            STATS.count("native_records")
+            return arr
+        STATS.count("native_fallbacks")
+    from PIL import Image
+    img = Image.open(io.BytesIO(data))
+    img = img.convert("RGB" if is_color else "L")
+    if new_h and new_w:
+        img = img.resize((new_w, new_h), Image.BILINEAR)
+    arr = np.asarray(img)
+    STATS.count("pil_records")
+    if arr.ndim == 2:
+        return arr[None, :, :]
+    return arr[:, :, ::-1].transpose(2, 0, 1)  # RGB HWC -> BGR CHW

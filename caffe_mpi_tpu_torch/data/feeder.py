@@ -860,12 +860,14 @@ def feeder_from_layer(lp, phase: str, *, rank: int = 0, world: int = 1,
                       model_dir: str = "", device_transform: bool = False,
                       solver_param=None) -> Feeder:
     """A Feeder from a Data layer's prototxt (reference
-    DataLayer::LayerSetUp, data_layer.cpp:118-180). device_transform must
-    be the consuming net's DataLayer.dev_transform. `data_param.cache`
+    DataLayer::LayerSetUp, data_layer.cpp:118-180), or from an ImageData
+    layer's list of image files (image_data_layer.cpp; the transform on
+    the host, as in JAX). device_transform must be the consuming net's
+    DataLayer.dev_transform. `data_param.cache`
     wraps the dataset in the whole-DB RAM cache; else the solver's
     `decoded_cache_mb` > 0 (solver_param, when given) in the bounded
     decoded-record cache. A negative decoded_cache_mb raises ValueError."""
-    from .datasets import CachedDataset, open_dataset
+    from .datasets import CachedDataset, ImageFolderDataset, open_dataset
 
     cache_mb = float(getattr(solver_param, "decoded_cache_mb", 0.0) or 0.0)
     if cache_mb < 0:
@@ -885,7 +887,16 @@ def feeder_from_layer(lp, phase: str, *, rank: int = 0, world: int = 1,
                       top_names=tuple(lp.top), threads=p.threads,
                       lookahead=max(p.prefetch, 1),
                       device_transform=device_transform)
-    if lp.type in ("ImageData", "HDF5Data", "WindowData"):
+    if lp.type == "ImageData":
+        p = lp.image_data_param
+        ds = ImageFolderDataset(os.path.join(model_dir, p.source),
+                                root=p.root_folder, new_height=p.new_height,
+                                new_width=p.new_width, is_color=p.is_color)
+        tf = DataTransformer(lp.transform_param, phase, model_dir=model_dir)
+        return Feeder(ds, tf, p.batch_size, rank=rank, world=world,
+                      shuffle=bool(p.shuffle) and phase == "TRAIN",
+                      top_names=tuple(lp.top))
+    if lp.type == "HDF5Data":
         raise unported(f"the {lp.type} layer's feeder")
     raise ValueError(f"not a pipeline data layer: {lp.type}")
 

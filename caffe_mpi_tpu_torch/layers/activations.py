@@ -1,6 +1,6 @@
-"""Elementwise activation layers: ReLU, Dropout.
+"""Elementwise activation layers: ReLU, Sigmoid, Dropout.
 
-Reference: src/caffe/layers/{relu,dropout}_layer.{cpp,cu}; JAX package
+Reference: src/caffe/layers/{relu,sigmoid,dropout}_layer.{cpp,cu}; JAX package
 caffe_mpi_tpu/layers/activations.py. Each is one torch expression.
 
 Dropout is the one layer that draws random numbers: `needs_rng` tells
@@ -29,6 +29,12 @@ class ReLULayer(_Elementwise):
             return [torch.where(x > 0, x, slope * x)]
         # not in place: the bottom blob may still be read by another layer
         return [torch.relu(x)]
+
+
+@register("Sigmoid")
+class SigmoidLayer(_Elementwise):
+    def forward(self, bottoms):
+        return [torch.sigmoid(self.f(bottoms[0]))]
 
 
 @register("Dropout")

@@ -54,6 +54,8 @@ class Layer(nn.Module):
     type_name: str = ""
     # True for a layer whose forward takes `generator=` and `mask=`
     needs_rng: bool = False
+    # True for a layer whose forward runs on the host (no CUDA graph)
+    host_step: bool = False
 
     def __init__(self, lp: LayerParameter, policy: DtypePolicy,
                  phase: str = "TRAIN", device: torch.device | None = None):
@@ -158,24 +160,11 @@ def register(type_name: str):
     return deco
 
 
-# layer types the JAX package has and the port refuses by name before any
-# building, with the ROADMAP.md section 1 item that ports each (the data
-# plane's ImageData, WindowData and HDF5Data are registered as refusing
-# layers in data_layers.py; DetectNetTransformation is bf16-ineligible,
-# outside the registry's set)
-UNPORTED_LAYER_TYPES = {"DetectNetTransformation": 3}
-
-
 def create_layer(lp: LayerParameter, policy: DtypePolicy, phase: str,
                  device: torch.device | None = None) -> Layer:
     try:
         cls = LAYER_REGISTRY[lp.type]
     except KeyError:
-        if lp.type in UNPORTED_LAYER_TYPES:
-            raise NotImplementedError(
-                f"layer {lp.name!r}: the {lp.type} layer is not ported yet "
-                f"(ROADMAP.md §1 item {UNPORTED_LAYER_TYPES[lp.type]})"
-            ) from None
         known = ", ".join(sorted(LAYER_REGISTRY))
         raise ValueError(
             f"unknown layer type {lp.type!r} (layer {lp.name!r}); known: {known}"

@@ -1,6 +1,8 @@
-"""Graph-input layers: Input, DummyData, MemoryData, Data.
+"""Graph-input layers: Input, DummyData, MemoryData, Data, ImageData,
+WindowData.
 
-Reference: src/caffe/layers/{input,dummy_data,memory_data,data}_layer.cpp.
+Reference: src/caffe/layers/{input,dummy_data,memory_data,data,image_data,
+window_data}_layer.cpp.
 As in the JAX package (caffe_mpi_tpu/layers/data_layers.py), data layers
 do not *produce* data inside the graph — they declare input shapes, and
 the caller feeds tensors in by blob name (a Feeder for a Data layer,
@@ -13,9 +15,12 @@ its feed contract is {top0: raw uint8 (B, C, H, W), top0 + "__aug": (B, 3)
 int32, label: int}, and its forward crops, subtracts the mean, mirrors
 and scales on the tensors' device (data/device_transform.py).
 
-ImageData, WindowData and HDF5Data are registered so that a net naming
-them is refused at setup with NotImplementedError (ROADMAP.md §1 item 3),
-not reported as an unknown type.
+ImageData (a list of image files, data/datasets.py ImageFolderDataset)
+and WindowData (R-CNN's window file, data/window.py WindowFeeder) are
+feed slots whose batches their host feeders transform. HDF5Data is
+registered so that a net naming it is refused at setup with
+NotImplementedError (ROADMAP.md §1 item 3), not reported as an unknown
+type.
 """
 
 from __future__ import annotations
@@ -182,12 +187,42 @@ class DataLayer(PipelineDataLayer):
         return [self.f(x), *rest]
 
 
-class _UnportedDataLayer(Layer):
+@register("ImageData")
+class ImageDataLayer(PipelineDataLayer):
+    """A list of image files (image_data_layer.cpp), each resized to
+    new_height x new_width; the Feeder transforms on the host."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        p = self.lp.image_data_param
+        c = 3 if p.is_color else 1
+        h, w = p.new_height, p.new_width
+        if not (h and w):
+            raise ValueError(
+                f"{self.name}: ImageData requires new_height/new_width for "
+                "static shapes")
+        return self._data_shapes(p.batch_size, c, h, w)
+
+
+@register("WindowData")
+class WindowDataLayer(InputLayerBase):
+    """R-CNN window sampling (window_data_layer.cpp); the batches come
+    from data/window.py WindowFeeder, warped to crop_size."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        p = self.lp.window_data_param
+        crop = p.crop_size or (self.lp.transform_param.crop_size
+                               if self.lp.transform_param else 0)
+        if not crop:
+            raise ValueError(f"{self.name}: WindowData requires crop_size")
+        shapes = [(p.batch_size, 3, crop, crop)]
+        if len(self.lp.top) > 1:
+            shapes.append((p.batch_size,))
+        return shapes
+
+
+@register("HDF5Data")
+class HDF5DataLayer(Layer):
     def setup(self, in_shapes: list[Shape]) -> list[Shape]:
         raise NotImplementedError(
             f"layer {self.name!r}: the {self.type_name} layer is not ported "
             "yet (ROADMAP.md §1 item 3)")
-
-
-for _name in ("ImageData", "WindowData", "HDF5Data"):
-    register(_name)(type(f"{_name}Layer", (_UnportedDataLayer,), {}))

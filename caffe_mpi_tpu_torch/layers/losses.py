@@ -1,8 +1,10 @@
-"""Softmax, the loss base, SoftmaxWithLoss and Accuracy.
+"""Softmax, the loss base, SoftmaxWithLoss, EuclideanLoss, L1Loss,
+ContrastiveLoss and Accuracy.
 
-Reference: src/caffe/layers/{softmax,softmax_loss,accuracy,loss}_layer.
-{cpp,cu}; JAX package caffe_mpi_tpu/layers/losses.py. Plain torch: the JAX
-package has no Pallas kernel for these.
+Reference: src/caffe/layers/{softmax,softmax_loss,euclidean_loss,
+contrastive_loss,accuracy,loss}_layer.{cpp,cu} and NVCaffe's
+l1_loss_layer.cpp; JAX package caffe_mpi_tpu/layers/losses.py. Plain
+torch: the JAX package has no Pallas kernel for these.
 
 Loss semantics kept as the JAX package keeps them: the normalization modes
 FULL/VALID/BATCH_SIZE/NONE (loss_layer.cpp GetNormalizer; VALID, the
@@ -115,6 +117,58 @@ class SoftmaxWithLossLayer(LossBase):
         if len(self.lp.top) > 1:
             tops.append(torch.exp(log_p))
         return tops
+
+
+@register("EuclideanLoss")
+class EuclideanLossLayer(LossBase):
+    """sum((a - b)^2) / (2N), N the batch (euclidean_loss_layer.cpp)."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        return [()]
+
+    def forward(self, bottoms):
+        a = self.f(bottoms[0]).float()
+        b = self.f(bottoms[1]).float()
+        return [torch.sum(torch.square(a - b)) / (2.0 * a.shape[0])]
+
+
+@register("L1Loss")
+class L1LossLayer(LossBase):
+    """sum(|a - b|) / N, N the batch; one bottom is |a| (NVCaffe
+    l1_loss_layer.cpp)."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        return [()]
+
+    def forward(self, bottoms):
+        a = self.f(bottoms[0]).float()
+        d = a - self.f(bottoms[1]).float() if len(bottoms) > 1 else a
+        return [torch.sum(torch.abs(d)) / a.shape[0]]
+
+
+@register("ContrastiveLoss")
+class ContrastiveLossLayer(LossBase):
+    """Siamese-pair loss (contrastive_loss_layer.cpp) over d^2 = |a - b|^2
+    a pair: y = 1 (similar) adds d^2, y = 0 adds max(margin - d, 0)^2, or
+    max(margin - d^2, 0) under `legacy_version`; the sum over 2N."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        return [()]
+
+    def forward(self, bottoms):
+        a = self.f(bottoms[0]).float()
+        b = self.f(bottoms[1]).float()
+        y = bottoms[2].float().reshape(-1)
+        p = self.lp.contrastive_loss_param
+        margin = p.margin if p else 1.0
+        d2 = torch.sum(torch.square(a - b), dim=1)
+        if p and p.legacy_version:
+            dissim = torch.clamp(margin - d2, min=0.0)
+        else:
+            dissim = torch.square(torch.clamp(
+                margin - torch.sqrt(d2 + 1e-12), min=0.0))
+        per = y * d2 + (1.0 - y) * dissim
+        return [torch.sum(per) / (2.0 * a.shape[0])]
 
 
 @register("Accuracy")

@@ -15,7 +15,10 @@ running mean and variance) and the correction scalar included.
 In TRAIN phase the net sums its loss as the reference does: every top with
 a nonzero loss weight (the prototxt's `loss_weight`, else the layer's
 default: 1 for a loss layer's first top) adds weight x sum(top). A
-bottom whose `propagate_down` is false is detached. Dropout draws its mask
+bottom whose `propagate_down` is false is detached. A layer's use of a
+param whose own ParamSpec has `lr_mult: 0` is detached in TRAIN (the JAX
+Net's stop_gradient), so a shared param frozen in one layer and trained
+in another takes gradient from the trained use only. Dropout draws its mask
 from the generator `forward` is given. Parameters are `nn.Parameter`s
 that the solver switches to `requires_grad` for training; autograd does
 the backward.
@@ -169,6 +172,9 @@ class Net(nn.Module):
 
         if len(self.feed_blobs) != len(set(self.feed_blobs)):
             raise ValueError("duplicate feed blob names")
+        # each layer's params whose own lr_mult is 0 (its frozen uses)
+        self._frozen_uses = [tuple(p for p, d in layer.decls.items()
+                                   if d.lr_mult == 0.0) for layer in layers]
         self.layers = nn.ModuleList(layers)
         self.train(phase == "TRAIN")
 
@@ -218,7 +224,7 @@ class Net(nn.Module):
         `dropout_masks` {layer name: bool mask} replaces a layer's draw."""
         env: dict[str, torch.Tensor] = {}
         masks = dropout_masks or {}
-        for layer in self.layers:
+        for layer, frozen in zip(self.layers, self._frozen_uses):
             if isinstance(layer, InputLayerBase):
                 bottoms = layer.gather_feeds(feeds)
             else:
@@ -228,11 +234,19 @@ class Net(nn.Module):
                 pd = layer.lp.propagate_down
                 bottoms = [b.detach() if i < len(pd) and not pd[i] else b
                            for i, b in enumerate(bottoms)]
+            kw = {}
             if layer.needs_rng:
-                tops = layer(bottoms, generator=generator,
-                             mask=masks.get(layer.name))
+                kw = dict(generator=generator, mask=masks.get(layer.name))
+            frozen = [p for p in frozen
+                      if self.training and getattr(layer, p).requires_grad]
+            if frozen:
+                # a frozen use of a param that another use trains: the
+                # forward reads it detached (JAX: stop_gradient)
+                tops = torch.func.functional_call(
+                    layer, {p: getattr(layer, p).detach() for p in frozen},
+                    (bottoms,), kw)
             else:
-                tops = layer(bottoms)
+                tops = layer(bottoms, **kw)
             for t, v in zip(layer.lp.top, tops):
                 env[t] = v
         loss = torch.zeros((), dtype=torch.float32, device=self.device)

@@ -65,8 +65,11 @@ reseeded from (random_seed, iteration), the draws the forward would
 make, so a replayed iteration uses the masks of the eager one and a
 resumed run draws what the uninterrupted one would. Kernel launch counts
 are Python integers that a capture raises once: the capture's delta is
-taken back and added again at every replay. On the CPU, and at K = 1,
-the same chunk code runs eagerly.
+taken back and added again at every replay. On the CPU, at K = 1, and
+for a net with a layer that runs on the host (`Layer.host_step`:
+DetectNetTransformation, whose forward copies its bottoms to the host),
+the same chunk code runs eagerly, the chunk's losses still read back
+once.
 
 The backward runs under the TF32 switches of the net's one math precision
 (`Net.math_precision`), so a prototxt's FLOAT math holds for the backward
@@ -270,6 +273,15 @@ class Solver:
         self.generator = torch.Generator(device=self.device)
         self._droppers = [layer for layer in self.net.layers
                           if layer.needs_rng]
+        # a layer that runs on the host (DetectNetTransformation) cannot
+        # be captured: such a net's chunks run as eager iterations
+        host = [layer.name for layer in self.net.layers if layer.host_step]
+        self._graphs_ok = self.device.type == "cuda" and not host
+        if host and self.step_chunk > 1:
+            log.info("net %s has host layers (%s): step_chunk %d runs each "
+                     "chunk as %d eager iterations, one host read-back a "
+                     "chunk", self.net.name, ", ".join(host),
+                     self.step_chunk, self.step_chunk)
         # a chunk's device side: its (lr, momentum, t) rows, the row an
         # iteration reads, and each iteration's (loss, lr, accepted)
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -526,7 +538,7 @@ class Solver:
         (loss, lr, accepted) rows and the guard carry, read to the host in
         one transfer."""
         iter_size = max(self.sp.iter_size, 1)
-        graphs = self.device.type == "cuda" and self.step_chunk > 1
+        graphs = self._graphs_ok and self.step_chunk > 1
         stream = None
         if graphs:
             # a graph is captured, and replayed, off the default stream

@@ -9,10 +9,13 @@ measures it alone, with the Feeder the training path uses. Nothing here
 touches the card.
 
 The backend sweep writes a dataset of raw Datums a backend (`lmdb`,
-`datumfile`) and reports the Feeder's img/s at each thread count
+`leveldb` (snappy blocks, as the JAX tool writes it), `datumfile`) and
+reports the Feeder's img/s at each thread count
 (`-threads`, 0 = auto mode), with the host transform (crop, mirror,
 mean values: the AlexNet recipe) or, with `-device-transform`, the raw
-uint8 staging the card transforms, and the raw batch's native gather ms.
+uint8 staging the card transforms, and the raw batch's native gather ms
+(null for leveldb, which the pure-Python reader reads record by record,
+as in the JAX package).
 
 The `ingest` section (`--no-ingest` to skip it, `--ingest-only` for just
 it) writes a JPEG-encoded LMDB, the ImageNet-convert layout, where decode
@@ -26,12 +29,12 @@ Where the native library was built without the codecs, the native decode
 and fused figures are "not measured" (null).
 
     python -m caffe_mpi_tpu_torch.tools.bench_data [-n 4096] [-batch 256] \\
-        [-shape 3x256x256] [-crop 227] [-backends lmdb,datumfile] \\
+        [-shape 3x256x256] [-crop 227] [-backends lmdb,leveldb,datumfile] \\
         [-threads 0,2] [-device-transform] [--json] [--ingest-only] \\
         [--no-ingest] [--ingest-n N]
 
-`leveldb` and `hdf5` raise NotImplementedError: not ported yet
-(ROADMAP.md §1 item 3).
+`hdf5` raises NotImplementedError: not ported yet (ROADMAP.md §1
+item 3).
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ import time
 import numpy as np
 
 MEAN = "mean_value: 104 mean_value: 117 mean_value: 123"
-BACKENDS = ("lmdb", "datumfile")
-UNPORTED_BACKENDS = ("leveldb", "hdf5")
+BACKENDS = ("lmdb", "leveldb", "datumfile")
+UNPORTED_BACKENDS = ("hdf5",)
 
 
 def _check_backend(backend: str) -> None:
@@ -77,6 +80,11 @@ def _write_db(backend, workdir, imgs, labels):
         path = os.path.join(workdir, "b_lmdb")
         write_lmdb(path, recs)
         return path
+    if backend == "leveldb":
+        from ..data.leveldb_io import write_leveldb
+        path = os.path.join(workdir, "b_leveldb")
+        write_leveldb(path, list(recs), compress=True)
+        return path
     path = os.path.join(workdir, "b.datumdb")
     DatumFileDataset.write(path, (r for _, r in recs))
     return path
@@ -94,11 +102,14 @@ def _feeder_for(backend, path, batch, crop, threads=0, device=False):
                   shuffle=True, threads=threads, device_transform=device)
 
 
-def _gather_ms(backend, path, batch, shape, iters) -> float:
-    """ms of one native raw gather of a batch (one call, auto threads)."""
+def _gather_ms(backend, path, batch, shape, iters) -> float | None:
+    """ms of one native raw gather of a batch (one call, auto threads);
+    None for a backend without one (leveldb)."""
     from ..data.datasets import open_dataset
     from ..data.feeder import auto_threads
     ds = open_dataset(backend.upper(), path)
+    if not hasattr(ds, "gather_raw"):
+        return None
     out = np.empty((batch, *shape), np.uint8)
     n = len(ds)
     t = 0.0
@@ -313,8 +324,10 @@ def main(argv=None) -> int:
                           f"{mode}, {'auto ' if feeder.auto else ''}"
                           f"t={feeder.threads}, build "
                           f"{row['build_ms_per_batch']:.1f} ms/batch, "
-                          f"gather {gather:.1f} ms/batch, db {build_s:.1f}"
-                          " s)")
+                          "gather "
+                          + ("none" if gather is None
+                             else f"{gather:.1f} ms/batch")
+                          + f", db {build_s:.1f} s)")
         if not args.no_ingest:
             n_ing = args.ingest_n or min(args.n, 1024)
             ing = run_ingest(workdir, n_ing, min(args.batch, n_ing), shape,

@@ -230,16 +230,20 @@ def synthetic_feed(net, seed: int = 0) -> dict:
 
 
 def build_feeder(net, phase: str, solver_param=None):
-    """The Feeder of the net's Data layer, or None for a net fed through
-    Input layers (the JAX CLI's `_build_feeders`, on one device);
-    solver_param gives the run's `decoded_cache_mb`."""
+    """The feeder of the net's data layer: a Feeder for Data and ImageData,
+    a WindowFeeder for WindowData; None for a net fed through Input layers
+    (the JAX CLI's `_build_feeders`, on one device). solver_param gives
+    the run's `decoded_cache_mb`."""
     from ..data.feeder import feeder_from_layer
     for layer in net.layers:
-        if layer.lp.type in ("Data", "ImageData", "HDF5Data", "WindowData"):
+        if layer.lp.type in ("Data", "ImageData", "HDF5Data"):
             return feeder_from_layer(
                 layer.lp, phase, model_dir=net.model_dir,
                 device_transform=getattr(layer, "dev_transform", False),
                 solver_param=solver_param)
+        if layer.lp.type == "WindowData":
+            from ..data.window import WindowFeeder
+            return WindowFeeder(layer.lp, phase, model_dir=net.model_dir)
     return None
 
 
@@ -283,6 +287,7 @@ def train(args):
     """Build the solver from `args`, resume or load weights, train to
     max_iter with a test pass at every test_interval and at the end, and
     snapshot after training. Returns (solver, summary dict)."""
+    from ..data.feeder import Feeder
     from ..proto import SolverParameter
     from ..solver import Solver
     from ..utils.resilience import QUARANTINE, quarantine_journal_path
@@ -357,10 +362,14 @@ def train(args):
         "snapshot": snapshot,
         "data": "synthetic" if feeder is None else "dataset",
         "device_transform": bool(data is not None and data.dev_transform),
-        "feed_ms_per_batch": None if feeder is None
-        else feeder.feed_ms_per_batch(),
-        "feed_threads": None if feeder is None else feeder.threads,
-        "feed_lookahead": None if feeder is None else feeder.lookahead,
+        # a Feeder's build telemetry (a WindowFeeder builds each batch on
+        # the DeviceFeed's thread and keeps none)
+        **({"feed_ms_per_batch": feeder.feed_ms_per_batch(),
+            "feed_threads": feeder.threads,
+            "feed_lookahead": feeder.lookahead}
+           if isinstance(feeder, Feeder) else
+           {"feed_ms_per_batch": None, "feed_threads": None,
+            "feed_lookahead": None}),
         "quarantined": QUARANTINE.count(),
         "precision": solver.precision, "step_chunk": solver.step_chunk,
         "skipped_iters": list(solver.skipped_iters),

@@ -172,13 +172,45 @@ Phases, in order; any failure exits nonzero and prints no result line:
              slots bitwise unchanged), counted as overflows, the scale
              2^15 -> 2^13, then regrown to 2^15 by 8 clean steps
              (loss_scale_window 4), finite losses.
+16. leveldb — the same CaffeNet solver and net with `backend: LEVELDB`,
+             over a train LevelDB of 1,280 raw records and a val LevelDB
+             of 100 that the port's write_leveldb writes (snappy blocks)
+             from the same seeded clusters: 20 iterations through the
+             CLI's `train`, K1/K2 counted; the busy share; the first 4
+             batches bitwise those of the same records in an LMDB; a
+             block that rots after the open quarantined, not fatal.
+17. imagedata — the same net with its Data layers replaced by ImageData
+             (new_height/new_width 256, shuffle) over 256 PNG and 256
+             JPEG files that PIL writes from the clusters: 8 iterations,
+             K1/K2 counted, decode.STATS (PIL records without the
+             codecs).
+18. rcnn  — the layers of models/rcnn/deploy.prototxt (200 outputs) with
+             a WindowData layer (batch 128, crop 227, context_pad 16,
+             warp, fg/bg 0.5, fg_fraction 0.25, mirror, mean values) in
+             place of its Input and a SoftmaxWithLoss on fc-rcnn, over 64
+             seeded 3x375x500 PNG images with 30 windows each: 10
+             iterations, K1/K2 counted, each batch's fg share.
+19. detectnet — examples/kitti/detectnet_tiny.prototxt as written (b8,
+             its DetectNetTransformation a host step) on a copy of
+             examples/kitti/run.py's seeded scenes with its Adam solver:
+             200 iterations; the coverage loss and the masked bbox L1 on
+             a held-out batch must fall; 20 iterations at step_chunk 10
+             (eager chunks) against step_chunk 1: the same losses.
+20. siamese — examples/siamese/mnist_siamese.prototxt as written (b32
+             pairs) on seeded clusters, 100 iterations of
+             examples/siamese/run.py's solver: the ContrastiveLoss falls.
+21. layers — Sigmoid, Slice, Tile, EuclideanLoss, L1Loss and
+             ContrastiveLoss forward and backward on the card against
+             the CPU, at the shapes those nets give them.
 
 It prints one {"native_codec": ...} line (during phase 12), one
 {"kernels": [...]} line (K1-K5), one {"serving": ...} line,
 one {"train": ...} line, one {"transformer": ...} line, one
 {"resnet50": ...} line, one {"googlenet": ...} line, one {"lmdb": ...}
 line, one {"bf16": ...} line, one {"chunk": ...} line (the overflow
-phase inside it), the card line again, and last {"ok": true, ...}.
+phase inside it), one line each for phases 16-21 ({"leveldb": ...},
+{"imagedata": ...}, {"rcnn": ...}, {"detectnet": ...}, {"siamese":
+...}, {"zoo_layers": ...}), the card line again, and last {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -2276,41 +2308,52 @@ LMDB_TRAIN, LMDB_VAL, LMDB_JPEG = 1280, 100, 256
 LMDB_ITERS, LMDB_TEST_INTERVAL = 20, 10
 JPEG_ITERS = 8
 SYNTHETIC_ITERS = 10
-CAFFENET_BATCH = 256
+CAFFENET_BATCH, CAFFENET_TEST_BATCH = 256, 50
+
+
+def _cluster_records(n, seed, codec=None):
+    """(key, Datum) of `n` records (raw, or JPEG-encoded) from seeded
+    separable clusters (examples/common.py synthetic_clusters: one random
+    uint8 template a class, plus bounded noise), drawn in chunks of 64."""
+    from caffe_mpi_tpu_torch.data import datasets
+    for lo, imgs, labels in _cluster_images(n, seed):
+        for i in range(len(labels)):
+            enc = (datasets.encode_datum(imgs[i], int(labels[i]))
+                   if codec is None else datasets.encode_datum_image(
+                       imgs[i], int(labels[i]), codec))
+            yield f"{lo + i:08d}".encode(), enc
+
+
+def _cluster_images(n, seed):
+    """(first index, CHW uint8 images, labels) of the seeded clusters, a
+    chunk of 64 at a time."""
+    templates = np.random.RandomState(42).randint(
+        0, 256, (10, *LMDB_SHAPE)).astype(np.int16)
+    for lo in range(0, n, 64):
+        k = min(64, n - lo)
+        rng = np.random.RandomState(seed + lo)
+        labels = rng.randint(0, 10, k)
+        imgs = np.clip(templates[labels] + rng.randint(
+            -40, 41, (k, *LMDB_SHAPE)).astype(np.int16), 0,
+            255).astype(np.uint8)
+        yield lo, imgs, labels
 
 
 def _write_clusters(path, n, seed, codec=None):
-    """An LMDB of `n` Datums (raw, or JPEG-encoded) from seeded separable
-    clusters (examples/common.py synthetic_clusters: one random uint8
-    template a class, plus bounded noise), by the port's writer, drawn
-    in chunks of 64."""
-    from caffe_mpi_tpu_torch.data import datasets, lmdb_io
-    templates = np.random.RandomState(42).randint(
-        0, 256, (10, *LMDB_SHAPE)).astype(np.int16)
-
-    def records():
-        for lo in range(0, n, 64):
-            k = min(64, n - lo)
-            rng = np.random.RandomState(seed + lo)
-            labels = rng.randint(0, 10, k)
-            imgs = np.clip(templates[labels] + rng.randint(
-                -40, 41, (k, *LMDB_SHAPE)).astype(np.int16), 0,
-                255).astype(np.uint8)
-            for i in range(k):
-                enc = (datasets.encode_datum(imgs[i], int(labels[i]))
-                       if codec is None else datasets.encode_datum_image(
-                           imgs[i], int(labels[i]), codec))
-                yield f"{lo + i:08d}".encode(), enc
-    lmdb_io.write_lmdb(path, records())
+    """An LMDB of `n` cluster Datums, by the port's writer."""
+    from caffe_mpi_tpu_torch.data import lmdb_io
+    lmdb_io.write_lmdb(path, _cluster_records(n, seed, codec))
 
 
-def _caffenet_copy(tmp, train_db, val_db, mean, tag):
-    """Copies of the CaffeNet example net and solver over these files."""
+def _caffenet_copy(tmp, train_db, val_db, mean, tag, edits=()):
+    """Copies of the CaffeNet example net and solver over these files;
+    `edits` are further (old, new) replacements in the net."""
     with open(CAFFENET) as f:
         net = f.read()
     for a, b in (("examples/imagenet/ilsvrc12_train_lmdb", train_db),
                  ("examples/imagenet/ilsvrc12_val_lmdb", val_db),
-                 ("examples/imagenet/imagenet_mean.binaryproto", mean)):
+                 ("examples/imagenet/imagenet_mean.binaryproto", mean),
+                 *edits):
         if a not in net:
             fail(f"{CAFFENET} no longer names {a}")
         net = net.replace(a, b)
@@ -3165,6 +3208,671 @@ def overflow_phase() -> dict:
     return res
 
 
+# -- 16. leveldb ----------------------------------------------------------------
+
+LEVELDB_COMPARE_BATCHES = 4
+
+
+def _data_lp(solver, source, backend):
+    """A copy of the train net's Data layer over another database."""
+    lp = copy.deepcopy(solver.net.layers[0].lp)
+    lp.data_param.source = source
+    lp.data_param.backend = backend
+    return lp
+
+
+def _leveldb_against_lmdb(solver, leveldb, lmdb) -> dict:
+    """The first LEVELDB_COMPARE_BATCHES TRAIN batches (raw stack,
+    decisions, labels) of the train net's Feeder over the LevelDB against
+    the same records read from an LMDB the LMDB phase's recipe writes:
+    bitwise."""
+    from caffe_mpi_tpu_torch.data.feeder import feeder_from_layer
+    feeders = [feeder_from_layer(_data_lp(solver, src, backend), "TRAIN",
+                                 device_transform=True)
+               for src, backend in ((leveldb, "LEVELDB"), (lmdb, "LMDB"))]
+    try:
+        for it in range(LEVELDB_COMPARE_BATCHES):
+            got, want = (f._build_batch_inner(it) for f in feeders)
+            if list(got) != list(want) or not all(
+                    np.array_equal(got[k], want[k]) for k in want):
+                fail(f"leveldb batch {it} differs from the LMDB's")
+    finally:
+        for f in feeders:
+            f.close()
+    return {"batches": LEVELDB_COMPARE_BATCHES, "bitwise": True}
+
+
+def _leveldb_quarantine_check(solver, tmp, train_db) -> dict:
+    """A copy of the train LevelDB whose block holding record
+    QUARANTINE_RECORD rots after the Feeder opened it (the open reads
+    every block for the key index, so a block bad at the open fails the
+    open, as in the JAX package): the read fails its masked crc32c, the
+    Feeder substitutes the next record and journals it, and
+    QUARANTINE_ITERS more iterations train on with finite losses."""
+    from caffe_mpi_tpu_torch.data.feeder import DeviceFeed, feeder_from_layer
+    from caffe_mpi_tpu_torch.data.leveldb_io import LevelDBReader
+    from caffe_mpi_tpu_torch.utils.resilience import (
+        QUARANTINE, quarantine_journal_path)
+    bad_db = os.path.join(tmp, "corrupt_leveldb")
+    shutil.copytree(train_db, bad_db)
+    feeder = feeder_from_layer(_data_lp(solver, bad_db, "LEVELDB"), "TRAIN",
+                               device_transform=True)
+    reader = LevelDBReader(bad_db)
+    table = reader._tables[0]
+    # one record a block: each record is larger than the block size
+    off, size = list(table.block_handles())[QUARANTINE_RECORD]
+    path = table.path
+    reader.close()
+    with open(path, "r+b") as f:
+        f.seek(off + size // 2)
+        b = f.read(1)
+        f.seek(off + size // 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+    journal = quarantine_journal_path(os.path.join(tmp, "leveldb_corrupt"))
+    QUARANTINE.configure(journal)
+    feed = DeviceFeed(feeder, solver.device)
+    start, n0 = solver.iter, len(solver.losses)
+    try:
+        solver.step(QUARANTINE_ITERS, lambda it: feed(it - start))
+    finally:
+        feed.close()
+        QUARANTINE.flush()
+    entries = [(e["index"], e["substitute"], e["reason"])
+               for e in QUARANTINE.entries]
+    QUARANTINE.configure(None)
+    losses = solver.losses[n0:]
+    if [e[:2] for e in entries] != [(QUARANTINE_RECORD,
+                                     QUARANTINE_RECORD + 1)] or \
+            "crc32c" not in entries[0][2] or not os.path.isfile(journal):
+        fail(f"leveldb quarantine journal {entries}")
+    if len(losses) != QUARANTINE_ITERS or not np.all(np.isfinite(losses)):
+        fail(f"the run over the rotting LevelDB: {losses}")
+    return {"record": QUARANTINE_RECORD, "journal": [e[:2] for e in entries],
+            "reason": entries[0][2], "iters": QUARANTINE_ITERS,
+            "losses": losses}
+
+
+def _caffenet_run(tag, solver_path, prefix, k1, k2, iters, extra=()):
+    """CaffeNet through the CLI's `train`, K1/K2 counted (set to 0 just
+    before, read just after): finite losses, test scores, K1 twice a
+    forward and K2 twice an iteration (a final test pass of 2 batches, and
+    one at LMDB_TEST_INTERVAL when the run reaches it)."""
+    from caffe_mpi_tpu_torch.tools import cli
+    torch.cuda.empty_cache()
+    _reset_kernel_counts()
+    solver, summary = cli.train(cli.parse_args(
+        ["train", "-solver", solver_path, "-snapshot_prefix", prefix,
+         "-max_iter", str(iters), "-test_iter", "2", "-device", "cuda",
+         *extra]))
+    torch.cuda.synchronize()
+    counts = _kernel_counts()
+    losses = summary["losses"]
+    if summary["batch"] != CAFFENET_BATCH or len(losses) != iters or \
+            not np.all(np.isfinite(losses)):
+        fail(f"{tag} train: {len(losses)} iterations at batch "
+             f"{summary['batch']}, losses {losses}")
+    scores = summary["test_scores"]
+    if not scores or set(scores[0]) != {"accuracy", "loss"} or \
+            not all(np.isfinite(list(scores[0].values()))):
+        fail(f"{tag} train test scores {scores}")
+    passes = 1 + (iters > LMDB_TEST_INTERVAL)
+    want = (2 * (iters + 2 * passes), 2 * iters, 0, 0, 0)
+    if counts != want:
+        fail(f"{tag} train launched K1-K5 {counts}, want {want}")
+    k1["launches_by_path"][f"train_{tag}"] = counts[0]
+    k2["launches_by_path"][f"train_{tag}"] = counts[1]
+    return solver, summary, counts
+
+
+def _feed_summary(summary, profile, counts, card) -> dict:
+    return {"median_step_ms": summary["median_iter_ms"],
+            "img_per_s": summary["img_per_s"],
+            "window_img_per_s": summary["window_img_per_s"],
+            "step_ms": summary["iter_ms"], "losses": summary["losses"],
+            "test_scores": summary["test_scores"],
+            "feed_ms_per_batch": summary["feed_ms_per_batch"],
+            "feed_threads": summary["feed_threads"],
+            "device_busy": profile.get("device_busy_profiled"),
+            "profile": profile, "launches_k1_k5": list(counts),
+            "card": card}
+
+
+def leveldb_phase(k1: dict, k2: dict, card: str) -> dict:
+    """CaffeNet (examples/imagenet/caffenet_solver.prototxt and its net as
+    written, `backend: LEVELDB`) from a train LevelDB of 1,280 raw
+    3x256x256 Datums and a val LevelDB of 100, written by the port's
+    write_leveldb (snappy blocks) from the LMDB phase's seeded clusters,
+    through the CLI's `train`: 20 iterations, the device transform, K1/K2
+    counted; the busy share under the profiler; the first 4 batches
+    bitwise those of the same records in an LMDB; a block rotting after
+    the open quarantined, not fatal."""
+    from caffe_mpi_tpu_torch.data import leveldb_io
+    from caffe_mpi_tpu_torch.data.feeder import DeviceFeed
+    from caffe_mpi_tpu_torch.tools import cli, compute_image_mean
+    import contextlib
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_leveldb_")
+    try:
+        t0 = time.perf_counter()
+        train_db = os.path.join(tmp, "train_leveldb")
+        val_db = os.path.join(tmp, "val_leveldb")
+        leveldb_io.write_leveldb(train_db, _cluster_records(LMDB_TRAIN, 7),
+                                 compress=True)
+        leveldb_io.write_leveldb(val_db, _cluster_records(LMDB_VAL, 100_000),
+                                 compress=True)
+        write_s = time.perf_counter() - t0
+        lmdb_db = os.path.join(tmp, "train_lmdb")
+        _write_clusters(lmdb_db, LMDB_TRAIN, seed=7)
+        mean = os.path.join(tmp, "mean.binaryproto")
+        with contextlib.redirect_stdout(sys.stderr):
+            compute_image_mean.main([lmdb_db, mean])
+        db_mb = sum(os.path.getsize(os.path.join(train_db, f))
+                    for f in os.listdir(train_db)) / 1e6
+        log(f"leveldb: wrote {LMDB_TRAIN} + {LMDB_VAL} raw records "
+            f"({db_mb:.1f} MB) in {write_s:.1f} s")
+        _, solver_path = _caffenet_copy(
+            tmp, train_db, val_db, mean, "leveldb",
+            edits=(("backend: LMDB", "backend: LEVELDB"),))
+        solver, summary, counts = _caffenet_run(
+            "caffenet_leveldb", solver_path, os.path.join(tmp, "c"), k1, k2,
+            LMDB_ITERS)
+        if summary["data"] != "dataset" or not summary["device_transform"]:
+            fail(f"leveldb train: {summary['data']}, device transform "
+                 f"{summary['device_transform']}")
+        feed = DeviceFeed(cli.build_feeder(solver.net, "TRAIN"),
+                          solver.device)
+        try:
+            profile = profile_steps(solver, feed)
+        finally:
+            feed.close()
+        same = _leveldb_against_lmdb(solver, train_db, lmdb_db)
+        quarantine = _leveldb_quarantine_check(solver, tmp, train_db)
+        del solver
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out = _feed_summary(summary, profile, counts, card)
+    out.update(records=LMDB_TRAIN, train_db_MB=db_mb, write_s=write_s,
+               iters=LMDB_ITERS, against_lmdb=same, quarantine=quarantine)
+    log(f"leveldb: {json.dumps(out)}")
+    return out
+
+
+# -- 17. imagedata ----------------------------------------------------------------
+
+IMAGES_PNG, IMAGES_JPEG, IMAGEDATA_ITERS = 256, 256, 8
+
+
+def _write_image_list(tmp) -> tuple[str, str]:
+    """IMAGES_PNG PNG and IMAGES_JPEG JPEG files (3x256x256) that PIL
+    writes from the seeded clusters, and the ImageData list over them."""
+    from PIL import Image
+    root = os.path.join(tmp, "images")
+    os.makedirs(root)
+    lines = []
+    n = IMAGES_PNG + IMAGES_JPEG
+    for lo, imgs, labels in _cluster_images(n, 7):
+        for i, (img, label) in enumerate(zip(imgs, labels)):
+            k = lo + i
+            name = f"im{k:05d}." + ("png" if k < IMAGES_PNG else "jpg")
+            Image.fromarray(np.ascontiguousarray(
+                img[::-1].transpose(1, 2, 0))).save(os.path.join(root, name))
+            lines.append(f"{name} {label}")
+    source = os.path.join(tmp, "images.txt")
+    with open(source, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return source, root + "/"
+
+
+def imagedata_phase(k1: dict, k2: dict, card: str) -> dict:
+    """CaffeNet with its Data layers replaced by ImageData (new_height and
+    new_width 256, shuffle in TRAIN) over 256 PNG and 256 JPEG files,
+    through the CLI's `train`: 8 iterations and a test pass of 2 batches,
+    K1/K2 counted, the host transform; decode.STATS printed (PIL records
+    where the library has no codecs, as on the card's machine)."""
+    from caffe_mpi_tpu_torch import native
+    from caffe_mpi_tpu_torch.data import decode
+    from caffe_mpi_tpu_torch.data.feeder import DeviceFeed
+    from caffe_mpi_tpu_torch.tools import cli, compute_image_mean
+    import contextlib
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_imagedata_")
+    try:
+        t0 = time.perf_counter()
+        source, root = _write_image_list(tmp)
+        write_s = time.perf_counter() - t0
+        lmdb_db = os.path.join(tmp, "mean_lmdb")
+        _write_clusters(lmdb_db, 256, seed=7)
+        mean = os.path.join(tmp, "mean.binaryproto")
+        with contextlib.redirect_stdout(sys.stderr):
+            compute_image_mean.main([lmdb_db, mean])
+        param = ('image_data_param {{ source: "{}" root_folder: "{}" '
+                 'batch_size: {} new_height: 256 new_width: 256 {}}}')
+        edits = (
+            ('type: "Data"', 'type: "ImageData"'),
+            (f'data_param {{ source: "TRAIN_DB" batch_size: {CAFFENET_BATCH}'
+             ' backend: LMDB }', param.format(source, root, CAFFENET_BATCH,
+                                              "shuffle: true ")),
+            (f'data_param {{ source: "VAL_DB" batch_size: '
+             f'{CAFFENET_TEST_BATCH} backend: LMDB }}',
+             param.format(source, root, CAFFENET_TEST_BATCH, "")))
+        _, solver_path = _caffenet_copy(tmp, "TRAIN_DB", "VAL_DB", mean,
+                                        "imagedata", edits=edits)
+        decode.STATS.reset()
+        solver, summary, counts = _caffenet_run(
+            "caffenet_imagedata", solver_path, os.path.join(tmp, "c"), k1,
+            k2, IMAGEDATA_ITERS)
+        stats = decode.STATS.snapshot()
+        if summary["device_transform"]:
+            fail("imagedata ran a device transform")
+        images = CAFFENET_BATCH * IMAGEDATA_ITERS
+        if native.decode_available():
+            if stats["native_records"] < images:
+                fail(f"imagedata native decode counts {stats}")
+        elif stats["native_records"] or stats["pil_records"] < images:
+            fail(f"imagedata: PIL decode counts {stats} without the codecs")
+        feed = DeviceFeed(cli.build_feeder(solver.net, "TRAIN"),
+                          solver.device)
+        try:
+            profile = profile_steps(solver, feed)
+        finally:
+            feed.close()
+        del solver
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out = _feed_summary(summary, profile, counts, card)
+    out.update(png=IMAGES_PNG, jpeg=IMAGES_JPEG, write_s=write_s,
+               iters=IMAGEDATA_ITERS, decode_stats=stats,
+               decode_available=native.decode_available())
+    log(f"imagedata: {json.dumps(out)}")
+    return out
+
+
+# -- 18. rcnn ---------------------------------------------------------------------
+
+RCNN = os.path.join(ROOT, "models", "rcnn", "deploy.prototxt")
+RCNN_IMAGES, RCNN_WINDOWS, RCNN_ITERS, RCNN_BATCH = 64, 30, 10, 128
+RCNN_CLASSES = 200
+
+
+def _write_windows(tmp) -> tuple[str, str]:
+    """RCNN_IMAGES PNG files of PASCAL's size (3x375x500) from seeded
+    noise, and a window file of RCNN_WINDOWS windows each: class
+    indices 1..199 (0 is background), overlaps uniform in [0, 1], boxes of
+    20-300 pixels anywhere on the image."""
+    from PIL import Image
+    r = np.random.RandomState(17)
+    root = os.path.join(tmp, "voc")
+    os.makedirs(root)
+    lines = []
+    for i in range(RCNN_IMAGES):
+        img = r.randint(0, 256, (375, 500, 3)).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(root, f"{i:06d}.png"))
+        lines += [f"# {i}", f"{i:06d}.png", "3 375 500", str(RCNN_WINDOWS)]
+        for _ in range(RCNN_WINDOWS):
+            w, h = r.randint(20, 300), r.randint(20, 300)
+            x1, y1 = r.randint(0, 500 - w), r.randint(0, 375 - h)
+            lines.append(f"{r.randint(1, RCNN_CLASSES)} {r.rand():.4f} "
+                         f"{x1} {y1} {x1 + w - 1} {y1 + h - 1}")
+    source = os.path.join(tmp, "window_file.txt")
+    with open(source, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return source, root + "/"
+
+
+def _rcnn_copy(tmp, source, root) -> str:
+    """The layers of models/rcnn/deploy.prototxt as written, the Input
+    replaced by WindowData in the shape of the reference's
+    finetune_pascal_detection, a SoftmaxWithLoss on fc-rcnn; and a
+    solver over it (the reference's fine-tuning recipe: base_lr 0.001,
+    momentum 0.9, weight_decay 0.0005, step)."""
+    with open(RCNN) as f:
+        text = f.read()
+    first = text.index("layer {")
+    second = text.index("layer {", first + 1)
+    if 'type: "Input"' not in text[first:second]:
+        fail(f"{RCNN} no longer starts with its Input layer")
+    window = (
+        'layer { name: "data" type: "WindowData" top: "data" top: "label" '
+        'transform_param { mirror: true crop_size: 227 mean_value: 104 '
+        'mean_value: 117 mean_value: 123 } '
+        f'window_data_param {{ source: "{source}" root_folder: "{root}" '
+        f'batch_size: {RCNN_BATCH} fg_threshold: 0.5 bg_threshold: 0.5 '
+        'fg_fraction: 0.25 context_pad: 16 crop_mode: "warp" } }\n')
+    loss = ('layer { name: "loss" type: "SoftmaxWithLoss" '
+            'bottom: "fc-rcnn" bottom: "label" top: "loss" }\n')
+    net = text[:first] + window + text[second:] + loss
+    net_path = os.path.join(tmp, "rcnn_finetune.prototxt")
+    with open(net_path, "w") as f:
+        f.write(net)
+    solver_path = os.path.join(tmp, "rcnn_solver.prototxt")
+    with open(solver_path, "w") as f:
+        f.write(f'net: "{net_path}"\nbase_lr: 0.001\nlr_policy: "step"\n'
+                'gamma: 0.1\nstepsize: 20000\ndisplay: 20\n'
+                f'max_iter: {RCNN_ITERS}\nmomentum: 0.9\n'
+                'weight_decay: 0.0005\nsnapshot: 0\nrandom_seed: 5\n')
+    return solver_path
+
+
+def rcnn_phase(k1: dict, k2: dict, card: str) -> dict:
+    """R-CNN fine-tuning from a window file at full width: the layers of
+    models/rcnn/deploy.prototxt (200 outputs) with WindowData (batch 128,
+    crop 227, context_pad 16, warp, fg/bg threshold 0.5, fg_fraction
+    0.25, mirror, mean values) over 64 seeded 3x375x500 PNG images with 30
+    windows each, through the CLI's `train`: 10 iterations, K1 twice a
+    forward and K2 twice an iteration (counts set to 0 just before, read
+    just after); each batch's fg share (the WindowFeeder's batches are a
+    function of the iteration: rebuilt and timed after the run), the
+    busy share under the profiler."""
+    from caffe_mpi_tpu_torch.data.feeder import DeviceFeed
+    from caffe_mpi_tpu_torch.tools import cli
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rcnn_")
+    try:
+        t0 = time.perf_counter()
+        source, root = _write_windows(tmp)
+        write_s = time.perf_counter() - t0
+        solver_path = _rcnn_copy(tmp, source, root)
+        torch.cuda.empty_cache()
+        _reset_kernel_counts()
+        solver, summary = cli.train(cli.parse_args(
+            ["train", "-solver", solver_path, "-snapshot_prefix",
+             os.path.join(tmp, "r"), "-device", "cuda"]))
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        losses = summary["losses"]
+        if len(losses) != RCNN_ITERS or summary["batch"] != RCNN_BATCH or \
+                not np.all(np.isfinite(losses)):
+            fail(f"rcnn train: {summary['batch']} x {len(losses)}, "
+                 f"losses {losses}")
+        want = (2 * RCNN_ITERS, 2 * RCNN_ITERS, 0, 0, 0)
+        if counts != want:
+            fail(f"rcnn train launched K1-K5 {counts}, want {want}")
+        k1["launches_by_path"]["train_rcnn_windowdata"] = counts[0]
+        k2["launches_by_path"]["train_rcnn_windowdata"] = counts[1]
+        feeder = cli.build_feeder(solver.net, "TRAIN")
+        fg, build_ms = [], []
+        for it in range(RCNN_ITERS):
+            t1 = time.perf_counter()
+            batch = feeder(it)
+            build_ms.append((time.perf_counter() - t1) * 1e3)
+            fg.append(float(np.mean(batch["label"] > 0)))
+        want_fg = round(RCNN_BATCH * 0.25) / RCNN_BATCH
+        if any(abs(f - want_fg) > 1e-9 for f in fg):
+            fail(f"rcnn fg share {fg}, want {want_fg} every batch")
+        if batch["data"].shape != (RCNN_BATCH, 3, 227, 227):
+            fail(f"rcnn batch {batch['data'].shape}")
+        feed = DeviceFeed(feeder, solver.device)
+        try:
+            profile = profile_steps(solver, feed)
+        finally:
+            feed.close()
+        del solver
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out = _feed_summary(summary, profile, counts, card)
+    out.update(images=RCNN_IMAGES, windows_per_image=RCNN_WINDOWS,
+               batch=RCNN_BATCH, iters=RCNN_ITERS, write_s=write_s,
+               fg_share=fg, feed_ms_per_batch=float(np.median(build_ms)),
+               feed_ms=build_ms)
+    log(f"rcnn: {json.dumps(out)}")
+    return out
+
+
+# -- 19. detectnet ----------------------------------------------------------------
+
+KITTI = os.path.join(ROOT, "examples", "kitti", "detectnet_tiny.prototxt")
+SIAMESE = os.path.join(ROOT, "examples", "siamese",
+                       "mnist_siamese.prototxt")
+DETECTNET_ITERS, DETECTNET_CHUNK_ITERS, SIAMESE_ITERS = 200, 20, 100
+KITTI_H, KITTI_W, KITTI_MAX_BOXES = 64, 128, 8
+
+
+def _kitti_scene(r):
+    """examples/kitti/run.py's synthetic scene (a copy): dark noise and
+    1-3 bright rectangles, class 1; (CHW float image, (n, 5) bboxes)."""
+    img = r.randint(0, 60, (3, KITTI_H, KITTI_W)).astype(np.float32)
+    boxes = []
+    for _ in range(r.randint(1, 4)):
+        w, h = r.randint(20, 48), r.randint(12, 28)
+        x1 = r.randint(0, KITTI_W - w)
+        y1 = r.randint(0, KITTI_H - h)
+        color = r.randint(170, 256, 3)[:, None, None]
+        img[:, y1:y1 + h, x1:x1 + w] = color + r.randint(
+            -15, 16, (3, h, w))
+        boxes.append([1, x1, y1, x1 + w, y1 + h])
+    return np.clip(img, 0, 255), np.asarray(boxes, np.float32)
+
+
+def _kitti_feed(batch, seed_base=0):
+    """run.py's make_feed: iteration -> {data, label (DIGITS blobs)} on
+    the card."""
+    from caffe_mpi_tpu_torch.layers.detection import encode_label_blob
+
+    def feed(it):
+        r = np.random.RandomState(seed_base + it)
+        imgs, labels = [], []
+        for _ in range(batch):
+            img, boxes = _kitti_scene(r)
+            imgs.append(img)
+            labels.append(encode_label_blob(boxes, KITTI_MAX_BOXES))
+        return {"data": torch.from_numpy(np.stack(imgs)).cuda(),
+                "label": torch.from_numpy(np.stack(labels)).cuda()}
+    return feed
+
+
+def _kitti_solver(chunk=1, iters=DETECTNET_ITERS):
+    """run.py's solver (Adam, base_lr 0.001, fixed, random_seed 3) over
+    the net as written."""
+    from caffe_mpi_tpu_torch.proto import NetParameter, SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    sp = SolverParameter.from_text(
+        'type: "Adam" base_lr: 0.001 momentum: 0.9 momentum2: 0.999 '
+        f'lr_policy: "fixed" display: 0 max_iter: {iters} random_seed: 3 '
+        f'step_chunk: {chunk}')
+    sp.net_param = NetParameter.from_file(KITTI)
+    return Solver(sp, device="cuda")
+
+
+@torch.no_grad()
+def _kitti_losses(solver, feeds) -> dict:
+    """The coverage loss and the masked bbox L1 of the TRAIN net on a
+    fixed batch, its augmentation seed fixed."""
+    blobs, _ = solver.net(feeds, dropout_masks={"train_transform": 11})
+    return {"coverage_loss": float(blobs["coverage_loss"]),
+            "bbox_l1": float(blobs["bbox_loss"])}
+
+
+def detectnet_phase(card: str) -> dict:
+    """examples/kitti/detectnet_tiny.prototxt as written (b8, 3x64x128,
+    stride-8 coverage) on chip_smoke's copy of run.py's seeded scenes,
+    with run.py's solver: DETECTNET_ITERS iterations (the
+    DetectNetTransformation layer a host step on every one); the coverage
+    loss and the masked bbox L1 on a held-out batch at the start and the
+    end, both must fall. Then DETECTNET_CHUNK_ITERS iterations from the
+    same seed at step_chunk 1 and at step_chunk 10 (each chunk eager: the
+    host layer is not captured): the same losses."""
+    feed = _kitti_feed(8)
+    held = _kitti_feed(8, seed_base=10_000)(0)
+    solver = _kitti_solver()
+    start = _kitti_losses(solver, held)
+    t0 = time.perf_counter()
+    solver.step(DETECTNET_ITERS, feed)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    end = _kitti_losses(solver, held)
+    losses = solver.losses
+    if not np.all(np.isfinite(losses)) or not all(
+            end[k] < start[k] for k in start):
+        fail(f"detectnet: held-out losses {start} -> {end}")
+    med = float(np.median(solver.iter_ms[1:]))
+    del solver
+    runs = {}
+    # deterministic cuDNN algorithms for this comparison only, so that the
+    # two runs can differ by nothing but the chunking
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for chunk in (1, 10):
+            s = _kitti_solver(chunk, DETECTNET_CHUNK_ITERS)
+            s.step(DETECTNET_CHUNK_ITERS, feed)
+            runs[chunk] = {"losses": list(s.losses),
+                           "graph_replays": s.graph_replays,
+                           "host_sync_count": s.host_sync_count}
+            del s
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    l1, l10 = (np.asarray(runs[k]["losses"]) for k in (1, 10))
+    chunk_diff = float(np.max(np.abs(l10 - l1) / np.abs(l1)))
+    if runs[10]["graph_replays"] or runs[10]["host_sync_count"] != 2 or \
+            chunk_diff > 1e-5:
+        fail(f"detectnet step_chunk 10 against 1: {runs}")
+    torch.cuda.empty_cache()
+    out = {"iters": DETECTNET_ITERS, "batch": 8, "start": start,
+           "end": end, "loss_first": losses[0], "loss_last": losses[-1],
+           "median_step_ms": med, "train_s": train_s,
+           "chunk10_vs_chunk1_max_rel_diff": chunk_diff,
+           "chunk10_bitwise": bool(np.array_equal(l1, l10)),
+           "chunk_runs": runs, "card": card}
+    log(f"detectnet: {json.dumps(out)}")
+    return out
+
+
+# -- 20. siamese ------------------------------------------------------------------
+
+def _siamese_feed(batch, seed_base=0):
+    """run.py's pair feed over seeded 1x28x28 clusters (one template a
+    class, bounded noise): half similar pairs, half dissimilar, scaled by
+    1/256, on the card."""
+    r0 = np.random.RandomState(0)
+    templates = r0.randint(0, 256, (10, 1, 28, 28)).astype(np.int16)
+
+    def feed(it):
+        r = np.random.RandomState(seed_base + it)
+        a, b, sim = [], [], []
+        for k in range(batch):
+            c1 = r.randint(10)
+            c2 = c1 if k % 2 == 0 else (c1 + 1 + r.randint(9)) % 10
+            a.append(c1)
+            b.append(c2)
+            sim.append(float(c1 == c2))
+
+        def images(cls):
+            noise = r.randint(-40, 41, (batch, 1, 28, 28))
+            return torch.from_numpy((np.clip(
+                templates[cls] + noise, 0, 255).astype(np.float32)
+                / 256.0)).cuda()
+        return {"data": images(np.asarray(a)),
+                "data_p": images(np.asarray(b)),
+                "sim": torch.tensor(sim, dtype=torch.float32).cuda()}
+    return feed
+
+
+def siamese_phase(card: str) -> dict:
+    """examples/siamese/mnist_siamese.prototxt as written (b32 pairs,
+    28x28, shared conv1/ip1/feat by name) with run.py's solver (the
+    reference's mnist_siamese_solver recipe) on seeded clusters for
+    SIAMESE_ITERS iterations: the ContrastiveLoss must fall (the mean of
+    the last 10 below the mean of the first 10)."""
+    from caffe_mpi_tpu_torch.proto import NetParameter, SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    sp = SolverParameter.from_text(
+        'base_lr: 0.01 momentum: 0.9 weight_decay: 0.0 lr_policy: "inv" '
+        f'gamma: 0.0001 power: 0.75 display: 0 max_iter: {SIAMESE_ITERS} '
+        'type: "SGD" random_seed: 1')
+    sp.net_param = NetParameter.from_file(SIAMESE)
+    solver = Solver(sp, device="cuda")
+    t0 = time.perf_counter()
+    solver.step(SIAMESE_ITERS, _siamese_feed(32))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = solver.losses
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not np.all(np.isfinite(losses)) or not last < first:
+        fail(f"siamese: ContrastiveLoss {first} -> {last}")
+    out = {"iters": SIAMESE_ITERS, "batch": 32, "loss_first10": first,
+           "loss_last10": last, "median_step_ms": float(np.median(
+               solver.iter_ms[1:])), "train_s": train_s, "card": card}
+    del solver
+    log(f"siamese: {json.dumps(out)}")
+    return out
+
+
+# -- 21. layers -------------------------------------------------------------------
+
+# the layers' f32 tolerances of tests/test_torch_zoo_layers.py: tops rtol
+# 1e-5 + 1e-6 of the largest element, gradients rtol 1e-5 + 1e-5 of the
+# largest (the same f32 math, reductions in other orders)
+ZOO_TOP_TOL, ZOO_GRAD_TOL = (1e-5, 1e-6), (1e-5, 1e-5)
+# each layer at the shapes detectnet_tiny (b8) and mnist_siamese (b32) give
+# it
+ZOO_CASES = {
+    "Sigmoid": ('name: "s" type: "Sigmoid" bottom: "x" top: "y"',
+                [(8, 1, 8, 16)]),
+    "Slice": ('name: "s" type: "Slice" bottom: "x" top: "a" top: "b" '
+              'slice_param { axis: 1 slice_point: 1 }', [(8, 5, 8, 16)]),
+    "Tile": ('name: "t" type: "Tile" bottom: "x" top: "y" '
+             'tile_param { axis: 1 tiles: 4 }', [(8, 1, 8, 16)]),
+    "EuclideanLoss": ('name: "l" type: "EuclideanLoss" bottom: "a" '
+                      'bottom: "b" top: "loss"',
+                      [(8, 1, 8, 16), (8, 1, 8, 16)]),
+    "L1Loss": ('name: "l" type: "L1Loss" bottom: "a" bottom: "b" '
+               'top: "loss"', [(8, 4, 8, 16), (8, 4, 8, 16)]),
+    "ContrastiveLoss": ('name: "l" type: "ContrastiveLoss" bottom: "a" '
+                        'bottom: "b" bottom: "sim" top: "loss" '
+                        'contrastive_loss_param { margin: 1 }',
+                        [(32, 2), (32, 2), "sim"]),
+}
+
+
+def _zoo_run(text, bottoms, device):
+    from caffe_mpi_tpu_torch.core.types import DtypePolicy
+    from caffe_mpi_tpu_torch.layers import create_layer
+    from caffe_mpi_tpu_torch.proto import LayerParameter
+    shapes = [tuple(b.shape) for b in bottoms]
+    layer = create_layer(LayerParameter.from_text(text), DtypePolicy(),
+                         "TRAIN", torch.device(device))
+    layer.in_shapes = shapes
+    layer.out_shapes = layer.setup(shapes)
+    tb = [torch.from_numpy(b).to(device) for b in bottoms]
+    for t in tb:
+        if t.is_floating_point():
+            t.requires_grad_(True)
+    tops = layer(tb)
+    weights = [torch.from_numpy(np.asarray(np.random.RandomState(
+        7 + i).randn(*t.shape), np.float32)).to(device)
+        for i, t in enumerate(tops)]
+    sum((t * w).sum() for t, w in zip(tops, weights)).backward()
+    return ([t.detach().cpu().numpy() for t in tops],
+            [t.grad.cpu().numpy() for t in tb if t.is_floating_point()])
+
+
+def zoo_layers_phase() -> dict:
+    """Each of the six new layer types' forward and backward on the card
+    against the port's CPU result on the same seeded inputs."""
+    out = {}
+    for name, (text, shapes) in ZOO_CASES.items():
+        r = np.random.RandomState(3)
+        bottoms = [(np.arange(32) % 2).astype(np.float32)
+                   if shape == "sim" else r.randn(*shape).astype(np.float32)
+                   for shape in shapes]
+        card = _zoo_run(text, bottoms, "cuda")
+        cpu = _zoo_run(text, bottoms, "cpu")
+        errs = {}
+        for kind, (rtol, atol), got, want in (
+                ("top", ZOO_TOP_TOL, card[0], cpu[0]),
+                ("grad", ZOO_GRAD_TOL, card[1], cpu[1])):
+            for i, (g, w) in enumerate(zip(got, want)):
+                big = max(float(np.abs(w).max()), 1e-30)
+                err = float(np.abs(g - w).max())
+                errs[f"{kind}{i}"] = err / big
+                if not np.allclose(g, w, rtol=rtol, atol=atol * big):
+                    fail(f"{name} {kind} {i} on the card: {err} against "
+                         f"the CPU (largest {big})")
+        out[name] = errs
+    log(f"layers: {json.dumps(out)}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3196,6 +3904,12 @@ def main(argv=None) -> int:
         "googlenet": googlenet}, card)
     chunk = chunk_phase(k1, k2, flash, card)
     chunk["overflow"] = overflow_phase()
+    sources = {"leveldb": leveldb_phase(k1, k2, card),
+               "imagedata": imagedata_phase(k1, k2, card),
+               "rcnn": rcnn_phase(k1, k2, card),
+               "detectnet": detectnet_phase(card),
+               "siamese": siamese_phase(card),
+               "zoo_layers": zoo_layers_phase()}
     print(json.dumps({"kernels": [k1, k2, *flash]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
@@ -3205,6 +3919,8 @@ def main(argv=None) -> int:
     print(json.dumps({"lmdb": lmdb}), flush=True)
     print(json.dumps({"bf16": bf16}), flush=True)
     print(json.dumps({"chunk": chunk}), flush=True)
+    for key, res in sources.items():
+        print(json.dumps({key: res}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

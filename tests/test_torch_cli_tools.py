@@ -41,6 +41,7 @@ from caffe_mpi_tpu_torch.solver import Solver
 from caffe_mpi_tpu_torch.tools import cli
 from caffe_mpi_tpu_torch.utils import flops
 from caffe_mpi_tpu_torch.weights import load_jax_params
+from test_torch_data import close_jax
 from test_torch_train import _assert_params_equal, _host, _jax_masks
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -133,7 +134,7 @@ def five_steps(request, tmp_path_factory):
     jfeed = jax_cli._build_feeders(jsolver.net, "TRAIN")
     jfeed._native = False  # the classic path (test_torch_data.py)
     jlosses = [jsolver.step(1, jfeed) for _ in range(5)]
-    jfeed.close()
+    close_jax(jfeed)
     feed, test_fns, opened, feeder = cli._feed_fns(port, False)
     masks = _jax_masks(jsolver) if request.param == "imagenet" else None
     port.step(5, feed, dropout_masks=masks)
@@ -219,11 +220,9 @@ def test_cli_train_without_a_data_layer_needs_synthetic(tmp_path):
 # -- the MAC model ------------------------------------------------------------
 
 # nets with a layer type the port has not registered or refuses
-# (ROADMAP.md section 1 items 3, 6 and 7)
+# (ROADMAP.md section 1 items 3 and 6)
 UNBUILT = {"models/transformer_lm/train_val_pp.prototxt",      # Pipeline
-           "examples/hdf5_classification/nonlinear_train_val.prototxt",
-           "examples/kitti/detectnet_tiny.prototxt",  # DetectNetTransformation
-           "examples/siamese/mnist_siamese.prototxt"}  # ContrastiveLoss
+           "examples/hdf5_classification/nonlinear_train_val.prototxt"}
 
 
 def _zoo():

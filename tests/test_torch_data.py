@@ -47,6 +47,15 @@ def _records(n, shape, seed=0):
             r.randint(0, 10, n))
 
 
+def close_jax(feeder) -> None:
+    """Close a JAX Feeder and wait for its pool: the JAX Feeder's close
+    shuts its pool down without waiting, so a build running at close goes
+    on into the next test on the same worker process and moves the
+    process-wide decode counters and quarantine there."""
+    feeder.close()
+    feeder.pool.shutdown(wait=True)
+
+
 def _items(imgs, labels, encode=pds.encode_datum):
     return [(f"{i:08d}".encode(), encode(imgs[i], int(labels[i])))
             for i in range(len(imgs))]
@@ -309,7 +318,7 @@ def test_feeder_batches_are_bitwise_the_jax_feeders(tmp_path, spec, rank,
         again.close()
     finally:
         port.close()
-        jax.close()
+        close_jax(jax)
     assert port.feed_ms_per_batch() > 0
 
 
@@ -334,7 +343,7 @@ def test_default_threads_follow_the_kind_of_record(tmp_path, monkeypatch):
         assert feeder.auto and jax.auto
         assert feeder.threads == jax.threads == pfeeder.auto_threads()
         feeder.close()
-        jax.close()
+        close_jax(jax)
         feeder = pfeeder.Feeder(ds, None, 4, threads=3)
         assert feeder.threads == 3 and not feeder.auto
         feeder.close()

@@ -33,7 +33,8 @@ from caffe_mpi_tpu_torch.data import feeder as pfeeder
 from caffe_mpi_tpu_torch.data import lmdb_io as plmdb
 from caffe_mpi_tpu_torch.data.transformer import DataTransformer
 from caffe_mpi_tpu_torch.ops import build
-from test_torch_data import TRANSFORMS, _items, _mean_file, _records, _tp
+from test_torch_data import (TRANSFORMS, _items, _mean_file, _records, _tp,
+                             close_jax)
 
 M64 = (1 << 64) - 1
 
@@ -403,7 +404,7 @@ def test_native_feeder_is_bitwise_the_jax_native_feeder(tmp_path, jax_native,
         assert port._raw_shape == shape and port._gather_ok
     finally:
         port.close()
-        jax.close()
+        close_jax(jax)
 
 
 def test_gathered_batches_equal_the_classic_build(tmp_path):
@@ -442,7 +443,7 @@ def test_a_feeder_of_float_records_stays_classic(tmp_path):
         np.testing.assert_array_equal(port(it)["data"], jax(it)["data"])
     assert port._gather_ok is False
     port.close()
-    jax.close()
+    close_jax(jax)
 
 
 # -- auto threads and the lookahead retune ------------------------------------
@@ -469,7 +470,7 @@ def test_retune_decides_as_jax(builds, gaps, nbytes, budget, start):
     assert pfeeder._LOOKAHEAD_HARD_CAP == jfeeder._LOOKAHEAD_HARD_CAP
     assert pfeeder._default_mem_budget() == jfeeder._default_mem_budget()
     port.close()
-    jax.close()
+    close_jax(jax)
 
 
 def test_auto_mode_retunes_while_it_feeds():

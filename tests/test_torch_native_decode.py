@@ -26,7 +26,7 @@ from caffe_mpi_tpu_torch.data import decode as pdecode
 from caffe_mpi_tpu_torch.data import feeder as pfeeder
 from caffe_mpi_tpu_torch.data import lmdb_io as plmdb
 from caffe_mpi_tpu_torch.data.transformer import DataTransformer
-from test_torch_data import TRANSFORMS, _items, _records, _tp
+from test_torch_data import TRANSFORMS, _items, _records, _tp, close_jax
 from test_torch_native import jax_native  # noqa: F401 (a fixture)
 
 # the JAX Feeder decodes natively only with its library loaded
@@ -230,7 +230,7 @@ def test_fused_feeder_is_bitwise_the_jax_fused_feeder(tmp_path, jax_native,
         assert port._fused_ok and jax._fused_ok
     finally:
         port.close()
-        jax.close()
+        close_jax(jax)
     snap = pdecode.STATS.snapshot()
     assert snap["fused_records"] >= 30 and snap["pil_records"] == 0
     assert snap == jdecode.STATS.snapshot()
@@ -252,7 +252,7 @@ def test_fused_feeder_falls_back_to_pil_and_quarantine_as_jax(tmp_path,
             np.testing.assert_array_equal(got[key], want[key])
     assert port._sub_cache == jax._sub_cache
     port.close()
-    jax.close()
+    close_jax(jax)
 
 
 def test_pil_forced_feeder_is_the_jax_pil_feeder(tmp_path, monkeypatch):
@@ -267,7 +267,7 @@ def test_pil_forced_feeder_is_the_jax_pil_feeder(tmp_path, monkeypatch):
         np.testing.assert_array_equal(port._build_batch_inner(it)["data"],
                                       jax._build_batch_inner(it)["data"])
     port.close()
-    jax.close()
+    close_jax(jax)
     snap = pdecode.STATS.snapshot()
     assert snap["pil_records"] == 12 and snap["fused_records"] == 0
     assert snap == jdecode.STATS.snapshot()
@@ -305,7 +305,7 @@ def test_decoded_cache_hits_the_second_epoch_as_jax(tmp_path, device):
     assert second["cache_hits"] == 20 and second["decode_calls"] == 0
     assert second == jdecode.STATS.snapshot()
     port.close()
-    jax.close()
+    close_jax(jax)
 
 
 def test_decoded_cache_budget_admits_first_fit(tmp_path):
@@ -341,7 +341,7 @@ def test_cached_dataset_is_the_jax_one(tmp_path):
     for it in range(4):
         np.testing.assert_array_equal(port(it)["data"], jax(it)["data"])
     port.close()
-    jax.close()
+    close_jax(jax)
 
 
 # -- tools/bench_data -------------------------------------------------------------
@@ -363,7 +363,13 @@ def test_bench_data_measures_both_backends_and_the_ingest(capsys):
         "assemble"}
     assert ing["native_decode_available"] and ing["fused_records"] > 0
     assert ing["cache_epoch2_decodes"] == 0 and ing["cached_img_s"] > 0
-    for backend in ("leveldb", "hdf5"):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md §1 item 3"):
-            bench_data.main(["-backends", backend, "--no-ingest"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 3"):
+        bench_data.main(["-backends", "hdf5", "--no-ingest"])
+    # leveldb (ported): the pure-Python reader, no native gather
+    assert bench_data.main(["-n", "16", "-batch", "8", "-shape", "3x12x12",
+                            "-crop", "8", "-threads", "1", "-backends",
+                            "leveldb", "--json", "--no-ingest"]) == 0
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    (row,) = doc["backends"]
+    assert row["backend"] == "leveldb" and row["img_s"] > 0
+    assert row["gather_ms_per_batch"] is None

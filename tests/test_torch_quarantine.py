@@ -27,7 +27,7 @@ from caffe_mpi_tpu_torch.data import lmdb_io as plmdb
 from caffe_mpi_tpu_torch.data.transformer import DataTransformer
 from caffe_mpi_tpu_torch.tools import cli
 from caffe_mpi_tpu_torch.utils import resilience as pres
-from test_torch_data import TRANSFORMS, _items, _records, _tp
+from test_torch_data import TRANSFORMS, _items, _records, _tp, close_jax
 from test_torch_native import jax_native  # noqa: F401 (a fixture)
 
 # the JAX Feeder transforms natively only with its library loaded
@@ -101,7 +101,7 @@ def test_substitutes_and_journal_are_jaxs(tmp_path, device, bad):
                for e in pres.QUARANTINE.entries)
     assert port._raw_shape == SHAPE  # the port gathered natively
     port.close()
-    jax.close()
+    close_jax(jax)
 
 
 def test_the_gathered_and_the_classic_build_quarantine_alike(tmp_path):
@@ -134,7 +134,7 @@ def test_past_the_bound_raises_data_integrity_error(tmp_path):
     with pytest.raises(jres.DataIntegrityError, match="5 distinct corrupt"):
         jax._build_batch_inner(4)
     port.close()
-    jax.close()
+    close_jax(jax)
 
 
 def test_a_whole_corrupt_neighbourhood_raises(tmp_path):
@@ -208,7 +208,7 @@ def test_record_fault_sites_quarantine_as_jax(tmp_path):
     assert port._sub_cache == jax._sub_cache == {6: 8, 7: 8, 15: 16}
     assert _entries(pres.QUARANTINE) == _entries(jres.QUARANTINE)
     port.close()
-    jax.close()
+    close_jax(jax)
 
 
 @pytest.mark.parametrize("gather", [True, False])

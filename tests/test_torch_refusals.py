@@ -278,15 +278,25 @@ def _data_net(source, data_param="", transform=""):
 
 
 def test_leveldb_backend_is_refused(tmp_path):
-    from caffe_mpi_tpu_torch.data.datasets import open_dataset
+    """No longer refused: `backend: LEVELDB` (the prototxt default, as in
+    the reference) opens through the port's LevelDB reader, and a Data
+    net over a LevelDB builds with the LMDB net's shapes."""
+    from caffe_mpi_tpu_torch.data.datasets import (LevelDBDataset,
+                                                   encode_datum,
+                                                   open_dataset)
+    from caffe_mpi_tpu_torch.data.leveldb_io import write_leveldb
     from caffe_mpi_tpu_torch.net import Net
-    with pytest.raises(NotImplementedError,
-                       match=rf"backend: LEVELDB .*{DATA_ITEM}"):
-        open_dataset("LEVELDB", str(tmp_path))
-    # the prototxt default backend is LEVELDB, as in the reference
-    with pytest.raises(NotImplementedError, match=DATA_ITEM):
-        Net(_data_net(str(tmp_path)), "TRAIN", device="cpu")
-    Net(_data_net(_lmdb(tmp_path), "backend: LMDB"), "TRAIN", device="cpu")
+    import numpy as np
+    img = np.zeros((1, 4, 4), np.uint8)
+    db = str(tmp_path / "ldb")
+    write_leveldb(db, [(b"%08d" % i, encode_datum(img, i)) for i in range(3)])
+    ds = open_dataset("LEVELDB", db)
+    assert isinstance(ds, LevelDBDataset) and len(ds) == 3
+    assert ds.get(2)[1] == 2
+    net = Net(_data_net(db), "TRAIN", device="cpu")
+    lmdb = Net(_data_net(_lmdb(tmp_path), "backend: LMDB"), "TRAIN",
+               device="cpu")
+    assert net.blob_shapes == lmdb.blob_shapes
 
 
 def test_data_param_cache_is_refused(tmp_path):
@@ -327,20 +337,42 @@ def test_decoded_cache_mb_stays_refused(tmp_path):
         port_cli.build_feeder(net, "TRAIN", sp)
 
 
+_DETECTNET_IN = (
+    'layer { name: "in" type: "Input" top: "img" top: "lab" input_param { '
+    'shape { dim: 2 dim: 3 dim: 32 dim: 64 } shape { dim: 2 dim: 1 dim: 3 '
+    'dim: 16 } } } ')
+
+
 @pytest.mark.parametrize("kind,param", [
     ("ImageData", 'image_data_param { source: "list.txt" batch_size: 2 '
                   'new_height: 8 new_width: 8 }'),
     ("WindowData", 'window_data_param { source: "w.txt" batch_size: 2 '
                    'crop_size: 8 }'),
     ("HDF5Data", 'hdf5_data_param { source: "h5.txt" batch_size: 2 }'),
-    ("DetectNetTransformation", 'detectnet_groundtruth_param { stride: 16 }'),
+    ("DetectNetTransformation", 'detectnet_groundtruth_param { stride: 16 '
+     'image_size_x: 64 image_size_y: 32 }'),
 ])
 def test_unported_data_layer_types_are_refused(kind, param):
+    """HDF5Data is still refused, naming its ROADMAP item. ImageData,
+    WindowData and DetectNetTransformation are ported: each builds with
+    the JAX Net's blob shapes (no source is opened at build)."""
+    from caffe_mpi_tpu.net import Net as JaxNet
+    from caffe_mpi_tpu.proto import NetParameter as JaxNP
     from caffe_mpi_tpu_torch.net import Net
     from caffe_mpi_tpu_torch.proto import NetParameter
-    net = NetParameter.from_text(
-        f'layer {{ name: "d" type: "{kind}" top: "data" top: "label" '
-        f'{param} }}')
-    with pytest.raises(NotImplementedError,
-                       match=rf"the {kind} layer is not ported .*{DATA_ITEM}"):
-        Net(net, "TRAIN", device="cpu")
+    bottoms = ""
+    prefix = ""
+    if kind == "DetectNetTransformation":
+        prefix, bottoms = _DETECTNET_IN, 'bottom: "img" bottom: "lab" '
+    text = (f'{prefix}layer {{ name: "d" type: "{kind}" {bottoms}'
+            f'top: "data" top: "label" {param} }}')
+    net = NetParameter.from_text(text)
+    if kind == "HDF5Data":
+        with pytest.raises(NotImplementedError, match=rf"the {kind} layer "
+                           rf"is not ported .*{DATA_ITEM}"):
+            Net(net, "TRAIN", device="cpu")
+        return
+    port = Net(net, "TRAIN", device="cpu")
+    jax = JaxNet(JaxNP.from_text(text), "TRAIN")
+    assert port.blob_shapes == {k: tuple(v)
+                                for k, v in jax.blob_shapes.items()}
