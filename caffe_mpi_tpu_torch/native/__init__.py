@@ -5,7 +5,8 @@ name: the mmap'd LMDB cursor (`NativeLMDB`), the datumfile reader
 (`NativeDatumDB`), the threaded batch transform (`transform_batch`), and
 the libjpeg/libpng decode plane (`decode_available`, `decode_probe`,
 `decode_image_native`, `decode_resize_native`, `decode_transform_batch`,
-the `DECODE_*` statuses). The port adds the raw-batch gathers
+the `DECODE_*` statuses) and the serving window preprocess
+(`serve_preprocess_available`, `serve_preprocess_batch`). The port adds the raw-batch gathers
 (`NativeLMDB.gather_raw`, `NativeDatumDB.gather_raw`): a batch of raw
 Datums checked, walked and copied into one uint8 stack in one call.
 
@@ -90,6 +91,20 @@ _SIGNATURES = {
         _P(ctypes.c_float),                       # out (nullable)
         _P(ctypes.c_void_p),                      # decoded_out (nullable)
         _I64P,                                    # decoded_caps
+        _I32P,                                    # status
+        ctypes.c_int,                             # num_threads
+    ]),
+    "caffe_tpu_serve_preprocess_batch": (ctypes.c_int, [
+        _P(ctypes.c_void_p),                      # srcs
+        _I32P,                                    # dims (h, w pairs)
+        ctypes.c_int, ctypes.c_int,               # n, channels
+        ctypes.c_int, ctypes.c_int,               # img_h, img_w
+        ctypes.c_int, ctypes.c_int,               # crop_h, crop_w
+        _I32P,                                    # swap
+        ctypes.c_int, ctypes.c_float,             # has_raw, raw_scale
+        _P(ctypes.c_float),                       # mean (nullable)
+        ctypes.c_int, ctypes.c_float,             # has_iscale, input_scale
+        _P(ctypes.c_float),                       # out
         _I32P,                                    # status
         ctypes.c_int,                             # num_threads
     ]),
@@ -505,3 +520,60 @@ def decode_transform_batch(bufs: list[bytes], record_ids, *,
     if rc != 0:
         raise RuntimeError(f"native fused decode call rejected (code {rc})")
     return status
+
+
+def serve_preprocess_available() -> bool:
+    """True when the library carries the serving window-preprocess entry.
+    It lies outside the codec gate (it transforms decoded arrays), so a
+    build without libjpeg/libpng has it too."""
+    return hasattr(lib(), "caffe_tpu_serve_preprocess_batch")
+
+
+def serve_preprocess_batch(raws, *, img_h: int, img_w: int, crop_h: int,
+                           crop_w: int, swap, raw_scale: float | None = None,
+                           mean=None, input_scale: float | None = None,
+                           num_threads: int = 4):
+    """Window-fused serving preprocess: `raws` is a list of (c, h, w)
+    uint8 contiguous planar images (dims may vary a record). Returns
+    (out, status): out (n, c, crop_h, crop_w) float32, each row bitwise
+    the per-request chain (caffe_io.resize_center_crop + Transformer) for
+    the same pixels, and the (n,) int32 per-record status (0 ok; a
+    nonzero row is untouched, and the caller preprocesses that record in
+    Python)."""
+    lb = lib()
+    n = len(raws)
+    if n == 0:
+        raise ValueError("empty preprocess batch")
+    c = int(raws[0].shape[0])
+    dims = np.empty(2 * n, np.int32)
+    src_ptrs = (ctypes.c_void_p * n)()
+    for i, a in enumerate(raws):
+        if a.dtype != np.uint8 or a.ndim != 3 or not a.flags.c_contiguous \
+                or a.shape[0] != c:
+            raise ValueError(f"record {i}: expected contiguous ({c}, h, w) "
+                             f"uint8, got {a.dtype} {a.shape}")
+        dims[2 * i], dims[2 * i + 1] = a.shape[1], a.shape[2]
+        src_ptrs[i] = a.ctypes.data
+    swap = np.ascontiguousarray(swap, np.int32)
+    if swap.size != c:
+        raise ValueError(f"swap must name {c} source planes")
+    mean_ptr = None
+    if mean is not None:
+        mean = np.ascontiguousarray(mean, np.float32).reshape(-1)
+        if mean.size != c:
+            raise ValueError("serving fused preprocess needs a per-channel "
+                             "mean")
+        mean_ptr = mean.ctypes.data_as(_P(ctypes.c_float))
+    out = np.empty((n, c, crop_h, crop_w), np.float32)
+    status = np.empty(n, np.int32)
+    rc = lb.caffe_tpu_serve_preprocess_batch(
+        src_ptrs, dims.ctypes.data_as(_I32P), n, c, img_h, img_w, crop_h,
+        crop_w, swap.ctypes.data_as(_I32P), int(raw_scale is not None),
+        float(raw_scale) if raw_scale is not None else 0.0, mean_ptr,
+        int(input_scale is not None),
+        float(input_scale) if input_scale is not None else 0.0,
+        out.ctypes.data_as(_P(ctypes.c_float)),
+        status.ctypes.data_as(_I32P), num_threads)
+    if rc != 0:
+        raise RuntimeError(f"native serve preprocess rejected (code {rc})")
+    return out, status

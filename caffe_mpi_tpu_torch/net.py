@@ -301,14 +301,17 @@ class Net(nn.Module):
 
     @torch.no_grad()
     def import_weights(self, weights: dict[str, list],
-                       strict: bool = False) -> None:
+                       strict: bool = False, into: dict | None = None
+                       ) -> None:
         """Load by layer-name matching (Net::CopyTrainedLayersFrom:
         unmatched layers keep their initialization unless strict). As the
         JAX `Net.import_weights`: a state blob is multiplied by 1/c, c the
         layer's correction blob (BVLC stores the statistics scaled by it;
         c = 0 zeroes them), and a layer given fewer blobs than it has
         (a 3-blob BatchNorm into one with scale_bias) takes the leading
-        ones."""
+        ones. `into` {(layer name, blob attr): tensor} takes the values
+        instead of the layers' own tensors (the serving plane's host
+        copies; a shared param is keyed by its owner)."""
         matched = set()
         for layer in self.layers:
             blobs = weights.get(layer.name)
@@ -325,7 +328,11 @@ class Net(nn.Module):
                 if kind == "correction":
                     continue
                 blob = np.asarray(blob, np.float32)
-                cur = getattr(layer, name)
+                if into is None:
+                    cur = getattr(layer, name)
+                else:
+                    cur = into[self.param_aliases.get((layer.name, name),
+                                                      (layer.name, name))]
                 if tuple(cur.shape) != blob.shape:
                     if blob.size != cur.numel():
                         raise ValueError(

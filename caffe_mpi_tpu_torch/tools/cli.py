@@ -40,8 +40,15 @@ trace of the two whole-net passes there.
 `device_query` prints each card's properties (tools/device_query.py); it
 raises without a card.
 
-`serve` has no HTTP front yet: `-smoke N` drives N synthetic requests
-through the engine and prints its telemetry as one JSON line.
+`serve` loads a deploy net into a ServingEngine (every padded batch
+bucket built: a CUDA graph each on the card) and serves it over HTTP on
+`-port` (serving/http_front.py: POST /classify, GET /classify_path under
+`-image_root`, /stats, /healthz, /readyz) until interrupted, then drains.
+`-smoke N` instead mounts the server on an ephemeral port, sends N seeded
+PNG and JPEG uploads over real HTTP from 4 client threads in mixed bursts,
+prints the telemetry as one JSON line {"serve_smoke": {...}} and exits 1
+unless every request answered 200 and no bucket was built after warm-up
+(`compile_count == warmed_buckets + recaptures`).
 
 `train` takes the JAX CLI's mixed-precision, guard and chunk flags:
 `-precision f32|bf16`, `-loss_scale` (0 dynamic, > 0 static; -1 keeps
@@ -63,7 +70,7 @@ Usage (gflags-compatible single-dash long flags accepted):
     python -m caffe_mpi_tpu_torch.tools.cli test -model train_val.prototxt [-weights w.caffemodel] [-iterations N] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli time -model train_val.prototxt [-iterations N] [-phase TRAIN|TEST] [-profile DIR] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli device_query
-    python -m caffe_mpi_tpu_torch.tools.cli serve -model deploy.prototxt [-weights w.caffemodel] -smoke N [-serve_buckets 1,4,10] [-serve_window_ms W] [-serve_queue_limit Q] [-device cuda|cpu]
+    python -m caffe_mpi_tpu_torch.tools.cli serve -model deploy.prototxt [-weights w.caffemodel] [-port P | -smoke N] [-labels L] [-image_root DIR] [-serve_buckets 1,4,10] [-serve_window_ms W] [-serve_dtype f32|bf16] [-serve_hbm_mb M] [-serve_queue_limit Q] [-serve_deadline_ms D] [-serve_stall_s S] [-serve_decoded_cache_mb C] [-require_native_ingest] [-device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -120,10 +127,47 @@ def _parser() -> argparse.ArgumentParser:
                    dest="serve_queue_limit", type=int, default=-1,
                    help="bound on the request backlog; over-limit submits "
                    "are shed (0 = unbounded)")
+    p.add_argument("-serve_hbm_mb", "--serve-hbm-mb", dest="serve_hbm_mb",
+                   type=float, default=-1.0,
+                   help="device budget (MiB) for resident model weights; "
+                   "the least-recently-used model spills to its host copy "
+                   "(-1 = the ServingParameter default 0 = unlimited)")
+    p.add_argument("-serve_dtype", "--serve-dtype", dest="serve_dtype",
+                   default="", help="bucket forward precision, f32 or bf16 "
+                   "(scores come back float32 either way; '' = the "
+                   "ServingParameter default f32)")
+    p.add_argument("-serve_deadline_ms", "--serve-deadline-ms",
+                   dest="serve_deadline_ms", type=float, default=-1.0,
+                   help="per-request dispatch deadline: a request whose "
+                   "batch cannot dispatch this soon fails with HTTP 504 "
+                   "(-1 = the default 0 = no deadline)")
+    p.add_argument("-serve_stall_s", "--serve-stall-s", dest="serve_stall_s",
+                   type=float, default=-1.0,
+                   help="dispatch stall breaker: a device call blocked this "
+                   "long fails the in-flight requests, flips /healthz to 503 "
+                   "and sheds until a recovery probe succeeds (-1 = the "
+                   "default 0 = off)")
+    p.add_argument("-serve_decoded_cache_mb", "--serve-decoded-cache-mb",
+                   dest="serve_decoded_cache_mb", type=float, default=-1.0,
+                   help="decoded-request cache (MiB), keyed by the crc32c "
+                   "of the upload bytes (-1 = the default 0 = off)")
+    p.add_argument("-port", "--port", type=int, default=5000,
+                   help="serve: HTTP port (0 picks an ephemeral port)")
+    p.add_argument("-labels", "--labels", default="",
+                   help="serve: class-label file, one label per line")
+    p.add_argument("-image_root", "--image-root", dest="image_root",
+                   default="", help="serve: allow GET /classify_path under "
+                   "this directory")
     p.add_argument("-smoke", "--smoke", type=int, default=0,
-                   help="fire N synthetic requests through the engine, print "
-                   "its stats as JSON and exit (the port has no HTTP front "
-                   "yet, so serve needs -smoke)")
+                   help="serve: send N seeded PNG/JPEG uploads over real "
+                   "HTTP, print the telemetry JSON, check that every "
+                   "request answered and no bucket was built after "
+                   "warm-up, and exit")
+    p.add_argument("-require_native_ingest", "--require-native-ingest",
+                   dest="require_native_ingest", action="store_true",
+                   help="serve -smoke: fail unless the uploads decoded "
+                   "natively and preprocessed through the window-fused "
+                   "native plane")
     p.add_argument("-step_chunk", "--step_chunk", "--step-chunk",
                    dest="step_chunk", type=int, default=0,
                    help="run up to K iterations a chunk, one host sync "
@@ -677,68 +721,175 @@ def cmd_device_query(args) -> int:
 
 def cmd_serve(args) -> int:
     """Load the deploy net into a ServingEngine — weights on the device,
-    every padded batch bucket warmed — and run the smoke path."""
+    every padded batch bucket built — and serve it over HTTP (or run the
+    smoke over HTTP)."""
     from ..proto.config import ServingParameter
     from ..serving import ServingEngine
+    from ..serving.http_front import make_server
     if not args.model:
         log.error("serve requires -model (a deploy prototxt)")
-        return 1
-    if args.smoke <= 0:
-        log.error("serve requires -smoke N: the port has no HTTP front yet")
         return 1
     sp = ServingParameter()
     if args.serve_window_ms >= 0:
         sp.serve_window_ms = args.serve_window_ms
     if args.serve_buckets:
         sp.serve_buckets = args.serve_buckets
+    if args.serve_hbm_mb >= 0:
+        sp.serve_hbm_mb = args.serve_hbm_mb
+    if args.serve_dtype:
+        sp.serve_dtype = args.serve_dtype
     if args.serve_queue_limit >= 0:
         sp.serve_queue_limit = args.serve_queue_limit
+    if args.serve_deadline_ms >= 0:
+        sp.serve_deadline_ms = args.serve_deadline_ms
+    if args.serve_stall_s >= 0:
+        sp.serve_stall_s = args.serve_stall_s
+    if args.serve_decoded_cache_mb >= 0:
+        sp.serve_decoded_cache_mb = args.serve_decoded_cache_mb
     _apply_unported(args, sp)
     try:
-        engine = ServingEngine(sp, device=args.device)
+        # the serving run journal, <model>.serve.run.json, lies next to
+        # the deploy prototxt
+        engine = ServingEngine(sp, device=args.device,
+                               journal=os.path.splitext(args.model)[0])
     except (ValueError, NotImplementedError) as e:
         log.error("%s", e)
         return 1
     try:
         engine.load_model("default", args.model, args.weights or None)
-        return _serve_smoke(args, engine)
-    finally:
+        srv = make_server(engine, "default", labels=args.labels or None,
+                          image_root=args.image_root or None,
+                          port=args.port if not args.smoke else 0)
+    except BaseException:
         engine.close()
+        raise
+    if args.smoke:
+        try:
+            return _serve_smoke(args, engine, srv)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            engine.close()
+    host, port = srv.server_address[:2]
+    log.info("serving on http://%s:%s (model %s, buckets %s, %s, window "
+             "%.1f ms)", host, port, args.model,
+             engine.model("default").fwd.ladder, engine.serve_dtype,
+             engine.window_ms)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.server_close()
+        # graceful: stop accepting, flush the window, resolve every
+        # in-flight future, then close
+        engine.shutdown()
+    return 0
 
 
-def _serve_smoke(args, engine) -> int:
-    """`serve -smoke N`: fire N synthetic requests in mixed-size bursts,
-    drain, print the stats and check that every request resolved."""
+def smoke_uploads(n: int, h: int, w: int, seed: int = 0) -> list[bytes]:
+    """N seeded uploads at (h, w): PNG and JPEG (quality 90) in turn."""
+    import io
+
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        buf = io.BytesIO()
+        img = Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8))
+        if i % 2:
+            img.save(buf, format="JPEG", quality=90)
+        else:
+            img.save(buf, format="PNG")
+        out.append(buf.getvalue())
+    return out
+
+
+def post_image(url: str, data: bytes, timeout: float = 120.0
+               ) -> tuple[int, dict]:
+    """POST one upload to `url`; (status, JSON body) for success and
+    typed failure alike."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/octet-stream"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _serve_smoke(args, engine, srv) -> int:
+    """`serve -smoke N`: N seeded uploads over real HTTP from 4 client
+    threads in mixed bursts (a net that takes no 3-channel image gets its
+    rows through the engine instead), then the telemetry and the checks:
+    every request answered 200, every request recorded, and no bucket
+    built after warm-up."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
     model = engine.model("default")
     shape = model.fwd.input_shape()
+    warmed = engine.compile_count
+    url = f"http://127.0.0.1:{srv.server_address[1]}/classify"
     rng = np.random.RandomState(0)
-    if len(shape) == 4:
-        c, h, w = shape[1], shape[2], shape[3]
-
-        def synth():  # HWC at the net's own input size (no resize)
-            return rng.rand(h, w, c).astype(np.float32)
-    else:
-        def synth():  # non-image input: one row, preprocess reshapes
-            return rng.rand(*shape[1:]).astype(np.float32)
+    sizes = []
     left = args.smoke
-    rows = 0
     while left > 0:
-        burst = min(int(rng.randint(1, model.fwd.ladder[-1] + 1)), left)
-        out = engine.classify("default", [synth() for _ in range(burst)])
-        if out.shape[0] != burst or not np.all(np.isfinite(out)):
-            log.error("serve smoke: bad scores %s for a burst of %d",
-                      out.shape, burst)
-            return 1
-        rows += burst
-        left -= burst
+        sizes.append(min(int(rng.randint(1, model.fwd.ladder[-1] + 1)),
+                         left))
+        left -= sizes[-1]
+    bad = []
+    if len(shape) == 4 and shape[1] == 3:
+        uploads = smoke_uploads(args.smoke, shape[2], shape[3])
+        bursts, start = [], 0
+        for b in sizes:
+            bursts.append(uploads[start:start + b])
+            start += b
+
+        def burst(items):
+            with ThreadPoolExecutor(max_workers=len(items)) as ex:
+                return list(ex.map(lambda d: post_image(url, d), items))
+
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            for answers in ex.map(burst, bursts):
+                bad += [a for a in answers if a[0] != 200
+                        or not a[1].get("predictions")]
+    else:
+        for b in sizes:
+            rows = engine.classify("default", [
+                rng.rand(*shape[1:]).astype(np.float32) for _ in range(b)],
+                preprocess=False)
+            if not np.all(np.isfinite(rows)):
+                bad.append((0, {"error": "non-finite scores"}))
     engine.drain()
     stats = engine.stats()
+    stats["post_warmup_compiles"] = engine.compile_count - warmed \
+        - engine.recaptures
+    ing = stats["ingest"]
+    stats["native_ingest_engaged"] = bool(
+        ing["decode_plane"]["native_records"] > 0 and ing["fused_rows"] > 0)
     print(json.dumps({"serve_smoke": stats}))
-    if stats["requests"] != rows or \
-            stats["warmed_buckets"] != len(model.fwd.ladder):
-        log.error("serve smoke: %d of %d requests recorded, %d of %d "
-                  "buckets warmed", stats["requests"], rows,
-                  stats["warmed_buckets"], len(model.fwd.ladder))
+    if bad:
+        log.error("serve smoke: %d of %d requests failed, e.g. %s",
+                  len(bad), args.smoke, bad[0])
+        return 1
+    if stats["requests"] != args.smoke:
+        log.error("serve smoke: %d of %d requests recorded",
+                  stats["requests"], args.smoke)
+        return 1
+    if args.require_native_ingest and not stats["native_ingest_engaged"]:
+        log.error("serve smoke: native ingest did not engage (native "
+                  "decodes %d, fused rows %d)",
+                  ing["decode_plane"]["native_records"], ing["fused_rows"])
+        return 1
+    ready, doc = engine.ready()
+    if stats["post_warmup_compiles"] != 0 or not ready:
+        log.error("serve smoke: a bucket was built after warm-up (%d; "
+                  "readyz %s)", stats["post_warmup_compiles"], doc)
         return 1
     return 0
 

@@ -13,9 +13,14 @@ The port's copy of what it needs of the JAX package's
   `CAFFE_TPU_FAULTS` environment variable and free when it is unset;
 - `retrying`, the bounded backoff of a dataset read;
 - the quarantine journal `QUARANTINE`, bound by the CLI to
-  `quarantine_journal_path(<snapshot_prefix>)` (one host).
+  `quarantine_journal_path(<snapshot_prefix>)` (one host);
+- the serving plane's fault sites (`serve_dispatch_stall`,
+  `swap_canary_bad`), the run journal (`run_manifest_path`,
+  `write_run_manifest`, `read_run_manifest`: the serving journal
+  `<model>.serve.run.json`) and the `DispatchWatchdog` behind the serving
+  stall breaker.
 
-The run-manifest journal, the supervisor and its `anomaly_action` policy
+The snapshot manifests, the supervisor and its `anomaly_action` policy
 are not ported (ROADMAP.md section 1 item 4), nor the multi-host journal
 merge (item 6).
 """
@@ -37,6 +42,7 @@ log = logging.getLogger("caffe_mpi_tpu_torch.resilience")
 EXIT_NUMERIC = 88
 
 _JOURNAL_SCHEMA = 1
+_MANIFEST_SCHEMA = 1
 
 
 class NumericAnomalyError(RuntimeError):
@@ -82,6 +88,10 @@ FAULT_SITES = {
                       "after fetch (bitrot the crc check must catch)",
     "record_decode": "truncate record values [arg, arg+count) so the "
                      "Datum parse fails",
+    "serve_dispatch_stall": "sleep arg seconds (default 30) inside a "
+                            "serving dispatch (stall breaker trip)",
+    "swap_canary_bad": "poison a hot-swap candidate's loaded weights "
+                       "with NaN (the canary gate must roll back)",
 }
 
 
@@ -173,6 +183,13 @@ class FaultPlane:
     def maybe_raise(self, site: str, exc_type=OSError, msg: str = "") -> None:
         if self.fire(site) is not None:
             raise exc_type(msg or f"injected fault at site {site!r}")
+
+    def maybe_stall(self, site: str) -> None:
+        arg = self.fire(site)
+        if arg is not None:
+            secs = float(arg or 30.0)
+            log.warning("fault plane: stalling %.1fs at site %r", secs, site)
+            time.sleep(secs)
 
 
 FAULTS = FaultPlane()
@@ -346,3 +363,113 @@ def quarantine_journal_path(prefix: str) -> str:
     """The journal of one host's quarantine decisions,
     `<prefix>.quarantine.json` (the JAX package's single-host path)."""
     return prefix + ".quarantine.json"
+
+
+# ---------------------------------------------------------------------------
+# Run journal
+# ---------------------------------------------------------------------------
+
+def run_manifest_path(prefix: str) -> str:
+    return prefix + ".run.json"
+
+
+# concurrent same-process writers (a watchdog's monitor thread and the
+# thread it interrupts) would sweep each other's pid-named temp file
+_RUN_MANIFEST_LOCK = threading.Lock()
+
+
+def write_run_manifest(prefix: str, **fields) -> str:
+    """Journal the run state (a reason and its fields) to
+    `<prefix>.run.json`. Atomic: a crash mid-journal leaves the previous
+    journal intact."""
+    path = run_manifest_path(prefix)
+    doc = {"schema": _MANIFEST_SCHEMA, "time": time.time(),
+           "pid": os.getpid(), **fields}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with _RUN_MANIFEST_LOCK:
+        with atomic_output(path) as tmp:
+            with open(tmp, "w") as f:
+                json.dump(doc, f, indent=1, sort_keys=True)
+    return path
+
+
+def read_run_manifest(prefix: str) -> dict | None:
+    try:
+        with open(run_manifest_path(prefix)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+# ---------------------------------------------------------------------------
+# Dispatch watchdog
+# ---------------------------------------------------------------------------
+
+class DispatchWatchdog:
+    """Monitor thread that bounds device dispatch and harvest time: the
+    serving stall breaker (the JAX package's watchdog in its
+    `hard_exit=False` mode).
+
+    Callers wrap each device-blocking region in `section(label)`; the
+    monitor wakes a quarter of `deadline` apart and, when the oldest open
+    section has been open longer than `deadline`, calls `on_timeout(label,
+    elapsed)` and ends: a call hung in the CUDA runtime cannot be
+    interrupted from Python, but this thread is already in Python. The
+    process stays up; the caller arms a new watchdog after recovery."""
+
+    def __init__(self, deadline: float, on_timeout):
+        self.deadline = float(deadline)
+        self.on_timeout = on_timeout
+        self.poll = min(max(self.deadline / 4.0, 0.05), 5.0)
+        self._lock = threading.Lock()
+        self._open: dict[int, tuple[str, float]] = {}
+        self._next = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="dispatch-watchdog")
+        self._thread.start()
+
+    @contextmanager
+    def section(self, label: str):
+        with self._lock:
+            token = self._next
+            self._next += 1
+            self._open[token] = (label, time.monotonic())
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._open.pop(token, None)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=2 * self.poll + 1.0)
+
+    def open_sections(self) -> list[str]:
+        """Labels of the open sections, oldest first (the serving
+        breaker's recovery probe asks whether the stalled call retired)."""
+        with self._lock:
+            entries = sorted(self._open.values(), key=lambda lt: lt[1])
+        return [label for label, _t0 in entries]
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.poll):
+            now = time.monotonic()
+            with self._lock:
+                oldest = min(self._open.values(), key=lambda lt: lt[1],
+                             default=None)
+            if oldest is None:
+                continue
+            label, t0 = oldest
+            elapsed = now - t0
+            if elapsed <= self.deadline:
+                continue
+            log.error("watchdog: device %s exceeded %.1fs deadline "
+                      "(%.1fs elapsed) — journaling and tripping the "
+                      "breaker (process stays up)", label, self.deadline,
+                      elapsed)
+            try:
+                self.on_timeout(label, elapsed)
+            except Exception:  # noqa: BLE001 — the trip goes on regardless
+                log.exception("watchdog: on_timeout callback failed")
+            return

@@ -43,6 +43,37 @@ Phases, in order; any failure exits nonzero and prints no result line:
              after; parity of rows served on the card (TF32 off) against
              the port's Net forward on the CPU; and a speed run of the
              prototxt as written (img/s, p50/p99 request latency).
+4b. serve_http — AlexNet at full width through `make_server` on port 0,
+             in f32 and in bf16 (ladder 1, 4, 10; a CUDA graph a bucket,
+             captured at load): 8 client threads POST the serve phase's
+             bursts of seeded PNG/JPEG uploads at 227-320 px (launch
+             counts 0 just before, read just after: K1 twice a bucket, K2
+             none; every upload decoded through the ingest, PIL where the
+             library has no codecs, and preprocessed by the window-fused
+             native call; /readyz with compile_count == warmed_buckets);
+             each bucket's graph replay against two eager forwards (twice
+             their own distance + 1e-6); softmax rows and fc8 logits of 10
+             uploads through `submit_bytes`, and the fc8 top-5 over HTTP,
+             against the port's Net on the card (TF32 off, 1e-4); the bf16
+             bucket nets forward in bfloat16 and K1 is captured in it; the
+             bf16 rows differ from the f32 rows, by at most BF16_SERVE_LIMIT
+             of the f32 rows' spread across uploads, where another
+             upload's row reads above it; a speed run (8 closed-loop clients, 30
+             bursts each: img/s, p50/p99, bucket fill, decode and
+             preprocess ms, a bucket-10 replay's device ms and a
+             dispatch's wall ms).
+4c. residency — AlexNet and GoogLeNet on one engine under serve_hbm_mb
+             below the sum of their param bytes, alternating traffic:
+             spills and reloads, 3 recaptures a reload, the device memory
+             an AlexNet spill gives back (at least its params), rows after
+             a reload bitwise the rows before, K1 counted.
+4d. resilience — over HTTP: the stall breaker (serve_stall_s 1 with the
+             serve_dispatch_stall fault site: 504 in flight, /healthz 503,
+             a typed 503, recovery to 200, the journal's reasons), a
+             deadline (504), the queue limit (429), and swap_weights from
+             a caffemodel the port writes (rows equal to the new weights',
+             a poisoned canary rejected, the rows kept bitwise, no
+             capture), K1 counted.
 5. train   — trains models/alexnet/solver.prototxt at full width, batch
              256, on synthetic data through the CLI's `train` entry point
              (20 iterations, a test pass of 2 batches at iteration 0 and at
@@ -204,7 +235,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
              the CPU, at the shapes those nets give them.
 
 It prints one {"native_codec": ...} line (during phase 12), one
-{"kernels": [...]} line (K1-K5), one {"serving": ...} line,
+{"kernels": [...]} line (K1-K5), one {"serving": ...} line (phases
+4-4d),
 one {"train": ...} line, one {"transformer": ...} line, one
 {"resnet50": ...} line, one {"googlenet": ...} line, one {"lmdb": ...}
 line, one {"bf16": ...} line, one {"chunk": ...} line (the overflow
@@ -1208,6 +1240,634 @@ def serve_phase(kernel: dict, card: str) -> dict:
     return serving
 
 
+# -- 4b-4d. the serving plane over HTTP -----------------------------------------
+
+HTTP_CLIENTS = 8
+SERVE_BURSTS = (1, 3, 10, 17, 1, 3, 10, 3)  # the serve phase's bursts
+SPEED_BURSTS = 30  # bursts a client in the speed run
+# the bf16 engine's rows against the f32 engine's on the same uploads, in
+# units of the rows' spread across uploads (the largest deviation of an
+# f32 row from its column's mean over the uploads): with seeded weights
+# much of each fc8 row is the same for every upload (fc6 and fc7 carry
+# bias 0.1), so a share of the largest value would be loose against the
+# part that depends on the input. The control, another upload's f32 row
+# in the same units, must read above the limit. On an H100 the bf16 rows
+# read 0.21 (softmax) and 0.052 (fc8) of the spread and the control 1.39
+# (PERF.md, PR 12): the limit sits between them, 2.4x above the one and
+# 2.8x below the other
+BF16_SERVE_LIMIT = 0.5
+# a graph replay against two eager forwards of the same bucket: within
+# twice the eager runs' own distance, plus this floor (the chunk
+# phase's rule)
+GRAPH_SPREAD, GRAPH_FLOOR = 2.0, 1e-6
+UPLOAD_SIZES = ((227, 227), (256, 256), (240, 320), (300, 200))
+
+
+def _uploads(seed, n):
+    """n seeded uploads, PNG and JPEG (quality 90) in turn, at sizes around
+    AlexNet's 227 (each is resized to the net's input): smooth cluster
+    images with noise, as the lmdb phase draws them."""
+    import io
+
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        h, w = UPLOAD_SIZES[i % len(UPLOAD_SIZES)]
+        base = rng.randint(0, 256, (1, 1, 3)).astype(np.int16)
+        img = np.clip(base + rng.randint(-40, 41, (h, w, 3)), 0,
+                      255).astype(np.uint8)
+        buf = io.BytesIO()
+        if i % 2:
+            Image.fromarray(img).save(buf, format="JPEG", quality=90)
+        else:
+            Image.fromarray(img).save(buf, format="PNG")
+        out.append(buf.getvalue())
+    return out
+
+
+def _serve_engine(dtype="f32", **kw):
+    from caffe_mpi_tpu_torch.proto.config import ServingParameter
+    from caffe_mpi_tpu_torch.serving import ServingEngine
+    return ServingEngine(ServingParameter(serve_dtype=dtype), device="cuda",
+                         **kw)
+
+
+def _start_server(engine, name):
+    import threading
+
+    from caffe_mpi_tpu_torch.serving.http_front import make_server
+    srv = make_server(engine, name, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _stop_server(srv) -> None:
+    srv.shutdown()
+    srv.server_close()
+
+
+def _get(url):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _http_clients(url, uploads, sizes):
+    """HTTP clients: each row of `sizes` is one closed-loop client thread
+    posting its bursts, each burst's uploads at once. Returns each
+    request's (status, negated unless a 200 with 5 predictions; wall ms
+    from the POST to the parsed answer). The speed run runs it in a
+    process of its own, so that the clients' Python does not share the
+    server's interpreter."""
+    from caffe_mpi_tpu_torch.tools.cli import post_image
+
+    def one(d):
+        t0 = time.perf_counter()
+        code, body = post_image(url + "/classify", d)
+        ok = code == 200 and len(body.get("predictions", ())) == 5
+        return (code if ok else -code), (time.perf_counter() - t0) * 1e3
+
+    def client(row):
+        got = []
+        for b in row:
+            with ThreadPoolExecutor(max_workers=int(b)) as ex:
+                got += list(ex.map(one, uploads[:int(b)]))
+        return got
+
+    with ThreadPoolExecutor(max_workers=len(sizes)) as ex:
+        return [a for part in ex.map(client, sizes) for a in part]
+
+
+def _strict_params():
+    """(softmax rows, fc8 logits) prototxts with TF32 off through the
+    prototxt's own math field, as the serve phase's parity."""
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    strict = NetParameter.from_file(MODEL)
+    strict.default_forward_math = "FLOAT"
+    logits = copy.deepcopy(strict)
+    logits.layer = [lp for lp in logits.layer if lp.type != "Softmax"]
+    return strict, logits
+
+
+def _rows_by_bytes(engine, name, uploads):
+    """Full score rows of the uploads through the library spelling of the
+    HTTP path (decode, deferred fused preprocess, a graph replay)."""
+    futs = [engine.submit_bytes(name, d) for d in uploads]
+    return np.stack([f.result(timeout=300) for f in futs])
+
+
+def _graph_vs_eager(model, rng) -> dict:
+    """Each bucket's graph replay against two eager forwards of its net on
+    the same rows: the replay's distance from the nearer eager run, as a
+    share of the largest eager value, within GRAPH_SPREAD x the eager
+    runs' own distance + GRAPH_FLOOR."""
+    fwd = model.fwd
+    out = {}
+    for b in fwd.ladder:
+        x = np.stack([model.preprocess(im) for im in _images(rng, b)])
+        g = fwd.to_host(fwd.run_bucket(x))
+        e1 = fwd.to_host(fwd.run_bucket(x, eager=True))
+        e2 = fwd.to_host(fwd.run_bucket(x, eager=True))
+        scale = max(float(np.abs(e1).max()), 1e-30)
+        spread = float(np.abs(e2 - e1).max()) / scale
+        diff = min(float(np.abs(g - e).max()) for e in (e1, e2)) / scale
+        limit = GRAPH_SPREAD * spread + GRAPH_FLOOR
+        out[str(b)] = {"diff": diff, "spread": spread, "limit": limit}
+        if diff > limit:
+            fail(f"graph replay of bucket {b} ({fwd.dtype}) is {diff:.3g} "
+                 f"from the eager forward (limit {limit:.3g})")
+    return out
+
+
+def _bucket10_times(model, rng) -> dict:
+    """Where a dispatch's time goes at bucket 10: device time of a graph
+    replay (events, the stream held while the host enqueues), and host
+    wall time of a dispatch, padded rows to scores on the host."""
+    x10 = np.stack([model.preprocess(im) for im in _images(rng, 10)])
+    fwd = model.fwd
+    g10 = fwd._graphs[10]
+    with torch.cuda.stream(fwd.stream):
+        dev = time_ms(g10.graph.replay, reps=10, hold_ms=200.0)
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        _, done = fwd.run_bucket_to_host(x10)
+        done.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"replay_device_ms_bucket10": dev,
+            "dispatch_wall_ms_bucket10": float(np.median(walls))}
+
+
+def _http_traffic(engine, name, k1, k2, path, uploads):
+    """The main path over HTTP: SERVE_BURSTS from HTTP_CLIENTS threads,
+    the launch counts set to 0 just before and read just after."""
+    srv, url = _start_server(engine, name)
+    try:
+        d0 = engine.stats()["dispatches"]
+        _reset_kernel_counts()
+        answers = _http_clients(url, uploads, [[b] for b in SERVE_BURSTS])
+        engine.drain()
+        counts = _kernel_counts()
+        bad = [c for c, _ in answers if c != 200]
+        if bad:
+            fail(f"{path} main path: {len(bad)} of {len(answers)} "
+                 f"requests failed, e.g. status {-bad[0]}")
+        st = engine.stats()
+        code, ready = _get(url + "/readyz")
+        code_h, health = _get(url + "/healthz")
+    finally:
+        _stop_server(srv)
+    dispatches = st["dispatches"] - d0
+    if counts[1] or any(counts[2:]):
+        fail(f"{path}: launched K2-K5 {counts[1:]} (inference runs K1 only)")
+    if counts[0] == 0 or counts[0] != 2 * dispatches:
+        fail(f"{path}: K1 launched {counts[0]} times for {dispatches} "
+             "dispatched buckets (want 2 a bucket)")
+    if code != 200 or not ready["ready"] or code_h != 200 \
+            or ready["compile_count"] != ready["warmed_buckets"] \
+            or ready["recaptures"]:
+        fail(f"{path}: /readyz {code} {ready}, /healthz {code_h}")
+    k1["launches_by_path"][path] = counts[0]
+    k2.setdefault("launches_by_path", {})[path] = counts[1]
+    return counts[0], dispatches, st
+
+
+def serve_http_phase(k1: dict, k2: dict, card: str) -> dict:
+    """AlexNet at full width over HTTP in f32 and in bf16 (ladder 1, 4, 10,
+    a CUDA graph a bucket): the main path, graph-against-eager, rows
+    against the port's Net (f32, TF32 off) and against the f32 engine
+    (bf16), and a speed run."""
+    from caffe_mpi_tpu_torch import native
+    from caffe_mpi_tpu_torch.data.decode import to_float_image
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.tools.cli import post_image
+
+    rng = np.random.RandomState(3)
+    uploads = _uploads(3, 17)
+    parity_uploads = _uploads(4, 10)
+    strict, logits = _strict_params()
+    out = {"card": card, "ladder": [1, 4, 10], "clients": HTTP_CLIENTS,
+           "codecs_native": native.decode_available()}
+    rows = {}
+    for dtype in ("f32", "bf16"):
+        res = {}
+        with _serve_engine(dtype) as engine:
+            t0 = time.perf_counter()
+            with _LaunchDtypes() as probe:  # the warm forwards and captures
+                model = engine.load_model("alexnet", MODEL, seed=0,
+                                          **PREPROCESS)
+            res["load_ms"] = (time.perf_counter() - t0) * 1e3
+            res["launch_dtypes"] = probe.dtypes()
+            # every bucket net computes its convolutions, products and
+            # LRNs in the engine's dtype, and K1 was captured in it
+            want = "bfloat16" if dtype == "bf16" else "float32"
+            fwd = {str(l.policy.forward).replace("torch.", "")
+                   for b in model.fwd.ladder
+                   for l in model.fwd.net_for(b).layers
+                   if l.lp.type in ("Convolution", "InnerProduct", "LRN")}
+            if fwd != {want} or res["launch_dtypes"] != {"lrn_fwd": [want]}:
+                fail(f"serve_http_{dtype}: bucket nets forward in {fwd}, "
+                     f"kernels captured in {res['launch_dtypes']}, want "
+                     f"{want}")
+            if model.fwd.ladder != (1, 4, 10):
+                fail(f"ladder {model.fwd.ladder} != (1, 4, 10)")
+            res["warm"] = model.fwd.warm_events
+            path = f"serve_http_{dtype}"
+            from caffe_mpi_tpu_torch.data import decode as decode_mod
+            decode_mod.STATS.reset()  # this engine's decodes only
+            launches, dispatches, st = _http_traffic(
+                engine, "alexnet", k1, k2, path, uploads)
+            ing = st["ingest"]
+            n = sum(SERVE_BURSTS)
+            if st["requests"] != n or ing["deferred_rows"] != n \
+                    or ing["fused_rows"] != n:
+                fail(f"{path}: {st['requests']} requests, deferred "
+                     f"{ing['deferred_rows']}, fused {ing['fused_rows']} "
+                     f"(sent {n}): the window-fused preprocess did not "
+                     "engage")
+            plane = ing["decode_plane"]
+            if not out["codecs_native"] and plane["pil_records"] < n:
+                fail(f"{path}: {plane['pil_records']} PIL decodes for {n} "
+                     "requests on a build without the codecs")
+            res.update({"main_path_requests": n,
+                        "main_path_dispatches": dispatches,
+                        "main_path_k1_launches": launches,
+                        "decode_plane": plane,
+                        "compile_count": st["compile_count"],
+                        "warmed_buckets": st["warmed_buckets"]})
+            res["graph_vs_eager"] = _graph_vs_eager(model, rng)
+            # parity models on the same engine: the softmax rows and the
+            # fc8 logits, TF32 off
+            ref_rows = {}
+            for name, param in (("prob", strict), ("fc8", logits)):
+                m2 = engine.load_model(name, param, seed=0, **PREPROCESS)
+                rows[dtype, name] = _rows_by_bytes(engine, name,
+                                                   parity_uploads)
+                if dtype == "f32":
+                    x = np.stack([m2.preprocess(to_float_image(
+                        engine.decode_request(d))) for d in parity_uploads])
+                    net = Net(copy.deepcopy(param), device="cuda")
+                    net.import_weights(m2.fwd.net.export_weights())
+                    with torch.inference_mode():
+                        ref = net({"data": torch.from_numpy(x).cuda()})[0][
+                            m2.fwd.out_blob()].float().cpu().numpy()
+                    del net
+                    ref_rows[name] = ref
+                    diff = float(np.abs(rows[dtype, name] - ref).max())
+                    res[f"{name}_max_abs_diff_vs_net"] = diff
+                    if diff > 1e-4:
+                        fail(f"{path}: {name} rows {diff:.3g} from the "
+                             "port Net on the card (limit 1e-4)")
+            if dtype == "f32":
+                # the HTTP bodies of the same uploads: top-5 fc8 scores
+                srv, url = _start_server(engine, "fc8")
+                try:
+                    bodies = [post_image(url + "/classify", d)
+                              for d in parity_uploads]
+                finally:
+                    _stop_server(srv)
+                worst = 0.0
+                for (code, body), ref in zip(bodies, ref_rows["fc8"]):
+                    if code != 200:
+                        fail(f"{path}: fc8 upload answered {code} {body}")
+                    for p in body["predictions"]:
+                        worst = max(worst, abs(p["score"]
+                                               - float(ref[p["label"]])))
+                    top = sorted(ref, reverse=True)[:5]
+                    got = [p["score"] for p in body["predictions"]]
+                    if np.abs(np.array(got) - np.array(top)).max() > 1e-4:
+                        fail(f"{path}: HTTP top-5 {got} != Net {top}")
+                res["http_top5_max_abs_diff_vs_net"] = worst
+            # speed: closed-loop clients over HTTP in mixed bursts
+            engine.ingest.preprocess_s = 0.0
+            before = engine.stats()
+            sizes = rng.choice([1, 3, 10, 17],
+                               size=(HTTP_CLIENTS, SPEED_BURSTS))
+            srv, url = _start_server(engine, "alexnet")
+            with engine._batcher._rec_lock:  # the speed run's records only
+                engine._batcher._records.clear()
+                engine._batcher.dispatches.clear()
+            import multiprocessing
+            from concurrent.futures import ProcessPoolExecutor
+            try:
+                with ProcessPoolExecutor(
+                        1, mp_context=multiprocessing.get_context(
+                            "spawn")) as ex:
+                    got = ex.submit(_http_clients, url, uploads,
+                                    sizes.tolist()).result(timeout=900)
+            finally:
+                _stop_server(srv)
+            engine.drain()
+            bad = [c for c, _ in got if c != 200]
+            if bad:
+                fail(f"{path} speed: {len(bad)} of {len(got)} requests "
+                     f"failed, e.g. status {-bad[0]}")
+            http_ms = np.sort([ms for _, ms in got])
+            res["http_p50_ms"] = float(np.percentile(http_ms, 50))
+            res["http_p99_ms"] = float(np.percentile(http_ms, 99))
+            # a connect retried after a lost SYN waits 1 s: this share
+            # tells that tail from a slow server
+            res["http_over_1s_share"] = float(np.mean(http_ms >= 1000.0))
+            st = engine.stats()
+            ing = st["ingest"]
+            rows_pre = ing["fused_rows"] + ing["fused_fallback_rows"] \
+                - before["ingest"]["fused_rows"] \
+                - before["ingest"]["fused_fallback_rows"]
+            res.update({
+                "requests": st["requests"], "img_per_s": st["img_per_s"],
+                "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+                "mean_bucket_fill": st["mean_bucket_fill"],
+                "mean_queue_ms": st["mean_queue_ms"],
+                "window_ms": st["window_ms"],
+                "preprocess_ms_per_row": ing["preprocess_ms"]
+                / max(rows_pre, 1),
+                "decode_ms_per_request": ing["decode_ms"]
+                / max(ing["requests"], 1),
+                "graph_replays": st["graph_replays"],
+                "compile_count_equals_warmed_buckets":
+                    st["compile_count"] == st["warmed_buckets"],
+            })
+            if not res["compile_count_equals_warmed_buckets"] \
+                    or st["recaptures"]:
+                fail(f"{path}: a bucket was built after warm-up: {st}")
+            res.update(_bucket10_times(model, rng))
+        out[dtype] = res
+        torch.cuda.empty_cache()
+    # bf16 against f32 on the same uploads, in units of the f32 rows'
+    # spread across uploads
+    cmp = {}
+    for name in ("prob", "fc8"):
+        ref, got = rows["f32", name], rows["bf16", name]
+        dev = ref - ref.mean(0)
+        spread = float(np.abs(dev).max())
+        diff = float(np.abs(got - ref).max())
+        cmp[name] = {
+            "max_abs_diff": diff, "spread": spread,
+            "diff_over_spread": diff / spread,
+            "deviation_diff_over_spread": float(np.abs(
+                got - got.mean(0) - dev).max()) / spread,
+            "control_over_spread": float(np.abs(
+                np.roll(ref, 1, 0) - ref).max()) / spread,
+            "diff_over_largest": diff / float(np.abs(ref).max()),
+            "argmax_equal_share": float(np.mean(
+                got.argmax(1) == ref.argmax(1))),
+            "limit": BF16_SERVE_LIMIT}
+    log(f"serve_http bf16 vs f32: {json.dumps(cmp)}")
+    for name, c in cmp.items():
+        if not np.all(np.isfinite(rows["bf16", name])) \
+                or not 0 < c["diff_over_spread"] <= BF16_SERVE_LIMIT \
+                or c["control_over_spread"] <= BF16_SERVE_LIMIT:
+            fail(f"bf16 {name} rows {c['max_abs_diff']:.3g} from the f32 "
+                 f"rows, {c['diff_over_spread']:.3g} of their spread "
+                 f"across uploads (limit {BF16_SERVE_LIMIT}, above 0; "
+                 f"another upload's row: {c['control_over_spread']:.3g})")
+    out["bf16_vs_f32"] = cmp
+    log(f"serve_http: {json.dumps(out)}")
+    return out
+
+
+def residency_phase(k1: dict, k2: dict, card: str) -> dict:
+    """AlexNet and GoogLeNet on one engine under a serve_hbm_mb below the
+    sum of their param_bytes, alternating traffic: spills, reloads and
+    recaptures counted, device memory falling at a spill, rows after a
+    reload bitwise the rows before."""
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    from caffe_mpi_tpu_torch.serving.plan import rewrite_batch
+    goog = os.path.join(ROOT, "models", "googlenet", "deploy.prototxt")
+    # each net's parameter bytes, counted on an uninitialised CPU net (no
+    # BatchNorm state in either); the engine's own count must agree
+    sizes = {name: sum(p.numel() * p.element_size() for p in Net(
+        rewrite_batch(NetParameter.from_file(path), 1), phase="TEST",
+        device="cpu").parameters())
+        for name, path in (("alexnet", MODEL), ("googlenet", goog))}
+    budget_mb = (max(sizes.values()) + min(sizes.values()) / 2) / 2**20
+    rng = np.random.RandomState(5)
+    x = {"alexnet": (rng.rand(4, 3, 227, 227) * 255 - 117).astype(
+        np.float32),
+        "googlenet": (rng.rand(4, 3, 224, 224) * 255 - 117).astype(
+            np.float32)}
+    seen: dict[str, list] = {"alexnet": [], "googlenet": []}
+    fall = []
+    with _serve_engine(hbm_mb=budget_mb, window_ms=0) as engine:
+        alex = engine.load_model("alexnet", MODEL, seed=0, **PREPROCESS)
+        spill = alex.spill
+
+        def measured_spill():
+            # the device memory an AlexNet spill gives back
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            spill()
+            torch.cuda.synchronize()
+            fall.append(before - torch.cuda.memory_allocated())
+
+        alex.spill = measured_spill
+        engine.load_model("googlenet", goog, seed=0, **PREPROCESS)
+        _reset_kernel_counts()
+        for _ in range(3):
+            for name in ("alexnet", "googlenet"):
+                seen[name].append(engine.classify(name, x[name],
+                                                  preprocess=False))
+        engine.drain()
+        counts = _kernel_counts()
+        st = engine.stats()
+        ready, doc = engine.ready()
+        resident = {n: engine.model(n).resident for n in engine.models}
+        charged = {n: engine.model(n).param_bytes for n in engine.models}
+    if charged != sizes:
+        fail(f"residency: the engine charges {charged} bytes, the nets "
+             f"hold {sizes}")
+    if not (st["spills"] > 0 and st["reloads"] > 0):
+        fail(f"residency: spills {st['spills']}, reloads {st['reloads']}")
+    if st["recaptures"] != 3 * st["reloads"] or not ready:
+        fail(f"residency: {st['recaptures']} recaptures for "
+             f"{st['reloads']} reloads of 3 buckets; readyz {doc}")
+    for name, runs in seen.items():
+        for r in runs[1:]:
+            if not np.array_equal(r, runs[0]):
+                fail(f"residency: {name} rows after a reload differ from "
+                     "the rows before")
+    if not fall or min(fall) < sizes["alexnet"]:
+        fail(f"residency: device memory fell by {fall} bytes at AlexNet's "
+             f"spills (its params: {sizes['alexnet']} bytes)")
+    if counts[0] == 0 or counts[1] or any(counts[2:]):
+        fail(f"residency: K1-K5 launches {counts}")
+    k1["launches_by_path"]["serve_residency"] = counts[0]
+    k2.setdefault("launches_by_path", {})["serve_residency"] = counts[1]
+    out = {"param_bytes": sizes, "budget_mb": budget_mb,
+           "spills": st["spills"], "reloads": st["reloads"],
+           "recaptures": st["recaptures"],
+           "compile_count": st["compile_count"],
+           "warmed_buckets": st["warmed_buckets"],
+           "memory_fall_at_spill_bytes": fall, "resident_at_end": resident,
+           "admission": st["plan"]["admission"], "k1_launches": counts[0],
+           "card": card}
+    log(f"residency: {json.dumps(out)}")
+    return out
+
+
+def resilience_phase(k1: dict, k2: dict, card: str) -> dict:
+    """The stall breaker over HTTP (504 in flight, /healthz 503, a typed
+    503, recovery to 200), a deadline (504), the queue limit (429), and a
+    hot swap from a caffemodel the port writes (rows follow the new
+    weights, a poisoned canary is rejected, no capture)."""
+    import threading
+
+    from caffe_mpi_tpu_torch import io as port_io
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    from caffe_mpi_tpu_torch.serving import SwapError
+    from caffe_mpi_tpu_torch.tools.cli import post_image
+    from caffe_mpi_tpu_torch.utils import resilience
+
+    FAULTS = resilience.FAULTS
+    up = _uploads(8, 4)
+    out = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    _reset_kernel_counts()
+    try:
+        # the stall breaker
+        prefix = os.path.join(tmp, "alexnet")
+        FAULTS.configure("serve_dispatch_stall:1:0:3")
+        with _serve_engine(stall_s=1.0, window_ms=0,
+                           journal=prefix) as engine:
+            engine.load_model("alexnet", MODEL, seed=0, **PREPROCESS)
+            srv, url = _start_server(engine, "alexnet")
+            try:
+                got = [post_image(url + "/classify", up[0])]
+                got.append(_get(url + "/healthz"))
+                got.append(post_image(url + "/classify", up[1]))
+                trip = resilience.read_run_manifest(prefix + ".serve")
+                engine.drain(timeout=30)
+                recovered = engine.probe_recovery(timeout=10)
+                got.append(_get(url + "/healthz"))
+                got.append(post_image(url + "/classify", up[2]))
+                back = resilience.read_run_manifest(prefix + ".serve")
+            finally:
+                _stop_server(srv)
+        codes = [(c, b.get("kind") or b.get("breaker", {}).get("state")
+                  or ("ok" if "predictions" in b else b)) for c, b in got]
+        want = [(504, "deadline"), (503, "open"), (503, "unhealthy"),
+                (200, "closed"), (200, "ok")]
+        if codes != want or not recovered \
+                or trip["reason"] != "serve_stall:dispatch:alexnet" \
+                or back["reason"] != "serve_recovered":
+            fail(f"resilience: stall breaker answered {codes} (want {want})"
+                 f", recovered {recovered}, journal {trip} {back}")
+        out["breaker"] = {"answers": codes, "journal": [trip["reason"],
+                                                        back["reason"]]}
+        # the deadline
+        FAULTS.configure("serve_dispatch_stall:1:0:1")
+        with _serve_engine(deadline_ms=200, window_ms=0) as engine:
+            engine.load_model("alexnet", MODEL, seed=0, **PREPROCESS)
+            srv, url = _start_server(engine, "alexnet")
+            try:
+                first = []
+                t = threading.Thread(target=lambda: first.append(
+                    post_image(url + "/classify", up[0])))
+                t.start()
+                for _ in range(500):
+                    if engine._batcher._inflight:
+                        break
+                    time.sleep(0.01)
+                late = post_image(url + "/classify", up[1])
+                t.join(timeout=60)
+            finally:
+                _stop_server(srv)
+            dl = engine.stats()["deadline_failures"]
+        if late[0] != 504 or late[1].get("kind") != "deadline" \
+                or first[0][0] != 200 or dl != 1:
+            fail(f"resilience: deadline answered {late}, first {first}, "
+                 f"{dl} deadline failures")
+        out["deadline"] = {"answer": [late[0], late[1]["kind"]],
+                           "deadline_failures": dl}
+        FAULTS.configure("")
+        # the queue limit
+        with _serve_engine(queue_limit=2, window_ms=600_000) as engine:
+            engine.load_model("alexnet", MODEL, seed=0, **PREPROCESS)
+            srv, url = _start_server(engine, "alexnet")
+            try:
+                parked = []
+                threads = [threading.Thread(target=lambda d=d: parked.append(
+                    post_image(url + "/classify", d))) for d in up[:2]]
+                for t in threads:
+                    t.start()
+                for _ in range(500):
+                    if len(engine._batcher._pending) == 2:
+                        break
+                    time.sleep(0.01)
+                shed = post_image(url + "/classify", up[2])
+                engine.shutdown()  # flushes the window: both answer
+                for t in threads:
+                    t.join(timeout=60)
+            finally:
+                _stop_server(srv)
+        if shed[0] != 429 or shed[1].get("kind") != "shed" \
+                or sorted(c for c, _ in parked) != [200, 200]:
+            fail(f"resilience: queue limit answered {shed}, parked "
+                 f"{[c for c, _ in parked]}")
+        out["queue_limit"] = {"answer": [shed[0], shed[1]["kind"]],
+                              "parked": [c for c, _ in parked]}
+        # the hot swap
+        new = os.path.join(tmp, "alexnet_seed1.caffemodel")
+        net = Net(NetParameter.from_file(MODEL), device="cpu")
+        net.init(1)
+        port_io.save_caffemodel(new, net.export_weights())
+        del net
+        rng = np.random.RandomState(9)
+        with _serve_engine(window_ms=0) as engine:
+            model = engine.load_model("alexnet", MODEL, seed=0,
+                                      **PREPROCESS)
+            x = np.stack([model.preprocess(im) for im in _images(rng, 4)])
+            before = engine.classify("alexnet", x, preprocess=False)
+            builds = engine.compile_count
+            engine.swap_weights("alexnet", new)
+            after = engine.classify("alexnet", x, preprocess=False)
+            swapped_builds = engine.compile_count
+            FAULTS.configure("swap_canary_bad:1")
+            try:
+                engine.swap_weights("alexnet", new)
+                rejected = False
+            except SwapError:
+                rejected = True
+            FAULTS.configure("")
+            kept = engine.classify("alexnet", x, preprocess=False)
+            engine.load_model("ref", MODEL, new, **PREPROCESS)
+            ref = engine.classify("ref", x, preprocess=False)
+            st = engine.stats()
+        scale = float(np.abs(ref).max())
+        diff = float(np.abs(after - ref).max()) / scale
+        moved = float(np.abs(after - before).max()) / scale
+        if not rejected or not np.array_equal(kept, after) \
+                or swapped_builds != builds or diff > GRAPH_FLOOR \
+                or moved < 10 * GRAPH_FLOOR or st["swaps"] != 1 \
+                or st["swap_rejections"] != 1:
+            fail(f"resilience: swap rejected {rejected}, kept bitwise "
+                 f"{np.array_equal(kept, after)}, builds {builds} -> "
+                 f"{swapped_builds}, rows {diff:.3g} from the new weights' "
+                 f"(moved {moved:.3g}), stats {st['swaps']} "
+                 f"{st['swap_rejections']}")
+        out["swap"] = {"rel_diff_vs_new_weights": diff,
+                       "rel_move": moved, "builds_across_swap":
+                       swapped_builds - builds, "canary_rejected": rejected}
+    finally:
+        FAULTS.configure("")
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = _kernel_counts()
+    if counts[0] == 0 or counts[1] or any(counts[2:]):
+        fail(f"resilience: K1-K5 launches {counts}")
+    k1["launches_by_path"]["serve_resilience"] = counts[0]
+    k2.setdefault("launches_by_path", {})["serve_resilience"] = counts[1]
+    out["k1_launches"] = counts[0]
+    log(f"resilience: {json.dumps(out)}")
+    return out
+
+
 # -- 5. train -----------------------------------------------------------------
 
 def _state(solver) -> dict:
@@ -1257,7 +1917,7 @@ def train_phase(k1: dict, k2: dict, card: str) -> dict:
                  f"{n_bwd} times (want {2 * TRAIN_ITERS})")
         k1["launches"], k2["launches"] = n_fwd, n_bwd
         k1["launches_by_path"]["train"] = n_fwd
-        k2["launches_by_path"] = {"train": n_bwd}
+        k2.setdefault("launches_by_path", {})["train"] = n_bwd
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = _state(solver)
         feeds = cli.synthetic_feed(solver.net)
@@ -3890,6 +4550,9 @@ def main(argv=None) -> int:
     k2 = kernel_bwd_phase(rates, parent_lrn)
     flash = flash_kernel_phase(rates, parent_flash)
     serving = serve_phase(k1, card)
+    serving["http"] = serve_http_phase(k1, k2, card)
+    serving["residency"] = residency_phase(k1, k2, card)
+    serving["resilience"] = resilience_phase(k1, k2, card)
     train = train_phase(k1, k2, card)
     train["parity"] = parity_phase()
     transformer = transformer_phase(flash, card)

@@ -107,6 +107,38 @@ def test_serving_engine_without_card_raises(monkeypatch):
         ServingEngine(device="cuda:0")
 
 
+_POISONED_SERVING = r"""
+import sys
+for name in ("jax", "jaxlib", "caffe_mpi_tpu"):
+    sys.modules[name] = None
+from caffe_mpi_tpu_torch.serving import http_front, ingest
+from caffe_mpi_tpu_torch.serving.http_front import make_server
+print(http_front.__name__, ingest.__name__)
+"""
+
+
+def test_http_front_and_ingest_import_with_jax_poisoned():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", _POISONED_SERVING],
+                          cwd=_ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "http_front" in proc.stdout and "ingest" in proc.stdout
+
+
+def test_make_server_and_cli_serve_without_card_raise(monkeypatch):
+    from caffe_mpi_tpu_torch.serving import ServingEngine
+    from caffe_mpi_tpu_torch.serving.http_front import make_server
+    from caffe_mpi_tpu_torch.tools import cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_server(ServingEngine(), port=0)
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli.main(["serve", "-model", os.path.join(
+            _ROOT, "models", "alexnet", "deploy.prototxt"), "-port", "0"])
+
+
 def test_chip_smoke_without_card_fails_and_prints_no_result():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=_ROOT,

@@ -185,6 +185,43 @@ def test_unported_serving_field_is_refused_and_its_default_passes(name,
     ServingEngine(sp, device="cpu").close()
 
 
+# fields ported since the refusal table began, each with the value the
+# test sets and a check that the engine took it
+DEPLOY = ('name: "tiny" layer { name: "data" type: "Input" top: "data" '
+          'input_param { shape { dim: 2 dim: 3 } } } '
+          'layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip" '
+          'inner_product_param { num_output: 4 } } '
+          'layer { name: "prob" type: "Softmax" bottom: "ip" top: "prob" }')
+PORTED_SERVING = {
+    "serve_dtype": ("bf16", lambda e, m: e.serve_dtype == "bf16"
+                    and m.fwd.net.layer_by_name("ip").policy.forward
+                    == torch.bfloat16),
+    "serve_hbm_mb": (1.5, lambda e, m: e.hbm_budget == int(1.5 * 2**20)),
+    "serve_deadline_ms": (250.0, lambda e, m: e.deadline_ms == 250.0),
+    "serve_stall_s": (30.0, lambda e, m: e.stall_s == 30.0
+                      and e._watchdog is not None),
+    "serve_decoded_cache_mb": (2.0, lambda e, m: e.ingest.cache_budget
+                               == 2 * 2**20),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_SERVING))
+def test_ported_serving_field_is_honoured(name):
+    import numpy as np
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    assert name not in {n for n, _ in SERVING_FIELDS}
+    value, check = PORTED_SERVING[name]
+    sp = ServingParameter()
+    setattr(sp, name, value)
+    with ServingEngine(sp, device="cpu") as eng:
+        model = eng.load_model("m", NetParameter.from_text(DEPLOY))
+        assert check(eng, model)
+        rows = eng.classify("m", np.ones((3, 3), np.float32),
+                            preprocess=False)
+        assert rows.shape == (3, 4) and rows.dtype == np.float32
+        assert np.allclose(rows.sum(1), 1, atol=1e-2)
+
+
 @pytest.mark.parametrize("dtype", ["f32", ""])
 def test_f32_serve_dtype_passes(dtype):
     ServingEngine(ServingParameter(serve_dtype=dtype), device="cpu").close()
@@ -239,9 +276,9 @@ def test_cli_train_flags_at_their_defaults_train(tmp_path):
     assert solver.sp.precision == "f32" and summary["iters"] == 1
 
 
-@pytest.mark.parametrize("flags", [["-serve_dtype", "bf16"],
+@pytest.mark.parametrize("flags", [["-serve_replicas", "2"],
                                    ["-serve_dtype", "nonsense"],
-                                   ["-serve_deadline_ms", "50"]])
+                                   ["-serve_program_bank", "bank"]])
 def test_cli_serve_flag_of_an_unported_field_exits_one(flags):
     assert cli.main(["serve", "-model", os.path.join(
         _ROOT, "models", "alexnet", "deploy.prototxt"), "-smoke", "1",

@@ -157,8 +157,10 @@ def test_cli_serve_smoke_on_cpu(deploy, capsys):
                    "-smoke", "8", "-device", "cpu"])
     assert rc == 0
     out = capsys.readouterr().out
+    # every request went over HTTP: decoded and preprocessed by the ingest
     assert '"serve_smoke"' in out and '"requests": 8' in out
-    assert cli.main(["serve", "-model", model, "-device", "cpu"]) == 1
+    assert '"deferred_rows": 8' in out
+    assert cli.main(["serve", "-device", "cpu"]) == 1  # no -model
 
 
 def test_preprocess_touches_pil_only_to_resize(monkeypatch):
