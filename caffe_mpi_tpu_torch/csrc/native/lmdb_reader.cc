@@ -85,8 +85,10 @@ struct Crc32cTables {
 
 const Crc32cTables kCrc;
 
-uint32_t crc32c_table(const uint8_t* p, size_t n) {
-  uint32_t crc = 0xFFFFFFFFu;
+// `seed` is the crc32c of the bytes before p (0 for none): a file's crc
+// is the crcs of its chunks chained through it.
+uint32_t crc32c_table(const uint8_t* p, size_t n, uint32_t seed = 0) {
+  uint32_t crc = seed ^ 0xFFFFFFFFu;
   size_t n8 = n - (n % 8);
   for (size_t i = 0; i < n8; i += 8) {
     crc ^= u32(p + i);
@@ -105,8 +107,9 @@ uint32_t crc32c_table(const uint8_t* p, size_t n) {
 // polynomial in hardware), eight bytes an instruction; chosen at run time
 // where the CPU has it.
 __attribute__((target("sse4.2"))) uint32_t crc32c_hw(const uint8_t* p,
-                                                     size_t n) {
-  uint64_t crc = 0xFFFFFFFFu;
+                                                     size_t n,
+                                                     uint32_t seed = 0) {
+  uint64_t crc = seed ^ 0xFFFFFFFFu;
   size_t i = 0;
   for (; i + 8 <= n; i += 8) crc = _mm_crc32_u64(crc, u64(p + i));
   uint32_t c32 = (uint32_t)crc;
@@ -117,11 +120,13 @@ __attribute__((target("sse4.2"))) uint32_t crc32c_hw(const uint8_t* p,
 const bool kHwCrc = __builtin_cpu_supports("sse4.2");
 #else
 const bool kHwCrc = false;
-uint32_t crc32c_hw(const uint8_t* p, size_t n) { return crc32c_table(p, n); }
+uint32_t crc32c_hw(const uint8_t* p, size_t n, uint32_t seed = 0) {
+  return crc32c_table(p, n, seed);
+}
 #endif
 
-inline uint32_t crc32c(const uint8_t* p, size_t n) {
-  return kHwCrc ? crc32c_hw(p, n) : crc32c_table(p, n);
+inline uint32_t crc32c(const uint8_t* p, size_t n, uint32_t seed = 0) {
+  return kHwCrc ? crc32c_hw(p, n, seed) : crc32c_table(p, n, seed);
 }
 
 // meta page -> (ok, psize, root, txnid)
@@ -289,6 +294,14 @@ int64_t caffe_tpu_crc32c(const uint8_t* p, int64_t n, int hw) {
   if (p == nullptr && n > 0) return -1;
   return (int64_t)(hw && kHwCrc ? crc32c_hw(p, (size_t)n)
                                 : crc32c_table(p, (size_t)n));
+}
+
+// crc32c of the `n` bytes at p following bytes whose crc32c is `seed`
+// (google_crc32c's extend): the snapshot manifests' file crcs, a chunk
+// at a time.
+int64_t caffe_tpu_crc32c_extend(int64_t seed, const uint8_t* p, int64_t n) {
+  if ((p == nullptr && n > 0) || seed < 0 || seed > 0xFFFFFFFFll) return -1;
+  return (int64_t)crc32c(p, (size_t)n, (uint32_t)seed);
 }
 
 // Raw-batch gather: records idx[0..n) (key order) -> out, n x (c*h*w)

@@ -83,7 +83,8 @@ int caffe_tpu_transform_batch(const uint8_t* const* srcs,
 
 // 2: the port's library, which adds the raw-batch gathers
 // (caffe_tpu_lmdb_gather_raw, caffe_tpu_db_gather_raw) and
-// caffe_tpu_crc32c to the JAX package's version 1.
-int caffe_tpu_native_abi_version() { return 2; }
+// caffe_tpu_crc32c to the JAX package's version 1; 3 adds
+// caffe_tpu_crc32c_extend.
+int caffe_tpu_native_abi_version() { return 3; }
 
 }  // extern "C"

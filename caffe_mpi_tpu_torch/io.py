@@ -26,6 +26,7 @@ sees half a file.
 
 from __future__ import annotations
 
+import io
 import os
 
 import numpy as np
@@ -58,11 +59,16 @@ def _tag(field: int, wire: int) -> bytes:
     return _varint((field << 3) | wire)
 
 
-def _write_atomic(path: str, data: bytes) -> None:
+def _write_atomic(path: str, data) -> None:
+    """Write `data` (bytes, or a callable that writes to a file) to a
+    temporary file and move it into place."""
     tmp = f"{path}.tmp{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
-            f.write(data)
+            if callable(data):
+                data(f)
+            else:
+                f.write(data)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
@@ -149,15 +155,38 @@ def parse_blob(buf: bytes) -> np.ndarray:
     return data.reshape(shape) if shape else data
 
 
-def encode_blob(arr: np.ndarray) -> bytes:
-    """ndarray -> BlobProto: its shape, then packed float32 data."""
-    out = bytearray()
+def _blob_parts(arr) -> tuple[bytes, np.ndarray]:
+    """A BlobProto as (its bytes up to the data, the float32 data): the
+    shape, then the packed data's tag and length. The data is written
+    from the array itself, never copied into a message."""
+    arr = np.asarray(arr)
     dims = b"".join(_varint(d) for d in arr.shape)
     shape_msg = _tag(1, 2) + _varint(len(dims)) + dims
-    out += _tag(7, 2) + _varint(len(shape_msg)) + shape_msg
-    raw = np.ascontiguousarray(arr, "<f4").tobytes()
-    out += _tag(5, 2) + _varint(len(raw)) + raw
-    return bytes(out)
+    data = np.ascontiguousarray(arr, "<f4")
+    return (_tag(7, 2) + _varint(len(shape_msg)) + shape_msg
+            + _tag(5, 2) + _varint(data.nbytes)), data
+
+
+def _write_blobs(f, field: int, blobs) -> None:
+    """Each blob as a length-delimited field `field`, streamed."""
+    for head, data in blobs:
+        f.write(_tag(field, 2) + _varint(len(head) + data.nbytes) + head)
+        if data.nbytes:
+            f.write(memoryview(data.reshape(-1)).cast("B"))
+
+
+def _blobs_size(field: int, blobs) -> int:
+    n = 0
+    for head, data in blobs:
+        size = len(head) + data.nbytes
+        n += len(_tag(field, 2)) + len(_varint(size)) + size
+    return n
+
+
+def encode_blob(arr: np.ndarray) -> bytes:
+    """ndarray -> BlobProto: its shape, then packed float32 data."""
+    head, data = _blob_parts(arr)
+    return head + data.tobytes()
 
 
 def load_blob_binaryproto(path: str) -> np.ndarray:
@@ -207,31 +236,39 @@ def parse_caffemodel(buf: bytes) -> dict[str, list[np.ndarray]]:
     return out
 
 
+def write_caffemodel(f, weights: dict[str, list[np.ndarray]],
+                     net_name: str = "", layer_types=None) -> None:
+    """{layer: [blobs]} -> binary NetParameter (net.cpp ToProto) written
+    to file `f`, each blob's data straight from its array (a snapshot of
+    AlexNet writes 244 MB without a copy in a message)."""
+    if net_name:
+        nm = net_name.encode("utf-8")
+        f.write(_tag(1, 2) + _varint(len(nm)) + nm)
+    for lname, blobs in weights.items():
+        nm = lname.encode("utf-8")
+        head = _tag(1, 2) + _varint(len(nm)) + nm
+        if layer_types and lname in layer_types:
+            tp = layer_types[lname].encode("utf-8")
+            head += _tag(2, 2) + _varint(len(tp)) + tp
+        parts = [_blob_parts(b) for b in blobs]
+        f.write(_tag(100, 2) + _varint(len(head) + _blobs_size(7, parts))
+                + head)
+        _write_blobs(f, 7, parts)
+
+
 def encode_caffemodel(weights: dict[str, list[np.ndarray]],
                       net_name: str = "",
                       layer_types: dict[str, str] | None = None) -> bytes:
     """{layer: [blobs]} -> binary NetParameter (net.cpp ToProto)."""
-    out = bytearray()
-    if net_name:
-        nm = net_name.encode("utf-8")
-        out += _tag(1, 2) + _varint(len(nm)) + nm
-    for lname, blobs in weights.items():
-        msg = bytearray()
-        nm = lname.encode("utf-8")
-        msg += _tag(1, 2) + _varint(len(nm)) + nm
-        if layer_types and lname in layer_types:
-            tp = layer_types[lname].encode("utf-8")
-            msg += _tag(2, 2) + _varint(len(tp)) + tp
-        for blob in blobs:
-            b = encode_blob(blob)
-            msg += _tag(7, 2) + _varint(len(b)) + b
-        out += _tag(100, 2) + _varint(len(msg)) + bytes(msg)
-    return bytes(out)
+    buf = io.BytesIO()
+    write_caffemodel(buf, weights, net_name, layer_types)
+    return buf.getvalue()
 
 
 def save_caffemodel(path: str, weights: dict[str, list[np.ndarray]],
                     net_name: str = "", layer_types=None) -> None:
-    _write_atomic(path, encode_caffemodel(weights, net_name, layer_types))
+    _write_atomic(path, lambda f: write_caffemodel(f, weights, net_name,
+                                                   layer_types))
 
 
 def load_caffemodel(path: str) -> dict[str, list[np.ndarray]]:
@@ -254,20 +291,26 @@ def load_weights(path: str) -> dict[str, list[np.ndarray]]:
 # append the second bank after the first; sgd_solver.cpp PreSolve +
 # adam_solver.cpp:37-39).
 
+def write_solverstate(f, it: int, learned_net: str,
+                      history: list[np.ndarray],
+                      current_step: int = 0) -> None:
+    """SolverState written to file `f`, each history blob's data straight
+    from its array."""
+    f.write(_tag(1, 0) + _varint(it))
+    if learned_net:
+        nm = learned_net.encode("utf-8")
+        f.write(_tag(2, 2) + _varint(len(nm)) + nm)
+    _write_blobs(f, 3, [_blob_parts(b) for b in history])
+    if current_step:
+        f.write(_tag(4, 0) + _varint(current_step))
+
+
 def encode_solverstate(it: int, learned_net: str,
                        history: list[np.ndarray],
                        current_step: int = 0) -> bytes:
-    out = bytearray()
-    out += _tag(1, 0) + _varint(it)
-    if learned_net:
-        nm = learned_net.encode("utf-8")
-        out += _tag(2, 2) + _varint(len(nm)) + nm
-    for blob in history:
-        b = encode_blob(np.asarray(blob))
-        out += _tag(3, 2) + _varint(len(b)) + b
-    if current_step:
-        out += _tag(4, 0) + _varint(current_step)
-    return bytes(out)
+    buf = io.BytesIO()
+    write_solverstate(buf, it, learned_net, history, current_step)
+    return buf.getvalue()
 
 
 def parse_solverstate(buf: bytes) -> tuple[int, str, list[np.ndarray], int]:
@@ -286,8 +329,8 @@ def parse_solverstate(buf: bytes) -> tuple[int, str, list[np.ndarray], int]:
 
 def save_solverstate(path: str, it: int, learned_net: str,
                      history: list[np.ndarray], current_step: int = 0) -> None:
-    _write_atomic(path, encode_solverstate(it, learned_net, history,
-                                           current_step))
+    _write_atomic(path, lambda f: write_solverstate(
+        f, it, learned_net, history, current_step))
 
 
 def load_solverstate(path: str) -> tuple[int, str, list[np.ndarray], int]:

@@ -26,7 +26,7 @@ import threading
 
 import numpy as np
 
-ABI_VERSION = 2  # csrc/native/transform.cc caffe_tpu_native_abi_version
+ABI_VERSION = 3  # csrc/native/transform.cc caffe_tpu_native_abi_version
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -64,6 +64,8 @@ _SIGNATURES = {
     "caffe_tpu_lmdb_close": (None, [ctypes.c_void_p]),
     "caffe_tpu_crc32c": (ctypes.c_int64,
                          [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]),
+    "caffe_tpu_crc32c_extend": (ctypes.c_int64, [
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]),
     "caffe_tpu_philox_aug": (ctypes.c_int, [
         _I64P, ctypes.c_int, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, _I32P]),
@@ -148,6 +150,13 @@ def crc32c(data, hw: bool = True) -> int:
     its SSE4.2 loop where the CPU has one (the gathers' checksum)."""
     a = np.frombuffer(data, np.uint8)
     return int(lib().caffe_tpu_crc32c(a.ctypes.data, a.size, int(hw)))
+
+
+def crc32c_extend(crc: int, data) -> int:
+    """crc32c of bytes `data` following bytes whose crc32c is `crc`
+    (google_crc32c's `extend`; crc 0 starts a new checksum)."""
+    a = np.frombuffer(data, np.uint8)
+    return int(lib().caffe_tpu_crc32c_extend(crc, a.ctypes.data, a.size))
 
 
 def philox_aug(flats, seed: int, h: int, w: int, crop: int,

@@ -285,19 +285,30 @@ class Net(nn.Module):
                 yield layer.name, sname, getattr(layer, sname)
 
     # -- .caffemodel interop (reference net.cpp:1055-1248) ----------------
-    @torch.no_grad()
-    def export_weights(self) -> dict[str, list[np.ndarray]]:
-        """{layer_name: positional float32 blob list} in the reference's
-        blobs_ order (Net::ToProto): params, state blobs, and a [1.0]
-        correction scalar where the layer has one."""
-        out: dict[str, list[np.ndarray]] = {}
+    def weight_tensors(self) -> dict[str, list]:
+        """{layer_name: the tensors of its blobs in the reference's blobs_
+        order}, None for a correction scalar: what export_weights writes,
+        as live tensors (a snapshot copies them before the next step)."""
+        out: dict[str, list] = {}
         for layer in self.layers:
-            blobs = [np.ones((1,), np.float32) if kind == "correction"
-                     else getattr(layer, name).detach().float().cpu().numpy()
+            blobs = [None if kind == "correction" else getattr(layer, name)
                      for kind, name in layer.caffe_blobs()]
             if blobs:
                 out[layer.name] = blobs
         return out
+
+    @torch.no_grad()
+    def export_weights(self, tensors: dict[str, list] | None = None
+                       ) -> dict[str, list[np.ndarray]]:
+        """{layer_name: positional float32 blob list} in the reference's
+        blobs_ order (Net::ToProto): params, state blobs, and a [1.0]
+        correction scalar where the layer has one. `tensors` (a copy of
+        `weight_tensors()`) is written instead of the live tensors."""
+        if tensors is None:
+            tensors = self.weight_tensors()
+        return {name: [np.ones((1,), np.float32) if t is None
+                       else t.detach().float().cpu().numpy() for t in blobs]
+                for name, blobs in tensors.items()}
 
     @torch.no_grad()
     def import_weights(self, weights: dict[str, list],

@@ -9,3 +9,9 @@ def launch_counters() -> tuple:
     from .lrn import lrn_across_channels, lrn_across_channels_bwd
     return (lrn_across_channels, lrn_across_channels_bwd, flash_fwd,
             flash_bwd_dq, flash_bwd_dkv)
+
+
+def launch_counts() -> dict[str, int]:
+    """The launch counts of K1-K5, by ID."""
+    return dict(zip(("K1", "K2", "K3", "K4", "K5"),
+                    (c.launches for c in launch_counters())))

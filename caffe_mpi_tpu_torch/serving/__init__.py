@@ -1,6 +1,7 @@
 """Inference serving plane: bucketed device-resident models (a CUDA graph
 per bucket on the card) behind a continuous batcher, the request-ingest
-plane and a stdlib HTTP front. See engine.py for the design notes."""
+plane, a stdlib HTTP front and the snapshot watcher that hot-swaps a
+training run's verified snapshots. See engine.py for the design notes."""
 
 from .engine import (BucketedForward, CompileCounter, InferenceModel,
                      ServingEngine)
@@ -8,10 +9,11 @@ from .errors import (DeadlineError, EngineClosedError, EngineUnhealthyError,
                      ServingError, ShedError, SwapError)
 from .plan import (bucket_for, declared_batch, plan_admission, plan_ladder,
                    plan_model)
+from .watch import SnapshotWatcher
 
 __all__ = [
     "BucketedForward", "CompileCounter", "InferenceModel", "ServingEngine",
     "bucket_for", "declared_batch", "plan_admission", "plan_ladder",
     "plan_model", "ServingError", "ShedError", "EngineClosedError",
-    "EngineUnhealthyError", "DeadlineError", "SwapError",
+    "EngineUnhealthyError", "DeadlineError", "SwapError", "SnapshotWatcher",
 ]

@@ -58,14 +58,12 @@ from ..core.device import resolve_device
 from ..net import Net
 from ..proto.config import NetParameter, ServingParameter, refuse_unported
 from ..proto.upgrade import normalize_net
-from ..utils.resilience import FAULTS
+from ..utils.resilience import FAULTS, NULL_SECTION
 from .errors import DeadlineError, EngineUnhealthyError, SwapError
 from .plan import (declared_batch, plan_admission, plan_ladder, plan_model,
                    rewrite_batch)
 
 log = logging.getLogger(__name__)
-
-_NULL_SECTION = nullcontext()
 
 # ServingParameter fields that the JAX serving path honours and the port
 # does not yet, each with the ROADMAP.md section 1 item that will port it
@@ -721,13 +719,13 @@ class ServingEngine:
     def _arm_breaker(self) -> None:
         from ..utils.resilience import DispatchWatchdog
         self._watchdog = DispatchWatchdog(
-            self.stall_s, self._on_stall)
+            self.stall_s, self._on_stall, hard_exit=False)
 
     def dispatch_section(self, label: str):
         """Watchdog section for one device-blocking serving call (dispatch
         or harvest); a no-op when the breaker is off."""
         wd = self._watchdog
-        return _NULL_SECTION if wd is None else wd.section(label)
+        return NULL_SECTION if wd is None else wd.section(label)
 
     def _on_stall(self, label: str, elapsed: float) -> None:
         """Watchdog callback: a serving device call ran past
@@ -864,7 +862,8 @@ class ServingEngine:
             log.exception("serving: run journal failed (continuing)")
 
     # -- hot swap -------------------------------------------------------
-    def swap_weights(self, name: str, weights: str) -> None:
+    def swap_weights(self, name: str, weights: str, *,
+                     source: str = "") -> None:
         """Live-reload `name`'s weights from `weights` without a capture:
         the new values are copied INTO the existing device tensors, whose
         addresses the graphs hold, so `compile_count` does not move.
@@ -873,7 +872,8 @@ class ServingEngine:
         bucket's graph on a synthetic batch before the swap is committed,
         with the model's dispatches held off: non-finite or wrong-shaped
         scores, or an unloadable weights file, raise SwapError and the
-        previous weights are copied back from the host master, bitwise."""
+        previous weights are copied back from the host master, bitwise.
+        `source` (the watcher's `iter_<N>`) goes into the journal."""
         model = self.model(name)  # KeyError for unknown models
         try:
             from .. import io as _io
@@ -881,7 +881,8 @@ class ServingEngine:
             model.fwd.net.import_weights(_io.load_weights(weights),
                                          into=cand)
         except Exception as e:  # noqa: BLE001 — typed for the caller
-            self.note_swap_rejected(name, f"weights load failed: {e}")
+            self.note_swap_rejected(name, f"weights load failed: {e}",
+                                    source=source)
             raise SwapError(
                 f"hot-swap candidate {weights!r} failed to load: {e}"
             ) from e
@@ -900,7 +901,7 @@ class ServingEngine:
                     self._canary_gate(model)
                 except SwapError as e:
                     model._upload(model.host)
-                    self.note_swap_rejected(name, str(e))
+                    self.note_swap_rejected(name, str(e), source=source)
                     raise
             with model._upload_lock:
                 with self._lock:
@@ -908,9 +909,10 @@ class ServingEngine:
         finally:
             self.note_retire(model)
         self.swaps += 1
-        log.info("serving: hot-swapped model %r from %s; graphs "
-                 "untouched", name, weights)
-        self._journal("swap", model=name, weights=weights, swaps=self.swaps)
+        log.info("serving: hot-swapped model %r from %s (%s); graphs "
+                 "untouched", name, weights, source or "manual")
+        self._journal("swap", model=name, weights=weights, source=source,
+                      swaps=self.swaps)
 
     def _canary_gate(self, model: InferenceModel) -> None:
         """Run the smallest built bucket on a synthetic batch with the
@@ -931,14 +933,16 @@ class ServingEngine:
         if not np.all(np.isfinite(out)):
             raise SwapError("canary scores are non-finite")
 
-    def note_swap_rejected(self, name: str, reason: str) -> None:
-        """Count and journal a rejected hot-swap candidate; the previous
+    def note_swap_rejected(self, name: str, reason: str, *,
+                           source: str = "") -> None:
+        """Count and journal a rejected hot-swap candidate (a corrupt
+        snapshot, unloadable weights, a failed canary); the previous
         weights keep serving."""
         self.swap_rejections += 1
         log.warning("serving: hot-swap for model %r REJECTED (%s); "
                     "previous weights keep serving", name, reason)
         self._journal("swap_rejected", model=name, swap_reason=reason,
-                      swap_rejections=self.swap_rejections)
+                      source=source, swap_rejections=self.swap_rejections)
 
     # -- request surface ------------------------------------------------
     def _shed_if_unhealthy(self) -> None:

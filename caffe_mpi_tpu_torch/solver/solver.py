@@ -76,10 +76,45 @@ The backward runs under the TF32 switches of the net's one math precision
 convolutions and products as well as the forward ones; a graph keeps the
 switches of its capture.
 
-Not ported yet (ROADMAP.md): `test_chunk`, meshes and ZeRO, gpipe, the
-watchdog, the run-manifest journal and the supervisor's
-`anomaly_action`, snapshot manifests and HDF5 snapshots. Each of their
-fields is in `UNPORTED_FIELDS`: a value other than its default raises
+Survivable training, as the JAX solver has it (utils/resilience.py):
+
+- verified snapshots: each file written through `atomic_output`, then
+  the crc32c manifest `<prefix>_iter_<N>.manifest.json` last (the
+  snapshot's commit point), then the run journal `<prefix>.run.json`
+  (reason "snapshot") and the `snapshot_keep` GC, which never deletes
+  the newest verified snapshot. An interval snapshot does not stall the
+  loop (`snapshot(block=False)`): a point-in-time copy of the params,
+  the history and the running statistics is taken on the device, on the
+  current stream, before the next iteration (a replayed graph updates
+  these very tensors in place); one writer thread then copies it to the
+  host on a stream of its own, behind an event recorded after the copy,
+  and writes the files. At most one writer is in flight;
+  `wait_snapshots` joins it and re-raises a failed write with its
+  iteration. `restore` checks a snapshot's manifest when there is one
+  (SnapshotCorruptError); `restore_auto` takes the newest verified
+  snapshot, then a manifest-less one, else None;
+- the dispatch watchdog (`watchdog_deadline` > 0): every host wait on
+  the device (a chunk, from its first launch to its read-back, the first
+  graph capture included; a test pass; a snapshot's copy) is a section
+  of a `DispatchWatchdog`, which journals `watchdog:<label>` and exits
+  86 when one outlasts the deadline;
+- the guard's divergence journals `numeric_anomaly` before it raises;
+- `test_chunk`: each test net is evaluated in chunks of T batches (T
+  pinned, or 0: as many as fit a 256 MiB budget, at most 64, the JAX
+  `_test_chunk_len`), the sums accumulating on the device, one host read
+  a pass. In the chunked mode on the card (step_chunk > 1) a chunk after
+  the test net's first is one CUDA-graph replay of its T forwards; else
+  its forwards run eagerly. The scores do not depend on T;
+- the fault sites `train_abort` (each chunk's start), `dispatch_stall`
+  (inside a chunk's section), `nan_grad` / `loss_spike` (the feeds),
+  `snapshot_sync`, `snapshot_kill` and `snapshot_corrupt`;
+- `requests`: flags a signal handler sets ("stop", "snapshot"), acted on
+  at the next chunk boundary.
+
+Not ported yet (ROADMAP.md): meshes and ZeRO, gpipe, HDF5 snapshots and
+the asynchronous evaluation that overlaps training. Each of their fields
+is in `UNPORTED_FIELDS` (`snapshot_format` other than BINARYPROTO is
+refused the same way): a value other than its default raises
 NotImplementedError before anything is built, so no field is accepted
 and then ignored. An unknown `precision` raises ValueError, as the JAX
 `Solver` does.
@@ -87,8 +122,11 @@ and then ignored. An unknown `precision` raises ValueError, as the JAX
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import re
+import threading
 import time
 from collections import deque
 from contextlib import nullcontext
@@ -101,10 +139,11 @@ import torch
 from .. import io as caffe_io
 from ..core.device import resolve_device
 from ..net import Net
-from ..ops import launch_counters
+from ..ops import launch_counters, launch_counts
 from ..proto.config import (NetParameter, SolverParameter, refuse_unported,
                             solver_type)
-from ..utils.resilience import NumericAnomalyError
+from ..utils import resilience
+from ..utils.resilience import FAULTS, NumericAnomalyError
 from . import lr_policy
 from .updates import UPDATE_FNS, Hyper, n_slots
 
@@ -115,13 +154,15 @@ log = logging.getLogger("caffe_mpi_tpu_torch.solver")
 # Fields neither package honours (solver_mode, device_id, ...) stay
 # accepted.
 UNPORTED_FIELDS = (
-    ("anomaly_action", 4), ("anomaly_lr_mult", 4), ("test_chunk", 4),
-    ("watchdog_deadline", 4), ("snapshot_keep", 4),
     ("zero_stage", 6), ("reduce_overlap", 6), ("reduce_buckets", 6),
     ("grad_bucket_mb", 6), ("hosts", 6), ("coordinator", 6),
     ("host_deadline", 6), ("min_hosts", 6),
 )
 PRECISIONS = ("f32", "bf16")  # the JAX Solver's; "" is f32
+# snapshot formats the port does not write yet, with their ROADMAP.md
+# section 1 item
+UNPORTED_SNAPSHOT_FORMATS = {"HDF5": 4, "ORBAX": 6}
+ANOMALY_ACTIONS = ("rewind", "rewind_lr", "abort")
 
 # the dynamic loss scale's schedule (the JAX solver's _LS_*)
 LS_INIT = 2.0 ** 15
@@ -177,9 +218,9 @@ def _all_finite(tensors) -> torch.Tensor:
 
 
 class _Graph:
-    """One captured iteration: the CUDA graph, its static inputs (feeds
-    and Dropout masks, one dict a micro-batch) and each launch counter's
-    launches a replay."""
+    """One captured iteration (or test chunk): the CUDA graph, its static
+    inputs (feeds and Dropout masks, one dict a micro-batch or test
+    batch) and each launch counter's launches a replay."""
 
     def __init__(self, graph, feeds, masks, deltas):
         self.graph, self.feeds, self.masks, self.deltas = (graph, feeds,
@@ -210,6 +251,16 @@ class Solver:
             raise ValueError(
                 f"loss_scale_window must be >= 1, got {lsw}")
         refuse_unported(sp, UNPORTED_FIELDS, "solver")
+        fmt = str(sp.snapshot_format or "BINARYPROTO").upper()
+        if fmt in UNPORTED_SNAPSHOT_FORMATS:
+            raise NotImplementedError(
+                f"solver field snapshot_format: {fmt} snapshots are not "
+                "ported yet (ROADMAP.md §1 item "
+                f"{UNPORTED_SNAPSHOT_FORMATS[fmt]}); the port writes "
+                "BINARYPROTO snapshots")
+        if str(sp.anomaly_action or "rewind") not in ANOMALY_ACTIONS:
+            raise ValueError(f"unknown anomaly_action {sp.anomaly_action!r}"
+                             f" (expected one of {ANOMALY_ACTIONS})")
         self.sp = sp
         self.type = solver_type(sp)
         if self.type not in UPDATE_FNS:
@@ -293,6 +344,11 @@ class Solver:
         self._out = torch.zeros((self.step_chunk, 3), **f32)
         self._gs = self._carry0() if self._guard_on else None
         self._graphs: dict[tuple[int, int], _Graph] = {}
+        # the test pass's graphs by (test net, chunk length), the test
+        # nets that have run their eager chunk, and each one's sums
+        self._test_graphs: dict[tuple[int, int], _Graph] = {}
+        self._test_warm: set[int] = set()
+        self._test_sums: dict[int, torch.Tensor] = {}
         self._stream = None  # the side stream of graph capture and replay
         self._warm = False  # an eager iteration has run (graph capture)
         self.iter = 0
@@ -300,6 +356,7 @@ class Solver:
                                                            1))
         self.losses: list[float] = []    # loss of every iteration run
         self.iter_ms: list[float] = []   # host wall time of each iteration
+        self.chunk_ms: list[float] = []  # host wall time of each chunk
         self.skipped_iters: list[int] = []  # iterations the guard skipped
         # telemetry, as the JAX solver's: chunks run (one dispatch, one
         # host sync each), guard carry reads, the guard's skips, overflow
@@ -312,6 +369,26 @@ class Solver:
         self.overflow_steps = 0
         self.loss_scale_value = LS_INIT if self._dyn_scale \
             else float(self._static_scale)
+        # evaluation: chunks run (in the chunked mode on the card, one
+        # graph replay each after a test net's first), passes, host reads
+        # (one a test net a pass)
+        self.test_dispatch_count = 0
+        self.test_pass_count = 0
+        self.test_host_reads = 0
+        # survivability: the watchdog (armed at the first step when
+        # watchdog_deadline > 0), the cached fault-site feed wrapper, the
+        # newest snapshot written (iteration, state path), the writer
+        # thread and its error, the state paths written, each snapshot's
+        # timing, and the flags a signal handler sets
+        self._watchdog: resilience.DispatchWatchdog | None = None
+        self._fault_feed_cache = None
+        self._last_snapshot: tuple[int, str] | None = None
+        self._snapshot_thread: threading.Thread | None = None
+        self._snapshot_error: tuple[int, BaseException] | None = None
+        self._copy_stream = None
+        self.snapshots: list[str] = []
+        self.snapshot_log: list[dict] = []
+        self.requests = {"stop": False, "snapshot": False}
 
     def _share_params(self, tnet: Net) -> None:
         """A test net holds the train net's very `nn.Parameter`s and state
@@ -504,10 +581,27 @@ class Solver:
             gs[key].copy_(value)
         return ok
 
+    @staticmethod
+    def _graph_of(fn) -> tuple[torch.cuda.CUDAGraph, dict]:
+        """Capture what `fn` queues as a CUDA graph on the current stream.
+        The launch counts the capture raised are taken back; the graph
+        adds them at every replay."""
+        counters = launch_counters()
+        before = {c: c.launches for c in counters}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=torch.cuda.current_stream(),
+                              capture_error_mode="thread_local"):
+            fn()
+        deltas = {}
+        for c in counters:
+            if c.launches != before[c]:
+                deltas[c] = c.launches - before[c]
+                c.launches = before[c]
+        return graph, deltas
+
     def _capture(self, feeds: list[dict], masks: list[dict]) -> _Graph:
         """Capture one iteration of the current net and iter_size as a
-        CUDA graph on the chunk's stream. The launch counts the capture
-        raised are taken back; the graph adds them at every replay."""
+        CUDA graph on the chunk's stream."""
         key = (id(self.net), max(self.sp.iter_size, 1))
         log.info("capturing a CUDA graph of one iteration (net %s, "
                  "iter_size %d; graphs so far: %d)", self.net.name, key[1],
@@ -517,17 +611,8 @@ class Solver:
                          for k, v in f.items()} for f in feeds]
         static_masks = [{k: torch.empty_like(v) for k, v in m.items()}
                         for m in masks]
-        counters = launch_counters()
-        before = {c: c.launches for c in counters}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=torch.cuda.current_stream(),
-                              capture_error_mode="thread_local"):
-            self._iteration(static_feeds, static_masks)
-        deltas = {}
-        for c in counters:
-            if c.launches != before[c]:
-                deltas[c] = c.launches - before[c]
-                c.launches = before[c]
+        graph, deltas = self._graph_of(
+            lambda: self._iteration(static_feeds, static_masks))
         self._graphs[key] = _Graph(graph, static_feeds, static_masks,
                                    deltas)
         return self._graphs[key]
@@ -629,8 +714,75 @@ class Solver:
         self.skipped_steps = skips
         m = int(self.sp.guard_max_skips or 0)
         if m > 0 and consec >= m:
+            extra = {}
+            if "scale" in vals:
+                extra = {"loss_scale": float(vals["scale"]),
+                         "overflow_steps": int(vals["overflows"])}
+            try:
+                # the writer's "snapshot" entry must not land after this
+                self.wait_snapshots()
+            except RuntimeError:
+                log.exception("snapshot writer failed before the anomaly")
+            self._journal_run_state(
+                "numeric_anomaly", consec_skips=consec,
+                skipped_steps=skips, last_bad_iter=last_bad,
+                exit_code=resilience.EXIT_NUMERIC, **extra)
             raise NumericAnomalyError(boundary_iter, consec, skips,
                                       last_bad)
+
+    # ------------------------------------------------------------------
+    # The watchdog, the run journal and the fault sites
+    def _ensure_watchdog(self) -> None:
+        """Arm the hard-exit watchdog when watchdog_deadline > 0."""
+        deadline = float(self.sp.watchdog_deadline or 0.0)
+        if self._watchdog is not None or deadline <= 0:
+            return
+        self._watchdog = resilience.DispatchWatchdog(
+            deadline, self._watchdog_journal)
+        log.info("dispatch watchdog armed: %.1fs deadline (journals to %s "
+                 "and exits %d on a stuck device wait)", deadline,
+                 resilience.run_manifest_path(
+                     self.sp.snapshot_prefix or "snapshot"),
+                 resilience.EXIT_WATCHDOG)
+
+    def _section(self, label: str):
+        """A watchdog section around one host wait on the device (a
+        shared no-op when the watchdog is off; the JAX solver's
+        `_guard`)."""
+        wd = self._watchdog
+        return resilience.NULL_SECTION if wd is None else wd.section(label)
+
+    def _watchdog_journal(self, label: str, elapsed: float) -> None:
+        self._journal_run_state(
+            f"watchdog:{label}", stalled_s=round(elapsed, 1),
+            deadline_s=float(self.sp.watchdog_deadline or 0.0))
+
+    def _journal_run_state(self, reason: str, **extra) -> None:
+        """Write the run journal `<prefix>.run.json` (the JAX fields:
+        reason, iter, random_seed, the newest snapshot's iteration and
+        state path, and `extra`), which `-resume auto` and an operator
+        read after a crash. A failed write never stops training."""
+        last_it, last_state = self._last_snapshot or (None, None)
+        try:
+            resilience.write_run_manifest(
+                self.sp.snapshot_prefix or "snapshot", reason=reason,
+                iter=int(self.iter), random_seed=int(self.sp.random_seed),
+                last_snapshot_iter=last_it, last_snapshot_state=last_state,
+                **extra)
+        except OSError:
+            log.exception("run-manifest journal failed (continuing)")
+
+    def _fault_feed(self, feed_fn: FeedFn) -> FeedFn:
+        """FAULTS.wrap_feeds cached by the feed fn's identity and the
+        plane's configuration: one tuple check a step() when the sites
+        are off."""
+        cached = self._fault_feed_cache
+        if cached is not None and cached[0] is feed_fn \
+                and cached[1] == FAULTS.generation:
+            return cached[2]
+        wrapped = FAULTS.wrap_feeds(feed_fn)
+        self._fault_feed_cache = (feed_fn, FAULTS.generation, wrapped)
+        return wrapped
 
     def step(self, n: int, feed_fn: FeedFn, test_feed_fns=None, *,
              dropout_masks: MaskFn | None = None) -> float:
@@ -638,21 +790,32 @@ class Solver:
         of up to step_chunk. Returns the last iteration's loss.
         `dropout_masks(iteration, micro)` gives the masks that replace
         Dropout's draws (tests compare against another generator this
-        way)."""
+        way). Interval snapshots are written by the writer thread: the
+        newest may still be landing when step returns, and is on disk
+        only after `wait_snapshots`, `solve` or `close`."""
         sp = self.sp
+        self._ensure_watchdog()
+        feed_fn = self._fault_feed(feed_fn)
         imgs_per_iter = self._batch_images() * max(sp.iter_size, 1)
         loss_val = float("nan")
         t0, it0 = time.perf_counter(), self.iter
         testing = bool(test_feed_fns)
         while n > 0:
+            # test-only: the process dies at a chunk's start
+            FAULTS.maybe_exit("train_abort", key=self.iter)
             if (sp.test_interval and test_feed_fns
                     and self.iter % sp.test_interval == 0
                     and (self.iter > 0 or sp.test_initialization)):
                 self.test_all(test_feed_fns)
             c = self._chunk_at(self.iter, n, testing)
             ts = time.perf_counter()
-            vals = self._run_chunk(feed_fn, c, dropout_masks)
-            ms = (time.perf_counter() - ts) * 1e3 / c
+            # the chunk from its first launch to its read-back, a graph
+            # capture included, is one dispatch the watchdog bounds
+            with self._section("train dispatch"):
+                FAULTS.maybe_stall("dispatch_stall")
+                vals = self._run_chunk(feed_fn, c, dropout_masks)
+            self.chunk_ms.append((time.perf_counter() - ts) * 1e3)
+            ms = self.chunk_ms[-1] / c
             rows = vals[:3 * c].reshape(c, 3)
             for i, (loss, _, accepted) in enumerate(rows):
                 self.losses.append(float(loss))
@@ -678,15 +841,36 @@ class Solver:
                 self._check_guard(self.iter - 1,
                                   dict(zip(names, vals[3 * c:])))
             if sp.snapshot and self.iter % sp.snapshot == 0:
+                # an interval snapshot does not stall the loop (the
+                # reference's writes inline, solver.cpp:339-344)
+                self.snapshot(block=False)
+            if self.requests["snapshot"]:
+                self.requests["snapshot"] = False
                 self.snapshot()
+            if self.requests["stop"]:
+                log.info("stop requested: stopping at iteration %d",
+                         self.iter)
+                break
         return loss_val
 
     def solve(self, feed_fn: FeedFn, test_feed_fns=None) -> float:
-        """Train to max_iter (reference Solver::Solve)."""
+        """Train to max_iter (reference Solver::Solve); a stop request
+        ends it early with a snapshot (solver.cpp:402-407)."""
         loss = self.step(self.sp.max_iter - self.iter, feed_fn, test_feed_fns)
-        if self.should_snapshot_after_train():
+        if self.requests["stop"] or self.should_snapshot_after_train():
             self.snapshot()
+        self.wait_snapshots()  # interval snapshots land before return
         return loss
+
+    def close(self) -> None:
+        """Join an in-flight snapshot (re-raising its failure) and stop
+        the watchdog. Training results do not depend on it."""
+        try:
+            self.wait_snapshots()
+        finally:
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
 
     def should_snapshot_after_train(self) -> bool:
         """After-train snapshot, unless the interval snapshot just fired
@@ -700,10 +884,38 @@ class Solver:
         return 0
 
     # ------------------------------------------------------------------
+    # Evaluation (reference Solver::TestAll/Test, solver.cpp:439-540)
+    _TEST_SUPER_BATCH_BYTES = 256 << 20  # one chunk's feeds at most
+
+    def _test_chunk_len(self, tnet: Net, iters: int) -> int:
+        """T, the test batches of one chunk (the JAX `_test_chunk_len`):
+        `test_chunk` pins it; 0 takes the largest T whose feeds stay under
+        _TEST_SUPER_BATCH_BYTES, at most 64."""
+        k = int(self.sp.test_chunk or 0)
+        if k > 0:
+            return max(1, min(k, iters))
+        bytes_per = 0
+        for _key, (shape, kind) in tnet.feed_specs.items():
+            n = 1
+            for d in shape:
+                n *= int(d)
+            bytes_per += n * (1 if kind == "uint8" else 4)
+        if not bytes_per:  # no feed specs: the feed blobs' shapes
+            for b in tnet.feed_blobs:
+                n = 1
+                for d in tnet.blob_shapes.get(b, ()):
+                    n *= int(d)
+                bytes_per += n * 4
+        cap = max(int(self._TEST_SUPER_BATCH_BYTES // max(bytes_per, 1)), 1)
+        return max(1, min(iters, cap, 64))
+
     @torch.no_grad()
     def test_all(self, test_feed_fns) -> list[dict[str, float]]:
         """Evaluate every test net, averaging each output blob's sum over
-        test_iter batches (reference Solver::TestAll/Test)."""
+        test_iter batches (reference Solver::TestAll/Test), in chunks of
+        `_test_chunk_len` batches (`_test_chunk`), each output's sum added
+        on the device; one host read a test net a pass. The scores do not
+        depend on the chunk length."""
         results = []
         for ti, tnet in enumerate(self.test_nets):
             iters = self.sp.test_iter[ti] if ti < len(self.sp.test_iter) \
@@ -712,19 +924,66 @@ class Solver:
             if not out_blobs or iters == 0:
                 results.append({})
                 continue
-            acc = torch.zeros(len(out_blobs), dtype=torch.float32,
-                              device=self.device)
-            for k in range(iters):
-                blobs, _ = tnet(test_feed_fns[ti](k))
-                acc += torch.stack([blobs[b].float().sum()
-                                    for b in out_blobs])
-            vals = acc.cpu().numpy() / iters
+            acc = self._test_sums.get(ti)
+            if acc is None:  # the graphs add into this very tensor
+                acc = self._test_sums[ti] = torch.zeros(
+                    len(out_blobs), dtype=torch.float32, device=self.device)
+            acc.zero_()
+            t = self._test_chunk_len(tnet, iters)
+            for k0 in range(0, iters, t):
+                with self._section("eval dispatch"):
+                    feeds = [test_feed_fns[ti](k)
+                             for k in range(k0, min(k0 + t, iters))]
+                    self._test_chunk(ti, tnet, feeds, out_blobs, acc)
+                self.test_dispatch_count += 1
+            with self._section("eval harvest"):
+                vals = acc.cpu().numpy() / iters
+            self.test_host_reads += 1
+            self.test_pass_count += 1
             scores = {b: float(v) for b, v in zip(out_blobs, vals)}
             log.info("Test net #%d, iteration %d:", ti, self.iter)
             for b, v in scores.items():
                 log.info("    Test net #%d: %s = %.5g", ti, b, v)
             results.append(scores)
         return results
+
+    def _test_chunk(self, ti: int, tnet: Net, feeds: list[dict],
+                    out_blobs: list[str], acc: torch.Tensor) -> None:
+        """One chunk of a test pass: a forward of each feed, each output's
+        sum added to `acc` in the feeds' order. In the chunked mode on the
+        card, once the test net has run one eager chunk (the capture's
+        warm-up), a chunk is one replay of a CUDA graph of T forwards (one
+        graph a chunk length) on the solver's side stream, its feeds
+        copied into the graph's static inputs first."""
+        def forwards(fs):
+            for f in fs:
+                blobs, _ = tnet(f)
+                acc.add_(torch.stack([blobs[b].float().sum()
+                                      for b in out_blobs]))
+        if self.device.type != "cuda" or self.step_chunk <= 1 \
+                or any(layer.host_step for layer in tnet.layers):
+            forwards(feeds)
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        stream = self._stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            key = (ti, len(feeds))
+            if ti not in self._test_warm:
+                forwards(feeds)
+                self._test_warm.add(ti)
+            else:
+                if key not in self._test_graphs:
+                    static = [{k: torch.empty_like(torch.as_tensor(v),
+                                                   device=self.device)
+                               for k, v in f.items()} for f in feeds]
+                    graph, deltas = self._graph_of(
+                        lambda: forwards(static))
+                    self._test_graphs[key] = _Graph(graph, static, [],
+                                                    deltas)
+                self._test_graphs[key].replay(feeds, [])
+        torch.cuda.current_stream(self.device).wait_stream(stream)
 
     @staticmethod
     def _output_blobs(net: Net) -> list[str]:
@@ -735,36 +994,169 @@ class Solver:
     # ------------------------------------------------------------------
     # Snapshot / restore (reference solver.cpp:542-604): weights as a
     # .caffemodel and the solver state as a .solverstate, both binaryproto,
-    # each written to a temporary file and moved into place.
-    def snapshot(self) -> str:
-        """Write `<prefix>_iter_<N>.caffemodel` and `.solverstate`;
-        returns the state's path."""
-        if str(self.sp.snapshot_format).upper() != "BINARYPROTO":
-            raise NotImplementedError(
-                f"snapshot_format {self.sp.snapshot_format}: the port "
-                "writes BINARYPROTO snapshots only")
+    # then the crc32c manifest that commits them.
+    def snapshot(self, block: bool = True) -> str:
+        """Write `<prefix>_iter_<N>.caffemodel`, `.solverstate` and
+        `.manifest.json`; returns the state's path (block=True) or ""
+        (block=False: the files are written by the writer thread, which
+        `wait_snapshots` joins). The `snapshot_sync` fault site makes an
+        interval snapshot block, so injected faults land at fixed
+        iterations."""
+        if not block and FAULTS.fire("snapshot_sync") is not None:
+            block = True
+        it, step = self.iter, self._current_step()
+        t0 = time.perf_counter()
+        log.info("snapshot at iteration %d; kernel launches so far: %s",
+                 it, json.dumps(launch_counts()))
+        if block:
+            self.wait_snapshots()
+            with self._section("snapshot gather"):
+                view = self._snapshot_view(to_host=True)
+            path = self._write_snapshot(view, it, step)
+            ms = (time.perf_counter() - t0) * 1e3
+            self.snapshot_log.append({"iter": it, "block": True,
+                                      "stall_ms": ms, "write_ms": ms})
+            return path
+        with self._section("snapshot settle"):
+            view = self._snapshot_view(to_host=False)
+        self.wait_snapshots()  # one writer in flight: writes stay ordered
+        entry = {"iter": it, "block": False}
+        self._snapshot_thread = threading.Thread(
+            target=self._write_snapshot_guarded, args=(view, it, step, entry),
+            daemon=True, name="snapshot-writer")
+        self._snapshot_thread.start()
+        entry["stall_ms"] = (time.perf_counter() - t0) * 1e3
+        self.snapshot_log.append(entry)
+        return ""
+
+    def _snapshot_view(self, to_host: bool) -> dict:
+        """A point-in-time copy of what a snapshot writes: the weights in
+        `Net.weight_tensors` form and the history in `_history_blobs`
+        order. to_host: copied to the host now. Else copied on the device,
+        on the current stream, which the next chunk's stream waits on
+        before it replays (so the copy sees this boundary's values), with
+        an event recorded after the copies for the writer to wait on."""
+        done: dict[int, torch.Tensor] = {}
+
+        def copy(t):
+            if t is None:
+                return None
+            if id(t) not in done:  # a shared param once
+                t = t.detach()
+                done[id(t)] = t.to("cpu", copy=True) if to_host \
+                    else t.clone()
+            return done[id(t)]
+
+        with torch.no_grad():
+            weights = {name: [copy(t) for t in blobs] for name, blobs
+                       in self.net.weight_tensors().items()}
+            history = [copy(t) for t in self._history_tensors()]
+        event = None
+        if not to_host and self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return {"weights": weights, "history": history, "event": event}
+
+    def _view_to_host(self, view: dict) -> dict:
+        """The writer thread's copy of a device view to the host, on a
+        stream of its own, after the copy's event."""
+        if view["event"] is None:
+            return view
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        stream = self._copy_stream
+        with torch.cuda.stream(stream):
+            stream.wait_event(view["event"])
+            done: dict[int, torch.Tensor] = {}
+
+            def host(t):
+                if t is None:
+                    return None
+                if id(t) not in done:
+                    done[id(t)] = t.to("cpu")
+                return done[id(t)]
+            out = {"weights": {name: [host(t) for t in blobs] for name, blobs
+                               in view["weights"].items()},
+                   "history": [host(t) for t in view["history"]],
+                   "event": None}
+        return out
+
+    def wait_snapshots(self, timeout: float = 600.0) -> None:
+        """Join an in-flight snapshot writer. A failed write re-raises
+        with its iteration: a snapshot the user believes exists must not
+        end in exit 0. The join is bounded: a writer wedged in a device
+        copy fails loudly instead of hanging the exit."""
+        t = self._snapshot_thread
+        if t is not None:
+            t.join(timeout)
+            if t.is_alive():
+                raise RuntimeError(
+                    f"snapshot writer still running after {timeout:g}s; "
+                    "the snapshot it was writing must be considered "
+                    "missing")
+            self._snapshot_thread = None
+        err = self._snapshot_error
+        if err is not None:
+            self._snapshot_error = None
+            it, exc = err
+            raise RuntimeError(f"async snapshot failed at iteration {it}"
+                               ) from exc
+
+    def _write_snapshot_guarded(self, view: dict, it: int, step: int,
+                                entry: dict) -> None:
+        t0 = time.perf_counter()
+        try:
+            with self._section("snapshot gather"):
+                view = self._view_to_host(view)
+            self._write_snapshot(view, it, step)
+        except BaseException as e:  # noqa: BLE001 — wait_snapshots raises
+            self._snapshot_error = (it, e)
+        entry["write_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def _write_snapshot(self, view: dict, it: int, step: int) -> str:
+        """The verified snapshot of a host view: each file written to a
+        temporary path and moved into place, then the crc32c manifest
+        last, so a kill at any point leaves a complete, verifiable
+        snapshot or no manifest (and the previous one loadable). Then the
+        journal's resume pointer advances and `snapshot_keep` GC runs."""
         prefix = self.sp.snapshot_prefix or "snapshot"
         os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
-        model_path = f"{prefix}_iter_{self.iter}.caffemodel"
-        caffe_io.save_caffemodel(
-            model_path, self.net.export_weights(), self.net.name,
-            {l.name: l.lp.type for l in self.net.layers})
-        state_path = f"{prefix}_iter_{self.iter}.solverstate"
-        caffe_io.save_solverstate(state_path, self.iter, model_path,
-                                  self._history_blobs(),
-                                  self._current_step())
-        log.info("Snapshotting to %s + %s", model_path, state_path)
+        model_path = f"{prefix}_iter_{it}.caffemodel"
+        with resilience.atomic_output(model_path) as tmp:
+            caffe_io.save_caffemodel(
+                tmp, self.net.export_weights(view["weights"]), self.net.name,
+                {l.name: l.lp.type for l in self.net.layers})
+        FAULTS.maybe_exit("snapshot_kill")  # test-only: die mid-snapshot
+        state_path = f"{prefix}_iter_{it}.solverstate"
+        with resilience.atomic_output(state_path) as tmp:
+            caffe_io.save_solverstate(
+                tmp, it, model_path,
+                [h.float().numpy() for h in view["history"]], step)
+        manifest = resilience.write_snapshot_manifest(
+            state_path, it, {"model": model_path, "state": state_path})
+        # test-only: bitrot after the manifest, which a load must catch
+        FAULTS.corrupt_file("snapshot_corrupt", model_path)
+        self._last_snapshot = (it, state_path)
+        self.snapshots.append(state_path)
+        self._journal_run_state("snapshot")
+        keep = int(self.sp.snapshot_keep or 0)
+        if keep > 0:
+            # this writer has just checksummed `manifest`'s files
+            resilience.gc_snapshots(prefix, keep, assume_verified=manifest)
+        log.info("Snapshotting to %s + %s (manifest %s)", model_path,
+                 state_path, os.path.basename(manifest))
         return state_path
 
-    def _history_blobs(self) -> list[np.ndarray]:
-        """Optimizer slots as the reference's flat history list: params in
-        net order, slot-major (history[i + s*N] = slot s of param i;
+    def _history_tensors(self) -> list[torch.Tensor]:
+        """Optimizer slots in the reference's flat history order: params
+        in net order, slot-major (history[i + s*N] = slot s of param i;
         sgd_solver.cpp PreSolve + adam_solver.cpp:37-39)."""
-        out = []
-        for s in range(n_slots(self.type)):
-            for lname, pname, _, _ in self._decls:
-                out.append(self.history[(lname, pname)][s].cpu().numpy())
-        return out
+        return [self.history[(lname, pname)][s]
+                for s in range(n_slots(self.type))
+                for lname, pname, _, _ in self._decls]
+
+    def _history_blobs(self) -> list[np.ndarray]:
+        return [h.cpu().numpy() for h in self._history_tensors()]
 
     def _current_step(self) -> int:
         """Reference current_step_: multistep stage index (solver.cpp)."""
@@ -772,13 +1164,76 @@ class Solver:
             return sum(1 for v in self.sp.stepvalue if self.iter >= v)
         return 0
 
-    def restore(self, path: str) -> None:
+    def restore_auto(self, prefix: str | None = None) -> str | None:
+        """Resume from the newest VERIFIED snapshot of `prefix` (`-resume
+        auto`; the JAX `restore_auto`): manifests newest first, a corrupt
+        or unloadable one logged and skipped; then manifest-less
+        (legacy) snapshots, newest first, never one a manifest covers.
+        Returns the state path restored, or None (a fresh start)."""
+        prefix = prefix or self.sp.snapshot_prefix or "snapshot"
+        run = resilience.read_run_manifest(prefix)
+        if run is not None:
+            log.info("run manifest %s: previous run ended at iter %s "
+                     "(reason %r)", resilience.run_manifest_path(prefix),
+                     run.get("iter"), run.get("reason"))
+        for doc in resilience.verified_snapshots(prefix):
+            it = int(doc["iteration"])
+            try:
+                self.restore(doc["state"], verify=False)
+            except Exception:  # noqa: BLE001 — an older one is the recovery
+                log.exception("verified snapshot at iter %d failed to "
+                              "load; falling back", it)
+                continue
+            self._last_snapshot = (it, doc["state"])
+            return doc["state"]
+        d = os.path.dirname(prefix) or "."
+        pat = re.compile(re.escape(os.path.basename(prefix) + "_iter_")
+                         + r"(\d+)(\.solverstate(\.h5)?|\.orbax)$")
+        cands = []
+        try:
+            for name in os.listdir(d):
+                m = pat.match(name)
+                if m:
+                    cands.append((int(m.group(1)), os.path.join(d, name)))
+        except OSError:
+            cands = []
+        for it, path in sorted(cands, reverse=True):
+            mp = resilience.manifest_for_state(path)
+            if mp and os.path.exists(mp):
+                continue  # a manifest covers it: verified above, or failed
+            try:
+                self.restore(path, verify=False)
+            except Exception:  # noqa: BLE001 — an older one is the recovery
+                log.exception("legacy snapshot %s failed to load; "
+                              "falling back", path)
+                continue
+            log.warning("resumed from legacy (unverified) snapshot %s",
+                        path)
+            self._last_snapshot = (it, path)
+            return path
+        log.info("no usable snapshot under prefix %r; starting fresh",
+                 prefix)
+        return None
+
+    def restore(self, path: str, *, verify: bool = True) -> None:
         """Resume from a .solverstate (reference Solver::Restore /
         SGDSolver::RestoreSolverStateFromBinaryProto): the iteration, the
-        weights of its learned_net, and the history blobs."""
-        if path.endswith((".h5", ".hdf5", ".npz")):
-            raise NotImplementedError(f"{path}: the port restores "
-                                      "binaryproto .solverstate files only")
+        weights of its learned_net, and the history blobs. Where the
+        snapshot has a manifest it is verified first and a mismatch
+        raises SnapshotCorruptError (restore_auto falls back instead); a
+        manifest-less snapshot loads unverified."""
+        if verify:
+            mpath = resilience.manifest_for_state(path)
+            if mpath is not None and os.path.exists(mpath) \
+                    and resilience.verify_snapshot(mpath) is None:
+                raise resilience.SnapshotCorruptError(
+                    f"snapshot {path} failed crc32c verification against "
+                    f"{mpath}; resume with -resume auto to fall back to "
+                    "the newest prior verified snapshot")
+        if path.rstrip("/").endswith((".h5", ".hdf5", ".npz", ".orbax")):
+            raise NotImplementedError(
+                f"{path}: the port restores binaryproto .solverstate files "
+                "only (HDF5 snapshots: ROADMAP.md §1 item 4)")
         it, learned_net, history, _ = caffe_io.load_solverstate(path)
         if learned_net:
             if not os.path.exists(learned_net):
@@ -803,8 +1258,8 @@ class Solver:
                     slot.copy_(torch.from_numpy(np.array(
                         history[i + s * n], np.float32).reshape(
                             tuple(p.shape))))
-            # a restored run starts with a fresh guard carry, as the JAX
-            # solver's
+            # a restored run starts with a fresh guard carry and loss
+            # scale, as the JAX solver's: neither is in a .solverstate
             if self._gs is not None:
                 for key, value in self._carry0().items():
                     self._gs[key].copy_(value)

@@ -59,18 +59,44 @@ the prototxt's); a numeric divergence the guard declares exits 88
 guard's skips, overflows and loss scale, and the chunks run (one
 dispatch and one host sync each).
 
+Survivable training (the JAX CLI's flags): `-resume auto` resumes from the
+newest verified snapshot under the snapshot prefix (a corrupt one falls
+back to an older one; none is a fresh start; a path behaves like
+`-snapshot`, which itself falls back to `-resume auto` when its manifest
+fails); `-snapshot_every N`, `-snapshot_keep N`, `-watchdog_deadline S`
+(a device wait longer than S seconds journals `watchdog:<label>` and
+exits 86), `-test_chunk T`, `-lr_scale F` (base_lr x F), and signals
+that only set a flag acted on at the next chunk boundary:
+`-sigint_effect` (default stop: stop and snapshot, reference
+solver.cpp:402-407) and `-sighup_effect` (default snapshot).
+`-max_restarts N` makes this process a supervisor
+(resilience.supervise): the run goes to a child process (the same argv
+without `-max_restarts`, the caller's `-device` with it), restarted with
+`-resume auto` and exponential backoff up to N times; its exit 88 goes
+through `-anomaly_action` (rewind, rewind_lr: also `-lr_scale
+anomaly_lr_mult^k`, abort: no restart). Each failed attempt is a line of
+`<prefix>.failures.log`. The supervisor itself touches no card. Exit
+codes: 86 a watchdog trip, 87 an injected fault, 88 a numeric
+divergence. The summary adds `resumed_from`, `snapshots` (the state
+paths written), `snapshot_log` (each snapshot's stall and write ms) and
+`kernel_launches` (K1-K5), so a parent reads its children.
+
+`serve -watch PREFIX` hot-swaps each newly verified snapshot of a
+training run into the served model (serving/watch.py: verify, canary,
+no capture); with `-smoke` the watcher polls once before the traffic.
+
 The JAX CLI's flags for solver and serving fields the port does not
-honour yet (`-test_chunk`, `-anomaly_action`, `-serve_dtype`, ...: one
-flag a field of the Solver's and the engine's UNPORTED_FIELDS) are
-accepted and land on their parameter, which the Solver or the engine
-refuses at any value but its default; the command then exits 1.
+honour yet (`-zero_stage`, `-serve_replicas`, ...: one flag a field of
+the Solver's and the engine's UNPORTED_FIELDS) are accepted and land on
+their parameter, which the Solver or the engine refuses at any value but
+its default; the command then exits 1.
 
 Usage (gflags-compatible single-dash long flags accepted):
-    python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt [-synthetic] [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate] [-precision bf16] [-loss_scale S] [-step_chunk K] [-train_guard] [-device cuda|cpu]
+    python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt [-synthetic] [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate | -resume auto|PATH] [-snapshot_every N] [-snapshot_keep N] [-max_restarts N] [-anomaly_action rewind|rewind_lr|abort] [-watchdog_deadline S] [-test_chunk T] [-precision bf16] [-loss_scale S] [-step_chunk K] [-train_guard] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli test -model train_val.prototxt [-weights w.caffemodel] [-iterations N] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli time -model train_val.prototxt [-iterations N] [-phase TRAIN|TEST] [-profile DIR] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli device_query
-    python -m caffe_mpi_tpu_torch.tools.cli serve -model deploy.prototxt [-weights w.caffemodel] [-port P | -smoke N] [-labels L] [-image_root DIR] [-serve_buckets 1,4,10] [-serve_window_ms W] [-serve_dtype f32|bf16] [-serve_hbm_mb M] [-serve_queue_limit Q] [-serve_deadline_ms D] [-serve_stall_s S] [-serve_decoded_cache_mb C] [-require_native_ingest] [-device cuda|cpu]
+    python -m caffe_mpi_tpu_torch.tools.cli serve -model deploy.prototxt [-weights w.caffemodel] [-port P | -smoke N] [-labels L] [-image_root DIR] [-serve_buckets 1,4,10] [-serve_window_ms W] [-serve_dtype f32|bf16] [-serve_hbm_mb M] [-serve_queue_limit Q] [-serve_deadline_ms D] [-serve_stall_s S] [-serve_decoded_cache_mb C] [-require_native_ingest] [-watch PREFIX] [-device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -80,6 +106,7 @@ import json
 import logging
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -206,6 +233,68 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-device", "--device", default="cuda",
                    help="device to run on (default: cuda; 'cpu' runs "
                    "on the CPU)")
+    # survivable training (the JAX CLI's flags)
+    p.add_argument("-resume", "--resume", default="",
+                   help="'auto' = resume from the newest VERIFIED snapshot "
+                   "under the snapshot prefix (crc32c manifests, newest "
+                   "first; a corrupt one falls back to an older one; none "
+                   "= a fresh start). A path behaves like -snapshot")
+    p.add_argument("-max_restarts", "--max-restarts", dest="max_restarts",
+                   type=int, default=0,
+                   help="supervise: run training in a contained child "
+                   "process and restart it (-resume auto, exponential "
+                   "backoff) up to N times on a failure, a watchdog exit "
+                   "86 included (0 = unsupervised)")
+    p.add_argument("-watchdog_deadline", "--watchdog-deadline",
+                   dest="watchdog_deadline", type=float, default=0.0,
+                   help="arm the dispatch watchdog: journal the run state "
+                   "and exit 86 when a device wait (a chunk, a test pass, "
+                   "a snapshot copy) lasts longer than this many seconds "
+                   "(overrides solver watchdog_deadline; 0 = the "
+                   "prototxt's, default off). It must exceed the first "
+                   "chunk, which holds the CUDA graph capture, cuDNN's "
+                   "algorithm search and the kernel libraries' first load "
+                   "(1.2-1.9 s for LeNet and AlexNet b256 at step_chunk "
+                   "10 on an H100, chip_smoke.py's survive phase)")
+    p.add_argument("-snapshot_every", "--snapshot-every",
+                   dest="snapshot_every", type=int, default=0,
+                   help="override the solver's snapshot interval (0 = the "
+                   "prototxt's)")
+    p.add_argument("-snapshot_keep", "--snapshot-keep",
+                   dest="snapshot_keep", type=int, default=0,
+                   help="keep the newest N snapshots, deleting older ones "
+                   "after each write, never the newest verified one "
+                   "(overrides solver snapshot_keep; 0 = the prototxt's, "
+                   "default all)")
+    p.add_argument("-anomaly_action", "--anomaly-action",
+                   dest="anomaly_action", default="",
+                   choices=["", "rewind", "rewind_lr", "abort"],
+                   help="supervisor policy on exit 88: rewind to the newest "
+                   "verified snapshot (default), rewind_lr = also scale "
+                   "base_lr by anomaly_lr_mult a numeric restart, abort = "
+                   "no restart (overrides solver anomaly_action)")
+    p.add_argument("-lr_scale", "--lr-scale", dest="lr_scale", type=float,
+                   default=1.0,
+                   help="multiply the solver's base_lr (the supervisor sets "
+                   "it on rewind_lr restarts)")
+    p.add_argument("-test_chunk", "--test-chunk", dest="test_chunk",
+                   type=int, default=0,
+                   help="test batches a chunk of a test pass (overrides "
+                   "solver test_chunk; 0 = the prototxt's, default auto: "
+                   "as many as fit 256 MiB of feeds, at most 64)")
+    p.add_argument("-sigint_effect", "--sigint-effect", dest="sigint_effect",
+                   default="stop", choices=["stop", "snapshot", "none"],
+                   help="train: what SIGINT does at the next chunk "
+                   "boundary (stop = snapshot and stop)")
+    p.add_argument("-sighup_effect", "--sighup-effect", dest="sighup_effect",
+                   default="snapshot", choices=["stop", "snapshot", "none"],
+                   help="train: what SIGHUP does at the next chunk boundary")
+    p.add_argument("-watch", "--watch", dest="serve_watch", default="",
+                   help="serve: a training run's snapshot prefix; each newly "
+                   "crc32c-verified snapshot is canary-gated and copied "
+                   "into the served model's live tensors (no capture); a "
+                   "rejected one is journaled and the previous weights "
+                   "keep serving")
     for param, table in _unported():
         for name, item in table:
             default = getattr(param(), name)
@@ -327,11 +416,72 @@ def window_img_per_s(batch: int, step_ms: list[float]) -> float:
         else float("nan")
 
 
+def _signal_handlers(solver, args):
+    """SIGINT and SIGHUP set the solver's request flags, acted on at the
+    next chunk boundary (a handler never touches the device). Returns
+    the previous handlers; nothing is installed off the main thread."""
+    import signal
+    import threading
+    if threading.current_thread() is not threading.main_thread():
+        return {}
+
+    def handler(effect):
+        def on_signal(signum, frame):
+            if effect in ("stop", "snapshot"):
+                solver.requests[effect] = True
+                log.info("signal %d: %s at the next chunk boundary",
+                         signum, effect)
+        return on_signal
+
+    prev = {}
+    for sig, effect in ((signal.SIGINT, args.sigint_effect),
+                        (getattr(signal, "SIGHUP", None),
+                         args.sighup_effect)):
+        if sig is not None:
+            prev[sig] = signal.signal(sig, handler(effect))
+    return prev
+
+
+def _resume(solver, args):
+    """The JAX CLI's resume order: `-resume auto` first; then `-snapshot`
+    (or a `-resume` path), falling back to the newest verified snapshot
+    when its manifest fails; then `-weights`. Returns the state path
+    resumed from, or None."""
+    from ..utils.resilience import SnapshotCorruptError
+    snapshot = args.snapshot
+    if args.resume and args.resume != "auto":
+        snapshot = snapshot or args.resume
+    if args.resume == "auto":
+        resumed = solver.restore_auto()
+        if resumed is not None:
+            return resumed
+    if snapshot:
+        try:
+            solver.restore(snapshot)
+            return snapshot
+        except SnapshotCorruptError as e:
+            log.warning("%s", e)
+            resumed = solver.restore_auto()
+            if resumed is None:
+                raise
+            log.warning("resumed from %s instead of the corrupt %s",
+                        resumed, snapshot)
+            return resumed
+    if args.weights:
+        for w in args.weights.split(","):
+            solver.load_weights(w)
+    return None
+
+
 def train(args):
     """Build the solver from `args`, resume or load weights, train to
     max_iter with a test pass at every test_interval and at the end, and
-    snapshot after training. Returns (solver, summary dict)."""
+    snapshot after training (or at a stop request). Returns (solver,
+    summary dict)."""
+    import signal
+
     from ..data.feeder import Feeder
+    from ..ops import launch_counts
     from ..proto import SolverParameter
     from ..solver import Solver
     from ..utils.resilience import QUARANTINE, quarantine_journal_path
@@ -344,6 +494,16 @@ def train(args):
         sp.test_iter = [args.test_iter] * max(len(sp.test_iter), 1)
     if args.snapshot_prefix:
         sp.snapshot_prefix = args.snapshot_prefix
+    if args.snapshot_every:
+        sp.snapshot = args.snapshot_every
+    if args.snapshot_keep:
+        sp.snapshot_keep = args.snapshot_keep
+    if args.watchdog_deadline:
+        sp.watchdog_deadline = args.watchdog_deadline
+    if args.test_chunk:
+        sp.test_chunk = args.test_chunk
+    if args.anomaly_action:
+        sp.anomaly_action = args.anomaly_action
     if args.step_chunk:
         sp.step_chunk = args.step_chunk
     if args.precision:
@@ -356,6 +516,12 @@ def train(args):
         sp.train_guard = True
     if args.guard_max_skips >= 0:  # 0 is "never exit"
         sp.guard_max_skips = args.guard_max_skips
+    if args.lr_scale != 1.0:
+        # a rewind_lr restart: the replay must not step straight back
+        # into the divergence
+        sp.base_lr = sp.base_lr * args.lr_scale
+        log.info("base_lr scaled by %g -> %g (anomaly rewind)",
+                 args.lr_scale, sp.base_lr)
     _apply_unported(args, sp)
     # net paths in the solver are relative to the working directory, as
     # the reference's are (and so are its Data layers' sources); an
@@ -363,11 +529,9 @@ def train(args):
     model_dir = "" if (sp.net and os.path.exists(sp.net)) \
         else os.path.dirname(os.path.abspath(args.solver))
     solver = Solver(sp, model_dir=model_dir, device=args.device)
-    if args.snapshot:
-        solver.restore(args.snapshot)
-    elif args.weights:
-        for w in args.weights.split(","):
-            solver.load_weights(w)
+    t0 = time.perf_counter()
+    resumed = _resume(solver, args)
+    resume_ms = (time.perf_counter() - t0) * 1e3
     feed_fn, test_feed_fns, opened, feeder = _feed_fns(solver,
                                                        args.synthetic)
     # corrupt records the feeders substitute are journaled beside the
@@ -375,21 +539,27 @@ def train(args):
     QUARANTINE.configure(quarantine_journal_path(
         sp.snapshot_prefix or "snapshot"))
     start = solver.iter
+    prev = _signal_handlers(solver, args)
+    snapshot, scores = None, None
     try:
         solver.step(sp.max_iter - solver.iter, feed_fn, test_feed_fns)
-        scores = None
-        if test_feed_fns and sp.test_interval:
+        stopped = solver.requests["stop"]
+        if not stopped and test_feed_fns and sp.test_interval:
             # final evaluation, as the JAX CLI runs it after the last
             # iteration
             scores = solver.test_all(test_feed_fns)
+        if stopped or (sp.snapshot_prefix
+                       and solver.should_snapshot_after_train()):
+            snapshot = solver.snapshot()
     finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
         for f in opened:
             f.close()
         # the journal's debounced tail is written on every exit path
         QUARANTINE.flush()
-    snapshot = None
-    if sp.snapshot_prefix and solver.should_snapshot_after_train():
-        snapshot = solver.snapshot()
+        # interval snapshots land (or raise) before the run counts as done
+        solver.close()
     batch = solver._batch_images() * max(sp.iter_size, 1)
     med = float(np.median(solver.iter_ms)) if solver.iter_ms \
         else float("nan")
@@ -398,12 +568,17 @@ def train(args):
         "solver": args.solver, "device": str(solver.device),
         "start_iter": start, "iters": solver.iter - start, "batch": batch,
         "losses": list(solver.losses), "iter_ms": list(solver.iter_ms),
-        "median_iter_ms": med,
+        "chunk_ms": list(solver.chunk_ms), "median_iter_ms": med,
         "img_per_s": batch / (med / 1e3),
         # the first step (its warm-up) left out
         "window_img_per_s": window_img_per_s(batch, solver.iter_ms[1:]),
         "test_scores": scores,
         "snapshot": snapshot,
+        "resumed_from": resumed, "resume_ms": resume_ms,
+        "stopped": solver.requests["stop"],
+        "snapshots": list(solver.snapshots),
+        "snapshot_log": list(solver.snapshot_log),
+        "kernel_launches": launch_counts(),
         "data": "synthetic" if feeder is None else "dataset",
         "device_transform": bool(data is not None and data.dev_transform),
         # a Feeder's build telemetry (a WindowFeeder builds each batch on
@@ -423,11 +598,67 @@ def train(args):
         "dispatch_count": solver.dispatch_count,
         "host_sync_count": solver.host_sync_count,
         "graph_replays": solver.graph_replays,
+        "test_dispatch_count": solver.test_dispatch_count,
+        "test_host_reads": solver.test_host_reads,
     }
     return solver, summary
 
 
+def _strip_flags(argv: list[str], flags: tuple[str, ...],
+                 with_value: bool = True) -> list[str]:
+    """`argv` without `flags` (and their values, or `=`-joined forms)."""
+    out, skip = [], False
+    for tok in argv:
+        if skip:
+            skip = False
+            continue
+        if tok in flags:
+            skip = with_value
+            continue
+        if tok.startswith(tuple(f + "=" for f in flags)):
+            continue
+        out.append(tok)
+    return out
+
+
+def _supervised_train(args) -> int:
+    """`train -max_restarts N`: run the training in a contained child (the
+    argv without `-max_restarts`, so the caller's `-device` goes with it,
+    and an environment marker against recursion) and restart it from the
+    newest verified snapshot (`-resume auto`) with exponential backoff,
+    a watchdog's exit 86 included, through resilience.supervise. The
+    failure log is `<snapshot_prefix>.failures.log`. This process touches
+    no card."""
+    from ..proto import SolverParameter
+    from ..utils import resilience
+    argv = list(getattr(args, "_argv", None) or sys.argv[1:])
+    child_argv = _strip_flags(
+        argv, ("-max_restarts", "--max-restarts", "--max_restarts"))
+    sp = SolverParameter.from_file(args.solver)
+    prefix = args.snapshot_prefix or sp.snapshot_prefix or "snapshot"
+    env = dict(os.environ, CAFFE_SUPERVISED_CHILD="1")
+    anomaly_action = args.anomaly_action or sp.anomaly_action or "rewind"
+    base_cmd = [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.cli"] \
+        + child_argv
+    resume_cmd = base_cmd
+    if not any(t in ("-resume", "--resume")
+               or t.startswith(("-resume=", "--resume="))
+               for t in child_argv):
+        resume_cmd = base_cmd + ["-resume", "auto"]
+    return resilience.supervise(
+        base_cmd, resume_cmd, args.max_restarts,
+        failure_log=prefix + ".failures.log", env=env,
+        anomaly_action=anomaly_action,
+        anomaly_lr_mult=sp.anomaly_lr_mult, journal_prefix=prefix)
+
+
 def cmd_train(args) -> int:
+    if args.max_restarts > 0 \
+            and os.environ.get("CAFFE_SUPERVISED_CHILD") != "1":
+        if not args.solver:
+            log.error("train requires -solver")
+            return 1
+        return _supervised_train(args)
     from ..data.feeder import FeedError
     from ..utils.resilience import (EXIT_NUMERIC, DataIntegrityError,
                                     NumericAnomalyError)
@@ -438,9 +669,12 @@ def cmd_train(args) -> int:
         log.error("%s", e)
         return 1
     except NumericAnomalyError as e:
-        log.error("%s; exiting %d", e, EXIT_NUMERIC)
+        # the solver has journaled it; exit 88 routes the supervisor
+        # through anomaly_action
+        log.error("%s; exiting %d for the supervisor to rewind", e,
+                  EXIT_NUMERIC)
         return EXIT_NUMERIC
-    print(json.dumps({"train": summary}))
+    print(json.dumps({"train": summary}), flush=True)
     # a step the guard skipped may have a non-finite loss
     skipped = set(summary["skipped_iters"])
     losses = [l for i, l in enumerate(summary["losses"])
@@ -513,8 +747,6 @@ class _Clock:
         self.iters = max(iters, 1)
 
     def __call__(self, fn) -> float:
-        import time
-
         import torch
         fn()
         if self.cuda:
@@ -763,10 +995,19 @@ def cmd_serve(args) -> int:
     except BaseException:
         engine.close()
         raise
+    watcher = None
+    if args.serve_watch:
+        from ..serving.watch import SnapshotWatcher
+        watcher = SnapshotWatcher(engine, "default", args.serve_watch)
+        if args.smoke:
+            watcher.check_once()  # the smoke's traffic meets the swap
+        watcher.start()
     if args.smoke:
         try:
             return _serve_smoke(args, engine, srv)
         finally:
+            if watcher is not None:
+                watcher.stop()
             srv.shutdown()
             srv.server_close()
             engine.close()
@@ -780,6 +1021,9 @@ def cmd_serve(args) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        # the watcher stops before the engine: no swap into a closing one
+        if watcher is not None:
+            watcher.stop()
         srv.server_close()
         # graceful: stop accepting, flush the window, resolve every
         # in-flight future, then close
@@ -902,6 +1146,8 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = parse_args(argv)
+    # the supervisor hands its children this argv
+    args._argv = list(argv) if argv is not None else sys.argv[1:]
     return {"train": cmd_train, "test": cmd_test, "time": cmd_time,
             "device_query": cmd_device_query,
             "serve": cmd_serve}[args.command](args)

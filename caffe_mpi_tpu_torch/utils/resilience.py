@@ -1,28 +1,40 @@
-"""Resilience: numeric divergence, and the data plane's integrity errors,
-fault sites, bounded retry and quarantine journal.
+"""Resilience: verified snapshots, the fault plane, the dispatch watchdog,
+the supervisor, and the data plane's integrity errors and quarantine
+journal.
 
-The port's copy of what it needs of the JAX package's
-`caffe_mpi_tpu/utils/resilience.py`:
+The port's copy of the single-host half of the JAX package's
+`caffe_mpi_tpu/utils/resilience.py`, name for name, with its exit codes,
+journal reasons, manifest fields and fault-site names:
 
-- EXIT_NUMERIC and NumericAnomalyError (the skip-step guard's exit);
+- exit codes: EXIT_WATCHDOG 86 (a watchdog trip), EXIT_FAULT 87 (an
+  injected fault), EXIT_NUMERIC 88 (the skip-step guard's divergence,
+  NumericAnomalyError);
 - RecordIntegrityError (one record failed its crc32c, its page structure
   or its parse) and DataIntegrityError (corruption past the quarantine
   bound: systematic, not record-level);
-- the fault sites the data plane reads (`FAULTS`: `feeder_read`,
-  `record_corrupt`, `record_decode`), configured from the
-  `CAFFE_TPU_FAULTS` environment variable and free when it is unset;
-- `retrying`, the bounded backoff of a dataset read;
-- the quarantine journal `QUARANTINE`, bound by the CLI to
-  `quarantine_journal_path(<snapshot_prefix>)` (one host);
-- the serving plane's fault sites (`serve_dispatch_stall`,
-  `swap_canary_bad`), the run journal (`run_manifest_path`,
-  `write_run_manifest`, `read_run_manifest`: the serving journal
-  `<model>.serve.run.json`) and the `DispatchWatchdog` behind the serving
-  stall breaker.
+- the fault plane `FAULTS`, configured from `CAFFE_TPU_FAULTS`
+  (`site:count:skip:arg`; a count <= 0 is sticky) and, across process
+  restarts, `CAFFE_TPU_FAULTS_DIR` (a site that has fired leaves a
+  `<site>.done` file there, and a later process loads it disabled); free
+  when unset;
+- verified snapshots: `atomic_output`, `crc32c_file` (the native
+  library's crc32c, a chunk at a time), the snapshot manifest
+  `<prefix>_iter_<N>.manifest.json` written last (the snapshot's commit
+  point), `verify_snapshot`, `iter_snapshot_manifests`,
+  `verified_snapshots`, `latest_verified_snapshot`, `gc_snapshots` (never the newest verified
+  snapshot), and the single-file manifests;
+- the run journal `<prefix>.run.json` and the quarantine journal;
+- `DispatchWatchdog`: a monitor thread that bounds device waits; the
+  solver's journals the run state and exits EXIT_WATCHDOG, the serving
+  stall breaker's (`hard_exit=False`) calls back and stays up;
+- `supervise`: a training child under `subproc.run_contained`, restarted
+  with exponential backoff up to a crash-loop guard, its exit 88 routed
+  through `anomaly_action` (rewind, rewind_lr, abort).
 
-The snapshot manifests, the supervisor and its `anomaly_action` policy
-are not ported (ROADMAP.md section 1 item 4), nor the multi-host journal
-merge (item 6).
+The multi-host half (heartbeats, `supervise_elastic`, sharded manifests'
+writer, the quarantine journals' merge) waits for ROADMAP.md section 1
+item 6. `verify_snapshot` and `gc_snapshots` read a sharded (.orbax)
+manifest as the JAX ones do, so a mixed directory scans the same.
 """
 
 from __future__ import annotations
@@ -31,24 +43,34 @@ import glob
 import json
 import logging
 import os
+import shutil
+import sys
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 log = logging.getLogger("caffe_mpi_tpu_torch.resilience")
 
-# the CLI's exit code for a numeric divergence, which a supervisor maps
-# to a rewind (the JAX package's EXIT_NUMERIC)
+# distinct exit codes, so a supervisor (and an operator reading a log)
+# tells a watchdog trip from an injected fault from a numeric divergence,
+# which is rewound rather than restarted
+EXIT_WATCHDOG = 86
+EXIT_FAULT = 87
 EXIT_NUMERIC = 88
+_BACKOFF_CAP_S = 60.0  # the supervisor's longest wait between attempts
 
 _JOURNAL_SCHEMA = 1
 _MANIFEST_SCHEMA = 1
+_STATE_SUFFIXES = (".solverstate", ".solverstate.h5")
+_MANIFEST_SUFFIX = ".manifest.json"
 
 
 class NumericAnomalyError(RuntimeError):
     """Training declared numeric divergence: `guard_max_skips`
     consecutive steps were skipped by the skip-step guard (non-finite
-    values, or a loss spike). The CLI exits EXIT_NUMERIC on it."""
+    values, or a loss spike). The solver journals it to
+    `<prefix>.run.json` before raising; the CLI exits EXIT_NUMERIC, which
+    the supervisor routes through `anomaly_action`."""
 
     def __init__(self, it: int, consec: int, skipped: int, last_bad: int):
         self.iter = it
@@ -77,21 +99,37 @@ class DataIntegrityError(RuntimeError):
     silently training on substitutes."""
 
 
+class SnapshotCorruptError(RuntimeError):
+    """A snapshot file failed its manifest's crc32c check."""
+
+
 # ---------------------------------------------------------------------------
 # Fault sites (test-only; environment-keyed; free when off)
 # ---------------------------------------------------------------------------
 
-# the sites of the data plane, as the JAX package's FAULT_SITES names them
+# the sites the port honours, as the JAX package's FAULT_SITES names and
+# describes them
 FAULT_SITES = {
     "feeder_read": "transient dataset read error (Feeder retry budget)",
+    "snapshot_kill": "hard-exit mid-snapshot-write (torn checkpoint)",
+    "snapshot_corrupt": "flip a byte of the model file post-manifest",
+    "snapshot_sync": "force interval snapshots to write blocking",
+    "dispatch_stall": "sleep inside a train dispatch (watchdog trip)",
+    "train_abort": "hard-exit at an iteration boundary (crash sim)",
+    "nan_grad": "poison float feeds with NaN for iterations "
+                "[arg, arg+count) — non-finite loss/gradients",
+    "loss_spike": "scale float feeds 1e3x for iterations "
+                  "[arg, arg+count) — finite loss explosion",
     "record_corrupt": "flip a byte of record values [arg, arg+count) "
                       "after fetch (bitrot the crc check must catch)",
     "record_decode": "truncate record values [arg, arg+count) so the "
                      "Datum parse fails",
-    "serve_dispatch_stall": "sleep arg seconds (default 30) inside a "
-                            "serving dispatch (stall breaker trip)",
+    "serve_dispatch_stall": "sleep inside a serving dispatch (stall "
+                            "breaker trip — the dead-tunnel shape)",
+    "swap_corrupt": "flip a byte of a hot-swap candidate's model file "
+                    "post-manifest (verify must reject the swap)",
     "swap_canary_bad": "poison a hot-swap candidate's loaded weights "
-                       "with NaN (the canary gate must roll back)",
+                       "with NaN (canary gate must roll back)",
 }
 
 
@@ -99,20 +137,32 @@ class FaultPlane:
     """Injects failures at named sites, configured from the
     `CAFFE_TPU_FAULTS` environment variable: comma-separated
     `site:count:skip:arg` entries (count defaults 1, skip 0, arg empty).
-    `fire()` fires on the (skip+1)-th .. (skip+count)-th calls, then never
-    again (count <= 0: on every call); `fire_at()` fires for keys in
-    [arg, arg + count) without using the count up, so a record's fate is a
-    pure function of its index. With no sites configured each check is
-    one falsy dict test."""
+    `fire()` fires on the (skip+1)-th .. (skip+count)-th eligible calls,
+    then never again; a count <= 0 is sticky: every eligible call, for
+    the rest of this process. `fire(site, key=)` with a numeric arg is
+    eligible only once key >= arg. `fire_at()` fires for keys in [arg,
+    arg + count) without using the count up, so a record's fate is a pure
+    function of its index.
+
+    `CAFFE_TPU_FAULTS_DIR` makes firing durable across processes: a site
+    that has fired its whole count (a sticky site: fired at all) writes
+    `<dir>/<site>.done`, and a later process (the supervised restart)
+    loads it disabled, so "crash once, then succeed" ends. With no sites
+    configured each check is one falsy dict test."""
 
     def __init__(self):
         self._sites: dict[str, dict] = {}
+        self._dir = ""
         self._lock = threading.Lock()
+        # bumped at every configure: a cache of a derived value (the
+        # solver's wrapped feed fn) keys on it
+        self.generation = 0
 
     def load_env(self) -> None:
-        self.configure(os.environ.get("CAFFE_TPU_FAULTS", ""))
+        self.configure(os.environ.get("CAFFE_TPU_FAULTS", ""),
+                       once_dir=os.environ.get("CAFFE_TPU_FAULTS_DIR", ""))
 
-    def configure(self, spec: str) -> None:
+    def configure(self, spec: str, once_dir: str = "") -> None:
         sites = {}
         for entry in (spec or "").split(","):
             entry = entry.strip()
@@ -120,39 +170,71 @@ class FaultPlane:
                 continue
             parts = entry.split(":")
             site = parts[0]
-            if site not in FAULT_SITES:
-                continue  # a site of a plane not ported yet
+            done = os.path.join(once_dir, f"{site}.done") if once_dir \
+                else ""
+            if done and os.path.exists(done):
+                log.info("fault site %r already fired in a previous "
+                         "process; disabled", site)
+                continue
             sites[site] = {
                 "count": int(parts[1]) if len(parts) > 1 and parts[1] else 1,
                 "skip": int(parts[2]) if len(parts) > 2 and parts[2] else 0,
                 "arg": parts[3] if len(parts) > 3 else ""}
         with self._lock:
+            self._dir = once_dir
             self._sites = sites
+            self.generation += 1
+
+    def _mark_done(self, site: str) -> None:
+        if not self._dir:
+            return
+        try:
+            with open(os.path.join(self._dir, f"{site}.done"), "w") as f:
+                f.write(f"{time.time()}\n")
+        except OSError:
+            pass
 
     def active(self, site: str) -> bool:
         """Is `site` configured (without using up a firing)?"""
         return bool(self._sites) and site in self._sites
 
-    def fire(self, site: str) -> str | None:
-        """The site's arg when this call should fail, else None."""
+    def fire(self, site: str, key: float | None = None) -> str | None:
+        """The site's arg when this call should fail, else None. With
+        `key` (an iteration) a numeric arg is a threshold: the site is
+        eligible only once key >= arg."""
         if not self._sites:
             return None
         with self._lock:
             st = self._sites.get(site)
             if st is None:
                 return None
+            arg = st["arg"]
+            if key is not None and arg:
+                try:
+                    if key < float(arg):
+                        return None
+                except ValueError:
+                    pass  # a non-numeric arg gates nothing
             if st["skip"] > 0:
                 st["skip"] -= 1
                 return None
-            if st["count"] > 0:
-                st["count"] -= 1
-                if st["count"] == 0:
-                    del self._sites[site]
-            return st["arg"]
+            if st["count"] <= 0:  # sticky: every call, this process
+                if not st.get("fired"):
+                    st["fired"] = True
+                    self._mark_done(site)
+                return arg
+            st["count"] -= 1
+            if st["count"] <= 0:
+                del self._sites[site]
+                self._mark_done(site)
+            return arg
 
-    def fire_at(self, site: str, key: float) -> str | None:
+    def fire_at(self, site: str, key: float, *,
+                durable_done: bool = True) -> str | None:
         """Fires iff arg <= key < arg + count (every key from arg on when
-        count <= 0), using nothing up."""
+        count <= 0), using nothing up. durable_done=False writes no done
+        file: simulated bitrot persists across a restart, a NaN burst
+        does not."""
         if not self._sites:
             return None
         with self._lock:
@@ -166,12 +248,58 @@ class FaultPlane:
             n = st["count"]
             if key < lo or (n > 0 and key >= lo + n):
                 return None
+            if durable_done and not st.get("fired"):
+                st["fired"] = True
+                self._mark_done(site)
             return st["arg"]
+
+    def wrap_feeds(self, feed_fn):
+        """`feed_fn` with the `nan_grad` / `loss_spike` sites applied: the
+        float feeds of micro-iterations [arg, arg+count) become NaN
+        (nan_grad) or are scaled 1e3x (loss_spike). Returns `feed_fn`
+        itself when neither site is configured (the solver caches the
+        wrapper, so identity matters)."""
+        if not (self.active("nan_grad") or self.active("loss_spike")):
+            return feed_fn
+
+        def poison(feeds, fn):
+            out, hit = {}, False
+            for k, v in feeds.items():
+                if v.is_floating_point():
+                    v = fn(v)
+                    hit = True
+                out[k] = v
+            if not hit:
+                # a uint8 feed (the device transform's staging) has no
+                # float to poison: say so rather than pass vacuously
+                log.warning("fault plane: batch has no float feed to "
+                            "poison (device-transform staging? use "
+                            "transform_param { use_gpu_transform: "
+                            "false } in the test net)")
+            return out
+
+        def wrapped(it):
+            import torch
+            feeds = {k: torch.as_tensor(v) for k, v in feed_fn(it).items()}
+            if self.fire_at("nan_grad", it) is not None:
+                log.warning("fault plane: NaN-poisoning feeds for "
+                            "micro-iteration %d", it)
+                feeds = poison(feeds, lambda t: torch.full_like(
+                    t, float("nan")))
+            if self.fire_at("loss_spike", it) is not None:
+                log.warning("fault plane: 1e3x-scaling feeds for "
+                            "micro-iteration %d", it)
+                feeds = poison(feeds, lambda t: t * 1e3)
+            return feeds
+
+        return wrapped
 
     def corrupt_bytes(self, site: str, raw, key: float):
         """Record-level injection on FETCHED bytes: `record_corrupt` flips
-        one mid-record byte, `record_decode` truncates the record."""
-        if self.fire_at(site, key) is None:
+        one mid-record byte, `record_decode` truncates the record. Keyed
+        by record index and durable across restarts (bitrot does not heal
+        on a resume)."""
+        if self.fire_at(site, key, durable_done=False) is None:
             return raw
         if site == "record_decode":
             return bytes(raw[:max(len(raw) // 2, 1)])
@@ -180,16 +308,37 @@ class FaultPlane:
             b[len(b) // 2] ^= 0xFF
         return bytes(b)
 
-    def maybe_raise(self, site: str, exc_type=OSError, msg: str = "") -> None:
-        if self.fire(site) is not None:
+    # -- one-line call-site helpers -------------------------------------
+    def maybe_raise(self, site: str, exc_type=OSError, msg: str = "",
+                    key: float | None = None) -> None:
+        if self.fire(site, key=key) is not None:
             raise exc_type(msg or f"injected fault at site {site!r}")
 
-    def maybe_stall(self, site: str) -> None:
-        arg = self.fire(site)
+    def maybe_stall(self, site: str, key: float | None = None) -> None:
+        arg = self.fire(site, key=key)
         if arg is not None:
             secs = float(arg or 30.0)
             log.warning("fault plane: stalling %.1fs at site %r", secs, site)
             time.sleep(secs)
+
+    def maybe_exit(self, site: str, key: float | None = None) -> None:
+        if self.fire(site, key=key) is not None:
+            log.warning("fault plane: hard exit at site %r", site)
+            sys.stderr.flush()
+            os._exit(EXIT_FAULT)
+
+    def corrupt_file(self, site: str, path: str) -> None:
+        """Flip one mid-file byte (bitrot, a torn write)."""
+        if self.fire(site) is None:
+            return
+        with open(path, "r+b") as f:
+            f.seek(0, os.SEEK_END)
+            size = f.tell()
+            f.seek(max(size // 2, 0))
+            b = f.read(1)
+            f.seek(max(size // 2, 0))
+            f.write(bytes([(b[0] ^ 0xFF) if b else 0xFF]))
+        log.warning("fault plane: corrupted %s at site %r", path, site)
 
 
 FAULTS = FaultPlane()
@@ -220,7 +369,7 @@ def retrying(fn, *, attempts: int = 4, base_delay: float = 0.05,
 
 
 # ---------------------------------------------------------------------------
-# Quarantine journal
+# Atomic publication and crc32c
 # ---------------------------------------------------------------------------
 
 @contextmanager
@@ -249,6 +398,239 @@ def atomic_output(path: str):
             pass
         raise
 
+
+def crc32c_file(path: str, chunk: int = 1 << 22) -> int:
+    """crc32c of a file, read a chunk at a time through the native
+    library's crc32c (csrc/native: SSE4.2 where the CPU has it)."""
+    from ..native import crc32c_extend
+    crc = 0
+    with open(path, "rb") as f:
+        while True:
+            buf = f.read(chunk)
+            if not buf:
+                return crc
+            crc = crc32c_extend(crc, buf)
+
+
+def _file_entry(path: str, name: str | None = None) -> dict:
+    return {"file": name or os.path.basename(path),
+            "size": os.path.getsize(path),
+            "crc32c": f"{crc32c_file(path):08x}"}
+
+
+def _entry_ok(path: str, ent: dict) -> bool:
+    try:
+        return (os.path.getsize(path) == ent["size"]
+                and f"{crc32c_file(path):08x}" == ent["crc32c"])
+    except (OSError, KeyError, TypeError):
+        return False
+
+
+def _write_json_atomic(path: str, doc: dict) -> None:
+    with atomic_output(path) as tmp:
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+
+
+# ---------------------------------------------------------------------------
+# Single-file manifests
+# ---------------------------------------------------------------------------
+
+def write_file_manifest(path: str, **meta) -> str:
+    """Publish `<path>.manifest.json`, the crc32c commit record of one
+    standalone file (the snapshot scheme for a single file, no
+    iteration): written last, after the file itself landed through
+    atomic_output. Extra keyword fields are stored beside it."""
+    mpath = path + _MANIFEST_SUFFIX
+    doc = {"schema": _MANIFEST_SCHEMA, "time": time.time(),
+           "files": {"artifact": _file_entry(path)}}
+    doc.update(meta)
+    _write_json_atomic(mpath, doc)
+    return mpath
+
+
+def verify_file_manifest(path: str) -> dict | None:
+    """The manifest of `path` if the file's size and crc32c still match
+    it, else None (a missing, unreadable or torn manifest, a missing
+    file, a mismatch): None means "regenerate", never an error."""
+    try:
+        with open(path + _MANIFEST_SUFFIX) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return None
+    ent = (doc.get("files") or {}).get("artifact")
+    if not isinstance(ent, dict) or ent.get("file") != os.path.basename(path):
+        return None
+    return doc if _entry_ok(path, ent) else None
+
+
+# ---------------------------------------------------------------------------
+# Snapshot manifests: write / verify / scan / GC
+# ---------------------------------------------------------------------------
+
+def manifest_for_state(state_path: str) -> str | None:
+    """The manifest of a .solverstate[.h5] or of a sharded .orbax
+    directory (`s_iter_N.orbax.manifest.json`, the infix kept); None for
+    a format without one."""
+    state_path = state_path.rstrip("/")
+    if state_path.endswith(".orbax"):
+        return state_path + _MANIFEST_SUFFIX
+    for suf in _STATE_SUFFIXES:
+        if state_path.endswith(suf):
+            return state_path[: -len(suf)] + _MANIFEST_SUFFIX
+    return None
+
+
+def write_snapshot_manifest(state_path: str, it: int,
+                            files: dict[str, str]) -> str:
+    """Publish one snapshot's manifest, written last (after every file it
+    covers) and atomically, so its existence is the snapshot's commit
+    point. `files` maps a role (model, state) to a path; each is stored
+    by basename with its size and crc32c."""
+    mpath = manifest_for_state(state_path)
+    if mpath is None:
+        raise ValueError(f"no manifest scheme for {state_path!r}")
+    doc = {"schema": _MANIFEST_SCHEMA, "iteration": int(it),
+           "time": time.time(),
+           "files": {role: _file_entry(path) for role, path in files.items()}}
+    _write_json_atomic(mpath, doc)
+    return mpath
+
+
+def verify_snapshot(manifest_path: str) -> dict | None:
+    """Check every file the manifest covers against its size and crc32c.
+    Returns the manifest with `state` (the resolved state path; a sharded
+    set's directory) and `manifest` added, or None on any mismatch, a
+    missing file or an unreadable manifest: None means "fall back to an
+    older snapshot"."""
+    try:
+        with open(manifest_path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return None
+    base = os.path.dirname(os.path.abspath(manifest_path))
+    if doc.get("kind") == "orbax":
+        root = os.path.join(base, doc.get("dir") or "")
+        if not doc.get("dir") or not os.path.isdir(root) \
+                or not doc.get("files"):
+            return None
+        if not all(_entry_ok(os.path.join(root, ent["file"]), ent)
+                   for ent in doc["files"].values()):
+            return None
+        doc["state"] = root
+        doc["manifest"] = os.path.abspath(manifest_path)
+        return doc
+    state_path = None
+    for role, ent in doc.get("files", {}).items():
+        path = os.path.join(base, ent["file"])
+        if not _entry_ok(path, ent):
+            return None
+        if role == "state":
+            state_path = path
+    if state_path is None:
+        return None
+    doc["state"] = state_path
+    doc["manifest"] = os.path.abspath(manifest_path)
+    return doc
+
+
+def iter_snapshot_manifests(prefix: str) -> list[tuple[int, str]]:
+    """Every `<prefix>_iter_<N>[.orbax].manifest.json`, newest iteration
+    first: a directory listing, nothing read or verified."""
+    d = os.path.dirname(prefix) or "."
+    stem = os.path.basename(prefix) + "_iter_"
+    try:
+        names = os.listdir(d)
+    except OSError:
+        return []
+    out = []
+    for name in names:
+        if not (name.startswith(stem) and name.endswith(_MANIFEST_SUFFIX)):
+            continue
+        mid = name[len(stem):-len(_MANIFEST_SUFFIX)]
+        if mid.endswith(".orbax"):
+            mid = mid[: -len(".orbax")]
+        if mid.isdigit():
+            out.append((int(mid), os.path.join(d, name)))
+    out.sort(key=lambda p: p[0], reverse=True)
+    return out
+
+
+def verified_snapshots(prefix: str):
+    """Yield the verified manifests of `prefix`, newest first; a corrupt
+    or incomplete one is logged and skipped."""
+    for it, mpath in iter_snapshot_manifests(prefix):
+        doc = verify_snapshot(mpath)
+        if doc is not None:
+            yield doc
+            continue
+        log.warning("snapshot at iter %d failed crc verification (corrupt "
+                    "or incomplete); falling back to an older snapshot", it)
+
+
+def latest_verified_snapshot(prefix: str) -> dict | None:
+    """The newest snapshot whose manifest verifies, or None."""
+    return next(verified_snapshots(prefix), None)
+
+
+def gc_snapshots(prefix: str, keep: int,
+                 assume_verified: str | None = None) -> list[str]:
+    """Delete the snapshot sets past the newest `keep` manifests, never
+    the newest VERIFIED one (if the newest `keep` are all corrupt, the
+    last good one survives, so a resume has somewhere to land).
+    `assume_verified` names a manifest the caller knows is good (the one
+    it just wrote), which the scan does not read again. Returns the
+    removed paths."""
+    if keep <= 0:
+        return []
+    manifests = iter_snapshot_manifests(prefix)
+    if len(manifests) <= keep:
+        return []
+    assumed = os.path.abspath(assume_verified) if assume_verified else None
+    newest_verified = None
+    for _it, mpath in manifests:  # newest first; stop at the first good
+        if os.path.abspath(mpath) == assumed \
+                or verify_snapshot(mpath) is not None:
+            newest_verified = mpath
+            break
+    removed = []
+    base = os.path.dirname(prefix) or "."
+    for _it, mpath in manifests[keep:]:
+        if mpath == newest_verified:
+            continue
+        victims, dirs = [], []
+        try:
+            with open(mpath) as f:
+                doc = json.load(f)
+            if doc.get("kind") == "orbax":
+                if doc.get("dir"):  # a sharded set goes as one directory
+                    dirs = [os.path.join(base, doc["dir"])]
+            else:
+                victims = [os.path.join(base, ent["file"])
+                           for ent in doc.get("files", {}).values()]
+        except (OSError, ValueError):
+            victims = []
+        for d in dirs:  # the directory first: a crash leaves a manifest
+            try:        # that fails to verify, never an orphan directory
+                shutil.rmtree(d)
+                removed.append(d)
+            except OSError:
+                pass
+        for path in victims + [mpath]:
+            try:
+                os.unlink(path)
+                removed.append(path)
+            except OSError:
+                pass
+    if removed:
+        log.info("snapshot GC (keep=%d): removed %d file(s)", keep,
+                 len(removed))
+    return removed
+
+
+# ---------------------------------------------------------------------------
+# Quarantine journal
+# ---------------------------------------------------------------------------
 
 class QuarantineLog:
     """Journals quarantined dataset records to `<prefix>.quarantine.json`.
@@ -406,21 +788,32 @@ def read_run_manifest(prefix: str) -> dict | None:
 # ---------------------------------------------------------------------------
 
 class DispatchWatchdog:
-    """Monitor thread that bounds device dispatch and harvest time: the
-    serving stall breaker (the JAX package's watchdog in its
-    `hard_exit=False` mode).
+    """Monitor thread that bounds device dispatch and harvest time.
 
     Callers wrap each device-blocking region in `section(label)`; the
-    monitor wakes a quarter of `deadline` apart and, when the oldest open
-    section has been open longer than `deadline`, calls `on_timeout(label,
-    elapsed)` and ends: a call hung in the CUDA runtime cannot be
-    interrupted from Python, but this thread is already in Python. The
-    process stays up; the caller arms a new watchdog after recovery."""
+    monitor wakes every quarter of `deadline` (within [0.05, 5] s) and,
+    when the oldest open section has been
+    open longer than `deadline`, calls `on_timeout(label, elapsed)` and
+    ends. A call hung in the CUDA runtime cannot be interrupted from
+    Python, but this thread is already in Python:
 
-    def __init__(self, deadline: float, on_timeout):
+    - `hard_exit=True` (the solver's, the default): after `on_timeout`
+      (the run journal, written under its lock before anything else) the
+      process exits EXIT_WATCHDOG with `os._exit`, which runs no atexit
+      hook and no `finally`, so a supervisor restarts it;
+    - `hard_exit=False` (the serving stall breaker): the process stays
+      up; the caller arms a new watchdog after recovery.
+
+    The deadline must exceed the longest legitimate wait inside a
+    section: the solver's first dispatch includes a CUDA graph capture,
+    cuDNN's algorithm search and the first load of each kernel library."""
+
+    def __init__(self, deadline: float, on_timeout=None, *,
+                 hard_exit: bool = True):
         self.deadline = float(deadline)
         self.on_timeout = on_timeout
         self.poll = min(max(self.deadline / 4.0, 0.05), 5.0)
+        self.hard_exit = hard_exit
         self._lock = threading.Lock()
         self._open: dict[int, tuple[str, float]] = {}
         self._next = 0
@@ -464,12 +857,124 @@ class DispatchWatchdog:
             elapsed = now - t0
             if elapsed <= self.deadline:
                 continue
+            action = (f"journaling run state and hard-exiting "
+                      f"{EXIT_WATCHDOG}" if self.hard_exit else
+                      "journaling and tripping the breaker (process "
+                      "stays up)")
             log.error("watchdog: device %s exceeded %.1fs deadline "
-                      "(%.1fs elapsed) — journaling and tripping the "
-                      "breaker (process stays up)", label, self.deadline,
-                      elapsed)
+                      "(%.1fs elapsed) — %s", label, self.deadline,
+                      elapsed, action)
             try:
-                self.on_timeout(label, elapsed)
+                if self.on_timeout is not None:
+                    self.on_timeout(label, elapsed)
             except Exception:  # noqa: BLE001 — the trip goes on regardless
                 log.exception("watchdog: on_timeout callback failed")
+            if self.hard_exit:
+                logging.shutdown()
+                sys.stderr.flush()
+                os._exit(EXIT_WATCHDOG)
             return
+
+
+NULL_SECTION = nullcontext()
+
+
+# ---------------------------------------------------------------------------
+# Supervisor: a contained child, exponential backoff, a crash-loop guard
+# ---------------------------------------------------------------------------
+
+def supervise(first_cmd: list[str], resume_cmd: list[str],
+              max_restarts: int, *, failure_log: str,
+              env: dict | None = None, backoff_base: float = 1.0,
+              anomaly_action: str = "rewind",
+              anomaly_lr_mult: float = 0.1,
+              journal_prefix: str | None = None) -> int:
+    """Run a training child to completion, restarting it on failure.
+
+    Attempt 0 runs `first_cmd`, every restart `resume_cmd` (which carries
+    `-resume auto`: the newest verified snapshot). Each child runs under
+    `subproc.run_contained`, in its own process group, killed on every
+    exit path of the supervisor. Restarts back off exponentially from
+    `backoff_base` seconds, at most _BACKOFF_CAP_S. After `max_restarts` failed restarts the
+    crash-loop guard gives up; `failure_log` keeps a line for each failed
+    attempt (its reason: watchdog, numeric divergence, fault/cluster or
+    `exit N`, and the tail of its output). Returns the last child's exit
+    code.
+
+    Exit EXIT_NUMERIC goes through `anomaly_action`: `rewind` restarts
+    like any failure; `rewind_lr` also appends `-lr_scale
+    anomaly_lr_mult**k`, k the numeric restarts so far; `abort` returns
+    88 without a restart.
+
+    `journal_prefix` names the run journal: when every attempt from the
+    first has ended with a fresh `cluster_init_failed` journal, the
+    cluster never formed, and two such failures give up early. On one
+    host nothing journals that reason, so the check stays inert."""
+    from .subproc import run_contained
+    os.makedirs(os.path.dirname(failure_log) or ".", exist_ok=True)
+    rc = 1
+    numeric_restarts = 0
+    never_formed = True
+    for attempt in range(max_restarts + 1):
+        cmd = first_cmd if attempt == 0 else list(resume_cmd)
+        if attempt > 0 and numeric_restarts and anomaly_action == "rewind_lr":
+            cmd = cmd + ["-lr_scale",
+                         repr(anomaly_lr_mult ** numeric_restarts)]
+        log.info("supervisor: attempt %d/%d: %s", attempt + 1,
+                 max_restarts + 1, " ".join(cmd))
+        t0 = time.time()
+        rc, out, err = run_contained(cmd, None, env=env, echo=True)
+        dt = time.time() - t0
+        if rc == 0:
+            if attempt > 0:
+                log.info("supervisor: recovered after %d restart(s)",
+                         attempt)
+            return 0
+        reason = ("watchdog" if rc == EXIT_WATCHDOG else
+                  "numeric divergence" if rc == EXIT_NUMERIC else
+                  "fault/cluster" if rc == EXIT_FAULT else
+                  f"exit {rc}")
+        with open(failure_log, "a") as f:
+            f.write(f"[{time.ctime()}] attempt {attempt + 1}: {reason} "
+                    f"after {dt:.1f}s: {' '.join(cmd)}\n")
+            tail = (out or "").strip().splitlines()[-20:] \
+                + (err or "").strip().splitlines()[-20:]
+            for line in tail:
+                f.write(f"    {line}\n")
+        if rc == EXIT_NUMERIC:
+            if anomaly_action == "abort":
+                log.error("supervisor: numeric divergence with "
+                          "anomaly_action 'abort'; not restarting "
+                          "(log: %s)", failure_log)
+                return EXIT_NUMERIC
+            numeric_restarts += 1
+        # only a journal written during this attempt counts: a stale one
+        # of an earlier run must not condemn this one
+        init_fail = None
+        if journal_prefix and rc == EXIT_FAULT:
+            man = read_run_manifest(journal_prefix)
+            if (man and man.get("reason") == "cluster_init_failed"
+                    and float(man.get("time", 0) or 0) >= t0):
+                init_fail = man.get("error", "")
+        if init_fail is None:
+            never_formed = False
+        elif never_formed and attempt >= 1:
+            log.error(
+                "supervisor: cluster formation failed on every attempt "
+                "(%d of them) — %s; the peer is unreachable, so the "
+                "remaining %d restart(s) would only replay the same "
+                "init timeout. Giving up (log: %s)", attempt + 1,
+                init_fail or "distributed init failed",
+                max_restarts - attempt, failure_log)
+            break
+        if attempt >= max_restarts:
+            log.error("supervisor: crash-loop guard: %d failure(s); "
+                      "giving up (log: %s)", attempt + 1, failure_log)
+            break
+        delay = min(backoff_base * (2 ** attempt), _BACKOFF_CAP_S)
+        verb = ("rewinding to" if rc == EXIT_NUMERIC
+                else "restarting from")
+        log.warning("supervisor: child failed (%s); %s the newest "
+                    "verified snapshot in %.1fs", reason, verb, delay)
+        time.sleep(delay)
+    return rc

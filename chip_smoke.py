@@ -233,6 +233,41 @@ Phases, in order; any failure exits nonzero and prints no result line:
 21. layers — Sigmoid, Slice, Tile, EuclideanLoss, L1Loss and
              ContrastiveLoss forward and backward on the card against
              the CPU, at the shapes those nets give them.
+22. survive — survivable training and the train-to-serve loop. Two
+             supervised LeNet runs side by side, started before the build
+             and joined after it (`cli train -max_restarts 2`,
+             -synthetic, 30 iterations, step_chunk 10, snapshots every 10;
+             a supervisor process that touches no card, children on the
+             card): `dispatch_stall` past `-watchdog_deadline` exits
+             86 and journals `watchdog:train dispatch` (read while it
+             stands), the restart resumes from iteration 10; NaN feeds
+             (`nan_grad`) under `-train_guard -anomaly_action rewind_lr`
+             exit 88 and the restart carries `-lr_scale 0.1`. Then AlexNet
+             at full width (b256, step_chunk 10, -snapshot_every 10
+             -snapshot_keep 2): two uninterrupted 30-iteration runs in
+             process (launch counts 0 before, read after); on the first,
+             a blocking and an async snapshot at one iteration (files
+             byte-equal) with a chunk of graph replays run while the
+             writer works, and test_chunk 5 (two passes) and 1 as graph
+             replays over 10 distinct test batches, each within 1e-6
+             relative of a plain loop of eager forwards;
+             the tentpole's supervised CLI run with interval snapshots
+             blocking (`snapshot_sync`), the iteration-20 snapshot rotted
+             after its manifest, the first child killed at the chunk
+             starting at 20: one failure logged, the restart resumed from
+             10, exactly the snapshots 20 and 30 left and verifying, K1/K2
+             44/40 in each child, the final params and history within
+             twice the uninterrupted runs' spread + 1e-6 (PR 9's rule),
+             and a planted fault (the iteration-20 snapshot restored with
+             its history zeroed, run to 30) outside that limit;
+             then an AlexNet engine (ladder 1, 4, 10) with a
+             SnapshotWatcher on that prefix and `swap_corrupt` armed once:
+             iteration 30 rejected (rows bitwise), 20 swapped in (rows
+             within 1e-4 of the port's Net on its caffemodel, TF32 off),
+             no capture, K1 counted and K2 none. Prints the snapshot's
+             bytes and write ms, the async stall, the restarted child's
+             restore and chunk ms, the supervised and uninterrupted wall
+             times and the watcher's verify and swap ms.
 
 It prints one {"native_codec": ...} line (during phase 12), one
 {"kernels": [...]} line (K1-K5), one {"serving": ...} line (phases
@@ -242,7 +277,9 @@ one {"train": ...} line, one {"transformer": ...} line, one
 line, one {"bf16": ...} line, one {"chunk": ...} line (the overflow
 phase inside it), one line each for phases 16-21 ({"leveldb": ...},
 {"imagedata": ...}, {"rcnn": ...}, {"detectnet": ...}, {"siamese":
-...}, {"zoo_layers": ...}), the card line again, and last {"ok": true, ...}.
+...}, {"zoo_layers": ...}), one {"survive": ...} line, one
+{"phase_seconds": ...} line (the wall seconds of each group of phases),
+the card line again, and last {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -4533,6 +4570,513 @@ def zoo_layers_phase() -> dict:
     return out
 
 
+# -- 22. survive ---------------------------------------------------------------
+
+SURVIVE_ITERS = 30       # the tentpole command's -max_iter
+SURVIVE_EVERY = 10       # its -snapshot_every
+LENET = os.path.join(ROOT, "models", "lenet", "lenet_solver.prototxt")
+# the LeNet children's watchdog: the first chunks (cuDNN's search, the
+# graph capture, the kernel libraries' first load) must fit it; each
+# child's chunk ms are reported beside it
+WATCHDOG_DEADLINE_S = 10.0
+STALL_S = 30.0
+SURVIVE_SPREAD, SURVIVE_FLOOR = 2.0, 1e-6  # PR 9's rule (CHUNK_SPREAD)
+
+
+class _JournalLog:
+    """Every distinct run journal (`<prefix>.run.json`) seen while a
+    supervised run goes on, polled every 50 ms: a child's journal is
+    rewritten by the next child, so it is read while it stands."""
+
+    def __init__(self, prefix):
+        import threading
+        from caffe_mpi_tpu_torch.utils import resilience
+        self.seen, self._stop = [], threading.Event()
+
+        def poll():
+            last = None
+            while not self._stop.wait(0.05):
+                doc = resilience.read_run_manifest(prefix)
+                key = doc and (doc.get("reason"), doc.get("iter"),
+                               doc.get("pid"))
+                if doc and key != last:
+                    last = key
+                    self.seen.append({k: doc.get(k) for k in (
+                        "reason", "iter", "last_snapshot_iter",
+                        "stalled_s", "deadline_s", "consec_skips",
+                        "exit_code")})
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        return self.seen
+
+
+def _supervised(tag, solver, prefix, faults, extra=(), timeout=600):
+    """`cli train -max_restarts 2` in a process of its own (a supervisor
+    that touches no card, its children on the card), with the fault
+    sites `faults` and a once-dir. Returns its exit code, wall time, the
+    children's summaries, each `kernel launches so far` line, the
+    failure log, the journals seen and the output."""
+    import re
+    import signal
+    fdir = prefix + "_faults"
+    os.makedirs(fdir, exist_ok=True)
+    env = dict(os.environ, CAFFE_TPU_FAULTS=faults,
+               CAFFE_TPU_FAULTS_DIR=fdir)
+    env.pop("CAFFE_SUPERVISED_CHILD", None)
+    cmd = [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.cli", "train",
+           "-solver", solver, "-synthetic", "-max_iter", str(SURVIVE_ITERS),
+           "-snapshot_every", str(SURVIVE_EVERY), "-max_restarts", "2",
+           "-step_chunk", "10", "-test_iter", str(TEST_ITER),
+           "-snapshot_prefix", prefix, "-device", "cuda", *extra]
+    journal = _JournalLog(prefix)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        # SIGTERM: the supervisor kills its children's process groups
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.communicate(timeout=30)
+        finally:
+            proc.kill()
+        fail(f"survive {tag}: the supervised run passed {timeout} s")
+    wall = time.perf_counter() - t0
+    seen = journal.stop()
+    with open(os.path.join(ROOT, "chiprun_out", f"survive_{tag}.err")
+              if os.path.isdir(os.path.join(ROOT, "chiprun_out"))
+              else os.devnull, "w") as f:
+        f.write(err)
+    launches = [(int(m.group(1)), json.loads(m.group(2))) for m in
+                re.finditer(r"snapshot at iteration (\d+); kernel launches "
+                            r"so far: (\{[^}]*\})", err)]
+    log_path = prefix + ".failures.log"
+    failures = open(log_path).read() if os.path.exists(log_path) else ""
+    return {"rc": proc.returncode, "wall_s": wall,
+            "summaries": [json.loads(l)["train"] for l in out.splitlines()
+                          if l.startswith('{"train"')],
+            "launches": launches, "failures": failures,
+            "failure_lines": [l for l in failures.splitlines()
+                              if not l.startswith("    ")],
+            "journal": seen, "err": err}
+
+
+def _child(res, tag):
+    """The one summary a supervised run prints: its last child's."""
+    if res["rc"] != 0 or len(res["summaries"]) != 1:
+        fail(f"survive {tag}: rc {res['rc']}, {len(res['summaries'])} "
+             f"summaries; failures {res['failure_lines']}; "
+             f"{res['err'][-3000:]}")
+    return res["summaries"][0]
+
+
+def _lenet_cases(tmp) -> dict:
+    """The watchdog (a stall past the deadline exits 86, journals
+    watchdog:train dispatch, the run resumes) and the rewind (NaN feeds
+    under the guard exit 88, the restart carries -lr_scale), two
+    supervised LeNet runs side by side."""
+    cases = {
+        "watchdog": (f"dispatch_stall:1:2:{STALL_S:g}",
+                     ("-watchdog_deadline", f"{WATCHDOG_DEADLINE_S:g}")),
+        "rewind_lr": ("nan_grad:2:0:12",
+                      ("-train_guard", "-guard_max_skips", "2",
+                       "-anomaly_action", "rewind_lr")),
+    }
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        futs = {k: ex.submit(_supervised, f"lenet_{k}", LENET,
+                             os.path.join(tmp, k, "lenet"), f, extra)
+                for k, (f, extra) in cases.items()}
+        res = {k: f.result() for k, f in futs.items()}
+    out = {}
+    wd = res["watchdog"]
+    s = _child(wd, "lenet watchdog")
+    trips = [j for j in wd["journal"]
+             if j["reason"] == "watchdog:train dispatch"]
+    if wd["failure_lines"] == [] or "attempt 1: watchdog" not in \
+            wd["failure_lines"][0] or len(wd["failure_lines"]) != 1 \
+            or not trips or trips[0]["iter"] != SURVIVE_EVERY \
+            or not s["resumed_from"].endswith(
+                f"lenet_iter_{SURVIVE_EVERY}.solverstate") \
+            or s["iters"] != SURVIVE_ITERS - SURVIVE_EVERY \
+            or max(s["chunk_ms"]) > WATCHDOG_DEADLINE_S * 1e3:
+        fail(f"survive lenet watchdog: failures {wd['failure_lines']}, "
+             f"journal {wd['journal']}, resumed {s['resumed_from']}, "
+             f"chunks {s['chunk_ms']}")
+    out["watchdog"] = {"failure_lines": wd["failure_lines"],
+                       "journal": wd["journal"], "wall_s": wd["wall_s"],
+                       "deadline_s": WATCHDOG_DEADLINE_S, "stall_s": STALL_S,
+                       "restarted_child_chunk_ms": s["chunk_ms"],
+                       "restarted_child_resume_ms": s["resume_ms"],
+                       "resumed_from": os.path.basename(s["resumed_from"])}
+    rw = res["rewind_lr"]
+    s = _child(rw, "lenet rewind_lr")
+    attempt2 = [l for l in rw["err"].splitlines()
+                if "supervisor: attempt 2/3" in l]
+    anomalies = [j for j in rw["journal"] if j["reason"] == "numeric_anomaly"]
+    if len(rw["failure_lines"]) != 1 or "attempt 1: numeric divergence" \
+            not in rw["failure_lines"][0] or not attempt2 \
+            or not attempt2[0].endswith("-resume auto -lr_scale 0.1") \
+            or not anomalies or anomalies[0]["exit_code"] != 88 \
+            or not s["resumed_from"].endswith(
+                f"lenet_iter_{SURVIVE_EVERY}.solverstate") \
+            or not np.all(np.isfinite(s["losses"])):
+        fail(f"survive lenet rewind_lr: failures {rw['failure_lines']}, "
+             f"attempt 2 {attempt2}, journal {rw['journal']}, resumed "
+             f"{s['resumed_from']}, losses {s['losses']}")
+    out["rewind_lr"] = {"failure_lines": rw["failure_lines"],
+                        "journal": rw["journal"], "wall_s": rw["wall_s"],
+                        "restart_cmd_tail": attempt2[0][-40:],
+                        "resumed_from": os.path.basename(s["resumed_from"])}
+    return out
+
+
+def _files_bytes(prefix, it):
+    return sum(os.path.getsize(f"{prefix}_iter_{it}.{e}")
+               for e in ("caffemodel", "solverstate"))
+
+
+def _async_check(solver, tmp) -> dict:
+    """On a trained AlexNet solver: a blocking snapshot and an async one
+    at the same iteration (relative prefixes, so both state files name
+    the same caffemodel), a chunk of 10 graph replays run while the
+    writer copies and writes, then two chunks without a writer; the
+    files byte-equal, the stall and the spanning chunk's ms against the
+    others."""
+    from caffe_mpi_tpu_torch.tools import cli
+    feeds = cli.synthetic_feed(solver.net)
+    feed_fn = lambda it: feeds  # noqa: E731
+    solver.sp.snapshot, solver.sp.display = 0, 0  # full chunks of 10
+    solver.step(10, feed_fn)
+    dirs = {k: os.path.join(tmp, k) for k in ("block", "async")}
+    for d in dirs.values():
+        os.makedirs(d)
+    solver.sp.snapshot_prefix = "s"
+    it = solver.iter
+    try:
+        os.chdir(dirs["block"])
+        solver.snapshot(block=True)
+        os.chdir(dirs["async"])
+        solver.snapshot(block=False)
+        t0 = time.perf_counter()
+        solver.step(10, feed_fn)
+        span_ms = (time.perf_counter() - t0) * 1e3 / 10
+        solver.wait_snapshots()
+    finally:
+        os.chdir(ROOT)
+    plain = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        solver.step(10, feed_fn)
+        plain.append((time.perf_counter() - t0) * 1e3 / 10)
+    block, asyn = solver.snapshot_log[-2:]
+    equal = {e: open(os.path.join(dirs["block"], f"s_iter_{it}.{e}"),
+                     "rb").read() == open(os.path.join(
+                         dirs["async"], f"s_iter_{it}.{e}"), "rb").read()
+             for e in ("caffemodel", "solverstate")}
+    if not all(equal.values()) or not block["block"] or asyn["block"]:
+        fail(f"survive: async snapshot files equal {equal}, log "
+             f"{solver.snapshot_log[-2:]}")
+    return {"iteration": it,
+            "bytes": _files_bytes(os.path.join(dirs["block"], "s"), it),
+            "blocking_write_ms": block["write_ms"],
+            "async_stall_ms": asyn["stall_ms"],
+            "async_writer_ms": asyn["write_ms"],
+            "spanning_chunk_ms_per_iter": span_ms,
+            "plain_chunk_ms_per_iter": plain,
+            "files_byte_equal": equal}
+
+
+def _resume_rule(runs, got) -> dict:
+    """Each tensor's distance from the nearer uninterrupted run over its
+    largest element, the worst over all tensors, against 2x the two runs'
+    own, the worst over all tensors, + 1e-6 (PR 9's chunk rule). A
+    tensor's own spread is no bound: a sound resume has read 1.09x twice
+    its own in one tensor (PERF.md, PR 13). `worst`: the three tensors
+    farthest off (distance, own spread)."""
+    rows = []
+    a, b = runs
+    for key in a:
+        scale = max(float(a[key].float().abs().max()), 1e-30)
+        spread = float((b[key].float() - a[key].float()).abs().max()) / scale
+        diff = min(float((got[key].float() - r[key].float()).abs().max())
+                   for r in (a, b)) / scale
+        rows.append((key, diff, spread))
+    rows.sort(key=lambda r: -r[1])
+    spread = max(r[2] for r in rows)
+    limit = SURVIVE_SPREAD * spread + SURVIVE_FLOOR
+    return {"diff": rows[0][1], "spread": spread, "limit": limit,
+            "held": rows[0][1] <= limit,
+            "tensors_over": sum(r[1] > limit for r in rows),
+            "tensors": len(rows), "worst": rows[:3]}
+
+
+def _resume_control(prefix, feeds) -> dict:
+    """The planted fault the resume rule must catch: the supervised run's
+    iteration-20 snapshot restored with its history zeroed (a resume that
+    loses the momentum), then its last 10 iterations as the child ran
+    them (the CLI's synthetic batch, step_chunk 10). Returns the state."""
+    from caffe_mpi_tpu_torch.proto import SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    sp = SolverParameter.from_file(SOLVER)
+    sp.snapshot, sp.display, sp.test_interval = 0, 0, 0
+    sp.step_chunk = 10
+    ctrl = Solver(sp, device="cuda")
+    ctrl.restore(f"{prefix}_iter_20.solverstate")
+    for slots in ctrl.history.values():
+        for h in slots:
+            h.zero_()
+    batch = feeds(ctrl.net)
+    ctrl.step(SURVIVE_ITERS - 20, lambda it: batch)
+    state = _state(ctrl)
+    del ctrl
+    return state
+
+
+def _test_chunk_check(solver) -> dict:
+    """test_chunk on a trained AlexNet solver (step_chunk 10: a chunk
+    after the test net's first is one CUDA-graph replay of T forwards):
+    10 distinct test batches at test_chunk 5 (two passes) and 1, each
+    pass within 1e-6 relative of a plain loop of eager forwards over the
+    same batches on the default stream."""
+    from caffe_mpi_tpu_torch.tools import cli
+    tnet = solver.test_nets[0]
+    batches = [cli.synthetic_feed(tnet, seed=100 + k) for k in range(10)]
+    blobs_out = solver._output_blobs(tnet)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        sums = torch.zeros(len(blobs_out), device="cuda")
+        for f in batches:
+            blobs, _ = tnet(f)
+            sums += torch.stack([blobs[b].float().sum() for b in blobs_out])
+    plain = dict(zip(blobs_out, (sums.cpu().numpy() / 10).tolist()))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    solver.sp.test_iter = [10]
+    scores, graphs0 = [], set(solver._test_graphs)
+    for t in (5, 5, 1):
+        solver.sp.test_chunk = t
+        d0 = solver.test_dispatch_count
+        t0 = time.perf_counter()
+        got = solver.test_all([batches.__getitem__])[0]
+        scores.append({"test_chunk": t, "ms": (time.perf_counter() - t0)
+                       * 1e3, **got})
+        if solver.test_dispatch_count - d0 != 10 // t:
+            fail(f"survive test_chunk {t}: "
+                 f"{solver.test_dispatch_count - d0} chunks")
+    rel = max(abs(sc[b] - plain[b]) / max(abs(plain[b]), 1e-30)
+              for sc in scores for b in plain)
+    captured = sorted(set(solver._test_graphs) - graphs0)
+    if rel > 1e-6 or not {(0, 5), (0, 1)} <= set(solver._test_graphs):
+        fail(f"survive test_chunk: plain {plain}, passes {scores}, "
+             f"graphs {sorted(solver._test_graphs)}")
+    return {"plain": plain, "plain_ms": plain_ms, "passes": scores,
+            "max_rel_diff": rel, "graphs_captured": captured}
+
+
+def _watch_check(prefix, k1, k2) -> dict:
+    """An AlexNet engine (ladder 1, 4, 10) with a SnapshotWatcher on the
+    supervised run's prefix and swap_corrupt armed once: iteration 30 is
+    rejected (rows bitwise), iteration 20 swaps in (rows within 1e-4 of
+    the port's Net on its caffemodel, TF32 off), no capture either way,
+    K1 counted in the graphs and K2 never."""
+    from caffe_mpi_tpu_torch import io as port_io
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.serving import SnapshotWatcher
+    from caffe_mpi_tpu_torch.utils import resilience
+    rng = np.random.RandomState(21)
+    _reset_kernel_counts()
+    with _serve_engine(window_ms=0) as engine:
+        model = engine.load_model("alexnet", MODEL, seed=0, **PREPROCESS)
+        if model.fwd.ladder != (1, 4, 10):
+            fail(f"survive watch: ladder {model.fwd.ladder}")
+        x = np.stack([model.preprocess(im) for im in _images(rng, 4)])
+        before = engine.classify("alexnet", x, preprocess=False)
+        builds, recaps = engine.compile_count, engine.recaptures
+        watcher = SnapshotWatcher(engine, "alexnet", prefix)
+        t0 = time.perf_counter()
+        m20 = f"{prefix}_iter_20.manifest.json"
+        if resilience.verify_snapshot(m20) is None:
+            fail("survive watch: the iteration-20 snapshot does not verify")
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        resilience.FAULTS.configure("swap_corrupt:1")
+        try:
+            first = watcher.check_once()
+        finally:
+            resilience.FAULTS.configure("")
+        kept = engine.classify("alexnet", x, preprocess=False)
+        t0 = time.perf_counter()
+        second = watcher.check_once()
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        after = engine.classify("alexnet", x, preprocess=False)
+        st = engine.stats()
+        d_builds = engine.compile_count - builds
+        d_recaps = engine.recaptures - recaps
+    counts = _kernel_counts()
+    strict, _ = _strict_params()
+    net = Net(strict, device="cuda")
+    net.import_weights(port_io.load_weights(f"{prefix}_iter_20.caffemodel"))
+    with torch.inference_mode():
+        pad = np.concatenate([x, np.zeros((6, *x.shape[1:]), np.float32)])
+        ref = net({"data": torch.from_numpy(pad).cuda()})[0][
+            "prob"].float().cpu().numpy()[:4]
+    del net
+    diff = float(np.abs(after - ref).max())
+    moved = float(np.abs(after - before).max())
+    if first or not second or not np.array_equal(kept, before) \
+            or watcher._rejected != {30} or diff > 1e-4 or moved <= diff \
+            or d_builds or d_recaps or st["swaps"] != 1 \
+            or st["swap_rejections"] != 1 or counts[0] == 0 or any(
+                counts[1:]):
+        fail(f"survive watch: first {first}, second {second}, kept "
+             f"bitwise {np.array_equal(kept, before)}, rejected "
+             f"{watcher._rejected}, rows {diff:.3g} from the Net (moved "
+             f"{moved:.3g}), builds {d_builds}, recaptures {d_recaps}, "
+             f"stats {st['swaps']} {st['swap_rejections']}, K1-K5 {counts}")
+    k1["launches_by_path"]["survive_watch"] = counts[0]
+    k2.setdefault("launches_by_path", {})["survive_watch"] = counts[1]
+    return {"rejected": [30], "swapped": 20, "verify_ms": verify_ms,
+            "swap_ms": swap_ms, "rows_max_abs_diff_vs_net": diff,
+            "rows_moved": moved, "builds_across": d_builds,
+            "recaptures_across": d_recaps, "k1_launches": counts[0],
+            "k2_launches": counts[1]}
+
+
+def start_lenet_cases():
+    """Start `_lenet_cases` in a thread: its runs are child processes that
+    use the card while the parent builds the kernels (main joins it
+    before the kernel phase's timings). Returns (future, its tmp dir)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lenet_")
+    ex = ThreadPoolExecutor(max_workers=1)
+    fut = ex.submit(_lenet_cases, tmp)
+    ex.shutdown(wait=False)
+    return fut, tmp
+
+
+def survive_phase(k1: dict, k2: dict, card: str, lenet: dict) -> dict:
+    """Survivable training and the train-to-serve loop at AlexNet's full
+    width (b256, step_chunk 10): two uninterrupted runs in process, the
+    supervised CLI run with an abort and a rotten snapshot, the async
+    snapshot, test_chunk, and the snapshot watcher; `lenet` holds the
+    watchdog and rewind cases run during the build."""
+    from caffe_mpi_tpu_torch.proto import SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    from caffe_mpi_tpu_torch.tools import cli
+    from caffe_mpi_tpu_torch.utils import resilience
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_survive_")
+    out = {"card": card, "lenet": lenet}
+    try:
+        # 1. two uninterrupted runs, in process
+        runs, walls, want = [], [], None
+        argv = ("-snapshot_every", str(SURVIVE_EVERY), "-snapshot_keep",
+                "2", "-step_chunk", "10")
+        for i in range(2):
+            _reset_kernel_counts()
+            t0 = time.perf_counter()
+            solver, summary = _train_cli(SOLVER, os.path.join(tmp, f"u{i}"),
+                                         SURVIVE_ITERS, argv)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = _kernel_counts()
+            want = (2 * (SURVIVE_ITERS + 2 * TEST_ITER), 2 * SURVIVE_ITERS)
+            if counts[:2] != want or any(counts[2:]) or \
+                    not np.all(np.isfinite(summary["losses"])):
+                fail(f"survive uninterrupted run {i}: K1-K5 {counts} "
+                     f"(want {want}), losses {summary['losses']}")
+            runs.append(_state(solver))
+            if i == 0:
+                k1["launches_by_path"]["survive_train"] = counts[0]
+                k2.setdefault("launches_by_path", {})[
+                    "survive_train"] = counts[1]
+                # 4. the async snapshot, 5. test_chunk, on this solver
+                out["async_snapshot"] = _async_check(
+                    solver, os.path.join(tmp, "snap"))
+                out["test_chunk"] = _test_chunk_check(solver)
+            del solver
+            torch.cuda.empty_cache()
+        # 2. the supervised run: snapshots blocking (snapshot_sync), the
+        # iteration-20 one rots after its manifest, the first child dies
+        # at the chunk starting at 20
+        prefix = os.path.join(tmp, "sup", "alexnet")
+        sup = _supervised("alexnet", SOLVER, prefix,
+                          "snapshot_sync:-1,snapshot_corrupt:1:1,"
+                          "train_abort:1:0:20", ("-snapshot_keep", "2"))
+        s = _child(sup, "alexnet")
+        first = next((c for it, c in sup["launches"] if it == 20), None)
+        per_child = (2 * (20 + TEST_ITER), 2 * 20)
+        its = [it for it, _ in resilience.iter_snapshot_manifests(prefix)]
+        bad = []
+        if len(sup["failure_lines"]) != 1 or \
+                "attempt 1: fault/cluster" not in sup["failure_lines"][0]:
+            bad.append(f"failures {sup['failure_lines']}")
+        if not s["resumed_from"].endswith("alexnet_iter_10.solverstate") \
+                or s["start_iter"] != 10:
+            bad.append(f"resumed from {s['resumed_from']}")
+        if its != [30, 20] or any(resilience.verify_snapshot(
+                f"{prefix}_iter_{i}.manifest.json") is None for i in its):
+            bad.append(f"snapshots kept {its}")
+        if first is None or (first["K1"], first["K2"]) != per_child or \
+                (s["kernel_launches"]["K1"], s["kernel_launches"]["K2"]) \
+                != per_child:
+            bad.append(f"K1/K2: first child {first}, second "
+                       f"{s['kernel_launches']}, want {per_child} each")
+        if bad:
+            fail(f"survive supervised AlexNet: {bad}")
+        sp = SolverParameter.from_file(SOLVER)
+        sp.test_iter = [TEST_ITER]
+        check = Solver(sp, device="cuda")
+        check.restore(f"{prefix}_iter_30.solverstate")
+        rule = _resume_rule(runs, _state(check))
+        del check
+        torch.cuda.empty_cache()
+        control = _resume_rule(runs, _resume_control(prefix,
+                                                     cli.synthetic_feed))
+        del runs
+        torch.cuda.empty_cache()
+        if not rule["held"] or control["held"]:
+            fail(f"survive: the supervised run's final state {rule}, the "
+                 f"zeroed-history control {control}")
+        out["supervised"] = {
+            "failure_lines": sup["failure_lines"],
+            "resumed_from": os.path.basename(s["resumed_from"]),
+            "snapshots_kept": its, "first_child_launches_at_20": first,
+            "second_child_launches": s["kernel_launches"],
+            "resume_rule": rule, "resume_control": control,
+            "wall_s": sup["wall_s"],
+            "uninterrupted_wall_s_in_process": walls,
+            "restarted_child_resume_ms": s["resume_ms"],
+            "restarted_child_chunk_ms": s["chunk_ms"],
+            "restarted_child_snapshot_log": s["snapshot_log"],
+            "journal": sup["journal"]}
+        k1["launches_by_path"]["survive_supervised"] = \
+            s["kernel_launches"]["K1"]
+        k2["launches_by_path"]["survive_supervised"] = \
+            s["kernel_launches"]["K2"]
+        # 6. the watcher on the supervised run's snapshots
+        out["watch"] = _watch_check(prefix, k1, k2)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"survive: {json.dumps(out)}")
+    return out
+
+
+class _PhaseClock:
+    """Wall seconds of each group of phases, for the time limit."""
+
+    def __init__(self):
+        self.seconds, self._t0 = {}, time.perf_counter()
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self._t0, 1)
+        self._t0 = now
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4542,37 +5086,55 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     parent = os.path.abspath(args.parent) if args.parent else None
     os.chdir(ROOT)
+    clock = _PhaseClock()
     card, rates = device_phase()
+    lenet_run, lenet_tmp = start_lenet_cases()
     build_phase()
+    try:
+        lenet = lenet_run.result()
+    finally:
+        shutil.rmtree(lenet_tmp, ignore_errors=True)
+    clock("build")
     parent_flash, parent_lrn = parent_libs(parent) if parent else (None,
                                                                    None)
     k1 = kernel_phase(rates, parent_lrn)
     k2 = kernel_bwd_phase(rates, parent_lrn)
     flash = flash_kernel_phase(rates, parent_flash)
+    clock("kernels")
     serving = serve_phase(k1, card)
     serving["http"] = serve_http_phase(k1, k2, card)
     serving["residency"] = residency_phase(k1, k2, card)
     serving["resilience"] = resilience_phase(k1, k2, card)
+    clock("serve")
     train = train_phase(k1, k2, card)
     train["parity"] = parity_phase()
+    clock("train")
     transformer = transformer_phase(flash, card)
     transformer["induction"] = induction_phase()
     transformer["parity"] = transformer_parity_phase()
+    clock("transformer")
     resnet50 = resnet50_phase(card)
     googlenet = googlenet_phase(k1, k2, card)
     resnet50["parity"] = resnet50_parity_phase()
+    clock("resnet50_googlenet")
     lmdb = lmdb_phase(k1, k2, card)
+    clock("lmdb")
     bf16 = bf16_phase(k1, k2, flash, {
         "train": train, "transformer": transformer, "resnet50": resnet50,
         "googlenet": googlenet}, card)
+    clock("bf16")
     chunk = chunk_phase(k1, k2, flash, card)
     chunk["overflow"] = overflow_phase()
+    clock("chunk")
     sources = {"leveldb": leveldb_phase(k1, k2, card),
                "imagedata": imagedata_phase(k1, k2, card),
                "rcnn": rcnn_phase(k1, k2, card),
                "detectnet": detectnet_phase(card),
                "siamese": siamese_phase(card),
                "zoo_layers": zoo_layers_phase()}
+    clock("sources")
+    survive = survive_phase(k1, k2, card, lenet)
+    clock("survive")
     print(json.dumps({"kernels": [k1, k2, *flash]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
@@ -4584,6 +5146,8 @@ def main(argv=None) -> int:
     print(json.dumps({"chunk": chunk}), flush=True)
     for key, res in sources.items():
         print(json.dumps({key: res}), flush=True)
+    print(json.dumps({"survive": survive}), flush=True)
+    print(json.dumps({"phase_seconds": clock.seconds}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -207,6 +207,16 @@ def test_cli_train_from_an_lmdb_runs_tests_and_reports_the_feed(tmp_path):
     assert summary["iters"] == 3 and np.all(np.isfinite(summary["losses"]))
     assert set(summary["test_scores"][0]) == {"accuracy"}
     assert os.path.exists(str(tmp_path / "lenet_iter_3.caffemodel"))
+    # what a supervisor reads of its child: the resume point, the state
+    # paths written and K1-K5's launches (LeNet runs none on the CPU)
+    assert summary["resumed_from"] is None
+    assert summary["snapshots"] == [str(tmp_path /
+                                        "lenet_iter_3.solverstate")]
+    assert summary["kernel_launches"] == {f"K{i}": 0 for i in range(1, 6)}
+    _, again = cli.train(cli.parse_args(argv[:4] + ["4"] + argv[5:]
+                                        + ["-resume", "auto"]))
+    assert again["resumed_from"] == summary["snapshots"][0]
+    assert again["start_iter"] == 3 and again["iters"] == 1
 
 
 def test_cli_train_without_a_data_layer_needs_synthetic(tmp_path):

@@ -229,6 +229,7 @@ def test_snapshot_at_a_chunk_boundary_is_the_k1_snapshot_byte_for_byte(
         s = _alexnet(f'step_chunk: {k} snapshot: 4 '
                      f'snapshot_prefix: "{prefix}"')
         s.step(10, tt._torch_feeds(feeds))
+        s.wait_snapshots()  # interval snapshots land in the writer thread
         paths[k] = prefix
         # a chunk stops at the snapshot boundary: 0-3, 4-7, 8-9
         assert s.dispatch_count == (10 if k == 1 else 3)
@@ -252,6 +253,7 @@ def test_resume_at_a_chunk_boundary_equals_the_uninterrupted_run(tmp_path):
     prefix = tmp_path / "s"
     whole = _alexnet(f'step_chunk: 5 snapshot: 4 snapshot_prefix: "{prefix}"')
     whole.step(10, tt._torch_feeds(feeds))
+    whole.wait_snapshots()
     resumed = _alexnet(f'step_chunk: 5 snapshot: 4 '
                        f'snapshot_prefix: "{tmp_path / "r"}"')
     resumed.restore(f"{prefix}_iter_4.solverstate")

@@ -104,6 +104,18 @@ PORTED = {
                         lambda s: s.sp.guard_ema_decay == 0.5),
     "step_chunk": ("step_chunk: 4", lambda s: s.step_chunk == 4
                    and tuple(s._table.shape) == (4, 3)),
+    "anomaly_action": ('anomaly_action: "abort"',
+                       lambda s: s.sp.anomaly_action == "abort"),
+    "anomaly_lr_mult": ("anomaly_lr_mult: 0.5",
+                        lambda s: s.sp.anomaly_lr_mult == 0.5),
+    "test_chunk": ("test_chunk: 3",
+                   lambda s: s._test_chunk_len(s.net, 10) == 3),
+    "watchdog_deadline": ("watchdog_deadline: 600",
+                          lambda s: s._ensure_watchdog() is None
+                          and s._watchdog.deadline == 600.0
+                          and s._watchdog.hard_exit),
+    "snapshot_keep": ("snapshot_keep: 2",
+                      lambda s: s.sp.snapshot_keep == 2),
 }
 
 
@@ -115,6 +127,7 @@ def test_ported_solver_field_is_taken_at_a_non_default_value(name):
     assert check(solver)
     solver.step(1, lambda it: {
         "data": torch.zeros(2, 3), "label": torch.zeros(2, dtype=torch.long)})
+    solver.close()
 
 
 @pytest.mark.parametrize("text", ['precision: "f32"', 'precision: "F32"',
@@ -258,9 +271,9 @@ def _write_solver(tmp_path):
     return str(path)
 
 
-@pytest.mark.parametrize("flags", [["-test_chunk", "4"],
-                                   ["-anomaly_action", "abort"],
-                                   ["-snapshot_keep", "2"],
+@pytest.mark.parametrize("flags", [["-zero_stage", "1"],
+                                   ["-reduce_buckets", "2"],
+                                   ["-hosts", "2"],
                                    ["-min_hosts", "2"],
                                    ["-precision", "nonsense"]])
 def test_cli_train_flag_of_an_unported_field_exits_one(tmp_path, flags):
@@ -413,3 +426,14 @@ def test_unported_data_layer_types_are_refused(kind, param):
     jax = JaxNet(JaxNP.from_text(text), "TRAIN")
     assert port.blob_shapes == {k: tuple(v)
                                 for k, v in jax.blob_shapes.items()}
+
+
+@pytest.mark.parametrize("fmt,item", [("HDF5", 4), ("ORBAX", 6)])
+def test_unported_snapshot_format_is_refused_before_building(fmt, item):
+    """`snapshot_format` other than BINARYPROTO raises at construction,
+    naming its ROADMAP item (h5py is missing on the card's machine)."""
+    with pytest.raises(NotImplementedError,
+                       match=rf"snapshot_format: {fmt} .*ROADMAP\.md §1 "
+                       rf"item {item}\b"):
+        Solver(_solver_param(f"snapshot_format: {fmt}"), device="cpu")
+    Solver(_solver_param("snapshot_format: BINARYPROTO"), device="cpu")
