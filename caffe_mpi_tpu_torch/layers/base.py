@@ -56,6 +56,8 @@ class Layer(nn.Module):
     needs_rng: bool = False
     # True for a layer whose forward runs on the host (no CUDA graph)
     host_step: bool = False
+    # the data-parallel MeshPlan of the rank (Net.bind_mesh), or None
+    mesh_plan = None
 
     def __init__(self, lp: LayerParameter, policy: DtypePolicy,
                  phase: str = "TRAIN", device: torch.device | None = None):

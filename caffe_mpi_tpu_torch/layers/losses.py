@@ -11,6 +11,18 @@ FULL/VALID/BATCH_SIZE/NONE (loss_layer.cpp GetNormalizer; VALID, the
 default, divides by the count of targets not ignored), `ignore_label`
 masking in the loss and in accuracy, and a scalar first top that the Net
 multiplies by its loss weight.
+
+Under data parallelism (`Net.bind_mesh`, N > 1 ranks, each on its slice
+of the global batch) a batch-wide top is the rank's share of the global
+value: the mean over the ranks of each rank's top is the top of the whole
+batch, and the solver averages the loss (and a test pass its scores)
+over the ranks. A normalizer proportional to the rank's batch (FULL,
+BATCH_SIZE, VALID with nothing ignored, EuclideanLoss's N, ...) is that
+already. A count that depends on the data (VALID with `ignore_label`,
+Accuracy's with `ignore_label` and its per-class counts) is all-reduced
+and divided by N; NONE divides by 1/N. The gradient each rank's backward
+takes is then N times its share of the global one, which the gradient
+reduce's 1/N undoes.
 """
 
 from __future__ import annotations
@@ -47,18 +59,20 @@ class LossBase(Layer):
     def _normalizer(self, mode: str, outer: int, full: int,
                     valid: torch.Tensor | int):
         """loss_layer.cpp GetNormalizer. `valid` is a count on the device
-        where labels are ignored, else the plain int `full`."""
+        where labels are ignored, else the plain int `full`. Under data
+        parallelism, the rank's share of the global normalizer."""
         mode = mode.upper()
+        n = _ranks(self)
         if mode == "FULL":
             return float(full)
         if mode == "VALID":
             if isinstance(valid, int):
                 return float(max(valid, 1))
-            return torch.clamp(valid.float(), min=1.0)
+            return _global_count(self, valid.float()) / n
         if mode == "BATCH_SIZE":
             return float(outer)
         if mode == "NONE":
-            return 1.0
+            return 1.0 / n
         raise ValueError(f"unknown loss normalization {mode!r}")
 
     def _norm_mode(self) -> str:
@@ -75,6 +89,19 @@ class LossBase(Layer):
     def _ignore_label(self):
         p = self.lp.loss_param
         return p.ignore_label if p and p.has("ignore_label") else None
+
+
+def _ranks(layer) -> int:
+    mesh = layer.mesh_plan
+    return 1 if mesh is None else mesh.n_data
+
+
+def _global_count(layer, count: torch.Tensor) -> torch.Tensor:
+    """A count of the rank's batch summed over the ranks, at least 1
+    (elementwise for a vector of counts)."""
+    if _ranks(layer) > 1:
+        count = layer.mesh_plan.all_reduce_(count.clone())
+    return torch.clamp(count, min=1.0)
 
 
 def _labels_last(scores: torch.Tensor, labels: torch.Tensor, axis: int):
@@ -200,7 +227,7 @@ class AccuracyLayer(Layer):
         correct = (higher < self.top_k).float()
         if self.ignore is not None:
             correct = torch.where(mask, correct, torch.zeros_like(correct))
-            denom = torch.clamp(mask.sum(), min=1)
+            denom = _global_count(self, mask.sum().float()) / _ranks(self)
         else:
             denom = correct.numel()
         tops = [correct.sum() / denom]
@@ -213,5 +240,6 @@ class AccuracyLayer(Layer):
                 * in_range[..., None]
             dims = tuple(range(onehot.dim() - 1))
             per_class = (onehot * correct[..., None]).sum(dims)
-            tops.append(per_class / torch.clamp(onehot.sum(dims), min=1.0))
+            tops.append(per_class / (_global_count(self, onehot.sum(dims))
+                                     / _ranks(self)))
         return tops

@@ -29,6 +29,17 @@ Two designs compute the batch-statistics forward; `BATCH_STATS` picks one
 - "composite": the JAX layer's arithmetic as torch ops, the statistics
   from one `torch.var_mean` that serves both the normalisation and the
   update, autograd through each op.
+
+Under data parallelism (`Net.bind_mesh`, more than one rank) the TRAIN
+batch statistics are the global batch's, as the JAX mesh computes them
+over the whole sharded batch: `_GlobalBatchNorm`, an autograd Function.
+Its forward all-gathers each rank's per-channel (mean, M2) and merges
+them in rank order (Chan's pairwise rule, every rank the same sums), so
+the normalisation and the running update use the global mean and biased
+variance on every rank. Its backward all-reduces the per-channel sums
+of dy and dy·x̂ and forms dx from the global means; the scale and bias
+gradients stay the rank's own sums, which the solver's gradient reduce
+averages like any other.
 """
 
 from __future__ import annotations
@@ -92,6 +103,13 @@ class BatchNormLayer(Layer):
                                self.eps)]
         dims = [i for i in range(x.dim()) if i != 1]
         f = self.p.moving_average_fraction
+        mesh = self.mesh_plan
+        if mesh is not None and mesh.n_data > 1:
+            y, mean, var = _GlobalBatchNorm.apply(x, scale, bias, self.eps,
+                                                  mesh)
+            with torch.no_grad():
+                _update_running(self.mean, self.var, mean, var, f)
+            return [y]
         if BATCH_STATS == "fused" and x.dtype in FUSED_DTYPES:
             y = F.batch_norm(x, None, None, scale, bias, training=True,
                              eps=self.eps)
@@ -105,6 +123,52 @@ class BatchNormLayer(Layer):
             _update_running(self.mean, self.var, mean.detach(),
                             var.detach(), f)
         return [_normalize(x, mean, var, scale, bias, self.eps)]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Batch normalisation with the statistics of the global batch, over
+    the ranks of `mesh`. Returns (y, mean, var); mean and var (float32,
+    per channel) feed the running update and take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, mesh):
+        dims = [i for i in range(x.dim()) if i != 1]
+        xf = x.float()
+        n = xf.numel() // xf.shape[1]
+        var_l, mean_l = torch.var_mean(xf, dims, correction=0)
+        parts = mesh.all_gather(torch.stack([mean_l, var_l * n]))
+        means, m2s = parts[:, 0], parts[:, 1]
+        mean = means.mean(0)
+        var = (m2s.sum(0) + n * torch.square(means - mean).sum(0)) \
+            / (n * mesh.n_data)
+        shape = [1] * x.dim()
+        shape[1] = x.shape[1]
+        inv_std = 1.0 / torch.sqrt(var + eps)
+        xhat = (x - mean.reshape(shape).to(x.dtype)) \
+            * inv_std.reshape(shape).to(x.dtype)
+        y = xhat if scale is None \
+            else xhat * scale.reshape(shape) + bias.reshape(shape)
+        ctx.save_for_backward(xhat, inv_std, scale)
+        ctx.mesh, ctx.dims, ctx.count = mesh, dims, n * mesh.n_data
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, inv_std, scale = ctx.saved_tensors
+        dims, shape = ctx.dims, [1] * xhat.dim()
+        shape[1] = xhat.shape[1]
+        dyf, xh = dy.float(), xhat.float()
+        local = torch.stack([dyf.sum(dims), (dyf * xh).sum(dims)])
+        sums = ctx.mesh.all_reduce_(local.clone()) / ctx.count
+        g = inv_std if scale is None else inv_std * scale.float()
+        dx = g.reshape(shape) * (dyf - sums[0].reshape(shape)
+                                 - xh * sums[1].reshape(shape))
+        dscale = dbias = None
+        if scale is not None:
+            dscale, dbias = (local[1].to(scale.dtype),
+                             local[0].to(scale.dtype))
+        return dx.to(dy.dtype), dscale, dbias, None, None
 
 
 def _normalize(x, mean, var, scale, bias, eps):

@@ -26,6 +26,7 @@ the backward.
 
 from __future__ import annotations
 
+import copy
 import logging
 
 import numpy as np
@@ -44,6 +45,10 @@ from .proto.upgrade import filter_net, normalize_net
 log = logging.getLogger("caffe_mpi_tpu_torch.net")
 
 
+class IndivisibleBatch(ValueError):
+    """A global batch that does not divide into the data-parallel ranks."""
+
+
 class Net(nn.Module):
     """Build from a NetParameter on `device` (default: the card)."""
 
@@ -51,7 +56,7 @@ class Net(nn.Module):
                  device: str | torch.device = "cuda", level: int = 0,
                  stages: tuple[str, ...] = (), model_dir: str = "",
                  data_shape_probe=None, solver_storage: str = "FLOAT",
-                 precision: str = ""):
+                 precision: str = "", batch_divisor: int = 1):
         """model_dir: the base of the Data layers' sources and mean files.
         data_shape_probe(lp) -> (C, H, W) binds a Data layer's record
         shape before its setup (default: open its dataset once,
@@ -65,7 +70,12 @@ class Net(nn.Module):
         prototxt's types; "bf16" makes FLOAT16 the net-level default
         forward and backward type where the prototxt sets none, and a
         layer's own forward_type/backward_type still wins (the JAX
-        `Net`'s rules, caffe_mpi_tpu/net.py)."""
+        `Net`'s rules, caffe_mpi_tpu/net.py).
+        batch_divisor: the data-parallel ranks; the prototxt batch is
+        global and each rank's net takes its share (reference
+        divide_batch_size, parallel.cpp:295-348; the JAX `Net`'s
+        `_divide_batch`): Input dims and the batch_size of Data,
+        ImageData and WindowData. An indivisible batch raises."""
         super().__init__()
         self.device = resolve_device(device)
         self.model_dir = model_dir
@@ -113,6 +123,12 @@ class Net(nn.Module):
                     net_fwd, net_bwd)
 
         for lp in param.layer:
+            if batch_divisor > 1 and lp.type in ("Data", "ImageData",
+                                                 "Input", "WindowData"):
+                # the NetParameter is shared with the test nets and the
+                # caller: divide a copy
+                lp = copy.deepcopy(lp)
+                self._divide_batch(lp, batch_divisor)
             policy = DtypePolicy.resolve(
                 lp.forward_type, lp.backward_type, net_fwd, net_bwd,
                 solver_storage,
@@ -195,6 +211,44 @@ class Net(nn.Module):
                     f"{decl.shape} vs {tuple(src.shape)}")
             setattr(layer, pname, src)
             self.param_aliases[(layer.name, pname)] = owner
+
+    def _divide_batch(self, lp, divisor: int) -> None:
+        """Divide a layer's global batch by `divisor` (the JAX `Net`'s
+        `_divide_batch`). WindowData is divided too: its feeder stripes
+        windows by rank, as the Data layers' do."""
+        if lp.type == "Input":
+            if lp.input_param:
+                for shape in lp.input_param.shape:
+                    if shape.dim:
+                        b = shape.dim[0]
+                        if b % divisor:
+                            self._reject_indivisible(lp, b, divisor)
+                        shape.dim[0] = max(1, b // divisor)
+            return
+        p = {"Data": lp.data_param, "ImageData": lp.image_data_param,
+             "WindowData": lp.window_data_param}[lp.type]
+        if p and p.batch_size:
+            if p.batch_size % divisor:
+                self._reject_indivisible(lp, p.batch_size, divisor)
+            p.batch_size = max(1, p.batch_size // divisor)
+
+    @staticmethod
+    def _reject_indivisible(lp, batch: int, divisor: int):
+        micro = (batch + divisor - 1) // divisor
+        raise IndivisibleBatch(
+            f"layer {lp.name!r}: global batch {batch} is not divisible by "
+            f"{divisor} (micro-batches x replicas); rounding up would "
+            f"train at an effective global batch of {micro * divisor}, "
+            f"not the configured {batch}. Use a divisible batch_size or "
+            f"another rank count.")
+
+    def bind_mesh(self, mesh_plan) -> None:
+        """Hand every layer the rank's MeshPlan (the reference's
+        solver_count/rank that layers consult). BatchNorm, the losses and
+        Accuracy then compute global-batch results across the ranks;
+        other layers ignore it."""
+        for layer in self.layers:
+            layer.mesh_plan = mesh_plan
 
     def layer_by_name(self, name: str) -> Layer:
         try:

@@ -1,0 +1,486 @@
+"""Process group and data-parallel plan: the port's counterpart of the JAX
+package's caffe_mpi_tpu/parallel/mesh.py.
+
+The reference runs one worker per GPU over one global NCCL communicator
+(parallel.cpp:166-169): rank 0 broadcasts the weights at start
+(parallel.cpp:208-227) and the workers all-reduce their gradients every
+iteration. The JAX package runs one SPMD program over a device mesh. The
+port follows the reference: one process a rank over `torch.distributed`,
+its backend fixed by the device layout (`backend_for`): NCCL when every
+rank of a host has a card of its own, gloo on the CPU and where ranks
+share a card (NCCL refuses two ranks on one device). The backend is never
+chosen by trying NCCL and falling back.
+
+- `resolve_cluster` reads `hosts` / `coordinator` / the host id from the
+  solver and the CLI, with the JAX package's environment fallbacks;
+- `init_distributed` forms the group over a TCPStore at `coordinator`
+  (rank 0 serves it) with bounded retries and a timeout, and raises
+  resilience.ClusterError when they run out; every collective has the
+  group's timeout (`CAFFE_TPU_COLLECTIVE_TIMEOUT`, default 600 s);
+- `MeshPlan` is this rank's view of the 'data' axis: its size `n_data`,
+  its rank and device, and the collectives the solver and the layers
+  issue: `all_reduce_` (sum in place), `all_reduce_start` (the same,
+  waited on later), `broadcast_` (from rank 0, the reference's ncclBcast:
+  `replicate`), `all_gather`, the batch slicing of `shard` (a Dropout
+  mask's rank slice) and ZeRO-1's `zero_slot_sharding`. Under
+  gloo a CUDA tensor is staged through pinned host memory explicitly.
+  Each collective adds one to `collectives.launches`, which a captured
+  CUDA graph adds again at every replay, as the kernel counters;
+- `cluster_barrier` and `cluster_kv_set` / `cluster_kv_get` work on the
+  group's store, never on the device.
+
+A 'model' axis above 1 and `param_sharding_rules` (tensor parallelism)
+are refused, naming ROADMAP.md §1 item 6. The heartbeat transport, the
+generation records of min_hosts elasticity and the jax-version shims
+(typeof, vma, shard_map, axis_size, mark_varying) have no counterpart
+here: the shims exist for a traced program, and the rest stays with
+item 6.
+"""
+
+from __future__ import annotations
+
+import datetime
+import inspect
+import logging
+import os
+import socket
+import time
+from dataclasses import dataclass, field
+
+import torch
+import torch.distributed as dist
+
+log = logging.getLogger("caffe_mpi_tpu_torch.parallel")
+
+# the live group's store (KV and barriers); set by init_distributed
+_STORE = None
+_BARRIERS: dict[str, int] = {}
+
+
+class _Counter:
+    """A launch counter in the kernels' form (`launches`, `__name__`): the
+    solver's graph capture takes a capture's delta back and adds it at
+    replays."""
+
+    __name__ = "collectives"
+
+    def __init__(self):
+        self.launches = 0
+
+
+def _refuse_model_axis(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md §1 item 6); the port "
+        "runs data parallelism only (-mesh data=N)")
+
+
+def resolve_cluster(sp=None, host_id: int | None = None):
+    """(world, coordinator, rank) of the host cluster from the solver's
+    `hosts` / `coordinator` and `host_id`, else CAFFE_TPU_NUM_HOSTS /
+    CAFFE_TPU_COORDINATOR / CAFFE_TPU_HOST_ID (the JAX `resolve_cluster`;
+    the reference reads the same facts from mpirun's environment,
+    clusters.cpp:8-45). world <= 1 is one host. An incomplete multi-host
+    configuration raises ClusterError."""
+    from ..utils import resilience
+    world = int(getattr(sp, "hosts", 0) or 0) if sp is not None else 0
+    if world <= 0:
+        world = int(os.environ.get("CAFFE_TPU_NUM_HOSTS", "0") or 0)
+    coordinator = (str(getattr(sp, "coordinator", "") or "")
+                   if sp is not None else "")
+    if not coordinator:
+        coordinator = os.environ.get("CAFFE_TPU_COORDINATOR", "")
+    rank = host_id if host_id is not None and host_id >= 0 else int(
+        os.environ.get("CAFFE_TPU_HOST_ID", "-1") or -1)
+    if world > 1:
+        if not coordinator:
+            raise resilience.ClusterError(
+                f"hosts={world} but no coordinator: set the solver "
+                "`coordinator` knob, -coordinator, or "
+                "CAFFE_TPU_COORDINATOR")
+        if not 0 <= rank < world:
+            raise resilience.ClusterError(
+                f"hosts={world} needs a host id in [0, {world}): set "
+                "-host_id or CAFFE_TPU_HOST_ID")
+    return world, coordinator, rank
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def backend_for(devices, hosts: int = 1) -> str:
+    """"nccl" when every device is a card and no card of a host serves
+    two ranks; else "gloo". `devices` lists every rank's device, host by
+    host (hosts equal slices)."""
+    devs = [torch.device(d) for d in devices]
+    if any(d.type != "cuda" for d in devs):
+        return "gloo"
+    per = max(len(devs) // max(hosts, 1), 1)
+    for h in range(0, len(devs), per):
+        idx = [d.index or 0 for d in devs[h:h + per]]
+        if len(set(idx)) != len(idx):
+            return "gloo"
+    return "nccl"
+
+
+def _timeout(env: str, default: float) -> float:
+    return float(os.environ.get(env, "") or default)
+
+
+# distributed init: attempts, and the first backoff (doubled each retry)
+INIT_ATTEMPTS = 3
+INIT_BASE_DELAY_S = 1.0
+
+
+def init_distributed(coordinator: str, num_processes: int, process_id: int,
+                     *, backend: str = "gloo",
+                     device: torch.device | None = None) -> None:
+    """Form the process group (reference Clusters::Init, the ncclUniqueId
+    handshake): a TCPStore at `coordinator` (host:port; rank 0 serves
+    it), then `init_process_group` over it with the collective timeout.
+    Each of INIT_ATTEMPTS attempts is bounded by CAFFE_TPU_INIT_TIMEOUT
+    (default 60 s) and backs off through `resilience.retrying`;
+    exhaustion raises ClusterError (the CLI journals it and exits 87),
+    never a hang. The `coordinator_down` fault site fails the first
+    attempts."""
+    global _STORE
+    from ..utils import resilience
+    from ..utils.resilience import FAULTS
+    if dist.is_initialized():
+        raise resilience.ClusterError("a process group is already live")
+    store_timeout = datetime.timedelta(
+        seconds=_timeout("CAFFE_TPU_INIT_TIMEOUT", 60.0))
+    coll_timeout = datetime.timedelta(seconds=_timeout(
+        "CAFFE_TPU_COLLECTIVE_TIMEOUT", 600.0))
+    host, _, port = coordinator.rpartition(":")
+    if not host or not port.isdigit():
+        raise resilience.ClusterError(
+            f"coordinator {coordinator!r} is not host:port")
+    kw = {}
+    if backend == "nccl" and device is not None and "device_id" in \
+            inspect.signature(dist.init_process_group).parameters:
+        kw["device_id"] = device  # eager NCCL communicator on this card
+
+    def attempt():
+        try:
+            FAULTS.maybe_raise("coordinator_down", RuntimeError,
+                               "injected coordinator outage")
+            store = dist.TCPStore(host, int(port), num_processes,
+                                  process_id == 0, timeout=store_timeout,
+                                  wait_for_workers=False)
+            dist.init_process_group(backend, store=store, rank=process_id,
+                                    world_size=num_processes,
+                                    timeout=coll_timeout, **kw)
+            return store
+        except Exception:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            raise
+
+    try:
+        _STORE = resilience.retrying(
+            attempt, attempts=INIT_ATTEMPTS, base_delay=INIT_BASE_DELAY_S,
+            max_delay=30.0, exc_types=(Exception,),
+            desc=f"distributed init against {coordinator}")
+    except Exception as e:  # noqa: BLE001 — every failure is a ClusterError
+        raise resilience.ClusterError(
+            f"distributed init failed after {INIT_ATTEMPTS} attempt(s) "
+            f"against coordinator {coordinator!r}: {e}") from e
+    log.info("process group: rank %d/%d over %s (coordinator %s)",
+             process_id, num_processes, backend, coordinator)
+
+
+def shutdown_distributed() -> None:
+    """Tear the group down (after the exit barrier); a group already
+    gone is fine."""
+    global _STORE
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _STORE = None
+    _BARRIERS.clear()
+
+
+def cluster_barrier(name: str, timeout_s: float | None = None) -> bool:
+    """Every rank reaches `name` (snapshot commit, end of training) on
+    the store, off the device, within `timeout_s` (default the collective
+    timeout). True on success, False on a timeout or a dead store
+    (callers journal EXIT_CLUSTER); True with no group."""
+    if _STORE is None:
+        return True
+    if timeout_s is None:
+        timeout_s = _timeout("CAFFE_TPU_COLLECTIVE_TIMEOUT", 600.0)
+    n = _BARRIERS[name] = _BARRIERS.get(name, 0) + 1
+    key = f"caffe/barrier/{name}/{n}"
+    try:
+        _STORE.add(key, 1)
+        deadline = time.monotonic() + timeout_s
+        world = dist.get_world_size()
+        while int(_STORE.add(key, 0)) < world:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{name}: waited {timeout_s:g}s")
+            time.sleep(0.005)
+        return True
+    except Exception as e:  # noqa: BLE001 — False is the typed result
+        log.error("cluster barrier %r failed: %s", name, e)
+        return False
+
+
+def cluster_kv_set(key: str, value: str) -> bool:
+    """Publish `value` under `key` on the store (rank 0's resume
+    decision). False with no group or a dead store."""
+    if _STORE is None:
+        return False
+    try:
+        _STORE.set(key, value)
+        return True
+    except Exception as e:  # noqa: BLE001 — False is the typed result
+        log.error("cluster kv set %r failed: %s", key, e)
+        return False
+
+
+def cluster_kv_get(key: str, timeout_s: float = 120.0) -> str | None:
+    """Wait for `key` on the store. None on a timeout, a dead store or no
+    group."""
+    if _STORE is None:
+        return None
+    try:
+        _STORE.wait([key], datetime.timedelta(seconds=timeout_s))
+        return _STORE.get(key).decode()
+    except Exception as e:  # noqa: BLE001 — None is the typed result
+        log.error("cluster kv get %r failed: %s", key, e)
+        return None
+
+
+def needs_collective_gather(sharded) -> bool:
+    """True when exporting state involves a collective: some entry of
+    `sharded` (the solver's ZeRO-1 slot shards, {key: dim-0 shard
+    length or None}) lives split over the ranks. Every rank must then
+    reach the gather, in the same order."""
+    return any(v is not None for v in sharded.values())
+
+
+def union_ms(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    ms, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            ms += b - max(a, end)
+            end = b
+    return ms
+
+
+class _Pending:
+    """An all-reduce in flight: `wait` joins it, copies a staged result
+    back to the card and records the end of its timing pair."""
+
+    def __init__(self, work, host=None, dest=None, pair=None):
+        self.work, self.host, self.dest, self.pair = work, host, dest, pair
+
+    def wait(self) -> None:
+        if self.work is not None:
+            self.work.wait()
+        if self.host is not None:
+            self.dest.copy_(self.host, non_blocking=True)
+        if self.pair:
+            self.pair[1].record()
+
+
+@dataclass
+class MeshPlan:
+    """This rank's place on the 'data' axis and its collectives."""
+
+    n_data: int
+    rank: int
+    device: torch.device
+    backend: str
+    hosts: int = 1
+    collectives: _Counter = field(default_factory=_Counter)
+    # CUDA event pairs around eager collectives while `timing` is on, and
+    # the event recorded before the first of them (their common origin)
+    timing: bool = False
+    events: list = field(default_factory=list)
+    _origin: object = None
+    _pinned: dict = field(default_factory=dict)
+
+    @classmethod
+    def from_shape(cls, data: int, model: int = 1, devices=None,
+                   hosts: int = 1) -> "MeshPlan":
+        """A 'data' axis of `data` ranks over `devices` (every rank's
+        device, host by host; default every card of this host). The group
+        must be live with `data` ranks; with none and data 1, a group of
+        one is formed here on a free local port."""
+        from ..utils import resilience
+        if model > 1:
+            raise _refuse_model_axis(f"a 'model' mesh axis of {model}")
+        if devices is None:
+            devices = _cards() * max(hosts, 1)
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != data * model:
+            raise ValueError(f"mesh {data}x{model} needs {data * model} "
+                             f"devices, have {len(devices)}")
+        backend = backend_for(devices, hosts)
+        if not dist.is_initialized():
+            if data != 1:
+                raise resilience.ClusterError(
+                    f"a mesh of {data} ranks needs the process group: call "
+                    "init_distributed first")
+            init_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                             backend=backend, device=devices[0])
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if world != data:
+            raise ValueError(f"mesh data={data} but the process group has "
+                             f"{world} ranks")
+        live = dist.get_backend()
+        if live != backend:
+            raise ValueError(f"the device layout needs {backend}, the "
+                             f"group runs {live}")
+        device = devices[rank]
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("a mesh over cards, but "
+                                   "torch.cuda.is_available() is False")
+            torch.cuda.set_device(device)
+        return cls(n_data=data, rank=rank, device=device, backend=backend,
+                   hosts=hosts)
+
+    def param_sharding_rules(self, rules):
+        raise _refuse_model_axis("param_sharding_rules (tensor parallelism)")
+
+    # -- collectives ----------------------------------------------------
+    def _staged(self, t: torch.Tensor) -> bool:
+        return self.backend == "gloo" and t.is_cuda
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        """A pinned host buffer of t's size and type, reused."""
+        key = (t.numel(), t.dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = self._pinned[key] = torch.empty(
+                t.numel(), dtype=t.dtype, pin_memory=True)
+        return buf.view(t.shape)
+
+    def _timed(self):
+        """A (start, end) CUDA event pair to record around a collective,
+        or None."""
+        if not (self.timing and self.device.type == "cuda") or \
+                torch.cuda.is_current_stream_capturing():
+            return None
+        if self._origin is None:
+            self._origin = torch.cuda.Event(enable_timing=True)
+            self._origin.record()
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        self.events.append(pair)
+        return pair
+
+    def all_reduce_start(self, t: torch.Tensor,
+                         host: torch.Tensor | None = None) -> _Pending:
+        """Start a sum of `t` over the ranks, in place; `wait()` on the
+        result joins it. On a card under gloo `t` is copied to pinned
+        host memory now (`host`, else a new buffer: two sums in flight
+        never share one), the sum runs on gloo's thread, and `wait`
+        copies it back. Timed from here to the end of `wait`."""
+        self.collectives.launches += 1
+        pair = self._timed()
+        if pair:
+            pair[0].record()
+        if self.n_data == 1 and self.backend == "gloo":
+            return _Pending(None, pair=pair)
+        if self._staged(t):
+            if host is None:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t)
+            return _Pending(dist.all_reduce(host, async_op=True), host, t,
+                            pair)
+        return _Pending(dist.all_reduce(t, async_op=True), pair=pair)
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum `t` over the ranks, in place; returns `t`."""
+        self.all_reduce_start(t).wait()
+        return t
+
+    def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank `src`'s `t` on every rank, in place."""
+        self.collectives.launches += 1
+        if self._staged(t):
+            host = self._host(t)
+            host.copy_(t)
+            dist.broadcast(host, src)
+            t.copy_(host)
+        else:
+            dist.broadcast(t, src)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's `t`, stacked on a new dim 0 in rank order."""
+        pair = self._timed()
+        if pair:
+            pair[0].record()
+        self.collectives.launches += 1
+        src = t.contiguous()
+        if self._staged(src):
+            host = self._host(src)
+            host.copy_(src)
+            parts = [torch.empty_like(host) for _ in range(self.n_data)]
+            dist.all_gather(parts, host)
+            out = torch.stack(parts).to(t.device)
+        else:
+            out = torch.empty(self.n_data * src.numel(), dtype=src.dtype,
+                              device=src.device)
+            dist.all_gather_into_tensor(out, src.reshape(-1))
+            out = out.view(self.n_data, *src.shape)
+        if pair:
+            pair[1].record()
+        return out
+
+    def collective_ms(self) -> float:
+        """Device ms during which at least one timed collective was in
+        flight since the last call: the union of the event pairs'
+        intervals (under reduce_overlap the buckets' pairs overlap each
+        other and backward; a sum would count that time once per bucket).
+        Synchronises."""
+        if not self.events:
+            return 0.0
+        torch.cuda.synchronize(self.device)
+        o = self._origin
+        ms = union_ms([(o.elapsed_time(a), o.elapsed_time(b))
+                       for a, b in self.events])
+        self.events.clear()
+        self._origin = None
+        return ms
+
+    def replicate(self, tensors) -> None:
+        """Rank 0's values of `tensors` on every rank (the reference's
+        startup ncclBcast of all weights, parallel.cpp:208-227)."""
+        with torch.no_grad():
+            for t in tensors:
+                self.broadcast_(t)
+
+    # -- batches --------------------------------------------------------
+    def shard(self, x, batch_axis: int = 0):
+        """This rank's slice of a global batch along `batch_axis`."""
+        b = x.shape[batch_axis] // self.n_data
+        return x.narrow(batch_axis, self.rank * b, b) \
+            if isinstance(x, torch.Tensor) else \
+            x.take(range(self.rank * b, (self.rank + 1) * b),
+                   axis=batch_axis)
+
+    def zero_slot_sharding(self, shape) -> int | None:
+        """ZeRO-1: the dim-0 length of this rank's shard of a slot of
+        `shape` (dim 0 split over 'data'), or None (replicated) when dim
+        0 does not divide n_data or there is one rank."""
+        if self.n_data <= 1 or not shape or shape[0] % self.n_data:
+            return None
+        return shape[0] // self.n_data
+
+
+def _cards() -> list[str]:
+    """Every card of this host; raises without one (`-gpu all` on a
+    machine with no card)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+        raise RuntimeError("-gpu all / a mesh over cards, but "
+                           "torch.cuda.is_available() is False")
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]

@@ -1,4 +1,4 @@
-"""Solver — the single-device training loop.
+"""Solver — the training loop, on one device or data-parallel.
 
 Reference: src/caffe/solver.cpp + solvers/*; JAX package
 caffe_mpi_tpu/solver/solver.py, whose jitted step holds the whole iteration.
@@ -111,12 +111,53 @@ Survivable training, as the JAX solver has it (utils/resilience.py):
 - `requests`: flags a signal handler sets ("stop", "snapshot"), acted on
   at the next chunk boundary.
 
-Not ported yet (ROADMAP.md): meshes and ZeRO, gpipe, HDF5 snapshots and
-the asynchronous evaluation that overlaps training. Each of their fields
-is in `UNPORTED_FIELDS` (`snapshot_format` other than BINARYPROTO is
-refused the same way): a value other than its default raises
-NotImplementedError before anything is built, so no field is accepted
-and then ignored. An unknown `precision` raises ValueError, as the JAX
+Data parallelism (`mesh`, a parallel.MeshPlan: one process a rank, the
+JAX `Solver(mesh=)` semantics: N ranks give the parameters one device
+gives on the same global batch). The prototxt batch is global and each
+rank's net takes batch/N (`Net(batch_divisor=N)`); each rank is fed its
+slice of the global batch (the CLI's feeders stripe by rank). Then:
+
+- replicas start identical: rank 0's params, running statistics and
+  history are broadcast after construction, after `restore` and after
+  `load_weights` (the reference's ncclBcast, parallel.cpp:208-227);
+- the gradients are views into flat buffers (parallel/reduction.py
+  `Reducer`): the implicit path all-reduces them once after the backward
+  loop; `reduce_overlap` splits them into the JAX plan's buckets, each
+  all-reduced from a gradient hook as soon as the last micro-batch's
+  backward has produced it (the bf16 wire under `precision: bf16`), with
+  the JAX validation and fallback reasons (`reduction_stats`). The sum
+  is divided by N after the reduce (net.cpp:891), then clipping, the
+  guard and the update run on the reduced gradients; the loss is
+  all-reduced too, so every rank accepts or skips the same step and
+  moves its loss scale alike;
+- BatchNorm's statistics, VALID loss normalization with ignore_label and
+  Accuracy are global-batch values across the ranks (`Net.bind_mesh`);
+  Dropout's mask on a rank is its slice of the global mask drawn from
+  the same generator (a given `dropout_masks` is the global mask too);
+  MoE and host layers (DetectNetTransformation) are refused (ROADMAP.md
+  §1 item 6);
+- ZeRO-1 (`zero_stage: 1`, the JAX checks): a history slot whose dim 0
+  divides N lives on each rank as its dim-0 shard; the rank updates its
+  slice of the param from the reduced gradient and the ranks all-gather
+  the param. Snapshots gather the slots first, on the main thread;
+- a test net whose batch divides N evaluates the rank's slice and its
+  scores are all-reduced; one that does not evaluates the whole batch on
+  every rank (the JAX `_place_test_feeds` fallback);
+- rank 0 displays, writes snapshots and the run journal (rank k's is
+  `<prefix>.r<k>.run.json`); the other ranks wait at a barrier on the
+  group's store until its files are written; `restore_auto` restores on
+  every rank the point rank 0 chose, published on the store; signal
+  requests are agreed at each chunk boundary;
+- under NCCL a chunk's CUDA graph captures the all-reduces; gloo
+  collectives cannot be captured, so under gloo on the card a chunk runs
+  eagerly (`graphs`).
+
+Not ported yet (ROADMAP.md): gpipe, tensor parallelism, elastic hosts,
+HDF5 snapshots and the asynchronous evaluation that overlaps training.
+Each of their fields is in `UNPORTED_FIELDS` (`snapshot_format` other
+than BINARYPROTO is refused the same way): a value other than its
+default raises NotImplementedError before anything is built, so no
+field is accepted and then ignored. An unknown `precision` raises ValueError, as the JAX
 `Solver` does.
 """
 
@@ -138,8 +179,10 @@ import torch
 
 from .. import io as caffe_io
 from ..core.device import resolve_device
-from ..net import Net
+from ..net import IndivisibleBatch, Net
 from ..ops import launch_counters, launch_counts
+from ..parallel import mesh as mesh_mod
+from ..parallel import reduction
 from ..proto.config import (NetParameter, SolverParameter, refuse_unported,
                             solver_type)
 from ..utils import resilience
@@ -153,11 +196,7 @@ log = logging.getLogger("caffe_mpi_tpu_torch.solver")
 # not yet, each with the ROADMAP.md section 1 item that will port it.
 # Fields neither package honours (solver_mode, device_id, ...) stay
 # accepted.
-UNPORTED_FIELDS = (
-    ("zero_stage", 6), ("reduce_overlap", 6), ("reduce_buckets", 6),
-    ("grad_bucket_mb", 6), ("hosts", 6), ("coordinator", 6),
-    ("host_deadline", 6), ("min_hosts", 6),
-)
+UNPORTED_FIELDS = (("host_deadline", 6), ("min_hosts", 6))
 PRECISIONS = ("f32", "bf16")  # the JAX Solver's; "" is f32
 # snapshot formats the port does not write yet, with their ROADMAP.md
 # section 1 item
@@ -237,7 +276,9 @@ class _Graph:
 
 class Solver:
     def __init__(self, sp: SolverParameter, *, model_dir: str = "",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device | None = None,
+                 mesh: mesh_mod.MeshPlan | None = None):
+        """device: default the card (the mesh's device under `mesh`)."""
         precision = str(sp.precision or "f32").lower()
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {sp.precision!r} (expected "
@@ -268,7 +309,22 @@ class Solver:
         self.update_fn = UPDATE_FNS[self.type]
         if self.type == "RMSProp":
             self.update_fn = partial(self.update_fn, rms_decay=sp.rms_decay)
-        self.device = resolve_device(device)
+        zero = int(sp.zero_stage or 0)
+        if zero not in (0, 1):
+            raise ValueError(f"zero_stage {zero} unsupported (0 or 1)")
+        if zero and mesh is None:
+            raise ValueError("zero_stage: 1 requires a device mesh "
+                             "(-gpu all or -mesh data=N)")
+        if mesh is not None:
+            if device is not None and \
+                    resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
+        self.rank = mesh.rank if mesh is not None else 0
+        n_data = mesh.n_data if mesh is not None else 1
+        self.device = resolve_device(device or "cuda")
         self.model_dir = model_dir
         self.precision = precision
         self._ls_window = lsw if lsw > 0 else 200
@@ -279,12 +335,23 @@ class Solver:
         self.step_chunk = max(int(sp.step_chunk or 1), 1)
 
         ts = sp.train_state
-        self.net = Net(_load_net_param(sp, "TRAIN", model_dir), "TRAIN",
+        train_param = _load_net_param(sp, "TRAIN", model_dir)
+        self.net = Net(train_param, "TRAIN",
                        device=self.device, level=ts.level if ts else 0,
                        stages=tuple(ts.stage) if ts else (),
                        model_dir=model_dir,
                        solver_storage=sp.solver_data_type,
-                       precision=precision)
+                       precision=precision, batch_divisor=n_data)
+        if n_data > 1:
+            bad = [f"{l.name} ({l.lp.type})" for l in self.net.layers
+                   if l.lp.type == "MoE" or l.host_step]
+            if bad:
+                raise NotImplementedError(
+                    f"data parallelism over layers {', '.join(bad)} is not "
+                    "ported yet (ROADMAP.md §1 item 6): MoE routes and host "
+                    "layers transform across the whole batch")
+        if mesh is not None:
+            self.net.bind_mesh(mesh)
         # the one TF32 setting the backward runs under (raises on a mix)
         self.net.math_precision()
         self._math = self.net.layers[0].policy
@@ -292,13 +359,27 @@ class Solver:
         n_tests = max(len(sp.test_net), len(sp.test_net_param),
                       1 if (sp.net or sp.net_param is not None)
                       and sp.test_iter else 0)
+        # a test net whose batch divides the ranks evaluates the rank's
+        # slice; else the whole batch on every rank
+        self.test_sharded: list[bool] = []
         for i in range(n_tests):
             st = sp.test_state[i] if i < len(sp.test_state) else None
-            self.test_nets.append(Net(
-                _load_net_param(sp, "TEST", model_dir, i), "TEST",
-                device=self.device, level=st.level if st else 0,
-                stages=tuple(st.stage) if st else (), model_dir=model_dir,
-                precision=precision))
+            kw = dict(device=self.device, level=st.level if st else 0,
+                      stages=tuple(st.stage) if st else (),
+                      model_dir=model_dir, precision=precision)
+            tparam = _load_net_param(sp, "TEST", model_dir, i)
+            try:
+                tnet = Net(tparam, "TEST", batch_divisor=n_data, **kw)
+                sharded = n_data > 1
+            except IndivisibleBatch:
+                log.warning("test net #%d: its batch does not divide into "
+                            "%d ranks; every rank evaluates the whole batch",
+                            i, n_data)
+                tnet, sharded = Net(tparam, "TEST", **kw), False
+            if sharded:
+                tnet.bind_mesh(mesh)
+            self.test_nets.append(tnet)
+            self.test_sharded.append(sharded)
 
         seed = sp.random_seed if sp.random_seed >= 0 else 0
         self.net.init(seed)
@@ -311,11 +392,30 @@ class Solver:
                        in self.net.learnable_param_decls()]
         k = n_slots(self.type)
         self.history: dict[tuple[str, str], tuple[torch.Tensor, ...]] = {}
+        # ZeRO-1: the dim-0 length of each slot's shard on this rank (the
+        # JAX `_place_params_opt`), None where the slot is replicated
+        self._zero = zero
+        self._shard_len: dict[tuple[str, str], int | None] = {}
         for lname, pname, decl, p in self._decls:
             p.requires_grad_(decl.lr_mult != 0.0)
+            shard = mesh.zero_slot_sharding(tuple(p.shape)) if zero \
+                else None
+            self._shard_len[(lname, pname)] = shard
+            shape = (shard, *p.shape[1:]) if shard else p.shape
             self.history[(lname, pname)] = tuple(
-                torch.zeros(p.shape, dtype=torch.float32, device=self.device)
+                torch.zeros(shape, dtype=torch.float32, device=self.device)
                 for _ in range(k))
+        self._reducer: reduction.Reducer | None = None
+        self._reduction: reduction.ReductionPlan | None = None
+        self._reduction_fallback: str | None = None
+        self._init_reduction(train_param)
+        # collectives and iterations of the training chunks (the
+        # collectives_issued_per_step of reduction_stats)
+        self._train_collectives = 0
+        self._train_iters = 0
+        self._resume_round = 0
+        self._barrier_pending = False
+        self._sync_replicas()
         # per-iteration randomness (Dropout): one generator on the device,
         # reseeded from (random_seed, iteration) at every iteration as the
         # JAX solver folds the iteration into its key, so a resumed run
@@ -327,7 +427,12 @@ class Solver:
         # a layer that runs on the host (DetectNetTransformation) cannot
         # be captured: such a net's chunks run as eager iterations
         host = [layer.name for layer in self.net.layers if layer.host_step]
-        self._graphs_ok = self.device.type == "cuda" and not host
+        self._graphs_ok = self.device.type == "cuda" and not host \
+            and (mesh is None or mesh.backend == "nccl")
+        if self.device.type == "cuda" and mesh is not None \
+                and mesh.backend != "nccl" and self.step_chunk > 1:
+            log.info("gloo collectives cannot enter a CUDA graph: step_chunk "
+                     "%d runs each chunk eagerly", self.step_chunk)
         if host and self.step_chunk > 1:
             log.info("net %s has host layers (%s): step_chunk %d runs each "
                      "chunk as %d eager iterations, one host read-back a "
@@ -365,6 +470,7 @@ class Solver:
         self.host_sync_count = 0
         self.guard_sync_count = 0
         self.graph_replays = 0
+        self.graph_collectives = 0  # collectives a replay issues
         self.skipped_steps = 0
         self.overflow_steps = 0
         self.loss_scale_value = LS_INIT if self._dyn_scale \
@@ -415,6 +521,162 @@ class Solver:
                 setattr(layer, pname, p)
 
     # ------------------------------------------------------------------
+    # Data parallelism
+    def _init_reduction(self, train_param: NetParameter) -> None:
+        """Validate the reduction knobs and pick the reduce (the JAX
+        `_init_reduction`): config errors raise; a net or mesh the JAX
+        bucketed step does not take falls back to the implicit flat
+        reduce with the reason logged (`reduction_stats`)."""
+        sp, mesh = self.sp, self.mesh
+        if train_param.has("reduce_buckets") \
+                and train_param.reduce_buckets <= 0:
+            raise ValueError(
+                f"net reduce_buckets must be >= 1, got "
+                f"{train_param.reduce_buckets}")
+        if sp.reduce_buckets < 0 or (
+                sp.has("reduce_buckets") and sp.reduce_buckets == 0):
+            raise ValueError(
+                f"solver reduce_buckets must be >= 1, got "
+                f"{sp.reduce_buckets}")
+        if sp.grad_bucket_mb < 0 or (
+                sp.has("grad_bucket_mb") and sp.grad_bucket_mb == 0):
+            raise ValueError(
+                f"grad_bucket_mb must be a positive MiB budget, got "
+                f"{sp.grad_bucket_mb}")
+        n_buckets = int(sp.reduce_buckets or 0)
+        bucket_mb = float(sp.grad_bucket_mb or 0.0)
+        if n_buckets > 0 and bucket_mb > 0:
+            raise ValueError(
+                "set either reduce_buckets (bucket count) or "
+                "grad_bucket_mb (byte budget), not both")
+        if sp.reduce_overlap and mesh is None:
+            raise ValueError(
+                "reduce_overlap requires a device mesh (-gpu all or "
+                "-mesh data=N)")
+        if mesh is None:
+            return
+        params = {(l, p): t for l, lp in reduction.net_params(
+            self.net).items() for p, t in lp.items()}
+        fallback = None
+        if sp.reduce_overlap:
+            if mesh.n_data == 1:
+                fallback = ("'data' axis has a single device — nothing to "
+                            "reduce (the implicit program is already "
+                            "collective-free)")
+            elif self._zero:
+                fallback = ("zero_stage 1 reduces via reduce-scatter; "
+                            "explicit bucket psums would defeat it")
+            else:
+                fallback = reduction.unsupported_reason(self.net)
+            if fallback is not None:
+                self._reduction_fallback = fallback
+                log.warning("reduce_overlap: falling back to the implicit "
+                            "reduction — %s", fallback)
+            else:
+                n = mesh.n_data
+                if n & (n - 1):
+                    log.warning(
+                        "reduce_overlap: 'data' axis size %d is not a power "
+                        "of two; the post-reduce 1/n scale is inexact and "
+                        "the bucketed step matches the implicit one only to "
+                        "~1 ulp", n)
+                if not n_buckets and not bucket_mb:
+                    n_buckets = train_param.reduce_buckets
+                self._reduction = reduction.plan_for_net(
+                    self.net, n_buckets=n_buckets,
+                    bucket_bytes=int(bucket_mb * (1 << 20)), n_data=n,
+                    wire_dtype="bfloat16" if self.precision == "bf16"
+                    else None)
+                if self.rank == 0:
+                    log.info("overlapped bucketed reduction: %d bucket(s) "
+                             "over 'data'=%d, bytes per bucket %s%s",
+                             len(self._reduction.buckets), n,
+                             list(self._reduction.bucket_bytes),
+                             " (bf16 wire)" if self.precision == "bf16"
+                             else "")
+        # the implicit reduce: one flat buffer (a dtype run each)
+        plan = self._reduction or reduction.plan_for_net(
+            self.net, bucket_bytes=1 << 62, n_data=mesh.n_data)
+        self._reducer = reduction.Reducer(
+            plan, params, mesh, hooks=self._reduction is not None)
+
+    def reduction_stats(self) -> dict | None:
+        """Gradient-reduction telemetry, the JAX keys: the bucket plan
+        (mode 'bucketed'), or mode 'implicit' with the fallback reason;
+        None without a mesh. The port adds the collectives its training
+        chunks issued a step (BatchNorm's, the loss's and ZeRO's
+        gathers included), the bytes the gradient reduce moves a step,
+        the backend and the ZeRO stage."""
+        if self.mesh is None:
+            return None
+        if self._reduction is not None:
+            out = self._reduction.stats()
+        else:
+            out = {"mode": "implicit", "n_data": self.mesh.n_data}
+            if self._reduction_fallback:
+                out["fallback_reason"] = self._reduction_fallback
+        hosts = self.mesh.hosts
+        out["hosts"] = hosts
+        out["cross_host_collectives_per_step"] = (
+            out.get("collectives_per_step", 0) if hosts > 1 else 0)
+        wire = 2 if self._reducer.plan.wire_dtype else None
+        out["reduced_bytes_per_step"] = sum(
+            f.numel() * (wire or f.element_size())
+            for f in self._reducer.flats)
+        out["buckets"] = len(self._reducer.flats)
+        out["collectives_issued_per_step"] = (
+            self._train_collectives / self._train_iters
+            if self._train_iters else None)
+        out["backend"] = self.mesh.backend
+        out["zero_stage"] = self._zero
+        return out
+
+    def _replicated(self) -> list[torch.Tensor]:
+        """What every rank holds alike: params, running statistics and
+        the replicated history slots."""
+        out = [p for _, _, _, p in self._decls]
+        out += [buf for _, _, buf in self.net.state_buffers()]
+        out += [s for key, slots in self.history.items()
+                if self._shard_len[key] is None for s in slots]
+        return out
+
+    def _sync_replicas(self) -> None:
+        """Rank 0's params, statistics and history on every rank."""
+        if self.mesh is not None:
+            self.mesh.replicate(self._replicated())
+
+    def _counters(self) -> list:
+        """The counters a graph capture takes back and a replay adds:
+        K1-K5's launches and the mesh's collectives."""
+        out = list(launch_counters())
+        if self.mesh is not None:
+            out.append(self.mesh.collectives)
+        return out
+
+    def full_history(self) -> dict[tuple[str, str], tuple[torch.Tensor, ...]]:
+        """Every param's history slots whole: ZeRO-1 shards all-gathered
+        (a collective: every rank calls it, in the same order)."""
+        out = {}
+        for key, slots in self.history.items():
+            if self._shard_len[key] is None:
+                out[key] = slots
+            else:
+                shape = tuple(getattr(self.net.layer_by_name(key[0]),
+                                      key[1]).shape)
+                out[key] = tuple(self.mesh.all_gather(s).reshape(shape)
+                                 for s in slots)
+        return out
+
+    def _agree(self, flag: torch.Tensor) -> torch.Tensor:
+        """A 0-d bool that is True on every rank only if it is on all."""
+        bad = (~flag).float().reshape(1)
+        return self.mesh.all_reduce_(bad)[0] == 0
+
+    def _journal_prefix(self) -> str:
+        prefix = self.sp.snapshot_prefix or "snapshot"
+        return prefix if self.rank == 0 else f"{prefix}.r{self.rank}"
+
+    # ------------------------------------------------------------------
     def _carry0(self) -> dict[str, torch.Tensor]:
         """A fresh guard carry: no skips, no consecutive run, no bad
         iteration seen, the loss EMA unset (-1); under the dynamic scale
@@ -437,13 +699,27 @@ class Solver:
         ones, or the draws the forwards would make from the generator
         reseeded from (random_seed, it), in micro-batch and layer order."""
         iter_size = max(self.sp.iter_size, 1)
+        mesh = self.mesh
         if masks is not None:
-            return [masks(it, m) for m in range(iter_size)]
-        if not self._droppers:
+            out = [masks(it, m) for m in range(iter_size)]
+        elif not self._droppers:
             return [{} for _ in range(iter_size)]
-        self.generator.manual_seed((self._seed << 32) + it + 1)
-        return [{layer.name: layer.draw_mask(self.generator)
-                 for layer in self._droppers} for _ in range(iter_size)]
+        else:
+            n = mesh.n_data if mesh is not None else 1
+            self.generator.manual_seed((self._seed << 32) + it + 1)
+            out = [{layer.name: self._draw(layer, n)
+                    for layer in self._droppers} for _ in range(iter_size)]
+        if mesh is not None and mesh.n_data > 1:
+            out = [{k: mesh.shard(v) for k, v in m.items()} for m in out]
+        return out
+
+    def _draw(self, layer, n: int) -> torch.Tensor:
+        """A layer's draw; over n > 1 ranks the global batch's mask (the
+        solver refuses host layers there, so a Dropout's)."""
+        if n == 1:
+            return layer.draw_mask(self.generator)
+        shape = layer.in_shapes[0]
+        return layer.draw_mask(self.generator, (shape[0] * n, *shape[1:]))
 
     def _iteration(self, feeds: list[dict], masks: list[dict]) -> None:
         """One training iteration (the JAX `_iteration_fn` body) on the
@@ -461,15 +737,26 @@ class Solver:
         state = [buf for _, _, buf in self.net.state_buffers()]
         if self._guard_on:
             state0 = [buf.clone() for buf in state]
-        for _, _, _, p in self._decls:
-            p.grad = None
+        red = self._reducer
+        if red is None:
+            for _, _, _, p in self._decls:
+                p.grad = None
+        else:
+            red.zero()
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         with self._math.math(self.device):
             for m in range(iter_size):
+                if red is not None:
+                    red.arm(m == iter_size - 1)
                 _, loss = self.net(feeds[m], dropout_masks=masks[m])
                 if loss.requires_grad:
                     (loss * eff_scale).backward()
                 total = total + loss.detach()
+        if red is not None:
+            # the gradients' sum over the ranks / N, and the loss's mean
+            red.finish()
+            total = self.mesh.all_reduce_(total.reshape(1))[0] \
+                / self.mesh.n_data
         # the unscale divides after the cast to float32
         denom = iter_size * eff_scale
         grads = [p.grad.float() / denom if p.grad is not None
@@ -498,9 +785,19 @@ class Solver:
                 if decl.lr_mult == 0.0:
                     continue
                 slots = self.history[(lname, pname)]
-                w, slots2 = self.update_fn(p.float(), g, slots, hyper,
-                                           decl.lr_mult, decl.decay_mult)
-                new.append((lname, pname, p, w.to(p.dtype), slots2))
+                shard = self._shard_len[(lname, pname)]
+                if shard is None:
+                    w, slots2 = self.update_fn(p.float(), g, slots, hyper,
+                                               decl.lr_mult, decl.decay_mult)
+                    new.append((lname, pname, p, w.to(p.dtype), slots2))
+                    continue
+                # ZeRO-1: this rank's dim-0 slice, then the ranks' slices
+                lo = self.rank * shard
+                w, slots2 = self.update_fn(
+                    p[lo:lo + shard].float(), g[lo:lo + shard], slots,
+                    hyper, decl.lr_mult, decl.decay_mult)
+                w = self.mesh.all_gather(w.to(p.dtype)).reshape(p.shape)
+                new.append((lname, pname, p, w, slots2))
             if self._guard_on:
                 ok = self._guard(loss_out, new, state, row[2])
                 for lname, pname, p, w, slots2 in new:
@@ -538,6 +835,9 @@ class Solver:
             [w for _, _, _, w, _ in new] + [s for *_, s2 in new for s in s2]
             + [p for _, _, decl, p in self._decls if decl.lr_mult == 0.0]
             + state)
+        if self._zero and self.mesh.n_data > 1:
+            # the slot shards differ between ranks: agree on the check
+            ok_fin = self._agree(ok_fin)
         ok = ok_fin
         spike = float(sp.guard_loss_spike or 0.0)
         ema, decay = gs["ema"], float(sp.guard_ema_decay or 0.9)
@@ -581,12 +881,11 @@ class Solver:
             gs[key].copy_(value)
         return ok
 
-    @staticmethod
-    def _graph_of(fn) -> tuple[torch.cuda.CUDAGraph, dict]:
+    def _graph_of(self, fn) -> tuple[torch.cuda.CUDAGraph, dict]:
         """Capture what `fn` queues as a CUDA graph on the current stream.
-        The launch counts the capture raised are taken back; the graph
-        adds them at every replay."""
-        counters = launch_counters()
+        The launch (and collective) counts the capture raised are taken
+        back; the graph adds them at every replay."""
+        counters = self._counters()
         before = {c: c.launches for c in counters}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=torch.cuda.current_stream(),
@@ -615,7 +914,18 @@ class Solver:
             lambda: self._iteration(static_feeds, static_masks))
         self._graphs[key] = _Graph(graph, static_feeds, static_masks,
                                    deltas)
+        if self.mesh is not None:
+            self.graph_collectives = deltas.get(self.mesh.collectives, 0)
         return self._graphs[key]
+
+    def release_graphs(self) -> None:
+        """Drop the captured graphs (they replay no more). A process group
+        is left only after this: destroying NCCL communicators under a
+        live graph that captured their collectives hangs on four cards."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._graphs.clear()
+        self._test_graphs.clear()
 
     def _run_chunk(self, feed_fn: FeedFn, c: int, masks: MaskFn | None
                    ) -> np.ndarray:
@@ -765,7 +1075,7 @@ class Solver:
         last_it, last_state = self._last_snapshot or (None, None)
         try:
             resilience.write_run_manifest(
-                self.sp.snapshot_prefix or "snapshot", reason=reason,
+                self._journal_prefix(), reason=reason,
                 iter=int(self.iter), random_seed=int(self.sp.random_seed),
                 last_snapshot_iter=last_it, last_snapshot_state=last_state,
                 **extra)
@@ -811,9 +1121,14 @@ class Solver:
             ts = time.perf_counter()
             # the chunk from its first launch to its read-back, a graph
             # capture included, is one dispatch the watchdog bounds
+            coll0 = self.mesh.collectives.launches if self.mesh else 0
             with self._section("train dispatch"):
                 FAULTS.maybe_stall("dispatch_stall")
                 vals = self._run_chunk(feed_fn, c, dropout_masks)
+            if self.mesh is not None:
+                self._train_collectives += \
+                    self.mesh.collectives.launches - coll0
+                self._train_iters += c
             self.chunk_ms.append((time.perf_counter() - ts) * 1e3)
             ms = self.chunk_ms[-1] / c
             rows = vals[:3 * c].reshape(c, 3)
@@ -825,7 +1140,8 @@ class Solver:
                     self.skipped_iters.append(self.iter + i)
             loss_val, rate = float(rows[-1, 0]), float(rows[-1, 1])
             last_iter = self.iter + c - 1  # a chunk ends ON display iters
-            if sp.display and last_iter % sp.display == 0:
+            if sp.display and last_iter % sp.display == 0 \
+                    and self.rank == 0:
                 elapsed = time.perf_counter() - t0
                 done = last_iter - it0 + 1
                 log.info("Iteration %d (%.4g iter/s, %.1f img/s), loss = "
@@ -844,6 +1160,8 @@ class Solver:
                 # an interval snapshot does not stall the loop (the
                 # reference's writes inline, solver.cpp:339-344)
                 self.snapshot(block=False)
+            if self.mesh is not None and self.mesh.n_data > 1:
+                self._agree_requests()
             if self.requests["snapshot"]:
                 self.requests["snapshot"] = False
                 self.snapshot()
@@ -852,6 +1170,16 @@ class Solver:
                          self.iter)
                 break
         return loss_val
+
+    def _agree_requests(self) -> None:
+        """A signal reaches one rank: every rank acts on a request any
+        rank has (one small collective a chunk)."""
+        keys = ("stop", "snapshot")
+        flags = torch.tensor([float(self.requests[k]) for k in keys],
+                             device=self.device)
+        self.mesh.all_reduce_(flags)
+        for k, v in zip(keys, flags.tolist()):
+            self.requests[k] = v > 0
 
     def solve(self, feed_fn: FeedFn, test_feed_fns=None) -> float:
         """Train to max_iter (reference Solver::Solve); a stop request
@@ -936,14 +1264,19 @@ class Solver:
                              for k in range(k0, min(k0 + t, iters))]
                     self._test_chunk(ti, tnet, feeds, out_blobs, acc)
                 self.test_dispatch_count += 1
+            total = acc
+            if self.test_sharded[ti]:
+                # each rank's scores are its share of the global batch's
+                total = self.mesh.all_reduce_(acc.clone()) / self.mesh.n_data
             with self._section("eval harvest"):
-                vals = acc.cpu().numpy() / iters
+                vals = total.cpu().numpy() / iters
             self.test_host_reads += 1
             self.test_pass_count += 1
             scores = {b: float(v) for b, v in zip(out_blobs, vals)}
-            log.info("Test net #%d, iteration %d:", ti, self.iter)
-            for b, v in scores.items():
-                log.info("    Test net #%d: %s = %.5g", ti, b, v)
+            if self.rank == 0:
+                log.info("Test net #%d, iteration %d:", ti, self.iter)
+                for b, v in scores.items():
+                    log.info("    Test net #%d: %s = %.5g", ti, b, v)
             results.append(scores)
         return results
 
@@ -1008,18 +1341,29 @@ class Solver:
         t0 = time.perf_counter()
         log.info("snapshot at iteration %d; kernel launches so far: %s",
                  it, json.dumps(launch_counts()))
+        # ZeRO-1 slots gathered here, on the main thread, on every rank
+        history = None
+        if mesh_mod.needs_collective_gather(self._shard_len):
+            whole = self.full_history()
+            history = [whole[k][s] for s in range(n_slots(self.type))
+                       for k in self._history_keys()]
+        if self.rank != 0:
+            return self._peer_snapshot(it, block)
         if block:
             self.wait_snapshots()
             with self._section("snapshot gather"):
-                view = self._snapshot_view(to_host=True)
+                view = self._snapshot_view(to_host=True, history=history)
             path = self._write_snapshot(view, it, step)
+            if self.mesh is not None:
+                self._snapshot_barrier()
             ms = (time.perf_counter() - t0) * 1e3
             self.snapshot_log.append({"iter": it, "block": True,
                                       "stall_ms": ms, "write_ms": ms})
             return path
         with self._section("snapshot settle"):
-            view = self._snapshot_view(to_host=False)
+            view = self._snapshot_view(to_host=False, history=history)
         self.wait_snapshots()  # one writer in flight: writes stay ordered
+        self._barrier_pending = self.mesh is not None
         entry = {"iter": it, "block": False}
         self._snapshot_thread = threading.Thread(
             target=self._write_snapshot_guarded, args=(view, it, step, entry),
@@ -1029,7 +1373,32 @@ class Solver:
         self.snapshot_log.append(entry)
         return ""
 
-    def _snapshot_view(self, to_host: bool) -> dict:
+    def _state_path(self, it: int) -> str:
+        return f"{self.sp.snapshot_prefix or 'snapshot'}_iter_{it}.solverstate"
+
+    def _peer_snapshot(self, it: int, block: bool) -> str:
+        """A rank other than 0 writes nothing: it meets rank 0 at the
+        snapshot barrier once rank 0's files are written (now, or at the
+        next wait_snapshots for an interval snapshot)."""
+        path = self._state_path(it)
+        self.wait_snapshots()
+        if block:
+            self._snapshot_barrier()
+        else:
+            self._barrier_pending = True
+        self._last_snapshot = (it, path)
+        return path if block else ""
+
+    def _snapshot_barrier(self) -> None:
+        if not mesh_mod.cluster_barrier("snapshot"):
+            raise resilience.ClusterError(
+                "ranks did not meet at the snapshot barrier",
+                reason="cluster_snapshot_failed")
+
+    def _history_keys(self) -> list[tuple[str, str]]:
+        return [(lname, pname) for lname, pname, _, _ in self._decls]
+
+    def _snapshot_view(self, to_host: bool, history=None) -> dict:
         """A point-in-time copy of what a snapshot writes: the weights in
         `Net.weight_tensors` form and the history in `_history_blobs`
         order. to_host: copied to the host now. Else copied on the device,
@@ -1050,7 +1419,8 @@ class Solver:
         with torch.no_grad():
             weights = {name: [copy(t) for t in blobs] for name, blobs
                        in self.net.weight_tensors().items()}
-            history = [copy(t) for t in self._history_tensors()]
+            history = [copy(t) for t in (history
+                                         or self._history_tensors())]
         event = None
         if not to_host and self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -1095,6 +1465,9 @@ class Solver:
                     "the snapshot it was writing must be considered "
                     "missing")
             self._snapshot_thread = None
+        if self._barrier_pending:
+            self._barrier_pending = False
+            self._snapshot_barrier()
         err = self._snapshot_error
         if err is not None:
             self._snapshot_error = None
@@ -1169,7 +1542,47 @@ class Solver:
         auto`; the JAX `restore_auto`): manifests newest first, a corrupt
         or unloadable one logged and skipped; then manifest-less
         (legacy) snapshots, newest first, never one a manifest covers.
-        Returns the state path restored, or None (a fresh start)."""
+        Returns the state path restored, or None (a fresh start).
+
+        Under data parallelism rank 0 chooses and publishes its choice on
+        the group's store (the JAX CLI's `caffe/resume_state`); every
+        other rank restores exactly that snapshot, and the replicas are
+        then synchronised. No decision within CAFFE_TPU_RESUME_TIMEOUT
+        (default 600 s), or a published snapshot that fails to load
+        here, raises ClusterError (`cluster_resume_failed`)."""
+        mesh = self.mesh
+        if mesh is None or mesh.n_data == 1:
+            path = self._restore_auto_local(prefix)
+            self._sync_replicas()
+            return path
+        key = f"caffe/resume_state/{self._resume_round}"
+        self._resume_round += 1
+        if self.rank == 0:
+            path = self._restore_auto_local(prefix)
+            if not mesh_mod.cluster_kv_set(key, path or ""):
+                raise resilience.ClusterError(
+                    "could not publish the resume decision",
+                    reason="cluster_resume_failed")
+        else:
+            peer = mesh_mod.cluster_kv_get(key, float(os.environ.get(
+                "CAFFE_TPU_RESUME_TIMEOUT", "600") or 600))
+            if peer is None:
+                raise resilience.ClusterError(
+                    "rank 0 never published its resume decision",
+                    reason="cluster_resume_failed")
+            path = peer or None
+            if path:
+                try:
+                    self.restore(path, sync=False)
+                except (resilience.SnapshotCorruptError, OSError) as e:
+                    raise resilience.ClusterError(
+                        f"rank 0's snapshot {path} failed to load here: "
+                        f"{e}", reason="cluster_resume_failed") from e
+                self._last_snapshot = (self.iter, path)
+        self._sync_replicas()
+        return path
+
+    def _restore_auto_local(self, prefix: str | None) -> str | None:
         prefix = prefix or self.sp.snapshot_prefix or "snapshot"
         run = resilience.read_run_manifest(prefix)
         if run is not None:
@@ -1179,7 +1592,7 @@ class Solver:
         for doc in resilience.verified_snapshots(prefix):
             it = int(doc["iteration"])
             try:
-                self.restore(doc["state"], verify=False)
+                self.restore(doc["state"], verify=False, sync=False)
             except Exception:  # noqa: BLE001 — an older one is the recovery
                 log.exception("verified snapshot at iter %d failed to "
                               "load; falling back", it)
@@ -1202,7 +1615,7 @@ class Solver:
             if mp and os.path.exists(mp):
                 continue  # a manifest covers it: verified above, or failed
             try:
-                self.restore(path, verify=False)
+                self.restore(path, verify=False, sync=False)
             except Exception:  # noqa: BLE001 — an older one is the recovery
                 log.exception("legacy snapshot %s failed to load; "
                               "falling back", path)
@@ -1215,13 +1628,16 @@ class Solver:
                  prefix)
         return None
 
-    def restore(self, path: str, *, verify: bool = True) -> None:
+    def restore(self, path: str, *, verify: bool = True,
+                sync: bool = True) -> None:
         """Resume from a .solverstate (reference Solver::Restore /
         SGDSolver::RestoreSolverStateFromBinaryProto): the iteration, the
         weights of its learned_net, and the history blobs. Where the
         snapshot has a manifest it is verified first and a mismatch
         raises SnapshotCorruptError (restore_auto falls back instead); a
-        manifest-less snapshot loads unverified."""
+        manifest-less snapshot loads unverified. Under data parallelism
+        every rank restores the same path, then (sync) rank 0's values
+        are broadcast; a ZeRO-1 rank keeps its shard of each slot."""
         if verify:
             mpath = resilience.manifest_for_state(path)
             if mpath is not None and os.path.exists(mpath) \
@@ -1242,7 +1658,7 @@ class Solver:
                                     os.path.basename(learned_net))
                 if os.path.exists(cand):
                     learned_net = cand
-            self.load_weights(learned_net)
+            self.load_weights(learned_net, sync=False)
         n, k = len(self._decls), n_slots(self.type)
         # strict like the reference's CHECK_EQ on history size
         # (sgd_solver.cpp:324)
@@ -1254,22 +1670,31 @@ class Solver:
         with torch.no_grad():
             # in place: a captured iteration holds these very tensors
             for i, (lname, pname, _, p) in enumerate(self._decls):
+                shard = self._shard_len[(lname, pname)]
                 for s, slot in enumerate(self.history[(lname, pname)]):
-                    slot.copy_(torch.from_numpy(np.array(
-                        history[i + s * n], np.float32).reshape(
-                            tuple(p.shape))))
+                    whole = np.array(history[i + s * n], np.float32).reshape(
+                        tuple(p.shape))
+                    if shard is not None:
+                        whole = whole[self.rank * shard:
+                                      (self.rank + 1) * shard]
+                    slot.copy_(torch.from_numpy(whole))
             # a restored run starts with a fresh guard carry and loss
             # scale, as the JAX solver's: neither is in a .solverstate
             if self._gs is not None:
                 for key, value in self._carry0().items():
                     self._gs[key].copy_(value)
         self.iter = it
+        if sync:
+            self._sync_replicas()
         log.info("Restored solver state from %s (iter %d)", path, it)
 
-    def load_weights(self, path: str) -> None:
+    def load_weights(self, path: str, sync: bool = True) -> None:
         """Finetune-style weight load (reference `caffe train -weights`):
-        the train net's params and state, which the test nets share."""
+        the train net's params and state, which the test nets share;
+        then (sync) rank 0's values on every rank."""
         weights = caffe_io.load_weights(path)
         self.net.import_weights(weights)
+        if sync:
+            self._sync_replicas()
         log.info("Loaded weights from %s (%d layers)", path, len(weights))
 

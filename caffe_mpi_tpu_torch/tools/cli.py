@@ -85,14 +85,32 @@ paths written), `snapshot_log` (each snapshot's stall and write ms) and
 training run into the served model (serving/watch.py: verify, canary,
 no capture); with `-smoke` the watcher polls once before the traffic.
 
+Data parallelism (the JAX CLI's flags, over the port's
+caffe_mpi_tpu_torch/parallel/): `-gpu all|i,j` runs one rank a card of
+this host (NCCL), `-mesh data=N` N ranks in all (on the cards, more
+ranks than cards raise; with `-device cpu`, N processes over gloo;
+`model=M` > 1 is refused, ROADMAP.md §1 item 6), `-hosts H -host_id k
+-coordinator host:port` spans H processes or hosts (rank = host_id x
+local ranks + local rank; host 0's rank 0 serves the store), and
+`-reduce_overlap`, `-reduce_buckets`, `-grad_bucket_mb` and
+`-zero_stage` set the solver's fields, with the JAX precedence over the
+prototxt. More than one rank on this host runs one worker process a
+rank (this argv and CAFFE_TPU_LOCAL_RANK, contained by utils/subproc.py;
+when one dies the others are killed). Rank 0 prints the summary, which
+adds `rank`, `world`, `rank_batch`, `reduction` (Solver.reduction_stats)
+and `graphs`. A
+cluster that does not form (or agree on `-resume auto`) journals
+`cluster_init_failed` (`cluster_resume_failed`) to the rank's run
+journal and exits 87; `-max_restarts` relaunches the whole command.
+
 The JAX CLI's flags for solver and serving fields the port does not
-honour yet (`-zero_stage`, `-serve_replicas`, ...: one flag a field of
-the Solver's and the engine's UNPORTED_FIELDS) are accepted and land on
-their parameter, which the Solver or the engine refuses at any value but
-its default; the command then exits 1.
+honour yet (`-host_deadline`, `-min_hosts`, `-serve_replicas`, ...: one
+flag a field of the Solver's and the engine's UNPORTED_FIELDS) are
+accepted and land on their parameter, which the Solver or the engine
+refuses at any value but its default; the command then exits 1.
 
 Usage (gflags-compatible single-dash long flags accepted):
-    python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt [-synthetic] [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate | -resume auto|PATH] [-snapshot_every N] [-snapshot_keep N] [-max_restarts N] [-anomaly_action rewind|rewind_lr|abort] [-watchdog_deadline S] [-test_chunk T] [-precision bf16] [-loss_scale S] [-step_chunk K] [-train_guard] [-device cuda|cpu]
+    python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt [-synthetic] [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate | -resume auto|PATH] [-snapshot_every N] [-snapshot_keep N] [-max_restarts N] [-anomaly_action rewind|rewind_lr|abort] [-watchdog_deadline S] [-test_chunk T] [-precision bf16] [-loss_scale S] [-step_chunk K] [-train_guard] [-gpu all|i,j | -mesh data=N] [-hosts H -host_id k -coordinator host:port] [-reduce_overlap] [-reduce_buckets B | -grad_bucket_mb M] [-zero_stage 1] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli test -model train_val.prototxt [-weights w.caffemodel] [-iterations N] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli time -model train_val.prototxt [-iterations N] [-phase TRAIN|TEST] [-profile DIR] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli device_query
@@ -233,6 +251,49 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-device", "--device", default="cuda",
                    help="device to run on (default: cuda; 'cpu' runs "
                    "on the CPU)")
+    # data parallelism (the JAX CLI's flags)
+    p.add_argument("-gpu", "--gpu", default="",
+                   help="train: 'all' = one data-parallel rank per card of "
+                   "this host, or card indices 'i,j'; NCCL (raises "
+                   "without a card)")
+    p.add_argument("-mesh", "--mesh", default="",
+                   help="train: data=N ranks in all (over -hosts); on the "
+                   "cards, more ranks than cards raise; with -device cpu, "
+                   "N processes over gloo. model=M > 1 is not ported yet "
+                   "(ROADMAP.md §1 item 6)")
+    p.add_argument("-reduce_overlap", "--reduce-overlap",
+                   dest="reduce_overlap", action="store_true",
+                   help="all-reduce the gradients bucket by bucket from "
+                   "backward's gradient hooks (enables solver "
+                   "reduce_overlap; needs -gpu or -mesh; a net the JAX "
+                   "bucketed step does not take falls back with a warning)")
+    p.add_argument("-reduce_buckets", "--reduce-buckets",
+                   dest="reduce_buckets", type=int, default=0,
+                   help="buckets for -reduce_overlap (overrides solver "
+                   "reduce_buckets; 0 = the prototxt's, default the net's "
+                   "reduce_buckets, 6)")
+    p.add_argument("-grad_bucket_mb", "--grad-bucket-mb",
+                   dest="grad_bucket_mb", type=float, default=0.0,
+                   help="size -reduce_overlap buckets by a MiB budget "
+                   "instead of a count (overrides solver grad_bucket_mb; "
+                   "exclusive of -reduce_buckets)")
+    p.add_argument("-zero_stage", "--zero-stage", dest="zero_stage",
+                   type=int, default=-1,
+                   help="1 = shard the optimizer slots over the ranks "
+                   "(ZeRO-1; overrides solver zero_stage; -1 = the "
+                   "prototxt's)")
+    p.add_argument("-hosts", "--hosts", type=int, default=0,
+                   help="train: host processes in the cluster (the "
+                   "reference's mpirun -n); > 1 forms the group against "
+                   "-coordinator (a missing one journals and exits 87) "
+                   "(overrides solver hosts; env CAFFE_TPU_NUM_HOSTS)")
+    p.add_argument("-coordinator", "--coordinator", default="",
+                   help="train: host:port of host 0's store (overrides "
+                   "solver coordinator; env CAFFE_TPU_COORDINATOR)")
+    p.add_argument("-host_id", "--host-id", dest="host_id", type=int,
+                   default=-1,
+                   help="train: this host's index in [0, hosts) (-1 = env "
+                   "CAFFE_TPU_HOST_ID)")
     # survivable training (the JAX CLI's flags)
     p.add_argument("-resume", "--resume", default="",
                    help="'auto' = resume from the newest VERIFIED snapshot "
@@ -334,10 +395,13 @@ _CLASSIFICATION_CONSUMERS = frozenset((
 ))
 
 
-def synthetic_feed(net, seed: int = 0) -> dict:
+def synthetic_feed(net, seed: int = 0, rank: int = 0,
+                   world: int = 1) -> dict:
     """Random feeds shaped from the net's feed specs, on the net's device,
     drawn as the JAX CLI's `_synthetic_feed` draws them: integer feeds are
-    chosen by consumer, not by blob name."""
+    chosen by consumer, not by blob name. Under data parallelism (`world`
+    ranks, the net at batch/world) the draw is the global batch's and the
+    feed is rank `rank`'s slice of it."""
     import torch
     r = np.random.RandomState(seed)
     int_range: dict[str, int] = {}
@@ -349,6 +413,8 @@ def synthetic_feed(net, seed: int = 0) -> dict:
             int_range.setdefault(lp.bottom[1], 10)
     feeds = {}
     for key, (shape, kind) in net.feed_specs.items():
+        b = shape[0] if shape else 1
+        shape = (b * world, *shape[1:]) if shape else shape
         if kind == "uint8":
             a = r.randint(0, 256, shape).astype(np.uint8)
         elif kind == "aug":
@@ -358,25 +424,31 @@ def synthetic_feed(net, seed: int = 0) -> dict:
             a = r.randint(0, max(int_range.get(key, 10), 1), shape)
         else:
             a = r.randn(*shape).astype(np.float32)
-        feeds[key] = torch.from_numpy(a).to(net.device)
+        if world > 1:
+            a = a[rank * b:(rank + 1) * b]
+        feeds[key] = torch.from_numpy(np.ascontiguousarray(a)).to(net.device)
     return feeds
 
 
-def build_feeder(net, phase: str, solver_param=None):
+def build_feeder(net, phase: str, solver_param=None, rank: int = 0,
+                 world: int = 1):
     """The feeder of the net's data layer: a Feeder for Data and ImageData,
     a WindowFeeder for WindowData; None for a net fed through Input layers
-    (the JAX CLI's `_build_feeders`, on one device). solver_param gives
-    the run's `decoded_cache_mb`."""
+    (the JAX CLI's `_build_feeders`). solver_param gives the run's
+    `decoded_cache_mb`; `rank` of `world` data-parallel ranks reads its
+    stripe of each global batch."""
     from ..data.feeder import feeder_from_layer
     for layer in net.layers:
         if layer.lp.type in ("Data", "ImageData", "HDF5Data"):
             return feeder_from_layer(
-                layer.lp, phase, model_dir=net.model_dir,
+                layer.lp, phase, rank=rank, world=world,
+                model_dir=net.model_dir,
                 device_transform=getattr(layer, "dev_transform", False),
                 solver_param=solver_param)
         if layer.lp.type == "WindowData":
             from ..data.window import WindowFeeder
-            return WindowFeeder(layer.lp, phase, model_dir=net.model_dir)
+            return WindowFeeder(layer.lp, phase, model_dir=net.model_dir,
+                                rank=rank, world=world)
     return None
 
 
@@ -385,12 +457,14 @@ def _feed_fns(solver, synthetic: bool):
     Feeder or None)."""
     from ..data.feeder import DeviceFeed
     opened = []
-    feeder = build_feeder(solver.net, "TRAIN", solver.sp)
+    mesh = solver.mesh
+    rank, world = (mesh.rank, mesh.n_data) if mesh is not None else (0, 1)
+    feeder = build_feeder(solver.net, "TRAIN", solver.sp, rank, world)
     if feeder is None:
         if not synthetic:
             raise ValueError("net has no Data layer; pass -synthetic to "
                              "train on random data or use a Data net")
-        feeds = synthetic_feed(solver.net)
+        feeds = synthetic_feed(solver.net, 0, rank, world)
         feed_fn = lambda it: feeds  # noqa: E731
     else:
         feed_fn = DeviceFeed(feeder, solver.device)
@@ -398,10 +472,11 @@ def _feed_fns(solver, synthetic: bool):
     test_fns = None
     if solver.test_nets:
         test_fns = []
-        for tnet in solver.test_nets:
-            f = build_feeder(tnet, "TEST", solver.sp)
+        for tnet, sharded in zip(solver.test_nets, solver.test_sharded):
+            r, w = (rank, world) if sharded else (0, 1)
+            f = build_feeder(tnet, "TEST", solver.sp, r, w)
             if f is None:
-                tfeeds = synthetic_feed(tnet, seed=1)
+                tfeeds = synthetic_feed(tnet, 1, r, w)
                 test_fns.append(lambda it, tfeeds=tfeeds: tfeeds)
             else:
                 test_fns.append(DeviceFeed(f, solver.device))
@@ -414,6 +489,142 @@ def window_img_per_s(batch: int, step_ms: list[float]) -> float:
     their summed time. Unlike a median step it counts each stall."""
     return batch * len(step_ms) / (sum(step_ms) / 1e3) if step_ms \
         else float("nan")
+
+
+def _layout(args, sp):
+    """The data-parallel layout of `train`: None for one device, else
+    {hosts, host_id, coordinator, local (this host's rank devices),
+    world}. `-gpu all|i,j` takes cards; `-mesh data=N` N ranks over the
+    hosts (cards, or CPU processes under -device cpu); `-hosts H` alone
+    one rank a host. Raises ValueError / NotImplementedError on a bad
+    layout and ClusterError on an incomplete cluster."""
+    from ..parallel import mesh as mesh_mod
+    hosts, coordinator, host_id = mesh_mod.resolve_cluster(sp, args.host_id)
+    hosts, host_id = max(hosts, 1), max(host_id, 0)
+    if args.gpu and args.mesh:
+        raise ValueError("-gpu and -mesh are exclusive")
+    on_cpu = str(args.device).startswith("cpu")
+    if args.gpu:
+        if on_cpu:
+            raise ValueError("-gpu names cards; it cannot run with "
+                             "-device cpu")
+        cards = mesh_mod._cards()
+        if args.gpu == "all":
+            local = cards
+        else:
+            idx = [int(i) for i in args.gpu.split(",")]
+            bad = [i for i in idx if not 0 <= i < len(cards)]
+            if bad:
+                raise ValueError(f"-gpu {args.gpu}: no card {bad} (this "
+                                 f"host has {len(cards)})")
+            local = [f"cuda:{i}" for i in idx]
+    elif args.mesh:
+        shape = {"data": 1, "model": 1}
+        for kv in args.mesh.split(","):
+            k, _, v = kv.partition("=")
+            if k.strip() not in shape or not v.strip().isdigit():
+                raise ValueError(f"bad -mesh entry {kv!r}: expected "
+                                 "data=N[,model=M]")
+            shape[k.strip()] = int(v)
+        if shape["model"] > 1:
+            raise NotImplementedError(
+                f"-mesh model={shape['model']}: a 'model' axis is not "
+                "ported yet (ROADMAP.md §1 item 6)")
+        data = shape["data"]
+        if data < 1 or data % hosts:
+            raise ValueError(f"-mesh data={data} does not divide over "
+                             f"{hosts} host(s)")
+        per = data // hosts
+        if on_cpu:
+            local = ["cpu"] * per
+        else:
+            cards = mesh_mod._cards()
+            if per > len(cards):
+                raise ValueError(f"mesh {data}x1 needs {data} devices, "
+                                 f"have {len(cards) * hosts}")
+            local = cards[:per]
+    elif hosts > 1:
+        local = ["cpu" if on_cpu else "cuda:0"]
+    else:
+        return None
+    return dict(hosts=hosts, host_id=host_id, coordinator=coordinator,
+                local=local, world=hosts * len(local))
+
+
+def _form_mesh(layout: dict):
+    """This process's rank of `layout` (rank = host_id x local ranks +
+    local rank): the group formed, the MeshPlan made. ClusterError when
+    the group does not form."""
+    import torch
+
+    from ..parallel import mesh as mesh_mod
+    local = layout["local"]
+    local_rank = int(os.environ.get("CAFFE_TPU_LOCAL_RANK", "0") or 0)
+    rank = layout["host_id"] * len(local) + local_rank
+    devices = local * layout["hosts"]
+    coordinator = layout["coordinator"] or f"127.0.0.1:{mesh_mod.free_port()}"
+    mesh_mod.init_distributed(
+        coordinator, layout["world"], rank,
+        backend=mesh_mod.backend_for(devices, layout["hosts"]),
+        device=torch.device(local[local_rank]))
+    return mesh_mod.MeshPlan.from_shape(layout["world"], devices=devices,
+                                        hosts=layout["hosts"])
+
+
+def _spawn_workers(args, layout: dict) -> int:
+    """One worker process a local rank (this argv, CAFFE_TPU_LOCAL_RANK
+    set, the coordinator fixed), each contained in its process group
+    (utils/subproc.py). When one fails the others are killed, so none
+    waits in a collective until its timeout; returns the first failure's
+    code, else 0. A worker stuck on the device is bounded by its own
+    collective timeout and `-watchdog_deadline`."""
+    import threading
+
+    from ..parallel import mesh as mesh_mod
+    from ..utils import subproc
+    argv = list(getattr(args, "_argv", None) or sys.argv[1:])
+    coordinator = layout["coordinator"] \
+        or f"127.0.0.1:{mesh_mod.free_port()}"
+    rcs: list = [None] * len(layout["local"])
+    failed = threading.Event()
+
+    def run(k):
+        env = dict(os.environ, CAFFE_TPU_LOCAL_RANK=str(k),
+                   CAFFE_TPU_COORDINATOR=coordinator)
+        rcs[k], _, _ = subproc.run_contained(
+            [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.cli"] + argv,
+            None, env=env, echo=True)
+        if rcs[k] != 0 and not failed.is_set():
+            failed.set()
+            log.error("worker %d exited %s; stopping the others", k, rcs[k])
+            subproc.kill_all()
+
+    # the kill-on-signal hooks go in from the main thread (the workers'
+    # threads cannot install them)
+    subproc._install_hooks()
+    threads = [threading.Thread(target=run, args=(k,), daemon=True)
+               for k in range(len(layout["local"]))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    first = next((rc for rc in rcs if rc not in (0, -9)), None)
+    return first if first is not None else max(rcs, key=abs)
+
+
+def _cluster_exit(prefix: str, rank: int, reason: str, error: str) -> int:
+    """Journal a cluster failure and exit 87 (the JAX `_cluster_exit`):
+    rank 0 owns `<prefix>.run.json`, rank k writes `<prefix>.r<k>`."""
+    from ..utils import resilience
+    log.error("%s: %s; exiting %d for the supervisor's coordinated "
+              "restart", reason, error, resilience.EXIT_CLUSTER)
+    try:
+        resilience.write_run_manifest(
+            prefix if rank <= 0 else f"{prefix}.r{rank}",
+            reason=reason, error=error, exit_code=resilience.EXIT_CLUSTER)
+    except OSError:
+        log.exception("cluster-failure journal failed (continuing)")
+    return resilience.EXIT_CLUSTER
 
 
 def _signal_handlers(solver, args):
@@ -473,18 +684,9 @@ def _resume(solver, args):
     return None
 
 
-def train(args):
-    """Build the solver from `args`, resume or load weights, train to
-    max_iter with a test pass at every test_interval and at the end, and
-    snapshot after training (or at a stop request). Returns (solver,
-    summary dict)."""
-    import signal
-
-    from ..data.feeder import Feeder
-    from ..ops import launch_counts
+def solver_param(args):
+    """The solver prototxt of `args` with the flags' overrides."""
     from ..proto import SolverParameter
-    from ..solver import Solver
-    from ..utils.resilience import QUARANTINE, quarantine_journal_path
     if not args.solver:
         raise ValueError("train requires -solver")
     sp = SolverParameter.from_file(args.solver)
@@ -522,13 +724,71 @@ def train(args):
         sp.base_lr = sp.base_lr * args.lr_scale
         log.info("base_lr scaled by %g -> %g (anomaly rewind)",
                  args.lr_scale, sp.base_lr)
+    if args.reduce_overlap:
+        sp.reduce_overlap = True
+    # a CLI sizing mode overrides the prototxt's other mode too; both CLI
+    # flags at once reach the solver's "not both" check
+    if args.reduce_buckets:
+        sp.reduce_buckets = args.reduce_buckets
+        if not args.grad_bucket_mb:
+            sp.clear("grad_bucket_mb")
+    if args.grad_bucket_mb:
+        sp.grad_bucket_mb = args.grad_bucket_mb
+        if not args.reduce_buckets:
+            sp.clear("reduce_buckets")
+    if args.zero_stage >= 0:
+        sp.zero_stage = args.zero_stage
+    if args.hosts:
+        sp.hosts = args.hosts
+    if args.coordinator:
+        sp.coordinator = args.coordinator
     _apply_unported(args, sp)
+    return sp
+
+
+def train(args):
+    """Build the solver from `args`, resume or load weights, train to
+    max_iter with a test pass at every test_interval and at the end, and
+    snapshot after training (or at a stop request). Returns (solver,
+    summary dict). A data-parallel layout of one rank on this host (or a
+    worker `cmd_train` spawned) forms its group here and leaves it at the
+    end; more local ranks need `cmd_train`, which spawns them."""
+    from ..parallel import mesh as mesh_mod
+    sp = solver_param(args)
+    layout = _layout(args, sp)
+    if layout and len(layout["local"]) > 1 \
+            and "CAFFE_TPU_LOCAL_RANK" not in os.environ:
+        raise ValueError(f"{len(layout['local'])} ranks on this host run "
+                         "one process each: use `cli train` (cmd_train)")
     # net paths in the solver are relative to the working directory, as
     # the reference's are (and so are its Data layers' sources); an
     # inline or missing one resolves beside the solver file
     model_dir = "" if (sp.net and os.path.exists(sp.net)) \
         else os.path.dirname(os.path.abspath(args.solver))
-    solver = Solver(sp, model_dir=model_dir, device=args.device)
+    mesh = _form_mesh(layout) if layout else None
+    try:
+        out = _train(args, sp, model_dir, mesh)
+    except BaseException:
+        if mesh is not None:  # no exit barrier: a peer may be gone
+            mesh_mod.shutdown_distributed()
+        raise
+    if mesh is not None:
+        out[0].release_graphs()
+        # rank 0 serves the store: nobody leaves while a peer still uses it
+        mesh_mod.cluster_barrier("exit")
+        mesh_mod.shutdown_distributed()
+    return out
+
+
+def _train(args, sp, model_dir, mesh):
+    import signal
+
+    from ..data.feeder import Feeder
+    from ..ops import launch_counts
+    from ..solver import Solver
+    from ..utils.resilience import QUARANTINE, quarantine_journal_path
+    solver = Solver(sp, model_dir=model_dir,
+                    device=None if mesh else args.device, mesh=mesh)
     t0 = time.perf_counter()
     resumed = _resume(solver, args)
     resume_ms = (time.perf_counter() - t0) * 1e3
@@ -551,6 +811,10 @@ def train(args):
         if stopped or (sp.snapshot_prefix
                        and solver.should_snapshot_after_train()):
             snapshot = solver.snapshot()
+    except BaseException:
+        if mesh is not None:  # the group is left next (see train)
+            solver.release_graphs()
+        raise
     finally:
         for sig, handler in prev.items():
             signal.signal(sig, handler)
@@ -560,7 +824,8 @@ def train(args):
         QUARANTINE.flush()
         # interval snapshots land (or raise) before the run counts as done
         solver.close()
-    batch = solver._batch_images() * max(sp.iter_size, 1)
+    world = mesh.n_data if mesh is not None else 1
+    batch = solver._batch_images() * max(sp.iter_size, 1) * world
     med = float(np.median(solver.iter_ms)) if solver.iter_ms \
         else float("nan")
     data = next((l for l in solver.net.layers if l.lp.type == "Data"), None)
@@ -600,6 +865,13 @@ def train(args):
         "graph_replays": solver.graph_replays,
         "test_dispatch_count": solver.test_dispatch_count,
         "test_host_reads": solver.test_host_reads,
+        # data parallelism: this rank, the ranks, the reduce, and whether
+        # the chunks replayed CUDA graphs (gloo on a card runs eagerly)
+        "rank": solver.rank, "world": world,
+        "rank_batch": solver._batch_images(),
+        "reduction": solver.reduction_stats(),
+        "graphs": solver.graph_replays > 0,
+        "graph_collectives": solver.graph_collectives,
     }
     return solver, summary
 
@@ -637,6 +909,9 @@ def _supervised_train(args) -> int:
     sp = SolverParameter.from_file(args.solver)
     prefix = args.snapshot_prefix or sp.snapshot_prefix or "snapshot"
     env = dict(os.environ, CAFFE_SUPERVISED_CHILD="1")
+    # this host's journal: its repeated cluster_init_failed stops the
+    # restarts early (resilience.supervise)
+    journal = prefix if args.host_id <= 0 else f"{prefix}.r{args.host_id}"
     anomaly_action = args.anomaly_action or sp.anomaly_action or "rewind"
     base_cmd = [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.cli"] \
         + child_argv
@@ -649,7 +924,7 @@ def _supervised_train(args) -> int:
         base_cmd, resume_cmd, args.max_restarts,
         failure_log=prefix + ".failures.log", env=env,
         anomaly_action=anomaly_action,
-        anomaly_lr_mult=sp.anomaly_lr_mult, journal_prefix=prefix)
+        anomaly_lr_mult=sp.anomaly_lr_mult, journal_prefix=journal)
 
 
 def cmd_train(args) -> int:
@@ -660,10 +935,26 @@ def cmd_train(args) -> int:
             return 1
         return _supervised_train(args)
     from ..data.feeder import FeedError
-    from ..utils.resilience import (EXIT_NUMERIC, DataIntegrityError,
-                                    NumericAnomalyError)
+    from ..utils.resilience import (EXIT_NUMERIC, ClusterError,
+                                    DataIntegrityError, NumericAnomalyError)
+    sp = layout = None
     try:
+        sp = solver_param(args)
+        layout = _layout(args, sp)
+        if layout and len(layout["local"]) > 1 \
+                and "CAFFE_TPU_LOCAL_RANK" not in os.environ:
+            # one worker process a local rank; rank 0 prints the summary
+            return _spawn_workers(args, layout)
         _, summary = train(args)
+    except ClusterError as e:
+        rank = 0
+        if layout:
+            rank = layout["host_id"] * len(layout["local"]) + int(
+                os.environ.get("CAFFE_TPU_LOCAL_RANK", "0") or 0)
+        elif args.host_id > 0:
+            rank = args.host_id
+        return _cluster_exit(sp.snapshot_prefix or "snapshot", rank,
+                             e.reason, str(e))
     except (ValueError, NotImplementedError, FeedError,
             DataIntegrityError) as e:
         log.error("%s", e)
@@ -674,7 +965,8 @@ def cmd_train(args) -> int:
         log.error("%s; exiting %d for the supervisor to rewind", e,
                   EXIT_NUMERIC)
         return EXIT_NUMERIC
-    print(json.dumps({"train": summary}), flush=True)
+    if summary["rank"] == 0:
+        print(json.dumps({"train": summary}), flush=True)
     # a step the guard skipped may have a non-finite loss
     skipped = set(summary["skipped_iters"])
     losses = [l for i, l in enumerate(summary["losses"])

@@ -7,8 +7,9 @@ The port's copy of the single-host half of the JAX package's
 journal reasons, manifest fields and fault-site names:
 
 - exit codes: EXIT_WATCHDOG 86 (a watchdog trip), EXIT_FAULT 87 (an
-  injected fault), EXIT_NUMERIC 88 (the skip-step guard's divergence,
-  NumericAnomalyError);
+  injected fault; as EXIT_CLUSTER, a cluster that failed to form or to
+  agree, ClusterError), EXIT_NUMERIC 88 (the skip-step guard's
+  divergence, NumericAnomalyError);
 - RecordIntegrityError (one record failed its crc32c, its page structure
   or its parse) and DataIntegrityError (corruption past the quarantine
   bound: systematic, not record-level);
@@ -31,9 +32,9 @@ journal reasons, manifest fields and fault-site names:
   with exponential backoff up to a crash-loop guard, its exit 88 routed
   through `anomaly_action` (rewind, rewind_lr, abort).
 
-The multi-host half (heartbeats, `supervise_elastic`, sharded manifests'
+The elastic half (heartbeats, `supervise_elastic`, sharded manifests'
 writer, the quarantine journals' merge) waits for ROADMAP.md section 1
-item 6. `verify_snapshot` and `gc_snapshots` read a sharded (.orbax)
+item 6; `supervise`'s fast-fail on a cluster that never formed is here. `verify_snapshot` and `gc_snapshots` read a sharded (.orbax)
 manifest as the JAX ones do, so a mixed directory scans the same.
 """
 
@@ -57,6 +58,9 @@ log = logging.getLogger("caffe_mpi_tpu_torch.resilience")
 EXIT_WATCHDOG = 86
 EXIT_FAULT = 87
 EXIT_NUMERIC = 88
+# a cluster that failed to form or to agree (the JAX EXIT_CLUSTER): the
+# journal's `reason` (cluster_init_failed, cluster_resume_failed) says which
+EXIT_CLUSTER = EXIT_FAULT
 _BACKOFF_CAP_S = 60.0  # the supervisor's longest wait between attempts
 
 _JOURNAL_SCHEMA = 1
@@ -81,6 +85,18 @@ class NumericAnomalyError(RuntimeError):
             f"numeric divergence at iteration {it}: {consec} consecutive "
             f"skipped step(s) ({skipped} total; last bad iteration "
             f"{last_bad})")
+
+
+class ClusterError(RuntimeError):
+    """Cluster formation or agreement failed in a bounded way:
+    `init_distributed` ran out of attempts against a missing coordinator,
+    or a barrier or KV exchange timed out. The CLI journals `reason` to
+    the run journal (`<prefix>.run.json`, `.r<k>` on rank k > 0) and exits
+    EXIT_CLUSTER, instead of hanging in a collective."""
+
+    def __init__(self, msg: str, reason: str = "cluster_init_failed"):
+        super().__init__(msg)
+        self.reason = reason
 
 
 class RecordIntegrityError(RuntimeError):
@@ -130,6 +146,8 @@ FAULT_SITES = {
                     "post-manifest (verify must reject the swap)",
     "swap_canary_bad": "poison a hot-swap candidate's loaded weights "
                        "with NaN (canary gate must roll back)",
+    "coordinator_down": "fail distributed init for the first `count` "
+                        "attempts (missing/unreachable coordinator)",
 }
 
 

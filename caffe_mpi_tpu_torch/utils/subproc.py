@@ -46,6 +46,12 @@ def _install_hooks():
             pass
 
 
+def kill_all() -> None:
+    """Kill every live contained child's group (a data-parallel worker
+    died: its peers would wait in a collective until their timeout)."""
+    _reap_all()
+
+
 def run_contained(cmd: list[str], timeout: float | None,
                   env: dict | None = None,
                   echo: bool = False, tail_lines: int = 400):

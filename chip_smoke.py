@@ -268,6 +268,45 @@ Phases, in order; any failure exits nonzero and prints no result line:
              bytes and write ms, the async stall, the restarted child's
              restore and chunk ms, the supervised and uninterrupted wall
              times and the watcher's verify and swap ms.
+23. dp    — data-parallel training (caffe_mpi_tpu_torch/parallel/).
+             (a) world 1 under NCCL: `train -solver
+             models/alexnet/solver.prototxt -synthetic -gpu all` (b256,
+             step_chunk 10, 20 iterations) against the same run without
+             -gpu, cuDNN deterministic in both: params and history equal
+             element for element, the all-reduces (gradients and loss)
+             captured in the chunk's graph, K1/K2 counted as the plain
+             run's. (b) two ranks on the one card over gloo, through
+             the library (`init_distributed` and
+             `MeshPlan.from_shape(2, devices=[cuda:0, cuda:0])` in two
+             processes of this script, `--dp-rank`): AlexNet at global
+             batch 256 (128 a rank) and ResNet-50 at 32 (16 a rank, its
+             BatchNorm statistics global), FLOAT math, cuDNN
+             deterministic, against one-process runs at the global
+             batch: AlexNet's params, history slots and running
+             statistics after 3 iterations within 1e-2 of each tensor's
+             largest element (`_step_rule`), with rank 1's gradients
+             left out of the all-reduce of iteration 1 (the planted
+             fault) outside it; ResNet-50's forward after one iteration
+             (every BatchNorm's running mean and variance, the loss)
+             within 1e-3, with every BatchNorm and the last one alone on
+             the rank's own statistics outside it; BatchNorm alone at
+             each of ResNet-50's 9 input shapes (y, dx, the summed dscale
+             and dbias, mean, var) against F.batch_norm of the global
+             batch within 1e-4, the rank's own statistics outside it;
+             the ranks' states equal; ResNet-50 timed over 4 iterations
+             as configured; then, cuDNN
+             deterministic, 5 iterations of AlexNet flat, with
+             `reduce_overlap` (6 buckets, the hooks' all-reduces) and
+             with `zero_stage: 1`: both equal to flat element for element.
+             (c) with more than one card, NCCL over min(cards, 4) through
+             `train -gpu 0,..,k-1` (skipped on one card): AlexNet flat
+             and with `-reduce_overlap`, and ResNet-50, whose first
+             (eager) loss is held to 1e-3 of world 1's. Prints the
+             per-rank step ms, the ms a step spent in collectives (the
+             union of CUDA event pairs around them, eager runs), the
+             bytes reduced a step
+             and the bucket count, K1/K2 launches per rank, whether each
+             path replayed graphs, and the card's name and power limit.
 
 It prints one {"native_codec": ...} line (during phase 12), one
 {"kernels": [...]} line (K1-K5), one {"serving": ...} line (phases
@@ -278,6 +317,7 @@ line, one {"bf16": ...} line, one {"chunk": ...} line (the overflow
 phase inside it), one line each for phases 16-21 ({"leveldb": ...},
 {"imagedata": ...}, {"rcnn": ...}, {"detectnet": ...}, {"siamese":
 ...}, {"zoo_layers": ...}), one {"survive": ...} line, one
+{"dp": ...} line, one
 {"phase_seconds": ...} line (the wall seconds of each group of phases),
 the card line again, and last {"ok": true, ...}.
 """
@@ -5065,6 +5105,527 @@ def survive_phase(k1: dict, k2: dict, card: str, lenet: dict) -> dict:
     return out
 
 
+# -- 23. dp -------------------------------------------------------------------
+
+DP_RULE_ITERS = 3      # AlexNet's gloo runs held to the one-process run
+DP_RULE_BOUND = 1e-2   # AlexNet: each tensor's distance over its largest
+DP_STATS_BOUND = 1e-3  # ResNet-50: each BatchNorm's statistics, the loss
+DP_BN_BOUND = 1e-4     # BatchNorm alone: y, dx, dscale, dbias, mean, var
+DP_EXACT_ITERS = 5     # the deterministic flat / overlap / ZeRO-1 runs
+DP_TIMED_ITERS = 4     # ResNet-50's timed run (TF32 as configured)
+DP_FAULT_ITER = 1      # rank 1's gradients left out of this all-reduce
+DP_RANK_DEADLINE = 600
+DP_CARDS_DEADLINE = 240  # a CLI run over the cards (~1 min when sound)
+
+
+def _dp_state(solver) -> dict:
+    """_state with the whole history (ZeRO-1 shards gathered)."""
+    out = _state(solver)
+    for (lname, pname), slots in solver.full_history().items():
+        for i, h in enumerate(slots):
+            out[f"{lname}.{pname}.h{i}"] = h.cpu().clone()
+    return out
+
+
+def _digest(state) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for key in sorted(state):
+        h.update(key.encode())
+        h.update(state[key].contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _float_math(sp) -> None:
+    """The solver's net with full float32 multiplies (FLOAT math, TF32
+    off): the ranks and the one-process run then differ by the order of
+    float32 sums alone, whatever cuDNN algorithm each batch shape gets."""
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    param = NetParameter.from_file(
+        sp.net if os.path.exists(sp.net) else os.path.join(ROOT, sp.net))
+    param.default_forward_math = param.default_backward_math = "FLOAT"
+    sp.net, sp.net_param = "", param
+
+
+def _dp_run(net, mesh=None, edit=None, iters=DP_RULE_ITERS, fault=None):
+    """`iters` eager iterations of the zoo net's solver on its synthetic
+    batch (this rank's slice under `mesh`), every launch count 0 just
+    before: (state, facts). `fault` plants one: "reduce" leaves rank 1's
+    gradients out of the all-reduce of iteration DP_FAULT_ITER,
+    "bn_all" / "bn_last" run every BatchNorm / the last one on the
+    rank's own batch statistics."""
+    from caffe_mpi_tpu_torch.proto import SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    from caffe_mpi_tpu_torch.tools import cli
+    path = SOLVER if net == "alexnet" else os.path.join(RESNET_DIR,
+                                                        "solver.prototxt")
+    sp = SolverParameter.from_file(path)
+    sp.snapshot, sp.display, sp.test_interval, sp.step_chunk = 0, 0, 0, 1
+    if edit:
+        edit(sp)
+    # the solver's net path is relative to the working directory
+    model_dir = "" if not sp.net or os.path.exists(sp.net) \
+        else os.path.dirname(path)
+    solver = Solver(sp, model_dir=model_dir,
+                    device=None if mesh else "cuda", mesh=mesh)
+    rank, world = (mesh.rank, mesh.n_data) if mesh else (0, 1)
+    feeds = cli.synthetic_feed(solver.net, 0, rank, world)
+    if fault == "reduce" and rank == 1:
+        red, finish, calls = solver._reducer, solver._reducer.finish, [0]
+
+        def faulty():
+            calls[0] += 1
+            if calls[0] == DP_FAULT_ITER + 1:
+                for flat in red.flats:
+                    flat.zero_()
+            finish()
+        red.finish = faulty
+    elif fault in ("bn_all", "bn_last"):
+        bns = [l for l in solver.net.layers if l.lp.type == "BatchNorm"]
+        for layer in bns if fault == "bn_all" else bns[-1:]:
+            layer.mesh_plan = None
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    if iters > 1:  # the collectives are timed over the steps after it
+        solver.step(1, lambda it: feeds)
+    if mesh is not None:
+        mesh.timing = True
+        mesh.collective_ms()
+        c0 = mesh.collectives.launches
+    timed = iters - 1 if iters > 1 else 1
+    solver.step(timed, lambda it: feeds)
+    torch.cuda.synchronize()
+    facts = {"launches": dict(zip(("K1", "K2"), _kernel_counts()[:2])),
+             "step_ms": float(np.median(solver.iter_ms[1:]
+                                        or solver.iter_ms)),
+             "losses": list(solver.losses),
+             "graphs": solver.graph_replays > 0}
+    if not np.all(np.isfinite(facts["losses"])):
+        fail(f"dp {net}: losses {facts['losses']}")
+    if mesh is not None:
+        facts["collective_ms_per_step"] = mesh.collective_ms() / timed
+        facts["collectives_per_step"] = \
+            (mesh.collectives.launches - c0) / timed
+        facts["reduction"] = solver.reduction_stats()
+        mesh.timing = False
+    state = _dp_state(solver)
+    state["loss"] = torch.tensor(solver.losses)
+    del solver, feeds
+    torch.cuda.empty_cache()
+    return state, facts
+
+
+def _step_rule(ref, got, bound, keys=None) -> dict:
+    """Each tensor's distance from the one-process run's over that
+    tensor's largest element (`keys`, default every tensor of `ref`),
+    the worst over the tensors, against `bound`. `worst`: the three
+    tensors farthest off."""
+    rows = []
+    for key in keys or ref:
+        r = ref[key].float()
+        scale = max(float(r.abs().max()), 1e-30)
+        rows.append((key, float((got[key].float() - r).abs().max()) / scale))
+    rows.sort(key=lambda row: -row[1])
+    return {"diff": rows[0][1], "bound": bound, "held": rows[0][1] <= bound,
+            "tensors_over": sum(row[1] > bound for row in rows),
+            "tensors": len(rows), "worst": rows[:3]}
+
+
+def _stats_keys(state) -> list:
+    """ResNet-50's forward after one iteration: every BatchNorm's running
+    mean and variance (its global-batch statistics) and the loss."""
+    return [k for k in state if k.endswith((".mean", ".var"))] + ["loss"]
+
+
+# the rule's runs on the ranks: (name, net, planted fault, iterations);
+# AlexNet's over DP_RULE_ITERS against DP_RULE_BOUND, every tensor;
+# ResNet-50's forward (one iteration) against DP_STATS_BOUND
+DP_RULE_RUNS = (("alexnet", "alexnet", None, DP_RULE_ITERS),
+                ("alexnet_fault", "alexnet", "reduce", DP_RULE_ITERS),
+                ("resnet50", "resnet50", None, 1),
+                ("resnet50_bn_all_local", "resnet50", "bn_all", 1),
+                ("resnet50_bn_last_local", "resnet50", "bn_last", 1))
+
+
+def _bn_grads(fn, x, dy, scale, bias) -> dict:
+    """y, dx, dscale, dbias of `fn(x, scale, bias)` (y, mean, var) under
+    the upstream gradient dy."""
+    x, scale, bias = (t.detach().clone().requires_grad_(True)
+                      for t in (x, scale, bias))
+    y, mean, var = fn(x, scale, bias)
+    y.backward(dy)
+    return {"y": y.detach(), "dx": x.grad, "dscale": scale.grad,
+            "dbias": bias.grad, "mean": mean.detach(), "var": var.detach()}
+
+
+def _bn_alone(mesh, shapes, eps) -> dict:
+    """BatchNorm alone on this rank at each (rank batch, C, H, W) of
+    `shapes`: `_GlobalBatchNorm` ("global") and the rank's own statistics
+    ("local", the planted fault) on the rank's slice of a seeded global
+    batch, against F.batch_norm of the whole global batch on the same
+    device. The scale and bias gradients are summed over the ranks first
+    (the solver's reduce). Per kind, the worst distance over the shapes
+    and the six tensors, each over its largest element."""
+    import torch.nn.functional as F
+    from caffe_mpi_tpu_torch.layers.norm import _GlobalBatchNorm
+
+    def whole(x, scale, bias):
+        var, mean = torch.var_mean(x, [0, 2, 3], correction=0)
+        return F.batch_norm(x, None, None, scale, bias, training=True,
+                            eps=eps), mean, var
+
+    def global_(x, scale, bias):
+        return _GlobalBatchNorm.apply(x, scale, bias, eps, mesh)
+
+    out = {}
+    for kind, fn in (("global", global_), ("local", whole)):
+        rows = []
+        for i, shape in enumerate(shapes):
+            g = torch.Generator().manual_seed(i)
+            n, c = shape[0], shape[1]
+            full = (n * mesh.n_data, *shape[1:])
+            x = (torch.randn(full, generator=g) * 2 + 0.5).to(mesh.device)
+            dy = torch.randn(full, generator=g).to(mesh.device)
+            scale = (1 + 0.1 * torch.randn(c, generator=g)).to(mesh.device)
+            bias = (0.1 * torch.randn(c, generator=g)).to(mesh.device)
+            ref = _bn_grads(whole, x, dy, scale, bias)
+            part = slice(mesh.rank * n, (mesh.rank + 1) * n)
+            got = _bn_grads(fn, x[part], dy[part], scale, bias)
+            mesh.all_reduce_(got["dscale"])
+            mesh.all_reduce_(got["dbias"])
+            ref["y"], ref["dx"] = ref["y"][part], ref["dx"][part]
+            rule = _step_rule(ref, got, DP_BN_BOUND)
+            rows.append((list(shape), rule["diff"], rule["worst"][0][0]))
+            del x, dy, ref, got
+        rows.sort(key=lambda row: -row[1])
+        out[kind] = {"diff": rows[0][1], "bound": DP_BN_BOUND,
+                     "held": rows[0][1] <= DP_BN_BOUND,
+                     "shapes": len(rows), "worst": rows[:3]}
+    return out
+
+
+def dp_rank_main(rank: int, port: int, tmp: str) -> int:
+    """One of the two gloo ranks on the one card (`--dp-rank`): every run
+    of the dp phase's part (b); the rank's facts go to tmp/rank<k>.json,
+    rank 0's states of the rule's runs to tmp/<run>.pt."""
+    from caffe_mpi_tpu_torch.parallel import mesh as mesh_mod
+    mesh_mod.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    mesh = mesh_mod.MeshPlan.from_shape(2, devices=["cuda:0", "cuda:0"])
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    for name, net, fault, iters in DP_RULE_RUNS:
+        state, out[name] = _dp_run(net, mesh, edit=_float_math,
+                                   iters=iters, fault=fault)
+        out[name]["digest"] = _digest(state)
+        if rank == 0:
+            torch.save(state if net == "alexnet" else
+                       {k: state[k] for k in _stats_keys(state)},
+                       os.path.join(tmp, f"{name}.pt"))
+        del state
+    _, out["resnet50_timed"] = _dp_run("resnet50", mesh,
+                                       iters=DP_TIMED_ITERS)
+    from caffe_mpi_tpu_torch.layers.norm import BatchNormLayer
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    resnet = Net(NetParameter.from_file(
+        os.path.join(RESNET_DIR, "train_val.prototxt")), "TRAIN",
+        device="cpu", batch_divisor=2)
+    bns = [l for l in resnet.layers if isinstance(l, BatchNormLayer)]
+    out["bn_alone"] = _bn_alone(
+        mesh, sorted({tuple(l.in_shapes[0]) for l in bns}), bns[0].eps)
+    del resnet, bns
+    torch.cuda.empty_cache()
+
+    def overlap(sp):
+        sp.reduce_overlap = True
+        sp.reduce_buckets = 6
+
+    def zero(sp):
+        sp.zero_stage = 1
+
+    exact = {}
+    for name, edit in (("flat", None), ("overlap", overlap),
+                       ("zero", zero)):
+        exact[name], out[f"exact_{name}"] = _dp_run(
+            "alexnet", mesh, edit=edit, iters=DP_EXACT_ITERS)
+        out[f"exact_{name}"]["digest"] = _digest(exact[name])
+    for name in ("overlap", "zero"):
+        bad = [k for k in exact["flat"]
+               if not torch.equal(exact["flat"][k], exact[name][k])]
+        out[f"exact_{name}"]["equal_to_flat"] = not bad
+        out[f"exact_{name}"]["differ"] = bad[:5]
+    mesh_mod.cluster_barrier("exit", 120)
+    mesh_mod.shutdown_distributed()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _dp_world1(card: str) -> dict:
+    """(a): -gpu all (world 1, NCCL) against no -gpu, cuDNN deterministic
+    in both."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        runs = {}
+        # world 1: every card of a one-card machine, else card 0 (more
+        # local ranks run one process each: part (c))
+        gpu = "all" if torch.cuda.device_count() == 1 else "0"
+        for name, extra in (("gpu_all", ("-gpu", gpu)), ("plain", ())):
+            _reset_kernel_counts()
+            solver, summary = _train_cli(
+                SOLVER, os.path.join(tmp, name), TRAIN_ITERS,
+                ("-step_chunk", "10", *extra))
+            torch.cuda.synchronize()
+            # collectives a replay issues (the graphs are released before
+            # the group is left)
+            captured = summary["graph_collectives"] \
+                if solver.mesh is not None else None
+            # an iteration of the last chunk: graph replays only (the
+            # first chunks hold the eager iteration and the capture)
+            runs[name] = {"state": _state(solver), "summary": summary,
+                          "ms": summary["iter_ms"][-1],
+                          "counts": _kernel_counts()[:2],
+                          "collectives_in_graph": captured}
+            del solver
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(tmp, ignore_errors=True)
+    g, p = runs["gpu_all"], runs["plain"]
+    bad = [k for k in p["state"]
+           if not torch.equal(p["state"][k], g["state"][k])]
+    s = g["summary"]
+    red = s["reduction"] or {}
+    if bad:
+        fail(f"dp world 1: -gpu all differs from the plain run in {bad[:5]}")
+    if not (s["graphs"] and g["collectives_in_graph"]):
+        fail(f"dp world 1: graphs {s['graphs']}, collectives captured "
+             f"{g['collectives_in_graph']}")
+    if g["counts"] != p["counts"] or not all(g["counts"]):
+        fail(f"dp world 1: K1/K2 {g['counts']}, plain {p['counts']}")
+    if red.get("backend") != "nccl" or s["world"] != 1:
+        fail(f"dp world 1: {red}")
+    return {"iters": TRAIN_ITERS, "batch": s["batch"], "equal": True,
+            "tensors": len(p["state"]), "graphs": s["graphs"],
+            "collectives_captured": g["collectives_in_graph"],
+            "K1": g["counts"][0], "K2": g["counts"][1],
+            "step_ms_replayed": g["ms"], "plain_step_ms_replayed": p["ms"],
+            "reduction": red, "card": card}
+
+
+def _dp_two_ranks(card: str) -> dict:
+    """(b): the one-process runs at the global batch, then the two gloo
+    ranks (this script with --dp-rank), then the rule: every run of the
+    rule in FLOAT math, cuDNN deterministic, DP_RULE_ITERS iterations
+    for AlexNet, its forward for ResNet-50, whose float32 gradients are
+    not a usable oracle: one step of it in float32 sits up to 0.29 of a
+    tensor's largest element from the same step in float64 on the CPU,
+    and three steps of a sound run read 2.0 on the card), BatchNorm alone
+    at ResNet-50's shapes for the global backward."""
+    from caffe_mpi_tpu_torch.parallel.mesh import free_port
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        refs = {"alexnet": _dp_run("alexnet", edit=_float_math)[0],
+                "resnet50": _dp_run("resnet50", edit=_float_math,
+                                    iters=1)[0]}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp2_")
+    try:
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--dp-rank", str(r), "--dp-port", str(port), "--dp-dir", tmp],
+            cwd=ROOT, env=dict(os.environ,
+                               CAFFE_TPU_COLLECTIVE_TIMEOUT="300"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=DP_RANK_DEADLINE))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for r, (proc, (_, err)) in enumerate(zip(procs, outs)):
+            if proc.returncode != 0:
+                fail(f"dp rank {r} exited {proc.returncode}: {err[-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        rules = {}
+        for name, net, _, _ in DP_RULE_RUNS:
+            got = torch.load(os.path.join(tmp, f"{name}.pt"))
+            rules[name] = _step_rule(refs[net], got, DP_RULE_BOUND) \
+                if net == "alexnet" else _step_rule(
+                    refs[net], got, DP_STATS_BOUND, _stats_keys(got))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del refs
+    torch.cuda.empty_cache()
+    r0, r1 = ranks
+    # under a BatchNorm fault a rank's own statistics differ from the other's
+    local_bn = {name for name, _, fault, _ in DP_RULE_RUNS
+                if fault in ("bn_all", "bn_last")}
+    for name in r0:
+        if name not in local_bn and "digest" in r0[name] \
+                and r0[name]["digest"] != r1[name]["digest"]:
+            fail(f"dp two ranks: {name}: the ranks' states differ")
+    for name, _, fault, _ in DP_RULE_RUNS:
+        if rules[name]["held"] == bool(fault):
+            fail(f"dp two ranks: {name} (planted fault {fault}) "
+                 f"{'held' if fault else 'broke'} the rule: {rules[name]}")
+    for r, facts in enumerate(ranks):
+        bn = facts["bn_alone"]
+        if not bn["global"]["held"] or bn["local"]["held"]:
+            fail(f"dp two ranks: BatchNorm alone, rank {r}: {bn}")
+    for name in ("exact_overlap", "exact_zero"):
+        if not r0[name]["equal_to_flat"]:
+            fail(f"dp two ranks: {name} differs from flat in "
+                 f"{r0[name]['differ']}")
+    red = r0["exact_overlap"]["reduction"]
+    if red["mode"] != "bucketed" or red["reduce_buckets"] != 6:
+        fail(f"dp two ranks: overlap {red}")
+    for name in ("alexnet", "exact_flat"):
+        for r in ranks:
+            if not (r[name]["launches"]["K1"] and r[name]["launches"]["K2"]):
+                fail(f"dp two ranks: {name}: K1/K2 {r[name]['launches']}")
+    keep = ("step_ms", "collective_ms_per_step", "collectives_per_step",
+            "launches", "graphs")
+    out = {"rule": rules, "card": card,
+           "bn_alone": {f"rank{r}": facts.pop("bn_alone")
+                        for r, facts in enumerate(ranks)}}
+    for name in r0:
+        out[name] = {"rank0": {k: r0[name][k] for k in keep},
+                     "rank1": {k: r1[name][k] for k in keep},
+                     "reduction": r0[name]["reduction"]}
+        if "equal_to_flat" in r0[name]:
+            out[name]["equal_to_flat"] = r0[name]["equal_to_flat"]
+    return out
+
+
+def _dp_cli(tmp, name, gpu, extra=(), solver=SOLVER) -> dict:
+    """`cli train` of a solver (AlexNet's by default) on `-gpu` in a
+    process of its own (its workers, one a card, under NCCL): rank 0's
+    summary."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.cli", "train",
+         "-solver", solver, "-synthetic", "-max_iter", str(TRAIN_ITERS),
+         "-test_iter", str(TEST_ITER), "-step_chunk", "10",
+         "-snapshot_prefix", os.path.join(tmp, name), "-gpu", gpu, *extra],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=DP_CARDS_DEADLINE)
+    except subprocess.TimeoutExpired:
+        # SIGTERM: the CLI kills its workers' process groups, then exits
+        proc.terminate()
+        out, err = proc.communicate()
+        fail(f"dp -gpu {gpu} {' '.join(extra)}: over {DP_CARDS_DEADLINE} s: "
+             f"{err[-3000:]}")
+    lines = [l for l in out.splitlines() if l.startswith('{"train"')]
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"dp -gpu {gpu} {' '.join(extra)}: exit {proc.returncode}, "
+             f"{len(lines)} summaries: {err[-3000:]}")
+    return json.loads(lines[0])["train"]
+
+
+def _dp_cards(card: str) -> dict | None:
+    """(c): NCCL over min(cards, 4) through the CLI, flat and with
+    `-reduce_overlap` (6 buckets from the hooks, on a side stream, in the
+    chunk's graph), against world 1 on card 0 at the same global batch;
+    None on one card."""
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        return None
+    cards = ",".join(str(i) for i in range(n))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dpn_")
+    try:
+        runs = {"world1": _dp_cli(tmp, "w1", "0"),
+                "flat": _dp_cli(tmp, "flat", cards),
+                "overlap": _dp_cli(tmp, "overlap", cards,
+                                   ("-reduce_overlap",))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref = np.asarray(runs["world1"]["losses"])
+    out = {"cards": n, "card": card}
+    for name, s in runs.items():
+        red = s["reduction"] or {}
+        if not (s["graphs"] and s["graph_collectives"]
+                and np.all(np.isfinite(s["losses"]))
+                and s["kernel_launches"]["K1"] and s["kernel_launches"]["K2"]
+                and red.get("backend") == "nccl" and s["batch"] == 256):
+            fail(f"dp over {n} cards, {name}: {s}")
+        out[name] = {
+            "world": s["world"], "rank_batch": s["rank_batch"],
+            "step_ms_replayed": s["iter_ms"][-1],
+            "window_img_per_s": s["window_img_per_s"],
+            "max_rel_loss_diff_vs_world1": float(np.max(
+                np.abs(np.asarray(s["losses"]) - ref) / np.abs(ref))),
+            "reduction": red, "kernel_launches_rank0": s["kernel_launches"]}
+    if out["overlap"]["reduction"].get("mode") != "bucketed":
+        fail(f"dp over {n} cards: overlap {out['overlap']['reduction']}")
+    out["resnet50"] = _dp_cards_resnet50(n, card)
+    return out
+
+
+def _dp_cards_resnet50(n: int, card: str) -> dict:
+    """ResNet-50 (b32) over n cards under NCCL through the CLI against
+    world 1 on card 0: its BatchNorms' all-gathers and all-reduces in
+    the chunk's graph. The first iteration (eager, every BatchNorm's
+    statistics the global batch's) holds its loss within DP_STATS_BOUND
+    of world 1's; later losses are printed, not held (ResNet-50's float32
+    gradients differ run to run by more than its updates move them)."""
+    solver = os.path.join(RESNET_DIR, "solver.prototxt")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dpr_")
+    try:
+        w1 = _dp_cli(tmp, "w1", "0", solver=solver)
+        s = _dp_cli(tmp, "cards", ",".join(str(i) for i in range(n)),
+                    solver=solver)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref, got = np.asarray(w1["losses"]), np.asarray(s["losses"])
+    rel = np.abs(got - ref) / np.abs(ref)
+    red = s["reduction"] or {}
+    if not (s["graphs"] and s["graph_collectives"] and np.all(np.isfinite(got))
+            and red.get("backend") == "nccl" and s["batch"] == 32
+            and rel[0] <= DP_STATS_BOUND):
+        fail(f"dp ResNet-50 over {n} cards: {s}, first loss {rel[0]}")
+    return {"world": s["world"], "rank_batch": s["rank_batch"],
+            "first_loss_rel_diff_vs_world1": float(rel[0]),
+            "bound": DP_STATS_BOUND,
+            "max_rel_loss_diff_vs_world1": float(rel.max()),
+            "losses": s["losses"], "world1_losses": w1["losses"],
+            "graph_collectives": s["graph_collectives"],
+            "step_ms_replayed": s["iter_ms"][-1],
+            "world1_step_ms_replayed": w1["iter_ms"][-1],
+            "window_img_per_s": s["window_img_per_s"],
+            "world1_window_img_per_s": w1["window_img_per_s"],
+            "reduction": red, "card": card}
+
+
+def dp_phase(k1: dict, k2: dict, card: str) -> dict:
+    out = {"world1_nccl": _dp_world1(card)}
+    log(f"dp world1_nccl: {json.dumps(out['world1_nccl'])}")
+    k1["launches_by_path"]["dp_world1"] = out["world1_nccl"]["K1"]
+    k2["launches_by_path"]["dp_world1"] = out["world1_nccl"]["K2"]
+    out["two_ranks_gloo"] = _dp_two_ranks(card)
+    a = out["two_ranks_gloo"]["alexnet"]
+    for k, counter in (("K1", k1), ("K2", k2)):
+        for r in ("rank0", "rank1"):
+            counter["launches_by_path"][f"dp_gloo_{r}"] = \
+                a[r]["launches"][k]
+    out["nccl_cards"] = _dp_cards(card)
+    log(f"dp: {json.dumps(out)}")
+    return out
+
+
 class _PhaseClock:
     """Wall seconds of each group of phases, for the time limit."""
 
@@ -5083,7 +5644,32 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="a checkout of the parent commit: its K1-K5 are "
                     "built and timed beside this tree's in each case")
+    ap.add_argument("--dp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)  # the dp phase's gloo ranks
+    ap.add_argument("--dp-port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-dir", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--only", choices=["dp_cards"], default=None,
+                    help="run one part alone: dp_cards = the dp phase's "
+                    "NCCL runs (AlexNet, ResNet-50) over min(cards, 4) "
+                    "cards against one card "
+                    "(needs more than one card; prints no ok line)")
     args = ap.parse_args(argv)
+    if args.dp_rank is not None:
+        if not torch.cuda.is_available():
+            fail("torch.cuda.is_available() is False: no card")
+        return dp_rank_main(args.dp_rank, args.dp_port, args.dp_dir)
+    if args.only == "dp_cards":
+        os.chdir(ROOT)
+        card, _ = device_phase()
+        from caffe_mpi_tpu_torch.ops import build
+        for src in ("lrn.cu", build.NATIVE):
+            build.build(src)
+        res = _dp_cards(card)
+        if res is None:
+            fail("--only dp_cards needs more than one card")
+        print(json.dumps({"dp_cards": res}), flush=True)
+        print(card, flush=True)
+        return 0
     parent = os.path.abspath(args.parent) if args.parent else None
     os.chdir(ROOT)
     clock = _PhaseClock()
@@ -5135,6 +5721,8 @@ def main(argv=None) -> int:
     clock("sources")
     survive = survive_phase(k1, k2, card, lenet)
     clock("survive")
+    dp = dp_phase(k1, k2, card)
+    clock("dp")
     print(json.dumps({"kernels": [k1, k2, *flash]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
@@ -5147,6 +5735,7 @@ def main(argv=None) -> int:
     for key, res in sources.items():
         print(json.dumps({key: res}), flush=True)
     print(json.dumps({"survive": survive}), flush=True)
+    print(json.dumps({"dp": dp}), flush=True)
     print(json.dumps({"phase_seconds": clock.seconds}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -68,6 +68,35 @@ def test_ast_scan_finds_no_jax_or_reference_package_import():
     assert found == []
 
 
+def test_parallel_package_is_scanned():
+    """The data-parallel package is among the files the scan reads (and
+    the poisoned import below walks): it imports torch.distributed, never
+    jax or the JAX package's parallel modules."""
+    files = {os.path.relpath(p, _PKG) for p in _port_files()}
+    assert {os.path.join("parallel", f) for f in
+            ("__init__.py", "mesh.py", "reduction.py")} <= files
+
+
+_POISONED_PARALLEL = r"""
+import sys
+for name in ("jax", "jaxlib", "caffe_mpi_tpu"):
+    sys.modules[name] = None
+from caffe_mpi_tpu_torch.parallel import MeshPlan, mesh, reduction
+plan = MeshPlan.from_shape(1, devices=["cpu"])
+print(plan.backend, reduction.__name__)
+"""
+
+
+def test_parallel_imports_and_forms_a_group_with_jax_poisoned():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", _POISONED_PARALLEL],
+                          cwd=_ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "gloo" in proc.stdout and "reduction" in proc.stdout
+
+
 _POISONED_IMPORT = r"""
 import importlib, importlib.util, pkgutil, sys
 for name in ("jax", "jaxlib", "caffe_mpi_tpu"):

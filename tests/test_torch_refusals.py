@@ -24,6 +24,8 @@ from caffe_mpi_tpu.proto import SolverParameter as JaxSP
 from caffe_mpi_tpu.proto.config import ServingParameter as JaxServing
 from caffe_mpi_tpu.serving import ServingEngine as JaxEngine
 from caffe_mpi_tpu.solver import Solver as JaxSolver
+from caffe_mpi_tpu_torch.parallel import MeshPlan
+from caffe_mpi_tpu_torch.parallel import mesh as mesh_mod
 from caffe_mpi_tpu_torch.proto import SolverParameter
 from caffe_mpi_tpu_torch.proto.config import ServingParameter
 from caffe_mpi_tpu_torch.serving import ServingEngine
@@ -116,14 +118,40 @@ PORTED = {
                           and s._watchdog.hard_exit),
     "snapshot_keep": ("snapshot_keep: 2",
                       lambda s: s.sp.snapshot_keep == 2),
+    # data parallelism: one gloo rank on the CPU (the mesh below)
+    "zero_stage": ("zero_stage: 1",
+                   lambda s: s._zero == 1
+                   and s.reduction_stats()["zero_stage"] == 1),
+    "reduce_overlap": ("reduce_overlap: true",
+                       lambda s: "single device"
+                       in s.reduction_stats()["fallback_reason"]),
+    "reduce_buckets": ("reduce_buckets: 2",
+                       lambda s: s.sp.reduce_buckets == 2
+                       and s.reduction_stats()["mode"] == "implicit"),
+    "grad_bucket_mb": ("grad_bucket_mb: 0.5",
+                       lambda s: s.sp.grad_bucket_mb == 0.5
+                       and s.reduction_stats()["buckets"] == 1),
+    "hosts": ('hosts: 2 coordinator: "127.0.0.1:1234"',
+              lambda s: mesh_mod.resolve_cluster(s.sp, host_id=1)
+              == (2, "127.0.0.1:1234", 1)),
+    "coordinator": ('coordinator: "127.0.0.1:1234"',
+                    lambda s: mesh_mod.resolve_cluster(s.sp)[1]
+                    == "127.0.0.1:1234"),
 }
+# the fields whose solver takes a mesh
+MESH_FIELDS = {"zero_stage", "reduce_overlap", "reduce_buckets",
+               "grad_bucket_mb"}
 
 
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_ported_solver_field_is_taken_at_a_non_default_value(name):
     assert name not in {n for n, _ in SOLVER_FIELDS}
     text, check = PORTED[name]
-    solver = Solver(_solver_param(text), device="cpu")
+    if name in MESH_FIELDS:
+        solver = Solver(_solver_param(text),
+                        mesh=MeshPlan.from_shape(1, devices=["cpu"]))
+    else:
+        solver = Solver(_solver_param(text), device="cpu")
     assert check(solver)
     solver.step(1, lambda it: {
         "data": torch.zeros(2, 3), "label": torch.zeros(2, dtype=torch.long)})
@@ -271,9 +299,9 @@ def _write_solver(tmp_path):
     return str(path)
 
 
-@pytest.mark.parametrize("flags", [["-zero_stage", "1"],
-                                   ["-reduce_buckets", "2"],
-                                   ["-hosts", "2"],
+@pytest.mark.parametrize("flags", [["-host_deadline", "30"],
+                                   ["-min_hosts", "1"],
+                                   ["-mesh", "data=1,model=2"],
                                    ["-min_hosts", "2"],
                                    ["-precision", "nonsense"]])
 def test_cli_train_flag_of_an_unported_field_exits_one(tmp_path, flags):

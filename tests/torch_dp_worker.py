@@ -1,0 +1,193 @@
+"""One data-parallel rank of the port's tests (tests/test_torch_parallel.py,
+test_torch_reduction.py, test_torch_zero.py), run as its own process:
+
+    python tests/torch_dp_worker.py SPEC RANK WORLD PORT OUT
+
+It imports torch, numpy and the port only. It forms a gloo group of WORLD
+ranks on the CPU at 127.0.0.1:PORT (every collective bounded by
+CAFFE_TPU_COLLECTIVE_TIMEOUT), then runs each scenario of the pickled
+SPEC (a list of dicts) and pickles {scenario name: result} to
+OUT/r<RANK>.pkl. A scenario trains a port Solver from a solver prototxt
+on its rank's slice of the given global feeds (with the given global
+Dropout masks, JAX initial weights and optional NaN poison), or checks
+BatchNorm alone ("kind": "bn").
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from caffe_mpi_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
+from caffe_mpi_tpu_torch.proto import SolverParameter  # noqa: E402
+from caffe_mpi_tpu_torch.solver import Solver  # noqa: E402
+from caffe_mpi_tpu_torch.weights import load_jax_params  # noqa: E402
+
+
+def _state(solver) -> dict:
+    """Params, whole history slots and running statistics, on the host."""
+    out = {}
+    for lname, pname, _, p in solver._decls:
+        out[f"{lname}.{pname}"] = p.detach().numpy().copy()
+    for (lname, pname), slots in solver.full_history().items():
+        for i, h in enumerate(slots):
+            out[f"{lname}.{pname}.h{i}"] = h.numpy().copy()
+    for lname, sname, buf in solver.net.state_buffers():
+        out[f"{lname}.{sname}"] = buf.numpy().copy()
+    return out
+
+
+def train(sc: dict, mesh) -> dict:
+    solver = Solver(SolverParameter.from_text(sc["solver"]), mesh=mesh)
+    if sc.get("weights") is not None:
+        load_jax_params(solver.net, sc["weights"], sc.get("net_state"))
+        solver._sync_replicas()
+    feeds, poison = sc["feeds"], sc.get("poison")
+
+    def feed_fn(k):
+        out = {key: torch.from_numpy(np.ascontiguousarray(mesh.shard(v)))
+               for key, v in feeds[k].items()}
+        if poison and poison == (k, mesh.rank):
+            out["x"] = out["x"].clone()
+            out["x"][0, 0] = float("nan")
+        return out
+
+    masks = sc.get("masks")
+    mask_fn = None if masks is None else (lambda it, m: {
+        name: torch.from_numpy(a) for name, a in masks[(it, m)].items()})
+    solver.step(sc["iters"], feed_fn, dropout_masks=mask_fn)
+    scores = None
+    if sc.get("test_feeds"):
+        tests = sc["test_feeds"]
+        scores = solver.test_all([lambda k: {
+            key: torch.from_numpy(np.ascontiguousarray(mesh.shard(v)))
+            for key, v in tests[k].items()}])
+    res = {"losses": list(solver.losses), "state": _state(solver),
+           "skipped": list(solver.skipped_iters), "test_scores": scores,
+           "stats": solver.reduction_stats(),
+           "shards": {f"{l}.{p}": tuple(h[0].shape)
+                      for (l, p), h in solver.history.items()}}
+    if sc.get("snapshot"):
+        prefix = sc["snapshot"]
+        solver.sp.snapshot_prefix = prefix
+        res["snapshot"] = solver.snapshot()
+        again = Solver(SolverParameter.from_text(sc["solver"]), mesh=mesh)
+        again.sp.snapshot_prefix = prefix
+        res["restored_auto"] = again.restore_auto()
+        res["restored"] = _state(again)
+        res["restored_iter"] = again.iter
+        again.close()
+    solver.close()
+    return res
+
+
+def batch_norm(sc: dict, mesh) -> dict:
+    """A TRAIN BatchNorm on the rank's slice: its output, the running
+    statistics after one forward, and the gradients of sum(y * w)."""
+    from caffe_mpi_tpu_torch.core.types import DtypePolicy
+    from caffe_mpi_tpu_torch.layers import create_layer
+    from caffe_mpi_tpu_torch.proto import LayerParameter
+    layer = create_layer(LayerParameter.from_text(sc["layer"]),
+                         DtypePolicy(), "TRAIN", torch.device("cpu"))
+    x = mesh.shard(sc["x"])
+    layer.in_shapes = [x.shape]
+    layer.setup([x.shape])
+    layer.mesh_plan = mesh
+    layer.train(True)
+    with torch.no_grad():
+        layer.scale.copy_(torch.from_numpy(sc["scale"]))
+        layer.bias.copy_(torch.from_numpy(sc["bias"]))
+    layer.scale.requires_grad_(True)
+    layer.bias.requires_grad_(True)
+    xt = torch.from_numpy(np.ascontiguousarray(x)).requires_grad_(True)
+    y = layer([xt])[0]
+    w = torch.from_numpy(np.ascontiguousarray(mesh.shard(sc["w"])))
+    (y * w).sum().backward()
+    return {"y": y.detach().numpy(), "dx": xt.grad.numpy(),
+            "dscale": layer.scale.grad.numpy().copy(),
+            "dbias": layer.bias.grad.numpy().copy(),
+            "mean": layer.mean.numpy().copy(),
+            "var": layer.var.numpy().copy()}
+
+
+class Ranks:
+    """`world` rank processes running `scenarios` (started at once; the
+    caller may work meanwhile): `results()` waits for them and returns
+    each rank's {name: result}. A rank that fails or outlasts `timeout`
+    fails the call, with its output, and every rank is killed."""
+
+    def __init__(self, scenarios: list[dict], world: int, out_dir: str,
+                 timeout: float = 150.0):
+        import subprocess
+        os.makedirs(out_dir, exist_ok=True)
+        self.out_dir, self.world, self.timeout = out_dir, world, timeout
+        spec = os.path.join(out_dir, "spec.pkl")
+        with open(spec, "wb") as f:
+            pickle.dump(scenarios, f)
+        port = mesh_mod.free_port()
+        env = dict(os.environ, CAFFE_TPU_COLLECTIVE_TIMEOUT="90",
+                   CAFFE_TPU_INIT_TIMEOUT="60", OMP_NUM_THREADS="1")
+        env.pop("CUDA_VISIBLE_DEVICES", None)
+        self.logs = [open(os.path.join(out_dir, f"r{r}.log"), "w")
+                     for r in range(world)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), spec, str(r),
+             str(world), str(port), out_dir], env=env, stdout=log,
+            stderr=subprocess.STDOUT) for r, log in enumerate(self.logs)]
+
+    def results(self) -> list[dict]:
+        try:
+            for p in self.procs:
+                p.wait(timeout=self.timeout)
+        finally:
+            for p, log in zip(self.procs, self.logs):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        out = []
+        for r, p in enumerate(self.procs):
+            if p.returncode != 0:
+                with open(os.path.join(self.out_dir, f"r{r}.log")) as f:
+                    raise RuntimeError(f"rank {r} exited {p.returncode}:\n"
+                                       f"{f.read()[-4000:]}")
+            with open(os.path.join(self.out_dir, f"r{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def run_ranks(scenarios: list[dict], world: int, out_dir: str,
+              timeout: float = 150.0) -> list[dict]:
+    """Ranks(...).results()."""
+    return Ranks(scenarios, world, out_dir, timeout).results()
+
+
+def main(argv) -> int:
+    spec, rank, world, port, out = argv
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    with open(spec, "rb") as f:
+        scenarios = pickle.load(f)
+    mesh_mod.init_distributed(f"127.0.0.1:{port}", world, rank,
+                              backend="gloo")
+    mesh = mesh_mod.MeshPlan.from_shape(world, devices=["cpu"] * world)
+    results = {}
+    for sc in scenarios:
+        fn = batch_norm if sc.get("kind") == "bn" else train
+        results[sc["name"]] = fn(sc, mesh)
+    mesh_mod.cluster_barrier("exit", 60)
+    mesh_mod.shutdown_distributed()
+    with open(os.path.join(out, f"r{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
