@@ -2,8 +2,8 @@
 
 The JAX package (`caffe_mpi_tpu/`) is the reference and stays as it is;
 this package mirrors its layout (`proto/`, `core/`, `layers/`, `ops/`,
-`net.py`, `io.py`, `caffe_io.py`, `serving/`, `tools/cli.py`) so each
-counterpart is found by its path. It imports `torch`, never `jax`, and
+`net.py`, `io.py`, `caffe_io.py`, `pycaffe.py`, `serving/`,
+`tools/cli.py`) so each counterpart is found by its path. It imports `torch`, never `jax`, and
 nothing of `caffe_mpi_tpu`: what it needs of that package's jax-free
 modules it keeps as its own copy.
 

@@ -1,13 +1,50 @@
-"""pycaffe io module — the preprocessing the serving path needs.
+"""pycaffe io module — preprocessing and array/proto conversions.
 
-Reference: python/caffe/io.py (Transformer, resize_image); JAX package
-caffe_mpi_tpu/caffe_io.py, of which this is the port's own copy of the
-Transformer and the resize/center-crop geometry.
+Reference: python/caffe/io.py (Transformer, load_image, resize_image,
+oversample, array_to_datum / datum_to_array, blobproto_to_array /
+array_to_blobproto); JAX package caffe_mpi_tpu/caffe_io.py, of which this
+is the port's own copy. `pycaffe.io` is this module.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .data.datasets import encode_datum, parse_datum
+from .io import encode_blob, parse_blob
+
+
+# -- proto conversions ------------------------------------------------------
+
+def blobproto_to_array(buf: bytes) -> np.ndarray:
+    return parse_blob(buf)
+
+
+def array_to_blobproto(arr: np.ndarray) -> bytes:
+    return encode_blob(np.asarray(arr, np.float32))
+
+
+def array_to_datum(arr: np.ndarray, label: int = 0) -> bytes:
+    return encode_datum(np.asarray(arr, np.uint8), label)
+
+
+def datum_to_array(buf: bytes) -> tuple[np.ndarray, int]:
+    return parse_datum(buf)
+
+
+# -- images -----------------------------------------------------------------
+
+def load_image(filename: str, color: bool = True) -> np.ndarray:
+    """An image file as float [0, 1] HWC (RGB for color, one channel
+    otherwise), decoded through the port's decode policy (the native
+    decoder where it is built, PIL otherwise), as the JAX `load_image`."""
+    from .data import decode as _decode
+    with open(filename, "rb") as f:
+        data = f.read()
+    if color:
+        return _decode.to_float_image(_decode.decode_file(data))
+    arr = _decode.decode_file(data, is_color=False)
+    return arr[0, :, :, None].astype(np.float32) / 255.0
 
 
 def resize_image(im: np.ndarray, new_dims, interp_order: int = 1) -> np.ndarray:
@@ -42,6 +79,34 @@ def resize_center_crop(im: np.ndarray, image_dims, crop_dims) -> np.ndarray:
         im = im[center[0]:center[0] + int(crop_dims[0]),
                 center[1]:center[1] + int(crop_dims[1]), :]
     return im
+
+
+def oversample(images, crop_dims) -> np.ndarray:
+    """10-crop augmentation: the 4 corners and the center of each image,
+    then the same 5 mirrored (reference io.py oversample)."""
+    im_shape = np.array(images[0].shape[:2])
+    crop_dims = np.array(crop_dims)
+    im_center = im_shape / 2.0
+    h_indices = (0, im_shape[0] - crop_dims[0])
+    w_indices = (0, im_shape[1] - crop_dims[1])
+    crops_ix = np.empty((5, 4), dtype=int)
+    curr = 0
+    for i in h_indices:
+        for j in w_indices:
+            crops_ix[curr] = (i, j, i + crop_dims[0], j + crop_dims[1])
+            curr += 1
+    crops_ix[4] = np.tile(im_center, (1, 2)) + np.concatenate(
+        [-crop_dims / 2.0, crop_dims / 2.0])
+    crops_ix = np.tile(crops_ix, (2, 1))
+    crops = np.empty((10 * len(images), crop_dims[0], crop_dims[1],
+                      images[0].shape[-1]), dtype=np.float32)
+    ix = 0
+    for im in images:
+        for crop in crops_ix:
+            crops[ix] = im[crop[0]:crop[2], crop[1]:crop[3], :]
+            ix += 1
+        crops[ix - 5:ix] = crops[ix - 5:ix, :, ::-1, :]  # mirror last 5
+    return crops
 
 
 class Transformer:

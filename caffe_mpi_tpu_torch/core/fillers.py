@@ -71,5 +71,21 @@ def fill(filler: FillerParameter | None, gen: torch.Generator,
     if ftype == "msra":
         std = math.sqrt(2.0 / _scale_n(filler, shape))
         return (std * torch.randn(shape, generator=gen)).to(dtype)
-    raise ValueError(f"unknown filler type {ftype!r} (the port fills "
-                     "constant, uniform, gaussian, xavier and msra)")
+    if ftype == "positive_unitball":
+        # each output unit's weights uniform in [0, 1), scaled to sum 1
+        flat = torch.rand(shape, generator=gen).reshape(shape[0], -1)
+        flat = flat / flat.sum(dim=1, keepdim=True)
+        return flat.reshape(shape).to(dtype)
+    if ftype == "bilinear":
+        # upsampling kernel for Deconvolution (filler.hpp BilinearFiller),
+        # the same for every (out, in) pair; draws nothing
+        if len(shape) != 4 or shape[2] != shape[3]:
+            raise ValueError("bilinear filler requires square 4D kernels")
+        k = shape[3]
+        f = math.ceil(k / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        og = torch.arange(k, dtype=torch.float64)
+        row = 1 - torch.abs(og / f - c)
+        kern = (row[:, None] * row[None, :]).to(torch.float32)
+        return kern.expand(shape).to(dtype).clone()
+    raise ValueError(f"unknown filler type {ftype!r}")

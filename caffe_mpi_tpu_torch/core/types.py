@@ -32,6 +32,8 @@ _NAME_TO_DTYPE = {
 # the TF32 switches are process-wide; layers on several threads must not
 # interleave their set/restore pairs
 _TF32_LOCK = threading.RLock()
+# per thread: a layer's forward is being run again by a backward (remat)
+_LOCAL = threading.local()
 
 
 def dtype_for(type_name: str, default: torch.dtype = torch.float32):
@@ -44,10 +46,27 @@ def dtype_for(type_name: str, default: torch.dtype = torch.float32):
 
 
 @contextmanager
+def recomputing():
+    """Within: a layer's forward run again inside a backward (`remat`).
+    On the card autograd runs that backward on its own device thread,
+    while the thread that called backward waits, holding the TF32 lock
+    for the whole step; `_tf32` then sets the switches without the lock
+    (its holder is blocked until the recompute returns)."""
+    prev = getattr(_LOCAL, "recompute", False)
+    _LOCAL.recompute = True
+    try:
+        yield
+    finally:
+        _LOCAL.recompute = prev
+
+
+@contextmanager
 def _tf32(allow: bool):
     cudnn = torch.backends.cudnn
     matmul = torch.backends.cuda.matmul
-    with _TF32_LOCK:
+    lock = nullcontext() if getattr(_LOCAL, "recompute", False) \
+        else _TF32_LOCK
+    with lock:
         saved = (cudnn.allow_tf32, matmul.allow_tf32)
         cudnn.allow_tf32 = allow
         matmul.allow_tf32 = allow

@@ -276,12 +276,19 @@ def load_caffemodel(path: str) -> dict[str, list[np.ndarray]]:
         return parse_caffemodel(f.read())
 
 
+def refuse_hdf5(path: str) -> None:
+    """HDF5 weights (.h5, .hdf5) are refused: the card's machine has no
+    h5py."""
+    if path.endswith((".h5", ".hdf5")):
+        raise NotImplementedError(
+            f"{path}: HDF5 weights are not ported yet (ROADMAP.md §1 item "
+            "7: the card's machine has no h5py); use a binary .caffemodel")
+
+
 def load_weights(path: str) -> dict[str, list[np.ndarray]]:
     """Dispatch on extension (reference CopyTrainedLayersFrom,
     net.cpp:1119-1126)."""
-    if path.endswith((".h5", ".hdf5")):
-        raise ValueError(f"{path}: HDF5 weights are not ported yet; give a "
-                         "binary .caffemodel")
+    refuse_hdf5(path)
     return load_caffemodel(path)
 
 

@@ -1,7 +1,12 @@
-"""Elementwise activation layers: ReLU, Sigmoid, Dropout.
+"""Elementwise activation layers: ReLU, PReLU, ELU, Sigmoid, TanH, BNLL,
+Power, Exp, Log, AbsVal, Threshold, Dropout.
 
-Reference: src/caffe/layers/{relu,sigmoid,dropout}_layer.{cpp,cu}; JAX package
-caffe_mpi_tpu/layers/activations.py. Each is one torch expression.
+Reference: src/caffe/layers/{relu,prelu,elu,sigmoid,tanh,bnll,power,exp,
+log,absval,threshold,dropout}_layer.{cpp,cu}; JAX package
+caffe_mpi_tpu/layers/activations.py. Each is one torch expression, in the
+JAX layer's form (so the same autograd formula). PReLU learns `slope`, one
+a channel or one shared (default filler constant 0.25); Threshold's top
+carries no gradient.
 
 Dropout is the one layer that draws random numbers: `needs_rng` tells
 `Net.forward` to hand it the net's generator and, where the caller gives
@@ -10,8 +15,11 @@ one, the mask to use instead of a draw.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..proto.config import FillerParameter
 from .base import Layer, Shape, register
 
 
@@ -31,10 +39,110 @@ class ReLULayer(_Elementwise):
         return [torch.relu(x)]
 
 
+@register("PReLU")
+class PReLULayer(_Elementwise):
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        p = self.lp.prelu_param
+        channels = in_shapes[0][1] if len(in_shapes[0]) > 1 else 1
+        self.channels = 1 if (p and p.channel_shared) else channels
+        filler = (p.filler if p else None) or FillerParameter(
+            type="constant", value=0.25)
+        self.declare("slope", (self.channels,), filler)
+        return [in_shapes[0]]
+
+    def forward(self, bottoms):
+        x = self.f(bottoms[0])
+        shape = [1] * x.dim()
+        if self.channels > 1:
+            shape[1] = self.channels
+        slope = self.f(self.slope).reshape(shape)
+        return [torch.where(x > 0, x, slope * x)]
+
+
+@register("ELU")
+class ELULayer(_Elementwise):
+    def forward(self, bottoms):
+        x = self.f(bottoms[0])
+        alpha = self.lp.elu_param.alpha if self.lp.elu_param else 1.0
+        return [torch.where(x > 0, x, alpha * (torch.exp(
+            torch.clamp(x, max=0)) - 1))]
+
+
 @register("Sigmoid")
 class SigmoidLayer(_Elementwise):
     def forward(self, bottoms):
         return [torch.sigmoid(self.f(bottoms[0]))]
+
+
+@register("TanH")
+class TanHLayer(_Elementwise):
+    def forward(self, bottoms):
+        return [torch.tanh(self.f(bottoms[0]))]
+
+
+@register("BNLL")
+class BNLLLayer(_Elementwise):
+    """y = log(1 + exp(x)), computed stably (bnll_layer.cpp)."""
+
+    def forward(self, bottoms):
+        x = self.f(bottoms[0])
+        return [torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))]
+
+
+@register("Power")
+class PowerLayer(_Elementwise):
+    """y = (shift + scale*x)^power (power_layer.cpp)."""
+
+    def forward(self, bottoms):
+        p = self.lp.power_param
+        power, scale, shift = (p.power, p.scale, p.shift) if p \
+            else (1.0, 1.0, 0.0)
+        base = shift + scale * self.f(bottoms[0])
+        return [base if power == 1.0 else torch.pow(base, power)]
+
+
+@register("Exp")
+class ExpLayer(_Elementwise):
+    """y = base^(shift + scale*x); base -1 means e (exp_layer.cpp)."""
+
+    def forward(self, bottoms):
+        p = self.lp.exp_param
+        base, scale, shift = (p.base, p.scale, p.shift) if p \
+            else (-1.0, 1.0, 0.0)
+        inner = shift + scale * self.f(bottoms[0])
+        if base == -1.0:
+            return [torch.exp(inner)]
+        return [torch.exp(inner * math.log(base))]
+
+
+@register("Log")
+class LogLayer(_Elementwise):
+    """y = log_base(shift + scale*x); base -1 means e (log_layer.cpp)."""
+
+    def forward(self, bottoms):
+        p = self.lp.log_param
+        base, scale, shift = (p.base, p.scale, p.shift) if p \
+            else (-1.0, 1.0, 0.0)
+        y = torch.log(shift + scale * self.f(bottoms[0]))
+        return [y if base == -1.0 else y / math.log(base)]
+
+
+@register("AbsVal")
+class AbsValLayer(_Elementwise):
+    def forward(self, bottoms):
+        return [torch.abs(self.f(bottoms[0]))]
+
+
+@register("Threshold")
+class ThresholdLayer(_Elementwise):
+    """y = (x > t) ? 1 : 0, no gradient (threshold_layer.cpp)."""
+
+    def forward(self, bottoms):
+        t = self.lp.threshold_param.threshold \
+            if self.lp.threshold_param else 0.0
+        x = self.f(bottoms[0]).detach()
+        return [(x > t).to(x.dtype)]
 
 
 @register("Dropout")

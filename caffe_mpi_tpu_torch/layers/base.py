@@ -58,6 +58,8 @@ class Layer(nn.Module):
     host_step: bool = False
     # the data-parallel MeshPlan of the rank (Net.bind_mesh), or None
     mesh_plan = None
+    # the base of a layer's relative file paths (Net sets it before setup)
+    model_dir: str = ""
 
     def __init__(self, lp: LayerParameter, policy: DtypePolicy,
                  phase: str = "TRAIN", device: torch.device | None = None):

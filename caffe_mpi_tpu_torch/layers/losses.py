@@ -1,10 +1,14 @@
 """Softmax, the loss base, SoftmaxWithLoss, EuclideanLoss, L1Loss,
+SigmoidCrossEntropyLoss, HingeLoss, MultinomialLogisticLoss, InfogainLoss,
 ContrastiveLoss and Accuracy.
 
 Reference: src/caffe/layers/{softmax,softmax_loss,euclidean_loss,
-contrastive_loss,accuracy,loss}_layer.{cpp,cu} and NVCaffe's
+sigmoid_cross_entropy_loss,hinge_loss,multinomial_logistic_loss,
+infogain_loss,contrastive_loss,accuracy,loss}_layer.{cpp,cu} and NVCaffe's
 l1_loss_layer.cpp; JAX package caffe_mpi_tpu/layers/losses.py. Plain
-torch: the JAX package has no Pallas kernel for these.
+torch: the JAX package has no Pallas kernel for these. InfogainLoss takes
+its matrix H from a third bottom or from `infogain_loss_param.source`, a
+BlobProto file read at setup relative to the net's model_dir.
 
 Loss semantics kept as the JAX package keeps them: the normalization modes
 FULL/VALID/BATCH_SIZE/NONE (loss_layer.cpp GetNormalizer; VALID, the
@@ -26,6 +30,8 @@ reduce's 1/N undoes.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -171,6 +177,100 @@ class L1LossLayer(LossBase):
         a = self.f(bottoms[0]).float()
         d = a - self.f(bottoms[1]).float() if len(bottoms) > 1 else a
         return [torch.sum(torch.abs(d)) / a.shape[0]]
+
+
+@register("SigmoidCrossEntropyLoss")
+class SigmoidCrossEntropyLossLayer(LossBase):
+    """Stable BCE with logits, max(x, 0) - x*t + log(1 + exp(-|x|)),
+    summed over the batch size N (sigmoid_cross_entropy_loss_layer.cpp);
+    targets equal to `ignore_label` add nothing."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        return [()]
+
+    def forward(self, bottoms):
+        x = self.f(bottoms[0]).float()
+        t = self.f(bottoms[1]).float()
+        per = torch.clamp(x, min=0) - x * t \
+            + torch.log1p(torch.exp(-torch.abs(x)))
+        ignore = self._ignore_label()
+        if ignore is not None:
+            per = torch.where(bottoms[1] != ignore, per,
+                              torch.zeros((), device=per.device))
+        return [torch.sum(per) / x.shape[0]]
+
+
+@register("HingeLoss")
+class HingeLossLayer(LossBase):
+    """One-vs-all hinge on raw scores, sum(max(0, 1 - s*x)) / N with s =
+    +1 at the label and -1 elsewhere, squared under `norm: L2`
+    (hinge_loss_layer.cpp)."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        return [()]
+
+    def forward(self, bottoms):
+        x = self.f(bottoms[0]).float()
+        n = x.shape[0]
+        x2 = x.reshape(n, -1)
+        labels = bottoms[1].reshape(-1).long().to(x.device)
+        sign = 1.0 - 2.0 * torch.nn.functional.one_hot(labels, x2.shape[1])
+        margins = torch.clamp(1.0 + sign * x2, min=0.0)
+        p = self.lp.hinge_loss_param
+        if p and str(p.norm).upper() == "L2":
+            margins = torch.square(margins)
+        return [torch.sum(margins) / n]
+
+
+def _log_prob(prob: torch.Tensor) -> torch.Tensor:
+    """log of probabilities, floored at 1e-20 (the reference's kLOG_THRESHOLD)."""
+    return torch.log(torch.clamp(prob, min=1e-20))
+
+
+@register("MultinomialLogisticLoss")
+class MultinomialLogisticLossLayer(LossBase):
+    """-sum(log p[label]) / N on already normalized probabilities
+    (multinomial_logistic_loss_layer.cpp)."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        return [()]
+
+    def forward(self, bottoms):
+        prob = self.f(bottoms[0]).float()
+        n = prob.shape[0]
+        labels = bottoms[1].reshape(-1).long().to(prob.device)
+        picked = torch.gather(prob.reshape(n, -1), 1, labels[:, None])
+        return [-torch.sum(_log_prob(picked)) / n]
+
+
+@register("InfogainLoss")
+class InfogainLossLayer(LossBase):
+    """-sum_k H[label, k] log p[k] / N (infogain_loss_layer.cpp)."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        if len(in_shapes) >= 3:
+            self.register_buffer("h_file", None, persistent=False)
+        else:
+            p = self.lp.infogain_loss_param
+            if not (p and p.source):
+                raise ValueError(f"{self.name}: infogain needs H as third "
+                                 "bottom or a source file")
+            from ..io import load_blob_binaryproto
+            k = in_shapes[0][1]
+            h = load_blob_binaryproto(os.path.join(self.model_dir, p.source))
+            self.register_buffer("h_file", torch.from_numpy(
+                h.reshape(k, k).astype("float32")).to(self.device),
+                persistent=False)
+        return [()]
+
+    def forward(self, bottoms):
+        prob = self.f(bottoms[0]).float()
+        n, k = prob.shape[0], prob.shape[1]
+        labels = bottoms[1].reshape(-1).long().to(prob.device)
+        h = self.h_file if self.h_file is not None \
+            else self.f(bottoms[2]).float().reshape(k, k)
+        rows = torch.index_select(h, 0, labels)
+        return [-torch.sum(rows * _log_prob(prob.reshape(n, -1))) / n]
 
 
 @register("ContrastiveLoss")

@@ -1,4 +1,4 @@
-"""Normalization layers: BatchNorm.
+"""Normalization layers: BatchNorm, MVN.
 
 Reference: src/caffe/layers/batch_norm_layer.{cpp,cu} (NVCaffe); JAX
 package caffe_mpi_tpu/layers/norm.py, which uses XLA's stock lowering, so
@@ -189,3 +189,31 @@ def _update_running(run_mean, run_var, mean, var, f):
     """The running update in place: (1 - f) * batch + f * running."""
     run_mean.copy_((1.0 - f) * mean + f * run_mean)
     run_var.copy_((1.0 - f) * var + f * run_var)
+
+
+@register("MVN")
+class MVNLayer(Layer):
+    """Mean-variance normalization of each item (mvn_layer.cpp): subtract
+    the mean over the spatial axes (and the channels under
+    `across_channels`), then, under `normalize_variance`, divide by the
+    std + eps (eps added to the std, as the reference and the JAX layer
+    do, not to the variance)."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        from ..proto.config import MVNParameter
+        self.p = self.lp.mvn_param or MVNParameter()
+        return [in_shapes[0]]
+
+    def forward(self, bottoms):
+        x = self.f(bottoms[0])
+        nd = x.dim()
+        if self.p.across_channels:
+            dims = tuple(range(1, nd))
+        else:
+            dims = tuple(range(2, nd)) if nd > 2 else (1,)
+        y = x - torch.mean(x, dim=dims, keepdim=True)
+        if self.p.normalize_variance:
+            std = torch.sqrt(torch.mean(torch.square(y), dim=dims,
+                                        keepdim=True))
+            y = y / (std + self.p.eps)
+        return [y]

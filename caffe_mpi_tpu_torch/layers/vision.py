@@ -1,20 +1,30 @@
-"""Spatial layers: Convolution, Pooling, LRN.
+"""Spatial layers: Convolution, Deconvolution, Pooling, LRN, Im2col, Crop,
+SPP.
 
-Reference implementations: src/caffe/layers/{base_conv,conv,pooling,lrn}_
-layer.{cpp,cu}; JAX package caffe_mpi_tpu/layers/vision.py. Each layer is
-Caffe shape semantics + one op: `F.conv2d` for Convolution (the JAX package
-leaves convolution to XLA, outside any Pallas kernel), Caffe's ceil-and-clip
-pooling (ops/pool.py), and the across-channel LRN kernel (ops/lrn.py).
+Reference implementations: src/caffe/layers/{base_conv,conv,deconv,pooling,
+lrn,im2col,crop,spp}_layer.{cpp,cu}; JAX package caffe_mpi_tpu/layers/
+vision.py. Each layer is Caffe shape semantics + one op: `F.conv2d` for
+Convolution and `F.conv_transpose2d` for Deconvolution (the JAX package
+leaves both to XLA, outside any Pallas kernel), Caffe's ceil-and-clip
+pooling (ops/pool.py: MAX, AVE and STOCHASTIC), and the across-channel LRN
+kernel (ops/lrn.py).
+
+STOCHASTIC pooling in TRAIN draws one uniform a window. As Dropout's
+mask, the draw is made ahead of the forward (`draw_mask`) or handed in
+(`mask`), so a replayed CUDA graph or a recompute reads the same draw.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv import conv2d, conv_output_dim
+from ..ops.conv import conv2d, conv_output_dim, deconv2d, im2col
 from ..ops.lrn import lrn_across_channels
-from ..ops.pool import avg_pool2d, max_pool2d, pool_output_dim
+from ..ops.pool import (avg_pool2d, max_pool2d, pool_output_dim,
+                        stochastic_output, stochastic_pool2d)
 from ..proto.config import ConvolutionParameter, FillerParameter, LRNParameter
 from .base import Layer, Shape, register
 
@@ -70,6 +80,34 @@ class ConvolutionLayer(Layer):
         return [y]
 
 
+@register("Deconvolution")
+class DeconvolutionLayer(Layer):
+    """The transpose of Convolution; weight (Cin, Cout/group, kh, kw)."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        p = self.lp.convolution_param or ConvolutionParameter()
+        self.p = p
+        self.kernel, self.stride, self.pad, self.dilation = _spatial_params(p)
+        n, cin, h, w = in_shapes[0]
+        self.declare("weight", (cin, p.num_output // p.group, *self.kernel),
+                     p.weight_filler)
+        if p.bias_term:
+            self.declare("bias", (p.num_output,),
+                         p.bias_filler or FillerParameter(type="constant"))
+        oh, ow = (self.stride[i] * (d - 1)
+                  + self.dilation[i] * (self.kernel[i] - 1) + 1
+                  - 2 * self.pad[i] for i, d in enumerate((h, w)))
+        return [(n, p.num_output, oh, ow)]
+
+    def forward(self, bottoms):
+        x = self.f(bottoms[0])
+        bias = self.f(self.bias) if self.p.bias_term else None
+        with self.policy.math(x.device):
+            y = deconv2d(x, self.f(self.weight), self.stride, self.pad,
+                         self.dilation, self.p.group, bias)
+        return [y]
+
+
 @register("Pooling")
 class PoolingLayer(Layer):
     def setup(self, in_shapes: list[Shape]) -> list[Shape]:
@@ -92,15 +130,37 @@ class PoolingLayer(Layer):
         oh = pool_output_dim(h, self.kernel[0], self.pad[0], self.stride[0], any_pad)
         ow = pool_output_dim(w, self.kernel[1], self.pad[1], self.stride[1], any_pad)
         self.method = str(p.pool).upper()
-        if self.method not in ("MAX", "AVE"):
-            raise ValueError(f"{self.name}: {self.method} pooling is not "
-                             "ported (MAX and AVE are)")
+        if self.method == "STOCHASTIC" and (self.pad[0] or self.pad[1]):
+            raise ValueError("STOCHASTIC pooling does not support padding "
+                             "(reference pooling_layer.cpp CHECKs the same)")
+        self.needs_rng = self.method == "STOCHASTIC"
         return [(n, c, oh, ow)]
 
-    def forward(self, bottoms):
+    def draw_mask(self, generator: torch.Generator,
+                  shape=None) -> torch.Tensor:
+        """STOCHASTIC: the uniforms a TRAIN forward of a bottom of
+        `shape` (default: the net's) draws from `generator`, one a
+        window."""
+        n, c, h, w = shape or self.in_shapes[0]
+        return torch.rand((n, c, *stochastic_output(h, w, self.kernel,
+                                                    self.stride)),
+                          generator=generator, device=self.device)
+
+    def forward(self, bottoms, *, generator=None, mask=None):
         x = self.f(bottoms[0])
         if self.method == "AVE":
             return [avg_pool2d(x, self.kernel, self.stride, self.pad)]
+        if self.method == "STOCHASTIC":
+            u = None
+            if self.training:
+                u = mask
+                if u is None:
+                    if generator is None:
+                        raise ValueError(f"{self.name}: stochastic pooling "
+                                         "needs a generator or a draw")
+                    u = self.draw_mask(generator, x.shape)
+                u = u.to(x.device)
+            return [stochastic_pool2d(x, self.kernel, self.stride, u)]
         return [max_pool2d(x, self.kernel, self.stride, self.pad)]
 
 
@@ -133,3 +193,77 @@ class LRNLayer(Layer):
                                   count_include_pad=True, divisor_override=1)
         scale = p.k + window_sum * (p.alpha / (p.local_size * p.local_size))
         return [x * torch.pow(scale, -p.beta)]
+
+
+@register("Im2col")
+class Im2colLayer(Layer):
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        p = self.lp.convolution_param or ConvolutionParameter()
+        self.kernel, self.stride, self.pad, self.dilation = _spatial_params(p)
+        n, c, h, w = in_shapes[0]
+        oh = conv_output_dim(h, self.kernel[0], self.pad[0], self.stride[0],
+                             self.dilation[0])
+        ow = conv_output_dim(w, self.kernel[1], self.pad[1], self.stride[1],
+                             self.dilation[1])
+        return [(n, c * self.kernel[0] * self.kernel[1], oh, ow)]
+
+    def forward(self, bottoms):
+        return [im2col(self.f(bottoms[0]), self.kernel, self.stride,
+                       self.pad, self.dilation)]
+
+
+@register("Crop")
+class CropLayer(Layer):
+    """Crop bottom[0] to bottom[1]'s shape from `axis` on, at `offset`:
+    one offset for every axis or one an axis (crop_layer.cpp)."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        p = self.lp.crop_param
+        axis = p.axis if p else 2
+        offsets = list(p.offset) if p else []
+        a, b = in_shapes[0], in_shapes[1]
+        out = list(a)
+        self.starts = [0] * len(a)
+        for i in range(axis, len(a)):
+            off = 0
+            if offsets:
+                off = offsets[i - axis] if len(offsets) > 1 else offsets[0]
+            if off + b[i] > a[i]:
+                raise ValueError(
+                    f"{self.name}: crop exceeds bottom size on axis {i}")
+            self.starts[i] = off
+            out[i] = b[i]
+        self.out = tuple(out)
+        return [self.out]
+
+    def forward(self, bottoms):
+        return [bottoms[0][tuple(slice(s, s + d) for s, d
+                                 in zip(self.starts, self.out))]]
+
+
+@register("SPP")
+class SPPLayer(Layer):
+    """Spatial pyramid pooling (spp_layer.cpp): level l pools into 2^l x
+    2^l bins (a Caffe ceil-mode pool with the JAX layer's pad rule, cut
+    to the bins), each flattened, all concatenated."""
+
+    def setup(self, in_shapes: list[Shape]) -> list[Shape]:
+        p = self.lp.spp_param
+        self.method = str(p.pool).upper() if p else "MAX"
+        if self.method not in ("MAX", "AVE"):
+            raise ValueError(f"{self.name}: SPP pools MAX or AVE")
+        n, c, h, w = in_shapes[0]
+        self.levels = []
+        for level in range(p.pyramid_height):
+            bins = 2 ** level
+            kh, kw = math.ceil(h / bins), math.ceil(w / bins)
+            pad = ((kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2)
+            self.levels.append(((kh, kw), pad, bins))
+        return [(n, sum(c * bins * bins for *_, bins in self.levels))]
+
+    def forward(self, bottoms):
+        x = self.f(bottoms[0])
+        pool = avg_pool2d if self.method == "AVE" else max_pool2d
+        return [torch.cat([pool(x, kernel, kernel, pad)[:, :, :bins, :bins]
+                           .reshape(x.shape[0], -1)
+                           for kernel, pad, bins in self.levels], dim=1)]

@@ -22,6 +22,13 @@ in another takes gradient from the trained use only. Dropout draws its mask
 from the generator `forward` is given. Parameters are `nn.Parameter`s
 that the solver switches to `requires_grad` for training; autograd does
 the backward.
+
+A layer with `remat: true` is rematerialised in TRAIN, as the JAX `Net`
+runs it under `jax.checkpoint`: its forward runs through
+`torch.utils.checkpoint` (non-reentrant), which keeps only its inputs and
+runs the forward again in the backward. Its random draws are made ahead
+and handed in, and a recompute leaves the layer's state buffers as the
+first forward left them, so the values are those of the run without it.
 """
 
 from __future__ import annotations
@@ -31,11 +38,12 @@ import logging
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from . import layers  # noqa: F401 — registers the layer types
 from .core.device import resolve_device
-from .core.types import DtypePolicy
+from .core.types import DtypePolicy, recomputing
 from .layers.base import Layer, create_layer
 from .layers.data_layers import InputLayerBase
 from .proto.config import NetParameter, NetState
@@ -144,6 +152,7 @@ class Net(nn.Module):
                     "in f32. Pin `forward_type: FLOAT` to silence.",
                     lp.name, lp.type)
             layer = create_layer(lp, policy, phase, self.device)
+            layer.model_dir = model_dir
             if lp.type == "Data":
                 # the JAX Net's probe binding (caffe_mpi_tpu/net.py:155-167)
                 if data_shape_probe is None:
@@ -151,7 +160,6 @@ class Net(nn.Module):
                     layer.bound_shape = probe(lp, model_dir)
                 else:
                     layer.bound_shape = data_shape_probe(lp)
-                layer.model_dir = model_dir
             in_shapes = []
             for b in lp.bottom:
                 if b not in self.blob_shapes:
@@ -289,18 +297,27 @@ class Net(nn.Module):
                 bottoms = [b.detach() if i < len(pd) and not pd[i] else b
                            for i, b in enumerate(bottoms)]
             kw = {}
+            remat = self.training and layer.lp.remat
             if layer.needs_rng:
-                kw = dict(generator=generator, mask=masks.get(layer.name))
+                mask = masks.get(layer.name)
+                if remat and mask is None and generator is not None:
+                    # the recompute must read the forward's draw
+                    mask = layer.draw_mask(generator)
+                kw = dict(generator=generator, mask=mask)
             frozen = [p for p in frozen
                       if self.training and getattr(layer, p).requires_grad]
-            if frozen:
-                # a frozen use of a param that another use trains: the
-                # forward reads it detached (JAX: stop_gradient)
-                tops = torch.func.functional_call(
-                    layer, {p: getattr(layer, p).detach() for p in frozen},
-                    (bottoms,), kw)
-            else:
-                tops = layer(bottoms, **kw)
+
+            def call(*bs, layer=layer, frozen=frozen, kw=kw):
+                if frozen:
+                    # a frozen use of a param that another use trains:
+                    # the forward reads it detached (JAX: stop_gradient)
+                    return torch.func.functional_call(
+                        layer, {p: getattr(layer, p).detach()
+                                for p in frozen}, (list(bs),), kw)
+                return layer(list(bs), **kw)
+
+            tops = _rematerialised(layer, call, bottoms) if remat \
+                else call(*bottoms)
             for t, v in zip(layer.lp.top, tops):
                 env[t] = v
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -411,3 +428,30 @@ class Net(nn.Module):
             missing = {l.name for l in self.layers if l.decls} - matched
             if missing:
                 raise ValueError(f"no weights for layers: {sorted(missing)}")
+
+
+def _rematerialised(layer: Layer, call, bottoms):
+    """`call(*bottoms)` under a non-reentrant checkpoint. The recompute in
+    the backward puts the layer's state buffers back as the forward left
+    them (a TRAIN BatchNorm would otherwise update its running statistics
+    twice), and runs under `recomputing()` (on the card it runs on
+    autograd's device thread while the caller holds the TF32 lock). RNG
+    state is not stashed: every draw is handed in."""
+    runs = [0]
+
+    def run(*bs):
+        runs[0] += 1
+        if runs[0] == 1:
+            return call(*bs)
+        with recomputing():
+            if not layer.state_shapes:
+                return call(*bs)
+            saved = [getattr(layer, n).clone() for n in layer.state_shapes]
+            tops = call(*bs)
+        with torch.no_grad():
+            for n, v in zip(layer.state_shapes, saved):
+                getattr(layer, n).copy_(v)
+        return tops
+
+    return torch.utils.checkpoint.checkpoint(
+        run, *bottoms, use_reentrant=False, preserve_rng_state=False)

@@ -1,0 +1,260 @@
+"""NetSpec — programmatic net authoring (pycaffe net_spec parity).
+
+Reference: python/caffe/net_spec.py (226 LoC): `n = caffe.NetSpec();
+n.conv1 = L.Convolution(n.data, kernel_size=5, ...)` builds a NetParameter.
+Same API here, emitting prototxt text through the port's own schema
+(proto/text_format.py), so generated models round-trip through the parser
+used for hand-written files. The port's copy of the JAX package's
+caffe_mpi_tpu/net_spec.py: the same program prints the same text.
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import Any
+
+from .proto.text_format import PbEnum, PbNode
+
+# LayerParameter sub-message field for each layer type (mirrors
+# net_spec.py's param_name_dict derived from protobuf introspection).
+_PARAM_FIELD = {
+    "Accuracy": "accuracy_param", "ArgMax": "argmax_param",
+    "BatchNorm": "batch_norm_param", "Bias": "bias_param",
+    "Concat": "concat_param", "ContrastiveLoss": "contrastive_loss_param",
+    "Convolution": "convolution_param", "Deconvolution": "convolution_param",
+    "Crop": "crop_param", "Data": "data_param", "Dropout": "dropout_param",
+    "Attention": "attention_param", "LayerNorm": "layer_norm_param",
+    "MoE": "moe_param", "Parameter": "parameter_param",
+    "DummyData": "dummy_data_param", "Eltwise": "eltwise_param",
+    "ELU": "elu_param", "Embed": "embed_param", "Exp": "exp_param",
+    "Flatten": "flatten_param", "HDF5Data": "hdf5_data_param",
+    "HDF5Output": "hdf5_output_param", "HingeLoss": "hinge_loss_param",
+    "ImageData": "image_data_param", "InfogainLoss": "infogain_loss_param",
+    "InnerProduct": "inner_product_param", "Input": "input_param",
+    "Log": "log_param", "LRN": "lrn_param", "MemoryData": "memory_data_param",
+    "MVN": "mvn_param", "Pooling": "pooling_param", "Power": "power_param",
+    "PReLU": "prelu_param", "Python": "python_param",
+    "Reduction": "reduction_param", "ReLU": "relu_param",
+    "Reshape": "reshape_param", "Scale": "scale_param",
+    "Sigmoid": "sigmoid_param", "Slice": "slice_param",
+    "Softmax": "softmax_param", "SoftmaxWithLoss": "softmax_param",
+    "SPP": "spp_param", "TanH": "tanh_param", "Threshold": "threshold_param",
+    "Tile": "tile_param", "WindowData": "window_data_param",
+}
+
+# kwargs that live directly on LayerParameter, not in the type sub-message
+_TOP_LEVEL = {"name", "bottom", "top", "include", "exclude", "loss_weight",
+              "param", "propagate_down", "phase", "transform_param",
+              "loss_param", "forward_type", "backward_type", "forward_math",
+              "backward_math", "ntop", "in_place"}
+
+_ENUM_FIELDS = {"pool", "operation", "norm_region", "backend", "phase",
+                "variance_norm", "norm", "round_mode"}
+
+
+class Top:
+    """A named output of a layer function call."""
+
+    __slots__ = ("fn", "index", "_name")
+
+    def __init__(self, fn: "LayerFn", index: int):
+        self.fn = fn
+        self.index = index
+        self._name: str | None = None
+
+
+def _to_value(v: Any) -> Any:
+    if isinstance(v, bool) or isinstance(v, (int, float)):
+        return v
+    if isinstance(v, str):
+        return v
+    raise TypeError(f"cannot serialize {v!r}")
+
+
+def _fill_node(node: PbNode, d: dict) -> None:
+    for k, v in d.items():
+        vals = v if isinstance(v, (list, tuple)) else [v]
+        for item in vals:
+            if isinstance(item, dict):
+                sub = PbNode()
+                _fill_node(sub, item)
+                node.add(k, sub)
+            elif k in _ENUM_FIELDS and isinstance(item, str):
+                node.add(k, PbEnum(item))
+            else:
+                node.add(k, _to_value(item))
+
+
+_ALL_FNS: list = []  # weakrefs to every constructed LayerFn (leak guard)
+
+
+class LayerFn:
+    """One layer invocation; `L.Convolution(bottom, num_output=...)`."""
+
+    def __init__(self, type_name: str, args: tuple, kwargs: dict):
+        self.type_name = type_name
+        self.bottoms = [a for a in args if isinstance(a, Top)]
+        self.kwargs = dict(kwargs)
+        self.ntop = self.kwargs.pop("ntop", 1)
+        self.in_place = self.kwargs.pop("in_place", False)
+        # explicit layer name when it must differ from the top blob's name
+        # (e.g. reference vgg16's layer "fc8-5" producing blob "fc8")
+        self.layer_name = self.kwargs.pop("layer_name", None)
+        self.tops = [Top(self, i) for i in range(self.ntop)]
+        # zero-top layers (Silence, HDF5Output) still need a bindable handle
+        self.handle = self.tops[0] if self.tops else Top(self, -1)
+        _ALL_FNS.append(weakref.ref(self))
+
+    def to_node(self, names: dict[Top, str], autonames: "_AutoNamer") -> PbNode:
+        def resolve(top: Top) -> str:
+            # in-place layers write into their bottom blob (pycaffe
+            # net_spec semantics): references through the in-place top
+            # resolve to the underlying blob name
+            if top.fn.in_place:
+                return resolve(top.fn.bottoms[0])
+            return names[top]
+
+        node = PbNode()
+        node.add("name", self.layer_name or names.get(self.handle)
+                 or autonames.get(self.type_name))
+        node.add("type", self.type_name)
+        for b in self.bottoms:
+            node.add("bottom", resolve(b))
+        for t in self.tops:
+            node.add("top", resolve(t))
+        sub_params: dict[str, Any] = {}
+        for k, v in self.kwargs.items():
+            if k in _TOP_LEVEL or k.endswith("_param"):
+                if isinstance(v, dict):
+                    sub = PbNode()
+                    _fill_node(sub, v)
+                    node.add(k, sub)
+                else:
+                    vals = v if isinstance(v, (list, tuple)) else [v]
+                    for item in vals:
+                        if isinstance(item, dict):
+                            sub = PbNode()
+                            _fill_node(sub, item)
+                            node.add(k, sub)
+                        elif k == "phase" or (k in _ENUM_FIELDS and isinstance(item, str)):
+                            node.add(k, PbEnum(item))
+                        else:
+                            node.add(k, _to_value(item))
+            else:
+                sub_params[k] = v
+        if sub_params:
+            field = _PARAM_FIELD.get(self.type_name)
+            if field is None:
+                raise ValueError(
+                    f"layer type {self.type_name!r} takes no inline params; "
+                    "pass explicit *_param dicts")
+            sub = PbNode()
+            _fill_node(sub, sub_params)
+            node.add(field, sub)
+        return node
+
+
+class _Layers:
+    """`L.<Type>(*bottoms, **params)` factory namespace."""
+
+    def __getattr__(self, type_name: str):
+        def fn(*args, **kwargs):
+            lf = LayerFn(type_name, args, kwargs)
+            if lf.ntop == 0:
+                return lf.handle  # bindable sentinel for zero-top layers
+            return lf.tops[0] if lf.ntop == 1 else tuple(lf.tops)
+        return fn
+
+
+class _AutoNamer:
+    def __init__(self):
+        self.counts: dict[str, int] = {}
+
+    def get(self, type_name: str) -> str:
+        n = self.counts.get(type_name, 0) + 1
+        self.counts[type_name] = n
+        return f"{type_name.lower()}{n}"
+
+
+L = _Layers()
+
+
+class NetSpec:
+    """Assign tops to attributes to name them; to_proto() emits prototxt."""
+
+    def __init__(self, name: str = ""):
+        object.__setattr__(self, "_tops", {})
+        object.__setattr__(self, "net_name", name)
+
+    def __setattr__(self, name: str, top: Top):
+        if name.startswith("_") or name == "net_name":
+            object.__setattr__(self, name, top)
+            return
+        self._tops[name] = top
+        top._name = name
+
+    def __getattr__(self, name: str) -> Top:
+        try:
+            return self._tops[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def to_proto(self) -> PbNode:
+        # collect all layer fns reachable from named tops, in dependency order
+        fns: list[LayerFn] = []
+        seen: set[int] = set()
+
+        def visit(fn: LayerFn):
+            if id(fn) in seen:
+                return
+            seen.add(id(fn))
+            for b in fn.bottoms:
+                visit(b.fn)
+            fns.append(fn)
+
+        for top in self._tops.values():
+            visit(top.fn)
+
+        # Guard against silently dropped layers: a constructed LayerFn that
+        # consumes one of THIS spec's reachable tops but was never bound to
+        # an attribute (e.g. a discarded in-place ReLU) would vanish from
+        # the emitted net — error instead.
+        reachable_tops = {t for fn in fns for t in fn.tops}
+        alive = []
+        for ref in _ALL_FNS:
+            fn = ref()
+            if fn is None:
+                continue
+            alive.append(ref)
+            if id(fn) in seen:
+                continue
+            if any(b in reachable_tops for b in fn.bottoms):
+                raise ValueError(
+                    f"layer {fn.type_name!r} consumes this net's tops but is "
+                    "not reachable from any named top — assign its output to "
+                    "a NetSpec attribute (unassigned in-place layers are the "
+                    "usual cause)"
+                )
+        _ALL_FNS[:] = alive  # prune dead weakrefs
+
+        # name every top: named ones by attribute, others from layer name
+        names: dict[Top, str] = {}
+        autonames = _AutoNamer()
+        for attr, top in self._tops.items():
+            names[top] = attr
+        for fn in fns:
+            for t in fn.tops:
+                if t not in names:
+                    base = names.get(fn.tops[0])
+                    names[t] = (f"{base}_{t.index}" if base
+                                else autonames.get(fn.type_name))
+
+        root = PbNode()
+        if self.net_name:
+            root.add("name", self.net_name)
+        for fn in fns:
+            root.add("layer", fn.to_node(names, autonames))
+        return root
+
+    def to_prototxt(self) -> str:
+        return self.to_proto().to_text()

@@ -9,6 +9,12 @@ OIHW (out, in/group, kh, kw).
 
 Output dim: floor((H + 2p - ((k-1)*dilation + 1)) / s) + 1 — conv uses floor
 (conv_layer.cpp compute_output_shape), unlike pooling's ceil.
+
+Deconvolution is `F.conv_transpose2d`: Caffe's deconv weight (Cin,
+Cout/group, kh, kw) is already its layout, and its output dim is
+s*(H-1) + d*(k-1) + 1 - 2p (deconv_layer.cpp compute_output_shape).
+Im2col is `F.unfold`, whose channel order (C, kh, kw) is Caffe's
+(util/im2col.cpp). The JAX package runs both outside Pallas.
 """
 
 from __future__ import annotations
@@ -28,3 +34,26 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: tuple[int, int],
     """x: (N, Cin, H, W); w: (Cout, Cin/groups, kh, kw) -> (N, Cout, oh, ow)."""
     return F.conv2d(x, w, bias, stride=tuple(stride), padding=tuple(pad),
                     dilation=tuple(dilation), groups=groups)
+
+
+def deconv2d(x: torch.Tensor, w: torch.Tensor, stride: tuple[int, int],
+             pad: tuple[int, int], dilation: tuple[int, int] = (1, 1),
+             groups: int = 1, bias: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """x: (N, Cin, H, W); w: (Cin, Cout/groups, kh, kw) -> (N, Cout, oh,
+    ow), the transpose of conv2d."""
+    return F.conv_transpose2d(x, w, bias, stride=tuple(stride),
+                              padding=tuple(pad), groups=groups,
+                              dilation=tuple(dilation))
+
+
+def im2col(x: torch.Tensor, kernel: tuple[int, int],
+           stride: tuple[int, int], pad: tuple[int, int],
+           dilation: tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C*kh*kw, oh, ow) patches."""
+    n, c, h, w = x.shape
+    oh = conv_output_dim(h, kernel[0], pad[0], stride[0], dilation[0])
+    ow = conv_output_dim(w, kernel[1], pad[1], stride[1], dilation[1])
+    cols = F.unfold(x, tuple(kernel), dilation=tuple(dilation),
+                    padding=tuple(pad), stride=tuple(stride))
+    return cols.reshape(n, c * kernel[0] * kernel[1], oh, ow)

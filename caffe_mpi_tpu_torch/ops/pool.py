@@ -13,6 +13,12 @@ caffe_mpi_tpu/ops/pool.py.
   hstart/hend/pool_size arithmetic at pooling_layer.cpp:196-215, which
   `count_include_pad` cannot express. The window sums are divided by a
   static divisor table instead.
+- STOCHASTIC pooling (pooling_layer.cpp:239-300; the JAX layer's
+  `_stochastic`) takes each window's elements as an `F.unfold` patch,
+  the input zero-padded on the high side to the ceil-mode extent (zeros
+  weigh nothing). TRAIN picks the first element whose cumulative sum
+  reaches u x the window's sum, u drawn ahead by the caller; TEST gives
+  sum(a^2) / sum(a). Padding is refused, as in the reference.
 """
 
 from __future__ import annotations
@@ -82,3 +88,45 @@ def avg_pool2d(x: torch.Tensor, kernel: tuple[int, int], stride: tuple[int, int]
     dw = _divisors(w, kernel[1], pad[1], stride[1], ow, x.device)
     div = torch.outer(dh, dw).to(x.dtype)
     return sums / div
+
+
+def stochastic_output(h: int, w: int, kernel, stride) -> tuple[int, int]:
+    """The (oh, ow) of an unpadded ceil-mode pool."""
+    return (pool_output_dim(h, kernel[0], 0, stride[0]),
+            pool_output_dim(w, kernel[1], 0, stride[1]))
+
+
+def stochastic_pool2d(x: torch.Tensor, kernel: tuple[int, int],
+                      stride: tuple[int, int],
+                      u: torch.Tensor | None = None) -> torch.Tensor:
+    """NCHW stochastic pooling: TRAIN (u given, (N, C, oh, ow) uniform in
+    [0, 1)) samples an element of each window in proportion to its value;
+    TEST (u None) is the activation-weighted average. A window whose sum
+    is not positive gives 0."""
+    n, c, h, w = x.shape
+    kh, kw = kernel
+    oh, ow = stochastic_output(h, w, kernel, stride)
+    ph = _pad_amounts(h, kh, 0, stride[0], oh)
+    pw = _pad_amounts(w, kw, 0, stride[1], ow)
+    if ph[1] or pw[1]:
+        x = F.pad(x, (0, pw[1], 0, ph[1]))
+    pat = F.unfold(x, (kh, kw), stride=tuple(stride)).reshape(
+        n, c, kh * kw, oh, ow)
+    total = pat.sum(dim=2)
+    if u is not None:
+        r = u * total
+        # running sums by one add an element in x's type, as XLA's cumsum
+        # (torch.cumsum of bfloat16 accumulates in float32)
+        run = [pat[:, :, 0]]
+        for j in range(1, kh * kw):
+            run.append(run[-1] + pat[:, :, j])
+        cum = torch.stack(run, dim=2)
+        # the first window element whose running sum reaches r (argmax
+        # returns the first of equal maxima on either device)
+        idx = torch.argmax((cum >= r[:, :, None]).to(torch.uint8), dim=2)
+        y = torch.gather(pat, 2, idx[:, :, None])[:, :, 0]
+        return torch.where(total > 0, y, torch.zeros((), dtype=y.dtype,
+                                                     device=y.device))
+    sq = torch.sum(pat * pat, dim=2)
+    return torch.where(total > 0, sq / torch.clamp(total, min=1e-12),
+                       torch.zeros((), dtype=sq.dtype, device=sq.device))

@@ -20,6 +20,14 @@ the same stream into pinned memory, and an event recorded after the copy
 orders the harvest's read behind it. On the CPU there is no graph: a warm
 is an eager forward, counted the same, and a dispatch runs the forward.
 
+The pycaffe Classifier and Detector (classifier.py) run their batches
+through a `BucketedForward` of their own (`forward`): with `full_env`
+every blob is a static output of a bucket's graph (`last_env` after a
+forward), and `params_from` makes the bucket nets hold the pycaffe Net's
+tensors. A net with a layer that runs on the host (`Layer.host_step`, a
+Python layer) is not captured: its buckets run eagerly on the card, as
+the JAX engine compiles the host callback into its program.
+
 `serve_dtype: bf16` builds every bucket net with `Net(...,
 precision="bf16")`; the output blob is cast back to float32 inside the
 graph, so callers always get float32 rows. BatchNorm's statistics are
@@ -60,8 +68,8 @@ from ..proto.config import NetParameter, ServingParameter, refuse_unported
 from ..proto.upgrade import normalize_net
 from ..utils.resilience import FAULTS, NULL_SECTION
 from .errors import DeadlineError, EngineUnhealthyError, SwapError
-from .plan import (declared_batch, plan_admission, plan_ladder, plan_model,
-                   rewrite_batch)
+from .plan import (bucket_for, declared_batch, plan_admission, plan_ladder,
+                   plan_model, rewrite_batch)
 
 log = logging.getLogger(__name__)
 
@@ -134,7 +142,16 @@ class BucketedForward:
     def __init__(self, net_param: NetParameter, *, ladder=None,
                  max_batch: int = 0, device: str | torch.device = "cuda",
                  dtype: str = "f32", counter: CompileCounter | None = None,
-                 stream=None):
+                 stream=None, out_blob: str | None = None,
+                 model_dir: str = "", full_env: bool = False,
+                 params_from: Net | None = None):
+        """out_blob: the blob a forward returns (default: the net's last
+        top that no layer consumes). model_dir: the base of the layers'
+        file paths. full_env: a bucket's forward returns every blob (the
+        graph's static outputs), kept as `last_env` by `forward` (the
+        pycaffe surface, classifier.py). params_from: a Net whose params
+        and state buffers every bucket net holds (by default the first
+        bucket net's)."""
         if dtype not in SERVE_DTYPES:
             raise ValueError(f"unknown serve_dtype {dtype!r} "
                              "(expected 'f32' or 'bf16')")
@@ -149,9 +166,15 @@ class BucketedForward:
         self.stream = stream
         if self.graphs_on and self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
+        self._model_dir = model_dir
+        self._full_env = full_env
+        self._owner = params_from
+        self._capturable: bool | None = None
+        # the blobs of the last bucket `forward` ran (full_env only)
+        self.last_env: dict[str, torch.Tensor] | None = None
         self._nets: dict[int, Net] = {}
         self._graphs: dict[int, _BucketGraph] = {}
-        self._out_blob: str | None = None
+        self._out_blob = out_blob
         self._lock = threading.Lock()       # builds the bucket nets
         self._run_lock = threading.RLock()  # the static buffers, a run
         self.graph_replays = 0
@@ -164,13 +187,16 @@ class BucketedForward:
             if net is not None:
                 return net
             net = Net(rewrite_batch(self._base, bucket), phase="TEST",
-                      device=self.device, precision=self._precision)
+                      device=self.device, precision=self._precision,
+                      model_dir=self._model_dir)
             if len(net.feed_blobs) != 1:
                 raise ValueError(
                     f"serving needs exactly one input blob, deploy net "
                     f"declares {net.feed_blobs}")
-            if self._nets:
+            owner = self._owner
+            if owner is None and self._nets:
                 owner = next(iter(self._nets.values()))
+            if owner is not None:
                 for src, dst in zip(owner.layers, net.layers):
                     for name in (*src.decls, *src.state_shapes):
                         setattr(dst, name, getattr(src, name))
@@ -203,9 +229,39 @@ class BucketedForward:
         return torch.cuda.stream(self.stream) if self.graphs_on \
             else nullcontext()
 
-    def _eager(self, bucket: int, x: torch.Tensor) -> torch.Tensor:
+    def _eager(self, bucket: int, x: torch.Tensor):
+        """The bucket net's forward: the output blob as float32, or under
+        full_env every blob, the output blob as float32."""
         env, _ = self.net_for(bucket)({self.input_blob(): x})
-        return env[self.out_blob()].float()
+        out = env[self.out_blob()].float()
+        if not self._full_env:
+            return out
+        env = dict(env)
+        env[self.out_blob()] = out
+        return env
+
+    def capturable(self) -> bool:
+        """False where a layer runs on the host (`Layer.host_step`, a
+        Python layer): such a bucket runs eagerly on the card too, as the
+        JAX engine compiles its host callback into the program."""
+        if self._capturable is None:
+            self._capturable = not any(l.host_step for l in self.net.layers)
+        return self._capturable
+
+    def graph_bytes(self) -> int:
+        """Device bytes of the captured graphs' static inputs and outputs
+        (every blob under full_env)."""
+        total = 0
+        for g in self._graphs.values():
+            outs = g.static_out.values() if isinstance(g.static_out, dict) \
+                else [g.static_out]
+            seen = {id(g.static_in)}
+            total += g.static_in.numel() * g.static_in.element_size()
+            for t in outs:
+                if id(t) not in seen:
+                    seen.add(id(t))
+                    total += t.numel() * t.element_size()
+        return total
 
     # -- graphs ---------------------------------------------------------
     @torch.inference_mode()
@@ -218,7 +274,7 @@ class BucketedForward:
         with self._run_lock, self._stream_ctx():
             static_in = torch.zeros(shape, device=self.device)
             self._eager(bucket, static_in)
-            if not self.graphs_on:
+            if not self.graphs_on or not self.capturable():
                 self.counter.bump(recapture)
                 return
             self.stream.synchronize()
@@ -269,7 +325,7 @@ class BucketedForward:
         x = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
         if self.graphs_on:
             x = x.pin_memory()
-        if eager or not self.graphs_on:
+        if eager or not self.graphs_on or not self.capturable():
             return self._eager(bucket, x.to(self.device, non_blocking=True))
         g = self._graphs.get(bucket)
         if g is None:
@@ -292,7 +348,10 @@ class BucketedForward:
         ladder bucket. eager=True runs the bucket net's forward instead of
         its graph (the graph's yardstick)."""
         with self._run_lock, self._stream_ctx():
-            return self._run(batch, eager).clone()
+            out = self._run(batch, eager)
+            if isinstance(out, dict):
+                return {k: v.clone() for k, v in out.items()}
+            return out.clone()
 
     @torch.inference_mode()
     def run_bucket_to_host(self, batch: np.ndarray):
@@ -327,6 +386,27 @@ class BucketedForward:
             return chunk
         pad = np.zeros((bucket - len(chunk), *chunk.shape[1:]), chunk.dtype)
         return np.concatenate([chunk, pad])
+
+    def forward(self, data: np.ndarray) -> np.ndarray:
+        """Synchronous padded-bucket forward over N preprocessed inputs
+        (the JAX `BucketedForward.forward`): greedy max-bucket chunks, the
+        tail padded to its smallest bucket; returns the output blob's
+        rows, float32. Under full_env, `last_env` holds every blob of the
+        last bucket run (at that bucket's batch)."""
+        data = np.asarray(data, np.float32)
+        preds = []
+        start = 0
+        while start < len(data):
+            take = min(len(data) - start, self.ladder[-1])
+            padded = self.pad(data[start:start + take],
+                              bucket_for(take, self.ladder))
+            out = self.run_bucket(padded)
+            if self._full_env:
+                self.last_env = out
+                out = out[self.out_blob()]
+            preds.append(self.to_host(out)[:take])
+            start += take
+        return np.concatenate(preds)
 
 
 class InferenceModel:

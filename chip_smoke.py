@@ -233,6 +233,28 @@ Phases, in order; any failure exits nonzero and prints no result line:
 21. layers — Sigmoid, Slice, Tile, EuclideanLoss, L1Loss and
              ContrastiveLoss forward and backward on the card against
              the CPU, at the shapes those nets give them.
+21b. pycaffe — the pycaffe API (caffe_mpi_tpu_torch.pycaffe) at full
+             width: caffe.Classifier on models/caffenet/deploy.prototxt
+             with a .caffemodel pycaffe.Net.save wrote from a seeded
+             init, 10 seeded 256x256 images oversampled (100 crops of
+             227, 10 replays of the batch-10 bucket's CUDA graph, every
+             blob a static output); caffe.Detector.detect_windows on
+             models/rcnn/deploy.prototxt over 2 seeded 375x500 PNG
+             images with 50 windows each (context_pad 16); each with
+             launch counts 0 just before and read just after (K1 twice a
+             forward, the capture's warm-up included; K2 none), rows
+             within 1e-4 of the port's Net forward on the same crops
+             (TF32 off in both), a replay against eager, the graphs'
+             bytes. caffe.SGDSolver on a copy of
+             models/caffenet/solver.prototxt whose net reads an LMDB of
+             512 seeded records (batch 256, crop 227, mirror, mean
+             values): 10 iterations, K1 and K2 twice an iteration, held
+             against two runs of Solver.step on the same solver and LMDB
+             by PR 9's rule (cuDNN deterministic in all three). The 27 layer types of slice 15 (and
+             STOCHASTIC pooling) forward and backward on the card against
+             the CPU, FLOAT math; and `remat: true` on conv, BatchNorm,
+             LRN, PReLU and Dropout in a step_chunk 5 CUDA graph, cuDNN
+             deterministic, bitwise the same net without remat.
 22. survive — survivable training and the train-to-serve loop. Two
              supervised LeNet runs side by side, started before the build
              and joined after it (`cli train -max_restarts 2`,
@@ -316,7 +338,8 @@ one {"train": ...} line, one {"transformer": ...} line, one
 line, one {"bf16": ...} line, one {"chunk": ...} line (the overflow
 phase inside it), one line each for phases 16-21 ({"leveldb": ...},
 {"imagedata": ...}, {"rcnn": ...}, {"detectnet": ...}, {"siamese":
-...}, {"zoo_layers": ...}), one {"survive": ...} line, one
+...}, {"zoo_layers": ...}), one {"pycaffe": ...} line, one
+{"survive": ...} line, one
 {"dp": ...} line, one
 {"phase_seconds": ...} line (the wall seconds of each group of phases),
 the card line again, and last {"ok": true, ...}.
@@ -4559,39 +4582,146 @@ ZOO_CASES = {
                         'contrastive_loss_param { margin: 1 }',
                         [(32, 2), (32, 2), "sim"]),
 }
+# the 27 layer types of slice 15 (and STOCHASTIC pooling), each at a
+# CaffeNet-sized activation (256 maps of 13x13 at batch 32) or a
+# classifier's scores (batch 64, 200 classes); bottoms: a shape (seeded
+# normal), ("pos", shape), ("prob", shape), ("label", n, k), ("binary",
+# shape), ("index", n, batch)
+ACT, SCORES = (32, 256, 13, 13), (64, 200)
+ZOO_REST_CASES = {
+    "PReLU": ('type: "PReLU"', [ACT]),
+    "ELU": ('type: "ELU" elu_param { alpha: 0.5 }', [ACT]),
+    "TanH": ('type: "TanH"', [ACT]),
+    "BNLL": ('type: "BNLL"', [ACT]),
+    "Power": ('type: "Power" power_param { power: 1.5 scale: 0.5 '
+              'shift: 3 }', [ACT]),
+    "Exp": ('type: "Exp" exp_param { base: 2 scale: 0.5 }', [ACT]),
+    "Log": ('type: "Log"', [("pos", ACT)]),
+    "AbsVal": ('type: "AbsVal"', [ACT]),
+    "Threshold": ('type: "Threshold" threshold_param { threshold: 0.2 }',
+                  [ACT]),
+    "Split": ('type: "Split" top: "y2"', [ACT]),
+    "Flatten": ('type: "Flatten"', [ACT]),
+    "Reshape": ('type: "Reshape" reshape_param { shape { dim: 0 dim: -1 '
+                'dim: 169 } }', [ACT]),
+    "Reduction": ('type: "Reduction" reduction_param { operation: SUMSQ '
+                  'axis: 1 coeff: 0.5 }', [ACT]),
+    "ArgMax": ('type: "ArgMax" argmax_param { top_k: 5 out_max_val: true '
+               'axis: 1 }', [SCORES]),
+    "Silence": ('type: "Silence"', [ACT]),
+    "BatchReindex": ('type: "BatchReindex" bottom: "i"',
+                     [ACT, ("index", 48, 32)]),
+    "SigmoidCrossEntropyLoss": ('type: "SigmoidCrossEntropyLoss" '
+                                'bottom: "t"', [SCORES, ("binary", SCORES)]),
+    "HingeLoss": ('type: "HingeLoss" bottom: "l" hinge_loss_param { norm: '
+                  'L2 }', [SCORES, ("label", 64, 200)]),
+    "MultinomialLogisticLoss": ('type: "MultinomialLogisticLoss" '
+                                'bottom: "l"', [("prob", SCORES),
+                                                ("label", 64, 200)]),
+    "InfogainLoss": ('type: "InfogainLoss" bottom: "l" bottom: "h"',
+                     [("prob", SCORES), ("label", 64, 200),
+                      ("pos", (1, 1, 200, 200))]),
+    "MVN": ('type: "MVN"', [ACT]),
+    "Deconvolution": ('type: "Deconvolution" convolution_param { '
+                      'num_output: 96 kernel_size: 4 stride: 2 pad: 1 '
+                      'group: 32 }', [ACT]),
+    "Im2col": ('type: "Im2col" convolution_param { kernel_size: 3 pad: 1 '
+               '}', [(8, 64, 13, 13)]),
+    "Crop": ('type: "Crop" bottom: "ref" crop_param { offset: 1 '
+             'offset: 2 }', [ACT, (32, 1, 11, 10)]),
+    "SPP": ('type: "SPP" spp_param { pyramid_height: 3 }', [ACT]),
+    "Filter": ('type: "Filter" bottom: "s" top: "y2"',
+               [ACT, ("binary", (32,))]),
+    "Python": ('type: "Python" bottom: "t" python_param { module: '
+               '"layers.pyloss" layer: "EuclideanLossLayer" }',
+               [SCORES, SCORES]),
+    "Pooling_STOCHASTIC": ('type: "Pooling" pooling_param { pool: '
+                           'STOCHASTIC kernel_size: 3 stride: 2 }',
+                           [("pos", ACT)]),
+}
+
+
+def _zoo_text(body: str) -> str:
+    text = f'name: "l" bottom: "x" {body}'
+    return text if 'type: "Silence"' in text or 'top: "y"' in text \
+        else text + ' top: "y"'
+
+
+def _zoo_bottoms(specs, seed=3) -> list:
+    r = np.random.RandomState(seed)
+    out = []
+    for s in specs:
+        if s == "sim":
+            out.append((np.arange(32) % 2).astype(np.float32))
+        elif isinstance(s[0], int):
+            out.append(r.randn(*s).astype(np.float32))
+        elif s[0] == "pos":
+            out.append((r.rand(*s[1]) + 0.1).astype(np.float32))
+        elif s[0] == "prob":
+            z = np.exp(r.randn(*s[1]))
+            out.append((z / z.sum(1, keepdims=True)).astype(np.float32))
+        elif s[0] == "label":
+            out.append(r.randint(0, s[2], s[1]).astype(np.int32))
+        elif s[0] == "binary":
+            out.append(r.randint(0, 2, s[1]).astype(np.float32))
+        elif s[0] == "index":
+            out.append(r.randint(0, s[2], s[1]).astype(np.int32))
+    return out
 
 
 def _zoo_run(text, bottoms, device):
+    """One layer's tops and the gradients of sum_i <top_i, w_i> by its
+    params and float bottoms, on `device`, FLOAT math (no TF32) forward
+    and backward; seeded params, and a STOCHASTIC pool's uniforms drawn
+    on the host."""
     from caffe_mpi_tpu_torch.core.types import DtypePolicy
     from caffe_mpi_tpu_torch.layers import create_layer
     from caffe_mpi_tpu_torch.proto import LayerParameter
     shapes = [tuple(b.shape) for b in bottoms]
-    layer = create_layer(LayerParameter.from_text(text), DtypePolicy(),
-                         "TRAIN", torch.device(device))
+    layer = create_layer(LayerParameter.from_text(text),
+                         DtypePolicy(precision="highest"), "TRAIN",
+                         torch.device(device))
     layer.in_shapes = shapes
     layer.out_shapes = layer.setup(shapes)
+    r = np.random.RandomState(5)
+    params = [getattr(layer, n) for n in layer.decls]
+    with torch.no_grad():
+        for p in params:
+            p.copy_(torch.from_numpy(
+                (r.randn(*p.shape) * 0.5).astype(np.float32)))
+            p.requires_grad_(True)
+    kw = {}
+    if layer.needs_rng:
+        kw["mask"] = torch.from_numpy(r.rand(*layer.out_shapes[0]).astype(
+            np.float32)).to(device)
     tb = [torch.from_numpy(b).to(device) for b in bottoms]
     for t in tb:
         if t.is_floating_point():
             t.requires_grad_(True)
-    tops = layer(tb)
-    weights = [torch.from_numpy(np.asarray(np.random.RandomState(
-        7 + i).randn(*t.shape), np.float32)).to(device)
-        for i, t in enumerate(tops)]
-    sum((t * w).sum() for t, w in zip(tops, weights)).backward()
-    return ([t.detach().cpu().numpy() for t in tops],
-            [t.grad.cpu().numpy() for t in tb if t.is_floating_point()])
+    with layer.policy.math(torch.device(device)):
+        tops = layer(tb, **kw)
+        weights = [torch.from_numpy(np.asarray(np.random.RandomState(
+            7 + i).randn(*t.shape), np.float32)).to(device)
+            for i, t in enumerate(tops)]
+        total = sum(((t.float() * w).sum() for t, w in zip(tops, weights)),
+                    torch.zeros((), device=device))
+        if total.requires_grad:
+            total.backward()
+    wrt = params + [t for t in tb if t.is_floating_point()]
+    return ([t.detach().float().cpu().numpy() for t in tops],
+            [np.zeros(tuple(t.shape), np.float32) if t.grad is None
+             else t.grad.cpu().numpy() for t in wrt])
 
 
-def zoo_layers_phase() -> dict:
-    """Each of the six new layer types' forward and backward on the card
-    against the port's CPU result on the same seeded inputs."""
+def zoo_layers_phase(cases=None) -> dict:
+    """Each case's forward and backward on the card against the port's
+    CPU result on the same seeded inputs (default: the six layer types
+    of slice 11)."""
     out = {}
-    for name, (text, shapes) in ZOO_CASES.items():
-        r = np.random.RandomState(3)
-        bottoms = [(np.arange(32) % 2).astype(np.float32)
-                   if shape == "sim" else r.randn(*shape).astype(np.float32)
-                   for shape in shapes]
+    for name, (text, shapes) in (cases or ZOO_CASES).items():
+        if not text.startswith("name:"):
+            text = _zoo_text(text)
+        bottoms = _zoo_bottoms(shapes)
         card = _zoo_run(text, bottoms, "cuda")
         cpu = _zoo_run(text, bottoms, "cpu")
         errs = {}
@@ -4607,6 +4737,415 @@ def zoo_layers_phase() -> dict:
                          f"the CPU (largest {big})")
         out[name] = errs
     log(f"layers: {json.dumps(out)}")
+    return out
+
+
+# -- 21b. pycaffe --------------------------------------------------------------
+
+CAFFENET_DEPLOY = os.path.join(ROOT, "models", "caffenet", "deploy.prototxt")
+CAFFENET_NET = os.path.join(ROOT, "models", "caffenet", "train_val.prototxt")
+CAFFENET_SOLVER_ZOO = os.path.join(ROOT, "models", "caffenet",
+                                   "solver.prototxt")
+PYCAFFE_IMAGES = 10             # 256x256, oversampled: 100 crops of 227
+DETECT_IMAGES, DETECT_WINDOWS = 2, 50
+PYCAFFE_ITERS = 10
+PYCAFFE_RECORDS = 512           # the solver's LMDB (3x256x256 raw)
+PYCAFFE_LIMIT = 1e-4            # rows against the Net, TF32 off
+REMAT_ITERS, REMAT_CHUNK = 10, 5
+PYCAFFE_DEVICE = "cuda"         # the solvers' (pycaffe's mode: the card)
+
+
+def _float_math_copy(src, tmp, name) -> str:
+    """A copy of a prototxt with TF32 off (default_forward_math: FLOAT)."""
+    with open(src) as f:
+        text = f.read()
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        f.write("default_forward_math: FLOAT\n" + text)
+    return path
+
+
+def _rows_rule(got, want, what) -> float:
+    """The largest distance of any row element over the largest value;
+    fails past PYCAFFE_LIMIT."""
+    err = float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                1e-30)
+    if not err <= PYCAFFE_LIMIT:
+        fail(f"pycaffe {what}: {err:.3g} from the port's Net forward "
+             f"(limit {PYCAFFE_LIMIT})")
+    return err
+
+
+def _net_rows(net, crops, transformer, out_blob):
+    """The port's Net forward, a declared batch at a time (the tail padded
+    with zeros), over preprocessed crops: the out blob's rows."""
+    in_ = net.inputs[0]
+    batch = net.blobs[in_].data.shape[0]
+    rows = []
+    for lo in range(0, len(crops), batch):
+        x = np.stack([transformer.preprocess(in_, c)
+                      for c in crops[lo:lo + batch]])
+        n = len(x)
+        if n < batch:
+            x = np.concatenate([x, np.zeros((batch - n, *x.shape[1:]),
+                                            np.float32)])
+        rows.append(net.forward(**{in_: x})[out_blob][:n])
+    return np.concatenate(rows)
+
+
+def _replay_vs_eager(fwd, x) -> dict:
+    """A bucket's graph replay against two eager forwards of its net
+    (PR 12's rule: the nearer eager run, within GRAPH_SPREAD x the eager
+    runs' own distance + GRAPH_FLOOR)."""
+    out = fwd.out_blob()
+    g = fwd.to_host(fwd.run_bucket(x)[out])
+    e1 = fwd.to_host(fwd.run_bucket(x, eager=True)[out])
+    e2 = fwd.to_host(fwd.run_bucket(x, eager=True)[out])
+    scale = max(float(np.abs(e1).max()), 1e-30)
+    spread = float(np.abs(e2 - e1).max()) / scale
+    diff = min(float(np.abs(g - e).max()) for e in (e1, e2)) / scale
+    limit = GRAPH_SPREAD * spread + GRAPH_FLOOR
+    if diff > limit:
+        fail(f"pycaffe graph replay {diff:.3g} from eager (limit "
+             f"{limit:.3g})")
+    return {"diff": diff, "spread": spread, "limit": limit}
+
+
+def _classifier_check(caffe, tmp, k1, k2) -> dict:
+    """CaffeNet's deploy net at full width through caffe.Classifier: 10
+    seeded 256x256 images oversampled (100 crops of 227, 10 replays of
+    the batch-10 bucket's CUDA graph), launch counts 0 just before and
+    read just after; the rows against the port's Net forward on the same
+    crops (TF32 off in both), a replay against eager, a second timed
+    predict, the graphs' bytes."""
+    weights = os.path.join(tmp, "caffenet.caffemodel")
+    caffe.Net(CAFFENET_DEPLOY, caffe.TEST).save(weights)
+    deploy = _float_math_copy(CAFFENET_DEPLOY, tmp, "caffenet_float.prototxt")
+    r = np.random.RandomState(11)
+    images = [r.rand(256, 256, 3).astype(np.float32)
+              for _ in range(PYCAFFE_IMAGES)]
+    clf = caffe.Classifier(deploy, weights, image_dims=(256, 256),
+                           **PREPROCESS)
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    preds = clf.predict(images, oversample=True)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = _kernel_counts()
+    fwd = clf.bucket_forward()
+    builds = len(fwd._graphs)
+    if fwd.graph_replays != PYCAFFE_IMAGES or builds != 1:
+        fail(f"classifier: {fwd.graph_replays} replays, {builds} graphs; "
+             f"want {PYCAFFE_IMAGES} replays of one (bucket 10)")
+    # K1 twice a forward: the capture's warm-up forward and each replay
+    want = (2 * (PYCAFFE_IMAGES + builds), 0, 0, 0, 0)
+    if counts != want:
+        fail(f"classifier launched K1-K5 {counts}, want {want}")
+    k1["launches_by_path"]["pycaffe_classifier"] = counts[0]
+    k2["launches_by_path"]["pycaffe_classifier"] = counts[1]
+    if preds.shape != (PYCAFFE_IMAGES, 1000) or \
+            not np.all(np.isfinite(preds)) or \
+            not np.allclose(preds.sum(1), 1.0, atol=1e-4):
+        fail(f"classifier rows {preds.shape}, sums {preds.sum(1)}")
+    crops = list(caffe.io.oversample(
+        [caffe.io.resize_image(im, (256, 256)) for im in images],
+        (227, 227)))
+    ref = caffe.Net(deploy, weights, caffe.TEST)
+    want_rows = _net_rows(ref, crops, clf.transformer, "prob").reshape(
+        PYCAFFE_IMAGES, 10, -1).mean(1)
+    err = _rows_rule(preds, want_rows, "classifier")
+    x = np.stack([clf.transformer.preprocess("data", c) for c in crops[:10]])
+    replay = _replay_vs_eager(fwd, x)
+    t0 = time.perf_counter()
+    clf.predict(images, oversample=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    # the bucket forwards alone, on the crops preprocessed: the rest of a
+    # predict is the host's resize, oversample and preprocess
+    x = np.stack([clf.transformer.preprocess("data", c) for c in crops])
+    t0 = time.perf_counter()
+    fwd.forward(x)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    out = {"images": PYCAFFE_IMAGES, "crops": len(crops),
+           "replays": PYCAFFE_IMAGES, "ladder": list(fwd.ladder),
+           "k1": counts[0], "k2": counts[1], "max_rel_err": err,
+           "replay_vs_eager": replay, "first_predict_ms": first_ms,
+           "predict_ms": ms, "crops_per_s": len(crops) / (ms / 1e3),
+           "bucket_forward_ms": fwd_ms,
+           "graph_bytes": fwd.graph_bytes(),
+           "last_env_blobs": len(clf.env)}
+    del clf, ref, fwd
+    return out
+
+
+def _detector_check(caffe, tmp, k1, k2) -> dict:
+    """R-CNN's deploy net (200 classes, fc-rcnn) at full width through
+    caffe.Detector.detect_windows over 2 seeded 375x500 PNG images with
+    50 windows each (context_pad 16), counts 0 just before and read just
+    after; the rows against the port's Net forward on the same crops."""
+    from PIL import Image
+    weights = os.path.join(tmp, "rcnn.caffemodel")
+    caffe.Net(RCNN, caffe.TEST).save(weights)
+    deploy = _float_math_copy(RCNN, tmp, "rcnn_float.prototxt")
+    r = np.random.RandomState(12)
+    jobs = []
+    for i in range(DETECT_IMAGES):
+        path = os.path.join(tmp, f"det{i}.png")
+        Image.fromarray(r.randint(0, 256, (375, 500, 3)).astype(
+            np.uint8)).save(path)
+        windows = []
+        for _ in range(DETECT_WINDOWS):
+            h, w = r.randint(20, 300), r.randint(20, 300)
+            y0, x0 = r.randint(0, 375 - h), r.randint(0, 500 - w)
+            windows.append((y0, x0, y0 + h, x0 + w))
+        jobs.append((path, windows))
+    det = caffe.Detector(deploy, weights, context_pad=16, **PREPROCESS)
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    dets = det.detect_windows(jobs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _kernel_counts()
+    fwd = det.bucket_forward()
+    n = DETECT_IMAGES * DETECT_WINDOWS
+    want = (2 * (fwd.graph_replays + len(fwd._graphs)), 0, 0, 0, 0)
+    if len(dets) != n or fwd.graph_replays != n // 10 or counts != want:
+        fail(f"detector: {len(dets)} rows, {fwd.graph_replays} replays, "
+             f"K1-K5 {counts} (want {want})")
+    k1["launches_by_path"]["pycaffe_detector"] = counts[0]
+    k2["launches_by_path"]["pycaffe_detector"] = counts[1]
+    got = np.stack([d["prediction"] for d in dets])
+    if got.shape != (n, RCNN_CLASSES) or not np.all(np.isfinite(got)):
+        fail(f"detector rows {got.shape}")
+    crops = []
+    for path, windows in jobs:
+        image = caffe.io.load_image(path)
+        for wnd in windows:
+            y0, x0, y1, x1 = det._expand_window(wnd, image.shape, (227, 227))
+            crops.append(caffe.io.resize_image(image[y0:y1, x0:x1, :],
+                                               (227, 227)))
+    ref = caffe.Net(deploy, weights, caffe.TEST)
+    err = _rows_rule(got, _net_rows(ref, crops, det.transformer, "fc-rcnn"),
+                     "detector")
+    out = {"images": DETECT_IMAGES, "windows": n,
+           "replays": fwd.graph_replays, "k1": counts[0], "k2": counts[1],
+           "max_rel_err": err, "detect_ms": ms,
+           "graph_bytes": fwd.graph_bytes()}
+    del det, ref, fwd
+    return out
+
+
+def _pycaffe_solver_copy(tmp, db) -> str:
+    """models/caffenet/solver.prototxt and train_val.prototxt copied with
+    the Input layer replaced by a Data layer over `db` (batch 256, crop
+    227, mirror, mean values), PYCAFFE_ITERS iterations, no test net, no
+    snapshot."""
+    with open(CAFFENET_NET) as f:
+        text = f.read()
+    first = text.index("layer {")
+    second = text.index("layer {", first + 1)
+    if 'type: "Input"' not in text[first:second]:
+        fail(f"{CAFFENET_NET} no longer starts with its Input layer")
+    data = ('layer { name: "data" type: "Data" top: "data" top: "label" '
+            'transform_param { mirror: true crop_size: 227 mean_value: 104 '
+            'mean_value: 117 mean_value: 123 } '
+            f'data_param {{ source: "{db}" backend: LMDB '
+            f'batch_size: {CAFFENET_BATCH} }} }}\n')
+    net = os.path.join(tmp, "caffenet_lmdb.prototxt")
+    with open(net, "w") as f:
+        f.write(text[:first] + data + text[second:])
+    with open(CAFFENET_SOLVER_ZOO) as f:
+        solver = f.read()
+    for a, b in (("models/caffenet/train_val.prototxt", net),
+                 ("test_iter: 1000\n", ""), ("test_interval: 1000\n", ""),
+                 ("max_iter: 450000", f"max_iter: {PYCAFFE_ITERS}"),
+                 ("snapshot: 10000", "snapshot: 0"),
+                 ('snapshot_prefix: "models/caffenet/caffenet_train"',
+                  f'snapshot_prefix: "{os.path.join(tmp, "c")}"')):
+        if a not in solver:
+            fail(f"{CAFFENET_SOLVER_ZOO} no longer has {a!r}")
+        solver = solver.replace(a, b)
+    path = os.path.join(tmp, "caffenet_solver_lmdb.prototxt")
+    with open(path, "w") as f:
+        f.write(solver + "random_seed: 5\n")
+    return path
+
+
+def _solver_check(caffe, tmp, k1, k2) -> dict:
+    """caffe.SGDSolver on a copy of models/caffenet/solver.prototxt at
+    batch 256 over an LMDB of 512 records the port writes: 10 iterations
+    (counts 0 just before, read just after: K1 twice a forward, K2 twice
+    an iteration); held against two runs of the port's Solver.step on the
+    same solver and LMDB by PR 9's rule (`_resume_rule`). cuDNN is
+    deterministic in all three, so the rule's spread is the rest of the
+    card's nondeterminism (max pooling's backward adds atomically)."""
+    from caffe_mpi_tpu_torch.data.feeder import DeviceFeed
+    from caffe_mpi_tpu_torch.proto import SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    from caffe_mpi_tpu_torch.tools import cli
+    db = os.path.join(tmp, "pycaffe_lmdb")
+    t0 = time.perf_counter()
+    _write_clusters(db, PYCAFFE_RECORDS, seed=21)
+    write_s = time.perf_counter() - t0
+    path = _pycaffe_solver_copy(tmp, db)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        sgd = caffe.SGDSolver(path)
+        torch.cuda.synchronize()
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        sgd.step(1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = sgd.step(PYCAFFE_ITERS - 1)
+        torch.cuda.synchronize()
+        first_ms, ms = (t1 - t0) * 1e3, \
+            (time.perf_counter() - t1) * 1e3 / (PYCAFFE_ITERS - 1)
+        counts = _kernel_counts()
+        want = (2 * PYCAFFE_ITERS, 2 * PYCAFFE_ITERS, 0, 0, 0)
+        if sgd.iter != PYCAFFE_ITERS or counts != want or \
+                not np.isfinite(loss):
+            fail(f"pycaffe SGDSolver: iter {sgd.iter}, loss {loss}, K1-K5 "
+                 f"{counts} (want {want})")
+        k1["launches_by_path"]["pycaffe_solver"] = counts[0]
+        k2["launches_by_path"]["pycaffe_solver"] = counts[1]
+        got = _state(sgd.solver)
+        batch = sgd.solver.net.blob_shapes["data"][0]
+        sgd.close()
+        del sgd
+        refs = []
+        for _ in range(2):
+            solver = Solver(SolverParameter.from_file(path),
+                            device=PYCAFFE_DEVICE)
+            feed = DeviceFeed(cli.build_feeder(solver.net, "TRAIN",
+                                               solver.sp), solver.device)
+            try:
+                solver.step(PYCAFFE_ITERS, feed)
+            finally:
+                feed.close()
+            torch.cuda.synchronize()
+            refs.append(_state(solver))
+            solver.close()
+            del solver
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = saved
+    rule = _resume_rule(refs, got)
+    if not rule["held"]:
+        fail(f"pycaffe SGDSolver against Solver.step: {rule}")
+    torch.cuda.empty_cache()
+    return {"iters": PYCAFFE_ITERS, "batch": batch,
+            "records": PYCAFFE_RECORDS, "write_s": write_s, "loss": loss,
+            "first_iter_ms": first_ms, "ms_per_iter": ms,
+            "cudnn_deterministic": True, "k1": counts[0], "k2": counts[1],
+            "rule": {k: v for k, v in rule.items() if k != "worst"},
+            "worst": [list(w) for w in rule["worst"]]}
+
+
+REMAT_NET = """name: "remat_probe"
+layer {{ name: "data" type: "Input" top: "data" top: "label"
+  input_param {{ shape {{ dim: 64 dim: 3 dim: 32 dim: 32 }}
+                 shape {{ dim: 64 }} }} }}
+layer {{ name: "conv1" type: "Convolution" bottom: "data" top: "conv1"{r}
+  convolution_param {{ num_output: 32 kernel_size: 3 pad: 1
+    weight_filler {{ type: "gaussian" std: 0.05 }} }} }}
+layer {{ name: "bn1" type: "BatchNorm" bottom: "conv1" top: "conv1"{r} }}
+layer {{ name: "relu1" type: "ReLU" bottom: "conv1" top: "conv1" }}
+layer {{ name: "pool1" type: "Pooling" bottom: "conv1" top: "pool1"
+  pooling_param {{ pool: MAX kernel_size: 2 stride: 2 }} }}
+layer {{ name: "norm1" type: "LRN" bottom: "pool1" top: "norm1"{r}
+  lrn_param {{ local_size: 5 alpha: 0.0001 beta: 0.75 }} }}
+layer {{ name: "conv2" type: "Convolution" bottom: "norm1" top: "conv2"{r}
+  convolution_param {{ num_output: 32 kernel_size: 3 pad: 1
+    weight_filler {{ type: "gaussian" std: 0.05 }} }} }}
+layer {{ name: "prelu2" type: "PReLU" bottom: "conv2" top: "conv2"{r} }}
+layer {{ name: "fc" type: "InnerProduct" bottom: "conv2" top: "fc"
+  inner_product_param {{ num_output: 10
+    weight_filler {{ type: "gaussian" std: 0.01 }} }} }}
+layer {{ name: "drop" type: "Dropout" bottom: "fc" top: "fc"{r} }}
+layer {{ name: "loss" type: "SoftmaxWithLoss" bottom: "fc" bottom: "label"
+  top: "loss" }}
+"""
+
+
+def _remat_check() -> dict:
+    """`remat: true` on conv, BatchNorm, LRN (K1, K2), PReLU and Dropout
+    in a step_chunk 5 CUDA graph on the card, cuDNN deterministic: 10
+    iterations, the graph captured and replayed; the losses, params,
+    history and running statistics bitwise those of the same net without
+    remat."""
+    from caffe_mpi_tpu_torch.proto import NetParameter, SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    from caffe_mpi_tpu_torch.tools import cli
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = {}
+    try:
+        for remat in (False, True):
+            sp = SolverParameter.from_text(
+                'base_lr: 0.001 momentum: 0.9 lr_policy: "fixed" '
+                f'max_iter: {REMAT_ITERS} random_seed: 3 '
+                f'step_chunk: {REMAT_CHUNK}')
+            sp.net_param = NetParameter.from_text(REMAT_NET.format(
+                r=" remat: true" if remat else ""))
+            solver = Solver(sp, device=PYCAFFE_DEVICE)
+            feeds = cli.synthetic_feed(solver.net, 0)
+            losses = []
+            for _ in range(REMAT_ITERS // REMAT_CHUNK):
+                losses.append(solver.step(REMAT_CHUNK, lambda it: feeds))
+            torch.cuda.synchronize()
+            runs[remat] = (losses, _state(solver), len(solver._graphs),
+                           solver.graph_replays)
+            solver.close()
+            del solver
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = saved
+    (l0, s0, g0, r0), (l1, s1, g1, r1) = runs[False], runs[True]
+    unequal = [k for k in s0 if not torch.equal(s0[k], s1[k])]
+    if g1 < 1 or r1 < 1 or l0 != l1 or unequal or \
+            not np.all(np.isfinite(l1)):
+        fail(f"remat step_chunk: graphs {g1}, replays {r1}, losses {l1} "
+             f"against {l0}, unequal tensors {unequal[:5]}")
+    return {"graphs": g1, "replays": r1, "losses": l1, "bitwise": True,
+            "tensors": len(s0)}
+
+
+def pycaffe_phase(k1: dict, k2: dict, card: str) -> dict:
+    """The pycaffe API on the card (caffe_mpi_tpu_torch.pycaffe):
+    Classifier (CaffeNet), Detector (R-CNN), SGDSolver (CaffeNet from an
+    LMDB), the 27 layer types of slice 15 card against CPU, and remat in a
+    step_chunk CUDA graph."""
+    import caffe_mpi_tpu_torch.pycaffe as caffe
+    sys.path.insert(0, os.path.join(ROOT, "examples", "pycaffe"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pycaffe_")
+    out, seconds = {}, {}
+    try:
+        for name, check in (
+                ("classifier", lambda: _classifier_check(caffe, tmp, k1, k2)),
+                ("detector", lambda: _detector_check(caffe, tmp, k1, k2)),
+                ("solver", lambda: _solver_check(caffe, tmp, k1, k2)),
+                ("layers", lambda: zoo_layers_phase(ZOO_REST_CASES)),
+                ("remat", _remat_check)):
+            t0 = time.perf_counter()
+            out[name] = check()
+            seconds[name] = round(time.perf_counter() - t0, 1)
+            log(f"pycaffe {name}: {seconds[name]} s")
+            torch.cuda.empty_cache()
+    finally:
+        sys.path.remove(os.path.join(ROOT, "examples", "pycaffe"))
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["seconds"], out["card"] = seconds, card
+    log(f"pycaffe: {json.dumps(out)}")
     return out
 
 
@@ -5719,6 +6258,8 @@ def main(argv=None) -> int:
                "siamese": siamese_phase(card),
                "zoo_layers": zoo_layers_phase()}
     clock("sources")
+    pycaffe = pycaffe_phase(k1, k2, card)
+    clock("pycaffe")
     survive = survive_phase(k1, k2, card, lenet)
     clock("survive")
     dp = dp_phase(k1, k2, card)
@@ -5734,6 +6275,7 @@ def main(argv=None) -> int:
     print(json.dumps({"chunk": chunk}), flush=True)
     for key, res in sources.items():
         print(json.dumps({key: res}), flush=True)
+    print(json.dumps({"pycaffe": pycaffe}), flush=True)
     print(json.dumps({"survive": survive}), flush=True)
     print(json.dumps({"dp": dp}), flush=True)
     print(json.dumps({"phase_seconds": clock.seconds}), flush=True)

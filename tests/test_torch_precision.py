@@ -743,11 +743,11 @@ def test_bf16_registries_are_the_jax_packages():
     from caffe_mpi_tpu_torch.proto import netshape
     assert netshape.BF16_ELIGIBLE == jax_netshape.BF16_ELIGIBLE
     assert netshape.BF16_INELIGIBLE == jax_netshape.BF16_INELIGIBLE
-    # every registered type is classified; the host-step layer is the one
-    # ineligible type the port registers
+    # every registered type is classified; the ineligible types the port
+    # registers are the host steps and the refused HDF5Output, all of them
     assert set(LAYER_REGISTRY) - netshape.BF16_ELIGIBLE == {
-        "DetectNetTransformation"}
-    assert "DetectNetTransformation" in netshape.BF16_INELIGIBLE
+        "DetectNetTransformation", "Python", "HDF5Output"}
+    assert netshape.BF16_INELIGIBLE <= set(LAYER_REGISTRY)
 
 
 @pytest.mark.parametrize("header,layer_type,want,warns", [

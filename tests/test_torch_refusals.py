@@ -456,6 +456,35 @@ def test_unported_data_layer_types_are_refused(kind, param):
                                 for k, v in jax.blob_shapes.items()}
 
 
+@pytest.mark.parametrize("kind,param,exc,match", [
+    ("HDF5Output", 'hdf5_output_param { file_name: "o.h5" }',
+     NotImplementedError,
+     r"the HDF5Output layer is not ported .*ROADMAP\.md §1 item 7\b"),
+    ("Pipeline", "", ValueError, r"unknown layer type 'Pipeline'"),
+])
+def test_unported_layer_types_are_refused(kind, param, exc, match):
+    """HDF5Output is registered only to be refused, naming its ROADMAP
+    item (the card's machine has no h5py); Pipeline is the one JAX type
+    the port does not know. Every other JAX type is registered."""
+    from caffe_mpi_tpu.layers.base import LAYER_REGISTRY as JAX_REGISTRY
+    from caffe_mpi_tpu_torch.layers import LAYER_REGISTRY
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    assert set(JAX_REGISTRY) - set(LAYER_REGISTRY) == {"Pipeline"}
+    text = ('layer { name: "in" type: "Input" top: "x" input_param { '
+            'shape { dim: 2 dim: 3 } } } '
+            f'layer {{ name: "l" type: "{kind}" bottom: "x" {param} }}')
+    with pytest.raises(exc, match=match):
+        Net(NetParameter.from_text(text), "TRAIN", device="cpu")
+
+
+def test_hdf5_weights_are_refused_naming_item_7(tmp_path):
+    from caffe_mpi_tpu_torch import io as port_io
+    with pytest.raises(NotImplementedError,
+                       match=r"HDF5 weights .*ROADMAP\.md §1 item 7\b"):
+        port_io.load_weights(str(tmp_path / "w.caffemodel.h5"))
+
+
 @pytest.mark.parametrize("fmt,item", [("HDF5", 4), ("ORBAX", 6)])
 def test_unported_snapshot_format_is_refused_before_building(fmt, item):
     """`snapshot_format` other than BINARYPROTO raises at construction,
