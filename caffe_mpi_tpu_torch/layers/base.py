@@ -56,8 +56,11 @@ class Layer(nn.Module):
     needs_rng: bool = False
     # True for a layer whose forward runs on the host (no CUDA graph)
     host_step: bool = False
-    # the data-parallel MeshPlan of the rank (Net.bind_mesh), or None
+    # the rank's MeshPlan (Net.bind_mesh), or None
     mesh_plan = None
+    # {param name: the dim split over the mesh's 'model' axis}: the layer
+    # holds this rank's shard of those params (Net.place)
+    shards: dict = {}
     # the base of a layer's relative file paths (Net sets it before setup)
     model_dir: str = ""
 
@@ -119,6 +122,19 @@ class Layer(nn.Module):
     # -- execution ---------------------------------------------------------
     def forward(self, bottoms: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         raise NotImplementedError
+
+    def accepts_shards(self, shards: dict) -> bool:
+        """Whether the layer runs with these params split over 'model'
+        ({param: dim}); the layers with a model-parallel forward say
+        which."""
+        return not shards
+
+    def model_plan(self):
+        """The MeshPlan when the layer holds shards over 'model', else
+        None."""
+        mp = self.mesh_plan
+        return mp if self.shards and mp is not None and mp.n_model > 1 \
+            else None
 
     # -- interop -----------------------------------------------------------
     def caffe_blobs(self) -> list[tuple[str, str]]:

@@ -20,8 +20,8 @@ and WindowData (R-CNN's window file, data/window.py WindowFeeder) are
 feed slots whose batches their host feeders transform. HDF5Data is
 registered so that a net naming it is refused at setup with
 NotImplementedError (ROADMAP.md §1 item 3), not reported as an unknown
-type, as HDF5Output is (layers/extension.py, item 7). Of the JAX
-package's layer types only Pipeline (item 6) is unknown to the port.
+type, as HDF5Output is (layers/extension.py, item 7). Every JAX layer
+type is registered (Pipeline in layers/composite.py).
 """
 
 from __future__ import annotations

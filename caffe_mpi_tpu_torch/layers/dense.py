@@ -4,6 +4,12 @@ Reference: src/caffe/layers/{inner_product,embed,scale,bias}_layer.
 {cpp,cu}; JAX package caffe_mpi_tpu/layers/dense.py. The cuBLAS gemm
 stays a library call (`torch.matmul`), as the JAX package left it to XLA;
 Embed is a gather, Scale and Bias broadcast arithmetic.
+
+Under a mesh's 'model' axis (`param_sharding`, the layer's `shards`)
+InnerProduct runs Megatron-style: "rows" (weight dim 0 and the bias
+split) copies the input to the shards and gathers their output features;
+"cols" (weight dim 1 split) splits the input features, sums the partial
+products over the model ranks and adds the replicated bias.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ import math
 
 import torch
 
+from ..parallel import mesh as mesh_mod
 from ..proto.config import FillerParameter
 from .base import Layer, Shape, register
 
@@ -32,14 +39,36 @@ class InnerProductLayer(Layer):
                          p.bias_filler or FillerParameter(type="constant"))
         return [(*in_shapes[0][: self.axis], p.num_output)]
 
+    def accepts_shards(self, shards: dict) -> bool:
+        return not shards or not self.p.transpose and shards in (
+            {"weight": 0}, {"weight": 0, "bias": 0}, {"weight": 1})
+
     def forward(self, bottoms):
         x = self.f(bottoms[0])
         lead = tuple(x.shape[: self.axis])
         x2 = x.reshape(math.prod(lead) if lead else 1, self.k)
         w = self.f(self.weight)
+        mp = self.model_plan()
+        if mp is not None and self.shards.get("weight") == 0:
+            # rows (column-parallel): every shard reads the whole input,
+            # computes its output features, and the features gather
+            x2 = mesh_mod.copy_to_model(x2, mp)
+        elif mp is not None and self.shards.get("weight") == 1:
+            # cols (row-parallel): each shard takes its input features,
+            # and the partial products sum over the model ranks
+            x2 = mesh_mod.split_to_model(x2, mp, 1)
         with self.policy.math(x.device):
             y = torch.matmul(x2, w if self.p.transpose else w.t())
-        if self.p.bias_term:
+        if mp is not None and self.shards.get("weight") == 1:
+            y = mesh_mod.reduce_from_model(y, mp)
+        # a bias split with the rows adds before the gather, a whole one
+        # (a layer that shares only the weight) after it
+        split_bias = "bias" in self.shards
+        if self.p.bias_term and split_bias:
+            y = y + self.f(self.bias)
+        if mp is not None and self.shards.get("weight") == 0:
+            y = mesh_mod.gather_from_model(y, mp, 1)
+        if self.p.bias_term and not split_bias:
             y = y + self.f(self.bias)
         return [y.reshape(*lead, self.p.num_output)]
 

@@ -9,17 +9,29 @@ The products run under the layer's `DtypePolicy` math mode; with
 `attention_param { use_flash: true }` the attention itself goes through
 the flash kernels (ops/flash_attention.py).
 
-`sequence_parallel: true` shards the sequence over a mesh in the JAX
-package; with no mesh it runs standard attention there, and the port,
-which has no mesh yet, does the same.
+Under a mesh with a 'model' axis (`Net.bind_mesh`), as the JAX layers:
+- Attention with `sequence_parallel: true` splits the sequence over the
+  model ranks and runs the ring (ops/attention.py
+  `sequence_parallel_attention`; the flash ring under `use_flash`); the
+  batch stays split on 'data'. Without a model axis it runs attention on
+  one device;
+- MoE with its expert banks split over 'model' (a `param_shardings`
+  rule {"moe": {"w1": ("model",), ...}}, ops/moe.py `shard_experts`)
+  runs the rank's experts and sums the combine over the model ranks;
+- MoE under data parallelism routes over the global batch, as the JAX
+  single program does (the capacity depends on the global token count):
+  the data ranks' tokens are gathered (the backward sums the ranks'
+  gradients and keeps the rank's rows: the load-balancing loss reads
+  every token), and the rank's rows of the output are returned.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.attention import attention
-from ..ops.moe import moe_ffn
+from ..ops.attention import attention, sequence_parallel_attention
+from ..ops.moe import EXPERT_PARAMS, moe_ffn
+from ..parallel import mesh as mesh_mod
 from ..proto.config import (AttentionParameter, FillerParameter,
                             LayerNormParameter)
 from .base import Layer, Shape, register
@@ -84,8 +96,14 @@ class AttentionLayer(Layer):
                 qkv = qkv + self.f(self.qkv_bias)
             shape = (n, s, self.heads, c // self.heads)
             q, k, v = (t.reshape(shape) for t in qkv.split(c, dim=-1))
-            out = attention(q, k, v, causal=bool(p.causal),
-                            use_flash=bool(p.use_flash))
+            mp = self.mesh_plan
+            if p.sequence_parallel and mp is not None and mp.n_model > 1:
+                out = sequence_parallel_attention(
+                    q, k, v, mp, causal=bool(p.causal),
+                    use_flash=bool(p.use_flash))
+            else:
+                out = attention(q, k, v, causal=bool(p.causal),
+                                use_flash=bool(p.use_flash))
             y = out.reshape(n, s, c) @ self.f(self.proj_weight).t()
         if p.bias_term:
             y = y + self.f(self.proj_bias)
@@ -114,6 +132,9 @@ class MoELayer(Layer):
             tops.append(())
         return tops
 
+    def accepts_shards(self, shards: dict) -> bool:
+        return not shards or shards == {name: 0 for name in EXPERT_PARAMS}
+
     def expert_params(self) -> dict:
         return {k: self.f(getattr(self, k))
                 for k in ("gate", "w1", "b1", "w2", "b2")}
@@ -122,10 +143,18 @@ class MoELayer(Layer):
         p = self.p
         x = self.f(bottoms[0])
         flat = x.reshape(-1, x.shape[-1])
+        mp = self.mesh_plan
+        rows = flat.shape[0]
+        if mp is not None and mp.n_data > 1:
+            flat = mesh_mod.gather_rows_from_data(flat, mp)
         with self.policy.math(x.device):
             y, aux = moe_ffn(self.expert_params(), flat,
                              top_k=max(p.top_k, 1),
-                             capacity_factor=p.capacity_factor)
+                             capacity_factor=p.capacity_factor,
+                             plan=self.model_plan())
+        if mp is not None and mp.n_data > 1:
+            lo = mp.data_index * rows
+            y = y[lo:lo + rows]
         tops = [y.reshape(x.shape)]
         if len(self.lp.top) > 1:
             tops.append(aux)

@@ -12,6 +12,10 @@ kernel (ops/lrn.py).
 STOCHASTIC pooling in TRAIN draws one uniform a window. As Dropout's
 mask, the draw is made ahead of the forward (`draw_mask`) or handed in
 (`mask`), so a replayed CUDA graph or a recompute reads the same draw.
+
+Convolution with group 1 takes `param_sharding` over a mesh's 'model'
+axis as InnerProduct does (layers/dense.py): "rows" splits the output
+channels and their bias, "cols" the input channels.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ..ops.conv import conv2d, conv_output_dim, deconv2d, im2col
 from ..ops.lrn import lrn_across_channels
 from ..ops.pool import (avg_pool2d, max_pool2d, pool_output_dim,
                         stochastic_output, stochastic_pool2d)
+from ..parallel import mesh as mesh_mod
 from ..proto.config import ConvolutionParameter, FillerParameter, LRNParameter
 from .base import Layer, Shape, register
 
@@ -71,12 +76,34 @@ class ConvolutionLayer(Layer):
         ow = conv_output_dim(w, self.kernel[1], self.pad[1], self.stride[1], self.dilation[1])
         return [(n, p.num_output, oh, ow)]
 
+    def accepts_shards(self, shards: dict) -> bool:
+        return not shards or self.p.group == 1 and shards in (
+            {"weight": 0}, {"weight": 0, "bias": 0}, {"weight": 1})
+
     def forward(self, bottoms):
         x = self.f(bottoms[0])
         bias = self.f(self.bias) if self.p.bias_term else None
+        mp = self.model_plan()
+        split = self.shards.get("weight") if mp is not None else None
+        if split == 0:
+            # rows: output channels (and their bias) over the model ranks
+            x = mesh_mod.copy_to_model(x, mp)
+        elif split == 1:
+            # cols: input channels over the model ranks, partial sums
+            x = mesh_mod.split_to_model(x, mp, 1)
+        # a whole bias under a split weight (cols, or rows in a layer that
+        # shares only the weight) adds after the gather or the sum
+        late = split is not None and bias is not None \
+            and "bias" not in self.shards
         with self.policy.math(x.device):
             y = conv2d(x, self.f(self.weight), self.stride, self.pad,
-                       self.dilation, self.p.group, bias)
+                       self.dilation, self.p.group, None if late else bias)
+        if split == 0:
+            y = mesh_mod.gather_from_model(y, mp, 1)
+        elif split == 1:
+            y = mesh_mod.reduce_from_model(y, mp)
+        if late:
+            y = y + bias.reshape(1, -1, 1, 1)
         return [y]
 
 

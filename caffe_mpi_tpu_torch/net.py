@@ -105,6 +105,8 @@ class Net(nn.Module):
         self.param_aliases: dict[tuple[str, str], tuple[str, str]] = {}
         # (blob, loss weight) for every top that adds to the loss
         self.loss_blobs: list[tuple[str, float]] = []
+        # the 'model'-axis placement of the params (`place`), or None
+        self.placement = None
 
         if solver_storage not in ("", "FLOAT", "FLOAT16", "DOUBLE"):
             raise ValueError(
@@ -171,6 +173,8 @@ class Net(nn.Module):
             layer.in_shapes = in_shapes
             out_shapes = layer.setup(in_shapes)
             layer.out_shapes = out_shapes
+            if lp.param_sharding in ("rows", "cols"):
+                self._check_param_sharding(layer, lp.param_sharding)
             if len(out_shapes) != len(lp.top):
                 raise ValueError(
                     f"layer {lp.name!r}: produces {len(out_shapes)} tops, "
@@ -220,6 +224,19 @@ class Net(nn.Module):
             setattr(layer, pname, src)
             self.param_aliases[(layer.name, pname)] = owner
 
+    @staticmethod
+    def _check_param_sharding(layer: Layer, mode: str) -> None:
+        """Refuse at setup a prototxt `param_sharding` the layer has no
+        model-parallel forward for (the solver refuses an unknown mode,
+        as the JAX one does)."""
+        shards = {"weight": 1} if mode == "cols" else {
+            "weight": 0, **({"bias": 0} if "bias" in layer.decls else {})}
+        if not layer.accepts_shards(shards):
+            raise NotImplementedError(
+                f"layer {layer.name!r} ({layer.lp.type}): param_sharding "
+                f"{mode!r} is taken by InnerProduct (not transposed) and "
+                "Convolution with group 1 only (ROADMAP.md §1 item 6)")
+
     def _divide_batch(self, lp, divisor: int) -> None:
         """Divide a layer's global batch by `divisor` (the JAX `Net`'s
         `_divide_batch`). WindowData is divided too: its feeder stripes
@@ -253,10 +270,62 @@ class Net(nn.Module):
     def bind_mesh(self, mesh_plan) -> None:
         """Hand every layer the rank's MeshPlan (the reference's
         solver_count/rank that layers consult). BatchNorm, the losses and
-        Accuracy then compute global-batch results across the ranks;
-        other layers ignore it."""
+        Accuracy then compute global-batch results across the data ranks,
+        MoE routes over the global batch, Attention with
+        `sequence_parallel` runs the ring over the model ranks, and the
+        layers `place` splits run model-parallel; other layers ignore
+        it."""
         for layer in self.layers:
             layer.mesh_plan = mesh_plan
+
+    @torch.no_grad()
+    def place(self, placement) -> None:
+        """Split the params a `mesh.Placement` names over the 'model' axis:
+        each such param becomes this rank's shard of it (a new
+        `nn.Parameter`), and its layer's `shards` says which dim. A layer
+        that cannot run with those shards is refused. After `bind_mesh`
+        and `init` (the full arrays are drawn first, so a split run starts
+        from the one-process run's values). A layer that shares a param
+        by name holds its owner's shard, split as the owner's rule says,
+        and runs the model-parallel forward too."""
+        self.placement = placement
+        for layer in self.layers:
+            shards = {}
+            for pname in layer.decls:
+                owner = self.param_aliases.get((layer.name, pname))
+                if owner is not None:
+                    # the owner comes first in declaration order
+                    d = self.layer_by_name(owner[0]).shards.get(owner[1])
+                else:
+                    d = placement.dim(layer.name, pname,
+                                      getattr(layer, pname).dim())
+                if d is not None:
+                    shards[pname] = d
+            if not layer.accepts_shards(shards):
+                raise NotImplementedError(
+                    f"layer {layer.name!r} ({layer.lp.type}): params split "
+                    f"over 'model' as {shards} are not ported (ROADMAP.md "
+                    "§1 item 6)")
+            for pname in shards:
+                owner = self.param_aliases.get((layer.name, pname))
+                if owner is not None:
+                    setattr(layer, pname,
+                            getattr(self.layer_by_name(owner[0]), owner[1]))
+                    continue
+                p = getattr(layer, pname)
+                setattr(layer, pname, nn.Parameter(
+                    placement.local(layer.name, pname, p).clone(),
+                    requires_grad=p.requires_grad))
+            layer.shards = shards
+
+    def owner_of(self, lname: str, pname: str) -> tuple[str, str]:
+        """The (layer, param) that owns a param: itself, or the first
+        layer that declared a param it shares by name."""
+        return self.param_aliases.get((lname, pname), (lname, pname))
+
+    def sharded(self, lname: str, pname: str) -> bool:
+        """Whether this rank holds a shard of the param (`place`)."""
+        return pname in self.layer_by_name(lname).shards
 
     def layer_by_name(self, name: str) -> Layer:
         try:
@@ -356,14 +425,21 @@ class Net(nn.Module):
                 yield layer.name, sname, getattr(layer, sname)
 
     # -- .caffemodel interop (reference net.cpp:1055-1248) ----------------
-    def weight_tensors(self) -> dict[str, list]:
+    def weight_tensors(self, full: bool = False) -> dict[str, list]:
         """{layer_name: the tensors of its blobs in the reference's blobs_
         order}, None for a correction scalar: what export_weights writes,
-        as live tensors (a snapshot copies them before the next step)."""
+        as live tensors (a snapshot copies them before the next step).
+        full: a param split over 'model' (`place`) is gathered whole (a
+        collective: every model rank calls it, in the same order)."""
         out: dict[str, list] = {}
         for layer in self.layers:
-            blobs = [None if kind == "correction" else getattr(layer, name)
-                     for kind, name in layer.caffe_blobs()]
+            blobs = []
+            for kind, name in layer.caffe_blobs():
+                t = None if kind == "correction" else getattr(layer, name)
+                if full and name in layer.shards:
+                    t = self.placement.gather(
+                        *self.owner_of(layer.name, name), t)
+                blobs.append(t)
             if blobs:
                 out[layer.name] = blobs
         return out
@@ -412,9 +488,19 @@ class Net(nn.Module):
                 blob = np.asarray(blob, np.float32)
                 if into is None:
                     cur = getattr(layer, name)
+                    if name in layer.shards:
+                        # a whole array, of which this rank takes its shard
+                        full = list(cur.shape)
+                        full[layer.shards[name]] *= \
+                            self.placement.plan.n_model
+                        if blob.size == int(np.prod(full)):
+                            blob = blob.reshape(full)
+                        blob = self.placement.local(
+                            *self.owner_of(layer.name, name),
+                            torch.from_numpy(
+                                np.ascontiguousarray(blob))).numpy()
                 else:
-                    cur = into[self.param_aliases.get((layer.name, name),
-                                                      (layer.name, name))]
+                    cur = into[self.owner_of(layer.name, name)]
                 if tuple(cur.shape) != blob.shape:
                     if blob.size != cur.numel():
                         raise ValueError(

@@ -47,7 +47,8 @@ Entries, as in the JAX package:
   padded query rows sliced off.
 - `flash_block`, `flash_block_bwd`: the raw (B*H, S, D) block API with an
   optional (1, Sk) f32 key bias (0 live, -inf masked), which ring
-  attention (not ported yet) calls with the ring-merged (out, lse).
+  attention (`ops/attention.py` `ring_flash_attention`) calls with the
+  ring-merged (out, lse).
 """
 
 from __future__ import annotations

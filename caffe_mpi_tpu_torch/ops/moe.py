@@ -19,8 +19,17 @@ loss's mean probabilities only (routing and dispatch are integer or
 boolean). The products are torch ops (cuBLAS on the card), as the JAX
 package leaves them to XLA.
 
-Not ported yet (ROADMAP.md): expert parallelism (`shard_experts`, the
-`mesh=` argument).
+Expert parallelism (the JAX `shard_experts` and `moe_ffn(mesh=)`, whose
+GSPMD partitioning the port writes out): `shard_experts` keeps a model
+rank's E/n experts of w1, b1, w2 and b2 (dim 0 split over the mesh's
+'model' axis; the gate stays whole). `moe_ffn` with `plan` and such
+shards routes every token over all E experts on every rank (the gate and
+the routing are replicated), runs the rank's experts on their tokens,
+forms the rank's part of the combine, and sums the parts over the model
+ranks. The input reaches the experts through the tensor-parallel copy
+(its gradient sums over the ranks) and the combine through the split
+(its gradient gathers), so every rank's gate and input gradients are the
+whole ones.
 """
 
 from __future__ import annotations
@@ -30,12 +39,39 @@ import math
 import torch
 
 
+EXPERT_PARAMS = ("w1", "b1", "w2", "b2")
+
+
+def shard_experts(params: dict, plan) -> dict:
+    """This model rank's experts: dim 0 (E) of w1, b1, w2 and b2 split
+    over `plan`'s model axis; the gate whole."""
+    n, m = plan.n_model, plan.model_index
+    out = {}
+    for name, x in params.items():
+        if name == "gate":
+            out[name] = x
+            continue
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} experts do not split over {n} "
+                             "model ranks")
+        size = x.shape[0] // n
+        out[name] = x[m * size:(m + 1) * size]
+    return out
+
+
 def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int = 1,
-            capacity_factor: float = 2.0):
+            capacity_factor: float = 2.0, plan=None):
     """x: (T, F) tokens -> ((T, F), aux), aux the Switch/GShard
-    load-balancing loss n_experts * sum_e(frac_tokens_e * mean_prob_e)."""
+    load-balancing loss n_experts * sum_e(frac_tokens_e * mean_prob_e).
+    With `plan` and expert-sharded params (`shard_experts`) the experts
+    run split over the model ranks (module docstring); every model rank
+    calls it, in the same order."""
     t, _ = x.shape
-    e = params["w1"].shape[0]
+    e = params["gate"].shape[1]
+    e_loc = params["w1"].shape[0]
+    if e_loc != e and (plan is None or e_loc * plan.n_model != e):
+        raise ValueError(f"{e_loc} local experts of {e}: expert-sharded "
+                         "params need the mesh plan they were split over")
     cap = max(int(capacity_factor * top_k * t / e), top_k)
     cap = min(cap, t)
 
@@ -57,12 +93,22 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int = 1,
         counts = counts + (onehot * keep).sum(0)
 
     dispatch = dispatch_m.to(x.dtype)                # (T, E, C)
-    xe = torch.einsum("tec,tf->ecf", dispatch, x)
+    sharded = e_loc != e
+    dispatch_l, combine_l, xs = dispatch, combine, x
+    if sharded:
+        from ..parallel import mesh as mesh_mod
+        e0 = plan.model_index * e_loc
+        dispatch_l = dispatch[:, e0:e0 + e_loc]
+        combine_l = mesh_mod.split_to_model(combine, plan, 1)
+        xs = mesh_mod.copy_to_model(x, plan)
+    xe = torch.einsum("tec,tf->ecf", dispatch_l, xs)
     h = torch.relu(torch.einsum("ecf,efh->ech", xe, params["w1"])
                    + params["b1"][:, None, :])
     ye = torch.einsum("ech,ehf->ecf", h, params["w2"]) \
         + params["b2"][:, None, :]
-    y = torch.einsum("tec,ecf->tf", combine, ye)     # back to tokens
+    y = torch.einsum("tec,ecf->tf", combine_l, ye)   # back to tokens
+    if sharded:
+        y = mesh_mod.reduce_from_model(y, plan)
 
     frac_tokens = (dispatch.sum(2) > 0).float().mean(0)
     frac_probs = probs.mean(0)

@@ -17,24 +17,34 @@ chosen by trying NCCL and falling back.
   (rank 0 serves it) with bounded retries and a timeout, and raises
   resilience.ClusterError when they run out; every collective has the
   group's timeout (`CAFFE_TPU_COLLECTIVE_TIMEOUT`, default 600 s);
-- `MeshPlan` is this rank's view of the 'data' axis: its size `n_data`,
-  its rank and device, and the collectives the solver and the layers
-  issue: `all_reduce_` (sum in place), `all_reduce_start` (the same,
-  waited on later), `broadcast_` (from rank 0, the reference's ncclBcast:
-  `replicate`), `all_gather`, the batch slicing of `shard` (a Dropout
-  mask's rank slice) and ZeRO-1's `zero_slot_sharding`. Under
-  gloo a CUDA tensor is staged through pinned host memory explicitly.
-  Each collective adds one to `collectives.launches`, which a captured
-  CUDA graph adds again at every replay, as the kernel counters;
+- `MeshPlan` is this rank's place on the mesh's two axes, 'data' and
+  'model' (`from_shape(data, model)`: rank r has data index r // model
+  and model index r % model, the JAX `devs.reshape(data, model)`), and
+  the collectives the solver and the layers issue. On 'data': `shard`
+  (the batch slice of the rank's data index; a Dropout mask's too),
+  `all_reduce_` (sum in place), `all_reduce_start` (the same, waited on
+  later), `broadcast_` (from data index 0, the reference's ncclBcast:
+  `replicate`), `all_gather` and ZeRO-1's `zero_slot_sharding`. On
+  'model': `model_all_reduce_`, `model_all_gather`, `model_broadcast_`
+  and `model_shift` (a ring send/recv, `batch_isend_irecv`), and the
+  autograd regions of Megatron-style tensor parallelism built on them
+  (`copy_to_model`, `reduce_from_model`, `gather_from_model`,
+  `split_to_model`). Every rank creates every data group and every
+  model group, in the same order. Under gloo a CUDA tensor is staged
+  through pinned host memory explicitly. Each collective adds one to
+  `collectives.launches`, which a captured CUDA graph adds again at
+  every replay, as the kernel counters;
+- `param_sharding_rules` takes the JAX rule forms ("rows", a spec tuple,
+  a per-param dict) and returns a `Placement`: which dim of which param
+  is split over 'model', this rank's shard of a full array, and the
+  gather (a collective) that rebuilds the full array for snapshots;
 - `cluster_barrier` and `cluster_kv_set` / `cluster_kv_get` work on the
   group's store, never on the device.
 
-A 'model' axis above 1 and `param_sharding_rules` (tensor parallelism)
-are refused, naming ROADMAP.md §1 item 6. The heartbeat transport, the
-generation records of min_hosts elasticity and the jax-version shims
-(typeof, vma, shard_map, axis_size, mark_varying) have no counterpart
-here: the shims exist for a traced program, and the rest stays with
-item 6.
+The heartbeat transport, the generation records of min_hosts elasticity
+and the jax-version shims (typeof, vma, shard_map, axis_size,
+mark_varying) have no counterpart here: the shims exist for a traced
+program, and the rest stays with ROADMAP.md §1 item 6.
 """
 
 from __future__ import annotations
@@ -66,12 +76,6 @@ class _Counter:
 
     def __init__(self):
         self.launches = 0
-
-
-def _refuse_model_axis(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md §1 item 6); the port "
-        "runs data parallelism only (-mesh data=N)")
 
 
 def resolve_cluster(sp=None, host_id: int | None = None):
@@ -290,49 +294,61 @@ class _Pending:
 
 @dataclass
 class MeshPlan:
-    """This rank's place on the 'data' axis and its collectives."""
+    """This rank's place on the 'data' and 'model' axes, and its
+    collectives. `rank` is the rank in the whole group; the data-axis
+    collectives run over `data_group` (the ranks of this model index),
+    the model-axis ones over `model_group` (the ranks of this data
+    index). With one model rank the data group is the whole group."""
 
     n_data: int
     rank: int
     device: torch.device
     backend: str
     hosts: int = 1
+    n_model: int = 1
+    data_group: object = None
+    model_group: object = None
     collectives: _Counter = field(default_factory=_Counter)
     # CUDA event pairs around eager collectives while `timing` is on, and
     # the event recorded before the first of them (their common origin)
     timing: bool = False
     events: list = field(default_factory=list)
+    # the bytes the model-axis collectives moved (sent) since the last
+    # read of `model_bytes`
+    model_bytes: int = 0
     _origin: object = None
     _pinned: dict = field(default_factory=dict)
 
     @classmethod
     def from_shape(cls, data: int, model: int = 1, devices=None,
                    hosts: int = 1) -> "MeshPlan":
-        """A 'data' axis of `data` ranks over `devices` (every rank's
+        """A mesh of `data` x `model` ranks over `devices` (every rank's
         device, host by host; default every card of this host). The group
-        must be live with `data` ranks; with none and data 1, a group of
-        one is formed here on a free local port."""
+        must be live with data x model ranks; with none and one rank, a
+        group of one is formed here on a free local port. Every rank
+        calls this, and creates every axis group in the same order."""
         from ..utils import resilience
-        if model > 1:
-            raise _refuse_model_axis(f"a 'model' mesh axis of {model}")
+        if data < 1 or model < 1:
+            raise ValueError(f"mesh {data}x{model}: axes must be >= 1")
         if devices is None:
             devices = _cards() * max(hosts, 1)
         devices = [torch.device(d) for d in devices]
-        if len(devices) != data * model:
-            raise ValueError(f"mesh {data}x{model} needs {data * model} "
+        world_want = data * model
+        if len(devices) != world_want:
+            raise ValueError(f"mesh {data}x{model} needs {world_want} "
                              f"devices, have {len(devices)}")
         backend = backend_for(devices, hosts)
         if not dist.is_initialized():
-            if data != 1:
+            if world_want != 1:
                 raise resilience.ClusterError(
-                    f"a mesh of {data} ranks needs the process group: call "
-                    "init_distributed first")
+                    f"a mesh of {world_want} ranks needs the process group: "
+                    "call init_distributed first")
             init_distributed(f"127.0.0.1:{free_port()}", 1, 0,
                              backend=backend, device=devices[0])
         world, rank = dist.get_world_size(), dist.get_rank()
-        if world != data:
-            raise ValueError(f"mesh data={data} but the process group has "
-                             f"{world} ranks")
+        if world != world_want:
+            raise ValueError(f"mesh data={data} model={model} but the "
+                             f"process group has {world} ranks")
         live = dist.get_backend()
         if live != backend:
             raise ValueError(f"the device layout needs {backend}, the "
@@ -343,24 +359,64 @@ class MeshPlan:
                 raise RuntimeError("a mesh over cards, but "
                                    "torch.cuda.is_available() is False")
             torch.cuda.set_device(device)
+        data_group = model_group = None
+        if model > 1:
+            # every rank creates every group, in this order
+            for d in range(data):
+                g = dist.new_group([d * model + m for m in range(model)])
+                if rank // model == d:
+                    model_group = g
+            for m in range(model):
+                g = dist.new_group([d * model + m for d in range(data)])
+                if rank % model == m:
+                    data_group = g
         return cls(n_data=data, rank=rank, device=device, backend=backend,
-                   hosts=hosts)
+                   hosts=hosts, n_model=model, data_group=data_group,
+                   model_group=model_group)
 
-    def param_sharding_rules(self, rules):
-        raise _refuse_model_axis("param_sharding_rules (tensor parallelism)")
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
+
+    def global_rank(self, data_index: int, model_index: int) -> int:
+        return data_index * self.n_model + model_index
+
+    def param_sharding_rules(self, rules) -> "Placement":
+        """The JAX rule forms over the 'model' axis: {layer: "rows" | a
+        spec tuple | {param: spec tuple | "rows"}}. "rows" splits a
+        weight's dim 0 and its bias (the output dim); a spec tuple names
+        "model" at the dim it splits; a dict gives each listed param its
+        own spec. Returns the Placement (module docstring)."""
+        return Placement(self, rules)
 
     # -- collectives ----------------------------------------------------
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.is_cuda
 
-    def _host(self, t: torch.Tensor) -> torch.Tensor:
-        """A pinned host buffer of t's size and type, reused."""
-        key = (t.numel(), t.dtype)
+    def _host(self, t: torch.Tensor, slot: int = 0) -> torch.Tensor:
+        """A pinned host buffer of t's size and type, reused; tensors in
+        flight together take different `slot`s."""
+        key = (t.numel(), t.dtype, slot)
         buf = self._pinned.get(key)
         if buf is None:
             buf = self._pinned[key] = torch.empty(
                 t.numel(), dtype=t.dtype, pin_memory=True)
         return buf.view(t.shape)
+
+    def _staged_call(self, op, t: torch.Tensor, **kw) -> torch.Tensor:
+        """`op(t, **kw)`, a collective in place on `t`; on a card under
+        gloo through a pinned host copy of it. Returns `t`."""
+        if not self._staged(t):
+            op(t, **kw)
+            return t
+        host = self._host(t)
+        host.copy_(t)
+        op(host, **kw)
+        return t.copy_(host)
 
     def _timed(self):
         """A (start, end) CUDA event pair to record around a collective,
@@ -378,8 +434,8 @@ class MeshPlan:
 
     def all_reduce_start(self, t: torch.Tensor,
                          host: torch.Tensor | None = None) -> _Pending:
-        """Start a sum of `t` over the ranks, in place; `wait()` on the
-        result joins it. On a card under gloo `t` is copied to pinned
+        """Start a sum of `t` over the data axis, in place; `wait()` on
+        the result joins it. On a card under gloo `t` is copied to pinned
         host memory now (`host`, else a new buffer: two sums in flight
         never share one), the sum runs on gloo's thread, and `wait`
         copies it back. Timed from here to the end of `wait`."""
@@ -387,51 +443,146 @@ class MeshPlan:
         pair = self._timed()
         if pair:
             pair[0].record()
-        if self.n_data == 1 and self.backend == "gloo":
+        if self.n_data == 1 and (self.backend == "gloo" or self.n_model > 1):
             return _Pending(None, pair=pair)
+        g = self.data_group
         if self._staged(t):
             if host is None:
                 host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             host.copy_(t)
-            return _Pending(dist.all_reduce(host, async_op=True), host, t,
-                            pair)
-        return _Pending(dist.all_reduce(t, async_op=True), pair=pair)
+            return _Pending(dist.all_reduce(host, group=g, async_op=True),
+                            host, t, pair)
+        return _Pending(dist.all_reduce(t, group=g, async_op=True),
+                        pair=pair)
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum `t` over the ranks, in place; returns `t`."""
+        """Sum `t` over the data axis, in place; returns `t`."""
         self.all_reduce_start(t).wait()
         return t
 
-    def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Rank `src`'s `t` on every rank, in place."""
+    def world_all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum `t` over every rank of both axes, in place (a decision
+        all ranks must share: a signal's request, the guard's check)."""
+        if self.n_model == 1:
+            return self.all_reduce_(t)
         self.collectives.launches += 1
-        if self._staged(t):
-            host = self._host(t)
-            host.copy_(t)
-            dist.broadcast(host, src)
-            t.copy_(host)
-        else:
-            dist.broadcast(t, src)
-        return t
+        return self._staged_call(dist.all_reduce, t)
+
+    def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Data index `src`'s `t` on every rank of the data axis, in
+        place."""
+        self.collectives.launches += 1
+        if self.n_data == 1 and self.n_model > 1:
+            return t
+        return self._staged_call(
+            dist.broadcast, t, src=self.global_rank(src, self.model_index),
+            group=self.data_group)
+
+    def _gather(self, t: torch.Tensor, n: int, group) -> torch.Tensor:
+        src = t.contiguous()
+        if n == 1:
+            return src.unsqueeze(0)
+        if self._staged(src):
+            host = self._host(src).copy_(src)
+            parts = [torch.empty_like(host) for _ in range(n)]
+            dist.all_gather(parts, host, group=group)
+            return torch.stack(parts).to(t.device)
+        if self.backend == "gloo":
+            parts = [torch.empty_like(src) for _ in range(n)]
+            dist.all_gather(parts, src, group=group)
+            return torch.stack(parts)
+        out = torch.empty(n * src.numel(), dtype=src.dtype,
+                          device=src.device)
+        dist.all_gather_into_tensor(out, src.reshape(-1), group=group)
+        return out.view(n, *src.shape)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's `t`, stacked on a new dim 0 in rank order."""
+        """Every data rank's `t`, stacked on a new dim 0 in data order."""
         pair = self._timed()
         if pair:
             pair[0].record()
         self.collectives.launches += 1
-        src = t.contiguous()
-        if self._staged(src):
-            host = self._host(src)
-            host.copy_(src)
-            parts = [torch.empty_like(host) for _ in range(self.n_data)]
-            dist.all_gather(parts, host)
-            out = torch.stack(parts).to(t.device)
-        else:
-            out = torch.empty(self.n_data * src.numel(), dtype=src.dtype,
-                              device=src.device)
-            dist.all_gather_into_tensor(out, src.reshape(-1))
-            out = out.view(self.n_data, *src.shape)
+        out = self._gather(t, self.n_data, self.data_group)
+        if pair:
+            pair[1].record()
+        return out
+
+    # -- the 'model' axis -----------------------------------------------
+    def _model_timed(self, t: torch.Tensor):
+        self.collectives.launches += 1
+        self.model_bytes += t.numel() * t.element_size()
+        pair = self._timed()
+        if pair:
+            pair[0].record()
+        return pair
+
+    def model_all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum `t` over the model axis, in place; returns `t`."""
+        pair = self._model_timed(t)
+        if self.n_model > 1:
+            self._staged_call(dist.all_reduce, t, group=self.model_group)
+        if pair:
+            pair[1].record()
+        return t
+
+    def model_all_gather(self, t: torch.Tensor, dim: int = 0
+                         ) -> torch.Tensor:
+        """The model ranks' `t`, concatenated along `dim` in model
+        order."""
+        pair = self._model_timed(t)
+        parts = self._gather(t, self.n_model, self.model_group)
+        out = torch.cat(parts.unbind(0), dim=dim)
+        if pair:
+            pair[1].record()
+        return out
+
+    def model_broadcast_(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Model index `src`'s `t` on every rank of the model axis, in
+        place."""
+        pair = self._model_timed(t)
+        if self.n_model > 1:
+            self._staged_call(dist.broadcast, t,
+                              src=self.global_rank(self.data_index, src),
+                              group=self.model_group)
+        if pair:
+            pair[1].record()
+        return t
+
+    def model_shift(self, tensors, shift: int = -1) -> list[torch.Tensor]:
+        """A ring step over the model axis: each of `tensors` goes to
+        model index (m + shift) mod n, and what model index (m - shift)
+        mod n sent comes back (new tensors). shift -1 is the JAX ring's
+        `ppermute` j -> j - 1. One batch of send/recv pairs."""
+        n = self.n_model
+        tensors = [t.contiguous() for t in tensors]
+        if n == 1 or shift % n == 0:
+            return [t.clone() for t in tensors]
+        self.collectives.launches += len(tensors)
+        self.model_bytes += sum(t.numel() * t.element_size()
+                                for t in tensors)
+        pair = self._timed()
+        if pair:
+            pair[0].record()
+        to = self.global_rank(self.data_index, (self.model_index + shift) % n)
+        frm = self.global_rank(self.data_index,
+                               (self.model_index - shift) % n)
+        # under gloo on a card each tensor goes through pinned host
+        # memory, the sends and the receives in slots of their own
+        staged = [self._staged(t) for t in tensors]
+        sends = [self._host(t, 2 * i).copy_(t) if st else t
+                 for i, (t, st) in enumerate(zip(tensors, staged))]
+        recvs = [self._host(t, 2 * i + 1) if st else torch.empty_like(t)
+                 for i, (t, st) in enumerate(zip(tensors, staged))]
+        ops = []
+        for snd, rcv in zip(sends, recvs):
+            ops.append(dist.P2POp(dist.isend, snd, to,
+                                  group=self.model_group))
+            ops.append(dist.P2POp(dist.irecv, rcv, frm,
+                                  group=self.model_group))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        out = [r.to(t.device) if st else r
+               for r, t, st in zip(recvs, tensors, staged)]
         if pair:
             pair[1].record()
         return out
@@ -453,20 +604,24 @@ class MeshPlan:
         return ms
 
     def replicate(self, tensors) -> None:
-        """Rank 0's values of `tensors` on every rank (the reference's
-        startup ncclBcast of all weights, parallel.cpp:208-227)."""
+        """Data index 0's values of `tensors` on every data rank (the
+        reference's startup ncclBcast of all weights,
+        parallel.cpp:208-227). The model ranks of one data index hold
+        alike what they replicate: the same seed, the same files."""
         with torch.no_grad():
             for t in tensors:
                 self.broadcast_(t)
 
     # -- batches --------------------------------------------------------
     def shard(self, x, batch_axis: int = 0):
-        """This rank's slice of a global batch along `batch_axis`."""
+        """This rank's slice of a global batch along `batch_axis`: the
+        slice of its data index (the model ranks of a data index take the
+        same slice)."""
         b = x.shape[batch_axis] // self.n_data
-        return x.narrow(batch_axis, self.rank * b, b) \
+        lo = self.data_index * b
+        return x.narrow(batch_axis, lo, b) \
             if isinstance(x, torch.Tensor) else \
-            x.take(range(self.rank * b, (self.rank + 1) * b),
-                   axis=batch_axis)
+            x.take(range(lo, lo + b), axis=batch_axis)
 
     def zero_slot_sharding(self, shape) -> int | None:
         """ZeRO-1: the dim-0 length of this rank's shard of a slot of
@@ -475,6 +630,185 @@ class MeshPlan:
         if self.n_data <= 1 or not shape or shape[0] % self.n_data:
             return None
         return shape[0] // self.n_data
+
+
+# ---------------------------------------------------------------------------
+# Megatron-style tensor-parallel regions over the 'model' axis
+# ---------------------------------------------------------------------------
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward identity; backward the sum over the model ranks (the
+    input of a column-parallel product is read by every shard)."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ctx.plan.model_all_reduce_(dy.contiguous().clone()), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward the sum over the model ranks (the partial products of a
+    row-parallel product); backward identity."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        return plan.model_all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Forward the model ranks' pieces concatenated along `dim`; backward
+    this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, plan, dim):
+        ctx.plan, ctx.dim, ctx.size = plan, dim, x.shape[dim]
+        return plan.model_all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        lo = ctx.plan.model_index * ctx.size
+        return dy.narrow(ctx.dim, lo, ctx.size).contiguous(), None, None
+
+
+class _SplitToModel(torch.autograd.Function):
+    """Forward this rank's slice along `dim`; backward the model ranks'
+    gradient slices concatenated."""
+
+    @staticmethod
+    def forward(ctx, x, plan, dim):
+        n = plan.n_model
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"split over {n} model ranks")
+        size = x.shape[dim] // n
+        ctx.plan, ctx.dim = plan, dim
+        return x.narrow(dim, plan.model_index * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ctx.plan.model_all_gather(dy.contiguous(), ctx.dim), None, \
+            None
+
+
+def copy_to_model(x, plan):
+    return _CopyToModel.apply(x, plan)
+
+
+def reduce_from_model(x, plan):
+    return _ReduceFromModel.apply(x, plan)
+
+
+def gather_from_model(x, plan, dim):
+    return _GatherFromModel.apply(x, plan, dim % x.dim())
+
+
+def split_to_model(x, plan, dim):
+    return _SplitToModel.apply(x, plan, dim % x.dim())
+
+
+class _GatherRowsFromData(torch.autograd.Function):
+    """Forward the data ranks' rows concatenated along dim 0 (the global
+    batch's tokens); backward the sum of the ranks' gradients, this
+    rank's rows of it (a reduce-scatter): a row's gradient reaches every
+    rank whose loss reads it (MoE's load-balancing loss reads every
+    token)."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan, ctx.rows = plan, x.shape[0]
+        parts = plan.all_gather(x)
+        return parts.reshape(-1, *x.shape[1:])
+
+    @staticmethod
+    def backward(ctx, dy):
+        dy = ctx.plan.all_reduce_(dy.contiguous().clone())
+        lo = ctx.plan.data_index * ctx.rows
+        return dy[lo:lo + ctx.rows], None
+
+
+def gather_rows_from_data(x, plan):
+    return _GatherRowsFromData.apply(x, plan)
+
+
+class Placement:
+    """The 'model'-axis placement of `param_sharding_rules`: `dim(layer,
+    param, ndim)` is the dim split over 'model' (None: replicated),
+    `local(...)` this rank's shard of a full array, `gather(...)` the
+    full array from the ranks' shards (a collective over the model
+    axis: every model rank calls it, in the same order)."""
+
+    def __init__(self, plan: MeshPlan, rules: dict):
+        self.plan = plan
+        self.rules = dict(rules or {})
+        for lname, rule in self.rules.items():
+            specs = rule.values() if isinstance(rule, dict) else [rule]
+            for spec in specs:
+                if isinstance(spec, str) and spec != "rows":
+                    raise ValueError(
+                        f"rule for {lname!r} must be a spec tuple or "
+                        f"'rows', got {spec!r}")
+                if not isinstance(spec, str):
+                    axes = [a for a in spec if a is not None]
+                    if axes and set(axes) != {"model"} or len(axes) > 1:
+                        raise NotImplementedError(
+                            f"rule {spec!r} for {lname!r}: the port splits "
+                            "one dim over 'model' only (ROADMAP.md §1 "
+                            "item 6)")
+
+    @staticmethod
+    def _spec_dim(spec) -> int | None:
+        if spec == "rows":
+            return 0
+        for i, a in enumerate(spec):
+            if a == "model":
+                return i
+        return None
+
+    def dim(self, lname: str, pname: str, ndim: int) -> int | None:
+        if self.plan.n_model <= 1:
+            return None
+        rule = self.rules.get(lname)
+        if rule is None:
+            return None
+        if isinstance(rule, dict):
+            spec = rule.get(pname)
+            d = None if spec is None else self._spec_dim(spec)
+        elif pname == "weight":
+            d = self._spec_dim(rule)
+        elif pname == "bias" and ndim >= 1 and self._spec_dim(rule) == 0:
+            # an output-dim-sharded weight: the per-output bias follows
+            d = 0
+        else:
+            d = None
+        return d if d is not None and d < ndim else None
+
+    def local(self, lname: str, pname: str, t: torch.Tensor
+              ) -> torch.Tensor:
+        d = self.dim(lname, pname, t.dim())
+        if d is None:
+            return t
+        n = self.plan.n_model
+        if t.shape[d] % n:
+            raise ValueError(f"{lname}.{pname}: dim {d} of "
+                             f"{tuple(t.shape)} does not split over {n} "
+                             "model ranks")
+        size = t.shape[d] // n
+        return t.narrow(d, self.plan.model_index * size, size)
+
+    def gather(self, lname: str, pname: str, t: torch.Tensor
+               ) -> torch.Tensor:
+        d = self.dim(lname, pname, t.dim())
+        if d is None:
+            return t
+        return self.plan.model_all_gather(t.detach(), d)
 
 
 def _cards() -> list[str]:

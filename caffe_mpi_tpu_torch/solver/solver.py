@@ -134,8 +134,8 @@ slice of the global batch (the CLI's feeders stripe by rank). Then:
   Accuracy are global-batch values across the ranks (`Net.bind_mesh`);
   Dropout's mask on a rank is its slice of the global mask drawn from
   the same generator (a given `dropout_masks` is the global mask too);
-  MoE and host layers (DetectNetTransformation) are refused (ROADMAP.md
-  §1 item 6);
+  MoE routes over the global batch; host layers
+  (DetectNetTransformation) are refused (ROADMAP.md §1 item 6);
 - ZeRO-1 (`zero_stage: 1`, the JAX checks): a history slot whose dim 0
   divides N lives on each rank as its dim-0 shard; the rank updates its
   slice of the param from the reduced gradient and the ranks all-gather
@@ -152,8 +152,25 @@ slice of the global batch (the CLI's feeders stripe by rank). Then:
   collectives cannot be captured, so under gloo on the card a chunk runs
   eagerly (`graphs`).
 
-Not ported yet (ROADMAP.md): gpipe, tensor parallelism, elastic hosts,
-HDF5 snapshots and the asynchronous evaluation that overlaps training.
+The mesh's 'model' axis (`mesh.n_model` > 1; the JAX `Solver(mesh=,
+param_shardings=)`): `param_shardings` (else the prototxt's
+`param_sharding` and the Pipeline layers, `_prototxt_shardings`) name
+the params split over 'model'. The full arrays are drawn first, then each
+rank keeps its shards (`Net.place`, the test nets' layers alike), so a
+split run starts from the one-process run's values. A rank is fed by
+its data index: the model ranks of one data index take the same slice
+and the same Dropout masks. The gradients reduce over the data axis
+only; clipping sums a split param's squares over the model ranks once;
+the guard's check and signal requests are agreed over every rank; the
+updates run on the shards. Snapshots gather the whole arrays (the
+caffemodel and solverstate a one-process run writes); `restore`,
+`load_weights` and `weights.load_jax_params` take whole arrays and keep
+the rank's shards. Refused under a model axis, naming ROADMAP.md §1
+item 6: `zero_stage: 1`, `step_chunk` > 1, a test net whose batch does
+not divide the data ranks.
+
+Not ported yet (ROADMAP.md): gpipe, elastic hosts, HDF5 snapshots and
+the asynchronous evaluation that overlaps training.
 Each of their fields is in `UNPORTED_FIELDS` (`snapshot_format` other
 than BINARYPROTO is refused the same way): a value other than its
 default raises NotImplementedError before anything is built, so no
@@ -277,8 +294,12 @@ class _Graph:
 class Solver:
     def __init__(self, sp: SolverParameter, *, model_dir: str = "",
                  device: str | torch.device | None = None,
-                 mesh: mesh_mod.MeshPlan | None = None):
-        """device: default the card (the mesh's device under `mesh`)."""
+                 mesh: mesh_mod.MeshPlan | None = None,
+                 param_shardings: dict | None = None):
+        """device: default the card (the mesh's device under `mesh`).
+        param_shardings: the JAX `Solver(param_shardings=)` rules over the
+        mesh's 'model' axis ({layer: "rows" | spec | {param: spec}});
+        None takes the prototxt's (`_prototxt_shardings`)."""
         precision = str(sp.precision or "f32").lower()
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {sp.precision!r} (expected "
@@ -324,6 +345,18 @@ class Solver:
         self.mesh = mesh
         self.rank = mesh.rank if mesh is not None else 0
         n_data = mesh.n_data if mesh is not None else 1
+        n_model = mesh.n_model if mesh is not None else 1
+        if param_shardings and mesh is None:
+            raise ValueError("param_shardings requires a mesh")
+        if n_model > 1 and zero:
+            raise NotImplementedError(
+                "zero_stage: 1 with a 'model' mesh axis is not ported yet "
+                "(ROADMAP.md §1 item 6)")
+        if n_model > 1 and int(sp.step_chunk or 1) > 1:
+            raise NotImplementedError(
+                f"step_chunk {sp.step_chunk} with a 'model' mesh axis (CUDA "
+                "graphs of its send/recv and subgroup collectives) is not "
+                "ported yet (ROADMAP.md §1 item 6); use step_chunk 1")
         self.device = resolve_device(device or "cuda")
         self.model_dir = model_dir
         self.precision = precision
@@ -344,12 +377,12 @@ class Solver:
                        precision=precision, batch_divisor=n_data)
         if n_data > 1:
             bad = [f"{l.name} ({l.lp.type})" for l in self.net.layers
-                   if l.lp.type == "MoE" or l.host_step]
+                   if l.host_step]
             if bad:
                 raise NotImplementedError(
                     f"data parallelism over layers {', '.join(bad)} is not "
-                    "ported yet (ROADMAP.md §1 item 6): MoE routes and host "
-                    "layers transform across the whole batch")
+                    "ported yet (ROADMAP.md §1 item 6): host layers "
+                    "transform across the whole batch")
         if mesh is not None:
             self.net.bind_mesh(mesh)
         # the one TF32 setting the backward runs under (raises on a mix)
@@ -372,17 +405,37 @@ class Solver:
                 tnet = Net(tparam, "TEST", batch_divisor=n_data, **kw)
                 sharded = n_data > 1
             except IndivisibleBatch:
+                if n_model > 1:
+                    raise NotImplementedError(
+                        f"test net #{i}: a batch that does not divide into "
+                        f"{n_data} data ranks, under a 'model' mesh axis, is "
+                        "not ported yet (ROADMAP.md §1 item 6)") from None
                 log.warning("test net #%d: its batch does not divide into "
                             "%d ranks; every rank evaluates the whole batch",
                             i, n_data)
                 tnet, sharded = Net(tparam, "TEST", **kw), False
-            if sharded:
+            if sharded or n_model > 1:
                 tnet.bind_mesh(mesh)
             self.test_nets.append(tnet)
             self.test_sharded.append(sharded)
 
         seed = sp.random_seed if sp.random_seed >= 0 else 0
         self.net.init(seed)
+        # the 'model' axis: the full arrays are drawn above, then each
+        # rank keeps its shards (the test nets' layers alike)
+        if param_shardings is None and mesh is not None:
+            param_shardings = self._prototxt_shardings()
+        if param_shardings:
+            known = {l.name for l in self.net.layers}
+            unknown = set(param_shardings) - known
+            if unknown:
+                raise ValueError(
+                    f"param_shardings for unknown layers: {sorted(unknown)}")
+        if param_shardings and n_model > 1:
+            placement = mesh.param_sharding_rules(param_shardings)
+            self.net.place(placement)
+            for tnet in self.test_nets:
+                tnet.place(placement)
         for tnet in self.test_nets:
             self._share_params(tnet)
         # owned learnable params in declaration order — the history order
@@ -600,6 +653,32 @@ class Solver:
         self._reducer = reduction.Reducer(
             plan, params, mesh, hooks=self._reduction is not None)
 
+    def _prototxt_shardings(self) -> dict:
+        """The net prototxt's `param_sharding` rules (the JAX
+        `_prototxt_shardings`): "rows" splits the output dim over 'model'
+        (column-parallel), "cols" the input dim (row-parallel); a
+        Pipeline's stacked params split their stage dim when the model
+        axis has one rank a stage."""
+        rules = {}
+        n_model = self.mesh.n_model if self.mesh is not None else 1
+        for layer in self.net.layers:
+            if layer.lp.type == "Pipeline" and layer.n_stages == n_model \
+                    and layer.n_stages > 1:
+                rules[layer.name] = {pn: ("model",) for pn in layer.decls}
+                continue
+            s = layer.lp.param_sharding
+            if not s:
+                continue
+            if s == "rows":
+                rules[layer.name] = "rows"
+            elif s == "cols":
+                rules[layer.name] = (None, "model")
+            else:
+                raise ValueError(
+                    f"layer {layer.name!r}: unknown param_sharding {s!r} "
+                    "(expected 'rows' or 'cols')")
+        return rules
+
     def reduction_stats(self) -> dict | None:
         """Gradient-reduction telemetry, the JAX keys: the bucket plan
         (mode 'bucketed'), or mode 'implicit' with the fallback reason;
@@ -629,6 +708,7 @@ class Solver:
             if self._train_iters else None)
         out["backend"] = self.mesh.backend
         out["zero_stage"] = self._zero
+        out["n_model"] = self.mesh.n_model
         return out
 
     def _replicated(self) -> list[torch.Tensor]:
@@ -653,12 +733,24 @@ class Solver:
             out.append(self.mesh.collectives)
         return out
 
+    def _full_shape(self, lname: str, pname: str, p) -> tuple:
+        """The whole shape of a param this rank may hold a shard of."""
+        shape = list(p.shape)
+        d = self.net.layer_by_name(lname).shards.get(pname)
+        if d is not None:
+            shape[d] *= self.mesh.n_model
+        return tuple(shape)
+
     def full_history(self) -> dict[tuple[str, str], tuple[torch.Tensor, ...]]:
         """Every param's history slots whole: ZeRO-1 shards all-gathered
-        (a collective: every rank calls it, in the same order)."""
+        over 'data', the slots of params split over 'model' gathered over
+        it (collectives: every rank calls it, in the same order)."""
         out = {}
         for key, slots in self.history.items():
-            if self._shard_len[key] is None:
+            if self.net.sharded(*key):
+                out[key] = tuple(self.net.placement.gather(*key, s)
+                                 for s in slots)
+            elif self._shard_len[key] is None:
                 out[key] = slots
             else:
                 shape = tuple(getattr(self.net.layer_by_name(key[0]),
@@ -670,7 +762,7 @@ class Solver:
     def _agree(self, flag: torch.Tensor) -> torch.Tensor:
         """A 0-d bool that is True on every rank only if it is on all."""
         bad = (~flag).float().reshape(1)
-        return self.mesh.all_reduce_(bad)[0] == 0
+        return self.mesh.world_all_reduce_(bad)[0] == 0
 
     def _journal_prefix(self) -> str:
         prefix = self.sp.snapshot_prefix or "snapshot"
@@ -763,8 +855,17 @@ class Solver:
                  else torch.zeros_like(p, dtype=torch.float32)
                  for _, _, _, p in self._decls]
         if sp.clip_gradients > 0:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
-                                   for g in grads))
+            sq = [torch.sum(torch.square(g)) for g in grads]
+            split = [self.net.sharded(lname, pname)
+                     for lname, pname, _, _ in self._decls]
+            if any(split):
+                # a param split over 'model' counts each shard once (its
+                # squares summed over the model ranks); a replicated one
+                # counts once, not once a model rank
+                part = torch.stack([q for q, x in zip(sq, split) if x]).sum()
+                part = self.mesh.model_all_reduce_(part.reshape(1))[0]
+                sq = [q for q, x in zip(sq, split) if not x] + [part]
+            gnorm = torch.sqrt(sum(sq))
             scale = torch.where(gnorm > sp.clip_gradients,
                                 sp.clip_gradients / gnorm, 1.0)
             grads = [g * scale for g in grads]
@@ -792,7 +893,7 @@ class Solver:
                     new.append((lname, pname, p, w.to(p.dtype), slots2))
                     continue
                 # ZeRO-1: this rank's dim-0 slice, then the ranks' slices
-                lo = self.rank * shard
+                lo = self.mesh.data_index * shard
                 w, slots2 = self.update_fn(
                     p[lo:lo + shard].float(), g[lo:lo + shard], slots,
                     hyper, decl.lr_mult, decl.decay_mult)
@@ -835,8 +936,10 @@ class Solver:
             [w for _, _, _, w, _ in new] + [s for *_, s2 in new for s in s2]
             + [p for _, _, decl, p in self._decls if decl.lr_mult == 0.0]
             + state)
-        if self._zero and self.mesh.n_data > 1:
-            # the slot shards differ between ranks: agree on the check
+        if (self._zero and self.mesh.n_data > 1) or \
+                self.net.placement is not None:
+            # the slot or param shards differ between ranks: agree on
+            # the check
             ok_fin = self._agree(ok_fin)
         ok = ok_fin
         spike = float(sp.guard_loss_spike or 0.0)
@@ -1160,7 +1263,8 @@ class Solver:
                 # an interval snapshot does not stall the loop (the
                 # reference's writes inline, solver.cpp:339-344)
                 self.snapshot(block=False)
-            if self.mesh is not None and self.mesh.n_data > 1:
+            if self.mesh is not None and \
+                    self.mesh.n_data * self.mesh.n_model > 1:
                 self._agree_requests()
             if self.requests["snapshot"]:
                 self.requests["snapshot"] = False
@@ -1177,7 +1281,7 @@ class Solver:
         keys = ("stop", "snapshot")
         flags = torch.tensor([float(self.requests[k]) for k in keys],
                              device=self.device)
-        self.mesh.all_reduce_(flags)
+        self.mesh.world_all_reduce_(flags)
         for k, v in zip(keys, flags.tolist()):
             self.requests[k] = v > 0
 
@@ -1341,18 +1445,23 @@ class Solver:
         t0 = time.perf_counter()
         log.info("snapshot at iteration %d; kernel launches so far: %s",
                  it, json.dumps(launch_counts()))
-        # ZeRO-1 slots gathered here, on the main thread, on every rank
-        history = None
-        if mesh_mod.needs_collective_gather(self._shard_len):
+        # ZeRO-1 slots and the params split over 'model' gathered here, on
+        # the main thread, on every rank
+        history = weights = None
+        if mesh_mod.needs_collective_gather(self._shard_len) \
+                or self.net.placement is not None:
             whole = self.full_history()
             history = [whole[k][s] for s in range(n_slots(self.type))
                        for k in self._history_keys()]
+        if self.net.placement is not None:
+            weights = self.net.weight_tensors(full=True)
         if self.rank != 0:
             return self._peer_snapshot(it, block)
         if block:
             self.wait_snapshots()
             with self._section("snapshot gather"):
-                view = self._snapshot_view(to_host=True, history=history)
+                view = self._snapshot_view(to_host=True, history=history,
+                                           weights=weights)
             path = self._write_snapshot(view, it, step)
             if self.mesh is not None:
                 self._snapshot_barrier()
@@ -1361,7 +1470,8 @@ class Solver:
                                       "stall_ms": ms, "write_ms": ms})
             return path
         with self._section("snapshot settle"):
-            view = self._snapshot_view(to_host=False, history=history)
+            view = self._snapshot_view(to_host=False, history=history,
+                                       weights=weights)
         self.wait_snapshots()  # one writer in flight: writes stay ordered
         self._barrier_pending = self.mesh is not None
         entry = {"iter": it, "block": False}
@@ -1398,7 +1508,8 @@ class Solver:
     def _history_keys(self) -> list[tuple[str, str]]:
         return [(lname, pname) for lname, pname, _, _ in self._decls]
 
-    def _snapshot_view(self, to_host: bool, history=None) -> dict:
+    def _snapshot_view(self, to_host: bool, history=None,
+                       weights=None) -> dict:
         """A point-in-time copy of what a snapshot writes: the weights in
         `Net.weight_tensors` form and the history in `_history_blobs`
         order. to_host: copied to the host now. Else copied on the device,
@@ -1418,7 +1529,7 @@ class Solver:
 
         with torch.no_grad():
             weights = {name: [copy(t) for t in blobs] for name, blobs
-                       in self.net.weight_tensors().items()}
+                       in (weights or self.net.weight_tensors()).items()}
             history = [copy(t) for t in (history
                                          or self._history_tensors())]
         event = None
@@ -1551,7 +1662,7 @@ class Solver:
         (default 600 s), or a published snapshot that fails to load
         here, raises ClusterError (`cluster_resume_failed`)."""
         mesh = self.mesh
-        if mesh is None or mesh.n_data == 1:
+        if mesh is None or mesh.n_data * mesh.n_model == 1:
             path = self._restore_auto_local(prefix)
             self._sync_replicas()
             return path
@@ -1673,10 +1784,13 @@ class Solver:
                 shard = self._shard_len[(lname, pname)]
                 for s, slot in enumerate(self.history[(lname, pname)]):
                     whole = np.array(history[i + s * n], np.float32).reshape(
-                        tuple(p.shape))
+                        self._full_shape(lname, pname, p))
                     if shard is not None:
-                        whole = whole[self.rank * shard:
-                                      (self.rank + 1) * shard]
+                        lo = self.mesh.data_index * shard
+                        whole = whole[lo:lo + shard]
+                    elif self.net.sharded(lname, pname):
+                        whole = self.net.placement.local(
+                            lname, pname, torch.from_numpy(whole)).numpy()
                     slot.copy_(torch.from_numpy(whole))
             # a restored run starts with a fresh guard carry and loss
             # scale, as the JAX solver's: neither is in a .solverstate

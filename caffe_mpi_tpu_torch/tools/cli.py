@@ -87,9 +87,12 @@ no capture); with `-smoke` the watcher polls once before the traffic.
 
 Data parallelism (the JAX CLI's flags, over the port's
 caffe_mpi_tpu_torch/parallel/): `-gpu all|i,j` runs one rank a card of
-this host (NCCL), `-mesh data=N` N ranks in all (on the cards, more
-ranks than cards raise; with `-device cpu`, N processes over gloo;
-`model=M` > 1 is refused, ROADMAP.md §1 item 6), `-hosts H -host_id k
+this host (NCCL), `-mesh data=N[,model=M]` N x M ranks in all (on the
+cards, one rank a card, and more ranks than cards raise; with `-device
+cpu`, N x M processes over gloo; rank r has data index r // M and model
+index r % M: the model ranks of a data index read the same batch slice,
+and the net's `param_sharding`, `sequence_parallel` attention and
+Pipeline layers run over them), `-hosts H -host_id k
 -coordinator host:port` spans H processes or hosts (rank = host_id x
 local ranks + local rank; host 0's rank 0 serves the store), and
 `-reduce_overlap`, `-reduce_buckets`, `-grad_bucket_mb` and
@@ -97,8 +100,8 @@ local ranks + local rank; host 0's rank 0 serves the store), and
 prototxt. More than one rank on this host runs one worker process a
 rank (this argv and CAFFE_TPU_LOCAL_RANK, contained by utils/subproc.py;
 when one dies the others are killed). Rank 0 prints the summary, which
-adds `rank`, `world`, `rank_batch`, `reduction` (Solver.reduction_stats)
-and `graphs`. A
+adds `rank`, `world` (the data ranks), `n_model`, `rank_batch`,
+`reduction` (Solver.reduction_stats) and `graphs`. A
 cluster that does not form (or agree on `-resume auto`) journals
 `cluster_init_failed` (`cluster_resume_failed`) to the rank's run
 journal and exits 87; `-max_restarts` relaunches the whole command.
@@ -107,10 +110,15 @@ The JAX CLI's flags for solver and serving fields the port does not
 honour yet (`-host_deadline`, `-min_hosts`, `-serve_replicas`, ...: one
 flag a field of the Solver's and the engine's UNPORTED_FIELDS) are
 accepted and land on their parameter, which the Solver or the engine
-refuses at any value but its default; the command then exits 1.
+refuses at any value but its default; the command then exits 1. The
+JAX CLI's flags of modules the port has not ported (`-gpipe`,
+`-gpipe_micro`: ROADMAP.md §1 item 6; `-replicas`, `-fleet_dir`,
+`-replica_id`, `-require_bank_warm`: item 5) are parsed and exit 1
+naming their item. `-decoded_cache_mb` sets the solver's
+`decoded_cache_mb`, over the prototxt's.
 
 Usage (gflags-compatible single-dash long flags accepted):
-    python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt [-synthetic] [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate | -resume auto|PATH] [-snapshot_every N] [-snapshot_keep N] [-max_restarts N] [-anomaly_action rewind|rewind_lr|abort] [-watchdog_deadline S] [-test_chunk T] [-precision bf16] [-loss_scale S] [-step_chunk K] [-train_guard] [-gpu all|i,j | -mesh data=N] [-hosts H -host_id k -coordinator host:port] [-reduce_overlap] [-reduce_buckets B | -grad_bucket_mb M] [-zero_stage 1] [-device cuda|cpu]
+    python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt [-synthetic] [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate | -resume auto|PATH] [-snapshot_every N] [-snapshot_keep N] [-max_restarts N] [-anomaly_action rewind|rewind_lr|abort] [-watchdog_deadline S] [-test_chunk T] [-precision bf16] [-loss_scale S] [-step_chunk K] [-train_guard] [-gpu all|i,j | -mesh data=N[,model=M]] [-decoded_cache_mb M] [-hosts H -host_id k -coordinator host:port] [-reduce_overlap] [-reduce_buckets B | -grad_bucket_mb M] [-zero_stage 1] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli test -model train_val.prototxt [-weights w.caffemodel] [-iterations N] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli time -model train_val.prototxt [-iterations N] [-phase TRAIN|TEST] [-profile DIR] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli device_query
@@ -129,6 +137,12 @@ import time
 import numpy as np
 
 log = logging.getLogger("caffe")
+
+# the JAX CLI's flags of modules not ported yet: (flag, type, ROADMAP.md
+# section 1 item); each exits 1 naming its item
+UNPORTED_FLAGS = (("gpipe", int, 6), ("gpipe_micro", int, 6),
+                  ("replicas", int, 5), ("fleet_dir", str, 5),
+                  ("replica_id", int, 5), ("require_bank_warm", bool, 5))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -257,10 +271,22 @@ def _parser() -> argparse.ArgumentParser:
                    "this host, or card indices 'i,j'; NCCL (raises "
                    "without a card)")
     p.add_argument("-mesh", "--mesh", default="",
-                   help="train: data=N ranks in all (over -hosts); on the "
-                   "cards, more ranks than cards raise; with -device cpu, "
-                   "N processes over gloo. model=M > 1 is not ported yet "
-                   "(ROADMAP.md §1 item 6)")
+                   help="train: data=N[,model=M]: N x M ranks in all (over "
+                   "-hosts); on the cards one a card, and more ranks than "
+                   "cards raise; with -device cpu, N x M processes over "
+                   "gloo")
+    p.add_argument("-decoded_cache_mb", "--decoded-cache-mb",
+                   dest="decoded_cache_mb", type=float, default=0.0,
+                   help="train: host budget (MiB) of the decoded-record "
+                   "cache (overrides solver decoded_cache_mb; 0 = the "
+                   "prototxt's)")
+    for flag, kind, item in UNPORTED_FLAGS:
+        extra = dict(action="store_const", const=True) if kind is bool \
+            else dict(type=kind)
+        p.add_argument(f"-{flag}", f"--{flag.replace('_', '-')}",
+                       dest=f"unported_{flag}", default=None, **extra,
+                       help=f"the JAX CLI's -{flag}: not ported yet "
+                       f"(ROADMAP.md §1 item {item}); exits 1")
     p.add_argument("-reduce_overlap", "--reduce-overlap",
                    dest="reduce_overlap", action="store_true",
                    help="all-reduce the gradients bucket by bucket from "
@@ -369,6 +395,16 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def _refuse_unported_flags(args) -> bool:
+    """Log the refusal of each UNPORTED_FLAGS flag given; True if any."""
+    given = [(flag, item) for flag, _, item in UNPORTED_FLAGS
+             if getattr(args, f"unported_{flag}", None) is not None]
+    for flag, item in given:
+        log.error("-%s is not ported yet (ROADMAP.md §1 item %d)", flag,
+                  item)
+    return bool(given)
+
+
 def _unported():
     """(parameter class, its UNPORTED_FIELDS) for the solver and serving."""
     from ..proto.config import ServingParameter, SolverParameter
@@ -458,7 +494,9 @@ def _feed_fns(solver, synthetic: bool):
     from ..data.feeder import DeviceFeed
     opened = []
     mesh = solver.mesh
-    rank, world = (mesh.rank, mesh.n_data) if mesh is not None else (0, 1)
+    # the model ranks of a data index read its slice
+    rank, world = (mesh.data_index, mesh.n_data) if mesh is not None \
+        else (0, 1)
     feeder = build_feeder(solver.net, "TRAIN", solver.sp, rank, world)
     if feeder is None:
         if not synthetic:
@@ -526,29 +564,29 @@ def _layout(args, sp):
                 raise ValueError(f"bad -mesh entry {kv!r}: expected "
                                  "data=N[,model=M]")
             shape[k.strip()] = int(v)
-        if shape["model"] > 1:
-            raise NotImplementedError(
-                f"-mesh model={shape['model']}: a 'model' axis is not "
-                "ported yet (ROADMAP.md §1 item 6)")
-        data = shape["data"]
-        if data < 1 or data % hosts:
-            raise ValueError(f"-mesh data={data} does not divide over "
-                             f"{hosts} host(s)")
-        per = data // hosts
+        data, model = shape["data"], shape["model"]
+        ranks = data * model
+        if data < 1 or model < 1 or ranks % hosts:
+            raise ValueError(f"-mesh data={data},model={model} does not "
+                             f"divide over {hosts} host(s)")
+        per = ranks // hosts
         if on_cpu:
             local = ["cpu"] * per
         else:
             cards = mesh_mod._cards()
             if per > len(cards):
-                raise ValueError(f"mesh {data}x1 needs {data} devices, "
-                                 f"have {len(cards) * hosts}")
+                raise ValueError(f"mesh {data}x{model} needs {ranks} "
+                                 f"devices, have {len(cards) * hosts}")
             local = cards[:per]
+        return dict(hosts=hosts, host_id=host_id, coordinator=coordinator,
+                    local=local, world=ranks, data=data, model=model)
     elif hosts > 1:
         local = ["cpu" if on_cpu else "cuda:0"]
     else:
         return None
     return dict(hosts=hosts, host_id=host_id, coordinator=coordinator,
-                local=local, world=hosts * len(local))
+                local=local, world=hosts * len(local),
+                data=hosts * len(local), model=1)
 
 
 def _form_mesh(layout: dict):
@@ -567,7 +605,8 @@ def _form_mesh(layout: dict):
         coordinator, layout["world"], rank,
         backend=mesh_mod.backend_for(devices, layout["hosts"]),
         device=torch.device(local[local_rank]))
-    return mesh_mod.MeshPlan.from_shape(layout["world"], devices=devices,
+    return mesh_mod.MeshPlan.from_shape(layout["data"], layout["model"],
+                                        devices=devices,
                                         hosts=layout["hosts"])
 
 
@@ -706,6 +745,8 @@ def solver_param(args):
         sp.test_chunk = args.test_chunk
     if args.anomaly_action:
         sp.anomaly_action = args.anomaly_action
+    if args.decoded_cache_mb:
+        sp.decoded_cache_mb = args.decoded_cache_mb
     if args.step_chunk:
         sp.step_chunk = args.step_chunk
     if args.precision:
@@ -868,6 +909,7 @@ def _train(args, sp, model_dir, mesh):
         # data parallelism: this rank, the ranks, the reduce, and whether
         # the chunks replayed CUDA graphs (gloo on a card runs eagerly)
         "rank": solver.rank, "world": world,
+        "n_model": mesh.n_model if mesh is not None else 1,
         "rank_batch": solver._batch_images(),
         "reduction": solver.reduction_stats(),
         "graphs": solver.graph_replays > 0,
@@ -1440,6 +1482,8 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     # the supervisor hands its children this argv
     args._argv = list(argv) if argv is not None else sys.argv[1:]
+    if _refuse_unported_flags(args):
+        return 1
     return {"train": cmd_train, "test": cmd_test, "time": cmd_time,
             "device_query": cmd_device_query,
             "serve": cmd_serve}[args.command](args)

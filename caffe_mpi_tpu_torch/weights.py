@@ -10,6 +10,11 @@ port's net owns and every state buffer must be given. The JAX
 `Solver.opt_state` tree, `opt_state[layer][name]` = a tuple of slot
 arrays, loads into the port's solver history the same way. Arrays arrive as numpy (or anything
 `np.asarray` takes); this module imports no JAX.
+
+The JAX Pipeline's stacked params ("{inner}.{param}", shape (S, ...))
+load as any other. A param the net holds split over the mesh's 'model'
+axis (`Net.place`) takes the full array, of which the rank keeps its
+shard by the placement's rule; its history slots the same.
 """
 
 from __future__ import annotations
@@ -27,6 +32,15 @@ def _copy_in(cur: torch.Tensor, arr, where: str) -> None:
     cur.copy_(torch.from_numpy(np.array(a)))
 
 
+def _local(net: Net, lname: str, pname: str, arr):
+    """This rank's part of a full array: its shard where the net holds
+    the param split over 'model', else the array."""
+    if net.placement is None or not net.sharded(lname, pname):
+        return arr
+    return net.placement.local(lname, pname, torch.from_numpy(
+        np.array(arr, np.float32))).numpy()
+
+
 @torch.no_grad()
 def load_jax_params(net: Net, params: dict, state: dict | None = None) -> None:
     given = set()
@@ -36,7 +50,8 @@ def load_jax_params(net: Net, params: dict, state: dict | None = None) -> None:
             if pname not in layer.decls:
                 raise KeyError(f"layer {lname!r} has no param {pname!r} "
                                f"(declares {list(layer.decls)})")
-            _copy_in(getattr(layer, pname), arr, f"{lname}.{pname}")
+            _copy_in(getattr(layer, pname), _local(net, lname, pname, arr),
+                     f"{lname}.{pname}")
             given.add((lname, pname))
     missing = [(l, p) for l, p, _ in net.learnable_param_decls()
                if (l, p) not in given]
@@ -73,6 +88,7 @@ def load_jax_opt_state(solver, opt_state: dict) -> None:
                 raise ValueError(f"{lname}.{pname}: {len(slots)} slots given"
                                  f", the {solver.type} solver keeps "
                                  f"{len(cur)}")
+            slots = [_local(solver.net, lname, pname, a) for a in slots]
             for arr, t in zip(slots, cur):
                 a = np.asarray(arr, np.float32)
                 if a.shape != tuple(t.shape):

@@ -323,12 +323,48 @@ Phases, in order; any failure exits nonzero and prints no result line:
              (c) with more than one card, NCCL over min(cards, 4) through
              `train -gpu 0,..,k-1` (skipped on one card): AlexNet flat
              and with `-reduce_overlap`, and ResNet-50, whose first
-             (eager) loss is held to 1e-3 of world 1's. Prints the
+             (eager) loss is held to 1e-3 of world 1's; then BatchNorm
+             alone under NCCL inside captured CUDA graphs
+             (`_bn_graphs`, `--bn-rank` processes, one a card): at each
+             of ResNet-50's 9 shapes one graph of `_GlobalBatchNorm`'s
+             forward and backward, replayed 3 times on new global
+             batches, against F.batch_norm of the global batch within
+             1e-4, the rank's own statistics outside it. Prints the
              per-rank step ms, the ms a step spent in collectives (the
              union of CUDA event pairs around them, eager runs), the
              bytes reduced a step
              and the bucket count, K1/K2 launches per rank, whether each
              path replayed graphs, and the card's name and power limit.
+24. mp    — the mesh's 'model' axis. (a) ranks sharing the one card
+             over gloo (`--mp-rank` processes of this script, a 1 x n
+             mesh), FLOAT math, cuDNN deterministic, each run against a
+             one-process run at the global batch by `_step_rule` at
+             1e-2 over every param, history slot and the losses after 3
+             iterations, each with a planted fault outside it: two
+             ranks: ring_flash_attention at transformer_lm's shape (B·H
+             32, S 64, 32 a rank, D 32), causal, f32 and bf16, against
+             the same blocks on one card without the transport
+             (`_ring_one_card`) at FLASH_TOL and against single-device
+             flash_attention (f32 at FLASH_TOL; bf16 at FLASH_TOL's rtol
+             plus 2^-6 of the largest element, MP_RING_BF16_SHARE: the
+             ring rounds its partials to bf16), with K3/K4/K5
+             launches equal to `ring_flash_launches` (fault, in f32 and
+             in bf16: the merge's weights swapped);
+             models/transformer_lm/solver_sp.prototxt
+             as written (Adam; fault: K/V never rotate), with use_flash
+             (fault: the swapped merge; K3-K5 launches per rank as
+             predicted) and with its MoE split by experts over the ranks
+             (`param_shardings`; fault: the combine not summed);
+             AlexNet's solver with fc6 `param_sharding: "rows"` and fc7
+             "cols" (fault: fc6's input gradient not summed); four
+             ranks: solver_pp.prototxt (the 4-stage Pipeline, one stage
+             a rank; fault: the replicated output gradient summed over
+             the ranks). (b) with 4 cards, NCCL through the CLI
+             (`train -mesh data=2,model=2` for solver_sp, `data=1,
+             model=4` for solver_pp; skipped with fewer): the first loss
+             within 1e-3 of `-gpu 0`'s. Prints the per-rank step ms, the
+             model-axis collective ms and bytes a step, K3-K5 launches
+             per rank, and the card's name and power limit.
 
 It prints one {"native_codec": ...} line (during phase 12), one
 {"kernels": [...]} line (K1-K5), one {"serving": ...} line (phases
@@ -340,7 +376,7 @@ phase inside it), one line each for phases 16-21 ({"leveldb": ...},
 {"imagedata": ...}, {"rcnn": ...}, {"detectnet": ...}, {"siamese":
 ...}, {"zoo_layers": ...}), one {"pycaffe": ...} line, one
 {"survive": ...} line, one
-{"dp": ...} line, one
+{"dp": ...} line, one {"mp": ...} line, one
 {"phase_seconds": ...} line (the wall seconds of each group of phases),
 the card line again, and last {"ok": true, ...}.
 """
@@ -349,6 +385,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -5844,6 +5881,155 @@ def _bn_alone(mesh, shapes, eps) -> dict:
     return out
 
 
+DP_BN_REPLAYS = 3  # replays of each captured BatchNorm graph, new inputs
+
+
+def _bn_graphs(mesh, shapes, eps) -> dict:
+    """BatchNorm alone over the cards under NCCL, inside captured CUDA
+    graphs (ROADMAP §3 fault 1): at each (rank batch, C, H, W) of
+    `shapes`, one graph of `_GlobalBatchNorm`'s forward, its backward
+    and the sums of dscale and dbias over the ranks ("global"), or of
+    F.batch_norm on the rank's own statistics ("local", the planted
+    fault), captured once and replayed DP_BN_REPLAYS times, each replay
+    on a new seeded global batch copied into the graph's inputs, held
+    against F.batch_norm of the whole global batch (`_bn_alone`'s rule:
+    y, dx, dscale, dbias, mean, var within DP_BN_BOUND of each tensor's
+    largest element)."""
+    import torch.nn.functional as F
+    from caffe_mpi_tpu_torch.layers.norm import _GlobalBatchNorm
+    dev = mesh.device
+
+    def whole(x, scale, bias):
+        var, mean = torch.var_mean(x, [0, 2, 3], correction=0)
+        return F.batch_norm(x, None, None, scale, bias, training=True,
+                            eps=eps), mean, var
+
+    def global_(x, scale, bias):
+        return _GlobalBatchNorm.apply(x, scale, bias, eps, mesh)
+
+    out = {}
+    for kind, fn in (("global", global_), ("local", whole)):
+        rows = []
+        for i, shape in enumerate(shapes):
+            n, c = shape[0], shape[1]
+            full = (n * mesh.n_data, *shape[1:])
+            xs = torch.zeros(shape, device=dev, requires_grad=True)
+            dys = torch.zeros(shape, device=dev)
+            scale = torch.ones(c, device=dev, requires_grad=True)
+            bias = torch.zeros(c, device=dev, requires_grad=True)
+
+            def step():
+                y, mean, var = fn(xs, scale, bias)
+                dx, ds, db = torch.autograd.grad(y, (xs, scale, bias), dys)
+                return (y.detach(), dx, mesh.all_reduce_(ds.clone()),
+                        mesh.all_reduce_(db.clone()), mean.detach(),
+                        var.detach())
+
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                step()  # warm-up before capture
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outs = step()
+            worst = (-1.0, None)
+            for r in range(DP_BN_REPLAYS):
+                g = torch.Generator().manual_seed(100 * i + r)
+                x = (torch.randn(full, generator=g) * 2 + 0.5).to(dev)
+                dy = torch.randn(full, generator=g).to(dev)
+                sc = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+                bi = (0.1 * torch.randn(c, generator=g)).to(dev)
+                part = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+                with torch.no_grad():
+                    xs.copy_(x[part])
+                    dys.copy_(dy[part])
+                    scale.copy_(sc)
+                    bias.copy_(bi)
+                graph.replay()
+                torch.cuda.synchronize(dev)
+                ref = _bn_grads(whole, x, dy, sc, bi)
+                ref["y"], ref["dx"] = ref["y"][part], ref["dx"][part]
+                got = dict(zip(("y", "dx", "dscale", "dbias", "mean", "var"),
+                               (t.clone() for t in outs)))
+                rule = _step_rule(ref, got, DP_BN_BOUND)
+                if rule["diff"] > worst[0]:
+                    worst = (rule["diff"], rule["worst"][0][0])
+                del x, dy, ref, got
+            rows.append((list(shape), worst[0], worst[1]))
+            del graph, outs, xs, dys
+            torch.cuda.empty_cache()
+        rows.sort(key=lambda row: -row[1])
+        out[kind] = {"diff": rows[0][1], "bound": DP_BN_BOUND,
+                     "held": rows[0][1] <= DP_BN_BOUND, "shapes": len(rows),
+                     "replays": DP_BN_REPLAYS, "worst": rows[:3]}
+    return out
+
+
+def bn_rank_main(rank: int, world: int, port: int, tmp: str) -> int:
+    """A rank of `_bn_cards` (`--bn-rank`): NCCL over `world` cards, one
+    a rank, ResNet-50's BatchNorm shapes at its global batch 32."""
+    from caffe_mpi_tpu_torch.layers.norm import BatchNormLayer
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.parallel import mesh as mesh_mod
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    devices = [f"cuda:{i}" for i in range(world)]
+    mesh_mod.init_distributed(f"127.0.0.1:{port}", world, rank,
+                              backend="nccl", device=torch.device(
+                                  devices[rank]))
+    mesh = mesh_mod.MeshPlan.from_shape(world, devices=devices)
+    resnet = Net(NetParameter.from_file(
+        os.path.join(RESNET_DIR, "train_val.prototxt")), "TRAIN",
+        device="cpu", batch_divisor=world)
+    bns = [l for l in resnet.layers if isinstance(l, BatchNormLayer)]
+    out = _bn_graphs(mesh, sorted({tuple(l.in_shapes[0]) for l in bns}),
+                     bns[0].eps)
+    mesh_mod.cluster_barrier("exit", 120)
+    mesh_mod.shutdown_distributed()
+    with open(os.path.join(tmp, f"bn{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _bn_cards(n: int, card: str) -> dict:
+    """ROADMAP §3 fault 1 over n cards: `bn_rank_main` in n processes;
+    the global statistics must hold on every rank, the local ones
+    (the planted fault) must not."""
+    from caffe_mpi_tpu_torch.parallel.mesh import free_port
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bn_")
+    try:
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--bn-rank", str(r), "--bn-world", str(n), "--bn-port",
+             str(port), "--bn-dir", tmp], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(n)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=DP_CARDS_DEADLINE))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for r, (proc, (_, err)) in enumerate(zip(procs, outs)):
+            if proc.returncode != 0:
+                fail(f"bn rank {r} exited {proc.returncode}: {err[-3000:]}")
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"bn{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        if not res["global"]["held"] or res["local"]["held"]:
+            fail(f"BatchNorm in replayed NCCL graphs, rank {r}: {res}")
+    return {"cards": n, "card": card,
+            **{f"rank{r}": res for r, res in enumerate(ranks)}}
+
+
 def dp_rank_main(rank: int, port: int, tmp: str) -> int:
     """One of the two gloo ranks on the one card (`--dp-rank`): every run
     of the dp phase's part (b); the rank's facts go to tmp/rank<k>.json,
@@ -6111,6 +6297,7 @@ def _dp_cards(card: str) -> dict | None:
     if out["overlap"]["reduction"].get("mode") != "bucketed":
         fail(f"dp over {n} cards: overlap {out['overlap']['reduction']}")
     out["resnet50"] = _dp_cards_resnet50(n, card)
+    out["bn_graphs_nccl"] = _bn_cards(n, card)
     return out
 
 
@@ -6165,6 +6352,528 @@ def dp_phase(k1: dict, k2: dict, card: str) -> dict:
     return out
 
 
+# -- 24. mp: the mesh's 'model' axis ----------------------------------------
+
+MP_ITERS = 3             # Adam (transformer_lm) / SGD (AlexNet) iterations
+MP_CARDS_ITERS = 10      # part (b): step ms is the median after the first
+MP_RANK_DEADLINE = 600   # a gloo rank process of part (a)
+MP_CARDS_DEADLINE = 300  # a CLI run over the cards, part (b)
+MP_FIRST_LOSS = 1e-3     # part (b): the first loss against one process
+# the bf16 ring against single-device flash_attention (the second check;
+# the first holds it against its own blocks on one card at FLASH_TOL):
+# FLASH_TOL's rtol plus 2^-6 of the tensor's largest element, at least
+# two bf16 ulps of it. The ring rounds each block's output (K3) and dK/dV
+# partial (K5) to bf16 before its f32 merge and sum, as the JAX ring does
+# (flash_block returns the input's type), so a sum of partials that
+# cancel is off by their ulps, not its own; the one-card ring's own
+# distance from one device is printed beside it
+MP_RING_BF16_SHARE = 2.0 ** -6
+TLM_SP_SOLVER = os.path.join(TLM_DIR, "solver_sp.prototxt")
+TLM_PP_SOLVER = os.path.join(TLM_DIR, "solver_pp.prototxt")
+# expert parallelism over the model ranks: train_val_sp's MoE banks
+MP_EP = {"blk1/moe": {"w1": ("model",), "b1": ("model",), "w2": ("model",),
+                      "b2": ("model",)}}
+# (run, solver, flash, param_shardings, planted fault) of part (a)'s two
+# ranks; every run and its fault against the one-process run of its
+# reference (the EP run's is the sp run: the split changes no math)
+MP_RUNS = (("sp", "sp", False, None, None),
+           ("sp_fault", "sp", False, None, "no_rotation"),
+           ("sp_flash", "sp", True, None, None),
+           ("sp_flash_fault", "sp", True, None, "merge"),
+           ("sp_ep", "sp", False, MP_EP, None),
+           ("sp_ep_fault", "sp", False, MP_EP, "no_combine_sum"),
+           ("alexnet_tp", "alexnet_tp", False, None, None),
+           ("alexnet_tp_fault", "alexnet_tp", False, None, "no_copy_sum"))
+MP_PP_RUNS = (("pp", "pp", False, None, None),
+              ("pp_fault", "pp", False, None, "dy_summed"))
+
+
+def _mp_solver_param(net: str, flash: bool):
+    """The run's solver in FLOAT math, no snapshots, display or tests:
+    transformer_lm's solver_sp / solver_pp as written (use_flash switched
+    on in a copy of the net for `flash`), or AlexNet's with fc6 split by
+    rows and fc7 by cols."""
+    from caffe_mpi_tpu_torch.proto import SolverParameter
+    path = {"sp": TLM_SP_SOLVER, "pp": TLM_PP_SOLVER,
+            "alexnet_tp": SOLVER}[net]
+    sp = SolverParameter.from_file(path)
+    sp.snapshot, sp.display, sp.test_interval, sp.step_chunk = 0, 0, 0, 1
+    _float_math(sp)
+    for lp in sp.net_param.layer:
+        if flash and lp.type == "Attention":
+            lp.attention_param.use_flash = True
+        if net == "alexnet_tp" and lp.name in ("fc6", "fc7"):
+            lp.param_sharding = "rows" if lp.name == "fc6" else "cols"
+    return sp
+
+
+def _mp_state(solver) -> dict:
+    """Params, history slots and running statistics whole: a rank's
+    shards gathered over the model axis (a collective)."""
+    out = {}
+    hist = solver.full_history()
+    for lname, pname, _, p in solver._decls:
+        if solver.net.sharded(lname, pname):
+            p = solver.net.placement.gather(lname, pname, p)
+        out[f"{lname}.{pname}"] = p.detach().cpu().clone()
+        for i, h in enumerate(hist[(lname, pname)]):
+            out[f"{lname}.{pname}.h{i}"] = h.cpu().clone()
+    for lname, sname, buf in solver.net.state_buffers():
+        out[f"{lname}.{sname}"] = buf.cpu().clone()
+    return out
+
+
+def _swapped_merge(O, LSE, out_b, lse_b):
+    """The planted fault of the flash ring: each side weighted by the
+    other's share."""
+    M = torch.maximum(LSE, lse_b)
+    a, bw = torch.exp(LSE - M), torch.exp(lse_b - M)
+    denom = a + bw
+    O = (O * bw[..., None] + out_b * a[..., None]) / denom[..., None]
+    return O, M + torch.log(denom)
+
+
+class _SumDy(torch.autograd.Function):
+    """Identity forward; the backward multiplies by n: the replicated
+    output gradient summed over n model ranks (the pipeline's fault)."""
+
+    @staticmethod
+    def forward(ctx, y, n):
+        ctx.n = n
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy * ctx.n, None
+
+
+def _mp_fault(fault, mesh):
+    """Plant `fault` in this process; returns the undo."""
+    from caffe_mpi_tpu_torch.layers import composite
+    from caffe_mpi_tpu_torch.ops import attention
+    from caffe_mpi_tpu_torch.parallel import mesh as mesh_mod
+    if fault is None:
+        return lambda: None
+    if fault == "no_rotation":      # K/V never leave their rank
+        real = mesh.model_shift
+        mesh.model_shift = lambda ts, shift=-1: [t.clone() for t in ts]
+        return lambda: setattr(mesh, "model_shift", real)
+    if fault == "merge":
+        real = attention._merge_blocks
+        attention._merge_blocks = _swapped_merge
+        return lambda: setattr(attention, "_merge_blocks", real)
+    if fault in ("no_combine_sum", "no_copy_sum"):
+        # MoE's combine not summed over the ranks / the column-parallel
+        # input's gradient not summed
+        name = {"no_combine_sum": "reduce_from_model",
+                "no_copy_sum": "copy_to_model"}[fault]
+        real = getattr(mesh_mod, name)
+        setattr(mesh_mod, name, lambda x, plan: x)
+        return lambda: setattr(mesh_mod, name, real)
+    if fault == "dy_summed":
+        real = composite.pipeline_apply
+        composite.pipeline_apply = lambda fn, p, mb, plan: _SumDy.apply(
+            real(fn, p, mb, plan), plan.n_model)
+        return lambda: setattr(composite, "pipeline_apply", real)
+    fail(f"unknown planted fault {fault!r}")
+
+
+def _mp_run(net, flash=False, shardings=None, mesh=None, fault=None,
+            iters=MP_ITERS):
+    """`iters` eager iterations of a run on its synthetic global batch
+    (this rank's data slice under `mesh`), every count 0 just before:
+    (whole state, facts)."""
+    from caffe_mpi_tpu_torch.solver import Solver
+    from caffe_mpi_tpu_torch.tools import cli
+    sp = _mp_solver_param(net, flash)
+    solver = Solver(sp, device=None if mesh else "cuda", mesh=mesh,
+                    param_shardings=shardings)
+    rank, world = (mesh.data_index, mesh.n_data) if mesh else (0, 1)
+    feeds = cli.synthetic_feed(solver.net, 0, rank, world)
+    undo = _mp_fault(fault, mesh)
+    try:
+        _reset_kernel_counts()
+        torch.cuda.synchronize()
+        solver.step(1, lambda it: feeds)
+        if mesh is not None:
+            mesh.timing = True
+            mesh.collective_ms()
+            mesh.model_bytes = 0
+        solver.step(iters - 1, lambda it: feeds)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    counts = _kernel_counts()
+    facts = {"launches": dict(zip(("K1", "K2", "K3", "K4", "K5"), counts)),
+             "step_ms": float(np.median(solver.iter_ms[1:])),
+             "losses": list(solver.losses)}
+    if not np.all(np.isfinite(facts["losses"])):
+        fail(f"mp {net}: losses {facts['losses']}")
+    if mesh is not None:
+        facts["collective_ms_per_step"] = \
+            mesh.collective_ms() / (iters - 1)
+        facts["model_bytes_per_step"] = mesh.model_bytes / (iters - 1)
+        facts["reduction"] = solver.reduction_stats()
+        mesh.timing = False
+        facts["shards"] = {f"{l.name}.{p}": d
+                           for l in solver.net.layers
+                           for p, d in l.shards.items()}
+    state = _mp_state(solver)
+    state["loss"] = torch.tensor(solver.losses)
+    del solver, feeds
+    torch.cuda.empty_cache()
+    return state, facts
+
+
+def _ring_one_card(q, k, v, dy, n: int, causal: bool):
+    """The flash ring's arithmetic on one card, without the transport:
+    for each of the n ring positions the same S/n blocks through
+    flash_block / flash_block_bwd (K3; K4, K5), skipped by the same
+    `_block_pred`, merged in f32 by the same `_merge_blocks`, dQ summed
+    in ring order and each dK/dV block in the order its sum rides the
+    ring. (out, dq, dk, dv) of the whole (B, S, H, D)."""
+    from caffe_mpi_tpu_torch.ops import attention as att
+    from caffe_mpi_tpu_torch.ops.flash_attention import (
+        _delta, flash_block, flash_block_bwd)
+    b, s, h, d = q.shape
+    sl = s // n
+    q2, k2, v2, dy2 = (att._to_heads2(t) for t in (q, k, v, dy))
+
+    def blk(t, j):
+        return t[:, j * sl:(j + 1) * sl].contiguous()
+
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs, lses = [], []
+    for my in range(n):
+        O = torch.zeros((b * h, sl, d), **f32)
+        LSE = torch.full((b * h, sl), -math.inf, **f32)
+        for i in range(n):
+            src = (my + i) % n
+            if att._block_pred(i, causal, my, src, sl, None):
+                out_b, lse_b = flash_block(
+                    blk(q2, my), blk(k2, src), blk(v2, src),
+                    causal=causal and i == 0)
+                O, LSE = att._merge_blocks(O, LSE, out_b.float(), lse_b)
+        outs.append(O.to(q.dtype))
+        lses.append(LSE)
+    deltas = [_delta(blk(dy2, my), outs[my]) for my in range(n)]
+    dq = [torch.zeros((b * h, sl, d), **f32) for _ in range(n)]
+    dk = [torch.zeros((b * h, sl, d), **f32) for _ in range(n)]
+    dv = [torch.zeros((b * h, sl, d), **f32) for _ in range(n)]
+    # ring step i: position my adds to block (my + i) % n, whose sum was
+    # started by position src and passed down through src - 1, ...
+    for i in range(n):
+        for my in range(n):
+            src = (my + i) % n
+            if not att._block_pred(i, causal, my, src, sl, None):
+                continue
+            dq_i, dk_b, dv_b = flash_block_bwd(
+                blk(q2, my), blk(k2, src), blk(v2, src), outs[my],
+                lses[my], blk(dy2, my), causal=causal and i == 0,
+                delta=deltas[my])
+            dq[my] = dq[my] + dq_i.float()
+            dk[src] = dk[src] + dk_b.float()
+            dv[src] = dv[src] + dv_b.float()
+    return tuple(att._from_heads2(torch.cat(parts, 1).to(q.dtype), b, h)
+                 for parts in (outs, dq, dk, dv))
+
+
+def _within(got, want, rtol: float, share: float) -> tuple[float, bool]:
+    """Max abs error of got against want, and whether every element is
+    within share x want's largest element + rtol x |want|."""
+    got, want = got.detach().float(), want.detach().float()
+    diff = (got - want).abs()
+    return float(diff.max()), bool(torch.all(
+        diff <= share * float(want.abs().max()) + rtol * want.abs()))
+
+
+def _mp_ring(mesh) -> dict:
+    """ring_flash_attention over the ranks at transformer_lm's shape (B 8
+    x H 4 = 32, S 64 (32 a rank), D 32), causal, f32 and bf16: the output
+    and dQ/dK/dV against the same ring's blocks on one card
+    (`_ring_one_card`) at FLASH_TOL, and against single-device
+    flash_attention on the same card at FLASH_TOL (bf16: FLASH_TOL's rtol
+    with MP_RING_BF16_SHARE); the K3/K4/K5 launches of the ring against
+    ring_flash_launches. The swapped merge, planted in f32 and in bf16,
+    must break FLASH_TOL against the one-card ring."""
+    from caffe_mpi_tpu_torch.ops import attention as att
+    from caffe_mpi_tpu_torch.ops.flash_attention import flash_attention
+    b, h, s, d = 8, 4, FLASH_PATH["s"], FLASH_PATH["d"]
+    want = att.ring_flash_launches(mesh.n_model, True, s // mesh.n_model)
+    out = {}
+    for label, dtype, fault in (("f32", torch.float32, None),
+                                ("bf16", torch.bfloat16, None),
+                                ("f32_merge_fault", torch.float32, "merge"),
+                                ("bf16_merge_fault", torch.bfloat16,
+                                 "merge")):
+        g = torch.Generator().manual_seed(7)
+        q, k, v, dy = (torch.randn(b, s, h, d, generator=g).to(
+            "cuda", dtype) for _ in range(4))
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+        ref = flash_attention(qs, ks, vs, causal=True)
+        ref.backward(dy)
+        one = dict(zip(("out", "dq", "dk", "dv"),
+                       _ring_one_card(q, k, v, dy, mesh.n_model, True)))
+        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+        undo = _mp_fault(fault, mesh)
+        try:
+            _reset_flash_counts()
+            got = att.sequence_parallel_attention(qr, kr, vr, mesh,
+                                                  causal=True,
+                                                  use_flash=True)
+            got.backward(dy)
+            torch.cuda.synchronize()
+            counts = _flash_counts()
+        finally:
+            undo()
+        rtol, share = FLASH_TOL[dtype]
+        flash_share = MP_RING_BF16_SHARE if dtype == torch.bfloat16 \
+            else share
+        errs, errs_flash, errs_one_flash = {}, {}, {}
+        held = held_flash = True
+        for key, a, w in (("out", got, ref), ("dq", qr.grad, qs.grad),
+                          ("dk", kr.grad, ks.grad), ("dv", vr.grad, vs.grad)):
+            errs[key], ok = _within(a, one[key], rtol, share)
+            held &= ok
+            errs_flash[key], ok = _within(a, w, rtol, flash_share)
+            held_flash &= ok
+            # the one-card ring's own distance from one device
+            errs_one_flash[key], _ = _within(one[key], w, rtol, flash_share)
+        out[label] = {"max_abs_err": errs, "held": held, "rtol": rtol,
+                      "share_of_largest": share,
+                      "vs_flash_attention": {
+                          "max_abs_err": errs_flash, "held": held_flash,
+                          "share_of_largest": flash_share,
+                          "one_card_ring_max_abs_err": errs_one_flash},
+                      "launches": dict(zip(("K3", "K4", "K5"), counts)),
+                      "predicted": want[mesh.model_index]}
+        if fault is None and (not held or not held_flash or counts != (
+                want[mesh.model_index],) * 3):
+            fail(f"mp ring {label}, rank {mesh.model_index}: {out[label]}")
+        if fault is not None and held:
+            fail(f"mp ring: the planted fault held FLASH_TOL: {out[label]}")
+    return out
+
+
+def mp_rank_main(rank: int, world: int, port: int, tmp: str) -> int:
+    """A gloo rank of the mp phase's part (a) on the one card
+    (`--mp-rank`): a 1 x world mesh; two ranks run the ring check and
+    MP_RUNS, four ranks MP_PP_RUNS. Facts go to tmp/rank<k>.json, rank
+    0's whole states to tmp/<run>.pt."""
+    from caffe_mpi_tpu_torch.parallel import mesh as mesh_mod
+    mesh_mod.init_distributed(f"127.0.0.1:{port}", world, rank,
+                              backend="gloo")
+    mesh = mesh_mod.MeshPlan.from_shape(1, world,
+                                        devices=["cuda:0"] * world)
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    if world == 2:
+        out["ring"] = _mp_ring(mesh)
+    for name, net, flash, shardings, fault in (
+            MP_RUNS if world == 2 else MP_PP_RUNS):
+        state, out[name] = _mp_run(net, flash, shardings, mesh, fault)
+        if rank == 0:
+            torch.save(state, os.path.join(tmp, f"{name}.pt"))
+        del state
+    mesh_mod.cluster_barrier("exit", 120)
+    mesh_mod.shutdown_distributed()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _mp_start(world: int, tmp: str) -> list:
+    """Start `world` gloo rank processes of this script on the card."""
+    from caffe_mpi_tpu_torch.parallel.mesh import free_port
+    port = free_port()
+    return [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--mp-rank", str(r), "--mp-world", str(world), "--mp-port",
+         str(port), "--mp-dir", tmp], cwd=ROOT,
+        env=dict(os.environ, CAFFE_TPU_COLLECTIVE_TIMEOUT="300"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+
+
+def _mp_ranks(procs: list, tmp: str) -> list[dict]:
+    """Wait for the rank processes `_mp_start` started; each rank's
+    facts."""
+    world = len(procs)
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=MP_RANK_DEADLINE))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, (_, err)) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            fail(f"mp rank {r} of {world} exited {proc.returncode}: "
+                 f"{err[-3000:]}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def _mp_one_card(card: str) -> dict:
+    """(a): the one-process references (FLOAT math, cuDNN
+    deterministic), then two gloo ranks sharing the card (the ring and
+    MP_RUNS) and, at the same time, four (MP_PP_RUNS), each run held to
+    its reference by
+    `_step_rule` at DP_RULE_BOUND over every param, history slot and the
+    losses, each planted fault outside it; the ranks' states (whole)
+    equal; K3-K5 launches of the flash run as `ring_flash_launches`
+    predicts."""
+    from caffe_mpi_tpu_torch.ops.attention import ring_flash_launches
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    refs, ref_facts = {}, {}
+    try:
+        for net, flash in (("sp", False), ("sp", True), ("alexnet_tp", False),
+                           ("pp", False)):
+            key = net + ("_flash" if flash else "")
+            refs[key], ref_facts[key] = _mp_run(net, flash)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        # the two groups run at once (their step ms share the card)
+        dirs = {n: os.path.join(tmp, f"w{n}") for n in (2, 4)}
+        procs = {}
+        try:
+            for n, d in dirs.items():
+                os.makedirs(d)
+                procs[n] = _mp_start(n, d)
+            two = _mp_ranks(procs[2], dirs[2])
+            four = _mp_ranks(procs[4], dirs[4])
+        finally:  # a failed group leaves none of the other's running
+            for proc in sum(procs.values(), []):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        rules = {}
+        for name, net, flash, _, fault in MP_RUNS + MP_PP_RUNS:
+            got = torch.load(os.path.join(
+                dirs[4 if net == "pp" else 2], f"{name}.pt"))
+            ref = refs[net + ("_flash" if flash else "")]
+            rules[name] = _step_rule(ref, got, DP_RULE_BOUND)
+            if rules[name]["held"] == bool(fault):
+                fail(f"mp {name} (planted fault {fault}) "
+                     f"{'held' if fault else 'broke'} the rule: "
+                     f"{rules[name]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"rule": rules, "bound": DP_RULE_BOUND, "iters": MP_ITERS,
+           "ring": {f"rank{r}": facts.pop("ring")
+                    for r, facts in enumerate(two)},
+           "reference_step_ms": {k: v["step_ms"]
+                                 for k, v in ref_facts.items()},
+           "card": card}
+    for ranks, runs in ((two, MP_RUNS), (four, MP_PP_RUNS)):
+        for name, *_ in runs:
+            out[name] = {f"rank{r}": {k: ranks[r][name].get(k) for k in (
+                "step_ms", "collective_ms_per_step", "model_bytes_per_step",
+                "launches", "losses")} for r in range(len(ranks))}
+            out[name]["shards"] = ranks[0][name]["shards"]
+    # K3-K5 of the flash ring: both attention layers, every iteration
+    want = ring_flash_launches(2, True, FLASH_PATH["s"] // 2)
+    for r in range(2):
+        got = out["sp_flash"][f"rank{r}"]["launches"]
+        n = 2 * MP_ITERS * want[r]
+        if (got["K3"], got["K4"], got["K5"]) != (n, n, n):
+            fail(f"mp sp_flash rank {r}: K3-K5 {got}, want {n} each")
+    for r in range(2):
+        got = out["sp"][f"rank{r}"]["launches"]
+        if got["K3"] or got["K4"] or got["K5"]:
+            fail(f"mp sp (plain ring) rank {r} launched flash: {got}")
+        # AlexNet's two LRNs a forward and a backward, every iteration
+        got = out["alexnet_tp"][f"rank{r}"]["launches"]
+        if (got["K1"], got["K2"]) != (2 * MP_ITERS, 2 * MP_ITERS):
+            fail(f"mp alexnet_tp rank {r}: K1/K2 {got}")
+    return out
+
+
+def _mp_cli(tmp, name, solver, extra=()) -> dict:
+    """`cli train` of a transformer_lm solver for MP_CARDS_ITERS
+    iterations in a process of its own (its workers one a card under
+    NCCL with -mesh): rank 0's summary."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.cli", "train",
+         "-solver", solver, "-synthetic", "-max_iter", str(MP_CARDS_ITERS),
+         "-test_iter", str(TEST_ITER),
+         "-snapshot_prefix", os.path.join(tmp, name), *extra],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=MP_CARDS_DEADLINE)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        out, err = proc.communicate()
+        fail(f"mp {name}: over {MP_CARDS_DEADLINE} s: {err[-3000:]}")
+    lines = [l for l in out.splitlines() if l.startswith('{"train"')]
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"mp {name}: exit {proc.returncode}, {len(lines)} summaries: "
+             f"{err[-3000:]}")
+    return json.loads(lines[0])["train"]
+
+
+def _mp_cards(card: str) -> dict | None:
+    """(b): NCCL over 4 cards through the CLI (skipped with fewer): the
+    solver_sp net at `-mesh data=2,model=2` and solver_pp at
+    `-mesh data=1,model=4`, the first loss of each within MP_FIRST_LOSS of
+    the one-card run's."""
+    n = min(torch.cuda.device_count(), 4)
+    if n < 4:
+        return None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mpn_")
+    try:
+        runs = {}
+        for tag, solver, mesh in (("sp", TLM_SP_SOLVER, "data=2,model=2"),
+                                  ("pp", TLM_PP_SOLVER, "data=1,model=4")):
+            runs[tag] = (_mp_cli(tmp, f"{tag}_one", solver, ("-gpu", "0")),
+                         _mp_cli(tmp, f"{tag}_mesh", solver,
+                                 ("-mesh", mesh)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"cards": n, "card": card, "bound": MP_FIRST_LOSS}
+    for tag, (one, s) in runs.items():
+        ref, got = np.asarray(one["losses"]), np.asarray(s["losses"])
+        rel = np.abs(got - ref) / np.abs(ref)
+        red = s["reduction"] or {}
+        if not (np.all(np.isfinite(got)) and red.get("backend") == "nccl"
+                and rel[0] <= MP_FIRST_LOSS):
+            fail(f"mp over {n} cards, {tag}: {s}, first loss {rel[0]}")
+        out[tag] = {"world": s["world"], "n_model": s["n_model"],
+                    "first_loss_rel_diff": float(rel[0]),
+                    "losses": s["losses"], "one_card_losses": one["losses"],
+                    "step_ms": float(np.median(s["iter_ms"][1:])),
+                    "one_card_step_ms": float(np.median(one["iter_ms"][1:])),
+                    "kernel_launches_rank0": s["kernel_launches"],
+                    "reduction": red}
+    return out
+
+
+def mp_phase(k1: dict, k2: dict, flash: list[dict], card: str) -> dict:
+    out = {"one_card_gloo": _mp_one_card(card)}
+    a = out["one_card_gloo"]
+    for entry, k in ((k1, "K1"), (k2, "K2")):
+        for r in range(2):
+            entry["launches_by_path"][f"mp_alexnet_tp_rank{r}"] = \
+                a["alexnet_tp"][f"rank{r}"]["launches"][k]
+    for entry, k in zip(flash[:3], ("K3", "K4", "K5")):
+        for r in range(2):
+            entry["launches_by_path"][f"mp_sp_flash_rank{r}"] = \
+                a["sp_flash"][f"rank{r}"]["launches"][k]
+            entry["launches_by_path"][f"mp_ring_rank{r}"] = \
+                a["ring"][f"rank{r}"]["f32"]["launches"][k]
+    out["nccl_cards"] = _mp_cards(card)
+    log(f"mp: {json.dumps(out)}")
+    return out
+
+
 class _PhaseClock:
     """Wall seconds of each group of phases, for the time limit."""
 
@@ -6187,26 +6896,53 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # the dp phase's gloo ranks
     ap.add_argument("--dp-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--dp-dir", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=["dp_cards"], default=None,
-                    help="run one part alone: dp_cards = the dp phase's "
-                    "NCCL runs (AlexNet, ResNet-50) over min(cards, 4) "
-                    "cards against one card "
-                    "(needs more than one card; prints no ok line)")
+    for part in ("mp", "bn"):   # the mp phase's and the BatchNorm ranks
+        ap.add_argument(f"--{part}-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+        ap.add_argument(f"--{part}-world", type=int, default=0,
+                        help=argparse.SUPPRESS)
+        ap.add_argument(f"--{part}-port", type=int, default=0,
+                        help=argparse.SUPPRESS)
+        ap.add_argument(f"--{part}-dir", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--only", choices=["dp_cards", "mp", "mp_cards"],
+                    default=None,
+                    help="run one part alone (prints no ok line): "
+                    "dp_cards = the dp phase's NCCL runs (AlexNet, "
+                    "ResNet-50, BatchNorm in replayed graphs) over "
+                    "min(cards, 4) cards against one card (needs more than "
+                    "one card); mp = the mp phase's part (a), gloo ranks "
+                    "sharing card 0; mp_cards = its part (b), NCCL over 4 "
+                    "cards (needs 4)")
     args = ap.parse_args(argv)
-    if args.dp_rank is not None:
+    if args.dp_rank is not None or args.mp_rank is not None \
+            or args.bn_rank is not None:
         if not torch.cuda.is_available():
             fail("torch.cuda.is_available() is False: no card")
+        if args.mp_rank is not None:
+            return mp_rank_main(args.mp_rank, args.mp_world, args.mp_port,
+                                args.mp_dir)
+        if args.bn_rank is not None:
+            return bn_rank_main(args.bn_rank, args.bn_world, args.bn_port,
+                                args.bn_dir)
         return dp_rank_main(args.dp_rank, args.dp_port, args.dp_dir)
-    if args.only == "dp_cards":
+    if args.only is not None:
         os.chdir(ROOT)
         card, _ = device_phase()
         from caffe_mpi_tpu_torch.ops import build
-        for src in ("lrn.cu", build.NATIVE):
-            build.build(src)
-        res = _dp_cards(card)
+        if args.only == "dp_cards":
+            for src in ("lrn.cu", build.NATIVE):
+                build.build(src)
+            res = _dp_cards(card)
+        elif args.only == "mp":
+            with ThreadPoolExecutor(2) as ex:
+                list(ex.map(build.build, ("lrn.cu", "flash_attention.cu")))
+            res = _mp_one_card(card)
+        else:  # solver_sp and solver_pp launch no kernel of the repo
+            res = _mp_cards(card)
         if res is None:
-            fail("--only dp_cards needs more than one card")
-        print(json.dumps({"dp_cards": res}), flush=True)
+            fail(f"--only {args.only} needs more cards than "
+                 f"{torch.cuda.device_count()}")
+        print(json.dumps({args.only: res}), flush=True)
         print(card, flush=True)
         return 0
     parent = os.path.abspath(args.parent) if args.parent else None
@@ -6264,6 +7000,8 @@ def main(argv=None) -> int:
     clock("survive")
     dp = dp_phase(k1, k2, card)
     clock("dp")
+    mp = mp_phase(k1, k2, flash, card)
+    clock("mp")
     print(json.dumps({"kernels": [k1, k2, *flash]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
@@ -6278,6 +7016,7 @@ def main(argv=None) -> int:
     print(json.dumps({"pycaffe": pycaffe}), flush=True)
     print(json.dumps({"survive": survive}), flush=True)
     print(json.dumps({"dp": dp}), flush=True)
+    print(json.dumps({"mp": mp}), flush=True)
     print(json.dumps({"phase_seconds": clock.seconds}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -229,10 +229,8 @@ def test_cli_train_without_a_data_layer_needs_synthetic(tmp_path):
 
 # -- the MAC model ------------------------------------------------------------
 
-# nets with a layer type the port has not registered or refuses
-# (ROADMAP.md section 1 items 3 and 6)
-UNBUILT = {"models/transformer_lm/train_val_pp.prototxt",      # Pipeline
-           "examples/hdf5_classification/nonlinear_train_val.prototxt"}
+# nets with a layer type the port refuses (ROADMAP.md section 1 item 3)
+UNBUILT = {"examples/hdf5_classification/nonlinear_train_val.prototxt"}
 
 
 def _zoo():

@@ -24,8 +24,9 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NETS = sorted(os.path.relpath(p, _ROOT) for p in glob.glob(
     os.path.join(_ROOT, "models", "*", "*.prototxt"))
     if "solver" not in os.path.basename(p))
-# the unported layer type each such net needs (ROADMAP.md section 1)
-UNPORTED = {"models/transformer_lm/train_val_pp.prototxt": "Pipeline"}
+# the unported layer type each such net needs (ROADMAP.md section 1):
+# none since the Pipeline layer
+UNPORTED: dict[str, str] = {}
 
 
 def test_the_zoo_is_all_there():

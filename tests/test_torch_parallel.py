@@ -254,8 +254,17 @@ def spawn(request):
 # -- MeshPlan and the cluster helpers (in process) ----------------------------
 
 def test_mesh_axes_and_layouts_are_validated():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 6"):
+    # a 1 x 2 mesh is two ranks: it needs the process group formed first
+    # (a group of one that another test of this process formed goes)
+    mesh_mod.shutdown_distributed()
+    with pytest.raises(ClusterError, match="needs the process group"):
         MeshPlan.from_shape(1, model=2, devices=["cpu", "cpu"])
+    # and a live group of one is the wrong size for it
+    MeshPlan.from_shape(1, devices=["cpu"])
+    with pytest.raises(ValueError, match="process group has 1 ranks"):
+        MeshPlan.from_shape(1, model=2, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="axes must be >= 1"):
+        MeshPlan.from_shape(1, model=0, devices=[])
     with pytest.raises(ValueError, match="devices"):
         MeshPlan.from_shape(3, devices=["cpu"] * 2)
     assert mesh_mod.backend_for(["cpu", "cpu"]) == "gloo"
@@ -271,8 +280,24 @@ def test_world_one_plan_shards_and_refuses_tensor_parallelism():
     x = torch.arange(8.0).reshape(4, 2)
     assert torch.equal(plan.shard(x), x)
     assert plan.zero_slot_sharding((8, 3)) is None  # one rank: replicated
+    # one model rank: the rules place nothing
+    placement = plan.param_sharding_rules({"ip": ("model", None)})
+    assert placement.dim("ip", "weight", 2) is None
+    # rank 3 of a 2 x 2 mesh: data index 1, model index 1; "rows" splits
+    # the weight's dim 0 and the bias, a (None, "model") spec dim 1 only
+    mp = MeshPlan(n_data=2, rank=3, device=torch.device("cpu"),
+                  backend="gloo", n_model=2)
+    assert (mp.data_index, mp.model_index) == (1, 1)
+    assert torch.equal(mp.shard(x), x[2:])
+    rules = mp.param_sharding_rules({"a": "rows", "b": (None, "model")})
+    w = torch.arange(12.0).reshape(4, 3)
+    assert torch.equal(rules.local("a", "weight", w), w[2:])
+    assert torch.equal(rules.local("a", "bias", w[:, 0]), w[2:, 0])
+    assert rules.dim("a", "bias", 1) == 0 and rules.dim("b", "bias", 1) \
+        is None
+    assert torch.equal(rules.local("b", "weight", w.t()), w.t()[:, 2:])
     with pytest.raises(NotImplementedError, match="item 6"):
-        plan.param_sharding_rules({"ip": ("model", None)})
+        mp.param_sharding_rules({"c": ("data", "model")})
     half = MeshPlan(n_data=2, rank=1, device=torch.device("cpu"),
                     backend="gloo")
     assert torch.equal(half.shard(x), x[2:])
@@ -569,7 +594,7 @@ def test_cli_mesh_refusals_exit_one_and_gpu_without_a_card_raises(
     from caffe_mpi_tpu_torch.tools import cli
     solver = _cli_solver(tmp_path)
     base = ["train", "-solver", solver, "-synthetic", "-device", "cpu"]
-    assert cli.main(base + ["-mesh", "data=1,model=2"]) == 1
+    assert cli.main(base + ["-mesh", "data=1,model=2,stage=2"]) == 1
     assert cli.main(base + ["-gpu", "all"]) == 1      # -gpu names cards
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):

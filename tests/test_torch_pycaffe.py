@@ -554,8 +554,7 @@ def test_io_conversions_oversample_and_load_image_match_jax(tmp_path):
 
 
 def test_layer_type_list_is_the_jax_list_but_pipeline():
-    assert set(jcaffe.layer_type_list()) - set(caffe.layer_type_list()) \
-        == {"Pipeline"}
+    assert set(jcaffe.layer_type_list()) == set(caffe.layer_type_list())
     assert caffe.layer_type_list() == sorted(caffe.layer_type_list())
 
 

@@ -301,7 +301,7 @@ def _write_solver(tmp_path):
 
 @pytest.mark.parametrize("flags", [["-host_deadline", "30"],
                                    ["-min_hosts", "1"],
-                                   ["-mesh", "data=1,model=2"],
+                                   ["-gpipe", "2"],
                                    ["-min_hosts", "2"],
                                    ["-precision", "nonsense"]])
 def test_cli_train_flag_of_an_unported_field_exits_one(tmp_path, flags):
@@ -460,17 +460,19 @@ def test_unported_data_layer_types_are_refused(kind, param):
     ("HDF5Output", 'hdf5_output_param { file_name: "o.h5" }',
      NotImplementedError,
      r"the HDF5Output layer is not ported .*ROADMAP\.md §1 item 7\b"),
-    ("Pipeline", "", ValueError, r"unknown layer type 'Pipeline'"),
+    ("Pipeline", "", ValueError,
+     r"pipeline_param needs num_stages >= 1 and at least one inner layer"),
 ])
 def test_unported_layer_types_are_refused(kind, param, exc, match):
     """HDF5Output is registered only to be refused, naming its ROADMAP
-    item (the card's machine has no h5py); Pipeline is the one JAX type
-    the port does not know. Every other JAX type is registered."""
+    item (the card's machine has no h5py); a Pipeline without its block
+    is refused as the JAX layer refuses it. Every JAX type is
+    registered."""
     from caffe_mpi_tpu.layers.base import LAYER_REGISTRY as JAX_REGISTRY
     from caffe_mpi_tpu_torch.layers import LAYER_REGISTRY
     from caffe_mpi_tpu_torch.net import Net
     from caffe_mpi_tpu_torch.proto import NetParameter
-    assert set(JAX_REGISTRY) - set(LAYER_REGISTRY) == {"Pipeline"}
+    assert set(JAX_REGISTRY) - set(LAYER_REGISTRY) == set()
     text = ('layer { name: "in" type: "Input" top: "x" input_param { '
             'shape { dim: 2 dim: 3 } } } '
             f'layer {{ name: "l" type: "{kind}" bottom: "x" {param} }}')

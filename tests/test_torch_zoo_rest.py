@@ -335,7 +335,8 @@ def test_layer_bf16_forward_and_gradients_match_jax(case):
 
 def test_every_jax_type_but_pipeline_is_registered():
     from caffe_mpi_tpu.layers.base import LAYER_REGISTRY as JAX_REGISTRY
-    assert set(JAX_REGISTRY) - set(LAYER_REGISTRY) == {"Pipeline"}
+    # Pipeline is registered too (layers/composite.py)
+    assert set(JAX_REGISTRY) - set(LAYER_REGISTRY) == set()
     assert NEW_TYPES <= set(LAYER_REGISTRY)
     covered = {LayerParameter.from_text(_layer_text(b, len(s))).type
                for b, s, _ in CASES.values()}

@@ -5,12 +5,17 @@ test_torch_reduction.py, test_torch_zero.py), run as its own process:
 
 It imports torch, numpy and the port only. It forms a gloo group of WORLD
 ranks on the CPU at 127.0.0.1:PORT (every collective bounded by
-CAFFE_TPU_COLLECTIVE_TIMEOUT), then runs each scenario of the pickled
-SPEC (a list of dicts) and pickles {scenario name: result} to
-OUT/r<RANK>.pkl. A scenario trains a port Solver from a solver prototxt
-on its rank's slice of the given global feeds (with the given global
-Dropout masks, JAX initial weights and optional NaN poison), or checks
-BatchNorm alone ("kind": "bn").
+CAFFE_TPU_COLLECTIVE_TIMEOUT) and a mesh of data x model ranks over it
+(SPEC's "mesh"; data = WORLD by default), then runs each scenario of the
+pickled SPEC's "scenarios" (a list of dicts) and pickles {scenario
+name: result} to OUT/r<RANK>.pkl. A scenario ("kind") trains a port
+Solver from a solver prototxt on its data index's slice of the given
+global feeds (with the given global Dropout masks, JAX initial weights,
+`param_shardings` and optional NaN poison; "train", the default), checks
+BatchNorm alone ("bn"), runs the ring over the model ranks on global
+q, k, v with an upstream gradient ("ring"), pipeline_apply of a given
+stage function ("pipeline"), or moe_ffn with its experts split over the
+model ranks ("moe").
 """
 
 from __future__ import annotations
@@ -32,9 +37,12 @@ from caffe_mpi_tpu_torch.weights import load_jax_params  # noqa: E402
 
 
 def _state(solver) -> dict:
-    """Params, whole history slots and running statistics, on the host."""
+    """Params (whole: the ones split over 'model' gathered), whole history
+    slots and running statistics, on the host."""
     out = {}
     for lname, pname, _, p in solver._decls:
+        if solver.net.sharded(lname, pname):
+            p = solver.net.placement.gather(lname, pname, p)
         out[f"{lname}.{pname}"] = p.detach().numpy().copy()
     for (lname, pname), slots in solver.full_history().items():
         for i, h in enumerate(slots):
@@ -45,7 +53,8 @@ def _state(solver) -> dict:
 
 
 def train(sc: dict, mesh) -> dict:
-    solver = Solver(SolverParameter.from_text(sc["solver"]), mesh=mesh)
+    solver = Solver(SolverParameter.from_text(sc["solver"]), mesh=mesh,
+                    param_shardings=sc.get("param_shardings"))
     if sc.get("weights") is not None:
         load_jax_params(solver.net, sc["weights"], sc.get("net_state"))
         solver._sync_replicas()
@@ -78,7 +87,8 @@ def train(sc: dict, mesh) -> dict:
         prefix = sc["snapshot"]
         solver.sp.snapshot_prefix = prefix
         res["snapshot"] = solver.snapshot()
-        again = Solver(SolverParameter.from_text(sc["solver"]), mesh=mesh)
+        again = Solver(SolverParameter.from_text(sc["solver"]), mesh=mesh,
+                       param_shardings=sc.get("param_shardings"))
         again.sp.snapshot_prefix = prefix
         res["restored_auto"] = again.restore_auto()
         res["restored"] = _state(again)
@@ -117,20 +127,98 @@ def batch_norm(sc: dict, mesh) -> dict:
             "var": layer.var.numpy().copy()}
 
 
+def _grads_of(out, inputs, dy):
+    """The gradients of sum(out * dy) with respect to `inputs`."""
+    (out * dy).sum().backward()
+    return [t.grad.numpy().copy() for t in inputs]
+
+
+def ring(sc: dict, mesh) -> dict:
+    """sequence_parallel_attention over the model ranks (plain or flash
+    blocks) on global q, k, v; the output and the q, k, v gradients of
+    sum(out * dy), and the flash launches."""
+    from caffe_mpi_tpu_torch.ops import attention as att
+    from caffe_mpi_tpu_torch.ops import flash_attention as fa
+    q, k, v = (torch.from_numpy(sc[n]).requires_grad_(True)
+               for n in ("q", "k", "v"))
+    before = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq,
+                                   fa.flash_bwd_dkv)]
+    calls = {"flash_block": 0, "flash_block_bwd": 0}
+    real = {name: getattr(fa, name) for name in calls}
+
+    def counted(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return call
+    for name in calls:
+        setattr(fa, name, counted(name))
+    try:
+        out = att.sequence_parallel_attention(
+            q, k, v, mesh, causal=sc["causal"], use_flash=sc["flash"])
+        grads = _grads_of(out, [q, k, v], torch.from_numpy(sc["dy"]))
+    finally:
+        for name, fn in real.items():
+            setattr(fa, name, fn)
+    return {"out": out.detach().numpy(), "dq": grads[0], "dk": grads[1],
+            "dv": grads[2], "blocks": calls,
+            "launches": [f.launches - b for f, b in zip(
+                (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv), before)]}
+
+
+def pipeline(sc: dict, mesh) -> dict:
+    """pipeline_apply of a stage y = tanh(x @ w + b) over the model ranks,
+    stage s's (w, b) from the stacked ones; the output and the gradients
+    of sum(out * dy) for x and this rank's stage."""
+    from caffe_mpi_tpu_torch.parallel.pipeline import pipeline_apply
+    s = mesh.model_index
+    w = torch.from_numpy(sc["w"][s].copy()).requires_grad_(True)
+    b = torch.from_numpy(sc["b"][s].copy()).requires_grad_(True)
+    x = torch.from_numpy(sc["x"]).requires_grad_(True)
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+    out = pipeline_apply(stage, {"w": w, "b": b}, x, mesh)
+    dx, dw, db = _grads_of(out, [x, w, b], torch.from_numpy(sc["dy"]))
+    return {"out": out.detach().numpy(), "dx": dx, "dw": dw, "db": db}
+
+
+def moe(sc: dict, mesh) -> dict:
+    """moe_ffn with the experts split over the model ranks
+    (shard_experts); y, aux and the gradients of sum(y * dy) + aux for x
+    and every param (the experts' this rank's)."""
+    from caffe_mpi_tpu_torch.ops.moe import moe_ffn, shard_experts
+    full = {k: torch.from_numpy(v) for k, v in sc["params"].items()}
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in shard_experts(full, mesh).items()}
+    x = torch.from_numpy(sc["x"]).requires_grad_(True)
+    y, aux = moe_ffn(params, x, top_k=sc["top_k"],
+                     capacity_factor=sc["capacity_factor"], plan=mesh)
+    ((y * torch.from_numpy(sc["dy"])).sum() + aux).backward()
+    return {"y": y.detach().numpy(), "aux": float(aux),
+            "dx": x.grad.numpy(),
+            "grads": {k: v.grad.numpy() for k, v in params.items()}}
+
+
+KINDS = {"bn": batch_norm, "train": train, "ring": ring, "pipeline": pipeline,
+         "moe": moe}
+
+
 class Ranks:
     """`world` rank processes running `scenarios` (started at once; the
     caller may work meanwhile): `results()` waits for them and returns
     each rank's {name: result}. A rank that fails or outlasts `timeout`
     fails the call, with its output, and every rank is killed."""
 
-    def __init__(self, scenarios: list[dict], world: int, out_dir: str,
+    def __init__(self, scenarios, world: int, out_dir: str,
                  timeout: float = 150.0):
         import subprocess
         os.makedirs(out_dir, exist_ok=True)
         self.out_dir, self.world, self.timeout = out_dir, world, timeout
         spec = os.path.join(out_dir, "spec.pkl")
         with open(spec, "wb") as f:
-            pickle.dump(scenarios, f)
+            pickle.dump(scenarios if isinstance(scenarios, dict)
+                        else {"scenarios": scenarios}, f)
         port = mesh_mod.free_port()
         env = dict(os.environ, CAFFE_TPU_COLLECTIVE_TIMEOUT="90",
                    CAFFE_TPU_INIT_TIMEOUT="60", OMP_NUM_THREADS="1")
@@ -163,7 +251,7 @@ class Ranks:
         return out
 
 
-def run_ranks(scenarios: list[dict], world: int, out_dir: str,
+def run_ranks(scenarios, world: int, out_dir: str,
               timeout: float = 150.0) -> list[dict]:
     """Ranks(...).results()."""
     return Ranks(scenarios, world, out_dir, timeout).results()
@@ -174,14 +262,15 @@ def main(argv) -> int:
     rank, world = int(rank), int(world)
     torch.set_num_threads(1)
     with open(spec, "rb") as f:
-        scenarios = pickle.load(f)
+        spec = pickle.load(f)
     mesh_mod.init_distributed(f"127.0.0.1:{port}", world, rank,
                               backend="gloo")
-    mesh = mesh_mod.MeshPlan.from_shape(world, devices=["cpu"] * world)
+    data, model = spec.get("mesh", (world, 1))
+    mesh = mesh_mod.MeshPlan.from_shape(data, model,
+                                        devices=["cpu"] * world)
     results = {}
-    for sc in scenarios:
-        fn = batch_norm if sc.get("kind") == "bn" else train
-        results[sc["name"]] = fn(sc, mesh)
+    for sc in spec["scenarios"]:
+        results[sc["name"]] = KINDS[sc.get("kind", "train")](sc, mesh)
     mesh_mod.cluster_barrier("exit", 60)
     mesh_mod.shutdown_distributed()
     with open(os.path.join(out, f"r{rank}.pkl"), "wb") as f:
