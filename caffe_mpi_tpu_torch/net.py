@@ -23,6 +23,11 @@ from the generator `forward` is given. Parameters are `nn.Parameter`s
 that the solver switches to `requires_grad` for training; autograd does
 the backward.
 
+`forward_range(feeds, env, lo, hi)` runs layers [lo, hi) on a blob
+environment that earlier layers produced (the JAX `Net.apply_range`):
+`forward` is its full range, and a GPipe stage (parallel/gpipe.py) is
+one range of it; a range sums the loss tops produced in it.
+
 A layer with `remat: true` is rematerialised in TRAIN, as the JAX `Net`
 runs it under `jax.checkpoint`: its forward runs through
 `torch.utils.checkpoint` (non-reentrant), which keeps only its inputs and
@@ -105,6 +110,7 @@ class Net(nn.Module):
         self.param_aliases: dict[tuple[str, str], tuple[str, str]] = {}
         # (blob, loss weight) for every top that adds to the loss
         self.loss_blobs: list[tuple[str, float]] = []
+        self._loss_at: list[int] = []  # the layer index adding each one
         # the 'model'-axis placement of the params (`place`), or None
         self.placement = None
 
@@ -194,6 +200,7 @@ class Net(nn.Module):
                      else layer.default_loss_weight(ti))
                 if w:
                     self.loss_blobs.append((t, float(w)))
+                    self._loss_at.append(len(layers))
             self._share_params(layer)
             layers.append(layer)
             self._layer_index.setdefault(layer.name, layer)
@@ -353,9 +360,32 @@ class Net(nn.Module):
         blob, the loss: sum of weight x sum(top) over the loss tops, a
         float32 scalar). `generator` feeds Dropout's draws in TRAIN phase;
         `dropout_masks` {layer name: bool mask} replaces a layer's draw."""
-        env: dict[str, torch.Tensor] = {}
+        return self.forward_range(feeds, {}, 0, len(self.layers),
+                                  generator=generator,
+                                  dropout_masks=dropout_masks)
+
+    def forward_range(self, feeds: dict[str, torch.Tensor],
+                      env: dict[str, torch.Tensor], lo: int, hi: int, *,
+                      generator: torch.Generator | None = None,
+                      dropout_masks: dict[str, torch.Tensor] | None = None,
+                      params: dict[str, dict[str, torch.Tensor]] | None
+                      = None, device: torch.device | None = None
+                      ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        """Run layers [lo, hi): the pipeline stage's primitive (the JAX
+        `Net.apply_range`); `forward` is its full range, so a stage and
+        the whole net share one code path. `env` seeds the blobs that
+        earlier layers produced; `feeds` serves the input layers in the
+        range. Returns (env with this range's tops, the loss of the loss
+        tops produced in the range, a float32 scalar on `device`, default
+        the net's). Dropout masks are keyed by layer name, so a partition
+        cannot change a draw. `params` {layer: {param: tensor}} replaces
+        those layers' params for this call (a stage's copy of a param its
+        owner keeps on another device)."""
+        env = dict(env)
         masks = dropout_masks or {}
-        for layer, frozen in zip(self.layers, self._frozen_uses):
+        params = params or {}
+        for i in range(lo, hi):
+            layer, frozen = self.layers[i], self._frozen_uses[i]
             if isinstance(layer, InputLayerBase):
                 bottoms = layer.gather_feeds(feeds)
             else:
@@ -373,25 +403,30 @@ class Net(nn.Module):
                     # the recompute must read the forward's draw
                     mask = layer.draw_mask(generator)
                 kw = dict(generator=generator, mask=mask)
+            given = params.get(layer.name, {})
             frozen = [p for p in frozen
                       if self.training and getattr(layer, p).requires_grad]
+            swap = dict(given)
+            for p in frozen:
+                # a frozen use of a param that another use trains: the
+                # forward reads it detached (JAX: stop_gradient)
+                swap[p] = swap.get(p, getattr(layer, p)).detach()
 
-            def call(*bs, layer=layer, frozen=frozen, kw=kw):
-                if frozen:
-                    # a frozen use of a param that another use trains:
-                    # the forward reads it detached (JAX: stop_gradient)
+            def call(*bs, layer=layer, swap=swap, kw=kw):
+                if swap:
                     return torch.func.functional_call(
-                        layer, {p: getattr(layer, p).detach()
-                                for p in frozen}, (list(bs),), kw)
+                        layer, swap, (list(bs),), kw)
                 return layer(list(bs), **kw)
 
             tops = _rematerialised(layer, call, bottoms) if remat \
                 else call(*bottoms)
             for t, v in zip(layer.lp.top, tops):
                 env[t] = v
-        loss = torch.zeros((), dtype=torch.float32, device=self.device)
-        for blob, w in self.loss_blobs:
-            loss = loss + w * env[blob].float().sum()
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=device or self.device)
+        for (blob, w), at in zip(self.loss_blobs, self._loss_at):
+            if lo <= at < hi:  # produced in this range
+                loss = loss + w * env[blob].float().sum()
         return env, loss
 
     def math_precision(self) -> str:

@@ -41,10 +41,15 @@ chosen by trying NCCL and falling back.
 - `cluster_barrier` and `cluster_kv_set` / `cluster_kv_get` work on the
   group's store, never on the device.
 
-The heartbeat transport, the generation records of min_hosts elasticity
-and the jax-version shims (typeof, vma, shard_map, axis_size,
-mark_varying) have no counterpart here: the shims exist for a traced
-program, and the rest stays with ROADMAP.md §1 item 6.
+- `heartbeat_transport` is the cross-host heartbeat's channel:
+  `KVBeatTransport` over the group's store, or the shared directory's
+  `DirBeatTransport` when CAFFE_TPU_HB_DIR is set;
+  `cluster_generation` reads the generation the elastic supervisor
+  launched this worker under (`min_hosts`), and `publish_generation`
+  mirrors it onto the store.
+
+The jax-version shims (typeof, vma, shard_map, axis_size, mark_varying)
+have no counterpart here: they exist for a traced program.
 """
 
 from __future__ import annotations
@@ -128,6 +133,18 @@ def backend_for(devices, hosts: int = 1) -> str:
         if len(set(idx)) != len(idx):
             return "gloo"
     return "nccl"
+
+
+def local_coordinator(coordinator: str | None = None) -> bool:
+    """Whether `coordinator` (host:port; default the live group's store)
+    is this machine's loopback: then every host process runs on this
+    machine and shares its cards."""
+    if coordinator is None:
+        if _STORE is None:
+            return False
+        coordinator = f"{_STORE.host}:{_STORE.port}"
+    host = coordinator.rpartition(":")[0].strip("[]")
+    return host in ("127.0.0.1", "localhost", "::1")
 
 
 def _timeout(env: str, default: float) -> float:
@@ -258,6 +275,88 @@ def cluster_kv_get(key: str, timeout_s: float = 120.0) -> str | None:
         return None
 
 
+class KVBeatTransport:
+    """Heartbeat transport over the group's store (the channel the
+    cluster already trusts for its formation): `caffe_hb/<host>` holds a
+    host's newest beat, overwritten a beat (the store allows it, so
+    nothing is pruned), and `caffe_hb/<host>/bye` its farewell. Readers
+    take the latest beat, never an exact one. A dead store makes every
+    call raise, which the heartbeat reads as silence: the cluster then
+    exits 87 within a deadline."""
+
+    _PREFIX = "caffe_hb"
+
+    def __init__(self, store=None):
+        self._store = store if store is not None else _STORE
+        if self._store is None:
+            from ..utils import resilience
+            raise resilience.ClusterError(
+                "no process group: KVBeatTransport needs init_distributed "
+                "first (or set CAFFE_TPU_HB_DIR for the shared-directory "
+                "transport)")
+
+    def publish(self, host: int, seq: int) -> None:
+        self._store.set(f"{self._PREFIX}/{int(host)}", str(int(seq)))
+
+    def latest_seq(self, host: int) -> int:
+        """The newest beat `host` has published, -1 when none."""
+        key = f"{self._PREFIX}/{int(host)}"
+        if not self._store.check([key]):
+            return -1
+        return int(self._store.get(key).decode())
+
+    def farewell(self, host: int) -> None:
+        self._store.set(f"{self._PREFIX}/{int(host)}/bye", "1")
+
+    def is_bye(self, host: int) -> bool:
+        return bool(self._store.check([f"{self._PREFIX}/{int(host)}/bye"]))
+
+
+def heartbeat_transport():
+    """The heartbeat's channel: the shared directory CAFFE_TPU_HB_DIR when
+    set, else the group's store."""
+    from ..utils import resilience
+    hb_dir = os.environ.get("CAFFE_TPU_HB_DIR", "")
+    if hb_dir:
+        return resilience.DirBeatTransport(hb_dir)
+    return KVBeatTransport()
+
+
+def cluster_generation() -> dict | None:
+    """The generation record this worker was launched under, as the
+    elastic supervisor (`resilience.supervise_elastic`) exports it:
+    {"generation", "hosts", "world_full", "self"}; None outside a
+    min_hosts run."""
+    gen = os.environ.get("CAFFE_TPU_CLUSTER_GEN", "")
+    hosts = os.environ.get("CAFFE_TPU_CLUSTER_HOSTS", "")
+    if not gen or not hosts:
+        return None
+    try:
+        return {
+            "generation": int(gen),
+            "hosts": [int(h) for h in hosts.split(",") if h != ""],
+            "world_full": int(
+                os.environ.get("CAFFE_TPU_WORLD_FULL", "0") or 0),
+            "self": int(os.environ.get("CAFFE_TPU_CLUSTER_SELF", "-1")
+                        or -1),
+        }
+    except ValueError:
+        return None
+
+
+def publish_generation() -> bool:
+    """Mirror the live generation record onto the store at
+    `caffe/cluster_gen` (rank 0, after formation); the supervisors'
+    directory stays the source of truth. False outside a min_hosts run
+    or with no store."""
+    gen = cluster_generation()
+    if gen is None:
+        return False
+    import json
+    return cluster_kv_set("caffe/cluster_gen",
+                          json.dumps(gen, sort_keys=True))
+
+
 def needs_collective_gather(sharded) -> bool:
     """True when exporting state involves a collective: some entry of
     `sharded` (the solver's ZeRO-1 slot shards, {key: dim-0 shard
@@ -276,6 +375,18 @@ def union_ms(spans) -> float:
     return ms
 
 
+def _collective(op, *args, **kw):
+    """`op(*args, **kw)`, a torch.distributed call or a wait on one; its
+    failure raised as resilience.CollectiveError, the one error the CLI
+    hands to the heartbeat."""
+    from ..utils import resilience
+    try:
+        return op(*args, **kw)
+    except RuntimeError as e:
+        raise resilience.CollectiveError(
+            f"{getattr(op, '__name__', 'collective')} failed: {e}") from e
+
+
 class _Pending:
     """An all-reduce in flight: `wait` joins it, copies a staged result
     back to the card and records the end of its timing pair."""
@@ -285,7 +396,7 @@ class _Pending:
 
     def wait(self) -> None:
         if self.work is not None:
-            self.work.wait()
+            _collective(self.work.wait)
         if self.host is not None:
             self.dest.copy_(self.host, non_blocking=True)
         if self.pair:
@@ -326,7 +437,9 @@ class MeshPlan:
         device, host by host; default every card of this host). The group
         must be live with data x model ranks; with none and one rank, a
         group of one is formed here on a free local port. Every rank
-        calls this, and creates every axis group in the same order."""
+        calls this, and creates every axis group in the same order. Host
+        processes behind a loopback coordinator share one machine's
+        cards, and the backend is chosen as for one host."""
         from ..utils import resilience
         if data < 1 or model < 1:
             raise ValueError(f"mesh {data}x{model}: axes must be >= 1")
@@ -337,7 +450,7 @@ class MeshPlan:
         if len(devices) != world_want:
             raise ValueError(f"mesh {data}x{model} needs {world_want} "
                              f"devices, have {len(devices)}")
-        backend = backend_for(devices, hosts)
+        backend = backend_for(devices, 1 if local_coordinator() else hosts)
         if not dist.is_initialized():
             if world_want != 1:
                 raise resilience.ClusterError(
@@ -411,11 +524,11 @@ class MeshPlan:
         """`op(t, **kw)`, a collective in place on `t`; on a card under
         gloo through a pinned host copy of it. Returns `t`."""
         if not self._staged(t):
-            op(t, **kw)
+            _collective(op, t, **kw)
             return t
         host = self._host(t)
         host.copy_(t)
-        op(host, **kw)
+        _collective(op, host, **kw)
         return t.copy_(host)
 
     def _timed(self):
@@ -450,10 +563,10 @@ class MeshPlan:
             if host is None:
                 host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             host.copy_(t)
-            return _Pending(dist.all_reduce(host, group=g, async_op=True),
-                            host, t, pair)
-        return _Pending(dist.all_reduce(t, group=g, async_op=True),
-                        pair=pair)
+            return _Pending(_collective(dist.all_reduce, host, group=g,
+                                        async_op=True), host, t, pair)
+        return _Pending(_collective(dist.all_reduce, t, group=g,
+                                    async_op=True), pair=pair)
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum `t` over the data axis, in place; returns `t`."""
@@ -485,15 +598,16 @@ class MeshPlan:
         if self._staged(src):
             host = self._host(src).copy_(src)
             parts = [torch.empty_like(host) for _ in range(n)]
-            dist.all_gather(parts, host, group=group)
+            _collective(dist.all_gather, parts, host, group=group)
             return torch.stack(parts).to(t.device)
         if self.backend == "gloo":
             parts = [torch.empty_like(src) for _ in range(n)]
-            dist.all_gather(parts, src, group=group)
+            _collective(dist.all_gather, parts, src, group=group)
             return torch.stack(parts)
         out = torch.empty(n * src.numel(), dtype=src.dtype,
                           device=src.device)
-        dist.all_gather_into_tensor(out, src.reshape(-1), group=group)
+        _collective(dist.all_gather_into_tensor, out, src.reshape(-1),
+                    group=group)
         return out.view(n, *src.shape)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -579,8 +693,8 @@ class MeshPlan:
                                   group=self.model_group))
             ops.append(dist.P2POp(dist.irecv, rcv, frm,
                                   group=self.model_group))
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        for work in _collective(dist.batch_isend_irecv, ops):
+            _collective(work.wait)
         out = [r.to(t.device) if st else r
                for r, t, st in zip(recvs, tensors, staged)]
         if pair:

@@ -105,6 +105,19 @@ Survivable training, as the JAX solver has it (utils/resilience.py):
   a pass. In the chunked mode on the card (step_chunk > 1) a chunk after
   the test net's first is one CUDA-graph replay of its T forwards; else
   its forwards run eagerly. The scores do not depend on T;
+- the asynchronous evaluation (the JAX `_start_eval`, `_harvest_eval`):
+  at a test_interval boundary the training loop harvests the previous
+  pass and starts this one. The params and state buffers are copied on
+  the current stream into persistent copies, which the test nets and
+  their captured chunks read through `torch.func.functional_call`; the
+  first chunk is launched at the boundary and the rest after the next
+  training chunk, on the card on a stream of the evaluation's own
+  behind the copy, so training goes on updating the live tensors while
+  the pass reads the boundary's. A pass is harvested (one host read a
+  test net, scores logged with the iteration they evaluate and kept in
+  `eval_log`) at the next boundary or at the end of `step`;
+  `eval_stall_ms` is the host time the loop spent in starts and
+  harvests. `test_all` is the same pass, started and harvested at once;
 - the fault sites `train_abort` (each chunk's start), `dispatch_stall`
   (inside a chunk's section), `nan_grad` / `loss_spike` (the feeds),
   `snapshot_sync`, `snapshot_kill` and `snapshot_corrupt`;
@@ -169,12 +182,34 @@ the rank's shards. Refused under a model axis, naming ROADMAP.md §1
 item 6: `zero_stage: 1`, `step_chunk` > 1, a test net whose batch does
 not divide the data ranks.
 
-Not ported yet (ROADMAP.md): gpipe, elastic hosts, HDF5 snapshots and
-the asynchronous evaluation that overlaps training.
-Each of their fields is in `UNPORTED_FIELDS` (`snapshot_format` other
-than BINARYPROTO is refused the same way): a value other than its
-default raises NotImplementedError before anything is built, so no
-field is accepted and then ignored. An unknown `precision` raises ValueError, as the JAX
+GPipe (`gpipe`, the JAX `Solver(gpipe=)`; parallel/gpipe.py): the net
+is cut into S stages, each on its device, the prototxt batch into M
+micro-batches (default S; the net is built at batch / M); an iteration
+is `GPipe.train_step`'s wavefront, the backward seeded with
+global_grad_scale, then each stage's params updated on its own device
+from the gradients unwound as iter_size's; clip_gradients takes one norm
+over every stage, without a host sync. The history lives with its
+param; snapshots are whole, so they restore across the modes. Every
+iteration is its own dispatch (no CUDA graph); the test nets evaluate
+whole on stage 0's device. Refused with the JAX messages: bf16, a
+mesh, zero_stage, iter_size > 1, train_guard.
+
+Elasticity (the JAX `host_deadline` and `min_hosts`): with
+host_deadline > 0 over more than one process the cross-host heartbeat
+(utils/resilience.py `HostHeartbeat`, over the group's store or
+CAFFE_TPU_HB_DIR) rides the watchdog's monitor thread; a peer silent
+past the deadline journals `host_lost:<peer>` and exits 87, and a
+collective that fails because its peer died waits for that verdict
+(`await_host_loss`). With min_hosts, rank 0 of a generation that is
+missing hosts watches their supervisors' beats at every snapshot
+boundary and exits 87 (`cluster_rejoin`) when one returns, so the
+elastic supervisor grows the cluster back from that snapshot.
+
+Not ported yet: HDF5 and ORBAX snapshots (`snapshot_format` other than
+BINARYPROTO, ROADMAP.md §1 items 4 and 6). A field in `UNPORTED_FIELDS`
+(none is left) or an unported snapshot format raises
+NotImplementedError before anything is built, so no field is accepted
+and then ignored. An unknown `precision` raises ValueError, as the JAX
 `Solver` does.
 """
 
@@ -213,7 +248,7 @@ log = logging.getLogger("caffe_mpi_tpu_torch.solver")
 # not yet, each with the ROADMAP.md section 1 item that will port it.
 # Fields neither package honours (solver_mode, device_id, ...) stay
 # accepted.
-UNPORTED_FIELDS = (("host_deadline", 6), ("min_hosts", 6))
+UNPORTED_FIELDS = ()
 PRECISIONS = ("f32", "bf16")  # the JAX Solver's; "" is f32
 # snapshot formats the port does not write yet, with their ROADMAP.md
 # section 1 item
@@ -295,11 +330,16 @@ class Solver:
     def __init__(self, sp: SolverParameter, *, model_dir: str = "",
                  device: str | torch.device | None = None,
                  mesh: mesh_mod.MeshPlan | None = None,
-                 param_shardings: dict | None = None):
+                 param_shardings: dict | None = None, gpipe=None):
         """device: default the card (the mesh's device under `mesh`).
         param_shardings: the JAX `Solver(param_shardings=)` rules over the
         mesh's 'model' axis ({layer: "rows" | spec | {param: spec}});
-        None takes the prototxt's (`_prototxt_shardings`)."""
+        None takes the prototxt's (`_prototxt_shardings`).
+        gpipe: pipeline training over heterogeneous stages
+        (parallel/gpipe.py), the JAX `Solver(gpipe=)`: S stages, or
+        {"stages": S, "micro": M, "boundaries": [...], "devices": [...]}.
+        The prototxt batch is the iteration's, cut into M micro-batches
+        (default S), each fed by the feed fn (iter_size's contract)."""
         precision = str(sp.precision or "f32").lower()
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {sp.precision!r} (expected "
@@ -313,6 +353,8 @@ class Solver:
             raise ValueError(
                 f"loss_scale_window must be >= 1, got {lsw}")
         refuse_unported(sp, UNPORTED_FIELDS, "solver")
+        self._gpipe_cfg, self._gpipe_micro = self._gpipe_config(
+            sp, gpipe, precision, mesh)
         fmt = str(sp.snapshot_format or "BINARYPROTO").upper()
         if fmt in UNPORTED_SNAPSHOT_FORMATS:
             raise NotImplementedError(
@@ -374,7 +416,8 @@ class Solver:
                        stages=tuple(ts.stage) if ts else (),
                        model_dir=model_dir,
                        solver_storage=sp.solver_data_type,
-                       precision=precision, batch_divisor=n_data)
+                       precision=precision,
+                       batch_divisor=n_data * max(self._gpipe_micro, 1))
         if n_data > 1:
             bad = [f"{l.name} ({l.lp.type})" for l in self.net.layers
                    if l.host_step]
@@ -421,6 +464,16 @@ class Solver:
 
         seed = sp.random_seed if sp.random_seed >= 0 else 0
         self.net.init(seed)
+        # GPipe: each stage's params, state (and, below, history) on its
+        # stage's device; the test nets hold the same tensors
+        self.gpipe = None
+        if self._gpipe_cfg is not None:
+            from ..parallel.gpipe import GPipe
+            cfg = self._gpipe_cfg
+            self.gpipe = GPipe(self.net, cfg.get("stages"),
+                               boundaries=cfg.get("boundaries"),
+                               devices=cfg.get("devices"))
+            self.gpipe.place_params()
         # the 'model' axis: the full arrays are drawn above, then each
         # rank keeps its shards (the test nets' layers alike)
         if param_shardings is None and mesh is not None:
@@ -456,7 +509,7 @@ class Solver:
             self._shard_len[(lname, pname)] = shard
             shape = (shard, *p.shape[1:]) if shard else p.shape
             self.history[(lname, pname)] = tuple(
-                torch.zeros(shape, dtype=torch.float32, device=self.device)
+                torch.zeros(shape, dtype=torch.float32, device=p.device)
                 for _ in range(k))
         self._reducer: reduction.Reducer | None = None
         self._reduction: reduction.ReductionPlan | None = None
@@ -481,7 +534,8 @@ class Solver:
         # be captured: such a net's chunks run as eager iterations
         host = [layer.name for layer in self.net.layers if layer.host_step]
         self._graphs_ok = self.device.type == "cuda" and not host \
-            and (mesh is None or mesh.backend == "nccl")
+            and (mesh is None or mesh.backend == "nccl") \
+            and self.gpipe is None
         if self.device.type == "cuda" and mesh is not None \
                 and mesh.backend != "nccl" and self.step_chunk > 1:
             log.info("gloo collectives cannot enter a CUDA graph: step_chunk "
@@ -534,12 +588,29 @@ class Solver:
         self.test_dispatch_count = 0
         self.test_pass_count = 0
         self.test_host_reads = 0
+        # the asynchronous pass: its pending record, the host ms the
+        # training loop lost to evaluation (boundary starts and harvests),
+        # each harvested pass {"iter", "scores"}, the test nets' copies of
+        # the params and state ({id of the live tensor: copy}) and each
+        # test net's {module name: copy}, and the evaluation's stream
+        self._pending_eval = None
+        self.eval_stall_ms = 0.0
+        self.eval_log: list[dict] = []
+        self._eval_copies: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._eval_views: dict[int, dict[str, torch.Tensor]] = {}
+        self._eval_stream = None
+        self.eval_stall_log: list[dict] = []
         # survivability: the watchdog (armed at the first step when
         # watchdog_deadline > 0), the cached fault-site feed wrapper, the
         # newest snapshot written (iteration, state path), the writer
         # thread and its error, the state paths written, each snapshot's
         # timing, and the flags a signal handler sets
         self._watchdog: resilience.DispatchWatchdog | None = None
+        # the cross-host heartbeat (host_deadline) the watchdog's thread
+        # ticks, and min_hosts' grow-back check: None until primed, False
+        # when there is nothing to re-admit
+        self._heartbeat: resilience.HostHeartbeat | None = None
+        self._rejoin = None
         self._fault_feed_cache = None
         self._last_snapshot: tuple[int, str] | None = None
         self._snapshot_thread: threading.Thread | None = None
@@ -548,6 +619,38 @@ class Solver:
         self.snapshots: list[str] = []
         self.snapshot_log: list[dict] = []
         self.requests = {"stop": False, "snapshot": False}
+
+    @staticmethod
+    def _gpipe_config(sp, gpipe, precision: str, mesh):
+        """(config, micro-batches) of the `gpipe` argument, or (None, 0),
+        refusing what the JAX solver refuses under GPipe, with its
+        messages."""
+        if not gpipe:
+            return None, 0
+        cfg = {"stages": gpipe} if isinstance(gpipe, int) else dict(gpipe)
+        n_st = cfg.get("stages") or (len(cfg.get("boundaries") or []) - 1)
+        if not n_st or n_st < 1:
+            raise ValueError("gpipe needs stages >= 1 (or boundaries)")
+        if precision == "bf16":
+            raise ValueError(
+                "precision: bf16 is unsupported under gpipe (stage-local "
+                "updates bypass the loss-scaling carry); use the mesh "
+                "path")
+        if mesh is not None:
+            raise ValueError("gpipe and mesh are mutually exclusive "
+                             "(pipeline stages own whole devices)")
+        if int(sp.zero_stage or 0):
+            raise ValueError("zero_stage with gpipe is unsupported")
+        if max(sp.iter_size, 1) > 1:
+            raise ValueError(
+                "iter_size > 1 under gpipe is redundant: micro_batches "
+                "already accumulate with iter_size semantics")
+        if sp.train_guard:
+            raise ValueError(
+                "train_guard is unsupported under gpipe (the guard "
+                "select lives inside the SPMD step; pipeline stages "
+                "update per-device)")
+        return cfg, int(cfg.get("micro") or 0) or int(n_st)
 
     def _share_params(self, tnet: Net) -> None:
         """A test net holds the train net's very `nn.Parameter`s and state
@@ -698,6 +801,12 @@ class Solver:
         out["hosts"] = hosts
         out["cross_host_collectives_per_step"] = (
             out.get("collectives_per_step", 0) if hosts > 1 else 0)
+        # a generation-managed run (min_hosts): which hosts it spans
+        gen = mesh_mod.cluster_generation()
+        if gen is not None:
+            out["generation"] = gen["generation"]
+            out["generation_hosts"] = gen["hosts"]
+            out["world_full"] = gen["world_full"]
         wire = 2 if self._reducer.plan.wire_dtype else None
         out["reduced_bytes_per_step"] = sum(
             f.numel() * (wire or f.element_size())
@@ -789,8 +898,9 @@ class Solver:
     def _masks(self, it: int, masks: MaskFn | None) -> list[dict]:
         """Each micro-batch's Dropout masks for iteration `it`: the given
         ones, or the draws the forwards would make from the generator
-        reseeded from (random_seed, it), in micro-batch and layer order."""
-        iter_size = max(self.sp.iter_size, 1)
+        reseeded from (random_seed, it), in micro-batch and layer order
+        (GPipe's micro-batches as iter_size's)."""
+        iter_size = self._micro_batches()
         mesh = self.mesh
         if masks is not None:
             out = [masks(it, m) for m in range(iter_size)]
@@ -804,6 +914,11 @@ class Solver:
         if mesh is not None and mesh.n_data > 1:
             out = [{k: mesh.shard(v) for k, v in m.items()} for m in out]
         return out
+
+    def _micro_batches(self) -> int:
+        """The forwards of an iteration: GPipe's micro-batches, else
+        iter_size."""
+        return self._gpipe_micro or max(self.sp.iter_size, 1)
 
     def _draw(self, layer, n: int) -> torch.Tensor:
         """A layer's draw; over n > 1 ranks the global batch's mask (the
@@ -917,6 +1032,62 @@ class Solver:
                                       device=self.device)
             self._out.index_copy_(0, self._row, torch.stack(
                 [loss_out.detach(), rate, accepted])[None])
+            self._row.add_(1)
+
+    def _gpipe_iteration(self, feeds: list[dict], masks: list[dict]
+                         ) -> None:
+        """One pipelined iteration (the JAX `_gpipe_iteration`): the
+        wavefront over the M micro-batches (`GPipe.train_step`, the
+        backward seeded with global_grad_scale), then the update of each
+        stage's params on the stage's own device. The gradients are
+        unwound as `_iteration` unwinds iter_size's: the sum over the
+        micro-batches / (M x global_grad_scale). clip_gradients takes its
+        norm over every stage: each param's squares on its device, summed
+        on stage 0's device in declaration order, the scale sent back to
+        each stage; no host sync. The iteration's row of the chunk's
+        table and output buffer as `_iteration`'s."""
+        sp, gp = self.sp, self.gpipe
+        lscale = float(sp.global_grad_scale or 1.0)
+        with self._math.math(gp.devices[0]):
+            loss, _ = gp.train_step(feeds, dropout_masks=masks,
+                                    loss_scale=lscale)
+        denom = self._gpipe_micro * lscale
+        grads = [p.grad.float() / denom if p.grad is not None
+                 else torch.zeros_like(p, dtype=torch.float32)
+                 for _, _, _, p in self._decls]
+        dev0 = gp.devices[0]
+        scale = None
+        if sp.clip_gradients > 0:
+            sq = [torch.sum(torch.square(g)).to(dev0) for g in grads]
+            gnorm = torch.sqrt(sum(sq))
+            scale = torch.where(gnorm > sp.clip_gradients,
+                                sp.clip_gradients / gnorm, 1.0)
+        row = torch.index_select(self._table, 0, self._row)[0]
+        hypers, scales = {}, {}
+        with torch.no_grad():
+            for (lname, pname, decl, p), g in zip(self._decls, grads):
+                if decl.lr_mult == 0.0:
+                    continue
+                dev = p.device
+                if dev not in hypers:
+                    r = row.to(dev)
+                    hypers[dev] = Hyper(
+                        rate=r[0], momentum=r[1], momentum2=sp.momentum2,
+                        delta=sp.delta, weight_decay=sp.weight_decay,
+                        reg_l1=(sp.regularization_type == "L1"), t=r[2],
+                        memo={})
+                    scales[dev] = None if scale is None else scale.to(dev)
+                if scales[dev] is not None:
+                    g = g * scales[dev]
+                w, slots2 = self.update_fn(
+                    p.float(), g, self.history[(lname, pname)],
+                    hypers[dev], decl.lr_mult, decl.decay_mult)
+                p.copy_(w.to(p.dtype))
+                self.history[(lname, pname)] = tuple(slots2)
+            accepted = torch.ones((), dtype=torch.float32,
+                                  device=self.device)
+            self._out.index_copy_(0, self._row, torch.stack(
+                [loss.detach().to(self.device), row[0], accepted])[None])
             self._row.add_(1)
 
     def _set_slots(self, key, slots, in_place: bool) -> None:
@@ -1035,7 +1206,7 @@ class Solver:
         """Run iterations self.iter .. self.iter + c - 1; returns their
         (loss, lr, accepted) rows and the guard carry, read to the host in
         one transfer."""
-        iter_size = max(self.sp.iter_size, 1)
+        iter_size = self._micro_batches()
         graphs = self._graphs_ok and self.step_chunk > 1
         stream = None
         if graphs:
@@ -1057,6 +1228,9 @@ class Solver:
                 feeds = [feed_fn(it * iter_size + m)
                          for m in range(iter_size)]
                 mask = self._masks(it, masks)
+                if self.gpipe is not None:
+                    self._gpipe_iteration(feeds, mask)
+                    continue
                 graph = self._graphs.get((id(self.net), iter_size))
                 if not graphs or not self._warm:
                     self._iteration(feeds, mask)
@@ -1076,6 +1250,9 @@ class Solver:
             torch.cuda.current_stream(self.device).wait_stream(stream)
         self.dispatch_count += 1
         self.host_sync_count += 1
+        # a pending pass's remaining test chunks, on the card beside this
+        # training chunk
+        self._continue_eval()
         return packed.cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -1090,7 +1267,8 @@ class Solver:
         test feeds given) lifts the test_interval cap."""
         sp = self.sp
         k = self.step_chunk
-        if k <= 1:
+        if k <= 1 or self.gpipe is not None:
+            # GPipe's wavefront is its own dispatch: every iteration alone
             return 1
         c = min(n, k)
         if sp.display:
@@ -1146,17 +1324,123 @@ class Solver:
     # ------------------------------------------------------------------
     # The watchdog, the run journal and the fault sites
     def _ensure_watchdog(self) -> None:
-        """Arm the hard-exit watchdog when watchdog_deadline > 0."""
-        deadline = float(self.sp.watchdog_deadline or 0.0)
-        if self._watchdog is not None or deadline <= 0:
+        """Arm the hard-exit watchdog when watchdog_deadline > 0, and the
+        cross-host heartbeat on its thread when host_deadline > 0 in a
+        run over more than one process (the JAX `_ensure_watchdog`): a
+        peer silent past the deadline journals `host_lost:<peer>` and
+        this process exits 87. The watchdog's thread then ticks at least
+        twice a beat interval; with no watchdog_deadline its sections
+        never trip."""
+        if self._watchdog is not None:
             return
+        deadline = float(self.sp.watchdog_deadline or 0.0)
+        host_deadline = float(self.sp.host_deadline or 0.0)
+        world = torch.distributed.get_world_size() \
+            if self.mesh is not None else 1
+        hb = None
+        if host_deadline > 0 and world > 1:
+            hb = resilience.HostHeartbeat(
+                mesh_mod.heartbeat_transport(), self.rank, world,
+                host_deadline, on_lost=self._host_lost_journal)
+            log.info("cross-host heartbeat armed: %d process(es), %.1fs "
+                     "deadline, %.2fs beat interval (exit %d on a lost "
+                     "peer)", world, host_deadline, hb.interval,
+                     resilience.EXIT_CLUSTER)
+        if deadline <= 0 and hb is None:
+            return
+        poll = None
+        if hb is not None:
+            poll = hb.interval / 2.0
+            if deadline > 0:
+                poll = min(poll, max(deadline / 4.0, 0.05))
+        self._heartbeat = hb
         self._watchdog = resilience.DispatchWatchdog(
-            deadline, self._watchdog_journal)
-        log.info("dispatch watchdog armed: %.1fs deadline (journals to %s "
-                 "and exits %d on a stuck device wait)", deadline,
-                 resilience.run_manifest_path(
-                     self.sp.snapshot_prefix or "snapshot"),
-                 resilience.EXIT_WATCHDOG)
+            deadline if deadline > 0 else float("inf"),
+            self._watchdog_journal, poll=poll,
+            pulse=hb.tick if hb is not None else None)
+        if deadline > 0:
+            log.info("dispatch watchdog armed: %.1fs deadline (journals to "
+                     "%s and exits %d on a stuck device wait)", deadline,
+                     resilience.run_manifest_path(
+                         self.sp.snapshot_prefix or "snapshot"),
+                     resilience.EXIT_WATCHDOG)
+
+    def heartbeat_farewell(self) -> None:
+        """Publish the clean-departure beat. Only after the end-of-training
+        barrier: peers then stop expecting beats; a failing host never
+        says it, so it stays mournable."""
+        if self._heartbeat is not None:
+            self._heartbeat.farewell()
+
+    def _host_lost_journal(self, peer: int, elapsed: float) -> None:
+        """The heartbeat's on_lost: journal which peer went silent (every
+        rank, to its own journal) before the monitor exits 87."""
+        self._journal_run_state(
+            f"host_lost:{int(peer)}", peer=int(peer),
+            silent_s=round(elapsed, 1),
+            host_deadline_s=float(self.sp.host_deadline or 0.0),
+            exit_code=resilience.EXIT_CLUSTER)
+
+    def await_host_loss(self, err: BaseException) -> None:
+        """A collective failed with `err` (gloo raises at once when a peer
+        process dies; the JAX collectives hang until the heartbeat trips).
+        With the heartbeat armed, wait for it to name the silent peer: it
+        journals `host_lost:<peer>` and exits 87 from its thread. Without
+        one, or past two deadlines, raise ClusterError
+        (`cluster_collective_failed`, exit 87)."""
+        hb = self._heartbeat
+        if hb is None:
+            return
+        hb.lost_event.wait(2 * hb.deadline + hb.interval + 1.0)
+        raise resilience.ClusterError(
+            f"a collective failed and no peer went silent within "
+            f"{2 * hb.deadline:g}s: {err}",
+            reason="cluster_collective_failed") from err
+
+    def _maybe_admit_rejoin(self) -> None:
+        """min_hosts' grow-back trigger (the JAX `_maybe_admit_rejoin`), at
+        a snapshot boundary on rank 0. In a generation that is missing
+        hosts, rank 0 watches their supervisors' beat files in the
+        cluster directory: the first boundary primes their sequences (a
+        frozen file of a dead incarnation is no revival), a later one
+        that sees an advance journals `cluster_rejoin` and raises
+        ClusterError (exit 87) on the snapshot it has just written, and
+        the supervisors re-form the cluster a generation up, the host
+        re-admitted, every rank resuming from this snapshot. Free when
+        min_hosts is unset."""
+        if not self.sp.min_hosts or self.rank != 0 or self._rejoin is False:
+            return
+        if self._rejoin is None:
+            cdir = os.environ.get("CAFFE_TPU_CLUSTER_DIR", "")
+            gen = mesh_mod.cluster_generation()
+            missing: list[int] = []
+            if cdir and gen is not None and gen["world_full"]:
+                missing = sorted(set(range(gen["world_full"]))
+                                 - set(gen["hosts"]))
+            if not (cdir and missing):
+                self._rejoin = False
+                return
+            tr = resilience.DirBeatTransport(os.path.join(cdir, "hb"))
+            self._rejoin = (tr, {h: tr.latest_seq(h) for h in missing})
+            return
+        tr, base = self._rejoin
+        back = []
+        for h, primed in base.items():
+            try:
+                if tr.latest_seq(h) > primed:
+                    back.append(h)
+            except OSError:
+                pass
+        if not back:
+            return
+        # the snapshot written at this boundary is the resume target
+        self.wait_snapshots()
+        self._journal_run_state("cluster_rejoin", rejoining_hosts=back,
+                                boundary_iter=int(self.iter))
+        raise resilience.ClusterError(
+            f"host(s) {back} beating again at snapshot boundary iteration "
+            f"{self.iter}; exiting for the grow-back generation",
+            reason="cluster_rejoin")
 
     def _section(self, label: str):
         """A watchdog section around one host wait on the device (a
@@ -1209,7 +1493,7 @@ class Solver:
         sp = self.sp
         self._ensure_watchdog()
         feed_fn = self._fault_feed(feed_fn)
-        imgs_per_iter = self._batch_images() * max(sp.iter_size, 1)
+        imgs_per_iter = self._batch_images() * self._micro_batches()
         loss_val = float("nan")
         t0, it0 = time.perf_counter(), self.iter
         testing = bool(test_feed_fns)
@@ -1219,7 +1503,11 @@ class Solver:
             if (sp.test_interval and test_feed_fns
                     and self.iter % sp.test_interval == 0
                     and (self.iter > 0 or sp.test_initialization)):
-                self.test_all(test_feed_fns)
+                # the asynchronous pass: harvest the previous one (its
+                # chunks ran between the training chunks since), start
+                # this one, and train on while it runs
+                self._harvest_eval()
+                self._start_eval(test_feed_fns)
             c = self._chunk_at(self.iter, n, testing)
             ts = time.perf_counter()
             # the chunk from its first launch to its read-back, a graph
@@ -1263,6 +1551,9 @@ class Solver:
                 # an interval snapshot does not stall the loop (the
                 # reference's writes inline, solver.cpp:339-344)
                 self.snapshot(block=False)
+                # a degraded cluster grows back only at a snapshot
+                # boundary (the snapshot just written is the resume point)
+                self._maybe_admit_rejoin()
             if self.mesh is not None and \
                     self.mesh.n_data * self.mesh.n_model > 1:
                 self._agree_requests()
@@ -1273,6 +1564,8 @@ class Solver:
                 log.info("stop requested: stopping at iteration %d",
                          self.iter)
                 break
+        # a pass started in this call is harvested before it returns
+        self._harvest_eval()
         return loss_val
 
     def _agree_requests(self) -> None:
@@ -1300,6 +1593,16 @@ class Solver:
         try:
             self.wait_snapshots()
         finally:
+            if self._pending_eval is not None:
+                # step and test_all harvest what they start; no device
+                # wait is added to teardown
+                self._pending_eval = None
+                log.warning("dropping an unharvested evaluation pass at "
+                            "close")
+            # no heartbeat farewell here: close also runs on a failure,
+            # and a crashed host must stay mournable (the CLI says
+            # farewell after the exit barrier)
+            self._heartbeat = None
             if self._watchdog is not None:
                 self._watchdog.stop()
                 self._watchdog = None
@@ -1341,86 +1644,210 @@ class Solver:
         cap = max(int(self._TEST_SUPER_BATCH_BYTES // max(bytes_per, 1)), 1)
         return max(1, min(iters, cap, 64))
 
-    @torch.no_grad()
     def test_all(self, test_feed_fns) -> list[dict[str, float]]:
         """Evaluate every test net, averaging each output blob's sum over
-        test_iter batches (reference Solver::TestAll/Test), in chunks of
-        `_test_chunk_len` batches (`_test_chunk`), each output's sum added
-        on the device; one host read a test net a pass. The scores do not
-        depend on the chunk length."""
-        results = []
+        test_iter batches (reference Solver::TestAll/Test). The direct,
+        synchronous pass (the JAX `test_all`): a pass in flight is
+        harvested first (its scores logged under its own iteration), then
+        this one is started and harvested at once. Scores do not depend
+        on the chunk length."""
+        self._harvest_eval()
+        self._start_eval(test_feed_fns)
+        return self._harvest_eval()
+
+    # The asynchronous pass (the JAX `_start_eval`, `_continue_eval`,
+    # `_harvest_eval`). At a test_interval boundary the training loop
+    # harvests the previous pass, then starts this one: the live params
+    # and state buffers are copied, on the current stream, into
+    # persistent copies that every test net (and every captured test
+    # chunk) reads through `torch.func.functional_call`, so the pass sees
+    # the boundary's weights while training updates the live ones in
+    # place. The first chunk is launched at the boundary, the rest right
+    # after the next training chunk is launched, before its read-back
+    # (`_continue_eval`, from `_run_chunk`: every feed is at hand, where
+    # the JAX solver launches those its feed queue has ready), so the
+    # card runs them beside that chunk. On the card the chunks run on the
+    # evaluation's own stream, which waits for the current one once, after
+    # the copy; each chunk's feeds are fetched on that stream (a
+    # DeviceFeed then orders its upload before them) and held until the
+    # harvest. The next boundary's copy waits for that stream, and the
+    # harvest waits for it and reads the sums (one host read a test net a
+    # pass). `eval_stall_log` keeps each pass's start and harvest ms.
+    # Under a data mesh the sharded test nets' all-reduce runs at the
+    # harvest; under GPipe the pass runs whole on stage 0's device.
+    def _eval_device(self) -> torch.device:
+        return self.gpipe.devices[0] if self.gpipe is not None \
+            else self.device
+
+    def _eval_view(self, ti: int, tnet: Net) -> dict[str, torch.Tensor]:
+        """Test net `ti`'s {param or buffer name: its persistent copy},
+        made once. A tensor the test nets share is copied once."""
+        view = self._eval_views.get(ti)
+        if view is None:
+            dev = self._eval_device()
+            view = {}
+            named = list(tnet.named_parameters(remove_duplicate=False)) \
+                + list(tnet.named_buffers(remove_duplicate=False))
+            for name, t in named:
+                pair = self._eval_copies.get(id(t))
+                if pair is None:
+                    pair = self._eval_copies[id(t)] = (
+                        t, torch.empty_like(t, device=dev,
+                                            requires_grad=False))
+                view[name] = pair[1]
+            self._eval_views[ti] = view
+        return view
+
+    @torch.no_grad()
+    def _copy_eval_weights(self) -> None:
+        """The point-in-time copy a pass reads, on the current stream,
+        after the previous pass (which read these copies) is done."""
+        for ti, tnet in enumerate(self.test_nets):
+            self._eval_view(ti, tnet)
+        if self._eval_stream is not None:
+            torch.cuda.current_stream(self._eval_device()).wait_stream(
+                self._eval_stream)
+        for live, copy in self._eval_copies.values():
+            copy.copy_(live.detach(), non_blocking=True)
+
+    def _start_eval(self, test_feed_fns) -> None:
+        """Start a pass at the current iteration: copy the weights, launch
+        each test net's first chunk, and leave the record that
+        `_continue_eval` and `_harvest_eval` take up. Its host time adds
+        to eval_stall_ms."""
+        t0 = time.perf_counter()
+        self._copy_eval_weights()
+        dev = self._eval_device()
+        if dev.type == "cuda":
+            if self._eval_stream is None:
+                self._eval_stream = torch.cuda.Stream(dev)
+            # the pass reads the copy and what came before it, nothing
+            # queued after
+            self._eval_stream.wait_stream(torch.cuda.current_stream(dev))
+        entries = []
         for ti, tnet in enumerate(self.test_nets):
             iters = self.sp.test_iter[ti] if ti < len(self.sp.test_iter) \
                 else 50
             out_blobs = self._output_blobs(tnet)
             if not out_blobs or iters == 0:
-                results.append({})
+                entries.append(None)
                 continue
             acc = self._test_sums.get(ti)
             if acc is None:  # the graphs add into this very tensor
                 acc = self._test_sums[ti] = torch.zeros(
-                    len(out_blobs), dtype=torch.float32, device=self.device)
+                    len(out_blobs), dtype=torch.float32,
+                    device=self._eval_device())
             acc.zero_()
-            t = self._test_chunk_len(tnet, iters)
-            for k0 in range(0, iters, t):
-                with self._section("eval dispatch"):
-                    feeds = [test_feed_fns[ti](k)
-                             for k in range(k0, min(k0 + t, iters))]
-                    self._test_chunk(ti, tnet, feeds, out_blobs, acc)
-                self.test_dispatch_count += 1
-            total = acc
+            entry = {"ti": ti, "out_blobs": out_blobs, "acc": acc,
+                     "iters": iters, "next": 0, "feed_fn": test_feed_fns[ti],
+                     "T": self._test_chunk_len(tnet, iters), "held": []}
+            self._dispatch_eval_chunk(entry)
+            entries.append(entry)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._pending_eval = {"iter": self.iter, "entries": entries,
+                              "start_ms": ms}
+        self.eval_stall_ms += ms
+
+    @torch.no_grad()
+    def _dispatch_eval_chunk(self, entry) -> None:
+        """Launch the next chunk of `entry`'s pass."""
+        k0, ti = entry["next"], entry["ti"]
+        c = min(entry["T"], entry["iters"] - k0)
+        stream = self._eval_stream
+        with self._section("eval dispatch"), torch.cuda.stream(stream) \
+                if stream is not None else nullcontext():
+            feeds = [entry["feed_fn"](k) for k in range(k0, k0 + c)]
+            self._test_chunk(ti, self.test_nets[ti], feeds,
+                             entry["out_blobs"], entry["acc"])
+        entry["held"].append(feeds)  # read on the eval stream: held
+        entry["next"] = k0 + c
+        self.test_dispatch_count += 1
+
+    def _continue_eval(self) -> None:
+        """Launch the remaining chunks of the pending pass."""
+        pending = self._pending_eval
+        if pending is None:
+            return
+        for entry in pending["entries"]:
+            while entry is not None and entry["next"] < entry["iters"]:
+                self._dispatch_eval_chunk(entry)
+
+    @torch.no_grad()
+    def _harvest_eval(self) -> list[dict[str, float]] | None:
+        """Finish the pending pass and read its scores: the rest of its
+        chunks, then one host read a test net; the scores are logged
+        tagged with the iteration they evaluate and appended to
+        `eval_log`. None when no pass is pending. Its host time adds to
+        eval_stall_ms."""
+        pending = self._pending_eval
+        if pending is None:
+            return None
+        t0 = time.perf_counter()
+        self._continue_eval()
+        self._pending_eval = None
+        if self._eval_stream is not None:
+            torch.cuda.current_stream(self._eval_device()).wait_stream(
+                self._eval_stream)
+        results = []
+        for entry in pending["entries"]:
+            if entry is None:
+                results.append({})
+                continue
+            ti, out_blobs, iters = (entry["ti"], entry["out_blobs"],
+                                    entry["iters"])
+            total = entry["acc"]
             if self.test_sharded[ti]:
                 # each rank's scores are its share of the global batch's
-                total = self.mesh.all_reduce_(acc.clone()) / self.mesh.n_data
+                total = self.mesh.all_reduce_(total.clone()) \
+                    / self.mesh.n_data
             with self._section("eval harvest"):
                 vals = total.cpu().numpy() / iters
             self.test_host_reads += 1
             self.test_pass_count += 1
             scores = {b: float(v) for b, v in zip(out_blobs, vals)}
             if self.rank == 0:
-                log.info("Test net #%d, iteration %d:", ti, self.iter)
+                log.info("Test net #%d, iteration %d:", ti, pending["iter"])
                 for b, v in scores.items():
                     log.info("    Test net #%d: %s = %.5g", ti, b, v)
             results.append(scores)
+        self.eval_log.append({"iter": pending["iter"], "scores": results})
+        ms = (time.perf_counter() - t0) * 1e3
+        self.eval_stall_log.append({"iter": pending["iter"],
+                                    "start_ms": pending["start_ms"],
+                                    "harvest_ms": ms})
+        self.eval_stall_ms += ms
         return results
 
     def _test_chunk(self, ti: int, tnet: Net, feeds: list[dict],
                     out_blobs: list[str], acc: torch.Tensor) -> None:
-        """One chunk of a test pass: a forward of each feed, each output's
-        sum added to `acc` in the feeds' order. In the chunked mode on the
-        card, once the test net has run one eager chunk (the capture's
-        warm-up), a chunk is one replay of a CUDA graph of T forwards (one
-        graph a chunk length) on the solver's side stream, its feeds
-        copied into the graph's static inputs first."""
+        """One chunk of a test pass on the weights' copies: a forward of
+        each feed, each output's sum added to `acc` in the feeds' order,
+        on the current stream (the evaluation's, on the card). In the
+        chunked mode on the card, once the test net has run one eager
+        chunk (the capture's warm-up), a chunk is one replay of a CUDA
+        graph of T forwards (one graph a chunk length), its feeds copied
+        into the graph's static inputs first."""
+        view = self._eval_view(ti, tnet)
+
         def forwards(fs):
             for f in fs:
-                blobs, _ = tnet(f)
+                blobs, _ = torch.func.functional_call(tnet, view, (f,))
                 acc.add_(torch.stack([blobs[b].float().sum()
                                       for b in out_blobs]))
-        if self.device.type != "cuda" or self.step_chunk <= 1 \
-                or any(layer.host_step for layer in tnet.layers):
+        dev = self._eval_device()
+        key = (ti, len(feeds))
+        if dev.type != "cuda" or self.step_chunk <= 1 \
+                or any(layer.host_step for layer in tnet.layers) \
+                or ti not in self._test_warm:
             forwards(feeds)
+            self._test_warm.add(ti)
             return
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        stream = self._stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            key = (ti, len(feeds))
-            if ti not in self._test_warm:
-                forwards(feeds)
-                self._test_warm.add(ti)
-            else:
-                if key not in self._test_graphs:
-                    static = [{k: torch.empty_like(torch.as_tensor(v),
-                                                   device=self.device)
-                               for k, v in f.items()} for f in feeds]
-                    graph, deltas = self._graph_of(
-                        lambda: forwards(static))
-                    self._test_graphs[key] = _Graph(graph, static, [],
-                                                    deltas)
-                self._test_graphs[key].replay(feeds, [])
-        torch.cuda.current_stream(self.device).wait_stream(stream)
+        if key not in self._test_graphs:
+            static = [{k: torch.empty_like(torch.as_tensor(v), device=dev)
+                       for k, v in f.items()} for f in feeds]
+            graph, deltas = self._graph_of(lambda: forwards(static))
+            self._test_graphs[key] = _Graph(graph, static, [], deltas)
+        self._test_graphs[key].replay(feeds, [])
 
     @staticmethod
     def _output_blobs(net: Net) -> list[str]:
@@ -1623,6 +2050,10 @@ class Solver:
         self._last_snapshot = (it, state_path)
         self.snapshots.append(state_path)
         self._journal_run_state("snapshot")
+        if self.mesh is not None and self.mesh.hosts > 1:
+            # the hosts' quarantine journals, merged at the snapshots'
+            # cadence
+            resilience.merge_quarantine_journals(prefix)
         keep = int(self.sp.snapshot_keep or 0)
         if keep > 0:
             # this writer has just checksummed `manifest`'s files

@@ -106,19 +106,39 @@ cluster that does not form (or agree on `-resume auto`) journals
 `cluster_init_failed` (`cluster_resume_failed`) to the rank's run
 journal and exits 87; `-max_restarts` relaunches the whole command.
 
-The JAX CLI's flags for solver and serving fields the port does not
-honour yet (`-host_deadline`, `-min_hosts`, `-serve_replicas`, ...: one
-flag a field of the Solver's and the engine's UNPORTED_FIELDS) are
-accepted and land on their parameter, which the Solver or the engine
-refuses at any value but its default; the command then exits 1. The
-JAX CLI's flags of modules the port has not ported (`-gpipe`,
-`-gpipe_micro`: ROADMAP.md §1 item 6; `-replicas`, `-fleet_dir`,
-`-replica_id`, `-require_bank_warm`: item 5) are parsed and exit 1
-naming their item. `-decoded_cache_mb` sets the solver's
-`decoded_cache_mb`, over the prototxt's.
+`-gpipe S [-gpipe_micro M]` trains through GPipe (the JAX CLI's flags,
+tools/cli.py:44, :49, :713-726): the net cut into S stages, stage s on
+cuda:s when S cards are visible and every stage on the one card
+otherwise, the batch into M micro-batches (default S); it is exclusive
+of -gpu/-mesh, and the summary adds `gpipe` (stages, micro, bounds,
+devices). The in-training test passes are asynchronous (the solver's
+`_start_eval`); the summary adds `eval_stall_ms` and `eval_log` (each
+pass's iteration and scores).
+
+Multi-host elasticity (the JAX CLI's flags): `-host_deadline S` arms
+the cross-host heartbeat (a silent peer journals `host_lost:<peer>` and
+exits 87); with `-min_hosts W` and `-max_restarts` on a multi-host
+launch the supervisor is the elastic one (resilience.supervise_elastic):
+after a host is lost for good the survivors publish a generation of at
+least W hosts in `<prefix>.cluster/` and go on from the newest verified
+snapshot at the smaller world, a revived host parks in rejoin-wait and
+is re-admitted at a snapshot boundary; each generation's child argv is
+rewritten to its `-hosts`, `-host_id` and `-coordinator`. Host processes
+behind a loopback coordinator share this machine's cards (two on one
+card run over gloo). A collective that fails because a peer died exits
+87 once the heartbeat names the peer.
+
+The JAX CLI's flags for serving fields the port does not honour yet
+(`-serve_replicas`, ...: one flag a field of the engine's
+UNPORTED_FIELDS) are accepted and land on their parameter, which the
+engine refuses at any value but its default; the command then exits 1.
+The JAX CLI's flags of modules the port has not ported (`-replicas`,
+`-fleet_dir`, `-replica_id`, `-require_bank_warm`: ROADMAP.md §1 item
+5) are parsed and exit 1 naming their item. `-decoded_cache_mb` sets
+the solver's `decoded_cache_mb`, over the prototxt's.
 
 Usage (gflags-compatible single-dash long flags accepted):
-    python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt [-synthetic] [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate | -resume auto|PATH] [-snapshot_every N] [-snapshot_keep N] [-max_restarts N] [-anomaly_action rewind|rewind_lr|abort] [-watchdog_deadline S] [-test_chunk T] [-precision bf16] [-loss_scale S] [-step_chunk K] [-train_guard] [-gpu all|i,j | -mesh data=N[,model=M]] [-decoded_cache_mb M] [-hosts H -host_id k -coordinator host:port] [-reduce_overlap] [-reduce_buckets B | -grad_bucket_mb M] [-zero_stage 1] [-device cuda|cpu]
+    python -m caffe_mpi_tpu_torch.tools.cli train -solver solver.prototxt [-synthetic] [-max_iter N] [-test_iter T] [-snapshot_prefix P] [-weights w.caffemodel | -snapshot s.solverstate | -resume auto|PATH] [-snapshot_every N] [-snapshot_keep N] [-max_restarts N] [-anomaly_action rewind|rewind_lr|abort] [-watchdog_deadline S] [-test_chunk T] [-precision bf16] [-loss_scale S] [-step_chunk K] [-train_guard] [-gpu all|i,j | -mesh data=N[,model=M]] [-decoded_cache_mb M] [-hosts H -host_id k -coordinator host:port [-host_deadline S] [-min_hosts W]] [-gpipe S [-gpipe_micro M]] [-reduce_overlap] [-reduce_buckets B | -grad_bucket_mb M] [-zero_stage 1] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli test -model train_val.prototxt [-weights w.caffemodel] [-iterations N] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli time -model train_val.prototxt [-iterations N] [-phase TRAIN|TEST] [-profile DIR] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli device_query
@@ -140,8 +160,7 @@ log = logging.getLogger("caffe")
 
 # the JAX CLI's flags of modules not ported yet: (flag, type, ROADMAP.md
 # section 1 item); each exits 1 naming its item
-UNPORTED_FLAGS = (("gpipe", int, 6), ("gpipe_micro", int, 6),
-                  ("replicas", int, 5), ("fleet_dir", str, 5),
+UNPORTED_FLAGS = (("replicas", int, 5), ("fleet_dir", str, 5),
                   ("replica_id", int, 5), ("require_bank_warm", bool, 5))
 
 
@@ -275,6 +294,17 @@ def _parser() -> argparse.ArgumentParser:
                    "-hosts); on the cards one a card, and more ranks than "
                    "cards raise; with -device cpu, N x M processes over "
                    "gloo")
+    p.add_argument("-gpipe", "--gpipe", type=int, default=0,
+                   help="train: pipeline-train across S stages (GPipe over "
+                   "heterogeneous stages, parallel/gpipe.py): the net cut "
+                   "into S stages, stage s on cuda:s when S cards are "
+                   "visible, else all on the one card; the batch cut into "
+                   "micro-batches; stage-local updates; exclusive of "
+                   "-gpu/-mesh")
+    p.add_argument("-gpipe_micro", "--gpipe-micro", dest="gpipe_micro",
+                   type=int, default=0,
+                   help="train: micro-batches an iteration under -gpipe "
+                   "(default: the stages)")
     p.add_argument("-decoded_cache_mb", "--decoded-cache-mb",
                    dest="decoded_cache_mb", type=float, default=0.0,
                    help="train: host budget (MiB) of the decoded-record "
@@ -320,6 +350,23 @@ def _parser() -> argparse.ArgumentParser:
                    default=-1,
                    help="train: this host's index in [0, hosts) (-1 = env "
                    "CAFFE_TPU_HOST_ID)")
+    p.add_argument("-host_deadline", "--host-deadline",
+                   dest="host_deadline", type=float, default=0.0,
+                   help="train: cross-host heartbeat deadline in seconds: a "
+                   "peer host silent this long is journaled to the rank's "
+                   "run journal (host_lost:<peer>) and this worker exits 87 "
+                   "for the supervisor, instead of hanging in the next "
+                   "collective (overrides solver host_deadline; 0 = the "
+                   "prototxt's, default off)")
+    p.add_argument("-min_hosts", "--min-hosts", dest="min_hosts", type=int,
+                   default=0,
+                   help="train: degraded-mode quorum (needs -hosts > 1 and "
+                   "-max_restarts): after a host is lost for good the "
+                   "surviving supervisors publish a generation of W' >= "
+                   "min_hosts hosts and training goes on from the newest "
+                   "verified snapshot; a revived host parks and is "
+                   "re-admitted at a snapshot boundary (overrides solver "
+                   "min_hosts; 0 = the prototxt's, default off)")
     # survivable training (the JAX CLI's flags)
     p.add_argument("-resume", "--resume", default="",
                    help="'auto' = resume from the newest VERIFIED snapshot "
@@ -601,10 +648,17 @@ def _form_mesh(layout: dict):
     rank = layout["host_id"] * len(local) + local_rank
     devices = local * layout["hosts"]
     coordinator = layout["coordinator"] or f"127.0.0.1:{mesh_mod.free_port()}"
+    # host processes behind a loopback coordinator share this machine's
+    # cards: two on one card run over gloo (NCCL refuses that)
+    machines = 1 if mesh_mod.local_coordinator(coordinator) \
+        else layout["hosts"]
     mesh_mod.init_distributed(
         coordinator, layout["world"], rank,
-        backend=mesh_mod.backend_for(devices, layout["hosts"]),
+        backend=mesh_mod.backend_for(devices, machines),
         device=torch.device(local[local_rank]))
+    if rank == 0:
+        # a generation-managed run (min_hosts): its record on the store
+        mesh_mod.publish_generation()
     return mesh_mod.MeshPlan.from_shape(layout["data"], layout["model"],
                                         devices=devices,
                                         hosts=layout["hosts"])
@@ -783,6 +837,15 @@ def solver_param(args):
         sp.hosts = args.hosts
     if args.coordinator:
         sp.coordinator = args.coordinator
+    if args.host_deadline:
+        sp.host_deadline = args.host_deadline
+    if args.min_hosts:
+        sp.min_hosts = args.min_hosts
+    if args.gpipe and (args.gpu or args.mesh):
+        raise ValueError("-gpipe is exclusive of -gpu/-mesh (stages own "
+                         "whole devices)")
+    if args.gpipe_micro and not args.gpipe:
+        raise ValueError("-gpipe_micro needs -gpipe")
     _apply_unported(args, sp)
     return sp
 
@@ -809,15 +872,11 @@ def train(args):
     mesh = _form_mesh(layout) if layout else None
     try:
         out = _train(args, sp, model_dir, mesh)
-    except BaseException:
-        if mesh is not None:  # no exit barrier: a peer may be gone
+    finally:
+        # after the exit barrier (_train), or at once after a failure: a
+        # peer may be gone
+        if mesh is not None:
             mesh_mod.shutdown_distributed()
-        raise
-    if mesh is not None:
-        out[0].release_graphs()
-        # rank 0 serves the store: nobody leaves while a peer still uses it
-        mesh_mod.cluster_barrier("exit")
-        mesh_mod.shutdown_distributed()
     return out
 
 
@@ -826,19 +885,31 @@ def _train(args, sp, model_dir, mesh):
 
     from ..data.feeder import Feeder
     from ..ops import launch_counts
+    from ..parallel import mesh as mesh_mod
     from ..solver import Solver
-    from ..utils.resilience import QUARANTINE, quarantine_journal_path
+    from ..utils.resilience import (QUARANTINE, ClusterError,
+                                    CollectiveError, quarantine_journal_path)
+    # the JAX CLI's -gpipe (tools/cli.py:713-726)
+    gpipe = {"stages": args.gpipe, "micro": args.gpipe_micro} \
+        if args.gpipe else None
     solver = Solver(sp, model_dir=model_dir,
-                    device=None if mesh else args.device, mesh=mesh)
+                    device=None if mesh else args.device, mesh=mesh,
+                    gpipe=gpipe)
     t0 = time.perf_counter()
     resumed = _resume(solver, args)
     resume_ms = (time.perf_counter() - t0) * 1e3
     feed_fn, test_feed_fns, opened, feeder = _feed_fns(solver,
                                                        args.synthetic)
     # corrupt records the feeders substitute are journaled beside the
-    # snapshots, <prefix>.quarantine.json (appended to on a resume)
+    # snapshots, <prefix>.quarantine.json (appended to on a resume); over
+    # several hosts one journal a host, keyed on its stable identity in a
+    # min_hosts run (a generation remaps ranks), merged by rank 0 at
+    # each snapshot
+    hosts = mesh.hosts if mesh is not None else 1
+    stable = os.environ.get("CAFFE_TPU_CLUSTER_SELF")
     QUARANTINE.configure(quarantine_journal_path(
-        sp.snapshot_prefix or "snapshot"))
+        sp.snapshot_prefix or "snapshot", rank=solver.rank, world=hosts,
+        host=int(stable) if stable else None))
     start = solver.iter
     prev = _signal_handlers(solver, args)
     snapshot, scores = None, None
@@ -852,9 +923,26 @@ def _train(args, sp, model_dir, mesh):
         if stopped or (sp.snapshot_prefix
                        and solver.should_snapshot_after_train()):
             snapshot = solver.snapshot()
-    except BaseException:
+        if mesh is not None:
+            solver.wait_snapshots()
+            solver.release_graphs()
+            # rank 0 serves the store: nobody leaves while a peer still
+            # uses it. The heartbeat ticks on while the ranks meet, so a
+            # peer that crashed instead exits this one 87 within
+            # host_deadline
+            if not mesh_mod.cluster_barrier("exit"):
+                raise ClusterError("the end-of-training barrier timed out "
+                                   "(a peer lost after training?)",
+                                   reason="cluster_exit_failed")
+            # only now is the departure clean
+            solver.heartbeat_farewell()
+    except BaseException as e:
         if mesh is not None:  # the group is left next (see train)
             solver.release_graphs()
+            if isinstance(e, CollectiveError):
+                # a collective that failed because its peer died: the
+                # heartbeat names the peer (or ClusterError, exit 87)
+                solver.await_host_loss(e)
         raise
     finally:
         for sig, handler in prev.items():
@@ -866,7 +954,7 @@ def _train(args, sp, model_dir, mesh):
         # interval snapshots land (or raise) before the run counts as done
         solver.close()
     world = mesh.n_data if mesh is not None else 1
-    batch = solver._batch_images() * max(sp.iter_size, 1) * world
+    batch = solver._batch_images() * solver._micro_batches() * world
     med = float(np.median(solver.iter_ms)) if solver.iter_ms \
         else float("nan")
     data = next((l for l in solver.net.layers if l.lp.type == "Data"), None)
@@ -914,6 +1002,14 @@ def _train(args, sp, model_dir, mesh):
         "reduction": solver.reduction_stats(),
         "graphs": solver.graph_replays > 0,
         "graph_collectives": solver.graph_collectives,
+        # the asynchronous evaluation: the host ms training lost to it
+        # and each pass's scores, tagged with its iteration
+        "eval_stall_ms": solver.eval_stall_ms,
+        "eval_log": list(solver.eval_log),
+        "gpipe": None if solver.gpipe is None else {
+            "stages": solver.gpipe.n_stages, "micro": solver._gpipe_micro,
+            "bounds": list(solver.gpipe.bounds),
+            "devices": [str(d) for d in solver.gpipe.devices]},
     }
     return solver, summary
 
@@ -941,8 +1037,9 @@ def _supervised_train(args) -> int:
     and an environment marker against recursion) and restart it from the
     newest verified snapshot (`-resume auto`) with exponential backoff,
     a watchdog's exit 86 included, through resilience.supervise. The
-    failure log is `<snapshot_prefix>.failures.log`. This process touches
-    no card."""
+    failure log is `<snapshot_prefix>.failures.log`. With min_hosts on a
+    multi-host launch the supervisor is resilience.supervise_elastic
+    (the JAX CLI's elastic branch). This process touches no card."""
     from ..proto import SolverParameter
     from ..utils import resilience
     argv = list(getattr(args, "_argv", None) or sys.argv[1:])
@@ -955,8 +1052,49 @@ def _supervised_train(args) -> int:
     # restarts early (resilience.supervise)
     journal = prefix if args.host_id <= 0 else f"{prefix}.r{args.host_id}"
     anomaly_action = args.anomaly_action or sp.anomaly_action or "rewind"
-    base_cmd = [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.cli"] \
-        + child_argv
+    cli_cmd = [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.cli"]
+    # degraded-mode elasticity (the JAX CLI's elastic branch): with the
+    # quorum floor set on a multi-host launch the supervisor runs the
+    # generation protocol, and each generation's child argv is rewritten
+    # to its remapped -hosts W' -host_id k' -coordinator
+    min_hosts = args.min_hosts or sp.min_hosts
+    world = args.hosts or sp.hosts \
+        or int(os.environ.get("CAFFE_TPU_NUM_HOSTS", "0") or 0)
+    host_id = args.host_id if args.host_id >= 0 \
+        else int(os.environ.get("CAFFE_TPU_HOST_ID", "-1") or -1)
+    coordinator = args.coordinator or sp.coordinator \
+        or os.environ.get("CAFFE_TPU_COORDINATOR", "")
+    if min_hosts > 0 and world > 1 and host_id >= 0:
+        host_deadline = args.host_deadline or sp.host_deadline or 5.0
+        # the address the peers reach this host at (a new generation's
+        # publisher serves its store): CAFFE_TPU_HOST_ADDR, else the
+        # original coordinator's host
+        coord_host = os.environ.get("CAFFE_TPU_HOST_ADDR", "") or (
+            coordinator.rsplit(":", 1)[0] if ":" in coordinator
+            else "127.0.0.1")
+        stable_argv = _strip_flags(child_argv, (
+            "-hosts", "--hosts", "-host_id", "--host-id", "--host_id",
+            "-coordinator", "--coordinator", "-resume", "--resume"))
+
+        def build_cmd(gen: dict, rank: int, resume: bool) -> list[str]:
+            cmd = cli_cmd + stable_argv + ["-hosts", str(gen["world"]),
+                                           "-host_id", str(rank)]
+            if gen["world"] > 1:
+                cmd += ["-coordinator", gen["coordinator"]]
+            if resume:
+                cmd += ["-resume", "auto"]
+            return cmd
+
+        journal = prefix if host_id == 0 else f"{prefix}.r{host_id}"
+        return resilience.supervise_elastic(
+            build_cmd, prefix=prefix, host_id=host_id, world_full=world,
+            min_hosts=min_hosts, host_deadline=host_deadline,
+            coordinator_host=coord_host, coordinator=coordinator,
+            max_restarts=args.max_restarts,
+            failure_log=journal + ".failures.log", env=env,
+            anomaly_action=anomaly_action,
+            anomaly_lr_mult=sp.anomaly_lr_mult)
+    base_cmd = cli_cmd + child_argv
     resume_cmd = base_cmd
     if not any(t in ("-resume", "--resume")
                or t.startswith(("-resume=", "--resume="))

@@ -32,10 +32,27 @@ journal reasons, manifest fields and fault-site names:
   with exponential backoff up to a crash-loop guard, its exit 88 routed
   through `anomaly_action` (rewind, rewind_lr, abort).
 
-The elastic half (heartbeats, `supervise_elastic`, sharded manifests'
-writer, the quarantine journals' merge) waits for ROADMAP.md section 1
-item 6; `supervise`'s fast-fail on a cluster that never formed is here. `verify_snapshot` and `gc_snapshots` read a sharded (.orbax)
-manifest as the JAX ones do, so a mixed directory scans the same.
+The multi-host half, name for name, in the JAX file formats (beat files
+`hb_<host>` holding `<incarnation token>:<seq>`, farewell markers
+`bye_<host>`, generation records `cluster_gen.json` and `gen_<g>.json`,
+the `done` marker, merged quarantine journals):
+
+- the cross-host heartbeat: `DirBeatTransport` (a shared directory) and
+  `HostHeartbeat`, which the solver's watchdog thread ticks as its
+  `pulse`; a peer silent past `host_deadline` is journaled and the
+  worker exits EXIT_CLUSTER (the KV transport over the group's store is
+  `parallel/mesh.py` `KVBeatTransport`);
+- degraded-mode elasticity (`min_hosts`): the generation protocol on a
+  `<prefix>.cluster/` directory beside the snapshots (`cluster_dir`,
+  `read_generation`, `write_generation`, `observe_live_hosts`,
+  `SupervisorBeat`, `_rejoin_wait`) and `supervise_elastic`, which
+  re-forms the cluster around the survivors after a permanent host loss
+  and grows it back when the host returns;
+- the host-keyed quarantine journals and `merge_quarantine_journals`.
+
+The sharded (.orbax) manifests' writer waits for ROADMAP.md section 1
+item 6; `verify_snapshot` and `gc_snapshots` read a sharded manifest as
+the JAX ones do, so a mixed directory scans the same.
 """
 
 from __future__ import annotations
@@ -99,6 +116,13 @@ class ClusterError(RuntimeError):
         self.reason = reason
 
 
+class CollectiveError(RuntimeError):
+    """A collective (or the wait on one) failed where it ran: gloo raises
+    at once when a peer process dies. Only this error waits for the
+    heartbeat to name a lost peer (`Solver.await_host_loss`); a guard
+    trip, a data error or an OOM keeps its own exit code."""
+
+
 class RecordIntegrityError(RuntimeError):
     """A record failed its crc32c, its page structure, or its parse.
     Deterministic: not retried like a transient read error; the Feeder
@@ -148,6 +172,12 @@ FAULT_SITES = {
                        "with NaN (canary gate must roll back)",
     "coordinator_down": "fail distributed init for the first `count` "
                         "attempts (missing/unreachable coordinator)",
+    "host_loss": "kill the local worker at a heartbeat boundary "
+                 "(beat seq >= arg) — a peer host dying mid-run",
+    "host_perma_loss": "go dark at supervisor level for `arg` seconds "
+                       "after the worker dies — the whole host (worker "
+                       "AND supervisor) is gone, so the survivors must "
+                       "degrade instead of waiting for a restart-all",
 }
 
 
@@ -759,10 +789,53 @@ class QuarantineLog:
 QUARANTINE = QuarantineLog()
 
 
-def quarantine_journal_path(prefix: str) -> str:
-    """The journal of one host's quarantine decisions,
-    `<prefix>.quarantine.json` (the JAX package's single-host path)."""
-    return prefix + ".quarantine.json"
+def quarantine_journal_path(prefix: str, rank: int = 0, world: int = 1,
+                            host: int | None = None) -> str:
+    """The journal of one host's quarantine decisions. One host:
+    `<prefix>.quarantine.json`; in a multi-host run each host journals
+    its own stripe to `<prefix>.quarantine.r<rank>.json` (N hosts
+    rewriting one file would drop entries), or, when the elastic
+    supervisor names the host's stable identity `host` (a generation
+    remaps ranks), to `<prefix>.quarantine.h<host>.json`; rank 0 merges
+    them at snapshot time (`merge_quarantine_journals`)."""
+    if host is not None and world > 1:
+        return prefix + f".quarantine.h{int(host)}.json"
+    if world <= 1:
+        return prefix + ".quarantine.json"
+    return prefix + f".quarantine.r{int(rank)}.json"
+
+
+def merge_quarantine_journals(prefix: str) -> int:
+    """Merge the per-host journals (`<prefix>.quarantine.r*.json` and the
+    host-keyed `.quarantine.h*.json`) into `<prefix>.quarantine.json`,
+    deduplicated by (source, index) and sorted. Returns the merged
+    record count; 0 when there is no per-host journal."""
+    d = os.path.dirname(prefix) or "."
+    base = os.path.basename(prefix) + ".quarantine."
+    parts = sorted(
+        p for stem in (base + "r", base + "h")
+        for p in glob.glob(
+            os.path.join(glob.escape(d), glob.escape(stem) + "*.json")))
+    if not parts:
+        return 0
+    merged: dict[tuple, dict] = {}
+    for path in parts:
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            continue
+        for ent in doc.get("records", []):
+            merged.setdefault((ent.get("source"), ent.get("index")), ent)
+    records = sorted(merged.values(),
+                     key=lambda e: (e.get("source") or "",
+                                    e.get("index") or 0))
+    out = {"schema": _MANIFEST_SCHEMA, "records": records,
+           "merged_from": [os.path.basename(p) for p in parts]}
+    with atomic_output(prefix + ".quarantine.json") as tmp:
+        with open(tmp, "w") as f:
+            json.dump(out, f, indent=1, sort_keys=True)
+    return len(records)
 
 
 # ---------------------------------------------------------------------------
@@ -824,13 +897,23 @@ class DispatchWatchdog:
 
     The deadline must exceed the longest legitimate wait inside a
     section: the solver's first dispatch includes a CUDA graph capture,
-    cuDNN's algorithm search and the first load of each kernel library."""
+    cuDNN's algorithm search and the first load of each kernel library.
+
+    `pulse`: called once a poll from the monitor thread, before the
+    deadline check (the cross-host heartbeat's `HostHeartbeat.tick`: a
+    dead peer in a collective and a stuck device wait are bounded by the
+    same thread). A pulse that raises is logged; a deadline of `inf`
+    arms the thread for the heartbeat alone. `poll` overrides the wake
+    interval."""
 
     def __init__(self, deadline: float, on_timeout=None, *,
-                 hard_exit: bool = True):
+                 poll: float | None = None, hard_exit: bool = True,
+                 pulse=None):
         self.deadline = float(deadline)
         self.on_timeout = on_timeout
-        self.poll = min(max(self.deadline / 4.0, 0.05), 5.0)
+        self.pulse = pulse
+        self.poll = poll if poll is not None else min(
+            max(self.deadline / 4.0, 0.05), 5.0)
         self.hard_exit = hard_exit
         self._lock = threading.Lock()
         self._open: dict[int, tuple[str, float]] = {}
@@ -865,6 +948,12 @@ class DispatchWatchdog:
 
     def _run(self) -> None:
         while not self._stop.wait(self.poll):
+            if self.pulse is not None:
+                try:
+                    self.pulse()
+                except Exception:  # noqa: BLE001 — the deadline check runs on
+                    log.exception("watchdog: pulse callback failed "
+                                  "(continuing)")
             now = time.monotonic()
             with self._lock:
                 oldest = min(self._open.values(), key=lambda lt: lt[1],
@@ -898,8 +987,201 @@ NULL_SECTION = nullcontext()
 
 
 # ---------------------------------------------------------------------------
+# Cross-host heartbeat: host-loss detection
+# ---------------------------------------------------------------------------
+
+class DirBeatTransport:
+    """Heartbeat transport over a shared directory (`CAFFE_TPU_HB_DIR`, and
+    the elastic supervisors' `<prefix>.cluster/hb`): one atomically
+    rewritten file `hb_<host>` a host, `<incarnation token>:<seq>`.
+    Readers compare monotone sequence numbers only. The directory outlives
+    a process, so each record carries its process's incarnation token: a
+    restarted publisher's seq 0 reads as an advance (the token change is
+    folded into a monotone surrogate sequence), and a farewell marker
+    `bye_<host>` counts only for the incarnation whose beats are being
+    read. The JAX `DirBeatTransport`'s format: either package reads what
+    the other writes."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(path, exist_ok=True)
+        self._nonce = f"{os.getpid()}.{int(time.time() * 1e6)}"
+        self._token: dict[int, str] = {}  # each peer's current token
+        self._base: dict[int, int] = {}   # its surrogate offset
+        self._hi: dict[int, int] = {}     # the highest surrogate returned
+
+    def _beat_file(self, host: int) -> str:
+        return os.path.join(self.path, f"hb_{int(host)}")
+
+    def publish(self, host: int, seq: int) -> None:
+        with atomic_output(self._beat_file(host)) as tmp:
+            with open(tmp, "w") as f:
+                f.write(f"{self._nonce}:{int(seq)}")
+
+    def _read(self, host: int) -> tuple[str, int] | None:
+        try:
+            with open(self._beat_file(host)) as f:
+                token, _, seq = f.read().strip().rpartition(":")
+            return (token, int(seq)) if token else None
+        except (OSError, ValueError):
+            return None
+
+    def latest_seq(self, host: int) -> int:
+        """The newest beat `host` has published, as a sequence monotone
+        across incarnations; -1 when none. Non-blocking, and the latest,
+        not an exact one: a reader that armed late catches up."""
+        rec = self._read(host)
+        if rec is None:
+            return -1
+        token, seq = rec
+        if self._token.get(host) != token:
+            # a new incarnation restarts at seq 0: past all the old one's
+            self._base[host] = self._hi.get(host, -1) + 1
+            self._token[host] = token
+        val = self._base.get(host, 0) + seq
+        self._hi[host] = max(self._hi.get(host, -1), val)
+        return val
+
+    def farewell(self, host: int) -> None:
+        with atomic_output(os.path.join(self.path,
+                                        f"bye_{int(host)}")) as tmp:
+            with open(tmp, "w") as f:
+                f.write(self._nonce)
+
+    def is_bye(self, host: int) -> bool:
+        try:
+            with open(os.path.join(self.path, f"bye_{int(host)}")) as f:
+                bye_token = f.read().strip()
+        except OSError:
+            return False
+        # a stale marker, or one for a peer never heard, does not count
+        return bool(bye_token) and bye_token == self._token.get(host)
+
+
+class HostHeartbeat:
+    """Cross-host liveness: a peer that dies leaves every survivor blocked
+    in a collective it cannot interrupt, so detection runs on the
+    watchdog's monitor thread (`DispatchWatchdog(pulse=hb.tick)`).
+
+    Every `interval` seconds (default a quarter of the deadline, within
+    [0.1, 5] s) this host publishes a sequenced beat; each tick drains
+    the peers' newest beats. A peer silent past `deadline` (host-local
+    receipt time, no clock sync) is lost: `on_lost(peer, elapsed)`
+    journals it and the process exits EXIT_CLUSTER (87) for the
+    supervisor. A peer that published its farewell is done, not mourned.
+    First contact gets `grace` (default max(3 x deadline, 30 s)): peers
+    arm after their own start-up. The `host_loss` fault site exits this
+    process at a beat boundary (seq >= its arg)."""
+
+    def __init__(self, transport, host_id: int, n_hosts: int,
+                 deadline: float, *, on_lost=None, interval=None,
+                 grace: float | None = None, hard_exit: bool = True):
+        self.transport = transport
+        self.host = int(host_id)
+        self.peers = [p for p in range(int(n_hosts)) if p != self.host]
+        self.deadline = float(deadline)
+        self.interval = float(interval) if interval else min(
+            max(self.deadline / 4.0, 0.1), 5.0)
+        self.grace = float(grace) if grace is not None else max(
+            3.0 * self.deadline, 30.0)
+        self.hard_exit = hard_exit
+        self.on_lost = on_lost
+        self.lost: tuple[int, float] | None = None
+        self.lost_event = threading.Event()
+        now = time.monotonic()
+        self._last_pub = 0.0
+        self._seq = 0
+        self._first = {p: True for p in self.peers}
+        self._last_seen = {p: now for p in self.peers}
+        self._last_seq = {p: -1 for p in self.peers}
+        self._done: set[int] = set()
+        self._pub_warned = False
+
+    def beats_seen(self, peer: int) -> int:
+        """Beats observed from `peer` so far."""
+        return self._last_seq.get(peer, -1) + 1
+
+    def tick(self) -> None:
+        """One round: publish when due, drain the peers, mourn the
+        silent."""
+        now = time.monotonic()
+        if now - self._last_pub >= self.interval:
+            self._last_pub = now
+            try:
+                self.transport.publish(self.host, self._seq)
+            except Exception as e:  # noqa: BLE001 — failure is silence
+                if not self._pub_warned:
+                    self._pub_warned = True
+                    log.warning("heartbeat: publish failed (%s); peers "
+                                "will see this host as silent", e)
+            # test-only: this host dies at a beat boundary
+            FAULTS.maybe_exit("host_loss", key=self._seq)
+            self._seq += 1
+        for p in self.peers:
+            if p in self._done or self.lost is not None:
+                continue
+            got = False
+            try:
+                seq = self.transport.latest_seq(p)
+                if seq > self._last_seq[p]:
+                    self._last_seq[p] = seq
+                    got = True
+            except Exception:  # noqa: BLE001 — errors are silence
+                pass
+            now = time.monotonic()
+            if got:
+                self._first[p] = False
+                self._last_seen[p] = now
+                continue
+            try:
+                if self.transport.is_bye(p):
+                    log.info("heartbeat: host %d finished cleanly", p)
+                    self._done.add(p)
+                    continue
+            except Exception:  # noqa: BLE001 — not a clean departure
+                pass
+            allowance = self.deadline + (self.grace if self._first[p]
+                                         else 0.0)
+            if now - self._last_seen[p] > allowance:
+                self._trip(p, now - self._last_seen[p])
+
+    def _trip(self, peer: int, elapsed: float) -> None:
+        log.error("heartbeat: host %d silent for %.1fs (deadline %.1fs) "
+                  "— peer lost; journaling and exiting %d for the "
+                  "supervisor's coordinated restart", peer, elapsed,
+                  self.deadline, EXIT_CLUSTER)
+        self.lost = (peer, elapsed)
+        self.lost_event.set()
+        try:
+            if self.on_lost is not None:
+                self.on_lost(peer, elapsed)
+        except Exception:  # noqa: BLE001 — the trip goes on regardless
+            log.exception("heartbeat: host-lost journal failed")
+        if self.hard_exit:
+            logging.shutdown()
+            sys.stderr.flush()
+            os._exit(EXIT_CLUSTER)
+
+    def farewell(self) -> None:
+        """Publish the clean-departure marker (after the end-of-training
+        barrier): peers stop expecting beats."""
+        try:
+            self.transport.farewell(self.host)
+        except Exception:  # noqa: BLE001 — best effort, the barrier held
+            pass
+
+
+# ---------------------------------------------------------------------------
 # Supervisor: a contained child, exponential backoff, a crash-loop guard
 # ---------------------------------------------------------------------------
+
+def _failure_reason(rc) -> str:
+    """A failed child's exit code as the failure log names it."""
+    return ("deadline" if rc is None else
+            "watchdog" if rc == EXIT_WATCHDOG else
+            "numeric divergence" if rc == EXIT_NUMERIC else
+            "fault/cluster" if rc == EXIT_FAULT else f"exit {rc}")
+
 
 def supervise(first_cmd: list[str], resume_cmd: list[str],
               max_restarts: int, *, failure_log: str,
@@ -948,10 +1230,7 @@ def supervise(first_cmd: list[str], resume_cmd: list[str],
                 log.info("supervisor: recovered after %d restart(s)",
                          attempt)
             return 0
-        reason = ("watchdog" if rc == EXIT_WATCHDOG else
-                  "numeric divergence" if rc == EXIT_NUMERIC else
-                  "fault/cluster" if rc == EXIT_FAULT else
-                  f"exit {rc}")
+        reason = _failure_reason(rc)
         with open(failure_log, "a") as f:
             f.write(f"[{time.ctime()}] attempt {attempt + 1}: {reason} "
                     f"after {dt:.1f}s: {' '.join(cmd)}\n")
@@ -996,3 +1275,377 @@ def supervise(first_cmd: list[str], resume_cmd: list[str],
                     "verified snapshot in %.1fs", reason, verb, delay)
         time.sleep(delay)
     return rc
+
+
+# ---------------------------------------------------------------------------
+# Degraded-mode elasticity: the generation protocol
+# ---------------------------------------------------------------------------
+# A host lost for good defeats the restart-all recovery: every survivor
+# would wait in the group's formation at the old world size until its
+# restarts run out. The generation protocol reshapes the cluster around
+# the survivors instead. It runs at supervisor level on shared storage
+# (the assumption `-resume auto` already makes of the snapshots): the
+# group's store dies with rank 0's worker, so the durable channel is a
+# `<prefix>.cluster/` directory of supervisor beats (DirBeatTransport,
+# keyed on the ORIGINAL host ids, which survive every rank remap) and an
+# atomically published generation record. Rank 0's worker mirrors the
+# live record onto the store (`mesh.publish_generation`); the directory
+# stays the source of truth.
+
+_GEN_FILE = "cluster_gen.json"
+_GEN_DONE = "done"
+
+
+def cluster_dir(prefix: str) -> str:
+    """The generation protocol's directory for a run, beside its
+    snapshots."""
+    return prefix + ".cluster"
+
+
+def generation_path(cdir: str) -> str:
+    return os.path.join(cdir, _GEN_FILE)
+
+
+def initial_generation(world: int, coordinator: str) -> dict:
+    """Generation 1, the operator's launch: what every supervisor assumes
+    while no record exists (a run without a failure writes none)."""
+    return {"generation": 1, "hosts": list(range(int(world))),
+            "world": int(world), "world_full": int(world),
+            "coordinator": coordinator, "reason": "cluster_formed"}
+
+
+def read_generation(cdir: str) -> dict | None:
+    """The current generation record, or None (generation 1). A torn or
+    invalid record reads as None: the next membership round republishes."""
+    try:
+        with open(generation_path(cdir)) as f:
+            doc = json.load(f)
+        if int(doc.get("generation", 0)) >= 1 and doc.get("hosts"):
+            doc["hosts"] = [int(h) for h in doc["hosts"]]
+            return doc
+    except (OSError, ValueError, TypeError):
+        pass
+    return None
+
+
+def write_generation(cdir: str, gen: dict) -> str:
+    """Publish a generation record: the history file `gen_<g>.json`
+    first, then the live `cluster_gen.json` every parked or restarting
+    supervisor polls. A new generation clears an earlier run's `done`
+    marker."""
+    os.makedirs(cdir, exist_ok=True)
+    g = int(gen["generation"])
+    doc = dict(gen, time=time.time())
+    for path in (os.path.join(cdir, f"gen_{g}.json"),
+                 generation_path(cdir)):
+        with atomic_output(path) as tmp:
+            with open(tmp, "w") as f:
+                json.dump(doc, f, indent=1, sort_keys=True)
+    try:
+        os.unlink(os.path.join(cdir, _GEN_DONE))
+    except OSError:
+        pass
+    return generation_path(cdir)
+
+
+def observe_live_hosts(cdir: str, world_full: int, self_host: int,
+                       window: float, *, min_beats: int = 2) -> list[int]:
+    """One membership round: watch the supervisor beats for `window`
+    seconds and return the original host ids seen alive, sorted. Each
+    host's current beat is read first and only advances count, so a
+    frozen file of a dead incarnation is not liveness; `min_beats`
+    advances are needed. The observer is always alive."""
+    tr = DirBeatTransport(os.path.join(cdir, "hb"))
+    hosts = range(int(world_full))
+    base = {h: tr.latest_seq(h) for h in hosts}
+    advances = {h: 0 for h in hosts}
+    t_end = time.monotonic() + max(window, 0.2)
+    while time.monotonic() < t_end:
+        time.sleep(min(0.1, window / 4))
+        for h in hosts:
+            seq = tr.latest_seq(h)
+            if seq > base[h]:
+                advances[h] += seq - base[h]
+                base[h] = seq
+    live = {h for h in hosts if advances[h] >= min_beats}
+    live.add(int(self_host))
+    return sorted(live)
+
+
+class SupervisorBeat:
+    """A daemon thread publishing this supervisor's beats (original host
+    id) to the cluster directory. Unlike the worker's HostHeartbeat it
+    outlives the worker: a host whose supervisor beats is a candidate to
+    rejoin while its worker is down. pause() and resume() serve the
+    `host_perma_loss` fault site (the whole host dark)."""
+
+    def __init__(self, cdir: str, host_id: int, interval: float):
+        self.transport = DirBeatTransport(os.path.join(cdir, "hb"))
+        self.host = int(host_id)
+        self.interval = max(float(interval), 0.05)
+        self._stop = threading.Event()
+        self._paused = threading.Event()
+        self._seq = 0
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=f"sup-beat-{self.host}")
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def _run(self) -> None:
+        # a beat thread that dies is a silent supervisor: the peers'
+        # membership round decides, as for a dead one
+        while not self._stop.is_set():
+            if not self._paused.is_set():
+                try:
+                    self.transport.publish(self.host, self._seq)
+                    self._seq += 1
+                except OSError as e:
+                    log.warning("supervisor beat publish failed: %s", e)
+            self._stop.wait(self.interval)
+
+    def pause(self) -> None:
+        self._paused.set()
+
+    def resume(self) -> None:
+        self._paused.clear()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+
+
+def _wait_generation_advance(cdir: str, beyond: int,
+                             timeout: float) -> dict | None:
+    """Poll for a generation newer than `beyond` (a survivor waiting out
+    the lowest survivor's membership round)."""
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        gen = read_generation(cdir)
+        if gen and gen["generation"] > beyond:
+            return gen
+        time.sleep(0.2)
+    return None
+
+
+def _rejoin_wait(cdir: str, host_id: int, beyond: int,
+                 park_deadline: float) -> dict | str | None:
+    """Park a host the current generation excludes: its supervisor beats
+    on (rank 0's check at a snapshot boundary sees it), and this polls
+    until a generation re-admits it (returned), the run finishes
+    ("done"), or `park_deadline` passes (None)."""
+    log.info("rejoin-wait: generation %d excludes host %d; parking, "
+             "publishing beats until rank 0 re-admits this host at a "
+             "snapshot boundary", beyond, host_id)
+    t_end = time.monotonic() + park_deadline
+    while time.monotonic() < t_end:
+        if os.path.exists(os.path.join(cdir, _GEN_DONE)):
+            return "done"
+        gen = read_generation(cdir)
+        if gen and gen["generation"] > beyond \
+                and int(host_id) in gen["hosts"]:
+            return gen
+        time.sleep(0.25)
+    return None
+
+
+def supervise_elastic(build_cmd, *, prefix: str, host_id: int,
+                      world_full: int, min_hosts: int,
+                      host_deadline: float, coordinator_host: str,
+                      coordinator: str, max_restarts: int,
+                      failure_log: str, env: dict | None = None,
+                      backoff_base: float = 1.0,
+                      anomaly_action: str = "rewind",
+                      anomaly_lr_mult: float = 0.1,
+                      park_deadline: float = 900.0) -> int:
+    """The degraded-mode supervisor: `supervise` plus the generation
+    protocol. `build_cmd(gen, rank, resume)` returns the worker argv of a
+    generation (the remapped `-hosts W' -host_id k' -coordinator <addr>`,
+    `-resume auto` on a restart). The child's environment names the
+    generation (CAFFE_TPU_CLUSTER_DIR, _GEN, _HOSTS, _SELF,
+    CAFFE_TPU_WORLD_FULL, CAFFE_TPU_CLUSTER_DEADLINE).
+
+    After a child fails, in order:
+    1. the `host_perma_loss` fault site: this supervisor goes dark (its
+       beats paused) for `arg` seconds, the whole host gone, then
+       revives into step 2;
+    2. a newer generation exists (a peer reshaped the cluster): one that
+       includes this host is joined with a fresh restart budget; one that
+       excludes it parks this host in rejoin-wait until rank 0 re-admits
+       it at a snapshot boundary, or the run finishes;
+    3. exit 87 (a cluster event): a membership round over the supervisor
+       beats for ~host_deadline; a changed host set of at least
+       `min_hosts` is published as generation g+1 by the lowest survivor
+       (the new rank 0, which serves the new store on a fresh port of
+       `coordinator_host`), the others wait for that record. The run
+       journal and `gen_<g>.json` record `cluster_degraded:<g>` or
+       `cluster_regrown:<g>`;
+    4. otherwise a plain restart with exponential backoff, at most
+       `max_restarts` within the generation.
+
+    A clean exit of a reshaped run writes the `done` marker, so parked
+    hosts return 0."""
+    from .subproc import run_contained
+    os.makedirs(os.path.dirname(failure_log) or ".", exist_ok=True)
+    cdir = cluster_dir(prefix)
+    os.makedirs(cdir, exist_ok=True)
+    interval = min(max(float(host_deadline) / 4.0, 0.1), 2.0)
+    beat = SupervisorBeat(cdir, host_id, interval)
+    beat.start()
+    cur = read_generation(cdir) or initial_generation(world_full,
+                                                      coordinator)
+    attempt = 0
+    resume = cur["generation"] > 1
+    numeric_restarts = 0
+    rc: int | None = 1
+    try:
+        while True:
+            if int(host_id) not in cur["hosts"]:
+                got = _rejoin_wait(cdir, host_id, cur["generation"],
+                                   park_deadline)
+                if got == "done":
+                    log.info("rejoin-wait: run finished without this "
+                             "host; exiting clean")
+                    return 0
+                if got is None:
+                    log.error("rejoin-wait: no generation re-admitted "
+                              "host %d within %.0fs; giving up",
+                              host_id, park_deadline)
+                    return 1
+                cur, attempt, resume = got, 0, True
+                continue
+            rank = cur["hosts"].index(int(host_id))
+            cmd = list(build_cmd(cur, rank, resume))
+            if resume and numeric_restarts \
+                    and anomaly_action == "rewind_lr":
+                cmd += ["-lr_scale",
+                        repr(anomaly_lr_mult ** numeric_restarts)]
+            child_env = dict(env if env is not None else os.environ)
+            child_env.update(
+                CAFFE_SUPERVISED_CHILD="1",
+                CAFFE_TPU_CLUSTER_DIR=cdir,
+                CAFFE_TPU_CLUSTER_GEN=str(cur["generation"]),
+                CAFFE_TPU_CLUSTER_HOSTS=",".join(
+                    str(h) for h in cur["hosts"]),
+                CAFFE_TPU_CLUSTER_SELF=str(int(host_id)),
+                CAFFE_TPU_WORLD_FULL=str(cur.get("world_full", world_full)),
+                CAFFE_TPU_CLUSTER_DEADLINE=repr(float(host_deadline)))
+            log.info("supervisor[gen %d]: attempt %d/%d as rank %d/%d: "
+                     "%s", cur["generation"], attempt + 1,
+                     max_restarts + 1, rank, cur["world"], " ".join(cmd))
+            t0 = time.time()
+            rc, out, err = run_contained(cmd, None, env=child_env,
+                                         echo=True)
+            dt = time.time() - t0
+            if rc == 0:
+                if cur["generation"] > 1:
+                    # release a parked host; every finishing supervisor
+                    # may write it, and only its existence signals
+                    try:
+                        with open(os.path.join(cdir, _GEN_DONE), "w") as f:
+                            f.write(f"{time.time()}\n")
+                    except OSError as e:
+                        log.warning("done-marker write failed: %s", e)
+                if attempt > 0 or cur["generation"] > 1:
+                    log.info("supervisor: recovered (generation %d, %d "
+                             "restart(s) in it)", cur["generation"],
+                             attempt)
+                return 0
+            reason = _failure_reason(rc)
+            with open(failure_log, "a") as f:
+                f.write(f"[{time.ctime()}] gen {cur['generation']} "
+                        f"attempt {attempt + 1}: {reason} after "
+                        f"{dt:.1f}s: {' '.join(cmd)}\n")
+                tail = (out or "").strip().splitlines()[-20:] \
+                    + (err or "").strip().splitlines()[-20:]
+                for line in tail:
+                    f.write(f"    {line}\n")
+            if rc == EXIT_NUMERIC:
+                if anomaly_action == "abort":
+                    log.error("supervisor: numeric divergence with "
+                              "anomaly_action 'abort'; not restarting "
+                              "(log: %s)", failure_log)
+                    return EXIT_NUMERIC
+                numeric_restarts += 1
+            # test-only: the whole host (supervisor too) goes dark
+            dark = FAULTS.fire("host_perma_loss")
+            if dark is not None:
+                park = float(dark) if dark else 8.0
+                log.warning("fault host_perma_loss: host %d supervisor "
+                            "dark for %.1fs", host_id, park)
+                beat.pause()
+                time.sleep(park)
+                beat.resume()
+                log.warning("fault host_perma_loss: host %d supervisor "
+                            "revived", host_id)
+            newer = read_generation(cdir)
+            if newer and newer["generation"] > cur["generation"]:
+                log.info("supervisor: generation %d -> %d (published "
+                         "by a peer while this host was down)",
+                         cur["generation"], newer["generation"])
+                cur, attempt, resume = newer, 0, True
+                continue
+            if rc == EXIT_CLUSTER:
+                window = max(float(host_deadline), 8 * interval)
+                live = observe_live_hosts(cdir, world_full, host_id, window)
+                if sorted(live) != sorted(cur["hosts"]) \
+                        and len(live) >= max(int(min_hosts), 1):
+                    if min(live) == int(host_id):
+                        g = cur["generation"] + 1
+                        event = ("cluster_degraded"
+                                 if len(live) < len(cur["hosts"])
+                                 else "cluster_regrown")
+                        newgen = {
+                            "generation": g, "hosts": live,
+                            "world": len(live),
+                            "world_full": int(world_full),
+                            "coordinator":
+                                f"{coordinator_host}:{_free_port()}",
+                            "reason": event, "prev_hosts": cur["hosts"]}
+                        write_generation(cdir, newgen)
+                        try:
+                            write_run_manifest(
+                                prefix, reason=f"{event}:{g}",
+                                generation=g, hosts=live, world=len(live),
+                                world_full=int(world_full))
+                        except OSError:
+                            log.exception("generation journal failed "
+                                          "(continuing)")
+                        log.warning(
+                            "supervisor: published generation %d (%s): "
+                            "hosts %s -> %s, world %d", g, event,
+                            cur["hosts"], live, len(live))
+                        cur, attempt, resume = newgen, 0, True
+                        continue
+                    got = _wait_generation_advance(
+                        cdir, cur["generation"], window + 15.0)
+                    if got is not None:
+                        cur, attempt, resume = got, 0, True
+                        continue
+                    log.warning("supervisor: membership changed (%s -> "
+                                "%s) but host %d never published a "
+                                "generation; falling back to a plain "
+                                "restart", cur["hosts"], live, min(live))
+            attempt += 1
+            if attempt > max_restarts:
+                log.error("supervisor: crash-loop guard: %d failure(s) "
+                          "in generation %d; giving up (log: %s)",
+                          attempt, cur["generation"], failure_log)
+                return 1 if rc is None else rc
+            delay = min(backoff_base * (2 ** (attempt - 1)),
+                        _BACKOFF_CAP_S)
+            verb = ("rewinding to" if rc == EXIT_NUMERIC
+                    else "restarting from")
+            log.warning("supervisor: child failed (%s); %s the newest "
+                        "verified snapshot in %.1fs", reason, verb, delay)
+            time.sleep(delay)
+            resume = True
+    finally:
+        beat.stop()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]

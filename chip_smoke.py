@@ -365,6 +365,45 @@ Phases, in order; any failure exits nonzero and prints no result line:
              within 1e-3 of `-gpu 0`'s. Prints the per-rank step ms, the
              model-axis collective ms and bytes a step, K3-K5 launches
              per rank, and the card's name and power limit.
+25. gpipe — GoogLeNet at full width (b128, three losses) through the
+             CLI's `train -gpipe 4 -gpipe_micro 4` on one card, every
+             stage on it, 4 iterations, launch counts 0 just before and
+             read just after: K1 16 and K2 8 an iteration, as
+             `gpipe.lrn_launches` predicts; loss and every param, history
+             slot and statistic against the port's iter_size 4 run at
+             b32 (FLOAT math, cuDNN deterministic) by `_step_rule` at
+             1e-2: the CLI's runs on its one synthetic batch, and in
+             process on 16 distinct seeded micro-batches (after one
+             iteration and after 4), two planted faults above the bound
+             there (stage 1 recomputes the next micro-batch's inputs;
+             stage 1 sends no cotangent back); the median step ms and
+             each stage device's peak memory. `--only gpipe_cards`
+             (4 cards): one stage a card against every stage on card 0,
+             the first loss within 1e-3, each card's peak memory and
+             params, the step ms.
+26. eval  — the asynchronous evaluation at AlexNet's full width (b256,
+             step_chunk 10, a pass of 10 test batches at 0, 10 and 20):
+             each pass bitwise the synchronous `test_all` at the same
+             weights, the params bitwise those of a run with no
+             evaluation, a pass on the live params (no copy) off; the
+             stall a boundary (start, harvest) beside the synchronous
+             pass's ms.
+27. elastic — two supervised "hosts" sharing card 0 over gloo (LeNet's
+             solver, FLOAT math, -min_hosts 1, -host_deadline 3, a
+             snapshot every 40 of 800 iterations), run during the build:
+             host 1's worker dies at a beat and its supervisor goes dark
+             (the host_loss and host_perma_loss fault sites). In order:
+             the survivor's `host_lost:1` journal and exit 87,
+             generation 2 at world 1, the revived supervisor parked in
+             rejoin-wait, re-admission at a snapshot boundary,
+             generation 3 at world 2; the final weights against an
+             uninterrupted pair by `_step_rule` at 1e-2, a control (the
+             weights the regrown generation resumed from) above it; the
+             regrown generation's weights and history, at its first
+             snapshot and at the end, against a pair resumed from the
+             same snapshot at 1e-2, the planted fault (that snapshot's
+             history zeroed) above it; the noise floor beside them (the
+             uninterrupted pair run twice, one process at world 1).
 
 It prints one {"native_codec": ...} line (during phase 12), one
 {"kernels": [...]} line (K1-K5), one {"serving": ...} line (phases
@@ -376,8 +415,10 @@ phase inside it), one line each for phases 16-21 ({"leveldb": ...},
 {"imagedata": ...}, {"rcnn": ...}, {"detectnet": ...}, {"siamese":
 ...}, {"zoo_layers": ...}), one {"pycaffe": ...} line, one
 {"survive": ...} line, one
-{"dp": ...} line, one {"mp": ...} line, one
-{"phase_seconds": ...} line (the wall seconds of each group of phases),
+{"dp": ...} line, one {"mp": ...} line, one {"gpipe": ...}, one
+{"eval": ...} and one {"elastic": ...} line, one
+{"phase_seconds": ...} line (the wall seconds of each group of phases;
+"elastic_during_build" the elastic runs', which overlap the build),
 the card line again, and last {"ok": true, ...}.
 """
 
@@ -6874,6 +6915,729 @@ def mp_phase(k1: dict, k2: dict, flash: list[dict], card: str) -> dict:
     return out
 
 
+# -- 25. gpipe ----------------------------------------------------------------
+
+GOOGLENET_SOLVER = os.path.join(ROOT, "models", "googlenet",
+                                "solver.prototxt")
+GPIPE_STAGES = 4          # -gpipe
+GPIPE_MICRO = 4           # -gpipe_micro: micro-batches of 32 at batch 128
+GPIPE_ITERS = 4           # iterations of each run
+GPIPE_BOUND = 1e-2        # `_step_rule` against the iter_size run
+GPIPE_FIRST_BOUND = 1e-5  # the same after one iteration, in process (read
+#                           2.2e-7 on the card: float32 chaos takes it to
+#                           ~9e-3 by the fourth iteration)
+GPIPE_CARDS_ITERS = 6     # --only gpipe_cards: the median after the first
+
+
+def _solver_copy(src, tmp, name, *, batch_div=1, iter_size=1,
+                 float_math=True) -> str:
+    """A copy of a zoo solver (and its net) with no test pass and no
+    snapshot: its net in FLOAT math (TF32 off, forward and backward), its
+    Input batch divided by `batch_div`, and `iter_size`."""
+    from caffe_mpi_tpu_torch.proto import NetParameter, SolverParameter
+    sp = SolverParameter.from_file(src)
+    param = NetParameter.from_file(os.path.join(ROOT, sp.net))
+    if float_math:
+        param.default_forward_math = param.default_backward_math = "FLOAT"
+    for lp in param.layer:
+        if lp.type == "Input" and lp.input_param:
+            for shape in lp.input_param.shape:
+                shape.dim[0] //= batch_div
+    net = os.path.join(tmp, f"{name}_net.prototxt")
+    with open(net, "w") as f:
+        f.write(param.to_prototxt())
+    sp.net, sp.test_iter, sp.test_interval = net, [], 0
+    sp.snapshot, sp.iter_size = 0, iter_size
+    path = os.path.join(tmp, f"{name}_solver.prototxt")
+    with open(path, "w") as f:
+        f.write(sp.to_prototxt())
+    return path
+
+
+def _gpipe_state(solver) -> dict:
+    state = _state(solver)
+    state["loss"] = torch.tensor(solver.losses)
+    return state
+
+
+def _plant_mixup(gp, stage: int = 1) -> None:
+    """The micro-batch mix-up fault: stage `stage`'s recompute of
+    micro-batch m reads the feeds and boundary inputs that the forward
+    saved for micro-batch m + 1 (mod M), as a wrong m in `saved[s][m]`
+    would, while its cotangents still go to micro-batch m's wires."""
+    run, fwd, done = gp._run, [], [0]
+
+    def faulty(s, feeds, env_in, mk, params):
+        if s != stage:
+            return run(s, feeds, env_in, mk, params)
+        if not torch.is_grad_enabled():  # the forward wavefront, m = 0, 1..
+            if done[0]:
+                fwd.clear()
+                done[0] = 0
+            fwd.append((feeds, {b: v.clone() for b, v in env_in.items()}))
+            return run(s, feeds, env_in, mk, params)
+        m = len(fwd) - 1 - done[0]  # the backward goes m = M - 1, .. 0
+        done[0] += 1
+        o_feeds, o_env = fwd[(m + 1) % len(fwd)]
+        # the other micro-batch's values; the gradient still reaches this
+        # micro-batch's leaves
+        mixed = {b: v - v.detach() + o_env[b] if v.requires_grad
+                 else o_env[b] for b, v in env_in.items()}
+        return run(s, o_feeds, mixed, mk, params)
+
+    gp._run = faulty
+
+
+def _gpipe_solvers(full, micro, feeds: list, fault=None) -> tuple:
+    """GoogLeNet in process on distinct micro-batches, `feeds[k]` for
+    micro-batch m of iteration it (k = it x M + m): under GPipe (`full`
+    with -gpipe S -gpipe_micro M; `fault` "mixup" or "no_send_back"
+    planted), else the iter_size M solver (`micro`). (state after the
+    first iteration, state after GPIPE_ITERS)."""
+    from caffe_mpi_tpu_torch.proto import SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    sp = SolverParameter.from_file(full if fault != "iter_size" else micro)
+    sp.max_iter = GPIPE_ITERS  # the CLI runs' -max_iter (a poly schedule)
+    solver = Solver(sp, device="cuda", gpipe=None if fault == "iter_size"
+                    else {"stages": GPIPE_STAGES, "micro": GPIPE_MICRO})
+    if fault == "mixup":
+        _plant_mixup(solver.gpipe)
+    elif fault == "no_send_back":
+        # stage 1 sends no cotangent back: stage 0's params take no
+        # gradient from the stages after it
+        solver.gpipe._in_producer[1] = {}
+    solver.step(1, lambda k: feeds[k])
+    first = _gpipe_state(solver)
+    solver.step(GPIPE_ITERS - 1, lambda k: feeds[k])
+    last = _gpipe_state(solver)
+    del solver
+    torch.cuda.empty_cache()
+    return first, last
+
+
+def _gpipe_in_process(full, micro) -> dict:
+    """GPipe against iter_size M in process on GPIPE_ITERS x M distinct
+    seeded micro-batches, after one iteration (GPIPE_FIRST_BOUND) and
+    after GPIPE_ITERS (GPIPE_BOUND): how far float32 chaos carries the
+    gap. The two planted faults against the same reference at both."""
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.proto import NetParameter, SolverParameter
+    from caffe_mpi_tpu_torch.tools import cli
+    sp = SolverParameter.from_file(micro)
+    net = Net(NetParameter.from_file(sp.net), phase="TRAIN", device="cuda")
+    feeds = [cli.synthetic_feed(net, seed=100 + k)
+             for k in range(GPIPE_ITERS * GPIPE_MICRO)]
+    del net
+    runs = {tag: _gpipe_solvers(full, micro, feeds, tag)
+            for tag in ("iter_size", None, "mixup", "no_send_back")}
+    ref, got = runs.pop("iter_size"), runs.pop(None)
+
+    def rules(run):
+        return {"first": _step_rule(ref[0], run[0], GPIPE_FIRST_BOUND),
+                "end": _step_rule(ref[1], run[1], GPIPE_BOUND)}
+    return {"rule": rules(got),
+            "faults": {tag: rules(run) for tag, run in runs.items()},
+            "losses": [float(x) for x in got[1]["loss"]],
+            "iter_size_losses": [float(x) for x in ref[1]["loss"]]}
+
+
+def gpipe_phase(k1: dict, k2: dict, card: str) -> dict:
+    """GoogLeNet at full width (models/googlenet/solver.prototxt's net,
+    batch 128, three losses) through the CLI's `train -gpipe 4
+    -gpipe_micro 4` on one card (every stage on it), GPIPE_ITERS
+    iterations, launch counts 0 just before and read just after: K1 and
+    K2 against `gpipe.lrn_launches`; loss and every param, history slot
+    and statistic against the port's `iter_size 4` run at batch 32 (FLOAT
+    math, cuDNN deterministic) by `_step_rule` at GPIPE_BOUND, the CLI's
+    runs on its one synthetic batch and, in process, on distinct seeded
+    micro-batches with two planted faults above the bound (a micro-batch
+    mix-up, a cotangent not sent back); the median step ms and each
+    stage device's peak memory."""
+    from caffe_mpi_tpu_torch.parallel.gpipe import lrn_launches
+    from caffe_mpi_tpu_torch.tools import cli
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gpipe_")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        full = _solver_copy(GOOGLENET_SOLVER, tmp, "googlenet")
+        micro = _solver_copy(GOOGLENET_SOLVER, tmp, "googlenet_micro",
+                             batch_div=GPIPE_MICRO, iter_size=GPIPE_MICRO)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_kernel_counts()
+        solver, summary = cli.train(cli.parse_args(
+            ["train", "-solver", full, "-synthetic", "-device", "cuda",
+             "-max_iter", str(GPIPE_ITERS), "-gpipe", str(GPIPE_STAGES),
+             "-gpipe_micro", str(GPIPE_MICRO)]))
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        devices = sorted({str(d) for d in solver.gpipe.devices})
+        peaks = {d: torch.cuda.max_memory_allocated(d) / 1e9
+                 for d in devices}
+        pred = lrn_launches(solver.gpipe, GPIPE_MICRO)
+        got = _gpipe_state(solver)
+        bounds = list(solver.gpipe.bounds)
+        del solver
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ref_solver, ref = cli.train(cli.parse_args(
+            ["train", "-solver", micro, "-synthetic", "-device", "cuda",
+             "-max_iter", str(GPIPE_ITERS)]))
+        torch.cuda.synchronize()
+        ref_peak = torch.cuda.max_memory_allocated() / 1e9
+        want = _gpipe_state(ref_solver)
+        del ref_solver
+        torch.cuda.empty_cache()
+        inproc = _gpipe_in_process(full, micro)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(tmp, ignore_errors=True)
+    rule = _step_rule(want, got, GPIPE_BOUND)
+    want_counts = (GPIPE_ITERS * pred[0], GPIPE_ITERS * pred[1], 0, 0, 0)
+    if summary["batch"] != GOOGLENET_BATCH or summary["rank_batch"] != \
+            GOOGLENET_BATCH // GPIPE_MICRO or summary["gpipe"]["stages"] \
+            != GPIPE_STAGES or len(summary["losses"]) != GPIPE_ITERS:
+        fail(f"gpipe ran {summary['gpipe']} at batch {summary['batch']} "
+             f"({summary['rank_batch']} a micro-batch)")
+    if not np.all(np.isfinite(summary["losses"])):
+        fail(f"gpipe losses not all finite: {summary['losses']}")
+    if counts != want_counts or pred != (16, 8):
+        fail(f"gpipe launched K1-K5 {counts}, the predictor says "
+             f"{want_counts} ({pred} an iteration)")
+    if not (rule["held"] and all(r["held"] for r in
+                                 inproc["rule"].values())) \
+            or any(r["held"] for f in inproc["faults"].values()
+                   for r in f.values()):
+        fail(f"gpipe against iter_size {GPIPE_MICRO}: CLI {rule}; in "
+             f"process {inproc}")
+    k1["launches_by_path"]["gpipe_googlenet"] = counts[0]
+    k2["launches_by_path"]["gpipe_googlenet"] = counts[1]
+    out = {"solver": "models/googlenet/solver.prototxt",
+           "batch": summary["batch"], "micro_batch": summary["rank_batch"],
+           "stages": GPIPE_STAGES, "micro": GPIPE_MICRO, "bounds": bounds,
+           "devices": summary["gpipe"]["devices"], "iters": GPIPE_ITERS,
+           "losses": summary["losses"], "iter_size_losses": ref["losses"],
+           "rule": rule, "in_process": inproc,
+           "launches_k1_k5": list(counts), "predicted_per_iter": list(pred),
+           "median_step_ms": summary["median_iter_ms"],
+           "step_ms": summary["iter_ms"],
+           "iter_size_median_step_ms": ref["median_iter_ms"],
+           "peak_mem_GB": peaks, "iter_size_peak_mem_GB": ref_peak,
+           "card": card}
+    log(f"gpipe: {json.dumps(out)}")
+    return out
+
+
+def _gpipe_cards(card: str) -> dict | None:
+    """`--only gpipe_cards`: GoogLeNet as the gpipe phase runs it, in one
+    process, with every stage on card 0 and then one stage a card on 4
+    cards (skipped with fewer): the first loss against the one-card
+    run's within MP_FIRST_LOSS, each card's peak memory and param bytes
+    (the params partitioned), the median step ms after the first."""
+    from caffe_mpi_tpu_torch.proto import SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    from caffe_mpi_tpu_torch.tools import cli
+    n = torch.cuda.device_count()
+    if n < GPIPE_STAGES:
+        return None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gpipe_cards_")
+    runs = {}
+    try:
+        path = _solver_copy(GOOGLENET_SOLVER, tmp, "googlenet",
+                            float_math=False)
+        for tag, devices in (("one_card", ["cuda:0"] * GPIPE_STAGES),
+                             ("cards", [f"cuda:{i}" for i in
+                                        range(GPIPE_STAGES)])):
+            for d in range(n):
+                torch.cuda.synchronize(d)
+                torch.cuda.reset_peak_memory_stats(d)
+            solver = Solver(SolverParameter.from_file(path), device="cuda:0",
+                            gpipe={"stages": GPIPE_STAGES,
+                                   "micro": GPIPE_MICRO, "devices": devices})
+            feeds = cli.synthetic_feed(solver.net, 0)
+            solver.step(GPIPE_CARDS_ITERS, lambda it: feeds)
+            for d in range(n):
+                torch.cuda.synchronize(d)
+            param_mb = {}
+            for _, _, _, p in solver._decls:
+                key = str(p.device)
+                param_mb[key] = param_mb.get(key, 0) + p.numel() \
+                    * p.element_size() / 2**20
+            runs[tag] = {
+                "losses": list(solver.losses),
+                "median_step_ms": float(np.median(solver.iter_ms[1:])),
+                "peak_mem_GB": [torch.cuda.max_memory_allocated(d) / 1e9
+                                for d in range(GPIPE_STAGES)],
+                "param_MB": param_mb,
+                "devices": [str(d) for d in solver.gpipe.devices]}
+            del solver, feeds
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    one, cards = runs["one_card"], runs["cards"]
+    rel = abs(cards["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    if not np.all(np.isfinite(cards["losses"])) or rel > MP_FIRST_LOSS \
+            or len(cards["param_MB"]) != GPIPE_STAGES:
+        fail(f"gpipe over {GPIPE_STAGES} cards: {runs}, first loss {rel}")
+    return {"cards": GPIPE_STAGES, "card": card, "bound": MP_FIRST_LOSS,
+            "first_loss_rel_diff": rel, **runs}
+
+
+# -- 26. eval -----------------------------------------------------------------
+
+EVAL_ITERS = 30
+EVAL_INTERVAL = 10
+EVAL_TEST_ITER = 10
+EVAL_CHUNK = 10           # step_chunk: the test chunks are graph replays
+
+
+def _eval_solver():
+    """AlexNet's solver as written (b256, its TEST net at b256) with a
+    pass of EVAL_TEST_ITER batches every EVAL_INTERVAL iterations, in
+    chunks of EVAL_CHUNK iterations."""
+    from caffe_mpi_tpu_torch.proto import SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    sp = SolverParameter.from_file(SOLVER)
+    sp.test_iter, sp.test_interval = [EVAL_TEST_ITER], EVAL_INTERVAL
+    sp.step_chunk, sp.snapshot, sp.display = EVAL_CHUNK, 0, 0
+    model_dir = "" if os.path.exists(sp.net) else os.path.dirname(SOLVER)
+    return Solver(sp, model_dir=model_dir, device="cuda")
+
+
+def _eval_feeds(solver):
+    from caffe_mpi_tpu_torch.tools import cli
+    train = cli.synthetic_feed(solver.net, 0)
+    # EVAL_TEST_ITER distinct test batches, drawn once
+    tests = [cli.synthetic_feed(solver.test_nets[0], 1 + k)
+             for k in range(EVAL_TEST_ITER)]
+    return (lambda it: train), (lambda k: tests[k])
+
+
+def eval_phase(k1: dict, k2: dict, card: str) -> dict:
+    """The asynchronous evaluation at AlexNet's full width: EVAL_ITERS
+    iterations with a pass at 0, 10 and 20 (cuDNN deterministic). Each
+    boundary's scores against a twin that trains the same steps and runs
+    the synchronous `test_all` there (bitwise); the params after the
+    run against a twin with no evaluation (bitwise); the planted fault,
+    a pass on the live params with no copy, above 0; eval_stall_ms a
+    boundary beside the synchronous pass's ms; K1 and K2 counted."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"card": card, "iters": EVAL_ITERS, "interval": EVAL_INTERVAL,
+           "test_iter": EVAL_TEST_ITER, "step_chunk": EVAL_CHUNK}
+    try:
+        # the asynchronous run
+        solver = _eval_solver()
+        train, test = _eval_feeds(solver)
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        solver.step(EVAL_ITERS, train, [test])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _kernel_counts()
+        async_log = list(solver.eval_log)
+        stall, stall_log = solver.eval_stall_ms, list(solver.eval_stall_log)
+        graphs = sorted(solver._test_graphs)
+        params = {k: v for k, v in _state(solver).items()}
+        del solver
+        # the synchronous twin: test_all at each boundary
+        twin = _eval_solver()
+        sync_log, sync_ms = [], []
+        for it in range(0, EVAL_ITERS, EVAL_INTERVAL):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sync_log.append({"iter": it, "scores": twin.test_all([test])})
+            sync_ms.append((time.perf_counter() - t0) * 1e3)
+            twin.step(EVAL_INTERVAL, train)
+        del twin
+        # no evaluation at all
+        bare = _eval_solver()
+        bare.step(EVAL_ITERS, train)
+        bare_params = _state(bare)
+        del bare
+        # the fault: the pass reads the live params
+        faulty = _eval_solver()
+
+        def live(ti, tnet):
+            return dict(list(tnet.named_parameters(remove_duplicate=False))
+                        + list(tnet.named_buffers(remove_duplicate=False)))
+        faulty._eval_view = live
+        faulty.step(EVAL_ITERS, train, [test])
+        fault_log = list(faulty.eval_log)
+        del faulty
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.cuda.empty_cache()
+    iters = [e["iter"] for e in async_log]
+    if iters != [0, 10, 20] or async_log != sync_log:
+        fail(f"eval: asynchronous passes {async_log} against the "
+             f"synchronous {sync_log}")
+    differ = [k for k in params if not torch.equal(params[k],
+                                                   bare_params[k])]
+    if differ:
+        fail(f"eval: evaluation changed the training params {differ[:5]}")
+    dist = max(abs(a - b) for e, f in zip(sync_log, fault_log)
+               for a, b in zip(e["scores"][0].values(),
+                               f["scores"][0].values()))
+    if not dist > 0:
+        fail(f"eval: the no-copy fault scored as the copy: {fault_log}")
+    forwards = EVAL_ITERS + len(iters) * EVAL_TEST_ITER
+    if counts[:2] != (2 * forwards, 2 * EVAL_ITERS):
+        fail(f"eval: K1/K2 {counts[:2]}, want {(2 * forwards, 2 * EVAL_ITERS)}")
+    k1["launches_by_path"]["eval_alexnet"] = counts[0]
+    k2["launches_by_path"]["eval_alexnet"] = counts[1]
+    out.update(passes=async_log, fault_distance=dist,
+               eval_stall_ms_per_boundary=stall / len(iters),
+               eval_stall_ms=stall, eval_stall_log=stall_log,
+               sync_pass_ms=sync_ms,
+               train_wall_s=wall, test_graphs=[list(k) for k in graphs],
+               launches_k1_k2=list(counts[:2]))
+    log(f"eval: {json.dumps(out)}")
+    return out
+
+
+# -- 27. elastic --------------------------------------------------------------
+
+ELASTIC_ITERS = 800
+ELASTIC_EVERY = 40        # the snapshot boundaries a host rejoins at
+ELASTIC_DEADLINE = 3.0    # -host_deadline
+ELASTIC_KILL_BEAT = 8     # host 1's worker dies at this beat (~6 s in)
+ELASTIC_DARK_S = 12.0     # then its supervisor goes dark: past host 0's
+#                           detection (~3 s) and membership round (~6 s)
+ELASTIC_STALL_S = 0.02    # a sleep an iteration: the degraded generation
+#                           still trains when host 1 revives
+ELASTIC_BOUND = 1e-2      # `_step_rule` of the final weights against the
+#                           uninterrupted run (FLOAT math; LeNet's ReLUs
+#                           and max pools still amplify an ulp over the
+#                           run, the momentum history most)
+ELASTIC_DEADLINE_S = 400  # each pair of supervisors
+ELASTIC_RESTORE_BOUND = 1e-2  # `_step_rule` of the regrown generation's
+#                           weights and history at its first snapshot
+#                           against a world-2 pair resumed from the same
+#                           snapshot (0.0 with deterministic kernels)
+
+
+# imported at the start of every process of the elastic runs (supervisors
+# and workers): deterministic kernels, so that two runs of the same
+# training agree bitwise and the only differences left are the ones the
+# checks measure (one process against two, a restore)
+_DETERMINISTIC_SITE = """import importlib.machinery
+import importlib.util
+import os
+import sys
+
+import torch
+
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True, warn_only=True)
+# then the interpreter's own sitecustomize, if it has one
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize",
+    [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+"""
+
+
+def _elastic_env(tmp) -> dict:
+    """The environment of an elastic run's processes: no CAFFE_ setting
+    of this process, and `_DETERMINISTIC_SITE` as their sitecustomize."""
+    site = os.path.join(tmp, "site")
+    if not os.path.isdir(site):
+        os.makedirs(site)
+        with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+            f.write(_DETERMINISTIC_SITE)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CAFFE_")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [site] + [p for p in (os.environ.get("PYTHONPATH", ""),) if p])
+    env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    return env
+
+
+def _elastic_pair(tmp, tag, solver, faults: bool, extra=(),
+                  iters=ELASTIC_ITERS):
+    """Two supervised `cli train` "hosts" sharing card 0 over gloo (a
+    loopback coordinator), each in its own session, training to `iters`,
+    `extra` added to each command line: (processes, logs, snapshot
+    prefix)."""
+    from caffe_mpi_tpu_torch.parallel.mesh import free_port
+    prefix = os.path.join(tmp, tag, "lenet")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    port = free_port()
+    procs, logs = [], []
+    for host in range(2):
+        env = _elastic_env(tmp)
+        if faults:
+            spec = f"dispatch_stall:0:0:{ELASTIC_STALL_S:g}"
+            if host == 1:
+                spec += (f",host_loss:1:0:{ELASTIC_KILL_BEAT}"
+                         f",host_perma_loss:1:0:{ELASTIC_DARK_S:g}")
+                env["CAFFE_TPU_FAULTS_DIR"] = prefix + "_faults"
+                os.makedirs(env["CAFFE_TPU_FAULTS_DIR"], exist_ok=True)
+            env["CAFFE_TPU_FAULTS"] = spec
+        logs.append(os.path.join(tmp, f"{tag}_h{host}.log"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.cli", "train",
+             "-solver", solver, "-synthetic", "-device", "cuda",
+             "-max_iter", str(iters), "-snapshot_every",
+             str(ELASTIC_EVERY), "-snapshot_prefix", prefix, "-hosts", "2",
+             "-host_id", str(host), "-coordinator", f"127.0.0.1:{port}",
+             "-host_deadline", f"{ELASTIC_DEADLINE:g}", "-max_restarts", "3",
+             "-min_hosts", "1", *extra], cwd=ROOT, env=env,
+            stdout=open(logs[-1], "w"), stderr=subprocess.STDOUT,
+            start_new_session=True))
+    return procs, logs, prefix
+
+
+def _elastic_world1(tmp, solver):
+    """The same training in one process at world 1 (the degraded
+    generation's arithmetic for the whole run): (processes, logs,
+    prefix)."""
+    prefix = os.path.join(tmp, "world1", "lenet")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    log_path = os.path.join(tmp, "world1.log")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.cli", "train",
+         "-solver", solver, "-synthetic", "-device", "cuda", "-max_iter",
+         str(ELASTIC_ITERS), "-snapshot_every", str(ELASTIC_EVERY),
+         "-snapshot_prefix", prefix], cwd=ROOT, env=_elastic_env(tmp),
+        stdout=open(log_path, "w"), stderr=subprocess.STDOUT,
+        start_new_session=True)
+    return [proc], [log_path], prefix
+
+
+def _elastic_resumed(tmp, tag, solver, src, it, zero_history: bool):
+    """A world-2 pair resumed from a copy of `src`'s snapshot at `it`
+    and trained to the next snapshot: what the regrown generation does
+    first, with no loss. `zero_history` plants the fault a re-admission
+    could make: the momentum history dropped at the restore."""
+    from caffe_mpi_tpu_torch import io
+    d = os.path.join(tmp, tag + "_from")
+    os.makedirs(d, exist_ok=True)
+    model = os.path.join(d, f"from_iter_{it}.caffemodel")
+    shutil.copy(f"{src}_iter_{it}.caffemodel", model)
+    n, _, history, step = io.load_solverstate(f"{src}_iter_{it}.solverstate")
+    if zero_history:
+        history = [np.zeros_like(h) for h in history]
+    state = os.path.join(d, f"from_iter_{it}.solverstate")
+    io.save_solverstate(state, n, model, history, step)
+    return _elastic_pair(tmp, tag, solver, faults=False,
+                         extra=("-snapshot", state), iters=it + ELASTIC_EVERY)
+
+
+def _elastic_wait(procs, t_end) -> list:
+    import signal
+    try:
+        for p in procs:
+            p.wait(timeout=max(t_end - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    return [p.returncode for p in procs]
+
+
+def _elastic_state(prefix, it=ELASTIC_ITERS) -> tuple[dict, dict]:
+    """(weights, history) of the snapshot at `it`, as tensors."""
+    from caffe_mpi_tpu_torch import io
+    weights = io.load_caffemodel(f"{prefix}_iter_{it}.caffemodel")
+    _, _, history, _ = io.load_solverstate(f"{prefix}_iter_{it}.solverstate")
+    return ({f"{name}.{i}": torch.from_numpy(np.asarray(b, np.float32))
+             for name, blobs in weights.items()
+             for i, b in enumerate(blobs)},
+            {f"history.{i}": torch.from_numpy(np.asarray(h, np.float32))
+             for i, h in enumerate(history)})
+
+
+def _elastic_case(tmp) -> dict:
+    """Degraded-mode elasticity with two "hosts" on card 0 over gloo
+    (models/lenet's solver, batch 64, no test pass, a snapshot every
+    ELASTIC_EVERY iterations, -min_hosts 1, -host_deadline
+    ELASTIC_DEADLINE): host 1's worker dies at a heartbeat boundary and
+    its supervisor goes dark for ELASTIC_DARK_S (the `host_loss` and
+    `host_perma_loss` fault sites). Beside it, the same pair with no
+    fault (the uninterrupted world-2 run). When that ends, the noise
+    floor: the same pair again, and one process at world 1. When the
+    degraded run ends, two world-2 pairs resumed from the snapshot the
+    regrown generation restored, to its next snapshot: as written, and
+    with its history zeroed (the planted fault). Returns the facts; the
+    checks are `elastic_phase`'s."""
+    import re
+    solver = _solver_copy(LENET, tmp, "lenet")
+    t0 = time.perf_counter()
+    base = _elastic_pair(tmp, "base", solver, faults=False)
+    deg = _elastic_pair(tmp, "degrade", solver, faults=True)
+    journal = _JournalLog(deg[2])
+    t_end = time.monotonic() + ELASTIC_DEADLINE_S
+    rcs_base = _elastic_wait(base[0], t_end)
+    base2 = _elastic_pair(tmp, "base2", solver, faults=False)
+    world1 = _elastic_world1(tmp, solver)
+    rcs = _elastic_wait(deg[0], t_end)
+    seen = journal.stop()
+    wall = time.perf_counter() - t0
+    logs = [open(p).read() for p in base[1] + deg[1]]
+
+    def gen(prefix, g):
+        try:
+            with open(os.path.join(prefix + ".cluster",
+                                   f"gen_{g}.json")) as f:
+                return json.load(f)
+        except OSError:
+            return {}
+    rejoin = re.search(r"snapshot boundary iteration (\d+)", logs[2])
+    resumed = {}
+    if rejoin and rcs == [0, 0]:
+        it = int(rejoin.group(1))
+        resumed = {tag: _elastic_resumed(tmp, tag, solver, deg[2], it, zero)
+                   for tag, zero in (("resumed", False),
+                                     ("resumed_zero_history", True))}
+    t_end = time.monotonic() + ELASTIC_DEADLINE_S
+    more = {"base2": base2, "world1": world1, **resumed}
+    more_rcs = {tag: _elastic_wait(run[0], t_end)
+                for tag, run in more.items()}
+    facts_wall = time.perf_counter() - t0
+    failures = deg[2] + ".failures.log"
+    facts = {"rcs_base": rcs_base, "rcs": rcs, "wall_s": wall,
+             "more_rcs": more_rcs, "case_wall_s": facts_wall,
+             "journal": seen,
+             "failure_lines": [l for l in (open(failures).read().splitlines()
+                                           if os.path.exists(failures)
+                                           else []) if not l.startswith(" ")],
+             "base_generations": [g for g in (2, 3) if gen(base[2], g)],
+             "gen2": gen(deg[2], 2), "gen3": gen(deg[2], 3),
+             "host_lost_logged": "heartbeat: host 1 silent" in logs[2],
+             "parked": "rejoin-wait" in logs[3],
+             "rejoin_iter": int(rejoin.group(1)) if rejoin else None,
+             "done": os.path.exists(os.path.join(deg[2] + ".cluster",
+                                                 "done")),
+             "tails": [l[-2500:] for l in logs]}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    if os.path.isdir(out_dir):
+        for name, text in zip(("base_h0", "base_h1", "degrade_h0",
+                               "degrade_h1"), logs):
+            with open(os.path.join(out_dir, f"elastic_{name}.log"),
+                      "w") as f:
+                f.write(text[-200000:])
+    if rcs_base == [0, 0] and rcs == [0, 0]:
+        facts["base_state"] = _elastic_state(base[2])
+        facts["state"] = _elastic_state(deg[2])
+        if facts["rejoin_iter"] is not None:
+            # the control: the weights the regrown generation resumed from
+            facts["rejoin_state"] = _elastic_state(deg[2],
+                                                   facts["rejoin_iter"])
+    # the regrown generation's first snapshot (where the resumed pairs
+    # end)
+    first = (facts["rejoin_iter"] or 0) + ELASTIC_EVERY
+    for tag, run in more.items():
+        if facts["more_rcs"][tag] != [0] * len(run[0]):
+            facts.setdefault("more_tails", {})[tag] = [
+                open(p).read()[-2500:] for p in run[1]]
+            continue
+        facts[tag] = _elastic_state(run[2], first if tag.startswith(
+            "resumed") else ELASTIC_ITERS)
+    if "state" in facts and first <= ELASTIC_ITERS:
+        facts["first_state"] = _elastic_state(deg[2], first)
+    return facts
+
+
+def start_elastic_case():
+    """Start `_elastic_case` in a thread, as `start_lenet_cases` starts
+    its runs: child processes on the card while the parent builds the
+    kernels. Returns (future, its tmp dir)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    ex = ThreadPoolExecutor(max_workers=1)
+    fut = ex.submit(_elastic_case, tmp)
+    ex.shutdown(wait=False)
+    return fut, tmp
+
+
+def elastic_phase(facts: dict, card: str) -> dict:
+    """The elastic case's checks, in the order the run must show them:
+    the survivor's `host_lost:1` journal and exit 87; generation 2 at
+    world 1; the revived supervisor parked in rejoin-wait; re-admission
+    at a snapshot boundary (generation 3 at world 2); the final weights
+    against the uninterrupted run by `_step_rule` at ELASTIC_BOUND, a
+    control (the weights of the snapshot the regrown generation resumed
+    from: a regrown generation that trained nothing) above it; the
+    regrown generation's weights and momentum history at its first
+    snapshot against a world-2 pair resumed from the same snapshot by
+    `_step_rule` at ELASTIC_RESTORE_BOUND, the planted fault (that
+    snapshot's history zeroed) above it. Beside them the noise floor:
+    the uninterrupted pair run twice, and one process at world 1
+    against the pair."""
+    ok = facts["rcs_base"] == [0, 0] and facts["rcs"] == [0, 0]
+    lost = [j for j in facts["journal"] if j["reason"] == "host_lost:1"]
+    g2, g3 = facts["gen2"], facts["gen3"]
+    steps = {
+        "host_lost_journal_exit_87": bool(
+            lost and lost[0]["exit_code"] == 87 and facts["host_lost_logged"]
+            and facts["failure_lines"]
+            and "gen 1 attempt 1: fault/cluster" in facts["failure_lines"][0]),
+        "generation_2_world_1": (g2.get("reason"), g2.get("hosts"),
+                                 g2.get("world")) == ("cluster_degraded",
+                                                      [0], 1),
+        "parked_in_rejoin_wait": facts["parked"],
+        "readmitted_at_snapshot_boundary": facts["rejoin_iter"] is not None
+        and facts["rejoin_iter"] % ELASTIC_EVERY == 0,
+        "generation_3_world_2": (g3.get("reason"), g3.get("hosts"),
+                                 g3.get("world")) == ("cluster_regrown",
+                                                      [0, 1], 2),
+        "base_stayed_generation_1": not facts["base_generations"],
+    }
+    if not ok or not all(steps.values()):
+        fail(f"elastic: rcs {facts['rcs_base']} / {facts['rcs']}, steps "
+             f"{steps}, journal {facts['journal']}, failures "
+             f"{facts['failure_lines']}, tails {facts['tails']}")
+    missing = [t for t in ("base2", "world1", "resumed",
+                           "resumed_zero_history") if t not in facts]
+    if missing:
+        fail(f"elastic: runs {missing} failed: {facts['more_rcs']}, tails "
+             f"{facts.get('more_tails')}")
+    (want, want_h), (got, got_h) = facts["base_state"], facts["state"]
+    rule = _step_rule(want, got, ELASTIC_BOUND)
+    history_rule = _step_rule(want_h, got_h, ELASTIC_BOUND)
+    control_rule = _step_rule(want, facts["rejoin_state"][0],
+                              ELASTIC_BOUND)
+
+    def both(state):  # weights and history
+        return {**state[0], **state[1]}
+
+    res = both(facts["resumed"])
+    restore = _step_rule(res, both(facts["first_state"]),
+                         ELASTIC_RESTORE_BOUND)
+    zeroed = _step_rule(res, both(facts["resumed_zero_history"]),
+                        ELASTIC_RESTORE_BOUND)
+    noise = {tag: {"weights": _step_rule(want, facts[tag][0],
+                                         ELASTIC_BOUND),
+                   "history": _step_rule(want_h, facts[tag][1],
+                                         ELASTIC_BOUND)}
+             for tag in ("base2", "world1")}
+    if not rule["held"] or control_rule["held"] or not restore["held"] \
+            or zeroed["held"]:
+        fail(f"elastic: final weights against the uninterrupted run {rule}"
+             f", control {control_rule}, history {history_rule}; against "
+             f"the pair resumed from the rejoin snapshot {restore}, its "
+             f"history zeroed {zeroed}; noise floor {noise}; steps "
+             f"{steps}, rejoin at {facts['rejoin_iter']}, wall "
+             f"{facts['wall_s']:.1f} s")
+    out = {"card": card, "iters": ELASTIC_ITERS, "every": ELASTIC_EVERY,
+           "host_deadline_s": ELASTIC_DEADLINE, "dark_s": ELASTIC_DARK_S,
+           "steps": steps, "journal": facts["journal"],
+           "failure_lines": facts["failure_lines"],
+           "rejoin_iter": facts["rejoin_iter"], "gen2": g2, "gen3": g3,
+           "rule": rule, "control_rule": control_rule,
+           "history_rule": history_rule, "restore_rule": restore,
+           "zeroed_history_rule": zeroed, "noise_floor": noise,
+           "wall_s": facts["wall_s"], "case_wall_s": facts["case_wall_s"]}
+    log(f"elastic: {json.dumps(out)}")
+    return out
+
+
 class _PhaseClock:
     """Wall seconds of each group of phases, for the time limit."""
 
@@ -6904,7 +7668,9 @@ def main(argv=None) -> int:
         ap.add_argument(f"--{part}-port", type=int, default=0,
                         help=argparse.SUPPRESS)
         ap.add_argument(f"--{part}-dir", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=["dp_cards", "mp", "mp_cards"],
+    ap.add_argument("--only", choices=["dp_cards", "mp", "mp_cards",
+                                       "gpipe", "gpipe_cards", "eval",
+                                       "elastic"],
                     default=None,
                     help="run one part alone (prints no ok line): "
                     "dp_cards = the dp phase's NCCL runs (AlexNet, "
@@ -6912,7 +7678,9 @@ def main(argv=None) -> int:
                     "min(cards, 4) cards against one card (needs more than "
                     "one card); mp = the mp phase's part (a), gloo ranks "
                     "sharing card 0; mp_cards = its part (b), NCCL over 4 "
-                    "cards (needs 4)")
+                    "cards (needs 4); gpipe, eval, elastic = those phases; "
+                    "gpipe_cards = GoogLeNet's GPipe with one stage a card "
+                    "over 4 cards against all stages on card 0 (needs 4)")
     args = ap.parse_args(argv)
     if args.dp_rank is not None or args.mp_rank is not None \
             or args.bn_rank is not None:
@@ -6937,6 +7705,18 @@ def main(argv=None) -> int:
             with ThreadPoolExecutor(2) as ex:
                 list(ex.map(build.build, ("lrn.cu", "flash_attention.cu")))
             res = _mp_one_card(card)
+        elif args.only in ("gpipe", "gpipe_cards", "eval"):
+            build.build("lrn.cu")
+            entries = ({"launches_by_path": {}}, {"launches_by_path": {}})
+            res = gpipe_phase(*entries, card) if args.only == "gpipe" \
+                else eval_phase(*entries, card) if args.only == "eval" \
+                else _gpipe_cards(card)
+        elif args.only == "elastic":  # LeNet launches no kernel of the repo
+            fut, tmp = start_elastic_case()
+            try:
+                res = elastic_phase(fut.result(), card)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
         else:  # solver_sp and solver_pp launch no kernel of the repo
             res = _mp_cards(card)
         if res is None:
@@ -6950,12 +7730,18 @@ def main(argv=None) -> int:
     clock = _PhaseClock()
     card, rates = device_phase()
     lenet_run, lenet_tmp = start_lenet_cases()
+    elastic_run, elastic_tmp = start_elastic_case()
     build_phase()
     try:
         lenet = lenet_run.result()
+        elastic_facts = elastic_run.result()
     finally:
         shutil.rmtree(lenet_tmp, ignore_errors=True)
+        shutil.rmtree(elastic_tmp, ignore_errors=True)
     clock("build")
+    # the elastic runs overlap the build; their own wall seconds
+    clock.seconds["elastic_during_build"] = round(elastic_facts["wall_s"], 1)
+    elastic = elastic_phase(elastic_facts, card)
     parent_flash, parent_lrn = parent_libs(parent) if parent else (None,
                                                                    None)
     k1 = kernel_phase(rates, parent_lrn)
@@ -7002,6 +7788,10 @@ def main(argv=None) -> int:
     clock("dp")
     mp = mp_phase(k1, k2, flash, card)
     clock("mp")
+    gpipe = gpipe_phase(k1, k2, card)
+    clock("gpipe")
+    evaluation = eval_phase(k1, k2, card)
+    clock("eval")
     print(json.dumps({"kernels": [k1, k2, *flash]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
@@ -7017,6 +7807,9 @@ def main(argv=None) -> int:
     print(json.dumps({"survive": survive}), flush=True)
     print(json.dumps({"dp": dp}), flush=True)
     print(json.dumps({"mp": mp}), flush=True)
+    print(json.dumps({"gpipe": gpipe}), flush=True)
+    print(json.dumps({"eval": evaluation}), flush=True)
+    print(json.dumps({"elastic": elastic}), flush=True)
     print(json.dumps({"phase_seconds": clock.seconds}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -467,7 +467,6 @@ def test_cli_decoded_cache_mb_lands_on_the_solver(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-gpipe", "2"], 6), (["-gpipe_micro", "4"], 6),
     (["-replicas", "2"], 5), (["-fleet_dir", "/nowhere"], 5),
     (["-replica_id", "0"], 5), (["-require_bank_warm"], 5)])
 def test_cli_unported_jax_flags_exit_one_naming_their_item(

@@ -137,6 +137,16 @@ PORTED = {
     "coordinator": ('coordinator: "127.0.0.1:1234"',
                     lambda s: mesh_mod.resolve_cluster(s.sp)[1]
                     == "127.0.0.1:1234"),
+    # elasticity: on one host the heartbeat stays off and there is no
+    # generation to grow back into (the JAX solver's single-host rule)
+    "host_deadline": ("host_deadline: 30",
+                      lambda s: s.sp.host_deadline == 30.0
+                      and s._ensure_watchdog() is None
+                      and s._heartbeat is None and s._watchdog is None),
+    "min_hosts": ("min_hosts: 2",
+                  lambda s: s.sp.min_hosts == 2
+                  and s._maybe_admit_rejoin() is None
+                  and s._rejoin is False),
 }
 # the fields whose solver takes a mesh
 MESH_FIELDS = {"zero_stage", "reduce_overlap", "reduce_buckets",
@@ -299,12 +309,16 @@ def _write_solver(tmp_path):
     return str(path)
 
 
-@pytest.mark.parametrize("flags", [["-host_deadline", "30"],
-                                   ["-min_hosts", "1"],
-                                   ["-gpipe", "2"],
-                                   ["-min_hosts", "2"],
+@pytest.mark.parametrize("flags", [["-gpipe", "2", "-mesh", "data=2"],
+                                   ["-gpipe_micro", "2"],
+                                   ["-gpipe", "2", "-precision", "bf16"],
+                                   ["-replicas", "2"],
                                    ["-precision", "nonsense"]])
 def test_cli_train_flag_of_an_unported_field_exits_one(tmp_path, flags):
+    """Refused flags and combinations: GPipe with a mesh, -gpipe_micro
+    alone, GPipe under bf16 (the JAX Solver's refusals), an unported
+    module's flag, an unknown precision. -host_deadline, -min_hosts and
+    -gpipe alone train (test_torch_elastic.py, test_torch_gpipe.py)."""
     assert cli.main(["train", "-solver", _write_solver(tmp_path),
                      "-synthetic", "-device", "cpu", *flags]) == 1
 

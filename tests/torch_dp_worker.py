@@ -15,7 +15,8 @@ global feeds (with the given global Dropout masks, JAX initial weights,
 BatchNorm alone ("bn"), runs the ring over the model ranks on global
 q, k, v with an upstream gradient ("ring"), pipeline_apply of a given
 stage function ("pipeline"), or moe_ffn with its experts split over the
-model ranks ("moe").
+model ranks ("moe"), or resumes the newest verified snapshot of a
+prefix, trains on and snapshots ("resume").
 """
 
 from __future__ import annotations
@@ -200,8 +201,29 @@ def moe(sc: dict, mesh) -> dict:
             "grads": {k: v.grad.numpy() for k, v in params.items()}}
 
 
+def resume(sc: dict, mesh) -> dict:
+    """The elastic path's resume: a solver over this mesh restores the
+    newest verified snapshot under sc["prefix"] (when sc["restore"]),
+    trains sc["iters"] iterations on its slice of the global feeds and
+    snapshots."""
+    solver = Solver(SolverParameter.from_text(sc["solver"]), mesh=mesh)
+    solver.sp.snapshot_prefix = sc["prefix"]
+    restored = solver.restore_auto() if sc.get("restore") else None
+    feeds = sc["feeds"]
+    solver.step(sc["iters"], lambda k: {
+        key: torch.from_numpy(np.ascontiguousarray(mesh.shard(v)))
+        for key, v in feeds[k % len(feeds)].items()})
+    solver.snapshot()
+    res = {"restored": restored, "iter": solver.iter,
+           "losses": list(solver.losses), "state": _state(solver),
+           "shards": {f"{l}.{p}": tuple(h[0].shape)
+                      for (l, p), h in solver.history.items()}}
+    solver.close()
+    return res
+
+
 KINDS = {"bn": batch_norm, "train": train, "ring": ring, "pipeline": pipeline,
-         "moe": moe}
+         "moe": moe, "resume": resume}
 
 
 class Ranks:
