@@ -13,10 +13,15 @@ Entry points run on the card (`device="cuda"`) and raise without one;
 the CPU runs only when the caller passes `device="cpu"`.
 
 Importing the package makes the process's first call of MKL's vector
-math on one thread (`_first_vml_calls`), before the CPU paths run.
+math on one thread (`_first_vml_calls`), before the CPU paths run. The
+static tools (`proto/netshape.py`, `tools/summarize.py`, `tools/lint/`)
+import no torch, and run where torch cannot be imported.
 """
 
-import torch as _torch
+try:
+    import torch as _torch
+except ImportError:  # the static tools alone: nothing here to initialise
+    _torch = None
 
 
 def _first_vml_calls() -> None:
@@ -33,4 +38,5 @@ def _first_vml_calls() -> None:
     _torch.exp(_torch.ones(8))
 
 
-_first_vml_calls()
+if _torch is not None:
+    _first_vml_calls()

@@ -649,10 +649,24 @@ class ServingEngine:
                    weights: str | None = None, **preprocess
                    ) -> InferenceModel:
         """Load a model and build every ladder bucket (a CUDA graph each
-        on the card) before it takes traffic, inside the HBM budget."""
+        on the card) before it takes traffic, inside the HBM budget. The
+        static plan comes first, before anything is built or uploaded."""
         t_load = time.perf_counter()
         param = model_file if isinstance(model_file, NetParameter) \
             else NetParameter.from_file(model_file)
+        # the shape engine prices the ladder's activation bytes and the
+        # model's param bytes from the prototxt alone (plan.py); the plan
+        # is advisory telemetry, so a planning failure never blocks
+        # serving
+        plan = None
+        try:
+            plan = plan_model(
+                param, ladder=self.ladder_spec,
+                max_batch=int(preprocess.get("max_batch", 0) or 0),
+                dtype=self.serve_dtype)
+        except Exception as e:  # noqa: BLE001 — the plan is advisory
+            log.warning("serving: static plan for %r failed (%s); "
+                        "loading without one", name, e, exc_info=True)
         model = InferenceModel(
             name, param, weights, ladder=self.ladder_spec,
             counter=self.counter, dtype=self.serve_dtype,
@@ -675,15 +689,17 @@ class ServingEngine:
                 self._retired_warmed += len(model.fwd.warm_events)
             raise
         load_ms = round((time.perf_counter() - t_load) * 1e3, 3)
-        plan = plan_model(model.fwd, model.param_bytes)
-        plan["load_ms"] = load_ms
         with self._lock:
             self._pending_warm -= len(model.fwd.ladder)
             old = self._models.pop(name, None)
             if old is not None:
                 self._retired_warmed += len(old.fwd.ladder)
             self._models[name] = model
-            self._plans[name] = plan
+            if plan is not None:
+                plan["load_ms"] = load_ms
+                self._plans[name] = plan
+            else:
+                self._plans.pop(name, None)
             self.cold_start_ms += load_ms
         log.info("serving: model %r loaded on %s in %.0f ms (buckets %s, "
                  "%s, %.1f MiB params)", name, self.device, load_ms,

@@ -1,12 +1,18 @@
-"""Serving plan — the bucket ladder, the model's footprint and the HBM
-admission.
+"""Static serving plan — the bucket ladder, the model's footprint and the
+HBM admission, decided before a model touches the card.
 
-Own copy of the JAX package's caffe_mpi_tpu/serving/plan.py (the port
-imports nothing of that package): `plan_ladder`, `bucket_for`,
-`declared_batch`, `plan_model` and `plan_admission`. The JAX package sizes
-blobs with its shape engine before a model loads; the port reads them off
-the loaded model's bucket nets, and its engine admits models through
-`plan_admission` itself.
+The port's copy of the JAX package's `caffe_mpi_tpu/serving/plan.py`:
+`plan_ladder`, `bucket_for`, `declared_batch`, `plan_model` and
+`plan_admission`. Reference memory sizing is runtime-discovered —
+`Net<Dtype>::Init` reshapes blobs layer by layer (net.cpp:77-166) and
+capacity is whatever cudaMalloc grants mid-load. Here the torch-free
+shape engine (proto/netshape.py) prices every bucket's activation bytes
+and the model's learnable-param bytes from the prototxt alone, so the
+engine's `load_model` plans a model before it builds or uploads anything
+(`engine.stats()["plan"]`), and its LRU admits models through
+`plan_admission`. `measured_plan` reads the same figures off a loaded
+model's bucket nets: chip_smoke.py's `shapes` phase holds the two equal
+on the card.
 """
 
 from __future__ import annotations
@@ -66,7 +72,8 @@ def bucket_for(n: int, ladder: tuple[int, ...]) -> int:
 
 
 def declared_batch(net_param) -> int:
-    """The deploy prototxt's declared Input batch."""
+    """The deploy prototxt's declared Input batch (BucketedForward's
+    max_batch when none is given)."""
     from ..proto.upgrade import normalize_net
     param = normalize_net(copy.deepcopy(net_param))
     for lp in param.layer:
@@ -90,28 +97,92 @@ def rewrite_batch(net_param, bucket: int):
     return param
 
 
-def plan_model(fwd, param_bytes: int) -> dict:
-    """Per-model serving plan, read off a loaded model's own bucket nets
-    (`fwd` is its BucketedForward): the bucket ladder and per-bucket
-    activation bytes (every named blob's final shape x its layer's forward
-    width: 2 bytes a bfloat16 element, else 4). `param_bytes` is the
-    model's own count, the bytes the LRU charges (its parameters and state
-    blobs, a shared tensor once); the JAX plan leaves state out, so the two
-    agree for every net without BatchNorm."""
+def _count(shape) -> "int | None":
+    if shape is None:
+        return None
+    n = 1
+    for d in shape:
+        if d is None:
+            return None
+        n *= int(d)
+    return n
+
+
+def plan_model(net_param, *, ladder=None, max_batch: int = 0,
+               dtype: str = "f32") -> dict:
+    """Static per-model serving plan: the bucket ladder plus per-bucket
+    activation bytes (every named blob's final shape x its compute
+    dtype width — FLOAT16 layers count 2 bytes/elem, matching
+    netshape's dtype model) and the model's learnable-param bytes (f32
+    host masters, shared params counted once). State blobs (BatchNorm
+    running stats) are not statically modeled, so `param_bytes` is a
+    floor for stateful nets — exact for stateless ones."""
+    from ..proto.netshape import analyze_net
+    precision = "" if dtype in ("", "f32") else dtype
+    mb = max_batch or declared_batch(net_param)
+    ladder = plan_ladder(mb, ladder)
+    param_bytes = None
+    unknown_params = False
+    buckets = []
+    for b in ladder:
+        analysis = analyze_net(rewrite_batch(net_param, b), phase="TEST",
+                               precision=precision)
+        blob_bytes: dict[str, int] = {}
+        unknown = False
+        for info in analysis.layers:
+            bpe = 2 if info.fwd_type == "FLOAT16" else 4
+            for top, shape in zip(info.lp.top, info.out_shapes):
+                n = _count(shape)
+                if n is None:
+                    unknown = True
+                    continue
+                blob_bytes[top] = n * bpe
+        if param_bytes is None:
+            seen: dict[str, int] = {}
+            for info in analysis.layers:
+                for pname, pi in info.params.items():
+                    n = _count(pi.shape)
+                    if n is None:
+                        unknown_params = True
+                        continue
+                    seen[pi.shared_name or f"{info.name}/{pname}"] = n * 4
+            param_bytes = sum(seen.values())
+        buckets.append({
+            "bucket": b,
+            "activation_bytes": sum(blob_bytes.values()),
+            "unknown_shapes": unknown,
+        })
+    return {
+        "ladder": list(ladder),
+        "dtype": dtype or "f32",
+        "param_bytes": param_bytes or 0,
+        "param_bytes_exact": not unknown_params,
+        "peak_activation_bytes": max(
+            b["activation_bytes"] for b in buckets),
+        "buckets": buckets,
+    }
+
+
+def measured_plan(fwd, param_bytes: int) -> dict:
+    """`plan_model`'s figures read off a loaded model instead of its
+    prototxt (`fwd` is its BucketedForward): each bucket's activation
+    bytes are the bytes of the blobs one forward of that bucket net holds
+    on its device (every named blob's final tensor, numel x element size),
+    and `param_bytes` is the model's own count (the bytes the LRU charges:
+    its parameters and state blobs, a shared tensor once)."""
     import torch
 
     buckets = []
     for b in fwd.ladder:
-        blob_bytes: dict[str, int] = {}
-        for layer in fwd.net_for(b).layers:
-            bpe = 2 if layer.policy.forward == torch.bfloat16 else 4
-            for top, shape in zip(layer.lp.top, layer.out_shapes):
-                n = 1
-                for d in shape:
-                    n *= int(d)
-                blob_bytes[top] = n * bpe
+        net = fwd.net_for(b)
+        feed = net.feed_blobs[0]
+        with torch.inference_mode():
+            env, _ = net({feed: torch.zeros(net.blob_shapes[feed],
+                                            device=fwd.device)})
         buckets.append({"bucket": b,
-                        "activation_bytes": sum(blob_bytes.values()),
+                        "activation_bytes": sum(
+                            t.numel() * t.element_size()
+                            for t in env.values()),
                         "unknown_shapes": False})
     return {
         "ladder": list(fwd.ladder),

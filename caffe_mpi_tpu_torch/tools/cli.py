@@ -156,6 +156,8 @@ import time
 
 import numpy as np
 
+from ..utils.model_shapes import _CLASSIFICATION_CONSUMERS
+
 log = logging.getLogger("caffe")
 
 # the JAX CLI's flags of modules not ported yet: (flag, type, ROADMAP.md
@@ -468,14 +470,6 @@ def _apply_unported(args, param) -> None:
             for name, _ in table:
                 if getattr(args, name) is not None:
                     setattr(param, name, getattr(args, name))
-
-
-# layer types whose second bottom is a class id (the JAX package's
-# utils/model_shapes.py _CLASSIFICATION_CONSUMERS)
-_CLASSIFICATION_CONSUMERS = frozenset((
-    "SoftmaxWithLoss", "Accuracy", "MultinomialLogisticLoss",
-    "InfogainLoss", "HingeLoss",
-))
 
 
 def synthetic_feed(net, seed: int = 0, rank: int = 0,

@@ -1,0 +1,313 @@
+"""lint — static analysis of the port's model definitions, with neither
+torch nor jax imported.
+
+The port's copy of the core of the JAX package's `caffe_mpi_tpu/tools/lint/`
+(the port imports nothing of that package). The reference validates a
+model graph only by building it (Net::Init, net.cpp:815-818); these checks
+run before anything is built, so a broken prototxt is found on a machine
+with no card.
+
+Framework shape:
+
+- every check is a `LintPass` subclass registered by `@register`; a
+  pass implements `check(ctx)` (per Python file) and/or
+  `check_tree(ctxs, root)` (whole run: the net-* passes of netlint.py
+  scan models/ and examples/ under the run root)
+- findings are waived per statement with a `lint: ok(<pass>) — reason`
+  comment on any line of the statement's span or in the comment block
+  directly above it; the reason is part of the contract — the author
+  claims, in the diff, that the flagged pattern is deliberate. Prototxt
+  nets use the same grammar (netlint.py)
+- a waiver naming an unknown pass is itself a finding (bad-waiver): a
+  misspelled waiver must fail the run, never silently suppress
+- CLI: `python -m caffe_mpi_tpu_torch.tools.lint [--select P,...]
+  [--json] [--list] [paths...]`; the default paths are the port's tree
+  (caffe_mpi_tpu_torch/, chip_smoke.py); exit 1 on any finding, 2 on a
+  usage error.
+
+The JAX package's Python-AST passes (host-sync, traced-flow, concurrency,
+failure-path, ...) read JAX code; the port has none of them yet, so its
+Python files are checked for the waiver grammar alone.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import io
+import json
+import os
+import re
+import sys
+import tokenize
+from dataclasses import dataclass
+from typing import Iterable, Iterator
+
+# ---------------------------------------------------------------------------
+# findings + waivers
+
+_WAIVER_RE = re.compile(r"#\s*lint:\s*ok\(([^)]*)\)")
+
+
+def _waivers_in_comment(text: str) -> set[str]:
+    names: set[str] = set()
+    for m in _WAIVER_RE.finditer(text):
+        names.update(n.strip() for n in m.group(1).split(",")
+                     if n.strip())
+    return names
+
+
+def extract_waivers(src: str) -> dict[int, set[str]]:
+    """{line: waived pass names} from the REAL comments of `src`. Waiver
+    grammar quoted inside string literals or docstrings does NOT register
+    as a waiver — text that merely *mentions* the grammar cannot suppress
+    a finding on its statement. The tokenizer is the arbiter."""
+    waivers: dict[int, set[str]] = {}
+    if "lint:" not in src:
+        return waivers  # fast path: no waiver grammar anywhere
+    try:
+        tokens = tokenize.generate_tokens(io.StringIO(src).readline)
+        comments = [(t.start[0], t.string) for t in tokens
+                    if t.type == tokenize.COMMENT]
+    except (tokenize.TokenError, IndentationError, SyntaxError):
+        comments = []  # unparseable files surface as 'syntax'
+    for ln, text in comments:
+        names = _waivers_in_comment(text)
+        if names:
+            waivers.setdefault(ln, set()).update(names)
+    return waivers
+
+
+@dataclass
+class Finding:
+    """One lint violation. `span` is the (first, last) 1-based line range
+    a waiver comment is honored on (None = unwaivable); `detail` is a
+    short machine tag."""
+    pass_name: str
+    path: str
+    line: int
+    message: str
+    span: tuple[int, int] | None = None
+    detail: str = ""
+
+    def format(self, root: str | None = None) -> str:
+        path = os.path.relpath(self.path, root) if root else self.path
+        return f"{path}:{self.line}: [{self.pass_name}] {self.message}"
+
+    def as_dict(self, root: str | None = None) -> dict:
+        path = os.path.relpath(self.path, root) if root else self.path
+        return {"pass": self.pass_name, "path": path, "line": self.line,
+                "message": self.message, "detail": self.detail}
+
+
+class FileContext:
+    """One parsed Python source file shared by all passes: source text,
+    lines, AST (None on a syntax error) and the per-line waiver map."""
+
+    def __init__(self, path: str):
+        self.path = os.path.abspath(path)
+        with open(path, encoding="utf-8") as f:
+            self.src = f.read()
+        self.lines = self.src.splitlines()
+        self.tree: ast.Module | None = None
+        self.syntax_error: SyntaxError | None = None
+        try:
+            self.tree = ast.parse(self.src, filename=path)
+        except SyntaxError as e:
+            self.syntax_error = e
+        self.waivers: dict[int, set[str]] = extract_waivers(self.src)
+
+    def waiver_lines(self, span: tuple[int, int] | None,
+                     pass_name: str) -> list[int]:
+        """Lines whose waiver suppresses a finding with this span."""
+        if span is None:
+            return []
+        return span_waiver_lines(span, pass_name, self.waivers,
+                                 self.lines)
+
+
+def span_waiver_lines(span: tuple[int, int], pass_name: str,
+                      waivers: dict[int, set[str]],
+                      lines: list[str]) -> list[int]:
+    """THE waiver-binding contract, in one place: a waiver binds anywhere
+    in the statement's span (trailing comments included), or anywhere in
+    the contiguous COMMENT-ONLY block directly above it (a multi-line
+    waiver comment binds to the statement it precedes; a trailing waiver
+    on the PREVIOUS statement is not comment-only and so cannot leak onto
+    the next one)."""
+    lo, hi = span
+    out = [ln for ln in range(lo, hi + 1)
+           if pass_name in waivers.get(ln, ())]
+    above = lo - 1
+    while 1 <= above <= len(lines) \
+            and lines[above - 1].lstrip().startswith("#"):
+        if pass_name in waivers.get(above, ()):
+            out.append(above)
+        above -= 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pass registry
+
+class LintPass:
+    """Base class. Subclasses set `name` + `description` and override
+    `check` (per file) and/or `check_tree` (whole run). Yield `Finding`s;
+    the framework applies waivers to per-file findings (the net-* passes
+    apply their prototxt waivers themselves)."""
+
+    name: str = ""
+    description: str = ""
+
+    def check(self, ctx: FileContext) -> Iterator[Finding]:
+        return iter(())
+
+    def check_tree(self, ctxs: list[FileContext],
+                   root: str) -> Iterator[Finding]:
+        return iter(())
+
+
+REGISTRY: dict[str, LintPass] = {}
+
+
+def register(cls: type[LintPass]) -> type[LintPass]:
+    inst = cls()
+    if not inst.name or inst.name in REGISTRY:
+        raise ValueError(f"lint pass name {inst.name!r} empty or taken")
+    REGISTRY[inst.name] = inst
+    return cls
+
+
+def _load_passes() -> None:
+    # import for side effect: the module registers its passes
+    from . import netlint  # noqa: F401
+
+
+# ---------------------------------------------------------------------------
+# tree walking + running
+
+def repo_root() -> str:
+    """The directory holding the caffe_mpi_tpu_torch package."""
+    return os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+
+
+DEFAULT_SCAN = ("caffe_mpi_tpu_torch", "chip_smoke.py")
+
+
+def iter_py_files(paths: Iterable[str]) -> Iterator[str]:
+    for target in paths:
+        if os.path.isdir(target):
+            for dirpath, dirnames, files in os.walk(target):
+                dirnames[:] = sorted(d for d in dirnames
+                                     if d != "__pycache__")
+                for name in sorted(files):
+                    if name.endswith(".py"):
+                        yield os.path.join(dirpath, name)
+        elif target.endswith(".py"):
+            yield target
+
+
+def _bad_waiver_findings(ctx: FileContext,
+                         known: set[str]) -> Iterator[Finding]:
+    for ln, names in sorted(ctx.waivers.items()):
+        for name in sorted(names - known):
+            yield Finding(
+                "bad-waiver", ctx.path, ln,
+                f"waiver names unknown pass {name!r} (known: "
+                f"{', '.join(sorted(known))}) — a misspelled waiver "
+                "suppresses nothing", span=None)
+
+
+def run_lint(paths: Iterable[str] | None = None,
+             select: Iterable[str] | None = None,
+             root: str | None = None) -> list[Finding]:
+    """Run the selected passes (default: all) over `paths` (default: the
+    port's tree under `root`). Returns waiver-filtered findings, ordered
+    by path then line."""
+    _load_passes()
+    root = root or repo_root()
+    if paths is None:
+        # default-scan entries are filtered by existence (a fixture root
+        # need not hold chip_smoke.py); EXPLICIT paths must exist — a
+        # typo'd path silently reporting "clean" is the one failure mode
+        # a tripwire cannot afford
+        paths = [p for p in (os.path.join(root, t) for t in DEFAULT_SCAN)
+                 if os.path.exists(p)]
+    else:
+        paths = list(paths)
+        bad = [p for p in paths
+               if not os.path.exists(p)
+               or (os.path.isfile(p) and not p.endswith(".py"))]
+        if bad:
+            raise FileNotFoundError(
+                f"lint path(s) do not exist or are not .py: {bad}")
+    if select is None:
+        passes = list(REGISTRY.values())
+    else:
+        unknown = [s for s in select if s not in REGISTRY]
+        if unknown:
+            raise ValueError(
+                f"unknown pass(es) {unknown}; known: {sorted(REGISTRY)}")
+        passes = [REGISTRY[s] for s in select]
+
+    ctxs: list[FileContext] = []
+    findings: list[Finding] = []
+    for path in iter_py_files(paths):
+        ctx = FileContext(path)
+        if ctx.syntax_error is not None:
+            e = ctx.syntax_error
+            findings.append(Finding(
+                "syntax", ctx.path, e.lineno or 0,
+                f"SYNTAX ERROR: {e.msg}", span=None,
+                detail=f"SYNTAX ERROR: {e.msg}"))
+            continue
+        ctxs.append(ctx)
+        findings.extend(_bad_waiver_findings(ctx, set(REGISTRY)))
+        for p in passes:
+            findings.extend(f for f in p.check(ctx)
+                            if not ctx.waiver_lines(f.span, p.name))
+    for p in passes:
+        findings.extend(p.check_tree(ctxs, root))
+    findings.sort(key=lambda f: (f.path, f.line, f.pass_name))
+    return findings
+
+
+# ---------------------------------------------------------------------------
+# CLI
+
+def main(argv: list[str] | None = None) -> int:
+    _load_passes()
+    ap = argparse.ArgumentParser(
+        prog="python -m caffe_mpi_tpu_torch.tools.lint",
+        description="static analysis of the port's model definitions")
+    ap.add_argument("paths", nargs="*",
+                    help="files/dirs to scan (default: the port's tree)")
+    ap.add_argument("--select", default=None,
+                    help="comma-separated pass names (default: all)")
+    ap.add_argument("--json", action="store_true", dest="as_json",
+                    help="emit findings as a JSON array")
+    ap.add_argument("--list", action="store_true", dest="list_passes",
+                    help="list registered passes and exit")
+    args = ap.parse_args(argv)
+    if args.list_passes:
+        for name in sorted(REGISTRY):
+            print(f"{name:22s} {REGISTRY[name].description}")
+        return 0
+    select = ([s.strip() for s in args.select.split(",") if s.strip()]
+              if args.select else None)
+    root = repo_root()
+    try:
+        findings = run_lint(args.paths or None, select=select, root=root)
+    except (ValueError, FileNotFoundError) as e:
+        print(e.args[0], file=sys.stderr)
+        return 2
+    if args.as_json:
+        print(json.dumps([f.as_dict(root) for f in findings], indent=1))
+    else:
+        for f in findings:
+            print(f.format(root))
+    if findings:
+        print(f"{len(findings)} lint finding(s)", file=sys.stderr)
+        return 1
+    return 0

@@ -1,0 +1,9 @@
+"""CLI entry: `python -m caffe_mpi_tpu_torch.tools.lint` (see the
+package docstring)."""
+
+import sys
+
+from . import main
+
+if __name__ == "__main__":
+    sys.exit(main())

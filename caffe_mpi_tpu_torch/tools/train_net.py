@@ -1,0 +1,14 @@
+"""Deprecated shim (reference tools/train_net.cpp:3-8 — an equally-thin
+LOG(FATAL) redirect): use the caffe CLI subcommand instead."""
+
+import sys
+
+
+def main(argv=None) -> int:
+    print("train_net is deprecated. Use: python -m "
+          "caffe_mpi_tpu_torch.tools.cli train ...", file=sys.stderr)
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -390,7 +390,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
              pass's ms.
 27. elastic — two supervised "hosts" sharing card 0 over gloo (LeNet's
              solver, FLOAT math, -min_hosts 1, -host_deadline 3, a
-             snapshot every 40 of 800 iterations), run during the build:
+             snapshot every 40 of 400 iterations), run during the build:
              host 1's worker dies at a beat and its supervisor goes dark
              (the host_loss and host_perma_loss fault sites). In order:
              the survivor's `host_lost:1` journal and exit 87,
@@ -404,6 +404,23 @@ Phases, in order; any failure exits nonzero and prints no result line:
              same snapshot at 1e-2, the planted fault (that snapshot's
              history zeroed) above it; the noise floor beside them (the
              uninterrupted pair run twice, one process at world 1).
+28. shapes — the static engine (proto/netshape.py) against the card.
+             Every net of models/*/ and examples/*/ built on the card in
+             TRAIN and TEST (beside the build; the HDF5 net refused), held
+             exactly against `analyze_net` with the CPU tests' record
+             probe: each layer's out shapes, the blob table, each param's
+             shape, lr_mult and decay_mult, the params' bytes on the card
+             against `layer_footprint`'s, each layer's MACs. One forward of
+             AlexNet, CaffeNet and GoogLeNet deploy and of transformer_lm
+             train_val with use_flash at their own batch: K1 launches the
+             engine's count of across-channel LRN layers, K3 its count of
+             Attention layers, every blob's shape the engine's. AlexNet
+             deploy in the ServingEngine on the ladder 1, 4, 10, f32 and
+             bf16: the static plan equals the plan the engine keeps, the
+             blobs its bucket nets hold on the card and its param_bytes.
+             `utils/timers.Timer` against a bare event pair around the
+             same AlexNet forward, within 5% or 20 us. `--only shapes`
+             runs it alone.
 
 It prints one {"native_codec": ...} line (during phase 12), one
 {"kernels": [...]} line (K1-K5), one {"serving": ...} line (phases
@@ -416,9 +433,10 @@ phase inside it), one line each for phases 16-21 ({"leveldb": ...},
 ...}, {"zoo_layers": ...}), one {"pycaffe": ...} line, one
 {"survive": ...} line, one
 {"dp": ...} line, one {"mp": ...} line, one {"gpipe": ...}, one
-{"eval": ...} and one {"elastic": ...} line, one
+{"eval": ...}, one {"elastic": ...} and one {"shapes": ...} line, one
 {"phase_seconds": ...} line (the wall seconds of each group of phases;
-"elastic_during_build" the elastic runs', which overlap the build),
+"elastic_during_build" and "shapes_during_build" the elastic runs' and
+the shapes phase's builds, which overlap the build),
 the card line again, and last {"ok": true, ...}.
 """
 
@@ -7298,7 +7316,8 @@ def eval_phase(k1: dict, k2: dict, card: str) -> dict:
 
 # -- 27. elastic --------------------------------------------------------------
 
-ELASTIC_ITERS = 800
+ELASTIC_ITERS = 400       # the regrown generation trains on well past its
+#                           rejoin boundary (iteration 120 on an H100)
 ELASTIC_EVERY = 40        # the snapshot boundaries a host rejoins at
 ELASTIC_DEADLINE = 3.0    # -host_deadline
 ELASTIC_KILL_BEAT = 8     # host 1's worker dies at this beat (~6 s in)
@@ -7465,8 +7484,9 @@ def _elastic_case(tmp) -> dict:
     floor: the same pair again, and one process at world 1. When the
     degraded run ends, two world-2 pairs resumed from the snapshot the
     regrown generation restored, to its next snapshot: as written, and
-    with its history zeroed (the planted fault). Returns the facts; the
-    checks are `elastic_phase`'s."""
+    with its history zeroed (the planted fault), started as soon as that
+    snapshot is on disk, beside the regrown generation. Returns the
+    facts; the checks are `elastic_phase`'s."""
     import re
     solver = _solver_copy(LENET, tmp, "lenet")
     t0 = time.perf_counter()
@@ -7477,6 +7497,24 @@ def _elastic_case(tmp) -> dict:
     rcs_base = _elastic_wait(base[0], t_end)
     base2 = _elastic_pair(tmp, "base2", solver, faults=False)
     world1 = _elastic_world1(tmp, solver)
+    # the resumed pairs start once host 0 names the rejoin boundary (it
+    # waits for that snapshot before it exits for the grow-back) and the
+    # snapshot's manifest, written last, is there
+    resumed = {}
+    while not resumed and time.monotonic() < t_end and any(
+            p.poll() is None for p in deg[0]):
+        with open(deg[1][0]) as f:
+            rejoin = re.search(r"snapshot boundary iteration (\d+)",
+                               f.read())
+        if rejoin and os.path.exists(
+                f"{deg[2]}_iter_{rejoin.group(1)}.manifest.json"):
+            it = int(rejoin.group(1))
+            resumed = {tag: _elastic_resumed(tmp, tag, solver, deg[2], it,
+                                             zero)
+                       for tag, zero in (("resumed", False),
+                                         ("resumed_zero_history", True))}
+        else:
+            time.sleep(0.5)
     rcs = _elastic_wait(deg[0], t_end)
     seen = journal.stop()
     wall = time.perf_counter() - t0
@@ -7490,12 +7528,6 @@ def _elastic_case(tmp) -> dict:
         except OSError:
             return {}
     rejoin = re.search(r"snapshot boundary iteration (\d+)", logs[2])
-    resumed = {}
-    if rejoin and rcs == [0, 0]:
-        it = int(rejoin.group(1))
-        resumed = {tag: _elastic_resumed(tmp, tag, solver, deg[2], it, zero)
-                   for tag, zero in (("resumed", False),
-                                     ("resumed_zero_history", True))}
     t_end = time.monotonic() + ELASTIC_DEADLINE_S
     more = {"base2": base2, "world1": world1, **resumed}
     more_rcs = {tag: _elastic_wait(run[0], t_end)
@@ -7638,6 +7670,289 @@ def elastic_phase(facts: dict, card: str) -> dict:
     return out
 
 
+# -- 28. shapes: the static engine against the card ---------------------------
+
+# the Data layers' record shapes (C, H, W) before the crop: the probe the
+# CPU test of the MAC model uses (tests/test_torch_cli_tools.py), so no
+# dataset or mean file is opened; any other Data net gets SHAPES_RECORD
+SHAPES_RECORDS = {"examples/mnist/lenet_train_test.prototxt": (1, 28, 28),
+                  "examples/imagenet/caffenet_train_val.prototxt": (3, 72, 72)}
+SHAPES_RECORD = (3, 32, 32)
+# the one net the port refuses to build (HDF5Data, ROADMAP.md §1 item 3)
+SHAPES_REFUSED = "examples/hdf5_classification/nonlinear_train_val.prototxt"
+SHAPES_LADDER = "1,4,10"
+TIMER_RTOL, TIMER_ATOL_S = 0.05, 20e-6   # Timer against a bare event pair
+TIMER_REPS = 5
+
+
+def _zoo_nets() -> list[str]:
+    """The net files of models/*/ and examples/*/ (solvers aside), relative
+    to the root: those the repo holds (a test writes the net-surgery
+    example's windownet*.prototxt, which git ignores)."""
+    import glob
+    return sorted(
+        os.path.relpath(p, ROOT) for d in ("models", "examples")
+        for p in glob.glob(os.path.join(ROOT, d, "*", "*.prototxt"))
+        if "solver" not in os.path.basename(p)
+        and not os.path.basename(p).startswith("windownet"))
+
+
+def _record_probe(rel: str):
+    """The Data layers' probe of net `rel`: the post-crop record shape,
+    with no raw shape, so the transform stays on the host."""
+    from caffe_mpi_tpu_torch.data.feeder import ProbeShape
+    c, h, w = SHAPES_RECORDS.get(rel, SHAPES_RECORD)
+
+    def probe(lp):
+        crop = lp.transform_param.crop_size
+        return ProbeShape((c, crop or h, crop or w), raw=None)
+    return probe
+
+
+def engine_facts(analysis) -> dict:
+    """What the static engine says of a net: each layer's out shapes, each
+    param's shape, lr_mult and decay_mult, the params' bytes
+    (`layer_footprint`) and MACs, and the blob table."""
+    from caffe_mpi_tpu_torch.proto import netshape
+    return {
+        "layers": [(l.name, [tuple(s) for s in l.out_shapes],
+                    {n: (p.shape, p.lr_mult, p.decay_mult)
+                     for n, p in l.params.items()},
+                    4 * (netshape.layer_footprint(l)["param_count"] or 0),
+                    int(netshape.layer_macs(l) or 0))
+                   for l in analysis.layers],
+        "blobs": {k: tuple(v) for k, v in analysis.blob_shapes.items()}}
+
+
+def built_facts(net) -> dict:
+    """The same facts read off a built net: its layers' out shapes and
+    param declarations, the bytes its param tensors hold on its device
+    (the card here; the CPU in tests/test_torch_cli_tools.py), and the
+    built-layer MAC adapter's counts."""
+    from caffe_mpi_tpu_torch.utils.flops import layer_macs_per_image
+    layers = []
+    for l in net.layers:
+        tensors = [getattr(l, n) for n in l.decls]
+        if any(t.device.type != net.device.type for t in tensors):
+            fail(f"shapes: layer {l.name!r}'s params are not on "
+                 f"{net.device}")
+        layers.append((l.name, [tuple(s) for s in l.out_shapes],
+                       {n: (tuple(d.shape), d.lr_mult, d.decay_mult)
+                        for n, d in l.decls.items()},
+                       sum(t.numel() * t.element_size() for t in tensors),
+                       layer_macs_per_image(l)))
+    return {"layers": layers,
+            "blobs": {k: tuple(v) for k, v in net.blob_shapes.items()}}
+
+
+def _shapes_nets() -> dict:
+    """Check 1: every net of the zoo and the examples built on the card in
+    TRAIN and TEST, held exactly against `analyze_net` of the same file.
+    Builds only (no forward, no kernel), so it runs beside the build."""
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.proto import NetParameter, netshape
+    t0 = time.perf_counter()
+    built, refused, params = 0, [], 0
+    nets = _zoo_nets()
+    if SHAPES_REFUSED not in nets:
+        fail(f"shapes: {SHAPES_REFUSED} is missing")
+    for rel in nets:
+        path, probe = os.path.join(ROOT, rel), _record_probe(rel)
+        for phase in ("TRAIN", "TEST"):
+            analysis = netshape.analyze_net(NetParameter.from_file(path),
+                                            phase, data_probe=probe)
+            if analysis.problems:
+                fail(f"shapes: {rel} {phase}: the engine finds "
+                     f"{analysis.problems}")
+            try:
+                net = Net(NetParameter.from_file(path), phase, device="cuda",
+                          data_shape_probe=probe)
+            except NotImplementedError as e:
+                if rel != SHAPES_REFUSED:
+                    raise
+                refused.append(f"{rel} {phase}: {e}")
+                continue
+            if rel == SHAPES_REFUSED:
+                fail(f"shapes: {rel} built; the port refuses HDF5Data")
+            got, want = built_facts(net), engine_facts(analysis)
+            if got != want:
+                diff = next((f"layer {a[0]}: built {a[1:]}, engine {b[1:]}"
+                             for a, b in zip(got["layers"], want["layers"])
+                             if a != b), "the blob tables")
+                fail(f"shapes: {rel} {phase}: {diff}")
+            built += 1
+            params += sum(f[3] for f in got["layers"])
+            del net
+    torch.cuda.synchronize()
+    return {"files": len(nets), "builds": built, "refused": refused,
+            "param_bytes_on_card": params,
+            "wall_s": round(time.perf_counter() - t0, 1)}
+
+
+def start_shapes_nets():
+    """Start `_shapes_nets` in a thread: its builds need no kernel, so
+    they run while the parent builds the kernels (main joins it after)."""
+    ex = ThreadPoolExecutor(max_workers=1)
+    fut = ex.submit(_shapes_nets)
+    ex.shutdown(wait=False)
+    return fut
+
+
+def _shapes_kernel_nets() -> list[tuple[str, object, str]]:
+    """(name, NetParameter, phase) of the nets that run K1 and K3: AlexNet,
+    CaffeNet and GoogLeNet deploy; transformer_lm train_val with
+    use_flash."""
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    with open(os.path.join(TLM_DIR, "train_val.prototxt")) as f:
+        tlm = NetParameter.from_text(_with_flash(f.read()))
+    return [("alexnet", NetParameter.from_file(MODEL), "TEST"),
+            ("caffenet", NetParameter.from_file(CAFFENET_DEPLOY), "TEST"),
+            ("googlenet", NetParameter.from_file(os.path.join(
+                ROOT, "models", "googlenet", "deploy.prototxt")), "TEST"),
+            ("transformer_lm", tlm, "TRAIN")]
+
+
+def _shapes_kernels() -> dict:
+    """Check 2: one forward of each kernel net on a synthetic batch at the
+    prototxt's own batch: K1 launches the engine's count of across-channel
+    LRN layers, K3 its count of Attention layers, and every blob's shape
+    on the card the engine's."""
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.proto import netshape
+    from caffe_mpi_tpu_torch.tools import cli
+    from caffe_mpi_tpu_torch.utils import model_shapes
+    out = {}
+    for i, (name, param, phase) in enumerate(_shapes_kernel_nets()):
+        analysis = netshape.analyze_net(copy.deepcopy(param), phase)
+        want_k1 = sum(1 for l in analysis.layers if l.type == "LRN" and str(
+            l.lp.lrn_param.norm_region if l.lp.lrn_param else "")
+            != "WITHIN_CHANNEL")
+        want_k3 = sum(1 for l in analysis.layers if l.type == "Attention")
+        net = Net(copy.deepcopy(param), phase, device="cuda")
+        net.init(seed=i)
+        if name == "transformer_lm":  # token ids for Embed, class ids
+            feeds = cli.synthetic_feed(net, seed=i)
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            feeds = model_shapes.synthetic_feeds(
+                model_shapes.input_shapes(param, train_only=False),
+                generator=gen, device=net.device, npar=param)
+        torch.cuda.synchronize()
+        _reset_kernel_counts()
+        with torch.no_grad():
+            env, _ = net(feeds)
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        if counts != (want_k1, 0, want_k3, 0, 0):
+            fail(f"shapes: {name}'s forward launched K1-K5 {counts}; the "
+                 f"engine counts {want_k1} LRN and {want_k3} Attention "
+                 "layers")
+        shapes = {k: tuple(v.shape) for k, v in env.items()}
+        if shapes != analysis.blob_shapes:
+            bad = sorted(k for k in set(shapes) | set(analysis.blob_shapes)
+                         if shapes.get(k) != analysis.blob_shapes.get(k))
+            fail(f"shapes: {name}'s blobs {bad[:5]} on the card "
+                 f"{[shapes.get(k) for k in bad[:5]]}, engine "
+                 f"{[analysis.blob_shapes.get(k) for k in bad[:5]]}")
+        if not all(torch.isfinite(v).all() for v in env.values()
+                   if v.is_floating_point()):
+            fail(f"shapes: {name}'s forward is not finite")
+        out[name] = {"batch": next(iter(shapes.values()))[0],
+                     "blobs": len(shapes), "k1": counts[0],
+                     "k3": counts[2]}
+        del net, env
+    return out
+
+
+def _shapes_plan() -> dict:
+    """Check 3: AlexNet deploy in the port's ServingEngine on the ladder 1,
+    4, 10, f32 and bf16: the static plan (before load) equals the plan the
+    engine keeps, the bytes of the blobs its bucket nets hold on the card
+    and the loaded model's param_bytes (AlexNet has no state)."""
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    from caffe_mpi_tpu_torch.serving.plan import measured_plan, plan_model
+    out = {}
+    for dtype in ("f32", "bf16"):
+        static = plan_model(NetParameter.from_file(MODEL),
+                            ladder=SHAPES_LADDER, dtype=dtype)
+        with _serve_engine(dtype=dtype, buckets=SHAPES_LADDER,
+                           window_ms=0) as engine:
+            model = engine.load_model("alexnet", MODEL, seed=0,
+                                      **PREPROCESS)
+            kept = dict(engine.stats()["plan"]["models"]["alexnet"])
+            measured = measured_plan(model.fwd, model.param_bytes)
+        kept.pop("load_ms", None)
+        if kept != static:
+            fail(f"shapes: the engine keeps the plan {kept}, the static "
+                 f"plan is {static}")
+        if measured != static:
+            fail(f"shapes: {dtype}: the bucket nets hold "
+                 f"{[b['activation_bytes'] for b in measured['buckets']]} "
+                 f"activation bytes and {measured['param_bytes']} param "
+                 "bytes on the card; the static plan says "
+                 f"{[b['activation_bytes'] for b in static['buckets']]} "
+                 f"and {static['param_bytes']}")
+        out[dtype] = {"activation_bytes": [b["activation_bytes"]
+                                           for b in static["buckets"]],
+                      "param_bytes": static["param_bytes"]}
+    return out
+
+
+def _shapes_timer() -> dict:
+    """Check 4: `utils/timers.Timer` on the card against a bare
+    torch.cuda.Event pair inside it, around the same AlexNet forward."""
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    from caffe_mpi_tpu_torch.utils import model_shapes
+    from caffe_mpi_tpu_torch.utils.timers import Timer
+    param = NetParameter.from_file(MODEL)
+    net = Net(param, "TEST", device="cuda")
+    net.init(seed=7)
+    feeds = model_shapes.synthetic_feeds(
+        model_shapes.input_shapes(param, train_only=False),
+        generator=torch.Generator(device="cuda").manual_seed(7),
+        device=net.device)
+    pairs = []
+    with torch.no_grad():
+        for _ in range(3):
+            net(feeds)
+        torch.cuda.synchronize()
+        for _ in range(TIMER_REPS):
+            timer = Timer(net.device)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            timer.start()
+            e0.record()
+            net(feeds)
+            e1.record()
+            got = timer.stop()
+            pairs.append((got, e0.elapsed_time(e1) / 1e3))
+    for got, bare in pairs:
+        if abs(got - bare) > max(TIMER_RTOL * bare, TIMER_ATOL_S):
+            fail(f"shapes: Timer read {got * 1e3:.4f} ms, the bare event "
+                 f"pair {bare * 1e3:.4f} ms")
+    return {"timer_ms": [round(g * 1e3, 4) for g, _ in pairs],
+            "event_pair_ms": [round(b * 1e3, 4) for _, b in pairs]}
+
+
+def shapes_phase(nets: dict, k1: dict, flash: list[dict],
+                 card: str) -> dict:
+    """The static engine against the card: check 1's result (`nets`, run
+    beside the build), then the kernel nets, the serving plan and the
+    timer."""
+    t0 = time.perf_counter()
+    kernels = _shapes_kernels()
+    k1.setdefault("launches_by_path", {})["shapes"] = sum(
+        v["k1"] for v in kernels.values())
+    flash[0].setdefault("launches_by_path", {})["shapes"] = sum(
+        v["k3"] for v in kernels.values())
+    out = {"nets": nets, "kernels": kernels, "plan": _shapes_plan(),
+           "timer": _shapes_timer(), "card": card,
+           "seconds_after_build": round(time.perf_counter() - t0, 1)}
+    log(f"shapes: {json.dumps(out)}")
+    return out
+
+
 class _PhaseClock:
     """Wall seconds of each group of phases, for the time limit."""
 
@@ -7670,7 +7985,7 @@ def main(argv=None) -> int:
         ap.add_argument(f"--{part}-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=["dp_cards", "mp", "mp_cards",
                                        "gpipe", "gpipe_cards", "eval",
-                                       "elastic"],
+                                       "elastic", "shapes"],
                     default=None,
                     help="run one part alone (prints no ok line): "
                     "dp_cards = the dp phase's NCCL runs (AlexNet, "
@@ -7680,7 +7995,8 @@ def main(argv=None) -> int:
                     "sharing card 0; mp_cards = its part (b), NCCL over 4 "
                     "cards (needs 4); gpipe, eval, elastic = those phases; "
                     "gpipe_cards = GoogLeNet's GPipe with one stage a card "
-                    "over 4 cards against all stages on card 0 (needs 4)")
+                    "over 4 cards against all stages on card 0 (needs 4); "
+                    "shapes = the static engine against the card")
     args = ap.parse_args(argv)
     if args.dp_rank is not None or args.mp_rank is not None \
             or args.bn_rank is not None:
@@ -7711,6 +8027,13 @@ def main(argv=None) -> int:
             res = gpipe_phase(*entries, card) if args.only == "gpipe" \
                 else eval_phase(*entries, card) if args.only == "eval" \
                 else _gpipe_cards(card)
+        elif args.only == "shapes":
+            t0 = time.perf_counter()
+            nets_run = start_shapes_nets()
+            with ThreadPoolExecutor(2) as ex:
+                list(ex.map(build.build, ("lrn.cu", "flash_attention.cu")))
+            res = shapes_phase(nets_run.result(), {}, [{}], card)
+            res["seconds"] = round(time.perf_counter() - t0, 1)
         elif args.only == "elastic":  # LeNet launches no kernel of the repo
             fut, tmp = start_elastic_case()
             try:
@@ -7731,16 +8054,20 @@ def main(argv=None) -> int:
     card, rates = device_phase()
     lenet_run, lenet_tmp = start_lenet_cases()
     elastic_run, elastic_tmp = start_elastic_case()
+    shapes_run = start_shapes_nets()
     build_phase()
     try:
         lenet = lenet_run.result()
         elastic_facts = elastic_run.result()
+        shapes_nets = shapes_run.result()
     finally:
         shutil.rmtree(lenet_tmp, ignore_errors=True)
         shutil.rmtree(elastic_tmp, ignore_errors=True)
     clock("build")
-    # the elastic runs overlap the build; their own wall seconds
+    # the elastic runs and the shapes phase's builds overlap the build;
+    # their own wall seconds
     clock.seconds["elastic_during_build"] = round(elastic_facts["wall_s"], 1)
+    clock.seconds["shapes_during_build"] = shapes_nets["wall_s"]
     elastic = elastic_phase(elastic_facts, card)
     parent_flash, parent_lrn = parent_libs(parent) if parent else (None,
                                                                    None)
@@ -7792,6 +8119,8 @@ def main(argv=None) -> int:
     clock("gpipe")
     evaluation = eval_phase(k1, k2, card)
     clock("eval")
+    shapes = shapes_phase(shapes_nets, k1, flash, card)
+    clock("shapes")
     print(json.dumps({"kernels": [k1, k2, *flash]}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
@@ -7810,6 +8139,7 @@ def main(argv=None) -> int:
     print(json.dumps({"gpipe": gpipe}), flush=True)
     print(json.dumps({"eval": evaluation}), flush=True)
     print(json.dumps({"elastic": elastic}), flush=True)
+    print(json.dumps({"shapes": shapes}), flush=True)
     print(json.dumps({"phase_seconds": clock.seconds}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from caffe_mpi_tpu.net import Net as JaxNet
 from caffe_mpi_tpu.proto import NetParameter as JaxNP
 from caffe_mpi_tpu.proto import SolverParameter as JaxSP
@@ -247,15 +248,27 @@ def test_mac_counts_equal_the_jax_packages(path):
     """Every models/* and examples/* net the port builds, in TRAIN, with
     the Data layers' record shapes given by a probe without a raw shape,
     so their transform stays on the host (no dataset or mean file
-    opened)."""
+    opened). The same build holds the static engine (proto/netshape.py)
+    against the built net, exactly: each layer's out shapes, the blob
+    table, each param's shape and multipliers, the params' bytes against
+    `layer_footprint` and each layer's MACs."""
     from caffe_mpi_tpu.data.feeder import ProbeShape as JaxProbe
+    from caffe_mpi_tpu_torch.proto import netshape
     shape = next((v[1] for v in EXAMPLES.values() if v[0] == path),
                  (3, 32, 32))
     text = os.path.join(_ROOT, path)
+
+    def probe(lp):
+        return pfeeder.ProbeShape(
+            (shape[0], lp.transform_param.crop_size or shape[1],
+             lp.transform_param.crop_size or shape[2]), raw=None)
+
     net = Net(NetParameter.from_file(text), "TRAIN", device="cpu",
-              data_shape_probe=lambda lp: pfeeder.ProbeShape(
-                  (shape[0], lp.transform_param.crop_size or shape[1],
-                   lp.transform_param.crop_size or shape[2]), raw=None))
+              data_shape_probe=probe)
+    analysis = netshape.analyze_net(NetParameter.from_file(text), "TRAIN",
+                                    data_probe=probe)
+    assert not analysis.problems, analysis.problems
+    assert chip_smoke.engine_facts(analysis) == chip_smoke.built_facts(net)
     jnet = JaxNet(JaxNP.from_file(text), "TRAIN", device_transform=False,
                   data_shape_probe=lambda lp: JaxProbe(
                       (shape[0], lp.transform_param.crop_size or shape[1],

@@ -442,20 +442,34 @@ def test_a_spill_frees_the_device_storage_and_a_reload_restores_it(deploy):
 
 # -- the plan -------------------------------------------------------------------
 
+ALEXNET_BN = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "models", "alexnet_bn", "deploy.prototxt")
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("ladder", [None, "1,2"])
-def test_plan_model_equals_the_jax_plan(deploy, dtype, ladder):
-    param = NetParameter.from_file(deploy[0])
+@pytest.mark.parametrize("net", ["deploy", "alexnet_bn"])
+def test_plan_model_equals_the_jax_plan(deploy, net, dtype, ladder):
+    """The static plan (from the prototxt alone, before any load) equals
+    the JAX plan, the BatchNorm net's too: learnable params only, its
+    running statistics left out as the JAX plan leaves them. For the
+    stateless net the loaded model's bucket nets hold what it says."""
+    path = deploy[0] if net == "deploy" else ALEXNET_BN
+    param = NetParameter.from_file(path)
     from caffe_mpi_tpu.proto import NetParameter as JaxNetParameter
-    jparam = JaxNetParameter.from_file(deploy[0])
-    assert plan.declared_batch(param) == jplan.declared_batch(jparam) == 4
+    jparam = JaxNetParameter.from_file(path)
+    assert plan.declared_batch(param) == jplan.declared_batch(jparam)
+    got = plan.plan_model(param, ladder=ladder, dtype=dtype)
+    assert got == jplan.plan_model(jparam, ladder=ladder, dtype=dtype)
+    if net == "alexnet_bn":
+        return
+    assert plan.declared_batch(param) == 4
     model = InferenceModel("m", param, deploy[1], ladder=ladder,
                            dtype=dtype, device="cpu")
-    got = plan.plan_model(model.fwd, model.param_bytes)
-    assert got == jplan.plan_model(jparam, ladder=ladder, dtype=dtype)
-    assert got["param_bytes"] == sum(
+    assert got["param_bytes"] == model.param_bytes == sum(
         b.size * 4 for w in port_io.load_weights(deploy[1]).values()
         for b in w)
+    assert plan.measured_plan(model.fwd, model.param_bytes) == got
 
 
 @pytest.mark.parametrize("models,budget", [
