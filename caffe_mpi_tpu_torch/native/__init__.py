@@ -133,6 +133,9 @@ def lib() -> ctypes.CDLL:
         with _LOCK:
             if _LIB is None:
                 from ..ops import build
+                # lint: ok(lock-order) — build.load's lock guards only its
+                # build and its library cache and takes no other lock, and
+                # nothing takes this binding's lock under it
                 lb = build.load(build.NATIVE)
                 for name, (res, args) in _SIGNATURES.items():
                     fn = getattr(lb, name)

@@ -195,6 +195,8 @@ class Batcher:
                     f"serving backlog at serve_queue_limit={limit}; "
                     "request shed")
             if not self._threads:
+                # lint: ok(lock-order) — Condition() wraps an RLock:
+                # start() re-enters _cv on this thread, which cannot block
                 self.start()
             # the request (and its Future) is made only after every
             # refusal above, so a refused submit strands no future
@@ -222,15 +224,21 @@ class Batcher:
         _cv."""
         group, keep = [], deque()
         while self._pending and len(group) < max_bucket:
+            # lint: ok(thread-shared-mutation) — caller holds _cv: the
+            # dispatcher pops the queue inside its condition-variable span
+            # (_dispatch_loop)
             req = self._pending.popleft()
             (group if req.model == model else keep).append(req)
         keep.extend(self._pending)
+        # lint: ok(thread-shared-mutation) — caller holds _cv (as above)
         self._pending = keep
         if group:
             left = self._pending_by_model.get(model, 0) - len(group)
             if left > 0:
+                # lint: ok(thread-shared-mutation) — caller holds _cv
                 self._pending_by_model[model] = left
             else:
+                # lint: ok(thread-shared-mutation) — caller holds _cv
                 self._pending_by_model.pop(model, None)
         return group
 

@@ -41,12 +41,12 @@ copy and recaptures the graphs, counted apart as `recaptures`. A hot swap
 (`swap_weights`) instead copies the new weights INTO the existing tensors,
 so the graphs stay valid and no capture happens.
 
-Lock order (the JAX package's serving/locks.py LOCK_ORDER):
-`InferenceModel._upload_lock` -> `ServingEngine._lock`, and
-`Batcher._cv` -> `ServingEngine._lock`; `ServingEngine._lock` is never held
-while waiting for an upload lock (the LRU only try-acquires a victim's).
-`_upload_lock` -> `BucketedForward._run_lock` (an upload recaptures under
-the run lock); a swap takes the run lock alone, after pinning the model.
+Lock order: serving/locks.py `LOCK_ORDER`, which the lint's `lock-order`
+pass holds every nesting in the tree to. `ServingEngine._lock` is never
+held while waiting for an upload lock (the LRU only try-acquires a
+victim's); an upload recaptures under the run lock; a swap takes the run
+lock alone, after pinning the model, and journals a rejection with it
+released.
 """
 
 from __future__ import annotations
@@ -75,10 +75,7 @@ log = logging.getLogger(__name__)
 
 # ServingParameter fields that the JAX serving path honours and the port
 # does not yet, each with the ROADMAP.md section 1 item that will port it
-UNPORTED_FIELDS = (
-    ("serve_program_bank", 5), ("serve_replicas", 5),
-    ("serve_retry_budget", 5), ("replica_deadline", 5),
-)
+UNPORTED_FIELDS = (("serve_program_bank", 5),)
 SERVE_DTYPES = ("", "f32", "bf16")  # the JAX engine's; "" is f32
 
 
@@ -277,6 +274,10 @@ class BucketedForward:
             if not self.graphs_on or not self.capturable():
                 self.counter.bump(recapture)
                 return
+            # lint: ok(blocking-under-lock) — a capture needs the serving
+            # stream drained, and holding the run lock across it is what
+            # keeps replays off the static buffers; only a warm or a
+            # recapture after a spill comes here, never a steady dispatch
             self.stream.synchronize()
             counters = launch_counters()
             before = {c: c.launches for c in counters}
@@ -752,6 +753,9 @@ class ServingEngine:
                     if m is model or not (m.resident
                                           or m.name in self._uploading):
                         continue
+                    # lint: ok(lock-order) — a try-acquire (blocking=False)
+                    # never waits under the engine lock: a victim whose
+                    # upload lock is held is counted busy instead
                     if m.name in self._uploading or m.in_flight > 0 \
                             or not m._upload_lock.acquire(blocking=False):
                         busy += 1
@@ -814,6 +818,9 @@ class ServingEngine:
     # -- stall breaker --------------------------------------------------
     def _arm_breaker(self) -> None:
         from ..utils.resilience import DispatchWatchdog
+        # lint: ok(thread-shared-mutation) — callers serialize: __init__
+        # runs before any thread exists, probe_recovery holds _probe_lock,
+        # and _stop_breaker (the only other writer) takes _probe_lock too
         self._watchdog = DispatchWatchdog(
             self.stall_s, self._on_stall, hard_exit=False)
 
@@ -898,6 +905,10 @@ class ServingEngine:
         now = time.monotonic()
         if now - self._last_probe < max(self.stall_s, 1.0):
             return
+        # lint: ok(thread-shared-mutation) — a lock-free throttle: taking
+        # _probe_lock here would park every submit() behind a running
+        # recovery probe for up to stall_s; a lost race costs one
+        # redundant probe thread, which _probe_lock serializes
         self._last_probe = now
         threading.Thread(target=self._probe_recovery_guarded, daemon=True,
                          name="serve-recovery-probe").start()
@@ -959,7 +970,7 @@ class ServingEngine:
 
     # -- hot swap -------------------------------------------------------
     def swap_weights(self, name: str, weights: str, *,
-                     source: str = "") -> None:
+                     canary: bool = True, source: str = "") -> None:
         """Live-reload `name`'s weights from `weights` without a capture:
         the new values are copied INTO the existing device tensors, whose
         addresses the graphs hold, so `compile_count` does not move.
@@ -969,7 +980,10 @@ class ServingEngine:
         with the model's dispatches held off: non-finite or wrong-shaped
         scores, or an unloadable weights file, raise SwapError and the
         previous weights are copied back from the host master, bitwise.
-        `source` (the watcher's `iter_<N>`) goes into the journal."""
+        `canary=False` skips the gate: the fleet's propagation to the
+        other replicas, whose canary replica already ran it on the same
+        staged bytes. `source` (the watcher's `iter_<N>`) goes into the
+        journal."""
         model = self.model(name)  # KeyError for unknown models
         try:
             from .. import io as _io
@@ -991,14 +1005,20 @@ class ServingEngine:
         # pinned in flight: the LRU cannot spill it under the canary
         self._make_resident(model, mark_in_flight=True)
         try:
+            rejected = None
             with model.fwd._run_lock:
                 model._upload(cand)
                 try:
-                    self._canary_gate(model)
+                    if canary:
+                        self._canary_gate(model)
                 except SwapError as e:
                     model._upload(model.host)
-                    self.note_swap_rejected(name, str(e), source=source)
-                    raise
+                    rejected = e
+            if rejected is not None:
+                # journaled with the run lock free: the dispatches it
+                # holds off wait for the copies, not for a file write
+                self.note_swap_rejected(name, str(rejected), source=source)
+                raise rejected
             with model._upload_lock:
                 with self._lock:
                     model.host = cand

@@ -16,6 +16,9 @@ around a pycaffe Classifier), rebuilt on stdlib `http.server`
   GET  /readyz              readiness: zoo loaded, every bucket built
                             (compile_count == warmed_buckets +
                             recaptures), the engine accepting (200 / 503)
+  POST /swap                admin only (`admin=True`, a fleet replica):
+                            JSON {"model", "weights", "canary",
+                            "source"} hot-swaps that model's weights
 
 Failures are typed (serving/errors.py): a shed request is 429, a missed
 `serve_deadline_ms` 504, a closed or unhealthy engine 503, each with a
@@ -29,8 +32,12 @@ engine's ingest plane (`engine.decode_request`), submits the decoded image
 and waits on the future, so concurrent requests batch into the padded
 buckets. Responses are JSON top-5 {label, score}.
 
-The JAX package's admin route `POST /swap` belongs to its serving fleet
-(ROADMAP.md §1 item 5) and is not ported: `admin=True` is refused.
+`POST /swap` is the per-replica leg of the fleet's rolling swap
+(serving/fleet.py): a body that is not that JSON is 400
+`kind=bad_request`, an unknown model 404, a rejected candidate 500
+`kind=swap` (the previous weights keep serving), a swap 200
+`{"swapped": true, ...}`. Without `admin=True` the route is 404 `no route
+/swap`: a public front takes no weight swaps.
 """
 
 from __future__ import annotations
@@ -85,6 +92,7 @@ class _Handler(BaseHTTPRequestHandler):
     model_name = None
     labels = None
     image_root = None
+    admin = False
 
     def _json(self, code: int, obj) -> None:
         body = json.dumps(obj).encode()
@@ -170,7 +178,43 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(404, {"error": f"no route {url.path}",
                          "kind": "not_found"})
 
+    def _admin_swap(self):
+        """POST /swap: hot-swap this replica's weights from a staged file.
+        A rejected candidate answers typed (`kind=swap`) and the previous
+        weights keep serving; rolling the rest of the fleet back is the
+        router's work."""
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            doc = json.loads(self.rfile.read(length))
+            weights = doc["weights"]
+        except (ValueError, KeyError, TypeError):
+            return self._json(400, {"error": "POST /swap wants JSON "
+                                             '{"weights": path, '
+                                             '"canary": bool, '
+                                             '"source": str}',
+                                    "kind": "bad_request"})
+        name = doc.get("model", self.model_name)
+        try:
+            self.engine.swap_weights(name, weights,
+                                     canary=bool(doc.get("canary", True)),
+                                     source=doc.get("source", "fleet"))
+        except KeyError:
+            return self._json(404, {"error": f"no model {name!r}",
+                                    "kind": "not_found"})
+        except ServingError as e:
+            # SwapError included: typed, so the router tells a rejection
+            # (roll the fleet back) from a replica's death
+            return self._json(e.http_status,
+                              {"error": str(e), "kind": e.kind})
+        self._json(200, {"swapped": True, "model": name,
+                         "swaps": self.engine.swaps})
+
     def do_POST(self):
+        if urlparse(self.path).path == "/swap":
+            if not self.admin:
+                return self._json(404, {"error": "no route /swap",
+                                        "kind": "not_found"})
+            return self._admin_swap()
         if urlparse(self.path).path != "/classify":
             return self._json(404, {"error": "POST /classify",
                                     "kind": "not_found"})
@@ -212,12 +256,8 @@ def make_server(engine, model_name: str = "default", labels=None,
                 admin: bool = False) -> ThreadingHTTPServer:
     """HTTP front over an already-loaded ServingEngine (port=0 picks an
     ephemeral port: tests, the smoke). `labels` is a list of class names
-    or a path to a labels file. `admin=True` (the fleet's POST /swap) is
-    not ported and raises NotImplementedError."""
-    if admin:
-        raise NotImplementedError(
-            "http_front admin=True (POST /swap, the serving fleet's "
-            "rolling swap) is not ported yet (ROADMAP.md §1 item 5)")
+    or a path to a labels file. `admin=True` (a fleet replica, bound to
+    loopback by its supervisor) also mounts POST /swap."""
     if isinstance(labels, str):
         with open(labels) as f:
             labels = [line.strip() for line in f]
@@ -226,5 +266,6 @@ def make_server(engine, model_name: str = "default", labels=None,
         "model_name": model_name,
         "labels": labels,
         "image_root": image_root,
+        "admin": admin,
     })
     return _Server((host, port), handler)

@@ -1923,6 +1923,8 @@ class Solver:
             self._snapshot_barrier()
         else:
             self._barrier_pending = True
+        # lint: ok(thread-shared-mutation) — wait_snapshots() above joined
+        # this rank's writer: no writer thread is in flight here
         self._last_snapshot = (it, path)
         return path if block else ""
 
@@ -2008,6 +2010,8 @@ class Solver:
             self._snapshot_barrier()
         err = self._snapshot_error
         if err is not None:
+            # lint: ok(thread-shared-mutation) — the writer thread was
+            # joined above; the happens-before edge is the join
             self._snapshot_error = None
             it, exc = err
             raise RuntimeError(f"async snapshot failed at iteration {it}"
@@ -2021,6 +2025,8 @@ class Solver:
                 view = self._view_to_host(view)
             self._write_snapshot(view, it, step)
         except BaseException as e:  # noqa: BLE001 — wait_snapshots raises
+            # lint: ok(thread-shared-mutation) — one writer thread, and
+            # wait_snapshots() joins it before reading or clearing this
             self._snapshot_error = (it, e)
         entry["write_ms"] = (time.perf_counter() - t0) * 1e3
 
@@ -2047,6 +2053,9 @@ class Solver:
             state_path, it, {"model": model_path, "state": state_path})
         # test-only: bitrot after the manifest, which a load must catch
         FAULTS.corrupt_file("snapshot_corrupt", model_path)
+        # lint: ok(thread-shared-mutation) — at most one snapshot writer is
+        # in flight (wait_snapshots() joins the previous one before the
+        # next dispatch or any blocking write starts)
         self._last_snapshot = (it, state_path)
         self.snapshots.append(state_path)
         self._journal_run_state("snapshot")
@@ -2120,6 +2129,8 @@ class Solver:
                     raise resilience.ClusterError(
                         f"rank 0's snapshot {path} failed to load here: "
                         f"{e}", reason="cluster_resume_failed") from e
+                # lint: ok(thread-shared-mutation) — a resume runs before
+                # training starts; no snapshot writer exists yet
                 self._last_snapshot = (self.iter, path)
         self._sync_replicas()
         return path
@@ -2139,6 +2150,8 @@ class Solver:
                 log.exception("verified snapshot at iter %d failed to "
                               "load; falling back", it)
                 continue
+            # lint: ok(thread-shared-mutation) — a resume runs before
+            # training starts; no snapshot writer exists yet
             self._last_snapshot = (it, doc["state"])
             return doc["state"]
         d = os.path.dirname(prefix) or "."
@@ -2164,6 +2177,8 @@ class Solver:
                 continue
             log.warning("resumed from legacy (unverified) snapshot %s",
                         path)
+            # lint: ok(thread-shared-mutation) — a resume runs before
+            # training starts; no snapshot writer exists yet
             self._last_snapshot = (it, path)
             return path
         log.info("no usable snapshot under prefix %r; starting fresh",

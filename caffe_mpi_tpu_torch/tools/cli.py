@@ -128,13 +128,23 @@ behind a loopback coordinator share this machine's cards (two on one
 card run over gloo). A collective that fails because a peer died exits
 87 once the heartbeat names the peer.
 
+`serve -replicas N` runs the serving fleet (serving/fleet.py, the JAX
+CLI's flags and wiring): this process becomes the typed-retry router and
+the supervisor of N replica processes, each a `cli serve -replica_id K
+-fleet_dir D` of its own (heartbeats under D, the admin `POST /swap`
+route, a journal `<model>.rK.serve.run.json`); `-serve_retry_budget`
+and `-replica_deadline` set the router's retry budget and the heartbeat
+deadline, `-watch` tails snapshots router-side (rolling canary swaps),
+and `-smoke M` sends M uploads through the router and checks the fleet.
+The router process creates no CUDA context.
+
 The JAX CLI's flags for serving fields the port does not honour yet
-(`-serve_replicas`, ...: one flag a field of the engine's
+(`-serve_program_bank`: one flag a field of the engine's
 UNPORTED_FIELDS) are accepted and land on their parameter, which the
 engine refuses at any value but its default; the command then exits 1.
-The JAX CLI's flags of modules the port has not ported (`-replicas`,
-`-fleet_dir`, `-replica_id`, `-require_bank_warm`: ROADMAP.md §1 item
-5) are parsed and exit 1 naming their item. `-decoded_cache_mb` sets
+The JAX CLI's flags of modules the port has not ported
+(`-require_bank_warm`: ROADMAP.md §1 item 5) are parsed and exit 1
+naming their item. `-decoded_cache_mb` sets
 the solver's `decoded_cache_mb`, over the prototxt's.
 
 Usage (gflags-compatible single-dash long flags accepted):
@@ -142,7 +152,7 @@ Usage (gflags-compatible single-dash long flags accepted):
     python -m caffe_mpi_tpu_torch.tools.cli test -model train_val.prototxt [-weights w.caffemodel] [-iterations N] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli time -model train_val.prototxt [-iterations N] [-phase TRAIN|TEST] [-profile DIR] [-device cuda|cpu]
     python -m caffe_mpi_tpu_torch.tools.cli device_query
-    python -m caffe_mpi_tpu_torch.tools.cli serve -model deploy.prototxt [-weights w.caffemodel] [-port P | -smoke N] [-labels L] [-image_root DIR] [-serve_buckets 1,4,10] [-serve_window_ms W] [-serve_dtype f32|bf16] [-serve_hbm_mb M] [-serve_queue_limit Q] [-serve_deadline_ms D] [-serve_stall_s S] [-serve_decoded_cache_mb C] [-require_native_ingest] [-watch PREFIX] [-device cuda|cpu]
+    python -m caffe_mpi_tpu_torch.tools.cli serve -model deploy.prototxt [-weights w.caffemodel] [-port P | -smoke N] [-labels L] [-image_root DIR] [-serve_buckets 1,4,10] [-serve_window_ms W] [-serve_dtype f32|bf16] [-serve_hbm_mb M] [-serve_queue_limit Q] [-serve_deadline_ms D] [-serve_stall_s S] [-serve_decoded_cache_mb C] [-require_native_ingest] [-watch PREFIX] [-replicas N [-serve_retry_budget B] [-replica_deadline S] [-fleet_dir D]] [-device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -162,8 +172,7 @@ log = logging.getLogger("caffe")
 
 # the JAX CLI's flags of modules not ported yet: (flag, type, ROADMAP.md
 # section 1 item); each exits 1 naming its item
-UNPORTED_FLAGS = (("replicas", int, 5), ("fleet_dir", str, 5),
-                  ("replica_id", int, 5), ("require_bank_warm", bool, 5))
+UNPORTED_FLAGS = (("require_bank_warm", bool, 5),)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -425,6 +434,38 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-sighup_effect", "--sighup-effect", dest="sighup_effect",
                    default="snapshot", choices=["stop", "snapshot", "none"],
                    help="train: what SIGHUP does at the next chunk boundary")
+    # the serving fleet (the JAX CLI's flags)
+    p.add_argument("-replicas", "--replicas", dest="serve_replicas",
+                   type=int, default=-1,
+                   help="serve: run N replica processes behind a "
+                   "least-loaded typed-retry router, supervised by "
+                   "heartbeat, with rolling -watch swaps (sets "
+                   "ServingParameter serve_replicas; -1 = the default 0, "
+                   "one process)")
+    p.add_argument("-serve_retry_budget", "--serve-retry-budget",
+                   dest="serve_retry_budget", type=int, default=-1,
+                   help="serve -replicas: sibling replicas a retryable "
+                   "failure (429 shed, 503 unhealthy or closed, a dead "
+                   "replica's connection error) is retried on before it "
+                   "goes typed to the client; 504 and 400 never retry "
+                   "(-1 = the default 1)")
+    p.add_argument("-replica_deadline", "--replica-deadline",
+                   dest="replica_deadline", type=float, default=-1.0,
+                   help="serve -replicas: heartbeat deadline (s); a replica "
+                   "silent this long is drained, journaled replica_dead, "
+                   "respawned and re-admitted after its readyz gate (-1 = "
+                   "the default 5)")
+    p.add_argument("-fleet_dir", "--fleet-dir", dest="fleet_dir",
+                   default="",
+                   help="serve -replicas: the fleet's directory "
+                   "(heartbeats, staged swap weights, replica logs, the "
+                   "fleet journal); default <model>_fleet. With "
+                   "-replica_id it marks a spawned replica (internal)")
+    p.add_argument("-replica_id", "--replica-id", dest="replica_id",
+                   type=int, default=-1,
+                   help="internal: this process is fleet replica K — it "
+                   "beats under -fleet_dir and mounts POST /swap (set by "
+                   "the fleet supervisor)")
     p.add_argument("-watch", "--watch", dest="serve_watch", default="",
                    help="serve: a training run's snapshot prefix; each newly "
                    "crc32c-verified snapshot is canary-gated and copied "
@@ -1420,10 +1461,9 @@ def cmd_device_query(args) -> int:
 def cmd_serve(args) -> int:
     """Load the deploy net into a ServingEngine — weights on the device,
     every padded batch bucket built — and serve it over HTTP (or run the
-    smoke over HTTP)."""
+    smoke over HTTP). With `-replicas N` this process is the fleet's
+    router and supervisor instead (`_serve_fleet`)."""
     from ..proto.config import ServingParameter
-    from ..serving import ServingEngine
-    from ..serving.http_front import make_server
     if not args.model:
         log.error("serve requires -model (a deploy prototxt)")
         return 1
@@ -1444,21 +1484,55 @@ def cmd_serve(args) -> int:
         sp.serve_stall_s = args.serve_stall_s
     if args.serve_decoded_cache_mb >= 0:
         sp.serve_decoded_cache_mb = args.serve_decoded_cache_mb
+    if args.serve_replicas >= 0:
+        sp.serve_replicas = args.serve_replicas
+    if args.serve_retry_budget >= 0:
+        sp.serve_retry_budget = args.serve_retry_budget
+    if args.replica_deadline >= 0:
+        sp.replica_deadline = args.replica_deadline
     _apply_unported(args, sp)
+    # fleet mode: N replica processes behind the typed-retry router; this
+    # process routes and supervises and builds no engine
+    if sp.serve_replicas >= 1 and args.replica_id < 0:
+        from ..serving.engine import UNPORTED_FIELDS
+        from ..proto.config import refuse_unported
+        try:  # what a replica would refuse, refused before any spawn
+            refuse_unported(sp, UNPORTED_FIELDS, "serving")
+        except NotImplementedError as e:
+            log.error("%s", e)
+            return 1
+        return _serve_fleet(args, sp)
+    from ..serving import ServingEngine
+    from ..serving.http_front import make_server
+    # a fleet replica journals to <model>.rK.serve.run.json, so that its
+    # siblings do not overwrite its record; the run journal otherwise
+    # lies next to the deploy prototxt
+    journal = os.path.splitext(args.model)[0]
+    replica = args.replica_id >= 0 and bool(args.fleet_dir)
+    if replica:
+        journal += f".r{args.replica_id}"
     try:
-        # the serving run journal, <model>.serve.run.json, lies next to
-        # the deploy prototxt
-        engine = ServingEngine(sp, device=args.device,
-                               journal=os.path.splitext(args.model)[0])
+        engine = ServingEngine(sp, device=args.device, journal=journal)
     except (ValueError, NotImplementedError) as e:
         log.error("%s", e)
         return 1
+    beat = None
+    if replica:
+        # this process is fleet replica K: heartbeats let the supervisor
+        # mourn a silent death, and the admin route takes swaps
+        from ..serving.fleet import ReplicaBeat
+        beat = ReplicaBeat(args.fleet_dir, args.replica_id,
+                           deadline=sp.replica_deadline)
+        beat.start()
     try:
         engine.load_model("default", args.model, args.weights or None)
         srv = make_server(engine, "default", labels=args.labels or None,
                           image_root=args.image_root or None,
-                          port=args.port if not args.smoke else 0)
+                          port=args.port if not args.smoke else 0,
+                          admin=replica)
     except BaseException:
+        if beat is not None:
+            beat.stop()
         engine.close()
         raise
     watcher = None
@@ -1474,6 +1548,8 @@ def cmd_serve(args) -> int:
         finally:
             if watcher is not None:
                 watcher.stop()
+            if beat is not None:
+                beat.stop()
             srv.shutdown()
             srv.server_close()
             engine.close()
@@ -1490,10 +1566,114 @@ def cmd_serve(args) -> int:
         # the watcher stops before the engine: no swap into a closing one
         if watcher is not None:
             watcher.stop()
+        if beat is not None:
+            beat.stop()
         srv.server_close()
         # graceful: stop accepting, flush the window, resolve every
         # in-flight future, then close
         engine.shutdown()
+    return 0
+
+
+def _serve_fleet(args, sp) -> int:
+    """`serve -replicas N`: spawn N replica processes (each a full `cli
+    serve` with its own engine, warming by capture), supervise them by
+    heartbeat, and mount the typed-retry router as the public HTTP
+    front. `-watch` tails snapshots router-side, so each verified
+    snapshot canaries on one replica before rolling fleet-wide."""
+    from ..serving.fleet import FleetSupervisor, make_router_server
+    fleet_dir = args.fleet_dir or os.path.splitext(args.model)[0] + "_fleet"
+    sup = FleetSupervisor(args.model, args.weights or "",
+                          sp.serve_replicas, fleet_dir, serving_param=sp,
+                          device=args.device)
+    log.info("fleet: spawning %d replicas under %s (heartbeat deadline "
+             "%.1fs, retry budget %d)", sp.serve_replicas, fleet_dir,
+             sup.deadline, sup.router.retry_budget)
+    try:
+        sup.start()
+    except RuntimeError as e:
+        log.error("%s", e)
+        return 1
+    watcher = None
+    srv = None
+    try:
+        if args.serve_watch:
+            from ..serving.watch import SnapshotWatcher
+            watcher = SnapshotWatcher(sup.router, "default",
+                                      args.serve_watch)
+            watcher.start()
+        srv = make_router_server(sup.router,
+                                 port=args.port if not args.smoke else 0)
+        if args.smoke:
+            return _fleet_smoke(args, sup, srv)
+        host, port = srv.server_address[:2]
+        log.info("fleet router serving on http://%s:%s (%d replicas)",
+                 host, port, sp.serve_replicas)
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        return 0
+    finally:
+        if watcher is not None:
+            watcher.stop()
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        sup.stop()
+
+
+def _fleet_smoke(args, sup, srv) -> int:
+    """`serve -replicas N -smoke M`: M seeded uploads through the router's
+    HTTP front from 4 client threads, then the checks: every request
+    resolved (200, or a typed failure), traffic spread over the replicas
+    (M >= 8), every replica reachable and ready with no bucket built
+    after its warm (`compile_count == warmed_buckets + recaptures`), and
+    no CUDA context in this process."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/classify"
+    with ThreadPoolExecutor(max_workers=4) as ex:
+        answers = list(ex.map(lambda d: post_image(url, d),
+                              smoke_uploads(args.smoke, 32, 32)))
+    stats = sup.router.stats()
+    torch = sys.modules.get("torch")
+    stats["router_cuda_initialized"] = bool(
+        torch is not None and torch.cuda.is_initialized())
+    print(json.dumps({"serve_fleet_smoke": stats}))
+    ok_n = sum(1 for code, _ in answers if code == 200)
+    untyped = [(code, doc) for code, doc in answers
+               if code != 200 and not doc.get("kind")]
+    if untyped:
+        log.error("fleet smoke: %d untyped failures, e.g. %s",
+                  len(untyped), untyped[0])
+        return 1
+    for rid, doc in stats["replicas"].items():
+        if "error" in doc:
+            log.error("fleet smoke: replica %s unreachable: %s", rid,
+                      doc["error"])
+            return 1
+        if doc.get("compile_count") != doc.get("warmed_buckets", 0) \
+                + doc.get("recaptures", 0):
+            log.error("fleet smoke: replica %s built a bucket after its "
+                      "warm: %s", rid, doc)
+            return 1
+    spread = sum(1 for doc in stats["replicas"].values()
+                 if doc.get("requests", 0) > 0)
+    if ok_n == 0 or (args.smoke >= 8 and spread < 2
+                     and stats["fleet"]["replicas"] > 1):
+        log.error("fleet smoke: no spread (%d ok, %d replicas served)",
+                  ok_n, spread)
+        return 1
+    if not sup.router.ready()[0]:
+        log.error("fleet smoke: the fleet is not ready after the smoke")
+        return 1
+    if stats["router_cuda_initialized"]:
+        log.error("fleet smoke: the router process created a CUDA context")
+        return 1
     return 0
 
 

@@ -12,7 +12,8 @@ Framework shape:
 - every check is a `LintPass` subclass registered by `@register`; a
   pass implements `check(ctx)` (per Python file) and/or
   `check_tree(ctxs, root)` (whole run: the net-* passes of netlint.py
-  scan models/ and examples/ under the run root)
+  scan models/ and examples/ under the run root; the concurrency passes
+  of concurrency.py model the whole Python tree)
 - findings are waived per statement with a `lint: ok(<pass>) — reason`
   comment on any line of the statement's span or in the comment block
   directly above it; the reason is part of the contract — the author
@@ -25,9 +26,11 @@ Framework shape:
   (caffe_mpi_tpu_torch/, chip_smoke.py); exit 1 on any finding, 2 on a
   usage error.
 
-The JAX package's Python-AST passes (host-sync, traced-flow, concurrency,
-failure-path, ...) read JAX code; the port has none of them yet, so its
-Python files are checked for the waiver grammar alone.
+Of the JAX package's Python-AST passes the port has the three
+concurrency passes (lock-order, blocking-under-lock, thread-shared-
+mutation: concurrency.py, over the declared order in serving/locks.py).
+The others (host-sync, traced-flow, failure-path, ...) read JAX code and
+are not ported (ROADMAP.md §1 item 7).
 """
 
 from __future__ import annotations
@@ -104,8 +107,9 @@ class FileContext:
     """One parsed Python source file shared by all passes: source text,
     lines, AST (None on a syntax error) and the per-line waiver map."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, root: str | None = None):
         self.path = os.path.abspath(path)
+        self.root = root
         with open(path, encoding="utf-8") as f:
             self.src = f.read()
         self.lines = self.src.splitlines()
@@ -117,6 +121,38 @@ class FileContext:
             self.syntax_error = e
         self.waivers: dict[int, set[str]] = extract_waivers(self.src)
 
+    def walk(self, node: ast.AST | None = None) -> list[ast.AST]:
+        """Every node of `node`'s subtree (default: the whole file) in
+        depth-first preorder (ast.walk's order is breadth-first)."""
+        out: list[ast.AST] = []
+        start = self.tree if node is None else node
+        stack = [start] if start is not None else []
+        while stack:
+            n = stack.pop()
+            out.append(n)
+            stack.extend(reversed(list(ast.iter_child_nodes(n))))
+        return out
+
+    def span_of(self, stmt: ast.stmt | ast.expr) -> tuple[int, int]:
+        """Waiver-search span for a node: its own line range. For a
+        compound statement (if/while/for/with/def) the span is the header
+        only: a waiver on a nested body statement must not suppress a
+        finding anchored to the header."""
+        end = getattr(stmt, "end_lineno", None) or stmt.lineno
+        body = getattr(stmt, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0],
+                                                          ast.stmt):
+            # the header ends with its test/iter/items expression (a
+            # comment line between header and body is not in the span)
+            hdr = stmt.lineno
+            for attr in ("test", "iter", "items"):
+                v = getattr(stmt, attr, None)
+                for n in (v if isinstance(v, list)
+                          else [v] if v is not None else []):
+                    hdr = max(hdr, getattr(n, "end_lineno", 0) or 0)
+            end = min(end, hdr)
+        return (stmt.lineno, end)
+
     def waiver_lines(self, span: tuple[int, int] | None,
                      pass_name: str) -> list[int]:
         """Lines whose waiver suppresses a finding with this span."""
@@ -124,6 +160,9 @@ class FileContext:
             return []
         return span_waiver_lines(span, pass_name, self.waivers,
                                  self.lines)
+
+    def waived(self, span: tuple[int, int] | None, pass_name: str) -> bool:
+        return bool(self.waiver_lines(span, pass_name))
 
 
 def span_waiver_lines(span: tuple[int, int], pass_name: str,
@@ -179,8 +218,8 @@ def register(cls: type[LintPass]) -> type[LintPass]:
 
 
 def _load_passes() -> None:
-    # import for side effect: the module registers its passes
-    from . import netlint  # noqa: F401
+    # import for side effect: each module registers its passes
+    from . import concurrency, netlint  # noqa: F401
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +293,7 @@ def run_lint(paths: Iterable[str] | None = None,
     ctxs: list[FileContext] = []
     findings: list[Finding] = []
     for path in iter_py_files(paths):
-        ctx = FileContext(path)
+        ctx = FileContext(path, root=root)
         if ctx.syntax_error is not None:
             e = ctx.syntax_error
             findings.append(Finding(
@@ -269,8 +308,28 @@ def run_lint(paths: Iterable[str] | None = None,
                             if not ctx.waiver_lines(f.span, p.name))
     for p in passes:
         findings.extend(p.check_tree(ctxs, root))
+    # a whole-tree finding in a scanned file honours its waivers too
+    by_path = {c.path: c for c in ctxs}
+    findings = [f for f in findings
+                if f.path not in by_path
+                or not by_path[f.path].waiver_lines(f.span, f.pass_name)]
     findings.sort(key=lambda f: (f.path, f.line, f.pass_name))
     return findings
+
+
+# ---------------------------------------------------------------------------
+# shared AST helpers
+
+def dotted_name(node: ast.expr) -> str | None:
+    """Full dotted spelling of a Name/Attribute chain, else None."""
+    parts: list[str] = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if not isinstance(node, ast.Name):
+        return None
+    parts.append(node.id)
+    return ".".join(reversed(parts))
 
 
 # ---------------------------------------------------------------------------

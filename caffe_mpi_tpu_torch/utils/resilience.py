@@ -170,6 +170,12 @@ FAULT_SITES = {
                     "post-manifest (verify must reject the swap)",
     "swap_canary_bad": "poison a hot-swap candidate's loaded weights "
                        "with NaN (canary gate must roll back)",
+    "replica_dead": "kill a serving replica at a heartbeat boundary "
+                    "(beat seq >= arg) — a fleet replica dying "
+                    "mid-traffic",
+    "fleet_swap_canary_bad": "flip a byte of the fleet's staged swap "
+                             "candidate pre-canary (the rolling swap "
+                             "must reject and roll back)",
     "coordinator_down": "fail distributed init for the first `count` "
                         "attempts (missing/unreachable coordinator)",
     "host_loss": "kill the local worker at a heartbeat boundary "
@@ -1161,6 +1167,19 @@ class HostHeartbeat:
             logging.shutdown()
             sys.stderr.flush()
             os._exit(EXIT_CLUSTER)
+
+    def revive(self, peer: int) -> None:
+        """Resume monitoring after `peer` was mourned and brought back up
+        in place (the serving fleet's respawn). `tick()` latches `lost`
+        and then monitors no peer; clearing the latch re-arms them all,
+        and the respawned incarnation gets a fresh first-contact grace (it
+        beats from seq 0 under a new incarnation token, which the
+        transport reads as an advance)."""
+        self.lost = None
+        self.lost_event.clear()
+        self._first[peer] = True
+        self._last_seen[peer] = time.monotonic()
+        self._done.discard(peer)
 
     def farewell(self) -> None:
         """Publish the clean-departure marker (after the end-of-training

@@ -421,6 +421,33 @@ Phases, in order; any failure exits nonzero and prints no result line:
              `utils/timers.Timer` against a bare event pair around the
              same AlexNet forward, within 5% or 20 us. `--only shapes`
              runs it alone.
+29. fleet — `cli serve -replicas 2` as FleetSupervisor runs it, on
+             AlexNet deploy f32 at full width on card 0, started as soon
+             as lrn.cu is built, beside flash_attention.cu's nvcc; each
+             replica started through `chip_smoke.py --fleet-replica`,
+             which writes its clock marks and, at its SIGTERM, its launch
+             counts. Weights from seed 0 as a caffemodel. Two replicas
+             admitted through /readyz, each with compile_count ==
+             warmed_buckets and its time to readyz split (process start,
+             imports, load, warm/capture); rows through the router
+             within 1e-4 of the in-process engine's on the same weights;
+             the serve_http uploads through the router (all 200, both
+             replicas serving). Once the runs beside the build have
+             ended (nvcc may still run): 10 s of sequential requests (the two-replica
+             baseline), then replica 1 killed by `replica_dead` at a
+             beat (armed through the wrapper) while sequential traffic
+             flows: no request unresolved or untyped, the journal's
+             replica_dead then replica_respawned, the respawn admitted
+             (its readyz split), the kill's p99 within max(1.5 x the
+             baseline's, + 25 ms); img/s, p50 and p99 through the router
+             against replica 0 directly (closed-loop clients in a
+             process of their own); a rolling swap of fc8 x 3 (scores
+             move on every replica, no build), a NaN candidate (typed
+             SwapError, every replica's answer bitwise kept); K1 2 a
+             bucket forward in each replica; `serve -serve_program_bank`
+             and `-require_bank_warm` exit 1. `--only fleet` runs it
+             alone; `--only fleet_cards` (4 cards) runs four replicas,
+             one a card, router against one replica.
 
 It prints one {"native_codec": ...} line (during phase 12), one
 {"kernels": [...]} line (K1-K5), one {"serving": ...} line (phases
@@ -433,10 +460,12 @@ phase inside it), one line each for phases 16-21 ({"leveldb": ...},
 ...}, {"zoo_layers": ...}), one {"pycaffe": ...} line, one
 {"survive": ...} line, one
 {"dp": ...} line, one {"mp": ...} line, one {"gpipe": ...}, one
-{"eval": ...}, one {"elastic": ...} and one {"shapes": ...} line, one
+{"eval": ...}, one {"elastic": ...}, one {"shapes": ...} and one
+{"fleet": ...} line, one
 {"phase_seconds": ...} line (the wall seconds of each group of phases;
-"elastic_during_build" and "shapes_during_build" the elastic runs' and
-the shapes phase's builds, which overlap the build),
+"elastic_during_build", "shapes_during_build" and "fleet_during_build"
+the elastic runs', the shapes phase's builds' and the fleet phase's,
+which overlap the build; "fleet" the fleet phase's wall past the build),
 the card line again, and last {"ok": true, ...}.
 """
 
@@ -451,7 +480,10 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+
+T_PROCESS = time.time()  # a fleet replica's clock mark before its imports
+
+from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
 import numpy as np
 import torch
@@ -1539,6 +1571,21 @@ def _http_clients(url, uploads, sizes):
         return [a for part in ex.map(client, sizes) for a in part]
 
 
+_CLIENTS: list = []  # the clients' process of the HTTP speed runs
+
+
+def _client_pool():
+    """The process the HTTP speed runs' clients run in, so that their
+    Python shares no interpreter with the server's: spawned once, on first
+    use (the fleet phase's, beside the build), and shut down by main."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    if not _CLIENTS:
+        _CLIENTS.append(ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")))
+    return _CLIENTS[0]
+
+
 def _strict_params():
     """(softmax rows, fc8 logits) prototxts with TF32 off through the
     prototxt's own math field, as the serve phase's parity."""
@@ -1748,14 +1795,10 @@ def serve_http_phase(k1: dict, k2: dict, card: str) -> dict:
             with engine._batcher._rec_lock:  # the speed run's records only
                 engine._batcher._records.clear()
                 engine._batcher.dispatches.clear()
-            import multiprocessing
-            from concurrent.futures import ProcessPoolExecutor
             try:
-                with ProcessPoolExecutor(
-                        1, mp_context=multiprocessing.get_context(
-                            "spawn")) as ex:
-                    got = ex.submit(_http_clients, url, uploads,
-                                    sizes.tolist()).result(timeout=900)
+                got = _client_pool().submit(
+                    _http_clients, url, uploads,
+                    sizes.tolist()).result(timeout=900)
             finally:
                 _stop_server(srv)
             engine.drain()
@@ -7953,6 +7996,591 @@ def shapes_phase(nets: dict, k1: dict, flash: list[dict],
     return out
 
 
+# -- 29. fleet -----------------------------------------------------------------
+
+FLEET_REPLICAS = 2
+FLEET_VICTIM = 1          # spawned second; killed while traffic flows
+FLEET_DEADLINE = 2.0      # replica heartbeat deadline (s): a beat each 0.5 s
+FLEET_BASELINE_S = 10.0   # sequential requests of the two-replica
+#                           baseline, for this long: a p99 over hundreds of
+#                           answers, as the kill phase's (40 requests, the
+#                           JAX smoke's count, make their second-largest
+#                           the p99)
+FLEET_P99_FLOOR_MS = 25.0  # the JAX fleet smoke's rule (tools/fleet_smoke.py)
+FLEET_CARDS = 4           # --only fleet_cards: one replica a card
+FLEET_SPEED_BURSTS = 10   # bursts a client in the fleet's speed runs
+FLEET_SWAP_LAYER = "fc8"  # the rolling swap scales its weights by 3
+
+
+def fleet_replica_main(argv) -> int:
+    """A fleet replica as the fleet phase starts it: the port's CLI with
+    `argv`, writing `<fleet_dir>/smoke_r<K>_<pid>.json` with its clock
+    marks at start and its launch counts when it is terminated (SIGTERM,
+    the supervisor's stop), so the phase reads K1's launches inside each
+    replica process. When the phase writes this process's pid into
+    `<fleet_dir>/kill_r<K>`, the `replica_dead` fault site is armed: the
+    replica's heartbeat thread exits the process at its next beat."""
+    import signal
+    import threading
+
+    from caffe_mpi_tpu_torch.utils.resilience import FAULTS
+
+    from caffe_mpi_tpu_torch.ops import launch_counts
+    from caffe_mpi_tpu_torch.tools import cli
+    t_cli = time.time()
+    fleet_dir = argv[argv.index("-fleet_dir") + 1]
+    rid = argv[argv.index("-replica_id") + 1]
+    path = os.path.join(fleet_dir, f"smoke_r{rid}_{os.getpid()}.json")
+    marks = {"pid": os.getpid(), "t_process": T_PROCESS, "t_cli": t_cli}
+    with open(path, "w") as f:
+        json.dump(marks, f)
+
+    def on_term(signum, frame):
+        with open(path + ".tmp", "w") as f:
+            json.dump({**marks, "counts": launch_counts()}, f)
+        os.replace(path + ".tmp", path)
+        sys.stderr.flush()
+        os._exit(0)
+
+    def kill_watch():
+        order = os.path.join(fleet_dir, f"kill_r{rid}")
+        while True:
+            try:
+                with open(order) as f:
+                    if f.read().strip() == str(os.getpid()):
+                        FAULTS.configure("replica_dead:1:0:0")
+                        return
+            except OSError:
+                pass
+            time.sleep(0.05)
+
+    signal.signal(signal.SIGTERM, on_term)
+    threading.Thread(target=kill_watch, daemon=True).start()
+    return cli.main(argv)
+
+
+def _smoke_fleet_class():
+    from caffe_mpi_tpu_torch.serving.fleet import FleetSupervisor
+
+    class SmokeFleet(FleetSupervisor):
+        """The fleet supervisor with each replica started through
+        `chip_smoke.py --fleet-replica` (launch counts at exit, the kill
+        order), each spawn's and admission's clock kept, and the
+        journal's reasons recorded in order."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.spawns: list[dict] = []
+            self.journal_reasons: list[str] = []
+            journal = self.router._journal
+
+            def recorded(reason, **extra):
+                self.journal_reasons.append(reason)
+                journal(reason, **extra)
+            self.router._journal = recorded
+
+        def _replica_cmd(self, rid, port, weights):
+            cmd = super()._replica_cmd(rid, port, weights)
+            assert cmd[1:4] == ["-m", "caffe_mpi_tpu_torch.tools.cli",
+                                "serve"], cmd
+            return [self.python, os.path.join(ROOT, "chip_smoke.py"),
+                    "--fleet-replica", *cmd[3:]]
+
+        def _spawn(self, rid, weights):
+            t = time.time()
+            proc, port = super()._spawn(rid, weights)
+            self.spawns.append({"rid": rid, "pid": proc.pid, "t_spawn": t})
+            return proc, port
+
+        def _await_ready(self, client, proc, rid):
+            ok = super()._await_ready(client, proc, rid)
+            for s in self.spawns:
+                if s["pid"] == proc.pid:
+                    s["ready_s"] = time.time() - s["t_spawn"]
+                    s["admitted"] = ok
+            return ok
+
+    return SmokeFleet
+
+
+def _fleet_marks(fleet_dir, pid):
+    try:
+        with open(os.path.join(fleet_dir, next(
+                n for n in os.listdir(fleet_dir)
+                if n.startswith("smoke_r") and n.endswith(f"_{pid}.json")))
+                ) as f:
+            return json.load(f)
+    except (OSError, StopIteration, ValueError):
+        return None
+
+
+def _readyz_split(spawn, marks, stats) -> dict:
+    """A replica's time from spawn to its admitted /readyz, split: the
+    interpreter's start, the imports (torch, the port's CLI), the load
+    (the CLI's own imports and parsing, the net builds, the weights read
+    and uploaded, the front started) and the warm (each bucket's eager
+    forward and capture), from its clock marks and its /stats."""
+    total = spawn["ready_s"]
+    warm = sum(e["ms"] for e in stats["warm"]["default"]) / 1e3
+    out = {"readyz_s": total, "warm_capture_s": warm}
+    if marks is not None:
+        out["process_start_s"] = marks["t_process"] - spawn["t_spawn"]
+        out["import_s"] = marks["t_cli"] - marks["t_process"]
+        out["load_s"] = total - out["process_start_s"] - out["import_s"] \
+            - warm
+    return out
+
+
+def _fleet_send(router, data):
+    """(status, doc, wall ms) of one request through the router; a
+    request the router let raise is (None, {}, ms): unresolved."""
+    t0 = time.perf_counter()
+    try:
+        status, doc = router.classify(data, "application/octet-stream")
+    except Exception as e:  # noqa: BLE001 — counted as unresolved
+        log(f"fleet: a routed request raised {e!r}")
+        status, doc = None, {}
+    return status, doc, (time.perf_counter() - t0) * 1e3
+
+
+def _fleet_p99(ms):
+    return sorted(ms)[max(0, int(len(ms) * 0.99) - 1)] if ms \
+        else float("nan")
+
+
+def _replica_bodies(router, data) -> dict:
+    """Each replica's verbatim answer to one upload, by replica id."""
+    out = {}
+    for h in list(router._handles):
+        status, doc = h.client.classify(data, "application/octet-stream")
+        out[h.rid] = (status, json.dumps(doc, sort_keys=True))
+    return out
+
+
+def _speed(clients, url, uploads, sizes) -> dict:
+    """Closed-loop HTTP clients (a process of their own) against `url`:
+    img/s, p50 and p99 of the answers' wall times. One burst from each
+    client goes first, untimed: it starts the clients' process and meets
+    each replica's first decodes and replays."""
+    clients.submit(_http_clients, url, uploads,
+                   [row[:1] for row in sizes]).result(timeout=600)
+    t0 = time.perf_counter()
+    got = clients.submit(_http_clients, url, uploads, sizes).result(
+        timeout=600)
+    wall = time.perf_counter() - t0
+    bad = [c for c, _ in got if c != 200]
+    ms = np.sort([m for _, m in got])
+    return {"requests": len(got), "failed": len(bad),
+            "img_per_s": len(got) / wall,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def _fleet_weights(tmp) -> tuple[str, dict]:
+    """AlexNet deploy's weights drawn from seed 0, as a caffemodel."""
+    from caffe_mpi_tpu_torch import io as port_io
+    from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.proto import NetParameter
+    net = Net(NetParameter.from_file(MODEL), device="cpu")
+    net.init(0)
+    weights = net.export_weights()
+    del net
+    path = os.path.join(tmp, "w1.caffemodel")
+    port_io.save_caffemodel(path, weights)
+    return path, weights
+
+
+def fleet_phase(card: str, quiet=None) -> dict:
+    """`cli serve -replicas 2` on AlexNet f32 at full width, on card 0:
+    two replica processes admitted through /readyz (each one warmed by
+    capture: compile_count == warmed_buckets), the serve_http phase's
+    uploads through the router (every answer 200 or typed, both replicas
+    serving, rows within 1e-4 of the in-process engine's on the same
+    weights), the router's img/s, p50 and p99 against one replica over
+    HTTP, replica 1 killed at a beat boundary (`replica_dead`) while
+    sequential traffic flows (none unresolved or untyped, the journal's
+    replica_dead then replica_respawned, the respawn admitted through
+    its readyz gate, the kill-phase p99 within the JAX fleet smoke's
+    rule), a rolling swap of a second caffemodel (scores move on every
+    replica, no capture) and a NaN candidate (a typed SwapError, every
+    replica's answer bitwise the previous). K1 launched 2 a bucket
+    forward inside each replica process; `serve -serve_program_bank`
+    and `-require_bank_warm` still exit 1. Its latency and speed runs
+    (from the baseline on) wait for `quiet` (an Event main sets when the
+    runs beside the build have ended; flash_attention.cu's nvcc may still
+    run on one core), so they time the fleet and not the build."""
+    from caffe_mpi_tpu_torch import io as port_io
+    from caffe_mpi_tpu_torch.proto.config import ServingParameter
+    from caffe_mpi_tpu_torch.serving.errors import SwapError
+    from caffe_mpi_tpu_torch.serving.fleet import make_router_server
+    from caffe_mpi_tpu_torch.tools import cli
+    from caffe_mpi_tpu_torch.utils import resilience
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke_fleet_")
+    out = {"card": card, "replicas": FLEET_REPLICAS, "model": MODEL,
+           "replica_deadline_s": FLEET_DEADLINE}
+    uploads = _uploads(3, 17)
+    parity = _uploads(4, 10)
+    w1, weights = _fleet_weights(tmp)
+    fleet_dir = os.path.join(tmp, "fleet")
+    sup = _smoke_fleet_class()(
+        MODEL, w1, FLEET_REPLICAS, fleet_dir,
+        serving_param=ServingParameter(), replica_deadline=FLEET_DEADLINE,
+        device="cuda", spawn_timeout=600.0)
+    clients = _client_pool()
+    clients.submit(os.getpid).result(timeout=300)  # started beside the build
+    srv = None
+    # the in-process engine on the same weights: the rows' reference
+    with _serve_engine() as engine:
+        engine.load_model("alexnet", MODEL, w1)
+        ref = _rows_by_bytes(engine, "alexnet", parity)
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        out["admission_s"] = time.perf_counter() - t0
+        router = sup.router
+        stats = router.stats()["replicas"]
+        admitted = {}
+        for s in sup.spawns:
+            doc = stats[str(s["rid"])]
+            if doc.get("compile_count") != doc.get("warmed_buckets") \
+                    or doc.get("recaptures") or not s.get("admitted"):
+                fail(f"fleet: replica {s['rid']} admitted with "
+                     f"{doc.get('compile_count')} builds for "
+                     f"{doc.get('warmed_buckets')} warmed buckets")
+            admitted[str(s["rid"])] = _readyz_split(
+                s, _fleet_marks(fleet_dir, s["pid"]), doc)
+            admitted[str(s["rid"])]["compile_count"] = doc["compile_count"]
+        out["admitted"] = admitted
+        srv = make_router_server(router, port=0)
+        _serve_thread(srv)
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        # rows through the router's front against the in-process engine
+        worst = 0.0
+        for data, row in zip(parity, ref):
+            code, body = cli.post_image(url + "/classify", data)
+            if code != 200:
+                fail(f"fleet: router answered {code} {body}")
+            got = [p["score"] for p in body["predictions"]]
+            for p in body["predictions"]:
+                worst = max(worst, abs(p["score"] - float(row[p["label"]])))
+            top = sorted(row, reverse=True)[:5]
+            worst = max(worst, float(np.abs(np.array(got)
+                                            - np.array(top)).max()))
+        out["rows_max_abs_diff_vs_engine"] = worst
+        out["rows_spread"] = float(ref.max() - ref.min())
+        if worst > 1e-4:
+            fail(f"fleet: router rows {worst:.3g} from the in-process "
+                 "engine's (limit 1e-4)")
+        # the serve_http phase's uploads through the router, its bursts
+        answers = _http_clients(url, uploads, [[b] for b in SERVE_BURSTS])
+        untyped = [c for c, _ in answers if c != 200]
+        served = {rid: doc.get("requests", 0)
+                  for rid, doc in router.stats()["replicas"].items()}
+        out["traffic"] = {"requests": len(answers), "failed": len(untyped),
+                          "replica_requests": served}
+        if untyped or min(served.values()) == 0:
+            fail(f"fleet: traffic {out['traffic']}")
+        # the two-replica baseline, then the kill while traffic flows
+        if quiet is not None:
+            t0 = time.perf_counter()
+            quiet.wait()
+            out["waited_for_the_build_s"] = time.perf_counter() - t0
+        probe = uploads[0]
+        lat = []
+        t_base = time.time()
+        while time.time() < t_base + FLEET_BASELINE_S:
+            status, doc, ms = _fleet_send(router,
+                                          uploads[len(lat) % len(uploads)])
+            if status != 200:
+                fail(f"fleet: baseline answered {status} {doc}")
+            lat.append(ms)
+        if router.conn_errors or router.health()["replica_deaths"]:
+            fail("fleet: a replica died before the kill")
+        base_p99 = _fleet_p99(lat)
+        # the kill order: the victim arms replica_dead for its next beat
+        victim_pid = router.handle(FLEET_VICTIM).proc.pid
+        with open(os.path.join(fleet_dir, f"kill_r{FLEET_VICTIM}"),
+                  "w") as f:
+            f.write(str(victim_pid))
+        kill_lat, untyped, unresolved, n_kill, kinds = [], 0, 0, 0, {}
+        t_kill = time.time()
+        death_at = None
+        while time.time() < t_kill + 120:
+            status, doc, ms = _fleet_send(
+                router, uploads[n_kill % len(uploads)])
+            n_kill += 1
+            if status is None:
+                unresolved += 1
+            elif status == 200:
+                kill_lat.append(ms)
+            elif not doc.get("kind"):
+                untyped += 1
+            else:
+                kinds[doc["kind"]] = kinds.get(doc["kind"], 0) + 1
+            if router.health()["replica_deaths"] >= 1:
+                death_at = time.time()
+                break
+        while death_at is not None and time.time() < death_at + 300:
+            status, doc, ms = _fleet_send(
+                router, uploads[n_kill % len(uploads)])
+            n_kill += 1
+            if status is None:
+                unresolved += 1
+            elif status == 200:
+                kill_lat.append(ms)
+            elif not doc.get("kind"):
+                untyped += 1
+            else:
+                kinds[doc["kind"]] = kinds.get(doc["kind"], 0) + 1
+            if router.health()["respawns"] >= 1 and router.ready()[0]:
+                break
+        readmitted_at = time.time()
+        kill_p99 = _fleet_p99(kill_lat)
+        bound = max(1.5 * base_p99, base_p99 + FLEET_P99_FLOOR_MS)
+        victim = [s for s in sup.spawns if s["rid"] == FLEET_VICTIM]
+        out["kill"] = {
+            "requests": n_kill, "answered_200": len(kill_lat),
+            "typed_failures": kinds, "untyped_failures": untyped,
+            "unresolved": unresolved, "baseline_requests": len(lat),
+            "baseline_p99_ms": base_p99,
+            "p99_ms": kill_p99, "p99_bound_ms": bound,
+            "victim_pid": victim_pid,
+            "death_detected": death_at is not None,
+            "death_to_readmitted_s": (readmitted_at - death_at)
+            if death_at is not None else None,
+            "readmitted": bool(router.ready()[0]),
+            "retries": router.retries, "conn_errors": router.conn_errors,
+            "journal_reasons": list(sup.journal_reasons)}
+        jdoc = resilience.read_run_manifest(
+            os.path.join(fleet_dir, "fleet") + ".serve") or {}
+        out["kill"]["journal_last"] = {
+            k: jdoc.get(k) for k in ("reason", "replica_deaths",
+                                     "respawns", "replica")}
+        reasons = sup.journal_reasons
+        if death_at is None or untyped or unresolved \
+                or not out["kill"]["readmitted"] \
+                or "replica_dead" not in reasons \
+                or "replica_respawned" not in reasons \
+                or reasons.index("replica_dead") \
+                > reasons.index("replica_respawned") \
+                or (jdoc.get("respawns") or 0) < 1 \
+                or kill_p99 > bound:
+            fail(f"fleet: the kill phase {out['kill']}")
+        respawn = victim[-1]
+        vdoc = router.stats()["replicas"][str(FLEET_VICTIM)]
+        if len(victim) != 2 or not respawn.get("admitted") \
+                or vdoc.get("compile_count") != vdoc.get("warmed_buckets") \
+                or vdoc.get("recaptures"):
+            fail(f"fleet: respawn {victim} with stats {vdoc}")
+        out["respawn"] = _readyz_split(
+            respawn, _fleet_marks(fleet_dir, respawn["pid"]), vdoc)
+        # speed, both replicas up again: the router against replica 0
+        # over HTTP directly
+        rng = np.random.RandomState(5)
+        sizes = rng.choice([1, 3, 10, 17],
+                           size=(HTTP_CLIENTS, FLEET_SPEED_BURSTS)).tolist()
+        direct = f"http://127.0.0.1:{router.handle(0).port}"
+        out["speed"] = {"router": _speed(clients, url, uploads, sizes),
+                        "one_replica": _speed(clients, direct, uploads,
+                                              sizes)}
+        out["speed"]["router_over_one"] = \
+            out["speed"]["router"]["img_per_s"] \
+            / out["speed"]["one_replica"]["img_per_s"]
+        if out["speed"]["router"]["failed"] \
+                or out["speed"]["one_replica"]["failed"]:
+            fail(f"fleet: speed runs failed: {out['speed']}")
+        # the rolling swap: fc8's weights x 3 land everywhere, no build
+        before = _replica_bodies(router, probe)
+        builds = {rid: (d["compile_count"], d["recaptures"])
+                  for rid, d in router.stats()["replicas"].items()}
+        w2 = os.path.join(tmp, "w2.caffemodel")
+        layer = FLEET_SWAP_LAYER
+        port_io.save_caffemodel(w2, {**weights, layer: [
+            weights[layer][0] * 3.0, weights[layer][1]]})
+        t0 = time.perf_counter()
+        router.swap_weights("default", w2, source="smoke_v2")
+        swap_s = time.perf_counter() - t0
+        after = _replica_bodies(router, probe)
+        rdocs = router.stats()["replicas"]
+        out["swap"] = {
+            "seconds": swap_s,
+            "swaps": {rid: d["swaps"] for rid, d in rdocs.items()},
+            "scores_changed_everywhere": all(
+                after[r][0] == 200 and after[r][1] != before[r][1]
+                for r in before),
+            "no_capture": all((d["compile_count"], d["recaptures"])
+                              == builds[rid] for rid, d in rdocs.items())}
+        if not out["swap"]["scores_changed_everywhere"] \
+                or not out["swap"]["no_capture"] \
+                or any(n != 1 for n in out["swap"]["swaps"].values()):
+            fail(f"fleet: rolling swap {out['swap']}")
+        # a NaN candidate: typed, every replica bitwise the previous
+        w_bad = os.path.join(tmp, "w_bad.caffemodel")
+        port_io.save_caffemodel(w_bad, {**weights, layer: [
+            np.full_like(weights[layer][0], np.nan), weights[layer][1]]})
+        typed = False
+        try:
+            router.swap_weights("default", w_bad, source="smoke_bad")
+        except SwapError:
+            typed = True
+        kept = _replica_bodies(router, probe)
+        out["reject"] = {"swap_error_typed": typed,
+                         "rows_bitwise_kept_everywhere": kept == after,
+                         "swap_rejections": router.swap_rejections}
+        if not typed or kept != after:
+            fail(f"fleet: NaN candidate {out['reject']}")
+        final = router.stats()["replicas"]
+        out["fleet_stats"] = router.stats()["fleet"]
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        sup.stop()
+    # K1 inside each replica process: 2 a bucket forward (each warm's
+    # eager forward and each graph replay, the canary's included)
+    k1 = {}
+    for s in sup.spawns:
+        marks = _fleet_marks(fleet_dir, s["pid"])
+        if marks is None or "counts" not in marks:
+            continue  # the killed incarnation wrote no counts
+        doc = final[str(s["rid"])]
+        forwards = doc["warmed_buckets"] + doc["graph_replays"]
+        k1[str(s["rid"])] = {"k1": marks["counts"]["K1"],
+                             "bucket_forwards": forwards,
+                             "graph_replays": doc["graph_replays"],
+                             "others": sum(v for k, v in
+                                           marks["counts"].items()
+                                           if k != "K1")}
+        if marks["counts"]["K1"] != 2 * forwards or doc["graph_replays"] \
+                == 0 or k1[str(s["rid"])]["others"]:
+            fail(f"fleet: replica {s['rid']} launched {marks['counts']} "
+                 f"for {forwards} bucket forwards (want K1 2 a forward)")
+    if set(k1) != {str(r) for r in range(FLEET_REPLICAS)}:
+        fail(f"fleet: launch counts from replicas {sorted(k1)} only")
+    out["k1_by_replica"] = k1
+    out["k1_main_path"] = sum(2 * v["graph_replays"] for v in k1.values())
+    # the program bank is still refused, naming its item
+    refused = {}
+    for flags in (["-serve_program_bank", os.path.join(tmp, "bank")],
+                  ["-require_bank_warm"]):
+        try:
+            rc = cli.main(["serve", "-model", MODEL, "-smoke", "1",
+                           "-device", "cuda", *flags])
+        except SystemExit as e:
+            rc = e.code
+        refused[flags[0]] = rc
+    try:
+        from caffe_mpi_tpu_torch.serving import ServingEngine
+        ServingEngine(ServingParameter(serve_program_bank="b"),
+                      device="cuda")
+        fail("fleet: serve_program_bank was not refused")
+    except NotImplementedError as e:
+        refused["message"] = str(e)
+    out["bank_refused"] = refused
+    if any(refused[f] != 1 for f in ("-serve_program_bank",
+                                     "-require_bank_warm")) \
+            or "ROADMAP.md §1 item 5" not in refused["message"]:
+        fail(f"fleet: the program bank was not refused: {refused}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"fleet: {json.dumps(out)}")
+    return out
+
+
+def _serve_thread(srv) -> None:
+    import threading
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+
+
+def start_fleet_phase(card: str, quiet=None):
+    """Build lrn.cu (K1) and the native library, then run `fleet_phase`,
+    in a thread: the replicas start while flash_attention.cu's nvcc runs,
+    and the timed runs wait for `quiet` (main joins it after the build)."""
+    from caffe_mpi_tpu_torch.ops import build
+
+    def run():
+        for src in ("lrn.cu", build.NATIVE):
+            build.build(src)
+        return fleet_phase(card, quiet)
+
+    ex = ThreadPoolExecutor(max_workers=1)
+    fut = ex.submit(run)
+    ex.shutdown(wait=False)
+    return fut
+
+
+def _fleet_cards(card: str) -> dict | None:
+    """`--only fleet_cards`: four replicas, one a card through
+    `replica_env` (CUDA_VISIBLE_DEVICES), the serve_http uploads through
+    the router against one replica over HTTP directly; K1 2 a bucket
+    forward inside each replica."""
+    from caffe_mpi_tpu_torch.proto.config import ServingParameter
+    from caffe_mpi_tpu_torch.serving.fleet import make_router_server
+    if torch.cuda.device_count() < FLEET_CARDS:
+        return None
+    from caffe_mpi_tpu_torch.ops import build
+    for src in ("lrn.cu", build.NATIVE):
+        build.build(src)
+    tmp = tempfile.mkdtemp(prefix="smoke_fleet_cards_")
+    w1, _ = _fleet_weights(tmp)
+    fleet_dir = os.path.join(tmp, "fleet")
+    sup = _smoke_fleet_class()(
+        MODEL, w1, FLEET_CARDS, fleet_dir,
+        serving_param=ServingParameter(), replica_deadline=FLEET_DEADLINE,
+        device="cuda", spawn_timeout=600.0,
+        replica_env={i: {"CUDA_VISIBLE_DEVICES": str(i)}
+                     for i in range(FLEET_CARDS)})
+    clients = _client_pool()
+    uploads = _uploads(3, 17)
+    out = {"card": card, "replicas": FLEET_CARDS}
+    srv = None
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        out["admission_s"] = time.perf_counter() - t0
+        srv = make_router_server(sup.router, port=0)
+        _serve_thread(srv)
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        rng = np.random.RandomState(5)
+        out["speed"] = {}
+        for clients_n in (HTTP_CLIENTS, 4 * HTTP_CLIENTS):
+            sizes = rng.choice([1, 3, 10, 17],
+                               size=(clients_n, SPEED_BURSTS)).tolist()
+            direct = f"http://127.0.0.1:{sup.router.handle(0).port}"
+            row = {"router": _speed(clients, url, uploads, sizes),
+                   "one_replica": _speed(clients, direct, uploads, sizes)}
+            row["router_over_one"] = row["router"]["img_per_s"] \
+                / row["one_replica"]["img_per_s"]
+            out["speed"][f"clients_{clients_n}"] = row
+        final = sup.router.stats()["replicas"]
+        out["replica_requests"] = {r: d["requests"]
+                                   for r, d in final.items()}
+        out["replica_devices"] = {r: d["device"] for r, d in final.items()}
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        sup.stop()
+    k1 = {}
+    for s in sup.spawns:
+        marks = _fleet_marks(fleet_dir, s["pid"])
+        doc = final[str(s["rid"])]
+        forwards = doc["warmed_buckets"] + doc["graph_replays"]
+        k1[str(s["rid"])] = {"k1": (marks or {}).get("counts", {}).get(
+            "K1"), "bucket_forwards": forwards}
+        if k1[str(s["rid"])]["k1"] != 2 * forwards:
+            fail(f"fleet_cards: replica {s['rid']} {k1[str(s['rid'])]}")
+    out["k1_by_replica"] = k1
+    out["readyz"] = {str(s["rid"]): _readyz_split(
+        s, _fleet_marks(fleet_dir, s["pid"]), final[str(s["rid"])])
+        for s in sup.spawns}
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 class _PhaseClock:
     """Wall seconds of each group of phases, for the time limit."""
 
@@ -7967,6 +8595,9 @@ class _PhaseClock:
 
 def main(argv=None) -> int:
     import argparse
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--fleet-replica"]:  # the fleet phase's replicas
+        return fleet_replica_main(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="a checkout of the parent commit: its K1-K5 are "
@@ -7985,7 +8616,8 @@ def main(argv=None) -> int:
         ap.add_argument(f"--{part}-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=["dp_cards", "mp", "mp_cards",
                                        "gpipe", "gpipe_cards", "eval",
-                                       "elastic", "shapes"],
+                                       "elastic", "shapes", "fleet",
+                                       "fleet_cards"],
                     default=None,
                     help="run one part alone (prints no ok line): "
                     "dp_cards = the dp phase's NCCL runs (AlexNet, "
@@ -7996,7 +8628,9 @@ def main(argv=None) -> int:
                     "cards (needs 4); gpipe, eval, elastic = those phases; "
                     "gpipe_cards = GoogLeNet's GPipe with one stage a card "
                     "over 4 cards against all stages on card 0 (needs 4); "
-                    "shapes = the static engine against the card")
+                    "shapes = the static engine against the card; "
+                    "fleet = the serving fleet on card 0; fleet_cards = "
+                    "four replicas, one a card (needs 4)")
     args = ap.parse_args(argv)
     if args.dp_rank is not None or args.mp_rank is not None \
             or args.bn_rank is not None:
@@ -8034,6 +8668,10 @@ def main(argv=None) -> int:
                 list(ex.map(build.build, ("lrn.cu", "flash_attention.cu")))
             res = shapes_phase(nets_run.result(), {}, [{}], card)
             res["seconds"] = round(time.perf_counter() - t0, 1)
+        elif args.only == "fleet":
+            res = start_fleet_phase(card).result()
+        elif args.only == "fleet_cards":
+            res = _fleet_cards(card)
         elif args.only == "elastic":  # LeNet launches no kernel of the repo
             fut, tmp = start_elastic_case()
             try:
@@ -8045,6 +8683,8 @@ def main(argv=None) -> int:
         if res is None:
             fail(f"--only {args.only} needs more cards than "
                  f"{torch.cuda.device_count()}")
+        for pool in _CLIENTS:
+            pool.shutdown()
         print(json.dumps({args.only: res}), flush=True)
         print(card, flush=True)
         return 0
@@ -8055,19 +8695,30 @@ def main(argv=None) -> int:
     lenet_run, lenet_tmp = start_lenet_cases()
     elastic_run, elastic_tmp = start_elastic_case()
     shapes_run = start_shapes_nets()
-    build_phase()
-    try:
-        lenet = lenet_run.result()
-        elastic_facts = elastic_run.result()
-        shapes_nets = shapes_run.result()
-    finally:
-        shutil.rmtree(lenet_tmp, ignore_errors=True)
-        shutil.rmtree(elastic_tmp, ignore_errors=True)
+    import threading
+    quiet = threading.Event()
+    fleet_run = start_fleet_phase(card, quiet)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        build_run = ex.submit(build_phase)
+        try:
+            lenet = lenet_run.result()
+            elastic_facts = elastic_run.result()
+            shapes_nets = shapes_run.result()
+        finally:
+            shutil.rmtree(lenet_tmp, ignore_errors=True)
+            shutil.rmtree(elastic_tmp, ignore_errors=True)
+        # the runs beside the build are over (one nvcc may still run): the
+        # fleet's timed runs start
+        quiet.set()
+        build_run.result()
     clock("build")
-    # the elastic runs and the shapes phase's builds overlap the build;
-    # their own wall seconds
+    fleet = fleet_run.result()
+    clock("fleet")  # the fleet phase's wall past the build
+    # the elastic runs, the shapes phase's builds and the fleet phase
+    # overlap the build; their own wall seconds
     clock.seconds["elastic_during_build"] = round(elastic_facts["wall_s"], 1)
     clock.seconds["shapes_during_build"] = shapes_nets["wall_s"]
+    clock.seconds["fleet_during_build"] = round(fleet["seconds"], 1)
     elastic = elastic_phase(elastic_facts, card)
     parent_flash, parent_lrn = parent_libs(parent) if parent else (None,
                                                                    None)
@@ -8076,6 +8727,7 @@ def main(argv=None) -> int:
     flash = flash_kernel_phase(rates, parent_flash)
     clock("kernels")
     serving = serve_phase(k1, card)
+    k1["launches_by_path"]["fleet"] = fleet["k1_main_path"]
     serving["http"] = serve_http_phase(k1, k2, card)
     serving["residency"] = residency_phase(k1, k2, card)
     serving["resilience"] = resilience_phase(k1, k2, card)
@@ -8140,6 +8792,9 @@ def main(argv=None) -> int:
     print(json.dumps({"eval": evaluation}), flush=True)
     print(json.dumps({"elastic": elastic}), flush=True)
     print(json.dumps({"shapes": shapes}), flush=True)
+    print(json.dumps({"fleet": fleet}), flush=True)
+    for pool in _CLIENTS:
+        pool.shutdown()
     print(json.dumps({"phase_seconds": clock.seconds}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

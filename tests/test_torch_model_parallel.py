@@ -466,9 +466,7 @@ def test_cli_decoded_cache_mb_lands_on_the_solver(tmp_path):
     assert cli.solver_param(args).decoded_cache_mb == 64
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["-replicas", "2"], 5), (["-fleet_dir", "/nowhere"], 5),
-    (["-replica_id", "0"], 5), (["-require_bank_warm"], 5)])
+@pytest.mark.parametrize("flags,item", [(["-require_bank_warm"], 5)])
 def test_cli_unported_jax_flags_exit_one_naming_their_item(
         tmp_path, caplog, flags, item):
     from caffe_mpi_tpu_torch.tools import cli

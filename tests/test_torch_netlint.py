@@ -52,11 +52,17 @@ def same_budget(monkeypatch):
     monkeypatch.setenv("CAFFE_NETLINT_HBM_MB", "16384")
 
 
+CONCURRENCY_PASSES = ("lock-order", "blocking-under-lock",
+                      "thread-shared-mutation")
+
+
 def test_the_port_registers_the_six_net_passes():
     lint._load_passes()
     jlint._load_passes()
-    assert set(lint.REGISTRY) == set(netlint.NET_PASSES) == \
-        set(jnetlint.NET_PASSES)
+    assert set(netlint.NET_PASSES) == set(jnetlint.NET_PASSES)
+    # beside them, the three concurrency passes (tools/lint/concurrency.py)
+    assert set(lint.REGISTRY) == set(netlint.NET_PASSES) | set(
+        CONCURRENCY_PASSES)
     for name in netlint.NET_PASSES:
         assert lint.REGISTRY[name].description == \
             jlint.REGISTRY[name].description
@@ -231,7 +237,8 @@ def test_a_python_waiver_naming_an_unknown_pass_is_a_finding(tmp_path):
 def test_the_cli_lists_selects_and_prints_json(capsys):
     assert lint.main(["--list"]) == 0
     listed = capsys.readouterr().out.split("\n")
-    assert [l.split()[0] for l in listed if l] == sorted(netlint.NET_PASSES)
+    assert [l.split()[0] for l in listed if l] == sorted(
+        netlint.NET_PASSES + CONCURRENCY_PASSES)
     assert lint.main(["--json", "--select", "net-shape,net-wiring"]) == 0
     assert json.loads(capsys.readouterr().out) == []
     assert lint.main(["--select", "host-sync"]) == 2

@@ -312,12 +312,11 @@ def _write_solver(tmp_path):
 @pytest.mark.parametrize("flags", [["-gpipe", "2", "-mesh", "data=2"],
                                    ["-gpipe_micro", "2"],
                                    ["-gpipe", "2", "-precision", "bf16"],
-                                   ["-replicas", "2"],
                                    ["-precision", "nonsense"]])
 def test_cli_train_flag_of_an_unported_field_exits_one(tmp_path, flags):
     """Refused flags and combinations: GPipe with a mesh, -gpipe_micro
-    alone, GPipe under bf16 (the JAX Solver's refusals), an unported
-    module's flag, an unknown precision. -host_deadline, -min_hosts and
+    alone, GPipe under bf16 (the JAX Solver's refusals), an unknown
+    precision. -host_deadline, -min_hosts and
     -gpipe alone train (test_torch_elastic.py, test_torch_gpipe.py)."""
     assert cli.main(["train", "-solver", _write_solver(tmp_path),
                      "-synthetic", "-device", "cpu", *flags]) == 1
@@ -331,8 +330,7 @@ def test_cli_train_flags_at_their_defaults_train(tmp_path):
     assert solver.sp.precision == "f32" and summary["iters"] == 1
 
 
-@pytest.mark.parametrize("flags", [["-serve_replicas", "2"],
-                                   ["-serve_dtype", "nonsense"],
+@pytest.mark.parametrize("flags", [["-serve_dtype", "nonsense"],
                                    ["-serve_program_bank", "bank"]])
 def test_cli_serve_flag_of_an_unported_field_exits_one(flags):
     assert cli.main(["serve", "-model", os.path.join(

@@ -282,11 +282,6 @@ def test_typed_failures_over_http_match_the_jax_front(deploy, faults):
                     (200, "closed"), 200]
 
 
-def test_admin_swap_route_is_refused():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5"):
-        make_server(ServingEngine(device="cpu", start=False), admin=True)
-
-
 def test_cli_serve_smoke_over_http_on_cpu(deploy, capsys):
     model, weights = deploy
     rc = cli.main(["serve", "-model", model, "-weights", weights,
