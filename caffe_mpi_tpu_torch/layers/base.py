@@ -59,8 +59,13 @@ class Layer(nn.Module):
     # the rank's MeshPlan (Net.bind_mesh), or None
     mesh_plan = None
     # {param name: the dim split over the mesh's 'model' axis}: the layer
-    # holds this rank's shard of those params (Net.place)
+    # holds this rank's shard of those params and runs its model-parallel
+    # forward (Net.place)
     shards: dict = {}
+    # {param name: placement spec}: the layer holds this rank's shard of
+    # those params and its forward reads them whole, gathered on use
+    # (Net.place, mesh.gather_on_use)
+    gathered: dict = {}
     # the base of a layer's relative file paths (Net sets it before setup)
     model_dir: str = ""
 
@@ -124,9 +129,9 @@ class Layer(nn.Module):
         raise NotImplementedError
 
     def accepts_shards(self, shards: dict) -> bool:
-        """Whether the layer runs with these params split over 'model'
-        ({param: dim}); the layers with a model-parallel forward say
-        which."""
+        """Whether the layer's model-parallel forward runs with these
+        params split over 'model' ({param: dim}); the layers that have
+        one say which. Any other split is gathered on use (Net.place)."""
         return not shards
 
     def model_plan(self):

@@ -9,7 +9,9 @@ Under a mesh's 'model' axis (`param_sharding`, the layer's `shards`)
 InnerProduct runs Megatron-style: "rows" (weight dim 0 and the bias
 split) copies the input to the shards and gathers their output features;
 "cols" (weight dim 1 split) splits the input features, sums the partial
-products over the model ranks and adds the replicated bias.
+products over the model ranks and adds the replicated bias. Any other
+split (a transposed layer's, a split bias under a cols weight, a split
+over 'data') is gathered whole before the forward (`Net.place`).
 """
 
 from __future__ import annotations

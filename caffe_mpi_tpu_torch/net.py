@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import copy
 import logging
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -51,11 +52,29 @@ from .core.device import resolve_device
 from .core.types import DtypePolicy, recomputing
 from .layers.base import Layer, create_layer
 from .layers.data_layers import InputLayerBase
+from .parallel.mesh import gather_on_use
 from .proto.config import NetParameter, NetState
 from .proto.netshape import BF16_INELIGIBLE
 from .proto.upgrade import filter_net, normalize_net
 
 log = logging.getLogger("caffe_mpi_tpu_torch.net")
+
+
+@contextmanager
+def reading(entries):
+    """Each (dict, name, tensor) of `entries` in place of a module's own
+    param or buffer for the block, restored after. The module's own
+    dicts are swapped, so a Pipeline's stacked "inner.param" names swap
+    like any other (`torch.func.functional_call` resolves a dotted name
+    as a submodule path)."""
+    saved = [(d, name, d[name]) for d, name, _ in entries]
+    try:
+        for d, name, t in entries:
+            d[name] = t
+        yield
+    finally:
+        for d, name, t in saved:
+            d[name] = t
 
 
 class IndivisibleBatch(ValueError):
@@ -111,8 +130,10 @@ class Net(nn.Module):
         # (blob, loss weight) for every top that adds to the loss
         self.loss_blobs: list[tuple[str, float]] = []
         self._loss_at: list[int] = []  # the layer index adding each one
-        # the 'model'-axis placement of the params (`place`), or None
+        # the placement of the params over the mesh (`place`), or None,
+        # and each split param's spec, by (layer, param) (aliases too)
         self.placement = None
+        self.specs: dict[tuple[str, str], tuple] = {}
 
         if solver_storage not in ("", "FLOAT", "FLOAT16", "DOUBLE"):
             raise ValueError(
@@ -179,8 +200,6 @@ class Net(nn.Module):
             layer.in_shapes = in_shapes
             out_shapes = layer.setup(in_shapes)
             layer.out_shapes = out_shapes
-            if lp.param_sharding in ("rows", "cols"):
-                self._check_param_sharding(layer, lp.param_sharding)
             if len(out_shapes) != len(lp.top):
                 raise ValueError(
                     f"layer {lp.name!r}: produces {len(out_shapes)} tops, "
@@ -231,19 +250,6 @@ class Net(nn.Module):
             setattr(layer, pname, src)
             self.param_aliases[(layer.name, pname)] = owner
 
-    @staticmethod
-    def _check_param_sharding(layer: Layer, mode: str) -> None:
-        """Refuse at setup a prototxt `param_sharding` the layer has no
-        model-parallel forward for (the solver refuses an unknown mode,
-        as the JAX one does)."""
-        shards = {"weight": 1} if mode == "cols" else {
-            "weight": 0, **({"bias": 0} if "bias" in layer.decls else {})}
-        if not layer.accepts_shards(shards):
-            raise NotImplementedError(
-                f"layer {layer.name!r} ({layer.lp.type}): param_sharding "
-                f"{mode!r} is taken by InnerProduct (not transposed) and "
-                "Convolution with group 1 only (ROADMAP.md §1 item 6)")
-
     def _divide_batch(self, lp, divisor: int) -> None:
         """Divide a layer's global batch by `divisor` (the JAX `Net`'s
         `_divide_batch`). WindowData is divided too: its feeder stripes
@@ -287,43 +293,50 @@ class Net(nn.Module):
 
     @torch.no_grad()
     def place(self, placement) -> None:
-        """Split the params a `mesh.Placement` names over the 'model' axis:
+        """Split the params a `mesh.Placement` names over the mesh's axes:
         each such param becomes this rank's shard of it (a new
-        `nn.Parameter`), and its layer's `shards` says which dim. A layer
-        that cannot run with those shards is refused. After `bind_mesh`
-        and `init` (the full arrays are drawn first, so a split run starts
-        from the one-process run's values). A layer that shares a param
-        by name holds its owner's shard, split as the owner's rule says,
-        and runs the model-parallel forward too."""
+        `nn.Parameter`) and `specs` records its spec. A layer whose
+        model-parallel forward takes those shards (`accepts_shards`: one
+        dim each, over 'model') runs it (`shards` says which dim); any
+        other gathers the whole params before its forward (`gathered`,
+        `mesh.gather_on_use`). After `bind_mesh` and `init` (the full
+        arrays are drawn first, so a split run starts from the
+        one-process run's values). A layer that shares a param by name
+        holds its owner's shard, split as the owner's rule says."""
         self.placement = placement
+        self.specs = {}
         for layer in self.layers:
-            shards = {}
+            specs = {}
             for pname in layer.decls:
                 owner = self.param_aliases.get((layer.name, pname))
                 if owner is not None:
                     # the owner comes first in declaration order
-                    d = self.layer_by_name(owner[0]).shards.get(owner[1])
+                    spec = self.specs.get(owner)
                 else:
-                    d = placement.dim(layer.name, pname,
-                                      getattr(layer, pname).dim())
-                if d is not None:
-                    shards[pname] = d
-            if not layer.accepts_shards(shards):
-                raise NotImplementedError(
-                    f"layer {layer.name!r} ({layer.lp.type}): params split "
-                    f"over 'model' as {shards} are not ported (ROADMAP.md "
-                    "§1 item 6)")
-            for pname in shards:
+                    spec = placement.spec(layer.name, pname,
+                                          getattr(layer, pname).dim())
+                if spec is not None:
+                    specs[pname] = spec
+            shards = {p: placement.model_dim(spec)
+                      for p, spec in specs.items()}
+            if None not in shards.values() and layer.accepts_shards(shards):
+                layer.shards, layer.gathered = shards, {}
+            else:
+                layer.shards, layer.gathered = {}, specs
+            for pname, spec in specs.items():
+                self.specs[(layer.name, pname)] = spec
                 owner = self.param_aliases.get((layer.name, pname))
                 if owner is not None:
                     setattr(layer, pname,
                             getattr(self.layer_by_name(owner[0]), owner[1]))
                     continue
                 p = getattr(layer, pname)
+                try:
+                    local = placement.local_spec(spec, p)
+                except ValueError as e:
+                    raise ValueError(f"{layer.name}.{pname}: {e}") from None
                 setattr(layer, pname, nn.Parameter(
-                    placement.local(layer.name, pname, p).clone(),
-                    requires_grad=p.requires_grad))
-            layer.shards = shards
+                    local.clone(), requires_grad=p.requires_grad))
 
     def owner_of(self, lname: str, pname: str) -> tuple[str, str]:
         """The (layer, param) that owns a param: itself, or the first
@@ -332,7 +345,32 @@ class Net(nn.Module):
 
     def sharded(self, lname: str, pname: str) -> bool:
         """Whether this rank holds a shard of the param (`place`)."""
-        return pname in self.layer_by_name(lname).shards
+        return (lname, pname) in self.specs
+
+    def spec_of(self, lname: str, pname: str):
+        """The param's placement spec (`place`), None when whole."""
+        return self.specs.get((lname, pname))
+
+    def gather_param(self, lname: str, pname: str, t: torch.Tensor
+                     ) -> torch.Tensor:
+        """The whole array of a param (or of a slot aligned with it) of
+        which `t` is this rank's shard (a collective over the axes that
+        split it); `t` itself when the param is whole."""
+        spec = self.specs.get((lname, pname))
+        return t if spec is None else self.placement.gather_spec(
+            spec, t.detach())
+
+    def local_param(self, lname: str, pname: str, t: torch.Tensor
+                    ) -> torch.Tensor:
+        """This rank's shard of the whole array `t` of a param."""
+        spec = self.specs.get((lname, pname))
+        return t if spec is None else self.placement.local_spec(spec, t)
+
+    def full_shape(self, lname: str, pname: str, shape) -> tuple:
+        """The whole shape of a param of which `shape` is the shard."""
+        spec = self.specs.get((lname, pname))
+        return tuple(shape) if spec is None else \
+            self.placement.full_shape(spec, shape)
 
     def layer_by_name(self, name: str) -> Layer:
         try:
@@ -406,17 +444,22 @@ class Net(nn.Module):
             given = params.get(layer.name, {})
             frozen = [p for p in frozen
                       if self.training and getattr(layer, p).requires_grad]
-            swap = dict(given)
-            for p in frozen:
-                # a frozen use of a param that another use trains: the
-                # forward reads it detached (JAX: stop_gradient)
-                swap[p] = swap.get(p, getattr(layer, p)).detach()
 
-            def call(*bs, layer=layer, swap=swap, kw=kw):
-                if swap:
-                    return torch.func.functional_call(
-                        layer, swap, (list(bs),), kw)
-                return layer(list(bs), **kw)
+            def call(*bs, layer=layer, given=given, frozen=frozen, kw=kw):
+                swap = dict(given)
+                for p, spec in layer.gathered.items():
+                    # a shard with no model-parallel forward: the whole
+                    # param, gathered here (again in a recompute)
+                    if p not in swap:
+                        swap[p] = gather_on_use(getattr(layer, p),
+                                                self.placement, spec)
+                for p in frozen:
+                    # a frozen use of a param that another use trains:
+                    # the forward reads it detached (JAX: stop_gradient)
+                    swap[p] = swap.get(p, getattr(layer, p)).detach()
+                with reading([(layer._parameters, p, t)
+                              for p, t in swap.items()]):
+                    return layer(list(bs), **kw)
 
             tops = _rematerialised(layer, call, bottoms) if remat \
                 else call(*bottoms)
@@ -471,9 +514,8 @@ class Net(nn.Module):
             blobs = []
             for kind, name in layer.caffe_blobs():
                 t = None if kind == "correction" else getattr(layer, name)
-                if full and name in layer.shards:
-                    t = self.placement.gather(
-                        *self.owner_of(layer.name, name), t)
+                if full and kind == "param":
+                    t = self.gather_param(layer.name, name, t)
                 blobs.append(t)
             if blobs:
                 out[layer.name] = blobs
@@ -523,16 +565,13 @@ class Net(nn.Module):
                 blob = np.asarray(blob, np.float32)
                 if into is None:
                     cur = getattr(layer, name)
-                    if name in layer.shards:
+                    if self.sharded(layer.name, name):
                         # a whole array, of which this rank takes its shard
-                        full = list(cur.shape)
-                        full[layer.shards[name]] *= \
-                            self.placement.plan.n_model
+                        full = self.full_shape(layer.name, name, cur.shape)
                         if blob.size == int(np.prod(full)):
                             blob = blob.reshape(full)
-                        blob = self.placement.local(
-                            *self.owner_of(layer.name, name),
-                            torch.from_numpy(
+                        blob = self.local_param(
+                            layer.name, name, torch.from_numpy(
                                 np.ascontiguousarray(blob))).numpy()
                 else:
                     cur = into[self.owner_of(layer.name, name)]

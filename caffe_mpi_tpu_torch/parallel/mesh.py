@@ -32,12 +32,17 @@ chosen by trying NCCL and falling back.
   `split_to_model`). Every rank creates every data group and every
   model group, in the same order. Under gloo a CUDA tensor is staged
   through pinned host memory explicitly. Each collective adds one to
-  `collectives.launches`, which a captured CUDA graph adds again at
-  every replay, as the kernel counters;
+  `collectives.launches` (a model-axis one its bytes to `sent`,
+  `model_bytes`), which a captured CUDA graph adds again at every
+  replay, as the kernel counters; `model_axis_only` is the rank's plan
+  without its data axis;
 - `param_sharding_rules` takes the JAX rule forms ("rows", a spec tuple,
-  a per-param dict) and returns a `Placement`: which dim of which param
-  is split over 'model', this rank's shard of a full array, and the
-  gather (a collective) that rebuilds the full array for snapshots;
+  a per-param dict; any spec over 'data' and 'model') and returns a
+  `Placement`: which mesh axes split which dims of which param, this
+  rank's shard of a full array, and the gather (a collective) that
+  rebuilds the full array; `gather_on_use` is that gather as an
+  autograd region, for a layer with no model-parallel forward for its
+  shards;
 - `cluster_barrier` and `cluster_kv_set` / `cluster_kv_get` work on the
   group's store, never on the device.
 
@@ -60,8 +65,9 @@ import logging
 import os
 import socket
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -77,10 +83,18 @@ class _Counter:
     solver's graph capture takes a capture's delta back and adds it at
     replays."""
 
-    __name__ = "collectives"
+    def __init__(self, name: str = "collectives"):
+        self.__name__ = name
+        self.launches = 0
+
+
+class _Clock:
+    """Whether a plan times its eager collectives (`MeshPlan.timing`),
+    and the event recorded before the first of them."""
 
     def __init__(self):
-        self.launches = 0
+        self.on = False
+        self.origin = None
 
 
 def resolve_cluster(sp=None, host_id: int | None = None):
@@ -421,13 +435,13 @@ class MeshPlan:
     model_group: object = None
     collectives: _Counter = field(default_factory=_Counter)
     # CUDA event pairs around eager collectives while `timing` is on, and
-    # the event recorded before the first of them (their common origin)
-    timing: bool = False
+    # whether it is on with the event recorded before the first of them
+    # (their common origin): shared with the plan's views
     events: list = field(default_factory=list)
-    # the bytes the model-axis collectives moved (sent) since the last
-    # read of `model_bytes`
-    model_bytes: int = 0
-    _origin: object = None
+    clock: _Clock = field(default_factory=_Clock)
+    # the bytes the model-axis collectives sent (`model_bytes`), a counter
+    # that a captured graph adds again at every replay
+    sent: _Counter = field(default_factory=lambda: _Counter("model_bytes"))
     _pinned: dict = field(default_factory=dict)
 
     @classmethod
@@ -488,8 +502,32 @@ class MeshPlan:
                    model_group=model_group)
 
     @property
+    def timing(self) -> bool:
+        return self.clock.on
+
+    @timing.setter
+    def timing(self, on: bool) -> None:
+        self.clock.on = on
+
+    @property
+    def model_bytes(self) -> int:
+        return self.sent.launches
+
+    @model_bytes.setter
+    def model_bytes(self, n: int) -> None:
+        self.sent.launches = n
+
+    def model_axis_only(self) -> "MeshPlan":
+        """This rank's plan with the data axis taken away (its collectives
+        over 'data' do nothing, its data index is 0; the model group, the
+        counters, the timing and the staging buffers shared): for a net
+        every rank runs on the whole batch, such as a test net whose
+        batch does not divide the data ranks."""
+        return replace(self, n_data=1, data_group=None)
+
+    @property
     def data_index(self) -> int:
-        return self.rank // self.n_model
+        return self.rank // self.n_model if self.n_data > 1 else 0
 
     @property
     def model_index(self) -> int:
@@ -497,6 +535,10 @@ class MeshPlan:
 
     def global_rank(self, data_index: int, model_index: int) -> int:
         return data_index * self.n_model + model_index
+
+    def model_peer(self, model_index: int) -> int:
+        """The global rank of `model_index` in this rank's model group."""
+        return self.rank - self.model_index + model_index
 
     def param_sharding_rules(self, rules) -> "Placement":
         """The JAX rule forms over the 'model' axis: {layer: "rows" | a
@@ -537,9 +579,9 @@ class MeshPlan:
         if not (self.timing and self.device.type == "cuda") or \
                 torch.cuda.is_current_stream_capturing():
             return None
-        if self._origin is None:
-            self._origin = torch.cuda.Event(enable_timing=True)
-            self._origin.record()
+        if self.clock.origin is None:
+            self.clock.origin = torch.cuda.Event(enable_timing=True)
+            self.clock.origin.record()
         pair = (torch.cuda.Event(enable_timing=True),
                 torch.cuda.Event(enable_timing=True))
         self.events.append(pair)
@@ -656,7 +698,7 @@ class MeshPlan:
         pair = self._model_timed(t)
         if self.n_model > 1:
             self._staged_call(dist.broadcast, t,
-                              src=self.global_rank(self.data_index, src),
+                              src=self.model_peer(src),
                               group=self.model_group)
         if pair:
             pair[1].record()
@@ -677,9 +719,8 @@ class MeshPlan:
         pair = self._timed()
         if pair:
             pair[0].record()
-        to = self.global_rank(self.data_index, (self.model_index + shift) % n)
-        frm = self.global_rank(self.data_index,
-                               (self.model_index - shift) % n)
+        to = self.model_peer((self.model_index + shift) % n)
+        frm = self.model_peer((self.model_index - shift) % n)
         # under gloo on a card each tensor goes through pinned host
         # memory, the sends and the receives in slots of their own
         staged = [self._staged(t) for t in tensors]
@@ -710,11 +751,11 @@ class MeshPlan:
         if not self.events:
             return 0.0
         torch.cuda.synchronize(self.device)
-        o = self._origin
+        o = self.clock.origin
         ms = union_ms([(o.elapsed_time(a), o.elapsed_time(b))
                        for a, b in self.events])
         self.events.clear()
-        self._origin = None
+        self.clock.origin = None
         return ms
 
     def replicate(self, tensors) -> None:
@@ -852,12 +893,71 @@ def gather_rows_from_data(x, plan):
     return _GatherRowsFromData.apply(x, plan)
 
 
+AXES = ("data", "model")
+
+
+def spec_slices(spec, shape, mesh_shape, coords) -> list[tuple[int, int]]:
+    """The [lo, hi) a dim of the whole array of `shape` that the rank at
+    `coords` (data index, model index) of a mesh of `mesh_shape` holds
+    under `spec` (`Placement.spec`: a dim over several axes indexes them
+    major to minor). A dim that does not split raises ValueError."""
+    sizes = dict(zip(AXES, mesh_shape))
+    index = dict(zip(AXES, coords))
+    out = []
+    for d, n in enumerate(shape):
+        axes = spec[d] if spec is not None else ()
+        parts, idx = 1, 0
+        for a in axes:
+            parts, idx = parts * sizes[a], idx * sizes[a] + index[a]
+        if n % parts:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"over {parts} ranks of {axes}")
+        size = n // parts
+        out.append((idx * size, (idx + 1) * size))
+    return out
+
+
+class _GatherOnUse(torch.autograd.Function):
+    """Forward the whole param from this rank's shard (`Placement.
+    gather_spec`); backward this rank's slice of the gradient. Over
+    'model' the gradients are already equal (the model ranks of a data
+    index see the same batch); over 'data' they are summed over the data
+    ranks and divided by N first (a reduce-scatter in the Reducer's
+    place: such a param is not in its buffers)."""
+
+    @staticmethod
+    def forward(ctx, p, placement, spec):
+        ctx.placement, ctx.spec = placement, spec
+        return placement.gather_spec(spec, p.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.placement.plan
+        g = g.contiguous()
+        if any("data" in axes for axes in ctx.spec) and plan.n_data > 1:
+            g = plan.all_reduce_(g.clone()) / plan.n_data
+        return ctx.placement.local_spec(ctx.spec, g).contiguous(), None, \
+            None
+
+
+def gather_on_use(p, placement, spec):
+    """The whole of a param this rank holds a shard of (`spec`), as an
+    autograd region: a layer with no model-parallel forward for that
+    shard runs on it."""
+    return _GatherOnUse.apply(p, placement, spec)
+
+
 class Placement:
-    """The 'model'-axis placement of `param_sharding_rules`: `dim(layer,
-    param, ndim)` is the dim split over 'model' (None: replicated),
-    `local(...)` this rank's shard of a full array, `gather(...)` the
-    full array from the ranks' shards (a collective over the model
-    axis: every model rank calls it, in the same order)."""
+    """The placement of `param_sharding_rules` (the JAX rule forms):
+    `spec(layer, param, ndim)` names, dim by dim, the mesh axes that
+    split the param (a tuple of axis tuples; None: replicated),
+    `model_dim` the one dim a model-parallel forward takes (a spec that
+    splits one dim over 'model' alone), `local_spec` this rank's shard of
+    a full array and `gather_spec` the full array from the ranks' shards
+    (a collective over the axes that split it: every rank calls it, in
+    the same order); `Net.place` keeps each param's spec. A dim
+    split over several axes indexes them major to minor, as a JAX
+    PartitionSpec entry ("data", "model") does."""
 
     def __init__(self, plan: MeshPlan, rules: dict):
         self.plan = plan
@@ -865,28 +965,40 @@ class Placement:
         for lname, rule in self.rules.items():
             specs = rule.values() if isinstance(rule, dict) else [rule]
             for spec in specs:
-                if isinstance(spec, str) and spec != "rows":
-                    raise ValueError(
-                        f"rule for {lname!r} must be a spec tuple or "
-                        f"'rows', got {spec!r}")
-                if not isinstance(spec, str):
-                    axes = [a for a in spec if a is not None]
-                    if axes and set(axes) != {"model"} or len(axes) > 1:
-                        raise NotImplementedError(
-                            f"rule {spec!r} for {lname!r}: the port splits "
-                            "one dim over 'model' only (ROADMAP.md §1 "
-                            "item 6)")
+                if isinstance(spec, str):
+                    if spec != "rows":
+                        raise ValueError(
+                            f"rule for {lname!r} must be a spec tuple or "
+                            f"'rows', got {spec!r}")
+                    continue
+                for entry in spec:
+                    axes = entry if isinstance(entry, (tuple, list)) \
+                        else (entry,)
+                    bad = [a for a in axes if a is not None
+                           and a not in AXES]
+                    if bad:
+                        raise ValueError(
+                            f"rule {spec!r} for {lname!r}: unknown mesh "
+                            f"axes {bad} (the mesh has {AXES})")
 
     @staticmethod
-    def _spec_dim(spec) -> int | None:
+    def _normalize(spec, ndim: int) -> tuple | None:
+        """A rule's spec as one tuple of axes a dim (the JAX padding and
+        truncation to the array's rank); None when nothing is split."""
         if spec == "rows":
-            return 0
-        for i, a in enumerate(spec):
-            if a == "model":
-                return i
-        return None
+            spec = ("model",)
+        out = []
+        for entry in list(spec)[:ndim]:
+            axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+            out.append(tuple(a for a in axes if a is not None))
+        out += [()] * (ndim - len(out))
+        return tuple(out) if any(out) else None
 
-    def dim(self, lname: str, pname: str, ndim: int) -> int | None:
+    def spec(self, lname: str, pname: str, ndim: int) -> tuple | None:
+        """The JAX `param_sharding_rules` placement of one param: a
+        per-param dict's own spec; a layer rule's spec for `weight`, and
+        for `bias` ("model" on its only dim) when the rule splits the
+        weight's dim 0 over 'model' alone (the per-output bias follows)."""
         if self.plan.n_model <= 1:
             return None
         rule = self.rules.get(lname)
@@ -894,35 +1006,59 @@ class Placement:
             return None
         if isinstance(rule, dict):
             spec = rule.get(pname)
-            d = None if spec is None else self._spec_dim(spec)
         elif pname == "weight":
-            d = self._spec_dim(rule)
-        elif pname == "bias" and ndim >= 1 and self._spec_dim(rule) == 0:
-            # an output-dim-sharded weight: the per-output bias follows
-            d = 0
+            spec = rule
+        elif pname == "bias" and ndim >= 1 and (
+                rule == "rows" or (len(rule) > 0 and rule[0] == "model")):
+            spec = ("model",)
         else:
-            d = None
-        return d if d is not None and d < ndim else None
+            spec = None
+        return None if spec is None else self._normalize(spec, ndim)
 
-    def local(self, lname: str, pname: str, t: torch.Tensor
-              ) -> torch.Tensor:
-        d = self.dim(lname, pname, t.dim())
-        if d is None:
-            return t
-        n = self.plan.n_model
-        if t.shape[d] % n:
-            raise ValueError(f"{lname}.{pname}: dim {d} of "
-                             f"{tuple(t.shape)} does not split over {n} "
-                             "model ranks")
-        size = t.shape[d] // n
-        return t.narrow(d, self.plan.model_index * size, size)
+    @staticmethod
+    def model_dim(spec) -> int | None:
+        """The dim a spec splits, when it splits one dim over 'model'
+        alone (what a model-parallel forward takes); else None."""
+        if spec is None:
+            return None
+        split = [d for d, axes in enumerate(spec) if axes]
+        if len(split) == 1 and spec[split[0]] == ("model",):
+            return split[0]
+        return None
 
-    def gather(self, lname: str, pname: str, t: torch.Tensor
-               ) -> torch.Tensor:
-        d = self.dim(lname, pname, t.dim())
-        if d is None:
+    def full_shape(self, spec, shape) -> tuple:
+        """The whole shape of which `shape` is a shard under `spec`."""
+        if spec is None:
+            return tuple(shape)
+        sizes = {"data": self.plan.n_data, "model": self.plan.n_model}
+        return tuple(n * int(np.prod([sizes[a] for a in axes]))
+                     for n, axes in zip(shape, spec))
+
+    def local_spec(self, spec, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the full array `t` under `spec`."""
+        if spec is None:
             return t
-        return self.plan.model_all_gather(t.detach(), d)
+        plan = self.plan
+        for d, (lo, hi) in enumerate(spec_slices(
+                spec, t.shape, (plan.n_data, plan.n_model),
+                (plan.data_index, plan.model_index))):
+            if hi - lo != t.shape[d]:
+                t = t.narrow(d, lo, hi - lo)
+        return t
+
+    def gather_spec(self, spec, t: torch.Tensor) -> torch.Tensor:
+        """The full array from the ranks' shards under `spec`: each split
+        dim gathered over its axes, minor axis first."""
+        if spec is None:
+            return t
+        plan = self.plan
+        for d, axes in enumerate(spec):
+            for a in reversed(axes):
+                if a == "model":
+                    t = plan.model_all_gather(t, d)
+                else:
+                    t = torch.cat(plan.all_gather(t).unbind(0), dim=d)
+        return t
 
 
 def _cards() -> list[str]:

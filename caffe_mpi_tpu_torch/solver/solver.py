@@ -109,7 +109,7 @@ Survivable training, as the JAX solver has it (utils/resilience.py):
   at a test_interval boundary the training loop harvests the previous
   pass and starts this one. The params and state buffers are copied on
   the current stream into persistent copies, which the test nets and
-  their captured chunks read through `torch.func.functional_call`; the
+  their captured chunks read through `net.reading`; the
   first chunk is launched at the boundary and the rest after the next
   training chunk, on the card on a stream of the evaluation's own
   behind the copy, so training goes on updating the live tensors while
@@ -163,24 +163,41 @@ slice of the global batch (the CLI's feeders stripe by rank). Then:
   requests are agreed at each chunk boundary;
 - under NCCL a chunk's CUDA graph captures the all-reduces; gloo
   collectives cannot be captured, so under gloo on the card a chunk runs
-  eagerly (`graphs`).
+  eagerly (`graph_route`, stated at construction).
 
 The mesh's 'model' axis (`mesh.n_model` > 1; the JAX `Solver(mesh=,
 param_shardings=)`): `param_shardings` (else the prototxt's
-`param_sharding` and the Pipeline layers, `_prototxt_shardings`) name
-the params split over 'model'. The full arrays are drawn first, then each
-rank keeps its shards (`Net.place`, the test nets' layers alike), so a
-split run starts from the one-process run's values. A rank is fed by
-its data index: the model ranks of one data index take the same slice
-and the same Dropout masks. The gradients reduce over the data axis
-only; clipping sums a split param's squares over the model ranks once;
-the guard's check and signal requests are agreed over every rank; the
-updates run on the shards. Snapshots gather the whole arrays (the
-caffemodel and solverstate a one-process run writes); `restore`,
-`load_weights` and `weights.load_jax_params` take whole arrays and keep
-the rank's shards. Refused under a model axis, naming ROADMAP.md §1
-item 6: `zero_stage: 1`, `step_chunk` > 1, a test net whose batch does
-not divide the data ranks.
+`param_sharding` and the Pipeline layers, `_prototxt_shardings`) place
+params over the mesh's axes, any spec the JAX `param_sharding_rules`
+takes. The full arrays are drawn first, then each rank keeps its shards
+(`Net.place`, the test nets' layers alike), so a split run starts from
+the one-process run's values. A layer with a model-parallel forward for
+its shards runs it; any other gathers the whole params on use
+(`mesh.gather_on_use`: a param split over 'data' is reduced by that
+gather's backward, a reduce-scatter, in the Reducer's place). A rank is
+fed by its data index: the model ranks of one data index take the same
+slice and the same Dropout masks. The gradients reduce over the data
+axis only; clipping sums a split param's squares over the axes that
+split it once; the guard's check and signal requests are agreed over
+every rank; the updates run on the shards. ZeRO-1 splits over 'data'
+the slots of the params of the layers no rule names (the JAX rule);
+those of a named layer stay aligned with their params. A chunk of
+`step_chunk` iterations is one CUDA graph under NCCL (the model axis's
+all-reduces, gathers, broadcasts and ring send/recv captured, their
+counters added again at each replay) and eager under gloo, the test
+pass's chunks alike (`_test_graphs_ok`). A test net
+whose batch does not divide the data ranks runs the whole batch on
+every rank over the model axis alone (`MeshPlan.model_axis_only`).
+BINARYPROTO snapshots gather the whole arrays (the caffemodel and
+solverstate a one-process run writes); `restore`, `load_weights` and
+`weights.load_jax_params` take whole arrays and keep the rank's shards.
+
+Sharded snapshots (`snapshot_format: ORBAX`, the JAX `snapshot_native`
+and `restore_native`): `<prefix>_iter_<N>.orbax/` holds one .npy a
+distinct shard, written by the rank that owns it, and the index
+(`SHARDED_INDEX`); after the write barrier rank 0 commits the crc32c
+manifest. A restore reads the slices the current mesh gives the rank,
+so a set written on one mesh restores on any other (world 1 included).
 
 GPipe (`gpipe`, the JAX `Solver(gpipe=)`; parallel/gpipe.py): the net
 is cut into S stages, each on its device, the prototxt batch into M
@@ -205,8 +222,8 @@ missing hosts watches their supervisors' beats at every snapshot
 boundary and exits 87 (`cluster_rejoin`) when one returns, so the
 elastic supervisor grows the cluster back from that snapshot.
 
-Not ported yet: HDF5 and ORBAX snapshots (`snapshot_format` other than
-BINARYPROTO, ROADMAP.md §1 items 4 and 6). A field in `UNPORTED_FIELDS`
+Not ported yet: HDF5 snapshots (ROADMAP.md §1 item 4). A field in
+`UNPORTED_FIELDS`
 (none is left) or an unported snapshot format raises
 NotImplementedError before anything is built, so no field is accepted
 and then ignored. An unknown `precision` raises ValueError, as the JAX
@@ -219,6 +236,7 @@ import json
 import logging
 import os
 import re
+import shutil
 import threading
 import time
 from collections import deque
@@ -231,7 +249,7 @@ import torch
 
 from .. import io as caffe_io
 from ..core.device import resolve_device
-from ..net import IndivisibleBatch, Net
+from ..net import IndivisibleBatch, Net, reading
 from ..ops import launch_counters, launch_counts
 from ..parallel import mesh as mesh_mod
 from ..parallel import reduction
@@ -252,7 +270,10 @@ UNPORTED_FIELDS = ()
 PRECISIONS = ("f32", "bf16")  # the JAX Solver's; "" is f32
 # snapshot formats the port does not write yet, with their ROADMAP.md
 # section 1 item
-UNPORTED_SNAPSHOT_FORMATS = {"HDF5": 4, "ORBAX": 6}
+UNPORTED_SNAPSHOT_FORMATS = {"HDF5": 4}
+SNAPSHOT_FORMATS = ("BINARYPROTO", "ORBAX")
+# the port's index of a sharded (.orbax) snapshot directory
+SHARDED_INDEX = "port_index.json"
 ANOMALY_ACTIONS = ("rewind", "rewind_lr", "abort")
 
 # the dynamic loss scale's schedule (the JAX solver's _LS_*)
@@ -292,6 +313,38 @@ def _load_net_param(sp: SolverParameter, phase: str, model_dir: str = "",
     if sp.net:
         return NetParameter.from_file(os.path.join(model_dir, sp.net))
     raise ValueError("solver specifies no net")
+
+
+def _shard_owners(spec, mesh_shape) -> list[tuple[int, int]]:
+    """The (data, model) coordinates of the ranks that write the distinct
+    shards of an array placed by `spec` on a mesh of `mesh_shape`: index
+    0 on every axis that does not split it."""
+    axes = {a for dim in spec or () for a in dim}
+    return [(d, m) for d in range(mesh_shape[0]) for m in range(mesh_shape[1])
+            if (d == 0 or "data" in axes) and (m == 0 or "model" in axes)]
+
+
+def _read_region(path: str, shards: list[dict], want, out: np.ndarray
+                 ) -> None:
+    """Fill `out`, the region `want` ([lo, hi) a dim) of a whole array,
+    from the shard files (each {"file", "slice"}) that overlap it."""
+    covered = 0
+    for shard in shards:
+        have = shard["slice"]
+        lo = [max(a, c) for (a, _), (c, _) in zip(want, have)]
+        hi = [min(b, d) for (_, b), (_, d) in zip(want, have)]
+        if any(a >= b for a, b in zip(lo, hi)):
+            continue
+        src = np.load(os.path.join(path, shard["file"]), mmap_mode="r")
+        src_at = tuple(slice(a - c, b - c) for a, b, (c, _)
+                       in zip(lo, hi, have))
+        dst_at = tuple(slice(a - w, b - w) for a, b, (w, _)
+                       in zip(lo, hi, want))
+        out[dst_at] = src[src_at]
+        covered += int(np.prod([b - a for a, b in zip(lo, hi)]))
+    if covered != out.size:
+        raise ValueError(f"{path}: the shard files cover {covered} of the "
+                         f"{out.size} elements a rank needs")
 
 
 def _all_finite(tensors) -> torch.Tensor:
@@ -361,7 +414,10 @@ class Solver:
                 f"solver field snapshot_format: {fmt} snapshots are not "
                 "ported yet (ROADMAP.md §1 item "
                 f"{UNPORTED_SNAPSHOT_FORMATS[fmt]}); the port writes "
-                "BINARYPROTO snapshots")
+                "BINARYPROTO and ORBAX snapshots")
+        if fmt not in SNAPSHOT_FORMATS:
+            raise ValueError(f"unknown snapshot_format {sp.snapshot_format!r}")
+        self.snapshot_format = fmt
         if str(sp.anomaly_action or "rewind") not in ANOMALY_ACTIONS:
             raise ValueError(f"unknown anomaly_action {sp.anomaly_action!r}"
                              f" (expected one of {ANOMALY_ACTIONS})")
@@ -390,15 +446,6 @@ class Solver:
         n_model = mesh.n_model if mesh is not None else 1
         if param_shardings and mesh is None:
             raise ValueError("param_shardings requires a mesh")
-        if n_model > 1 and zero:
-            raise NotImplementedError(
-                "zero_stage: 1 with a 'model' mesh axis is not ported yet "
-                "(ROADMAP.md §1 item 6)")
-        if n_model > 1 and int(sp.step_chunk or 1) > 1:
-            raise NotImplementedError(
-                f"step_chunk {sp.step_chunk} with a 'model' mesh axis (CUDA "
-                "graphs of its send/recv and subgroup collectives) is not "
-                "ported yet (ROADMAP.md §1 item 6); use step_chunk 1")
         self.device = resolve_device(device or "cuda")
         self.model_dir = model_dir
         self.precision = precision
@@ -448,17 +495,16 @@ class Solver:
                 tnet = Net(tparam, "TEST", batch_divisor=n_data, **kw)
                 sharded = n_data > 1
             except IndivisibleBatch:
-                if n_model > 1:
-                    raise NotImplementedError(
-                        f"test net #{i}: a batch that does not divide into "
-                        f"{n_data} data ranks, under a 'model' mesh axis, is "
-                        "not ported yet (ROADMAP.md §1 item 6)") from None
                 log.warning("test net #%d: its batch does not divide into "
                             "%d ranks; every rank evaluates the whole batch",
                             i, n_data)
                 tnet, sharded = Net(tparam, "TEST", **kw), False
-            if sharded or n_model > 1:
+            if sharded:
                 tnet.bind_mesh(mesh)
+            elif n_model > 1:
+                # the whole batch on every rank: the model axis only (the
+                # model ranks of a data index feed the same rows)
+                tnet.bind_mesh(mesh.model_axis_only())
             self.test_nets.append(tnet)
             self.test_sharded.append(sharded)
 
@@ -491,6 +537,9 @@ class Solver:
                 tnet.place(placement)
         for tnet in self.test_nets:
             self._share_params(tnet)
+        # ZeRO-1 leaves the slots of the layers a rule names aligned with
+        # their params (the JAX `_place_params_opt`)
+        tp_layers = set(param_shardings or ()) if n_model > 1 else set()
         # owned learnable params in declaration order — the history order
         self._decls = [(lname, pname, decl,
                         getattr(self.net.layer_by_name(lname), pname))
@@ -504,8 +553,8 @@ class Solver:
         self._shard_len: dict[tuple[str, str], int | None] = {}
         for lname, pname, decl, p in self._decls:
             p.requires_grad_(decl.lr_mult != 0.0)
-            shard = mesh.zero_slot_sharding(tuple(p.shape)) if zero \
-                else None
+            shard = mesh.zero_slot_sharding(tuple(p.shape)) \
+                if zero and lname not in tp_layers else None
             self._shard_len[(lname, pname)] = shard
             shape = (shard, *p.shape[1:]) if shard else p.shape
             self.history[(lname, pname)] = tuple(
@@ -514,6 +563,7 @@ class Solver:
         self._reducer: reduction.Reducer | None = None
         self._reduction: reduction.ReductionPlan | None = None
         self._reduction_fallback: str | None = None
+        self._rs_params: list[torch.Tensor] = []
         self._init_reduction(train_param)
         # collectives and iterations of the training chunks (the
         # collectives_issued_per_step of reduction_stats)
@@ -533,18 +583,39 @@ class Solver:
         # a layer that runs on the host (DetectNetTransformation) cannot
         # be captured: such a net's chunks run as eager iterations
         host = [layer.name for layer in self.net.layers if layer.host_step]
-        self._graphs_ok = self.device.type == "cuda" and not host \
-            and (mesh is None or mesh.backend == "nccl") \
-            and self.gpipe is None
-        if self.device.type == "cuda" and mesh is not None \
-                and mesh.backend != "nccl" and self.step_chunk > 1:
-            log.info("gloo collectives cannot enter a CUDA graph: step_chunk "
-                     "%d runs each chunk eagerly", self.step_chunk)
+        # how a chunk runs, decided here and never by trying a capture:
+        # "graphs" (one CUDA graph an iteration, replayed) or "eager: "
+        # and the reason
+        gloo = mesh is not None and mesh.backend != "nccl"
+        if host:
+            self.graph_route = (f"eager: net {self.net.name} has host "
+                                f"layers ({', '.join(host)})")
+        elif self.device.type != "cuda":
+            self.graph_route = "eager: not on a card"
+        elif gloo:
+            self.graph_route = ("eager: gloo collectives cannot enter a "
+                                "CUDA graph")
+        elif self.gpipe is not None:
+            self.graph_route = "eager: GPipe's wavefront is its own dispatch"
+        elif self.step_chunk <= 1:
+            self.graph_route = "eager: step_chunk 1"
+        else:
+            self.graph_route = "graphs"
+        self._graphs_ok = self.graph_route == "graphs"
+        # the test pass's chunks on the same terms (its forwards issue the
+        # model axis's collectives), a test net's own host layers aside;
+        # GPipe evaluates on its first stage's card, with no collective
+        self._test_graphs_ok = self.device.type == "cuda" and not gloo \
+            and self.step_chunk > 1
         if host and self.step_chunk > 1:
             log.info("net %s has host layers (%s): step_chunk %d runs each "
                      "chunk as %d eager iterations, one host read-back a "
                      "chunk", self.net.name, ", ".join(host),
                      self.step_chunk, self.step_chunk)
+        elif self.step_chunk > 1 and self.device.type == "cuda" \
+                and not self._graphs_ok:
+            log.info("step_chunk %d: %s; each chunk runs eagerly",
+                     self.step_chunk, self.graph_route[len("eager: "):])
         # a chunk's device side: its (lr, momentum, t) rows, the row an
         # iteration reads, and each iteration's (loss, lr, accepted)
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -597,7 +668,7 @@ class Solver:
         self.eval_stall_ms = 0.0
         self.eval_log: list[dict] = []
         self._eval_copies: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-        self._eval_views: dict[int, dict[str, torch.Tensor]] = {}
+        self._eval_views: dict[int, list] = {}
         self._eval_stream = None
         self.eval_stall_log: list[dict] = []
         # survivability: the watchdog (armed at the first step when
@@ -711,8 +782,17 @@ class Solver:
                 "-mesh data=N)")
         if mesh is None:
             return
-        params = {(l, p): t for l, lp in reduction.net_params(
-            self.net).items() for p, t in lp.items()}
+        # a param split over 'data' is reduced by its gather's backward
+        # (a reduce-scatter), not in the Reducer's buffers
+        by_layer = {}
+        for l, lp in reduction.net_params(self.net).items():
+            for p, t in lp.items():
+                if "data" in self._split_axes(l, p):
+                    self._rs_params.append(t)
+                else:
+                    by_layer.setdefault(l, {})[p] = t
+        params = {(l, p): t for l, lp in by_layer.items()
+                  for p, t in lp.items()}
         fallback = None
         if sp.reduce_overlap:
             if mesh.n_data == 1:
@@ -739,7 +819,7 @@ class Solver:
                 if not n_buckets and not bucket_mb:
                     n_buckets = train_param.reduce_buckets
                 self._reduction = reduction.plan_for_net(
-                    self.net, n_buckets=n_buckets,
+                    self.net, by_layer, n_buckets=n_buckets,
                     bucket_bytes=int(bucket_mb * (1 << 20)), n_data=n,
                     wire_dtype="bfloat16" if self.precision == "bf16"
                     else None)
@@ -752,7 +832,7 @@ class Solver:
                              else "")
         # the implicit reduce: one flat buffer (a dtype run each)
         plan = self._reduction or reduction.plan_for_net(
-            self.net, bucket_bytes=1 << 62, n_data=mesh.n_data)
+            self.net, by_layer, bucket_bytes=1 << 62, n_data=mesh.n_data)
         self._reducer = reduction.Reducer(
             plan, params, mesh, hooks=self._reduction is not None)
 
@@ -821,12 +901,16 @@ class Solver:
         return out
 
     def _replicated(self) -> list[torch.Tensor]:
-        """What every rank holds alike: params, running statistics and
-        the replicated history slots."""
-        out = [p for _, _, _, p in self._decls]
+        """What the ranks of a model index hold alike: params, running
+        statistics and history slots, but for ZeRO-1's slot shards and
+        the params (and slots) a placement splits over 'data'."""
+        whole = {(l, p): "data" not in self._split_axes(l, p)
+                 for l, p, _, _ in self._decls}
+        out = [p for l, n, _, p in self._decls if whole[(l, n)]]
         out += [buf for _, _, buf in self.net.state_buffers()]
         out += [s for key, slots in self.history.items()
-                if self._shard_len[key] is None for s in slots]
+                if self._shard_len[key] is None and whole[key]
+                for s in slots]
         return out
 
     def _sync_replicas(self) -> None:
@@ -839,25 +923,23 @@ class Solver:
         K1-K5's launches and the mesh's collectives."""
         out = list(launch_counters())
         if self.mesh is not None:
-            out.append(self.mesh.collectives)
+            out += [self.mesh.collectives, self.mesh.sent]
         return out
 
-    def _full_shape(self, lname: str, pname: str, p) -> tuple:
-        """The whole shape of a param this rank may hold a shard of."""
-        shape = list(p.shape)
-        d = self.net.layer_by_name(lname).shards.get(pname)
-        if d is not None:
-            shape[d] *= self.mesh.n_model
-        return tuple(shape)
+    def _split_axes(self, lname: str, pname: str) -> frozenset:
+        """The mesh axes that split a param (its `Net.place` spec)."""
+        spec = self.net.spec_of(lname, pname)
+        return frozenset(a for axes in spec or () for a in axes)
 
     def full_history(self) -> dict[tuple[str, str], tuple[torch.Tensor, ...]]:
         """Every param's history slots whole: ZeRO-1 shards all-gathered
-        over 'data', the slots of params split over 'model' gathered over
-        it (collectives: every rank calls it, in the same order)."""
+        over 'data', the slots of params split by a placement gathered
+        over the axes that split them (collectives: every rank calls it,
+        in the same order)."""
         out = {}
         for key, slots in self.history.items():
             if self.net.sharded(*key):
-                out[key] = tuple(self.net.placement.gather(*key, s)
+                out[key] = tuple(self.net.gather_param(*key, s)
                                  for s in slots)
             elif self._shard_len[key] is None:
                 out[key] = slots
@@ -950,6 +1032,9 @@ class Solver:
                 p.grad = None
         else:
             red.zero()
+            # split over 'data': reduced by the gather's backward
+            for p in self._rs_params:
+                p.grad = None
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         with self._math.math(self.device):
             for m in range(iter_size):
@@ -971,15 +1056,22 @@ class Solver:
                  for _, _, _, p in self._decls]
         if sp.clip_gradients > 0:
             sq = [torch.sum(torch.square(g)) for g in grads]
-            split = [self.net.sharded(lname, pname)
+            split = [self._split_axes(lname, pname)
                      for lname, pname, _, _ in self._decls]
             if any(split):
-                # a param split over 'model' counts each shard once (its
-                # squares summed over the model ranks); a replicated one
-                # counts once, not once a model rank
-                part = torch.stack([q for q, x in zip(sq, split) if x]).sum()
-                part = self.mesh.model_all_reduce_(part.reshape(1))[0]
-                sq = [q for q, x in zip(sq, split) if not x] + [part]
+                # a split param counts each shard once (its squares
+                # summed over the axes that split it); a replicated one
+                # counts once, not once a rank
+                sums = {"model": self.mesh.model_all_reduce_,
+                        "data": self.mesh.all_reduce_}
+                whole = [q for q, x in zip(sq, split) if not x]
+                for axes in sorted({x for x in split if x}, key=sorted):
+                    part = torch.stack(
+                        [q for q, x in zip(sq, split) if x == axes]).sum()
+                    reduce = sums[next(iter(axes))] if len(axes) == 1 \
+                        else self.mesh.world_all_reduce_
+                    whole.append(reduce(part.reshape(1))[0])
+                sq = whole
             gnorm = torch.sqrt(sum(sq))
             scale = torch.where(gnorm > sp.clip_gradients,
                                 sp.clip_gradients / gnorm, 1.0)
@@ -1207,7 +1299,7 @@ class Solver:
         (loss, lr, accepted) rows and the guard carry, read to the host in
         one transfer."""
         iter_size = self._micro_batches()
-        graphs = self._graphs_ok and self.step_chunk > 1
+        graphs = self._graphs_ok
         stream = None
         if graphs:
             # a graph is captured, and replayed, off the default stream
@@ -1660,7 +1752,7 @@ class Solver:
     # harvests the previous pass, then starts this one: the live params
     # and state buffers are copied, on the current stream, into
     # persistent copies that every test net (and every captured test
-    # chunk) reads through `torch.func.functional_call`, so the pass sees
+    # chunk) reads through `net.reading`, so the pass sees
     # the boundary's weights while training updates the live ones in
     # place. The first chunk is launched at the boundary, the rest right
     # after the next training chunk is launched, before its read-back
@@ -1679,22 +1771,25 @@ class Solver:
         return self.gpipe.devices[0] if self.gpipe is not None \
             else self.device
 
-    def _eval_view(self, ti: int, tnet: Net) -> dict[str, torch.Tensor]:
-        """Test net `ti`'s {param or buffer name: its persistent copy},
+    def _eval_view(self, ti: int, tnet: Net) -> list:
+        """Test net `ti`'s params and buffers, each with its persistent
+        copy, as `net.reading` entries ({module's dict, name, copy}),
         made once. A tensor the test nets share is copied once."""
         view = self._eval_views.get(ti)
         if view is None:
             dev = self._eval_device()
-            view = {}
-            named = list(tnet.named_parameters(remove_duplicate=False)) \
-                + list(tnet.named_buffers(remove_duplicate=False))
-            for name, t in named:
-                pair = self._eval_copies.get(id(t))
-                if pair is None:
-                    pair = self._eval_copies[id(t)] = (
-                        t, torch.empty_like(t, device=dev,
-                                            requires_grad=False))
-                view[name] = pair[1]
+            view = []
+            for module in tnet.modules():
+                for d in (module._parameters, module._buffers):
+                    for name, t in d.items():
+                        if t is None:
+                            continue
+                        pair = self._eval_copies.get(id(t))
+                        if pair is None:
+                            pair = self._eval_copies[id(t)] = (
+                                t, torch.empty_like(t, device=dev,
+                                                    requires_grad=False))
+                        view.append((d, name, pair[1]))
             self._eval_views[ti] = view
         return view
 
@@ -1831,12 +1926,13 @@ class Solver:
 
         def forwards(fs):
             for f in fs:
-                blobs, _ = torch.func.functional_call(tnet, view, (f,))
+                with reading(view):
+                    blobs, _ = tnet(f)
                 acc.add_(torch.stack([blobs[b].float().sum()
                                       for b in out_blobs]))
         dev = self._eval_device()
         key = (ti, len(feeds))
-        if dev.type != "cuda" or self.step_chunk <= 1 \
+        if dev.type != "cuda" or not self._test_graphs_ok \
                 or any(layer.host_step for layer in tnet.layers) \
                 or ti not in self._test_warm:
             forwards(feeds)
@@ -1866,6 +1962,8 @@ class Solver:
         `wait_snapshots` joins). The `snapshot_sync` fault site makes an
         interval snapshot block, so injected faults land at fixed
         iterations."""
+        if self.snapshot_format == "ORBAX":
+            return self.snapshot_sharded()
         if not block and FAULTS.fire("snapshot_sync") is not None:
             block = True
         it, step = self.iter, self._current_step()
@@ -1909,6 +2007,168 @@ class Solver:
         entry["stall_ms"] = (time.perf_counter() - t0) * 1e3
         self.snapshot_log.append(entry)
         return ""
+
+    # -- sharded snapshots (snapshot_format: ORBAX) ---------------------
+    # The JAX `snapshot_native` / `restore_native`: each rank writes the
+    # shards it owns, with no gather, and a restore reads the slices the
+    # current mesh gives the rank, whatever mesh wrote them. The
+    # directory is the port's own layout (one .npy a distinct shard and
+    # SHARDED_INDEX), not orbax's tensorstore files, which need orbax.
+    def _sharded_arrays(self) -> list[tuple[str, torch.Tensor, tuple, tuple]]:
+        """(name, this rank's tensor, whole shape, spec) of everything a
+        sharded snapshot holds: each param, its history slots and the
+        state buffers. A spec names the mesh axes that split each dim
+        (`mesh.Placement`); a ZeRO-1 slot's dim 0 is split over 'data'."""
+        out = []
+        for lname, pname, _, p in self._decls:
+            spec = self.net.spec_of(lname, pname)
+            full = self.net.full_shape(lname, pname, p.shape)
+            out.append((f"param/{lname}/{pname}", p, full, spec))
+            if self._shard_len[(lname, pname)] is not None:
+                spec = (("data",),) + ((),) * (p.dim() - 1)
+            for k, slot in enumerate(self.history[(lname, pname)]):
+                out.append((f"history/{lname}/{pname}/{k}", slot, full,
+                            spec))
+        for lname, sname, buf in self.net.state_buffers():
+            out.append((f"state/{lname}/{sname}", buf, tuple(buf.shape),
+                        None))
+        return out
+
+    def _mesh_shape(self) -> tuple[int, int]:
+        m = self.mesh
+        return (1, 1) if m is None else (m.n_data, m.n_model)
+
+    def _mesh_coords(self) -> tuple[int, int]:
+        m = self.mesh
+        return (0, 0) if m is None else (m.data_index, m.model_index)
+
+    def snapshot_sharded(self) -> str:
+        """Write `<prefix>_iter_<N>.orbax/` (the JAX `snapshot_native`),
+        blocking: every rank writes its own shards (the one rank that
+        owns each: rank 0 a whole array, a data-index-0 rank each shard
+        over 'model', a model-index-0 rank each shard over 'data'), the
+        ranks meet at the write barrier, then rank 0 alone commits the
+        crc32c manifest (kind "orbax"), journals the run state, merges
+        the quarantine journals and runs snapshot_keep. Returns the
+        directory."""
+        it = self.iter
+        t0 = time.perf_counter()
+        prefix = self.sp.snapshot_prefix or "snapshot"
+        path = os.path.abspath(f"{prefix}_iter_{it}.orbax")
+        self.wait_snapshots()
+        if self.rank == 0:
+            # a set left at this iteration (another mesh's) goes first:
+            # the manifest covers every file of the directory
+            mpath = resilience.manifest_for_state(path)
+            if os.path.exists(mpath):
+                os.remove(mpath)
+            shutil.rmtree(path, ignore_errors=True)
+            os.makedirs(path)
+        if self.mesh is not None:
+            self._snapshot_barrier()
+        shape, coords = self._mesh_shape(), self._mesh_coords()
+        index = {"format": "caffe_mpi_tpu_torch sharded snapshot",
+                 "iteration": it, "current_step": self._current_step(),
+                 "solver_type": self.type, "mesh": list(shape),
+                 "arrays": []}
+        if self._gs is not None:
+            # the guard carry as of the snapshot (a restore starts a fresh
+            # one, as a .solverstate's does)
+            index["guard"] = {k: float(v) for k, v in self._gs.items()}
+        with torch.no_grad():
+            for i, (name, t, full, spec) in enumerate(self._sharded_arrays()):
+                entry = {"name": name, "shape": list(full),
+                         "dtype": str(t.dtype).replace("torch.", ""),
+                         "shards": []}
+                for at in _shard_owners(spec, shape):
+                    fname = f"{i}.{at[0]}.{at[1]}.npy"
+                    entry["shards"].append({"file": fname, "slice": [
+                        list(b) for b in mesh_mod.spec_slices(
+                            spec, full, shape, at)]})
+                    if at == coords:
+                        with resilience.atomic_output(
+                                os.path.join(path, fname)) as tmp:
+                            with open(tmp, "wb") as f:
+                                np.save(f, t.detach().float().cpu().numpy())
+                index["arrays"].append(entry)
+        if self.rank == 0:
+            with resilience.atomic_output(
+                    os.path.join(path, SHARDED_INDEX)) as tmp:
+                with open(tmp, "w") as f:
+                    json.dump(index, f)
+        if self.mesh is not None:
+            self._snapshot_barrier()
+        ms = (time.perf_counter() - t0) * 1e3
+        # lint: ok(thread-shared-mutation) — blocking path: wait_snapshots()
+        # above joined the writer thread, none is in flight
+        self._last_snapshot = (it, path)
+        if self.rank != 0:
+            self.snapshot_log.append({"iter": it, "block": True,
+                                      "stall_ms": ms, "write_ms": ms,
+                                      "format": "ORBAX"})
+            return path
+        manifest = resilience.write_sharded_manifest(path, it)
+        # test-only: bitrot in one shard after the commit, which a
+        # restore must catch (and restore_auto fall back past)
+        if FAULTS.active("snapshot_shard_corrupt"):
+            FAULTS.corrupt_file("snapshot_shard_corrupt",
+                                resilience.sharded_snapshot_files(path)[0])
+        # lint: ok(thread-shared-mutation) — blocking path: wait_snapshots()
+        # joined the writer thread before this write began
+        self.snapshots.append(path)
+        self._journal_run_state("snapshot")
+        if self.mesh is not None and self.mesh.hosts > 1:
+            resilience.merge_quarantine_journals(prefix)
+        keep = int(self.sp.snapshot_keep or 0)
+        if keep > 0:
+            resilience.gc_snapshots(prefix, keep, assume_verified=manifest)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.snapshot_log.append({"iter": it, "block": True, "stall_ms": ms,
+                                  "write_ms": ms, "format": "ORBAX"})
+        log.info("Sharded snapshot to %s (manifest %s)", path,
+                 os.path.basename(manifest))
+        return path
+
+    def restore_sharded(self, path: str) -> None:
+        """Restore a sharded snapshot (the JAX `restore_native`): every
+        array at the current mesh's placement, each rank reading the
+        slices it holds now from whichever shard files cover them."""
+        path = path.rstrip("/")
+        ipath = os.path.join(path, SHARDED_INDEX)
+        if not os.path.exists(ipath):
+            raise NotImplementedError(
+                f"{path}: no {SHARDED_INDEX}: a sharded snapshot the JAX "
+                "package wrote holds orbax's tensorstore files, which need "
+                "orbax; restore it with the JAX package, or resume the "
+                "port from one it wrote")
+        with open(ipath) as f:
+            index = json.load(f)
+        if index.get("solver_type") != self.type:
+            raise ValueError(
+                f"{path}: a {index.get('solver_type')} snapshot; this "
+                f"solver is {self.type}")
+        arrays = {a["name"]: a for a in index["arrays"]}
+        shape, coords = self._mesh_shape(), self._mesh_coords()
+        with torch.no_grad():
+            for name, t, full, spec in self._sharded_arrays():
+                entry = arrays.get(name)
+                if entry is None or tuple(entry["shape"]) != tuple(full):
+                    raise ValueError(
+                        f"{path}: array {name} "
+                        + ("missing" if entry is None else
+                           f"of shape {tuple(entry['shape'])}, want "
+                           f"{tuple(full)}"))
+                want = mesh_mod.spec_slices(spec, full, shape, coords)
+                out = np.empty([b - a for a, b in want], np.float32)
+                _read_region(path, entry["shards"], want, out)
+                # in place: a captured iteration holds these very tensors
+                t.copy_(torch.from_numpy(out))
+            if self._gs is not None:
+                for key, value in self._carry0().items():
+                    self._gs[key].copy_(value)
+        self.iter = int(index["iteration"])
+        log.info("Restored sharded snapshot from %s (iter %d, written on a "
+                 "%s mesh)", path, self.iter, index.get("mesh"))
 
     def _state_path(self, it: int) -> str:
         return f"{self.sp.snapshot_prefix or 'snapshot'}_iter_{it}.solverstate"
@@ -2057,6 +2317,8 @@ class Solver:
         # in flight (wait_snapshots() joins the previous one before the
         # next dispatch or any blocking write starts)
         self._last_snapshot = (it, state_path)
+        # lint: ok(thread-shared-mutation) — the one writer in flight, as
+        # above; a sharded snapshot joins it first (wait_snapshots)
         self.snapshots.append(state_path)
         self._journal_run_state("snapshot")
         if self.mesh is not None and self.mesh.hosts > 1:
@@ -2203,7 +2465,12 @@ class Solver:
                     f"snapshot {path} failed crc32c verification against "
                     f"{mpath}; resume with -resume auto to fall back to "
                     "the newest prior verified snapshot")
-        if path.rstrip("/").endswith((".h5", ".hdf5", ".npz", ".orbax")):
+        if path.rstrip("/").endswith(".orbax"):
+            self.restore_sharded(path)
+            if sync:
+                self._sync_replicas()
+            return
+        if path.rstrip("/").endswith((".h5", ".hdf5", ".npz")):
             raise NotImplementedError(
                 f"{path}: the port restores binaryproto .solverstate files "
                 "only (HDF5 snapshots: ROADMAP.md §1 item 4)")
@@ -2230,12 +2497,12 @@ class Solver:
                 shard = self._shard_len[(lname, pname)]
                 for s, slot in enumerate(self.history[(lname, pname)]):
                     whole = np.array(history[i + s * n], np.float32).reshape(
-                        self._full_shape(lname, pname, p))
+                        self.net.full_shape(lname, pname, p.shape))
                     if shard is not None:
                         lo = self.mesh.data_index * shard
                         whole = whole[lo:lo + shard]
                     elif self.net.sharded(lname, pname):
-                        whole = self.net.placement.local(
+                        whole = self.net.local_param(
                             lname, pname, torch.from_numpy(whole)).numpy()
                     slot.copy_(torch.from_numpy(whole))
             # a restored run starts with a fresh guard carry and loss

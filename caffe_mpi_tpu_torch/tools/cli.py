@@ -1036,6 +1036,7 @@ def _train(args, sp, model_dir, mesh):
         "rank_batch": solver._batch_images(),
         "reduction": solver.reduction_stats(),
         "graphs": solver.graph_replays > 0,
+        "graph_route": solver.graph_route,
         "graph_collectives": solver.graph_collectives,
         # the asynchronous evaluation: the host ms training lost to it
         # and each pass's scores, tagged with its iteration

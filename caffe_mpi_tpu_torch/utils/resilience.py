@@ -50,9 +50,10 @@ the `done` marker, merged quarantine journals):
   and grows it back when the host returns;
 - the host-keyed quarantine journals and `merge_quarantine_journals`.
 
-The sharded (.orbax) manifests' writer waits for ROADMAP.md section 1
-item 6; `verify_snapshot` and `gc_snapshots` read a sharded manifest as
-the JAX ones do, so a mixed directory scans the same.
+A sharded (.orbax) snapshot is committed by `write_sharded_manifest`
+(one crc32c entry a shard file, kind "orbax", the `.orbax` infix kept),
+and `verify_snapshot` and `gc_snapshots` read such a manifest as the JAX
+ones do, so a mixed directory scans the same under both packages.
 """
 
 from __future__ import annotations
@@ -153,6 +154,8 @@ FAULT_SITES = {
     "feeder_read": "transient dataset read error (Feeder retry budget)",
     "snapshot_kill": "hard-exit mid-snapshot-write (torn checkpoint)",
     "snapshot_corrupt": "flip a byte of the model file post-manifest",
+    "snapshot_shard_corrupt": "flip a byte in one orbax shard "
+                              "post-manifest (sharded-snapshot bitrot)",
     "snapshot_sync": "force interval snapshots to write blocking",
     "dispatch_stall": "sleep inside a train dispatch (watchdog trip)",
     "train_abort": "hard-exit at an iteration boundary (crash sim)",
@@ -547,6 +550,40 @@ def write_snapshot_manifest(state_path: str, it: int,
     doc = {"schema": _MANIFEST_SCHEMA, "iteration": int(it),
            "time": time.time(),
            "files": {role: _file_entry(path) for role, path in files.items()}}
+    _write_json_atomic(mpath, doc)
+    return mpath
+
+
+def sharded_snapshot_files(orbax_dir: str) -> list[str]:
+    """Every regular file under a sharded (.orbax) snapshot directory,
+    by descending size then path: index 0 is the `snapshot_shard_corrupt`
+    site's victim (the biggest file is a shard, not the index)."""
+    out = []
+    for root, _dirs, names in os.walk(orbax_dir):
+        for name in names:
+            out.append(os.path.join(root, name))
+    out.sort(key=lambda p: (-os.path.getsize(p), p))
+    return out
+
+
+def write_sharded_manifest(orbax_dir: str, it: int) -> str:
+    """The commit record of a sharded (.orbax) snapshot: a size and
+    crc32c entry for every file under the directory (paths relative to
+    it), written last, after every rank's files and the write barrier,
+    by rank 0 alone, so a torn or bit-rotted set fails as a unit."""
+    orbax_dir = os.path.abspath(orbax_dir.rstrip("/"))
+    mpath = manifest_for_state(orbax_dir)
+    if mpath is None:
+        raise ValueError(f"no manifest scheme for {orbax_dir!r}")
+    entries = {}
+    for path in sharded_snapshot_files(orbax_dir):
+        rel = os.path.relpath(path, orbax_dir)
+        entries[rel] = _file_entry(path, rel)
+    if not entries:
+        raise ValueError(f"sharded snapshot {orbax_dir!r} is empty")
+    doc = {"schema": _MANIFEST_SCHEMA, "kind": "orbax",
+           "iteration": int(it), "time": time.time(),
+           "dir": os.path.basename(orbax_dir), "files": entries}
     _write_json_atomic(mpath, doc)
     return mpath
 

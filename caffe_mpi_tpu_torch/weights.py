@@ -12,9 +12,10 @@ arrays, loads into the port's solver history the same way. Arrays arrive as nump
 `np.asarray` takes); this module imports no JAX.
 
 The JAX Pipeline's stacked params ("{inner}.{param}", shape (S, ...))
-load as any other. A param the net holds split over the mesh's 'model'
-axis (`Net.place`) takes the full array, of which the rank keeps its
-shard by the placement's rule; its history slots the same.
+load as any other. A param the net holds split by a placement over the
+mesh's axes (`Net.place`, any spec) takes the full array, of which the
+rank keeps its shard by the placement's rule; its history slots the
+same.
 """
 
 from __future__ import annotations
@@ -34,10 +35,10 @@ def _copy_in(cur: torch.Tensor, arr, where: str) -> None:
 
 def _local(net: Net, lname: str, pname: str, arr):
     """This rank's part of a full array: its shard where the net holds
-    the param split over 'model', else the array."""
-    if net.placement is None or not net.sharded(lname, pname):
+    the param split by its placement, else the array."""
+    if not net.sharded(lname, pname):
         return arr
-    return net.placement.local(lname, pname, torch.from_numpy(
+    return net.local_param(lname, pname, torch.from_numpy(
         np.array(arr, np.float32))).numpy()
 
 

@@ -364,7 +364,25 @@ Phases, in order; any failure exits nonzero and prints no result line:
              model=4` for solver_pp; skipped with fewer): the first loss
              within 1e-3 of `-gpu 0`'s. Prints the per-rank step ms, the
              model-axis collective ms and bytes a step, K3-K5 launches
-             per rank, and the card's name and power limit.
+             per rank, and the card's name and power limit. The four
+             ranks of (a) then form a 2 x 2 mesh (MP_22_RUNS, each
+             against its reference by `_step_rule` at 1e-2): the flash
+             ring at step_chunk 10 against step_chunk 1 (eager under
+             gloo; K3-K5 as `ring_flash_launches` predicts, every
+             iteration), AlexNet rows/cols with ZeRO-1 (K1, K2; fault:
+             rank 0 updates the other data rank's slice) and with fc6
+             gathered on use (a ("data", "model") split) against one
+             process, test nets of batch 3 (whole on every rank) within
+             1e-3 of one process's scores, and a sharded (ORBAX)
+             snapshot, its write ms beside the gathered one's, restored
+             on the 2 x 2 mesh and in one process equal element for
+             element to the gathered snapshot, restore_auto falling back
+             past a flipped shard. (b) adds the flash solver_sp at
+             `-step_chunk 10` over the 4 cards, its captured graphs
+             dumped and read (`_graph_nodes`: K3-K5 and NCCL's SendRecv
+             kernels inside), its losses against step_chunk 1, step ms
+             at both; and AlexNet's sharded snapshot written by 4 NCCL
+             ranks, restored on card 0.
 25. gpipe — GoogLeNet at full width (b128, three losses) through the
              CLI's `train -gpipe 4 -gpipe_micro 4` on one card, every
              stage on it, 4 iterations, launch counts 0 just before and
@@ -472,10 +490,12 @@ the card line again, and last {"ok": true, ...}.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1313,7 +1333,14 @@ def _many_heads_check(fa, gen) -> dict:
 
 
 def _graph_nodes(t, limit: int = 4000) -> list[str]:
-    """Names of the autograd nodes reachable from t's grad_fn."""
+    """Names of the autograd nodes reachable from t's grad_fn; or, for a
+    path, the nodes of a captured CUDA graph in its DOT dump
+    (`_dumping_graphs`): each node's whole statement (its label spans
+    lines, a kernel node's function name among them)."""
+    if isinstance(t, str):
+        with open(t) as f:
+            statements = f.read().split("];")
+        return [st.strip() for st in statements if "label=" in st][:limit]
     seen, todo, names = set(), [t.grad_fn], []
     while todo and len(names) < limit:
         node = todo.pop()
@@ -2418,21 +2445,22 @@ def _with_flash(text: str) -> str:
     return text.replace("causal: true", "causal: true\n    use_flash: true")
 
 
-def _flash_solver(tmp: str) -> str:
-    """Copies of models/transformer_lm/solver.prototxt and its
-    train_val.prototxt in `tmp`, the net with use_flash; the solver's
-    path."""
-    with open(os.path.join(TLM_DIR, "train_val.prototxt")) as f:
+def _flash_solver(tmp: str, stem: str = "") -> str:
+    """Copies of models/transformer_lm/solver<stem>.prototxt and its
+    train_val<stem>.prototxt in `tmp`, the net with use_flash; the
+    solver's path."""
+    with open(os.path.join(TLM_DIR, f"train_val{stem}.prototxt")) as f:
         net = _with_flash(f.read())
-    net_path = os.path.join(tmp, "train_val.prototxt")
+    net_path = os.path.join(tmp, f"train_val{stem}.prototxt")
     with open(net_path, "w") as f:
         f.write(net)
-    with open(os.path.join(TLM_DIR, "solver.prototxt")) as f:
+    with open(os.path.join(TLM_DIR, f"solver{stem}.prototxt")) as f:
         text = f.read()
-    old = 'net: "models/transformer_lm/train_val.prototxt"'
+    old = f'net: "models/transformer_lm/train_val{stem}.prototxt"'
     if old not in text:
-        fail(f"models/transformer_lm/solver.prototxt does not name {old}")
-    path = os.path.join(tmp, "solver.prototxt")
+        fail(f"models/transformer_lm/solver{stem}.prototxt does not name "
+             f"{old}")
+    path = os.path.join(tmp, f"solver{stem}.prototxt")
     with open(path, "w") as f:
         f.write(text.replace(old, f'net: "{net_path}"'))
     return path
@@ -6488,13 +6516,38 @@ MP_RUNS = (("sp", "sp", False, None, None),
            ("alexnet_tp_fault", "alexnet_tp", False, None, "no_copy_sum"))
 MP_PP_RUNS = (("pp", "pp", False, None, None),
               ("pp_fault", "pp", False, None, "dy_summed"))
+# the four ranks' (2, 2) mesh (the model axis with data parallelism):
+# (run, solver, flash, param_shardings, planted fault, solver fields,
+# iterations). The flash ring at step_chunk MP_CHUNK against step_chunk
+# 1 (one iteration, then one chunk); AlexNet rows/cols with ZeRO-1 and
+# its planted fault (rank 0 updates the other data rank's slice of its
+# slots' params), and with fc6 gathered on use (a ("data", "model")
+# split), each against the one-process AlexNet run
+MP_CHUNK = 10
+MP_22_RUNS = (
+    ("sp_flash_k1", "sp", True, None, None, {"step_chunk": 1},
+     MP_CHUNK + 1),
+    ("sp_flash_k10", "sp", True, None, None, {"step_chunk": MP_CHUNK},
+     MP_CHUNK + 1),
+    ("alexnet_zero", "alexnet_tp", False, None, None, {"zero_stage": 1},
+     MP_ITERS),
+    ("alexnet_zero_fault", "alexnet_tp", False, None, "zero_wrong_slice",
+     {"zero_stage": 1}, MP_ITERS),
+    ("alexnet_gou", "alexnet_tp", False, {"fc6": ("data", "model")}, None,
+     {}, MP_ITERS))
+MP_TEST_BATCH = 3  # a test batch that does not divide the 2 data ranks
+# the whole-batch test passes of a run on the 2 x 2 mesh before training:
+# a second pass at step_chunk MP_CHUNK is a chunk the solver would capture
+# on the NCCL route (under gloo it must run eagerly)
+MP_22_TESTS = {"sp_flash_k1": 1, "sp_flash_k10": 2, "alexnet_zero": 1}
 
 
-def _mp_solver_param(net: str, flash: bool):
+def _mp_solver_param(net: str, flash: bool, fields=None, test=False):
     """The run's solver in FLOAT math, no snapshots, display or tests:
     transformer_lm's solver_sp / solver_pp as written (use_flash switched
     on in a copy of the net for `flash`), or AlexNet's with fc6 split by
-    rows and fc7 by cols."""
+    rows and fc7 by cols; then the solver `fields`. `test`: one test net,
+    the train net at batch MP_TEST_BATCH, one batch a pass."""
     from caffe_mpi_tpu_torch.proto import SolverParameter
     path = {"sp": TLM_SP_SOLVER, "pp": TLM_PP_SOLVER,
             "alexnet_tp": SOLVER}[net]
@@ -6506,6 +6559,15 @@ def _mp_solver_param(net: str, flash: bool):
             lp.attention_param.use_flash = True
         if net == "alexnet_tp" and lp.name in ("fc6", "fc7"):
             lp.param_sharding = "rows" if lp.name == "fc6" else "cols"
+    for key, value in (fields or {}).items():
+        setattr(sp, key, value)
+    if test:
+        param = copy.deepcopy(sp.net_param)
+        for lp in param.layer:
+            if lp.type == "Input" and lp.input_param:
+                for shape in lp.input_param.shape:
+                    shape.dim[0] = MP_TEST_BATCH
+        sp.test_net_param, sp.test_iter = [param], [1]
     return sp
 
 
@@ -6515,8 +6577,7 @@ def _mp_state(solver) -> dict:
     out = {}
     hist = solver.full_history()
     for lname, pname, _, p in solver._decls:
-        if solver.net.sharded(lname, pname):
-            p = solver.net.placement.gather(lname, pname, p)
+        p = solver.net.gather_param(lname, pname, p)
         out[f"{lname}.{pname}"] = p.detach().cpu().clone()
         for i, h in enumerate(hist[(lname, pname)]):
             out[f"{lname}.{pname}.h{i}"] = h.cpu().clone()
@@ -6549,8 +6610,9 @@ class _SumDy(torch.autograd.Function):
         return dy * ctx.n, None
 
 
-def _mp_fault(fault, mesh):
-    """Plant `fault` in this process; returns the undo."""
+def _mp_fault(fault, mesh, solver=None):
+    """Plant `fault` in this process (`solver`'s own); returns the
+    undo."""
     from caffe_mpi_tpu_torch.layers import composite
     from caffe_mpi_tpu_torch.ops import attention
     from caffe_mpi_tpu_torch.parallel import mesh as mesh_mod
@@ -6572,6 +6634,8 @@ def _mp_fault(fault, mesh):
         real = getattr(mesh_mod, name)
         setattr(mesh_mod, name, lambda x, plan: x)
         return lambda: setattr(mesh_mod, name, real)
+    if fault == "zero_wrong_slice":  # planted after the first step
+        return lambda: None
     if fault == "dy_summed":
         real = composite.pipeline_apply
         composite.pipeline_apply = lambda fn, p, mb, plan: _SumDy.apply(
@@ -6580,23 +6644,54 @@ def _mp_fault(fault, mesh):
     fail(f"unknown planted fault {fault!r}")
 
 
+def _wrong_slot_slices(solver) -> None:
+    """The planted ZeRO-1 fault: rank 0's slot shards over 'data' take
+    the next data index's slices (every rank gathers the slots, rank 0
+    copies)."""
+    whole = solver.full_history()
+    mesh = solver.mesh
+    if mesh.rank != 0:
+        return
+    for key, shard in solver._shard_len.items():
+        if shard is None:
+            continue
+        lo = (mesh.data_index + 1) % mesh.n_data * shard
+        for slot, w in zip(solver.history[key], whole[key]):
+            slot.copy_(w[lo:lo + shard])
+
+
 def _mp_run(net, flash=False, shardings=None, mesh=None, fault=None,
-            iters=MP_ITERS):
-    """`iters` eager iterations of a run on its synthetic global batch
-    (this rank's data slice under `mesh`), every count 0 just before:
-    (whole state, facts)."""
+            iters=MP_ITERS, fields=None, test=0, snap=None):
+    """`iters` iterations of a run on its synthetic global batch (this
+    rank's data slice under `mesh`), every count 0 just before: (whole
+    state, facts). The solver `fields` set (step_chunk runs the last
+    iters - 1 as chunks); `test`: that many passes of the whole-batch
+    test net before training, each pass's scores; `snap`: sharded
+    snapshots in that directory before training and at the end, beside
+    the gathered one (`_mp_snapshots`)."""
     from caffe_mpi_tpu_torch.solver import Solver
     from caffe_mpi_tpu_torch.tools import cli
-    sp = _mp_solver_param(net, flash)
+    sp = _mp_solver_param(net, flash, fields, test > 0)
     solver = Solver(sp, device=None if mesh else "cuda", mesh=mesh,
                     param_shardings=shardings)
     rank, world = (mesh.data_index, mesh.n_data) if mesh else (0, 1)
     feeds = cli.synthetic_feed(solver.net, 0, rank, world)
-    undo = _mp_fault(fault, mesh)
+    scores = None
+    if test:
+        tfeeds = cli.synthetic_feed(solver.test_nets[0], 1, 0, 1)
+        scores = [solver.test_all([lambda it: tfeeds])[0]
+                  for _ in range(test)]
+    if snap is not None:  # the older set restore_auto falls back to
+        solver.snapshot_format = "ORBAX"
+        solver.sp.snapshot_prefix = os.path.join(snap, "z")
+        solver.snapshot()
+    undo = _mp_fault(fault, mesh, solver)
     try:
         _reset_kernel_counts()
         torch.cuda.synchronize()
         solver.step(1, lambda it: feeds)
+        if fault == "zero_wrong_slice":
+            _wrong_slot_slices(solver)
         if mesh is not None:
             mesh.timing = True
             mesh.collective_ms()
@@ -6608,7 +6703,10 @@ def _mp_run(net, flash=False, shardings=None, mesh=None, fault=None,
     counts = _kernel_counts()
     facts = {"launches": dict(zip(("K1", "K2", "K3", "K4", "K5"), counts)),
              "step_ms": float(np.median(solver.iter_ms[1:])),
-             "losses": list(solver.losses)}
+             "losses": list(solver.losses), "test_scores": scores,
+             "graph_route": solver.graph_route,
+             "graph_replays": solver.graph_replays,
+             "test_graphs": len(solver._test_graphs)}
     if not np.all(np.isfinite(facts["losses"])):
         fail(f"mp {net}: losses {facts['losses']}")
     if mesh is not None:
@@ -6621,10 +6719,86 @@ def _mp_run(net, flash=False, shardings=None, mesh=None, fault=None,
                            for l in solver.net.layers
                            for p, d in l.shards.items()}
     state = _mp_state(solver)
+    if snap is not None:
+        facts["snapshot"] = _mp_snapshots(solver, sp, shardings, mesh, snap,
+                                          state)
     state["loss"] = torch.tensor(solver.losses)
+    solver.release_graphs()  # before the group can be left
     del solver, feeds
     torch.cuda.empty_cache()
     return state, facts
+
+
+def _mp_snapshots(solver, sp, shardings, mesh, snap, state) -> dict:
+    """The sharded snapshot of the run's final state and the gathered
+    (BINARYPROTO) one of the same state, each call's wall ms on this
+    rank; then a fresh solver on the same mesh restores the sharded set,
+    whose whole state must equal `state` element for element."""
+    from caffe_mpi_tpu_torch.solver import Solver
+    out = {}
+    for fmt, stem in (("ORBAX", "z"), ("BINARYPROTO", "g")):
+        solver.snapshot_format = fmt
+        solver.sp.snapshot_prefix = os.path.join(snap, stem)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[fmt] = solver.snapshot()
+        out[f"{fmt}_ms"] = (time.perf_counter() - t0) * 1e3
+    again = Solver(sp, mesh=mesh, param_shardings=shardings)
+    again.restore(out["ORBAX"])
+    back = _mp_state(again)
+    out["restored_iter"] = again.iter
+    out["restored_unequal"] = [k for k, v in state.items()
+                               if not torch.equal(back[k], v)]
+    del again, back
+    return out
+
+
+def _mp_restore_one(snap: dict) -> dict:
+    """The sharded set restored in one process on the card, every array
+    against the gathered snapshot of the same iteration, element for
+    element; then a byte of its biggest shard flipped, and restore_auto
+    must fall back to the older set."""
+    from caffe_mpi_tpu_torch import io as caffe_io
+    from caffe_mpi_tpu_torch.solver import Solver
+    from caffe_mpi_tpu_torch.utils import resilience
+    one = Solver(_mp_solver_param("alexnet_tp", False), device="cuda")
+    t0 = time.perf_counter()
+    one.restore(snap["ORBAX"])
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    gathered = snap["BINARYPROTO"]
+    model = caffe_io.load_weights(gathered.replace(".solverstate",
+                                                   ".caffemodel"))
+    it, _, history, _ = caffe_io.load_solverstate(gathered)
+    n, unequal, arrays = len(one._decls), [], 0
+    for i, (lname, pname, _, p) in enumerate(one._decls):
+        arrays += 1 + len(one.history[(lname, pname)])
+        names = [b for _, b in one.net.layer_by_name(lname).caffe_blobs()]
+        blob = np.asarray(model[lname][names.index(pname)])
+        if not np.array_equal(p.detach().float().cpu().numpy(),
+                              blob.reshape(tuple(p.shape))):
+            unequal.append(f"{lname}.{pname}")
+        for k, slot in enumerate(one.history[(lname, pname)]):
+            if not np.array_equal(slot.cpu().numpy(), np.asarray(
+                    history[i + k * n]).reshape(tuple(slot.shape))):
+                unequal.append(f"{lname}.{pname}.h{k}")
+    if unequal or one.iter != it:
+        fail(f"mp sharded snapshot restored in one process: iter "
+             f"{one.iter} against {it}, unequal {unequal[:5]}")
+    victim = resilience.sharded_snapshot_files(snap["ORBAX"])[0]
+    with open(victim, "r+b") as f:
+        f.seek(os.path.getsize(victim) // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+    prefix = snap["ORBAX"][: -len(f"_iter_{it}.orbax")]
+    fell_back = one.restore_auto(prefix)
+    if not (fell_back or "").endswith("_iter_0.orbax") or one.iter != 0:
+        fail(f"mp: restore_auto past a flipped shard took {fell_back}")
+    del one
+    torch.cuda.empty_cache()
+    return {"iter": it, "arrays": arrays, "read_ms": read_ms,
+            "flipped": os.path.basename(victim), "fell_back_to": fell_back}
 
 
 def _ring_one_card(q, k, v, dy, n: int, causal: bool):
@@ -6757,26 +6931,66 @@ def _mp_ring(mesh) -> dict:
     return out
 
 
-def mp_rank_main(rank: int, world: int, port: int, tmp: str) -> int:
-    """A gloo rank of the mp phase's part (a) on the one card
-    (`--mp-rank`): a 1 x world mesh; two ranks run the ring check and
-    MP_RUNS, four ranks MP_PP_RUNS. Facts go to tmp/rank<k>.json, rank
-    0's whole states to tmp/<run>.pt."""
+def mp_rank_main(rank: int, world: int, port: int, tmp: str,
+                 nccl: bool = False) -> int:
+    """A rank of the mp phase (`--mp-rank`). Part (a), gloo ranks sharing
+    card 0: a 1 x world mesh; two ranks run the ring check and MP_RUNS,
+    four ranks MP_PP_RUNS and then, on a 2 x 2 mesh, MP_22_RUNS (the
+    ZeRO-1 run writes its sharded and gathered snapshots to tmp/snap).
+    `nccl` (part (b), a card a rank), on a 2 x 2 mesh: AlexNet rows/cols
+    with ZeRO-1 and its snapshots; then the flash solver_sp at step_chunk
+    1 and MP_CHUNK with MP_22_TESTS' test passes, the second run's CUDA
+    graphs dumped to tmp/graphs/r<k> (`_dumping_graphs`). Facts go to
+    tmp/rank<k>.json, rank 0's whole states to tmp/<run>.pt."""
     from caffe_mpi_tpu_torch.parallel import mesh as mesh_mod
-    mesh_mod.init_distributed(f"127.0.0.1:{port}", world, rank,
-                              backend="gloo")
-    mesh = mesh_mod.MeshPlan.from_shape(1, world,
-                                        devices=["cuda:0"] * world)
+    mesh_mod.init_distributed(
+        f"127.0.0.1:{port}", world, rank, backend="nccl" if nccl else "gloo",
+        device=torch.device(f"cuda:{rank}") if nccl else None)
     torch.backends.cudnn.deterministic = True
     out = {}
+    snap = os.path.join(tmp, "snap")
+    os.makedirs(snap, exist_ok=True)
+    if nccl:
+        mesh = mesh_mod.MeshPlan.from_shape(2, 2)
+        _, out["alexnet_zero"] = _mp_run("alexnet_tp", mesh=mesh,
+                                         fields={"zero_stage": 1}, snap=snap)
+        log(f"mp rank {rank}: alexnet_zero {json.dumps(out['alexnet_zero'])}")
+        for name, net, flash, _, _, fields, iters in MP_22_RUNS[:2]:
+            undo = _dumping_graphs(os.path.join(tmp, "graphs", f"r{rank}")) \
+                if fields["step_chunk"] > 1 else (lambda: None)
+            try:
+                state, out[name] = _mp_run(net, flash, None, mesh, None,
+                                           iters, fields,
+                                           test=MP_22_TESTS[name])
+            finally:
+                undo()
+            log(f"mp rank {rank}: {name} {json.dumps(out[name])}")
+            if rank == 0:
+                torch.save(state, os.path.join(tmp, f"{name}.pt"))
+            del state
+        gc.collect()  # no captured graph outlives the group
+        runs = ()
+    else:
+        mesh = mesh_mod.MeshPlan.from_shape(1, world,
+                                            devices=["cuda:0"] * world)
+        runs = MP_RUNS if world == 2 else MP_PP_RUNS
     if world == 2:
         out["ring"] = _mp_ring(mesh)
-    for name, net, flash, shardings, fault in (
-            MP_RUNS if world == 2 else MP_PP_RUNS):
+    for name, net, flash, shardings, fault in runs:
         state, out[name] = _mp_run(net, flash, shardings, mesh, fault)
         if rank == 0:
             torch.save(state, os.path.join(tmp, f"{name}.pt"))
         del state
+    if world == 4 and not nccl:
+        mesh = mesh_mod.MeshPlan.from_shape(2, 2, devices=["cuda:0"] * 4)
+        for name, net, flash, shardings, fault, fields, iters in MP_22_RUNS:
+            state, out[name] = _mp_run(
+                net, flash, shardings, mesh, fault, iters, fields,
+                test=MP_22_TESTS.get(name, 0),
+                snap=snap if name == "alexnet_zero" else None)
+            if rank == 0:
+                torch.save(state, os.path.join(tmp, f"{name}.pt"))
+            del state
     mesh_mod.cluster_barrier("exit", 120)
     mesh_mod.shutdown_distributed()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -6784,14 +6998,42 @@ def mp_rank_main(rank: int, world: int, port: int, tmp: str) -> int:
     return 0
 
 
-def _mp_start(world: int, tmp: str) -> list:
-    """Start `world` gloo rank processes of this script on the card."""
+def _dumping_graphs(dump: str):
+    """Make every CUDA graph this process captures from now on keep its
+    cudaGraph_t past the capture (`keep_graph`), write it to `dump` as
+    DOT (cudaGraphDebugDotPrint: each kernel node by its function's
+    name) and then instantiate it; returns the undo."""
+    real = torch.cuda.CUDAGraph
+    os.makedirs(dump, exist_ok=True)
+    written = []
+
+    class Dumped(real):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, keep_graph=True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(keep_graph=True)
+
+        def capture_end(self):
+            super().capture_end()
+            written.append(os.path.join(dump, f"graph_{len(written)}.dot"))
+            self.debug_dump(written[-1])
+            self.instantiate()
+
+    torch.cuda.CUDAGraph = Dumped
+    return lambda: setattr(torch.cuda, "CUDAGraph", real)
+
+
+def _mp_start(world: int, tmp: str, nccl: bool = False) -> list:
+    """Start `world` rank processes of this script: gloo ranks on card 0,
+    or (`nccl`) one a card."""
     from caffe_mpi_tpu_torch.parallel.mesh import free_port
     port = free_port()
     return [subprocess.Popen(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
          "--mp-rank", str(r), "--mp-world", str(world), "--mp-port",
-         str(port), "--mp-dir", tmp], cwd=ROOT,
+         str(port), "--mp-dir", tmp, *(["--mp-nccl"] if nccl else [])],
+        cwd=ROOT,
         env=dict(os.environ, CAFFE_TPU_COLLECTIVE_TIMEOUT="300"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
@@ -6838,7 +7080,8 @@ def _mp_one_card(card: str) -> dict:
         for net, flash in (("sp", False), ("sp", True), ("alexnet_tp", False),
                            ("pp", False)):
             key = net + ("_flash" if flash else "")
-            refs[key], ref_facts[key] = _mp_run(net, flash)
+            refs[key], ref_facts[key] = _mp_run(
+                net, flash, test=int(key in ("alexnet_tp", "sp_flash")))
     finally:
         torch.backends.cudnn.deterministic = det
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
@@ -6867,6 +7110,24 @@ def _mp_one_card(card: str) -> dict:
                 fail(f"mp {name} (planted fault {fault}) "
                      f"{'held' if fault else 'broke'} the rule: "
                      f"{rules[name]}")
+        # the (2, 2) mesh: step_chunk MP_CHUNK against 1, the AlexNet runs
+        # against the one-process one
+        k1 = torch.load(os.path.join(dirs[4], "sp_flash_k1.pt"))
+        for name, net, _, _, fault, _, _ in MP_22_RUNS[1:]:
+            got = torch.load(os.path.join(dirs[4], f"{name}.pt"))
+            rules[name] = _step_rule(k1 if net == "sp" else refs[net], got,
+                                     DP_RULE_BOUND)
+            if rules[name]["held"] == bool(fault):
+                fail(f"mp {name} (planted fault {fault}) "
+                     f"{'held' if fault else 'broke'} the rule: "
+                     f"{rules[name]}")
+        snap = four[0]["alexnet_zero"]["snapshot"]
+        for r, ranks in enumerate(four):
+            back = ranks["alexnet_zero"]["snapshot"]
+            if back["restored_unequal"] or back["restored_iter"] != MP_ITERS:
+                fail(f"mp rank {r}: the sharded set restored on the 2 x 2 "
+                     f"mesh differs: {back}")
+        restored = _mp_restore_one(snap)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out = {"rule": rules, "bound": DP_RULE_BOUND, "iters": MP_ITERS,
@@ -6875,12 +7136,64 @@ def _mp_one_card(card: str) -> dict:
            "reference_step_ms": {k: v["step_ms"]
                                  for k, v in ref_facts.items()},
            "card": card}
-    for ranks, runs in ((two, MP_RUNS), (four, MP_PP_RUNS)):
+    for ranks, runs in ((two, MP_RUNS), (four, MP_PP_RUNS + MP_22_RUNS)):
         for name, *_ in runs:
             out[name] = {f"rank{r}": {k: ranks[r][name].get(k) for k in (
                 "step_ms", "collective_ms_per_step", "model_bytes_per_step",
                 "launches", "losses")} for r in range(len(ranks))}
             out[name]["shards"] = ranks[0][name]["shards"]
+    for name, *_ in MP_22_RUNS:
+        out[name]["graph_route"] = four[0][name]["graph_route"]
+    out["snapshot"] = {
+        "sharded_write_ms": {f"rank{r}": four[r]["alexnet_zero"]["snapshot"][
+            "ORBAX_ms"] for r in range(4)},
+        "gathered_write_ms": {f"rank{r}": four[r]["alexnet_zero"][
+            "snapshot"]["BINARYPROTO_ms"] for r in range(4)},
+        "restored_2x2": "equal on every rank",
+        "restored_one_process": restored}
+    # the test nets of MP_TEST_BATCH under the model axis: every rank's
+    # scores against one process's, at the initial weights
+    # (every pass of each; at step_chunk MP_CHUNK the second pass runs
+    # eagerly, as the gloo route says: no test graph)
+    out["test_batch_3"] = {"bound": MP_FIRST_LOSS}
+    for name, ref in (("alexnet_zero", "alexnet_tp"),
+                      ("sp_flash_k1", "sp_flash"),
+                      ("sp_flash_k10", "sp_flash")):
+        want = ref_facts[ref]["test_scores"][0]
+        worst = 0.0
+        for r in range(4):
+            passes = four[r][name]["test_scores"]
+            if len(passes) != MP_22_TESTS[name] \
+                    or four[r][name]["test_graphs"]:
+                fail(f"mp {name} rank {r}: {len(passes)} test passes, "
+                     f"{four[r][name]['test_graphs']} test graphs under "
+                     f"gloo")
+            for got in passes:
+                if set(got) != set(want):
+                    fail(f"mp {name} rank {r}: test scores {got} against "
+                         f"{want}")
+                worst = max([worst] + [abs(got[k] - v) / max(abs(v), 1.0)
+                                       for k, v in want.items()])
+        if worst > MP_FIRST_LOSS:
+            fail(f"mp {name}: test net of batch {MP_TEST_BATCH}: "
+                 f"{four[0][name]['test_scores']} against one process's "
+                 f"{want} ({worst})")
+        out["test_batch_3"][name] = {
+            "scores": four[0][name]["test_scores"][0], "one_process": want,
+            "worst_rel_diff": worst}
+    # K3-K5 of the ring at (2, 2): both attention layers, every iteration
+    want22 = ring_flash_launches(2, True, FLASH_PATH["s"] // 2)
+    for name in ("sp_flash_k1", "sp_flash_k10"):
+        for r in range(4):
+            got = out[name][f"rank{r}"]["launches"]
+            n = 2 * (MP_CHUNK + 1) * want22[r % 2]
+            if (got["K3"], got["K4"], got["K5"]) != (n, n, n):
+                fail(f"mp {name} rank {r}: K3-K5 {got}, want {n} each")
+    for name in ("alexnet_zero", "alexnet_gou"):
+        for r in range(4):
+            got = out[name][f"rank{r}"]["launches"]
+            if (got["K1"], got["K2"]) != (2 * MP_ITERS, 2 * MP_ITERS):
+                fail(f"mp {name} rank {r}: K1/K2 {got}")
     # K3-K5 of the flash ring: both attention layers, every iteration
     want = ring_flash_launches(2, True, FLASH_PATH["s"] // 2)
     for r in range(2):
@@ -6899,22 +7212,29 @@ def _mp_one_card(card: str) -> dict:
     return out
 
 
-def _mp_cli(tmp, name, solver, extra=()) -> dict:
-    """`cli train` of a transformer_lm solver for MP_CARDS_ITERS
-    iterations in a process of its own (its workers one a card under
-    NCCL with -mesh): rank 0's summary."""
+def _mp_cli(tmp, name, solver, extra=(), iters=MP_CARDS_ITERS,
+            env=None) -> dict:
+    """`cli train` of a transformer_lm solver for `iters` iterations in a
+    process of its own (its workers one a card under NCCL with -mesh),
+    with `env` added: rank 0's summary."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.cli", "train",
-         "-solver", solver, "-synthetic", "-max_iter", str(MP_CARDS_ITERS),
+         "-solver", solver, "-synthetic", "-max_iter", str(iters),
          "-test_iter", str(TEST_ITER),
          "-snapshot_prefix", os.path.join(tmp, name), *extra],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONFAULTHANDLER="1", **(env or {})),
+        start_new_session=True)
     try:
         out, err = proc.communicate(timeout=MP_CARDS_DEADLINE)
     except subprocess.TimeoutExpired:
-        proc.terminate()
+        # every process of the run (its rank workers too) prints its
+        # threads' stacks on SIGABRT (faulthandler), then is killed
+        os.killpg(proc.pid, signal.SIGABRT)
+        time.sleep(5)
+        os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
-        fail(f"mp {name}: over {MP_CARDS_DEADLINE} s: {err[-3000:]}")
+        fail(f"mp {name}: over {MP_CARDS_DEADLINE} s: {err[-6000:]}")
     lines = [l for l in out.splitlines() if l.startswith('{"train"')]
     if proc.returncode != 0 or len(lines) != 1:
         fail(f"mp {name}: exit {proc.returncode}, {len(lines)} summaries: "
@@ -6922,11 +7242,130 @@ def _mp_cli(tmp, name, solver, extra=()) -> dict:
     return json.loads(lines[0])["train"]
 
 
-def _mp_cards(card: str) -> dict | None:
-    """(b): NCCL over 4 cards through the CLI (skipped with fewer): the
+MP_CARDS_CHUNK_ITERS = 2 * MP_CHUNK + 1  # one iteration, two chunks
+
+
+def _mp_cards_chunks(tmp) -> dict:
+    """(b): solver_sp with use_flash at `-mesh data=2,model=2 -step_chunk
+    MP_CHUNK` through the CLI: the graph route, replays; its losses held
+    against step_chunk 1 on the same mesh by `_step_rule` at
+    DP_RULE_BOUND; step ms at both."""
+    solver = _flash_solver(tmp, "_sp")
+    runs = {k: _mp_cli(tmp, f"sp_flash_k{k}", solver,
+                       ("-mesh", "data=2,model=2", "-step_chunk", str(k)),
+                       iters=MP_CARDS_CHUNK_ITERS)
+            for k in (1, MP_CHUNK)}
+    chunked = runs[MP_CHUNK]
+    rule = _step_rule({"loss": torch.tensor(runs[1]["losses"])},
+                      {"loss": torch.tensor(chunked["losses"])},
+                      DP_RULE_BOUND)
+    out = {"graph_route": chunked["graph_route"],
+           "graph_replays": chunked["graph_replays"],
+           "graph_collectives": chunked["graph_collectives"], "rule": rule,
+           "step_ms": {f"k{k}": float(np.median(r["iter_ms"][1:]))
+                       for k, r in runs.items()},
+           "kernel_launches_rank0": {f"k{k}": r["kernel_launches"]
+                                     for k, r in runs.items()},
+           "losses": {f"k{k}": r["losses"] for k, r in runs.items()}}
+    if chunked["graph_route"] != "graphs" or chunked["graph_replays"] <= 0 \
+            or not rule["held"]:
+        fail(f"mp over 4 cards, solver_sp at step_chunk {MP_CHUNK}: {out}")
+    return out
+
+
+def _mp_cards_graphs(tmp, ranks: list) -> dict:
+    """(b): the NCCL ranks' flash solver_sp at step_chunk MP_CHUNK
+    against step_chunk 1 (`_step_rule` at DP_RULE_BOUND), K3-K5 launches
+    as `ring_flash_launches` predicts; the graphs rank 0 captured (the
+    iteration's and the second test pass's) read from their DOT dumps by
+    `_graph_nodes`: they must hold the flash kernels and NCCL's send/recv
+    kernels; each test pass's scores against step_chunk 1's eager one."""
+    from caffe_mpi_tpu_torch.ops.attention import ring_flash_launches
+    dump = os.path.join(tmp, "graphs", "r0")
+    dots = sorted(os.listdir(dump)) if os.path.isdir(dump) else []
+    nodes = [n for f in dots for n in _graph_nodes(os.path.join(dump, f))]
+    kinds = {"flash_fwd_kernel": 0, "flash_bwd_dq_kernel": 0,
+             "flash_bwd_dkv_kernel": 0, "SendRecv": 0, "AllReduce": 0,
+             "AllGather": 0}
+    for label in nodes:
+        for kind in kinds:
+            kinds[kind] += kind in label
+    k1, k10 = (torch.load(os.path.join(tmp, f"{name}.pt"))
+               for name, *_ in MP_22_RUNS[:2])
+    rule = _step_rule(k1, k10, DP_RULE_BOUND)
+    want = ring_flash_launches(2, True, FLASH_PATH["s"] // 2)
+    worst = 0.0
+    for r, facts in enumerate(ranks):
+        n = 2 * (MP_CHUNK + 1) * want[r % 2]
+        for name, *_ in MP_22_RUNS[:2]:
+            got = facts[name]["launches"]
+            if (got["K3"], got["K4"], got["K5"]) != (n, n, n):
+                fail(f"mp over 4 cards, {name} rank {r}: K3-K5 {got}, "
+                     f"want {n} each")
+        eager = facts["sp_flash_k1"]["test_scores"][0]
+        for got in facts["sp_flash_k10"]["test_scores"]:
+            worst = max([worst] + [abs(got[k] - v) / max(abs(v), 1.0)
+                                   for k, v in eager.items()])
+    k10 = ranks[0]["sp_flash_k10"]
+    out = {"graph_route": k10["graph_route"],
+           "graph_replays": k10["graph_replays"],
+           "test_graphs": k10["test_graphs"], "graphs_dumped": len(dots),
+           "graph_nodes": len(nodes), "graph_kernels": kinds, "rule": rule,
+           "test_scores": k10["test_scores"],
+           "test_scores_eager": ranks[0]["sp_flash_k1"]["test_scores"],
+           "test_worst_rel_diff": worst,
+           "launches": {f"rank{r}": f["sp_flash_k10"]["launches"]
+                        for r, f in enumerate(ranks)},
+           "step_ms": {name: ranks[0][name]["step_ms"]
+                       for name, *_ in MP_22_RUNS[:2]}}
+    if k10["graph_route"] != "graphs" or k10["graph_replays"] <= 0 \
+            or k10["test_graphs"] != 1 or not rule["held"] \
+            or worst > MP_FIRST_LOSS or not all(
+                kinds[k] for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                   "flash_bwd_dkv_kernel", "SendRecv")):
+        fail(f"mp over 4 cards, the graphs of solver_sp at step_chunk "
+             f"{MP_CHUNK}: {out}")
+    return out
+
+
+def _mp_cards_ranks(tmp) -> dict:
+    """(b): four NCCL ranks of this script, a card each (`mp_rank_main`):
+    AlexNet rows/cols with ZeRO-1, its sharded snapshot and the gathered
+    one of the same state, each write's ms, the set restored on the 2 x 2
+    mesh equal to the run, then on card 0 in one process
+    (`_mp_restore_one`); the flash solver_sp's graphs
+    (`_mp_cards_graphs`)."""
+    procs = _mp_start(4, tmp, nccl=True)
+    ranks = _mp_ranks(procs, tmp)
+    for r, facts in enumerate(ranks):
+        back = facts["alexnet_zero"]["snapshot"]
+        if back["restored_unequal"] or back["restored_iter"] != MP_ITERS:
+            fail(f"mp over 4 cards, rank {r}: the sharded set restored "
+                 f"differs: {back}")
+    snap = ranks[0]["alexnet_zero"]["snapshot"]
+    graphs = _mp_cards_graphs(tmp, ranks)
+    return {"snapshot": {
+                "sharded_write_ms": {f"rank{r}": f["alexnet_zero"][
+                    "snapshot"]["ORBAX_ms"] for r, f in enumerate(ranks)},
+                "gathered_write_ms": {f"rank{r}": f["alexnet_zero"][
+                    "snapshot"]["BINARYPROTO_ms"]
+                    for r, f in enumerate(ranks)},
+                "launches": {f"rank{r}": f["alexnet_zero"]["launches"]
+                             for r, f in enumerate(ranks)},
+                "step_ms": {f"rank{r}": f["alexnet_zero"]["step_ms"]
+                            for r, f in enumerate(ranks)},
+                "restored_one_card": _mp_restore_one(snap)},
+            "sp_flash_graphs": graphs}
+
+
+def _mp_cards(card: str, built=lambda: None) -> dict | None:
+    """(b): NCCL over 4 cards (skipped with fewer): through the CLI the
     solver_sp net at `-mesh data=2,model=2` and solver_pp at
     `-mesh data=1,model=4`, the first loss of each within MP_FIRST_LOSS of
-    the one-card run's."""
+    the one-card run's; once `built()` has returned (K1-K5 built), the
+    flash solver_sp at step_chunk MP_CHUNK (`_mp_cards_chunks`), then
+    the NCCL ranks of this script: AlexNet's sharded snapshot and the
+    flash solver_sp's captured graphs (`_mp_cards_ranks`)."""
     n = min(torch.cuda.device_count(), 4)
     if n < 4:
         return None
@@ -6938,9 +7377,13 @@ def _mp_cards(card: str) -> dict | None:
             runs[tag] = (_mp_cli(tmp, f"{tag}_one", solver, ("-gpu", "0")),
                          _mp_cli(tmp, f"{tag}_mesh", solver,
                                  ("-mesh", mesh)))
+        built()
+        chunks = _mp_cards_chunks(tmp)
+        ranks = _mp_cards_ranks(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    out = {"cards": n, "card": card, "bound": MP_FIRST_LOSS}
+    out = {"cards": n, "card": card, "bound": MP_FIRST_LOSS,
+           "sp_flash_chunks": chunks, **ranks}
     for tag, (one, s) in runs.items():
         ref, got = np.asarray(one["losses"]), np.asarray(s["losses"])
         rel = np.abs(got - ref) / np.abs(ref)
@@ -6965,12 +7408,18 @@ def mp_phase(k1: dict, k2: dict, flash: list[dict], card: str) -> dict:
         for r in range(2):
             entry["launches_by_path"][f"mp_alexnet_tp_rank{r}"] = \
                 a["alexnet_tp"][f"rank{r}"]["launches"][k]
+        for r in range(4):
+            entry["launches_by_path"][f"mp_alexnet_zero_2x2_rank{r}"] = \
+                a["alexnet_zero"][f"rank{r}"]["launches"][k]
     for entry, k in zip(flash[:3], ("K3", "K4", "K5")):
         for r in range(2):
             entry["launches_by_path"][f"mp_sp_flash_rank{r}"] = \
                 a["sp_flash"][f"rank{r}"]["launches"][k]
             entry["launches_by_path"][f"mp_ring_rank{r}"] = \
                 a["ring"][f"rank{r}"]["f32"]["launches"][k]
+        for r in range(4):
+            entry["launches_by_path"][f"mp_sp_flash_k10_2x2_rank{r}"] = \
+                a["sp_flash_k10"][f"rank{r}"]["launches"][k]
     out["nccl_cards"] = _mp_cards(card)
     log(f"mp: {json.dumps(out)}")
     return out
@@ -7320,8 +7769,11 @@ def eval_phase(k1: dict, k2: dict, card: str) -> dict:
         faulty = _eval_solver()
 
         def live(ti, tnet):
-            return dict(list(tnet.named_parameters(remove_duplicate=False))
-                        + list(tnet.named_buffers(remove_duplicate=False)))
+            # the view's entries (a module's dict, a name, the tensor
+            # read), each the live tensor itself
+            return [(d, name, t) for m in tnet.modules()
+                    for d in (m._parameters, m._buffers)
+                    for name, t in d.items() if t is not None]
         faulty._eval_view = live
         faulty.step(EVAL_ITERS, train, [test])
         fault_log = list(faulty.eval_log)
@@ -8614,6 +9066,7 @@ def main(argv=None) -> int:
         ap.add_argument(f"--{part}-port", type=int, default=0,
                         help=argparse.SUPPRESS)
         ap.add_argument(f"--{part}-dir", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--mp-nccl", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=["dp_cards", "mp", "mp_cards",
                                        "gpipe", "gpipe_cards", "eval",
                                        "elastic", "shapes", "fleet",
@@ -8638,7 +9091,7 @@ def main(argv=None) -> int:
             fail("torch.cuda.is_available() is False: no card")
         if args.mp_rank is not None:
             return mp_rank_main(args.mp_rank, args.mp_world, args.mp_port,
-                                args.mp_dir)
+                                args.mp_dir, args.mp_nccl)
         if args.bn_rank is not None:
             return bn_rank_main(args.bn_rank, args.bn_world, args.bn_port,
                                 args.bn_dir)
@@ -8678,8 +9131,12 @@ def main(argv=None) -> int:
                 res = elastic_phase(fut.result(), card)
             finally:
                 shutil.rmtree(tmp, ignore_errors=True)
-        else:  # solver_sp and solver_pp launch no kernel of the repo
-            res = _mp_cards(card)
+        else:  # mp_cards: the flash solver_sp and AlexNet run K1-K5,
+            # built while the runs before them (none of K1-K5) go
+            with ThreadPoolExecutor(2) as ex:
+                built = [ex.submit(build.build, f)
+                         for f in ("lrn.cu", "flash_attention.cu")]
+                res = _mp_cards(card, lambda: [f.result() for f in built])
         if res is None:
             fail(f"--only {args.only} needs more cards than "
                  f"{torch.cuda.device_count()}")

@@ -153,8 +153,11 @@ def test_a_pass_on_the_live_params_is_caught():
     train, test = cls_feed(0), cls_feed(5000)
 
     def live(ti, tnet):
-        return dict(list(tnet.named_parameters(remove_duplicate=False))
-                    + list(tnet.named_buffers(remove_duplicate=False)))
+        # the view's entries (a module's dict, a name, the tensor read),
+        # each the live tensor itself
+        return [(d, name, t) for m in tnet.modules()
+                for d in (m._parameters, m._buffers)
+                for name, t in d.items() if t is not None]
     a._eval_view = live
     a.step(8, train, test_feed_fns=[test])
     b.step(4, train)

@@ -476,36 +476,37 @@ def test_cli_unported_jax_flags_exit_one_naming_their_item(
     assert f"ROADMAP.md §1 item {item}" in caplog.text
 
 
-def test_refused_model_axis_combinations_name_item_6():
-    """zero_stage 1 and step_chunk > 1 under a model axis, and
-    param_sharding on a layer without a model-parallel forward, are
-    refused naming ROADMAP item 6; a rule without a mesh or for an
-    unknown layer raises as the JAX Solver's."""
+def test_model_axis_refusals_left_are_the_jax_ones():
+    """What the JAX Solver refuses under a model axis the port refuses: a
+    rule without a mesh, a rule for an unknown layer, an unknown
+    prototxt `param_sharding` mode, a spec naming an axis the mesh lacks
+    (ValueError each). A layer with no model-parallel forward for its
+    shards is accepted at construction (it gathers them on use:
+    tests/test_torch_gather_on_use.py)."""
     from caffe_mpi_tpu_torch.net import Net
+    from caffe_mpi_tpu_torch.parallel.mesh import MeshPlan
     from caffe_mpi_tpu_torch.proto import NetParameter, SolverParameter
     from caffe_mpi_tpu_torch.solver import Solver
-    plan = type("Plan", (), {"n_model": 2, "n_data": 1, "rank": 0,
-                             "device": torch.device("cpu")})()
-    for extra in ("zero_stage: 1", "step_chunk: 4"):
-        with pytest.raises(NotImplementedError, match=r"item 6\b"):
-            Solver(SolverParameter.from_text(solver_text(TP_MLP, extra=extra)),
-                   device="cpu", mesh=plan)
     with pytest.raises(ValueError, match="requires a mesh"):
         Solver(SolverParameter.from_text(solver_text(TP_MLP)), device="cpu",
                param_shardings={"fc1": "rows"})
-    bad = TP_MLP.replace('type: "ReLU" bottom: "h" top: "h" }',
-                         'type: "ReLU" bottom: "h" top: "h" '
-                         'param_sharding: "rows" }')
-    with pytest.raises(NotImplementedError, match=r"item 6\b"):
-        Net(NetParameter.from_text(bad), "TRAIN", device="cpu")
-    # a rule that splits only the bias of a layer sharing its weight
-    from caffe_mpi_tpu_torch.parallel.mesh import Placement
-    net = Net(NetParameter.from_text(SHARED_NET), "TRAIN", device="cpu")
-    net.init(0)
-    plan.model_index = 0
-    with pytest.raises(NotImplementedError, match=r"'fb'.*item 6\b"):
-        net.place(Placement(plan, {"fb": "rows"}))
+    plan = MeshPlan(n_data=1, rank=0, device=torch.device("cpu"),
+                    backend="gloo", n_model=2)
+    with pytest.raises(ValueError, match="unknown layers"):
+        Solver(SolverParameter.from_text(solver_text(TP_MLP)), device="cpu",
+               mesh=plan, param_shardings={"nope": "rows"})
+    bad = TP_MLP.replace('param_sharding: "cols"', 'param_sharding: "diag"')
+    with pytest.raises(ValueError, match="unknown param_sharding 'diag'"):
+        Solver(SolverParameter.from_text(solver_text(bad)), device="cpu",
+               mesh=plan)
+    with pytest.raises(ValueError, match="unknown mesh axes"):
+        plan.param_sharding_rules({"fc1": ("expert", None)})
+    # no Net-level refusal is left: a grouped Convolution and a ReLU with
+    # a rule build
     grouped = TP_CONV.replace("num_output: 6 kernel_size: 3",
                               "num_output: 6 kernel_size: 3 group: 2")
-    with pytest.raises(NotImplementedError, match=r"group 1 only .*item 6"):
-        Net(NetParameter.from_text(grouped), "TRAIN", device="cpu")
+    Net(NetParameter.from_text(grouped), "TRAIN", device="cpu")
+    relu = TP_MLP.replace('type: "ReLU" bottom: "h" top: "h" }',
+                          'type: "ReLU" bottom: "h" top: "h" '
+                          'param_sharding: "rows" }')
+    Net(NetParameter.from_text(relu), "TRAIN", device="cpu")

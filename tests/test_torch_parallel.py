@@ -282,7 +282,7 @@ def test_world_one_plan_shards_and_refuses_tensor_parallelism():
     assert plan.zero_slot_sharding((8, 3)) is None  # one rank: replicated
     # one model rank: the rules place nothing
     placement = plan.param_sharding_rules({"ip": ("model", None)})
-    assert placement.dim("ip", "weight", 2) is None
+    assert placement.spec("ip", "weight", 2) is None
     # rank 3 of a 2 x 2 mesh: data index 1, model index 1; "rows" splits
     # the weight's dim 0 and the bias, a (None, "model") spec dim 1 only
     mp = MeshPlan(n_data=2, rank=3, device=torch.device("cpu"),
@@ -291,13 +291,22 @@ def test_world_one_plan_shards_and_refuses_tensor_parallelism():
     assert torch.equal(mp.shard(x), x[2:])
     rules = mp.param_sharding_rules({"a": "rows", "b": (None, "model")})
     w = torch.arange(12.0).reshape(4, 3)
-    assert torch.equal(rules.local("a", "weight", w), w[2:])
-    assert torch.equal(rules.local("a", "bias", w[:, 0]), w[2:, 0])
-    assert rules.dim("a", "bias", 1) == 0 and rules.dim("b", "bias", 1) \
-        is None
-    assert torch.equal(rules.local("b", "weight", w.t()), w.t()[:, 2:])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mp.param_sharding_rules({"c": ("data", "model")})
+    def local(pl, lname, pname, t):
+        return pl.local_spec(pl.spec(lname, pname, t.dim()), t)
+
+    assert torch.equal(local(rules, "a", "weight", w), w[2:])
+    assert torch.equal(local(rules, "a", "bias", w[:, 0]), w[2:, 0])
+    assert rules.model_dim(rules.spec("a", "bias", 1)) == 0
+    assert rules.model_dim(rules.spec("b", "bias", 1)) is None
+    assert torch.equal(local(rules, "b", "weight", w.t()), w.t()[:, 2:])
+    # a ("data", "model") spec splits dim 0 over 'data' and dim 1 over
+    # 'model' (gathered on use: no model-parallel forward takes it)
+    both = mp.param_sharding_rules({"c": ("data", "model")})
+    w4 = torch.arange(16.0).reshape(4, 4)
+    assert torch.equal(local(both, "c", "weight", w4), w4[2:, 2:])
+    assert both.spec("c", "weight", 2) == (("data",), ("model",))
+    assert both.model_dim(both.spec("c", "weight", 2)) is None
+    assert both.spec("c", "bias", 1) is None
     half = MeshPlan(n_data=2, rank=1, device=torch.device("cpu"),
                     backend="gloo")
     assert torch.equal(half.shard(x), x[2:])

@@ -244,3 +244,23 @@ def test_pipeline_setup_refusals_give_the_jax_messages(case):
     with pytest.raises(ValueError) as port_err:
         Net(NetParameter.from_text(text), "TRAIN", device="cpu")
     assert str(port_err.value) == str(jax_err.value)
+
+
+def test_a_pipeline_net_tests_as_the_jax_solver():
+    """The test pass of a net with a Pipeline layer, whose stacked params
+    are named "inner.param": the port's pass reads the weights' copies
+    by swapping the layers' own dicts (`net.reading`), as a dotted name
+    cannot resolve as a submodule path; its scores against the JAX
+    Solver's test_all on the same weights and batches (rtol 1e-5)."""
+    text = PP_SOLVER + " test_iter: 2 test_interval: 1000"
+    js = JaxSolver(JaxSP.from_text(text))
+    feeds = _pp_feeds(seed=9)
+    want = js.test_all([lambda k: feeds[k]])
+    solver = Solver(SolverParameter.from_text(text), device="cpu")
+    load_jax_params(solver.net, _host(js.params))
+    got = solver.test_all([lambda k: {key: torch.from_numpy(v)
+                                      for key, v in feeds[k].items()}])
+    assert set(got[0]) == set(want[0]) and "loss" in got[0]
+    for key, value in want[0].items():
+        np.testing.assert_allclose(got[0][key], value, rtol=1e-5,
+                                   atol=1e-6)

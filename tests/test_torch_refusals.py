@@ -499,7 +499,7 @@ def test_hdf5_weights_are_refused_naming_item_7(tmp_path):
         port_io.load_weights(str(tmp_path / "w.caffemodel.h5"))
 
 
-@pytest.mark.parametrize("fmt,item", [("HDF5", 4), ("ORBAX", 6)])
+@pytest.mark.parametrize("fmt,item", [("HDF5", 4)])
 def test_unported_snapshot_format_is_refused_before_building(fmt, item):
     """`snapshot_format` other than BINARYPROTO raises at construction,
     naming its ROADMAP item (h5py is missing on the card's machine)."""

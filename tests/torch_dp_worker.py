@@ -15,8 +15,9 @@ global feeds (with the given global Dropout masks, JAX initial weights,
 BatchNorm alone ("bn"), runs the ring over the model ranks on global
 q, k, v with an upstream gradient ("ring"), pipeline_apply of a given
 stage function ("pipeline"), or moe_ffn with its experts split over the
-model ranks ("moe"), or resumes the newest verified snapshot of a
-prefix, trains on and snapshots ("resume").
+model ranks ("moe"), resumes the newest verified snapshot of a
+prefix, trains on and snapshots ("resume"), or restores a given
+snapshot on this mesh ("restore").
 """
 
 from __future__ import annotations
@@ -42,8 +43,7 @@ def _state(solver) -> dict:
     slots and running statistics, on the host."""
     out = {}
     for lname, pname, _, p in solver._decls:
-        if solver.net.sharded(lname, pname):
-            p = solver.net.placement.gather(lname, pname, p)
+        p = solver.net.gather_param(lname, pname, p)
         out[f"{lname}.{pname}"] = p.detach().numpy().copy()
     for (lname, pname), slots in solver.full_history().items():
         for i, h in enumerate(slots):
@@ -75,19 +75,35 @@ def train(sc: dict, mesh) -> dict:
     solver.step(sc["iters"], feed_fn, dropout_masks=mask_fn)
     scores = None
     if sc.get("test_feeds"):
-        tests = sc["test_feeds"]
+        # a test net whose batch does not divide the data ranks takes the
+        # whole batch on every rank
+        tests, part = sc["test_feeds"], (
+            mesh.shard if solver.test_sharded[0] else (lambda v: v))
         scores = solver.test_all([lambda k: {
-            key: torch.from_numpy(np.ascontiguousarray(mesh.shard(v)))
+            key: torch.from_numpy(np.ascontiguousarray(part(v)))
             for key, v in tests[k].items()}])
     res = {"losses": list(solver.losses), "state": _state(solver),
            "skipped": list(solver.skipped_iters), "test_scores": scores,
+           "test_sharded": list(solver.test_sharded),
            "stats": solver.reduction_stats(),
+           "graph_route": solver.graph_route,
            "shards": {f"{l}.{p}": tuple(h[0].shape)
-                      for (l, p), h in solver.history.items()}}
+                      for (l, p), h in solver.history.items()},
+           "local": {f"{l}.{p}.h{i}": h.detach().numpy().copy()
+                     for (l, p), slots in solver.history.items()
+                     for i, h in enumerate(slots)}}
     if sc.get("snapshot"):
         prefix = sc["snapshot"]
         solver.sp.snapshot_prefix = prefix
         res["snapshot"] = solver.snapshot()
+        res["snapshot_log"] = list(solver.snapshot_log)
+        if sc.get("gathered"):
+            # the same state's gathered (BINARYPROTO) snapshot
+            solver.snapshot_format = "BINARYPROTO"
+            solver.sp.snapshot_prefix = sc["gathered"]
+            res["gathered"] = solver.snapshot()
+            res["gathered_ms"] = solver.snapshot_log[-1]["write_ms"]
+            solver.sp.snapshot_prefix = prefix
         again = Solver(SolverParameter.from_text(sc["solver"]), mesh=mesh,
                        param_shardings=sc.get("param_shardings"))
         again.sp.snapshot_prefix = prefix
@@ -222,8 +238,21 @@ def resume(sc: dict, mesh) -> dict:
     return res
 
 
+def restore(sc: dict, mesh) -> dict:
+    """A solver over this mesh restores sc["path"] (any snapshot, any
+    mesh that wrote it); its iteration, whole state and slot shapes."""
+    solver = Solver(SolverParameter.from_text(sc["solver"]), mesh=mesh,
+                    param_shardings=sc.get("param_shardings"))
+    solver.restore(sc["path"])
+    res = {"iter": solver.iter, "state": _state(solver),
+           "shards": {f"{l}.{p}": tuple(h[0].shape)
+                      for (l, p), h in solver.history.items()}}
+    solver.close()
+    return res
+
+
 KINDS = {"bn": batch_norm, "train": train, "ring": ring, "pipeline": pipeline,
-         "moe": moe, "resume": resume}
+         "moe": moe, "resume": resume, "restore": restore}
 
 
 class Ranks:
