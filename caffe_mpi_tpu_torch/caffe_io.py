@@ -62,6 +62,7 @@ def resize_image(im: np.ndarray, new_dims, interp_order: int = 1) -> np.ndarray:
     chans = []
     for c in range(im.shape[2]):
         chan = Image.fromarray(im[:, :, c].astype(np.float32), mode="F")
+        # lint: ok(host-sync) — a PIL image channel on the host
         chans.append(np.asarray(chan.resize((w, h), mode)))
     return np.stack(chans, axis=2)
 

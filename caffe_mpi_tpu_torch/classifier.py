@@ -135,6 +135,7 @@ class Detector(_PreprocessingNet):
     def _expand_window(self, window, im_shape, crop_dims):
         """Context padding in window coordinates (reference detector.py
         detect_windows, window_data_layer's context_scale)."""
+        # lint: ok(host-sync) — window coordinates, host numbers
         y0, x0, y1, x1 = [float(v) for v in window]
         if self.context_pad:
             crop_h = float(crop_dims[0])

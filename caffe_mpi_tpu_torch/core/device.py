@@ -1,3 +1,5 @@
+# lint: ok(reference-citation) — port-only: the JAX package runs where
+# jax places it, and the reference takes its device from `-gpu`
 """Device resolution for the port's entry points.
 
 Entry points default to the card. Without one they raise: the port never

@@ -3,7 +3,8 @@ host transform, feeders, R-CNN windows, DetectNet augmentation.
 
 Own copies of the JAX package's caffe_mpi_tpu/data/ modules (lmdb_io,
 leveldb_io, datasets, decode, transformer, device_transform, feeder,
-window, detectnet), numpy on the host; `feeder.DeviceFeed` uploads each
+window, detectnet; the package is caffe_mpi_tpu/data/__init__.py),
+numpy on the host; `feeder.DeviceFeed` uploads each
 batch to the card.
 """
 

@@ -102,6 +102,7 @@ class DetectNetAugmenter:
             # mean-subtracted (negative) here — a uint8 round-trip would
             # wrap negatives modulo 256 (the reference resizes the float
             # cv::Mat, transform_image_cpu)
+            # lint: ok(host-sync) — a PIL image channel on the host
             img = np.stack([
                 np.asarray(Image.fromarray(ch, mode="F").resize(
                     (nw, nh), Image.BILINEAR), np.float32)

@@ -647,6 +647,7 @@ class Feeder:
         """The host transform of a list of records, or of their stack."""
         tf = self.tf
         if tf is None:
+            # lint: ok(host-sync) — raw records, host bytes
             return np.stack([np.asarray(r, np.float32) for r in raws])
         stacked = isinstance(raws, np.ndarray)
         if self._native and (stacked or (
@@ -820,6 +821,8 @@ class DeviceFeed:
                 host = _pinned_tensor(arr)
                 if host is None:
                     host = slot.host(key, arr)
+                    # lint: ok(host-sync) — `host` is a pinned host tensor;
+                    # this writes into it
                     host.numpy()[...] = arr
                 out[key] = host.to(self.device, non_blocking=True)
             slot.event = torch.cuda.Event()

@@ -62,7 +62,9 @@ class WindowFile:
             for j in range(num):
                 parts = lines[i + 4 + j].split()
                 cls = int(parts[0])
+                # lint: ok(host-sync) — fields of a window file's text
                 overlap = float(parts[1])
+                # lint: ok(host-sync) — fields of a window file's text
                 x1, y1, x2, y2 = (int(float(v)) for v in parts[2:6])
                 self._records.append((img_id, cls, overlap, x1, y1, x2, y2))
             i += 4 + num

@@ -1,4 +1,5 @@
-"""Layer zoo. Importing this package registers every ported layer type."""
+"""Layer zoo. Importing this package registers every ported layer type
+(the JAX package's caffe_mpi_tpu/layers/__init__.py)."""
 
 from . import (activations, composite, data_layers,  # noqa: F401
                dense, detection, extension, losses, norm, sequence,

@@ -134,6 +134,14 @@ class Layer(nn.Module):
         one say which. Any other split is gathered on use (Net.place)."""
         return not shards
 
+    def host_ranks(self):
+        """The MeshPlan whose data ranks a host step spans (its bottoms
+        all-gathered to the global batch, each rank keeping its rows of
+        the tops: the JAX `jax.pure_callback` is handed the global
+        batch), or None."""
+        mp = self.mesh_plan
+        return mp if mp is not None and mp.n_data > 1 else None
+
     def model_plan(self):
         """The MeshPlan when the layer holds shards over 'model', else
         None."""

@@ -16,9 +16,12 @@ coverage_label on each record, and copies the results back to the
 layer's device. Record i of a batch draws from
 Philox((seed << 32) ^ i); in TRAIN the seed is the layer's draw from the
 net's generator (`draw_mask`, or the `mask` the caller gives), in TEST 0,
-as the JAX layer's. No gradient flows into the bottoms (the reference's
-layer feeds data). A net holding it cannot be captured as a CUDA graph
-(`host_step`): the solver runs its chunks eagerly.
+as the JAX layer's. Over data-parallel ranks the step runs on the global
+batch, as the JAX callback is handed it under a mesh (detection.py:198):
+the bottoms are all-gathered, i is the global row, and each rank keeps
+its rows (`Layer.host_ranks`). No gradient flows into the bottoms (the
+reference's layer feeds data). A net holding it cannot be captured as a
+CUDA graph (`host_step`): the solver runs its chunks eagerly.
 
 Label wire format (blobToLabels, detectnet_transform_layer.cpp:199-219):
 per record a flat float list [numBboxes, bboxLen(=16), <numBboxes x 16
@@ -165,8 +168,13 @@ class DetectNetTransformationLayer(Layer):
                 mask = self.draw_mask(generator)
             if mask is not None:
                 seed = int(mask)
-        data = bottoms[0].detach().float().cpu().numpy()
-        label = bottoms[1].detach().cpu().numpy()
-        img, cov = self.host_transform(data, label, seed)
-        return [self.f(torch.from_numpy(img).to(self.device)),
-                torch.from_numpy(cov).to(self.device)]
+        data, label = bottoms[0].detach(), bottoms[1].detach()
+        mesh = self.host_ranks()
+        if mesh is not None:
+            data, label = mesh.gather_rows(data), mesh.gather_rows(label)
+        img, cov = self.host_transform(data.float().cpu().numpy(),
+                                       label.cpu().numpy(), seed)
+        img, cov = (torch.from_numpy(a).to(self.device) for a in (img, cov))
+        if mesh is not None:
+            img, cov = mesh.shard(img), mesh.shard(cov)
+        return [self.f(img), cov]

@@ -11,8 +11,14 @@ optional `backward(top_diffs, bottoms) -> bottom_diffs`, on float32
 arrays. With a `backward` the layer is an autograd Function that copies
 to the host and back both ways; without one the gradient stops at the
 layer's inputs. Its forward copies to the host, so it is a host step
-(`host_step`): the solver runs its chunks eagerly and data parallelism
-refuses it.
+(`host_step`): the solver runs its chunks eagerly. Over data-parallel
+ranks the user's `forward` and `backward` see the global batch, as the
+JAX layer's `jax.pure_callback` is handed it under a mesh
+(extension.py:69, :89): the bottoms are all-gathered over 'data', a top
+of the global batch keeps this rank's rows (a top the batch does not
+split, a loss, stays whole), and the backward gathers the top diffs (a
+whole top's summed over the ranks, each rank's loss being one of the
+mean's terms) and keeps the rank's rows of the bottom diffs.
 
 Filter keeps the JAX semantics, not the reference's compaction: the batch
 keeps its size, the items whose selector (the last bottom) is 0 are
@@ -42,23 +48,45 @@ def _device(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32)).to(device)
 
 
+def _host_forward(impl, device, mesh, shapes, bottoms):
+    """The user's forward on the bottoms (over `mesh`'s data ranks the
+    global batch's): (global bottoms, this rank's tops, which tops are
+    split by rows)."""
+    if mesh is not None:
+        bottoms = [mesh.gather_rows(b) for b in bottoms]
+    tops = [_device(o, device)
+            for o in impl.forward([_host(b) for b in bottoms])]
+    split = [mesh is not None and t.dim() > 0 and len(s) > 0
+             and t.shape[0] == s[0] * mesh.n_data
+             for t, s in zip(tops, shapes)]
+    tops = [mesh.shard(t) if cut else t for t, cut in zip(tops, split)]
+    return bottoms, tops, split
+
+
 class _HostLayer(torch.autograd.Function):
     """A user layer's forward and backward on host arrays."""
 
     @staticmethod
-    def forward(ctx, impl, device, *bottoms):
-        ctx.impl = impl
-        ctx.save_for_backward(*bottoms)
-        return tuple(_device(o, device)
-                     for o in impl.forward([_host(b) for b in bottoms]))
+    def forward(ctx, impl, device, mesh, shapes, *bottoms):
+        whole, tops, split = _host_forward(impl, device, mesh, shapes,
+                                           bottoms)
+        ctx.impl, ctx.mesh, ctx.split = impl, mesh, split
+        ctx.save_for_backward(*whole)
+        return tuple(tops)
 
     @staticmethod
     def backward(ctx, *top_diffs):
-        bottoms = ctx.saved_tensors
-        diffs = ctx.impl.backward([_host(g) for g in top_diffs],
-                                  [_host(b) for b in bottoms])
-        return (None, None, *(_device(d, b.device).to(b.dtype)
-                              for d, b in zip(diffs, bottoms)))
+        bottoms, mesh = ctx.saved_tensors, ctx.mesh
+        if mesh is not None:
+            top_diffs = [mesh.gather_rows(g) if cut
+                         else mesh.all_reduce_(g.clone())
+                         for g, cut in zip(top_diffs, ctx.split)]
+        diffs = [_device(d, b.device).to(b.dtype) for d, b in zip(
+            ctx.impl.backward([_host(g) for g in top_diffs],
+                              [_host(b) for b in bottoms]), bottoms)]
+        if mesh is not None:
+            diffs = [mesh.shard(d) for d in diffs]
+        return (None, None, None, None, *diffs)
 
 
 @register("Python")
@@ -83,11 +111,13 @@ class PythonLayer(Layer):
         return [tuple(s) for s in self.impl.infer_shapes(in_shapes)]
 
     def forward(self, bottoms):
+        mesh, shapes = self.host_ranks(), self.out_shapes
         if hasattr(self.impl, "backward"):
-            tops = _HostLayer.apply(self.impl, self.device, *bottoms)
+            tops = _HostLayer.apply(self.impl, self.device, mesh, shapes,
+                                    *bottoms)
         else:
-            tops = [_device(o, self.device) for o in self.impl.forward(
-                [_host(b) for b in bottoms])]
+            tops = _host_forward(self.impl, self.device, mesh, shapes,
+                                 [b.detach() for b in bottoms])[1]
         return [t.to(self.policy.forward) for t in tops]
 
 

@@ -218,6 +218,7 @@ class Net(nn.Module):
                 w = (lp.loss_weight[ti] if ti < len(lp.loss_weight)
                      else layer.default_loss_weight(ti))
                 if w:
+                    # lint: ok(host-sync) — a prototxt loss weight
                     self.loss_blobs.append((t, float(w)))
                     self._loss_at.append(len(layers))
             self._share_params(layer)
@@ -337,6 +338,8 @@ class Net(nn.Module):
                     raise ValueError(f"{layer.name}.{pname}: {e}") from None
                 setattr(layer, pname, nn.Parameter(
                     local.clone(), requires_grad=p.requires_grad))
+        if not self.specs:  # every rule placed whole: nothing is split
+            self.placement = None
 
     def owner_of(self, lname: str, pname: str) -> tuple[str, str]:
         """The (layer, param) that owns a param: itself, or the first
@@ -530,6 +533,8 @@ class Net(nn.Module):
         `weight_tensors()`) is written instead of the live tensors."""
         if tensors is None:
             tensors = self.weight_tensors()
+        # lint: ok(host-sync) — the caller asked for the blobs as host arrays,
+        # once a call
         return {name: [np.ones((1,), np.float32) if t is None
                        else t.detach().float().cpu().numpy() for t in blobs]
                 for name, blobs in tensors.items()}
@@ -557,19 +562,24 @@ class Net(nn.Module):
             factor = 1.0
             for (kind, _), blob in zip(spec, blobs):
                 if kind == "correction":
+                    # lint: ok(host-sync) — weights being loaded: host arrays
                     c = float(np.asarray(blob).reshape(-1)[0])
                     factor = 0.0 if c == 0.0 else 1.0 / c
             for (kind, name), blob in zip(spec, blobs):
                 if kind == "correction":
                     continue
+                # lint: ok(host-sync) — weights being loaded: host arrays
                 blob = np.asarray(blob, np.float32)
                 if into is None:
                     cur = getattr(layer, name)
                     if self.sharded(layer.name, name):
                         # a whole array, of which this rank takes its shard
                         full = self.full_shape(layer.name, name, cur.shape)
+                        # lint: ok(host-sync) — shape arithmetic on host ints
                         if blob.size == int(np.prod(full)):
                             blob = blob.reshape(full)
+                        # lint: ok(host-sync) — a loaded host array's shard,
+                        # once a load
                         blob = self.local_param(
                             layer.name, name, torch.from_numpy(
                                 np.ascontiguousarray(blob))).numpy()

@@ -1,5 +1,7 @@
 """The port's ops. `launch_counters` lists the entry points of the CUDA
-kernels, each with its `.launches` count."""
+kernels that port the JAX package's Pallas kernels
+(caffe_mpi_tpu/ops/lrn.py, caffe_mpi_tpu/ops/flash_attention.py), each
+with its `.launches` count."""
 
 
 def launch_counters() -> tuple:

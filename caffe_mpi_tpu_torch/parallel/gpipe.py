@@ -381,6 +381,7 @@ class GPipe:
                     cts.append(ct.to(dev[s], non_blocking=True))
                 if loss_s.requires_grad:
                     roots.append(loss_s)
+                    # lint: ok(host-sync) — loss_scale is a Python number
                     cts.append(torch.full((), float(loss_scale),
                                           dtype=torch.float32,
                                           device=dev[s]))

@@ -258,6 +258,8 @@ def cluster_barrier(name: str, timeout_s: float | None = None) -> bool:
                 raise TimeoutError(f"{name}: waited {timeout_s:g}s")
             time.sleep(0.005)
         return True
+    # lint: ok(typed-failure) — False is the typed result the caller acts on
+    # (the barrier failed), logged
     except Exception as e:  # noqa: BLE001 — False is the typed result
         log.error("cluster barrier %r failed: %s", name, e)
         return False
@@ -271,6 +273,8 @@ def cluster_kv_set(key: str, value: str) -> bool:
     try:
         _STORE.set(key, value)
         return True
+    # lint: ok(typed-failure) — False is the typed result the caller acts on,
+    # logged
     except Exception as e:  # noqa: BLE001 — False is the typed result
         log.error("cluster kv set %r failed: %s", key, e)
         return False
@@ -284,6 +288,8 @@ def cluster_kv_get(key: str, timeout_s: float = 120.0) -> str | None:
     try:
         _STORE.wait([key], datetime.timedelta(seconds=timeout_s))
         return _STORE.get(key).decode()
+    # lint: ok(typed-failure) — None is the typed result the caller acts on,
+    # logged
     except Exception as e:  # noqa: BLE001 — None is the typed result
         log.error("cluster kv get %r failed: %s", key, e)
         return None
@@ -663,6 +669,11 @@ class MeshPlan:
             pair[1].record()
         return out
 
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch of a batch-split `t`: every data rank's rows
+        in data order (the inverse of `shard`)."""
+        return self.all_gather(t).flatten(0, 1)
+
     # -- the 'model' axis -----------------------------------------------
     def _model_timed(self, t: torch.Tensor):
         self.collectives.launches += 1
@@ -981,16 +992,19 @@ class Placement:
                             f"rule {spec!r} for {lname!r}: unknown mesh "
                             f"axes {bad} (the mesh has {AXES})")
 
-    @staticmethod
-    def _normalize(spec, ndim: int) -> tuple | None:
+    def _normalize(self, spec, ndim: int) -> tuple | None:
         """A rule's spec as one tuple of axes a dim (the JAX padding and
-        truncation to the array's rank); None when nothing is split."""
+        truncation to the array's rank), an axis of one rank dropped (a
+        split over it is the whole array, as in JAX); None when nothing
+        is split."""
         if spec == "rows":
             spec = ("model",)
+        sizes = {"data": self.plan.n_data, "model": self.plan.n_model}
         out = []
         for entry in list(spec)[:ndim]:
             axes = entry if isinstance(entry, (tuple, list)) else (entry,)
-            out.append(tuple(a for a in axes if a is not None))
+            out.append(tuple(a for a in axes
+                             if a is not None and sizes[a] > 1))
         out += [()] * (ndim - len(out))
         return tuple(out) if any(out) else None
 
@@ -998,9 +1012,8 @@ class Placement:
         """The JAX `param_sharding_rules` placement of one param: a
         per-param dict's own spec; a layer rule's spec for `weight`, and
         for `bias` ("model" on its only dim) when the rule splits the
-        weight's dim 0 over 'model' alone (the per-output bias follows)."""
-        if self.plan.n_model <= 1:
-            return None
+        weight's dim 0 over 'model' alone (the per-output bias follows).
+        At any mesh size: a split over an axis of one rank is no split."""
         rule = self.rules.get(lname)
         if rule is None:
             return None
@@ -1031,6 +1044,7 @@ class Placement:
         if spec is None:
             return tuple(shape)
         sizes = {"data": self.plan.n_data, "model": self.plan.n_model}
+        # lint: ok(host-sync) — shape arithmetic on host ints
         return tuple(n * int(np.prod([sizes[a] for a in axes]))
                      for n, axes in zip(shape, spec))
 

@@ -174,7 +174,9 @@ def _migrate_v0_layer(lp: LayerParameter) -> None:
         _migrate_v0_data_fields(lp, v0, v0_type)
 
     # per-blob multipliers live on the V0 node (fields 51/52)
+    # lint: ok(host-sync) — prototxt text
     lrs = [float(x) for x in v0.get_list("blobs_lr")]
+    # lint: ok(host-sync) — prototxt text
     wds = [float(x) for x in v0.get_list("weight_decay")]
     for i in range(max(len(lrs), len(wds))):
         spec = ParamSpec()
@@ -247,8 +249,10 @@ def _migrate_v1_blob_multipliers(lp: LayerParameter) -> None:
     for i in range(n):
         spec = ParamSpec()
         if i < len(lrs):
+            # lint: ok(host-sync) — prototxt values
             spec.lr_mult = float(lrs[i])
         if i < len(wds):
+            # lint: ok(host-sync) — prototxt values
             spec.decay_mult = float(wds[i])
         lp.param.append(spec)
     # consume the node fields so a second normalize_net over the same

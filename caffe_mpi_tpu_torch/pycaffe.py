@@ -233,9 +233,11 @@ class Net:
         feeds = {}
         dev = self._net.device
         for name in self._net.feed_blobs:
+            # lint: ok(host-sync) — the caller's host inputs
             val = np.asarray(self._input_value(name))
             if label_int and name == "label":
                 val = val.astype(np.int32)
+            # lint: ok(host-sync) — the caller's host inputs
             feeds[name] = torch.from_numpy(np.array(val)).reshape(
                 self._net.blob_shapes[name]).to(dev)
         return feeds
@@ -246,6 +248,7 @@ class Net:
         output blobs (or `blobs`) as numpy, and every blob is readable
         through `blobs`."""
         for k, v in kwargs.items():
+            # lint: ok(host-sync) — the caller's host inputs
             self._inputs[k] = np.asarray(v)
         net = self._net
         was = net.training
@@ -358,6 +361,7 @@ class SGDSolver:
                     raise RuntimeError(
                         f"no data for input blob {name!r}: assign "
                         "solver.net.blobs[...].data first")
+                # lint: ok(host-sync) — the caller's host inputs
                 feeds[name] = torch.from_numpy(np.array(val)).reshape(
                     net.blob_shapes[name]).to(net.device)
             return feeds

@@ -456,6 +456,8 @@ class Batcher:
     # -- harvester ------------------------------------------------------
     def _harvest_loop(self) -> None:
         while True:
+            # lint: ok(deadline-discipline) — a sentinel-woken idle park:
+            # close() enqueues None
             item = self._harvest_q.get()
             if item is None:
                 return
@@ -465,6 +467,8 @@ class Batcher:
                         f"harvest:{group[0].model}"):
                     if done is not None:
                         done.synchronize()
+                    # lint: ok(host-sync) — `host` is the pinned copy the
+                    # harvest already waited on
                     scores = host.numpy()
             except Exception as e:  # noqa: BLE001 — failures go to callers
                 self._done_inflight(token)

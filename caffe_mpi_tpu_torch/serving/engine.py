@@ -116,6 +116,8 @@ def _device_probe(device: torch.device, timeout: float) -> bool:
             x = torch.ones(8, device=device)
             (x + 1.0).cpu()
             ok.append(True)
+        # lint: ok(typed-failure) — the probe's result is `ok` left empty: any
+        # failure reads as not recovered
         except Exception:  # noqa: BLE001 — any failure = not recovered
             pass
         finally:
@@ -665,6 +667,8 @@ class ServingEngine:
                 param, ladder=self.ladder_spec,
                 max_batch=int(preprocess.get("max_batch", 0) or 0),
                 dtype=self.serve_dtype)
+        # lint: ok(typed-failure) — the static plan is advisory: the load goes
+        # on without it, logged with its traceback
         except Exception as e:  # noqa: BLE001 — the plan is advisory
             log.warning("serving: static plan for %r failed (%s); "
                         "loading without one", name, e, exc_info=True)

@@ -523,6 +523,9 @@ class ReplicaBeat:
 
     # a dead beat thread is the failure signal: the supervisor mourns
     # the silence within one deadline and respawns the whole replica
+    # lint: ok(thread-crash) — a dead beat thread is the failure signal: the
+    # supervisor mourns the silence within one deadline and respawns the
+    # replica
     def _loop(self) -> None:
         while True:
             try:
@@ -701,9 +704,13 @@ class FleetSupervisor:
                 self._hb.tick()
                 if self._hb.lost is not None:
                     peer, elapsed = self._hb.lost
+                    # lint: ok(host-sync) — a heartbeat age, a host float
                     self._handle_loss(int(peer), float(elapsed))
             # the supervisor must survive a failed poll; the next tick
             # retries, and a dead replica keeps failing the heartbeat
+            # lint: ok(typed-failure) — the supervisor surviving a failed poll
+            # is the design; the next tick retries and a dead replica keeps
+            # failing its heartbeat
             except Exception:  # noqa: BLE001 — the supervisor survives
                 log.exception("fleet: supervisor poll failed "
                               "(continuing)")

@@ -126,6 +126,7 @@ class _Handler(BaseHTTPRequestHandler):
             preds = self.engine.submit_raw(self.model_name, raw).result(
                 timeout=60)
             top = np.argsort(-preds)[:5]
+            # lint: ok(host-sync) — preds is a host array of the reply
             body = {"predictions": [
                 # a short labels file falls back to the class index
                 # rather than crashing the handler mid-response

@@ -212,6 +212,8 @@ def preprocess_rows(model, raws: list, ingest: RequestIngest):
                 # below ~8 records a spawned thread costs more than it
                 # saves (the JAX package's measurement)
                 num_threads=max(1, min(n // 8, os.cpu_count() or 4)))
+        # lint: ok(typed-failure) — the fused path's failure falls back to the
+        # per-record path below, which raises typed errors itself
         except Exception:  # noqa: BLE001 — falls back per record below
             log.exception("serving ingest: fused native preprocess "
                           "rejected a window; preprocessing per record")

@@ -78,6 +78,8 @@ class SnapshotWatcher:
         while not self._stop.wait(self.poll_s):
             try:
                 self.check_once()
+            # lint: ok(typed-failure) — the watcher surviving a failed poll is
+            # the design; the next poll retries, logged with its traceback
             except Exception:  # noqa: BLE001 — the watcher must survive
                 log.exception("serving: snapshot watch poll failed "
                               "(continuing)")

@@ -147,8 +147,14 @@ slice of the global batch (the CLI's feeders stripe by rank). Then:
   Accuracy are global-batch values across the ranks (`Net.bind_mesh`);
   Dropout's mask on a rank is its slice of the global mask drawn from
   the same generator (a given `dropout_masks` is the global mask too);
-  MoE routes over the global batch; host layers
-  (DetectNetTransformation) are refused (ROADMAP.md §1 item 6);
+  MoE routes over the global batch; a host layer
+  (DetectNetTransformation, Python) runs its step on the global batch,
+  as the JAX layer's `jax.pure_callback` is handed it: its bottoms are
+  all-gathered over 'data' and each rank keeps its own rows of the tops
+  (`Layer.host_ranks`); DetectNet's seed is one draw shared by the
+  ranks, so sample i of the global batch draws Philox((seed << 32) ^ i)
+  on whichever rank holds it. Such a net reduces by the flat all-reduce
+  and runs its chunks eagerly;
 - ZeRO-1 (`zero_stage: 1`, the JAX checks): a history slot whose dim 0
   divides N lives on each rank as its dim-0 shard; the rank updates its
   slice of the param from the reduced gradient and the ranks all-gather
@@ -341,6 +347,7 @@ def _read_region(path: str, shards: list[dict], want, out: np.ndarray
         dst_at = tuple(slice(a - w, b - w) for a, b, (w, _)
                        in zip(lo, hi, want))
         out[dst_at] = src[src_at]
+        # lint: ok(host-sync) — shape arithmetic on host ints
         covered += int(np.prod([b - a for a, b in zip(lo, hi)]))
     if covered != out.size:
         raise ValueError(f"{path}: the shard files cover {covered} of the "
@@ -465,14 +472,6 @@ class Solver:
                        solver_storage=sp.solver_data_type,
                        precision=precision,
                        batch_divisor=n_data * max(self._gpipe_micro, 1))
-        if n_data > 1:
-            bad = [f"{l.name} ({l.lp.type})" for l in self.net.layers
-                   if l.host_step]
-            if bad:
-                raise NotImplementedError(
-                    f"data parallelism over layers {', '.join(bad)} is not "
-                    "ported yet (ROADMAP.md §1 item 6): host layers "
-                    "transform across the whole batch")
         if mesh is not None:
             self.net.bind_mesh(mesh)
         # the one TF32 setting the backward runs under (raises on a mix)
@@ -530,7 +529,9 @@ class Solver:
             if unknown:
                 raise ValueError(
                     f"param_shardings for unknown layers: {sorted(unknown)}")
-        if param_shardings and n_model > 1:
+        if param_shardings:
+            # checked and placed at every mesh size, as the JAX solver
+            # places its rules whenever a mesh exists
             placement = mesh.param_sharding_rules(param_shardings)
             self.net.place(placement)
             for tnet in self.test_nets:
@@ -538,8 +539,8 @@ class Solver:
         for tnet in self.test_nets:
             self._share_params(tnet)
         # ZeRO-1 leaves the slots of the layers a rule names aligned with
-        # their params (the JAX `_place_params_opt`)
-        tp_layers = set(param_shardings or ()) if n_model > 1 else set()
+        # their params at every mesh size (the JAX `_place_params_opt`)
+        tp_layers = set(param_shardings or ())
         # owned learnable params in declaration order — the history order
         self._decls = [(lname, pname, decl,
                         getattr(self.net.layer_by_name(lname), pname))
@@ -897,6 +898,10 @@ class Solver:
             if self._train_iters else None)
         out["backend"] = self.mesh.backend
         out["zero_stage"] = self._zero
+        # the params whose history slots ZeRO-1 splits over 'data' (the
+        # keys of the JAX `_zero_shardings`)
+        out["zero_slots"] = sorted(f"{l}.{p}" for (l, p), n
+                                   in self._shard_len.items() if n)
         out["n_model"] = self.mesh.n_model
         return out
 
@@ -994,7 +999,9 @@ class Solver:
             out = [{layer.name: self._draw(layer, n)
                     for layer in self._droppers} for _ in range(iter_size)]
         if mesh is not None and mesh.n_data > 1:
-            out = [{k: mesh.shard(v) for k, v in m.items()} for m in out]
+            # a host layer's seed (0-d) is the global batch's, whole
+            out = [{k: mesh.shard(v) if v.dim() else v
+                    for k, v in m.items()} for m in out]
         return out
 
     def _micro_batches(self) -> int:
@@ -1003,9 +1010,10 @@ class Solver:
         return self._gpipe_micro or max(self.sp.iter_size, 1)
 
     def _draw(self, layer, n: int) -> torch.Tensor:
-        """A layer's draw; over n > 1 ranks the global batch's mask (the
-        solver refuses host layers there, so a Dropout's)."""
-        if n == 1:
+        """A layer's draw; over n > 1 ranks a Dropout's is the global
+        batch's mask, a host layer's its seed (its step sees the global
+        batch)."""
+        if n == 1 or layer.host_step:
             return layer.draw_mask(self.generator)
         shape = layer.in_shapes[0]
         return layer.draw_mask(self.generator, (shape[0] * n, *shape[1:]))
@@ -1616,11 +1624,17 @@ class Solver:
             ms = self.chunk_ms[-1] / c
             rows = vals[:3 * c].reshape(c, 3)
             for i, (loss, _, accepted) in enumerate(rows):
+                # lint: ok(host-sync) — rows is the chunk's one read-back, a
+                # host array
                 self.losses.append(float(loss))
+                # lint: ok(host-sync) — rows is the chunk's one read-back, a
+                # host array
                 self._loss_window.append(float(loss))
                 self.iter_ms.append(ms)
                 if not accepted:
                     self.skipped_iters.append(self.iter + i)
+            # lint: ok(host-sync) — rows is the chunk's one read-back, a host
+            # array
             loss_val, rate = float(rows[-1, 0]), float(rows[-1, 1])
             last_iter = self.iter + c - 1  # a chunk ends ON display iters
             if sp.display and last_iter % sp.display == 0 \
@@ -1664,6 +1678,7 @@ class Solver:
         """A signal reaches one rank: every rank acts on a request any
         rank has (one small collective a chunk)."""
         keys = ("stop", "snapshot")
+        # lint: ok(host-sync) — signal requests are host counts
         flags = torch.tensor([float(self.requests[k]) for k in keys],
                              device=self.device)
         self.mesh.world_all_reduce_(flags)
@@ -1896,9 +1911,12 @@ class Solver:
                 total = self.mesh.all_reduce_(total.clone()) \
                     / self.mesh.n_data
             with self._section("eval harvest"):
+                # lint: ok(host-sync) — one read-back a test net at the end of
+                # its pass
                 vals = total.cpu().numpy() / iters
             self.test_host_reads += 1
             self.test_pass_count += 1
+            # lint: ok(host-sync) — vals came back in the read-back above
             scores = {b: float(v) for b, v in zip(out_blobs, vals)}
             if self.rank == 0:
                 log.info("Test net #%d, iteration %d:", ti, pending["iter"])
@@ -2074,6 +2092,7 @@ class Solver:
         if self._gs is not None:
             # the guard carry as of the snapshot (a restore starts a fresh
             # one, as a .solverstate's does)
+            # lint: ok(host-sync) — the guard's scalars, read once a snapshot
             index["guard"] = {k: float(v) for k, v in self._gs.items()}
         with torch.no_grad():
             for i, (name, t, full, spec) in enumerate(self._sharded_arrays()):
@@ -2089,6 +2108,8 @@ class Solver:
                         with resilience.atomic_output(
                                 os.path.join(path, fname)) as tmp:
                             with open(tmp, "wb") as f:
+                                # lint: ok(host-sync) — a snapshot writes each
+                                # shard from the host, once a snapshot
                                 np.save(f, t.detach().float().cpu().numpy())
                 index["arrays"].append(entry)
         if self.rank == 0:
@@ -2306,6 +2327,8 @@ class Solver:
         FAULTS.maybe_exit("snapshot_kill")  # test-only: die mid-snapshot
         state_path = f"{prefix}_iter_{it}.solverstate"
         with resilience.atomic_output(state_path) as tmp:
+            # lint: ok(host-sync) — a snapshot's host copy of each slot, once a
+            # snapshot
             caffe_io.save_solverstate(
                 tmp, it, model_path,
                 [h.float().numpy() for h in view["history"]], step)
@@ -2342,6 +2365,8 @@ class Solver:
                 for lname, pname, _, _ in self._decls]
 
     def _history_blobs(self) -> list[np.ndarray]:
+        # lint: ok(host-sync) — a snapshot's host copy of each slot, once a
+        # snapshot
         return [h.cpu().numpy() for h in self._history_tensors()]
 
     def _current_step(self) -> int:
@@ -2408,6 +2433,8 @@ class Solver:
             it = int(doc["iteration"])
             try:
                 self.restore(doc["state"], verify=False, sync=False)
+            # lint: ok(typed-failure) — restore_auto falls back to an older
+            # verified snapshot: that is the recovery
             except Exception:  # noqa: BLE001 — an older one is the recovery
                 log.exception("verified snapshot at iter %d failed to "
                               "load; falling back", it)
@@ -2433,6 +2460,8 @@ class Solver:
                 continue  # a manifest covers it: verified above, or failed
             try:
                 self.restore(path, verify=False, sync=False)
+            # lint: ok(typed-failure) — restore_auto falls back to an older
+            # snapshot: that is the recovery
             except Exception:  # noqa: BLE001 — an older one is the recovery
                 log.exception("legacy snapshot %s failed to load; "
                               "falling back", path)
@@ -2496,12 +2525,15 @@ class Solver:
             for i, (lname, pname, _, p) in enumerate(self._decls):
                 shard = self._shard_len[(lname, pname)]
                 for s, slot in enumerate(self.history[(lname, pname)]):
+                    # lint: ok(host-sync) — restored host arrays
                     whole = np.array(history[i + s * n], np.float32).reshape(
                         self.net.full_shape(lname, pname, p.shape))
                     if shard is not None:
                         lo = self.mesh.data_index * shard
                         whole = whole[lo:lo + shard]
                     elif self.net.sharded(lname, pname):
+                        # lint: ok(host-sync) — a restored host array's shard,
+                        # once a restore
                         whole = self.net.local_param(
                             lname, pname, torch.from_numpy(whole)).numpy()
                     slot.copy_(torch.from_numpy(whole))

@@ -205,11 +205,13 @@ def _ingest_stage_breakdown(path, batch, iters, crop):
             decoded = [d if d is not None else p
                        for d, p in zip(nat, decoded)]
         t0 = time.perf_counter()
+        # lint: ok(host-sync) — host batch indices
         out = native.transform_batch(
             np.stack(decoded), np.asarray(idx, np.int64), crop=crop,
             mean=mean, train=True, mirror=True, seed=3)
         stages["transform"] += time.perf_counter() - t0
         t0 = time.perf_counter()
+        # lint: ok(host-sync) — host labels
         labels = np.asarray([f.label for f in fields], np.int32)
         batch_out = {"data": np.ascontiguousarray(out), "label": labels}
         stages["assemble"] += time.perf_counter() - t0

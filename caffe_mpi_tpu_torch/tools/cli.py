@@ -735,6 +735,9 @@ def _spawn_workers(args, layout: dict) -> int:
     for t in threads:
         t.start()
     for t in threads:
+        # lint: ok(deadline-discipline) — each thread waits on its worker
+        # process, bounded by the worker's collective timeout and
+        # -watchdog_deadline; a failed worker kills the others
         t.join()
     first = next((rc for rc in rcs if rc not in (0, -9)), None)
     return first if first is not None else max(rcs, key=abs)
@@ -1227,6 +1230,7 @@ def test_net(args) -> dict[str, float]:
         if feed is not None:
             feed.close()
     # the average over batches in float64 on the host, as the JAX CLI
+    # lint: ok(host-sync) — the test scores, read once at the end of the run
     return {b: float(np.mean(torch.stack(totals[b]).cpu().numpy(),
                              dtype=np.float64)) for b in outputs}
 

@@ -24,6 +24,7 @@ def compute_mean(ds) -> np.ndarray:
     n = len(ds)
     for i in range(n):
         img, _ = ds.get(i)
+        # lint: ok(host-sync) — a decoded host image
         img = np.asarray(img, np.float64)
         total = img if total is None else total + img
     return (total / n).astype(np.float32)

@@ -32,6 +32,7 @@ def iter_datums(root: str, items, resize_hw, gray: bool):
         img = img.convert("L" if gray else "RGB")
         if resize_hw[0] and resize_hw[1]:
             img = img.resize((resize_hw[1], resize_hw[0]), Image.BILINEAR)
+        # lint: ok(host-sync) — a decoded host image
         arr = np.asarray(img)
         if arr.ndim == 2:
             arr = arr[None]

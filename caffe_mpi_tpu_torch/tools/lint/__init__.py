@@ -26,11 +26,28 @@ Framework shape:
   (caffe_mpi_tpu_torch/, chip_smoke.py); exit 1 on any finding, 2 on a
   usage error.
 
-Of the JAX package's Python-AST passes the port has the three
-concurrency passes (lock-order, blocking-under-lock, thread-shared-
-mutation: concurrency.py, over the declared order in serving/locks.py).
-The others (host-sync, traced-flow, failure-path, ...) read JAX code and
-are not ported (ROADMAP.md §1 item 7).
+Every pass name of the JAX package's lint is registered here, so a
+waiver reads the same in both trees; each pass reads the port's own
+files:
+
+- netlint.py: the net-* model passes over models/ and examples/;
+- concurrency.py: lock-order, blocking-under-lock, thread-shared-mutation
+  (over the declared order in serving/locks.py);
+- failure_path.py: future-resolution, typed-failure, thread-crash,
+  deadline-discipline (on the concurrency passes' one tree model);
+- doc_drift.py: `FAULT_SITES` and `EXIT_*` (utils/resilience.py) against
+  caffe_mpi_tpu_torch/docs/robustness.md and the call sites;
+- knob_drift.py: each performance knob declared (proto/config.py),
+  flagged (tools/cli.py), documented (caffe_mpi_tpu_torch/docs/knobs.md)
+  and consumed, or refused naming its ROADMAP.md item;
+- host_sync.py: a card sync (`.item()`, `.cpu()`, `float()` of a
+  tensor, `torch.cuda.synchronize()`, ...) inside a loop;
+- gated_imports.py: h5py/tensorstore/triton/lmdb imports ungated, and
+  any import of jax or caffe_mpi_tpu;
+- reference_citation.py: module docstrings cite what they port;
+- traced_flow.py, concrete_init.py: the torch counterparts of the JAX
+  traced-body passes, over the bodies a CUDA graph captures (a Python
+  branch on a card tensor; a 0-d card tensor built in a scalar slot).
 """
 
 from __future__ import annotations
@@ -50,6 +67,8 @@ from typing import Iterable, Iterator
 # findings + waivers
 
 _WAIVER_RE = re.compile(r"#\s*lint:\s*ok\(([^)]*)\)")
+# the JAX package's older host-sync spelling, honoured the same way
+_LEGACY_WAIVER_RE = re.compile(r"#\s*host-sync:\s*ok")
 
 
 def _waivers_in_comment(text: str) -> set[str]:
@@ -57,6 +76,8 @@ def _waivers_in_comment(text: str) -> set[str]:
     for m in _WAIVER_RE.finditer(text):
         names.update(n.strip() for n in m.group(1).split(",")
                      if n.strip())
+    if _LEGACY_WAIVER_RE.search(text):
+        names.add("host-sync")
     return names
 
 
@@ -66,7 +87,7 @@ def extract_waivers(src: str) -> dict[int, set[str]]:
     as a waiver — text that merely *mentions* the grammar cannot suppress
     a finding on its statement. The tokenizer is the arbiter."""
     waivers: dict[int, set[str]] = {}
-    if "lint:" not in src:
+    if "lint:" not in src and "host-sync:" not in src:
         return waivers  # fast path: no waiver grammar anywhere
     try:
         tokens = tokenize.generate_tokens(io.StringIO(src).readline)
@@ -103,9 +124,23 @@ class Finding:
                 "message": self.message, "detail": self.detail}
 
 
+def _build_index(n: ast.AST, stmt: ast.stmt | None, parent: ast.AST | None,
+                 order: list, info: dict) -> None:
+    """Recursive DFS filling FileContext._index's (order, info)."""
+    start = len(order)
+    order.append(n)
+    if isinstance(n, ast.stmt):
+        stmt = n
+    for c in ast.iter_child_nodes(n):
+        _build_index(c, stmt, n, order, info)
+    info[id(n)] = (start, len(order), stmt, parent)
+
+
 class FileContext:
     """One parsed Python source file shared by all passes: source text,
-    lines, AST (None on a syntax error) and the per-line waiver map."""
+    lines, AST (None on a syntax error) and the per-line waiver map.
+    One DFS index serves every pass (`walk`, `by_type`, `parent_of`,
+    `stmt_of`), as in the JAX core."""
 
     def __init__(self, path: str, root: str | None = None):
         self.path = os.path.abspath(path)
@@ -120,18 +155,65 @@ class FileContext:
         except SyntaxError as e:
             self.syntax_error = e
         self.waivers: dict[int, set[str]] = extract_waivers(self.src)
+        self._idx: tuple | None = None
+        self._buckets: dict[type, list[ast.AST]] | None = None
+
+    def _index(self) -> tuple:
+        """(preorder, info): `info[id(n)] = (start, end, stmt, parent)`,
+        `preorder[start:end]` being n's subtree, `stmt` its nearest
+        enclosing statement and `parent` its AST parent."""
+        if self._idx is None:
+            order: list[ast.AST] = []
+            info: dict[int, tuple] = {}
+            if self.tree is not None:
+                limit = sys.getrecursionlimit()
+                sys.setrecursionlimit(max(limit, 20000))
+                try:
+                    _build_index(self.tree, None, None, order, info)
+                finally:
+                    sys.setrecursionlimit(limit)
+            self._idx = (order, info)
+        return self._idx
+
+    def by_type(self, cls: type) -> list[ast.AST]:
+        """All nodes of exact type `cls`, in preorder."""
+        if self._buckets is None:
+            buckets: dict[type, list[ast.AST]] = {}
+            for n in self._index()[0]:
+                buckets.setdefault(type(n), []).append(n)
+            self._buckets = buckets
+        return self._buckets.get(cls, [])
+
+    def parent_of(self, node: ast.AST) -> ast.AST | None:
+        """The AST parent of `node` (None for the root or a node outside
+        this file's tree)."""
+        rec = self._index()[1].get(id(node))
+        return rec[3] if rec is not None else None
+
+    def stmt_of(self, node: ast.AST) -> ast.stmt | None:
+        """The nearest enclosing statement of `node` (itself if one)."""
+        rec = self._index()[1].get(id(node))
+        return rec[2] if rec is not None else None
+
+    @property
+    def rel(self) -> str:
+        """The path relative to the run root; absolute outside it."""
+        if self.root:
+            r = os.path.relpath(self.path, self.root)
+            if not r.startswith(".."):
+                return r
+        return self.path
 
     def walk(self, node: ast.AST | None = None) -> list[ast.AST]:
         """Every node of `node`'s subtree (default: the whole file) in
         depth-first preorder (ast.walk's order is breadth-first)."""
-        out: list[ast.AST] = []
-        start = self.tree if node is None else node
-        stack = [start] if start is not None else []
-        while stack:
-            n = stack.pop()
-            out.append(n)
-            stack.extend(reversed(list(ast.iter_child_nodes(n))))
-        return out
+        order, info = self._index()
+        if node is None or node is self.tree:
+            return order
+        rec = info.get(id(node))
+        if rec is None:
+            return list(ast.walk(node))
+        return order[rec[0]:rec[1]]
 
     def span_of(self, stmt: ast.stmt | ast.expr) -> tuple[int, int]:
         """Waiver-search span for a node: its own line range. For a
@@ -219,7 +301,9 @@ def register(cls: type[LintPass]) -> type[LintPass]:
 
 def _load_passes() -> None:
     # import for side effect: each module registers its passes
-    from . import concurrency, netlint  # noqa: F401
+    from . import (concrete_init, concurrency, doc_drift,  # noqa: F401
+                   failure_path, gated_imports, host_sync, knob_drift,
+                   netlint, reference_citation, traced_flow)
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +403,14 @@ def run_lint(paths: Iterable[str] | None = None,
 
 # ---------------------------------------------------------------------------
 # shared AST helpers
+
+def attr_root(node: ast.expr) -> str | None:
+    """The base name of a dotted chain: `torch.cuda.graph` -> 'torch'.
+    None for anything not Name-rooted."""
+    while isinstance(node, ast.Attribute):
+        node = node.value
+    return node.id if isinstance(node, ast.Name) else None
+
 
 def dotted_name(node: ast.expr) -> str | None:
     """Full dotted spelling of a Name/Attribute chain, else None."""

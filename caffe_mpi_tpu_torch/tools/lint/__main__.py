@@ -1,5 +1,5 @@
 """CLI entry: `python -m caffe_mpi_tpu_torch.tools.lint` (see the
-package docstring)."""
+package docstring; the JAX package's caffe_mpi_tpu/tools/lint/__main__.py)."""
 
 import sys
 

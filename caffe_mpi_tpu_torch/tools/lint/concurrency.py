@@ -46,6 +46,12 @@ All three are approximate by design (they see syntax, not dynamic
 ownership): deliberate patterns — caller-holds-lock helpers, a copy
 whose serialization is the lock's very purpose — are waived in the code
 with written reasons (`# lint: ok(<pass>) — reason`).
+
+The failure-path passes (failure_path.py) ride the same model: the walk
+also collects resolvable `threading.Thread(target=...)` and pool
+`.submit()` targets, unbounded deadline-family calls (held-lock aware,
+so a Condition's own `.wait()` stays sanctioned) and the classes whose
+instances carry a Future.
 """
 
 from __future__ import annotations
@@ -72,6 +78,39 @@ _MUTATORS = {"append", "appendleft", "extend", "insert", "add", "update",
 _DEVICE_KINDS = {".cpu()", ".item()", ".tolist()", ".numpy()",
                  "torch.cuda.synchronize", ".synchronize()", "np.asarray",
                  "np.array", "numpy.asarray", "numpy.array"}
+
+_FUTURE_CTORS = {"Future", "futures.Future", "concurrent.futures.Future"}
+
+_THREAD_CTORS = {"threading.Thread", "Thread"}
+
+_SUBPROCESS_CALLS = {"subprocess.run", "subprocess.check_output",
+                     "subprocess.check_call", "subprocess.call"}
+
+
+def deadline_kind(node: ast.Call, held: tuple = (),
+                  lock_id=None) -> str | None:
+    """The deadline-discipline call shapes (failure_path.py), held-lock
+    aware so a Condition's own `.wait()` under its lock stays the
+    sanctioned pattern; shared with the module-level walk (held=())."""
+    func = node.func
+    dotted = dotted_name(func)
+    has_timeout = any(kw.arg == "timeout" for kw in node.keywords)
+    if dotted in _SUBPROCESS_CALLS:
+        return None if has_timeout else f"{dotted}(...) without timeout="
+    if not isinstance(func, ast.Attribute):
+        return None
+    attr = func.attr
+    if attr == "communicate":
+        return None if has_timeout else ".communicate() without timeout="
+    if attr in ("join", "result") and not node.args and not has_timeout:
+        return f".{attr}() without timeout"
+    if attr == "get" and not node.args and not node.keywords:
+        return ".get() without timeout"
+    if attr == "wait" and not node.args and not has_timeout:
+        if lock_id is not None and lock_id(func.value) in held:
+            return None     # Condition.wait under its own lock
+        return ".wait() without timeout"
+    return None
 
 
 class _Func:
@@ -107,6 +146,12 @@ class _Model:
         self.entries: set[tuple[str, str]] = set()
         self.properties: set[tuple[str, str]] = set()
         self.thread_closure: set[tuple] = set()
+        # the failure-path facts (failure_path.py): resolvable Thread
+        # targets and pool submit callees, deadline-family call events,
+        # and the classes whose instances carry a Future field
+        self.thread_targets: list[dict] = []
+        self.deadline_events: list[dict] = []
+        self.future_fields: dict[str, str] = {}
         self.ctxs: list[FileContext] = []
         # keys claimed by two different files — dropped before analysis
         # (no resolution beats wrong resolution)
@@ -121,6 +166,8 @@ class _Model:
                 for item in ctx.walk(node):
                     if isinstance(item, ast.Assign):
                         self._class_assign(ctx, node.name, item)
+                    elif isinstance(item, ast.AnnAssign):
+                        self._class_ann(node.name, item)
             elif isinstance(node, ast.Assign):
                 kind = self._lock_ctor(node.value)
                 if kind:
@@ -141,10 +188,39 @@ class _Model:
                 self.locks[f"{cls}.{t.attr}"] = (kind, ctx.path,
                                                  node.lineno)
                 self.lock_attrs.setdefault(t.attr, set()).add(cls)
+            elif isinstance(value, ast.Call) and (
+                    dotted_name(value.func) or "") in _FUTURE_CTORS:
+                # `self.x = Future()`: instances of this class carry a
+                # future a drain site must own
+                self.future_fields.setdefault(cls, t.attr)
             elif isinstance(value, ast.Call) and isinstance(value.func,
                                                             ast.Name):
                 # `self.x = ClassName(...)` pins the attribute's type
                 self.attr_types.setdefault((cls, t.attr), value.func.id)
+
+    def _class_ann(self, cls: str, node: ast.AnnAssign) -> None:
+        """`future: Future = field(default_factory=Future)` or an
+        annotated `self.x: Future = ...`: the class is future-bearing."""
+        is_future = (dotted_name(node.annotation) or "") in _FUTURE_CTORS \
+            or self._future_factory(node.value)
+        if not is_future:
+            return
+        t = node.target
+        if isinstance(t, ast.Name):
+            self.future_fields.setdefault(cls, t.id)
+        elif isinstance(t, ast.Attribute) and isinstance(
+                t.value, ast.Name) and t.value.id == "self":
+            self.future_fields.setdefault(cls, t.attr)
+
+    @staticmethod
+    def _future_factory(value) -> bool:
+        if not isinstance(value, ast.Call):
+            return False
+        if (dotted_name(value.func) or "").rsplit(".", 1)[-1] != "field":
+            return False
+        return any(kw.arg == "default_factory"
+                   and (dotted_name(kw.value) or "") in _FUTURE_CTORS
+                   for kw in value.keywords)
 
     @staticmethod
     def _lock_ctor(value) -> str | None:
@@ -455,6 +531,35 @@ class _FuncWalk:
                 self.m.blocking.append({
                     "kind": kind, "held": held, "ctx": self.fn.ctx,
                     "stmt": stmt, "line": node.lineno, "func": self.key})
+        # failure-path facts: Thread targets, pool submit callees and
+        # deadline-family events, in the same walk
+        if dotted_name(func) in _THREAD_CTORS:
+            for kw in node.keywords:
+                if kw.arg == "target":
+                    target = self._callee(kw.value)
+                    if target is not None:
+                        self.m.thread_targets.append({
+                            "target": target, "ctx": self.fn.ctx,
+                            "stmt": stmt, "line": node.lineno,
+                            "via": "threading.Thread(target=...)",
+                            "discarded": False})
+        if isinstance(func, ast.Attribute) and func.attr == "submit" \
+                and node.args:
+            target = self._callee(node.args[0])
+            if target is not None:
+                # a discarded submit future swallows the callee's
+                # exception; a kept one carries it to .result()
+                discarded = isinstance(stmt, ast.Expr) \
+                    and stmt.value is node
+                self.m.thread_targets.append({
+                    "target": target, "ctx": self.fn.ctx, "stmt": stmt,
+                    "line": node.lineno, "via": ".submit(...)",
+                    "discarded": discarded})
+        dkind = deadline_kind(node, held, self._lock_id)
+        if dkind:
+            self.m.deadline_events.append({
+                "kind": dkind, "ctx": self.fn.ctx, "stmt": stmt,
+                "line": node.lineno, "func": self.key})
     def _blocking_kind(self, node: ast.Call, held: tuple) -> str | None:
         func = node.func
         dotted = dotted_name(func)

@@ -36,6 +36,7 @@ def parse(path: str):
             m = TRAIN_RE.search(line)
             if m:
                 last_iter = int(m["iter"])
+                # lint: ok(host-sync) — a log line's text
                 train_rows.append({
                     "NumIters": last_iter,
                     "LearningRate": float(m["lr"]),
@@ -46,6 +47,7 @@ def parse(path: str):
                 continue
             m = TEST_RE.search(line)
             if m:
+                # lint: ok(host-sync) — a log line's text
                 test_rows.append({
                     "NumIters": last_iter,
                     "TestNet": int(m["net"]),

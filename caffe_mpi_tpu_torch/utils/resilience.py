@@ -994,6 +994,8 @@ class DispatchWatchdog:
             if self.pulse is not None:
                 try:
                     self.pulse()
+                # lint: ok(typed-failure) — the deadline check runs on whatever
+                # the pulse callback does
                 except Exception:  # noqa: BLE001 — the deadline check runs on
                     log.exception("watchdog: pulse callback failed "
                                   "(continuing)")
@@ -1017,6 +1019,8 @@ class DispatchWatchdog:
             try:
                 if self.on_timeout is not None:
                     self.on_timeout(label, elapsed)
+            # lint: ok(typed-failure) — the watchdog's trip (journal and exit)
+            # goes on regardless of its callback
             except Exception:  # noqa: BLE001 — the trip goes on regardless
                 log.exception("watchdog: on_timeout callback failed")
             if self.hard_exit:
@@ -1152,6 +1156,8 @@ class HostHeartbeat:
             self._last_pub = now
             try:
                 self.transport.publish(self.host, self._seq)
+            # lint: ok(typed-failure) — a failed publish is silence, which the
+            # peers' deadline judges
             except Exception as e:  # noqa: BLE001 — failure is silence
                 if not self._pub_warned:
                     self._pub_warned = True
@@ -1169,6 +1175,8 @@ class HostHeartbeat:
                 if seq > self._last_seq[p]:
                     self._last_seq[p] = seq
                     got = True
+            # lint: ok(typed-failure) — a failed read is silence, which the
+            # deadline judges
             except Exception:  # noqa: BLE001 — errors are silence
                 pass
             now = time.monotonic()
@@ -1181,6 +1189,8 @@ class HostHeartbeat:
                     log.info("heartbeat: host %d finished cleanly", p)
                     self._done.add(p)
                     continue
+            # lint: ok(typed-failure) — a failed read is not a clean departure:
+            # the deadline judges
             except Exception:  # noqa: BLE001 — not a clean departure
                 pass
             allowance = self.deadline + (self.grace if self._first[p]
@@ -1198,6 +1208,8 @@ class HostHeartbeat:
         try:
             if self.on_lost is not None:
                 self.on_lost(peer, elapsed)
+        # lint: ok(typed-failure) — the host-lost trip (exit 87) goes on
+        # regardless of its journal
         except Exception:  # noqa: BLE001 — the trip goes on regardless
             log.exception("heartbeat: host-lost journal failed")
         if self.hard_exit:
@@ -1223,6 +1235,8 @@ class HostHeartbeat:
         barrier): peers stop expecting beats."""
         try:
             self.transport.farewell(self.host)
+        # lint: ok(typed-failure) — best effort after the barrier held; a peer
+        # that misses it judges by deadline
         except Exception:  # noqa: BLE001 — best effort, the barrier held
             pass
 
@@ -1306,6 +1320,7 @@ def supervise(first_cmd: list[str], resume_cmd: list[str],
         init_fail = None
         if journal_prefix and rc == EXIT_FAULT:
             man = read_run_manifest(journal_prefix)
+            # lint: ok(host-sync) — a manifest's JSON field
             if (man and man.get("reason") == "cluster_init_failed"
                     and float(man.get("time", 0) or 0) >= t0):
                 init_fail = man.get("error", "")
@@ -1448,6 +1463,8 @@ class SupervisorBeat:
     def start(self) -> None:
         self._thread.start()
 
+    # lint: ok(thread-crash) — a dead beat thread is a silent supervisor, which
+    # the peers' membership round judges
     def _run(self) -> None:
         # a beat thread that dies is a silent supervisor: the peers'
         # membership round decides, as for a dead one
@@ -1577,6 +1594,7 @@ def supervise_elastic(build_cmd, *, prefix: str, host_id: int,
                 cmd += ["-lr_scale",
                         repr(anomaly_lr_mult ** numeric_restarts)]
             child_env = dict(env if env is not None else os.environ)
+            # lint: ok(host-sync) — a configured deadline, a host number
             child_env.update(
                 CAFFE_SUPERVISED_CHILD="1",
                 CAFFE_TPU_CLUSTER_DIR=cdir,
@@ -1626,6 +1644,7 @@ def supervise_elastic(build_cmd, *, prefix: str, host_id: int,
             # test-only: the whole host (supervisor too) goes dark
             dark = FAULTS.fire("host_perma_loss")
             if dark is not None:
+                # lint: ok(host-sync) — a fault site's argument, a host number
                 park = float(dark) if dark else 8.0
                 log.warning("fault host_perma_loss: host %d supervisor "
                             "dark for %.1fs", host_id, park)
@@ -1642,6 +1661,7 @@ def supervise_elastic(build_cmd, *, prefix: str, host_id: int,
                 cur, attempt, resume = newer, 0, True
                 continue
             if rc == EXIT_CLUSTER:
+                # lint: ok(host-sync) — a configured deadline, a host number
                 window = max(float(host_deadline), 8 * interval)
                 live = observe_live_hosts(cdir, world_full, host_id, window)
                 if sorted(live) != sorted(cur["hosts"]) \

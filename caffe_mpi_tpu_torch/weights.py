@@ -91,12 +91,14 @@ def load_jax_opt_state(solver, opt_state: dict) -> None:
                                  f"{len(cur)}")
             slots = [_local(solver.net, lname, pname, a) for a in slots]
             for arr, t in zip(slots, cur):
+                # lint: ok(host-sync) — weights being loaded: host arrays
                 a = np.asarray(arr, np.float32)
                 if a.shape != tuple(t.shape):
                     raise ValueError(f"{lname}.{pname} slot: shape "
                                      f"{a.shape} != {tuple(t.shape)}")
             for arr, t in zip(slots, cur):
                 # in place: a captured iteration holds these very tensors
+                # lint: ok(host-sync) — weights being loaded: host arrays
                 t.copy_(torch.from_numpy(np.array(arr, np.float32)))
             given.add(key)
     missing = sorted(set(solver.history) - given)

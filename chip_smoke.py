@@ -319,11 +319,25 @@ Phases, in order; any failure exits nonzero and prints no result line:
              as configured; then, cuDNN
              deterministic, 5 iterations of AlexNet flat, with
              `reduce_overlap` (6 buckets, the hooks' all-reduces) and
-             with `zero_stage: 1`: both equal to flat element for element.
-             (c) with more than one card, NCCL over min(cards, 4) through
+             with `zero_stage: 1`: both equal to flat element for element;
+             AlexNet with fc6 ruled ("data", None) (`param_shardings`:
+             each rank holds half of fc6's weight and its slots, gathered
+             on use) under `zero_stage: 1`, 3 iterations against the
+             one-process AlexNet run at 1e-2 (planted fault: after the
+             first step rank 0's fc6 shard takes the other rank's rows),
+             K1/K2 counted a rank; and the host layer over the ranks:
+             examples/kitti/detectnet_tiny.prototxt as written (b8
+             global, 4 a rank, 3x64x128) with run.py's Adam solver on
+             the seeded kitti scenes, 5 iterations against one process
+             at 1e-2 (planted fault: each rank steps the
+             DetectNetTransformation on its own rows, so a sample draws
+             by its local row index). (c) with more than one card, NCCL over min(cards, 4) through
              `train -gpu 0,..,k-1` (skipped on one card): AlexNet flat
              and with `-reduce_overlap`, and ResNet-50, whose first
              (eager) loss is held to 1e-3 of world 1's; then BatchNorm
+             alone under NCCL inside captured CUDA graphs, and DetectNet
+             (`--kitti-rank` processes, one a card) against card 0 by
+             the rule of (b), with its planted fault; and BatchNorm
              alone under NCCL inside captured CUDA graphs
              (`_bn_graphs`, `--bn-rank` processes, one a card): at each
              of ResNet-50's 9 shapes one graph of `_GlobalBatchNorm`'s
@@ -439,6 +453,15 @@ Phases, in order; any failure exits nonzero and prints no result line:
              `utils/timers.Timer` against a bare event pair around the
              same AlexNet forward, within 5% or 20 us. `--only shapes`
              runs it alone.
+30. lint  — `python -m caffe_mpi_tpu_torch.tools.lint` over the port's
+             tree, in a process started beside the build: it must exit
+             0. Prints the `gated-imports` modules this machine lacks and
+             the concrete-init probe (`--concrete-probe`, a process of
+             its own): a 0-d card tensor in a scalar slot of an op under
+             a CUDA-graph capture, as torch.tensor(v, device=...) and as
+             torch.zeros((), device=...), beside a Python scalar: whether
+             each captures, its replay against the eager result, and a
+             replay's device us.
 29. fleet — `cli serve -replicas 2` as FleetSupervisor runs it, on
              AlexNet deploy f32 at full width on card 0, started as soon
              as lrn.cu is built, beside flash_attention.cu's nvcc; each
@@ -5437,6 +5460,8 @@ def _lenet_cases(tmp) -> dict:
         futs = {k: ex.submit(_supervised, f"lenet_{k}", LENET,
                              os.path.join(tmp, k, "lenet"), f, extra)
                 for k, (f, extra) in cases.items()}
+        # lint: ok(deadline-discipline) — each supervised case bounds its own
+        # run (_supervised's timeout)
         res = {k: f.result() for k, f in futs.items()}
     out = {}
     wd = res["watchdog"]
@@ -5825,8 +5850,13 @@ DP_CARDS_DEADLINE = 240  # a CLI run over the cards (~1 min when sound)
 
 
 def _dp_state(solver) -> dict:
-    """_state with the whole history (ZeRO-1 shards gathered)."""
+    """_state with the whole params and history (a rule's shards and
+    ZeRO-1's gathered: a collective, every rank calls it)."""
     out = _state(solver)
+    for lname, pname, _, p in solver._decls:
+        if solver.net.sharded(lname, pname):
+            out[f"{lname}.{pname}"] = solver.net.gather_param(
+                lname, pname, p).detach().cpu().clone()
     for (lname, pname), slots in solver.full_history().items():
         for i, h in enumerate(slots):
             out[f"{lname}.{pname}.h{i}"] = h.cpu().clone()
@@ -5854,13 +5884,16 @@ def _float_math(sp) -> None:
     sp.net, sp.net_param = "", param
 
 
-def _dp_run(net, mesh=None, edit=None, iters=DP_RULE_ITERS, fault=None):
+def _dp_run(net, mesh=None, edit=None, iters=DP_RULE_ITERS, fault=None,
+            shardings=None):
     """`iters` eager iterations of the zoo net's solver on its synthetic
-    batch (this rank's slice under `mesh`), every launch count 0 just
-    before: (state, facts). `fault` plants one: "reduce" leaves rank 1's
-    gradients out of the all-reduce of iteration DP_FAULT_ITER,
-    "bn_all" / "bn_last" run every BatchNorm / the last one on the
-    rank's own batch statistics."""
+    batch (this rank's slice under `mesh`; `shardings` its
+    param_shardings), every launch count 0 just before: (state, facts).
+    `fault` plants one: "reduce" leaves rank 1's gradients out of the
+    all-reduce of iteration DP_FAULT_ITER, "bn_all" / "bn_last" run every
+    BatchNorm / the last one on the rank's own batch statistics,
+    "rule_slice" gives rank 0's fc6 shard the other rank's rows after
+    the first step."""
     from caffe_mpi_tpu_torch.proto import SolverParameter
     from caffe_mpi_tpu_torch.solver import Solver
     from caffe_mpi_tpu_torch.tools import cli
@@ -5874,7 +5907,8 @@ def _dp_run(net, mesh=None, edit=None, iters=DP_RULE_ITERS, fault=None):
     model_dir = "" if not sp.net or os.path.exists(sp.net) \
         else os.path.dirname(path)
     solver = Solver(sp, model_dir=model_dir,
-                    device=None if mesh else "cuda", mesh=mesh)
+                    device=None if mesh else "cuda", mesh=mesh,
+                    param_shardings=shardings)
     rank, world = (mesh.rank, mesh.n_data) if mesh else (0, 1)
     feeds = cli.synthetic_feed(solver.net, 0, rank, world)
     if fault == "reduce" and rank == 1:
@@ -5895,6 +5929,8 @@ def _dp_run(net, mesh=None, edit=None, iters=DP_RULE_ITERS, fault=None):
     torch.cuda.synchronize()
     if iters > 1:  # the collectives are timed over the steps after it
         solver.step(1, lambda it: feeds)
+    if fault == "rule_slice":
+        _wrong_rows(solver, "fc6")
     if mesh is not None:
         mesh.timing = True
         mesh.collective_ms()
@@ -5915,11 +5951,115 @@ def _dp_run(net, mesh=None, edit=None, iters=DP_RULE_ITERS, fault=None):
             (mesh.collectives.launches - c0) / timed
         facts["reduction"] = solver.reduction_stats()
         mesh.timing = False
+    if shardings:  # what each rank holds of a ruled layer's weight
+        key = (next(iter(shardings)), "weight")
+        facts["ruled_shard"] = list(solver.net.layer_by_name(key[0])
+                                    .weight.shape)
+        facts["ruled_slots"] = [list(h.shape) for h in solver.history[key]]
     state = _dp_state(solver)
     state["loss"] = torch.tensor(solver.losses)
     del solver, feeds
     torch.cuda.empty_cache()
     return state, facts
+
+
+def _wrong_rows(solver, lname: str) -> None:
+    """A planted fault: rank 0's shard of `lname`'s weight (split over
+    'data' by a rule) takes the next data index's rows (every rank
+    gathers the weight, rank 0 copies)."""
+    layer = solver.net.layer_by_name(lname)
+    whole = solver.net.gather_param(lname, "weight", layer.weight)
+    mesh = solver.mesh
+    if mesh.rank == 0:
+        n = layer.weight.shape[0]
+        lo = (mesh.data_index + 1) % mesh.n_data * n
+        with torch.no_grad():
+            layer.weight.copy_(whole[lo:lo + n])
+
+
+def _kitti_dp_run(mesh=None, fault=None) -> tuple[dict, dict]:
+    """KITTI_DP_ITERS iterations of examples/kitti/detectnet_tiny.prototxt
+    as written (b8 global) with run.py's Adam solver, FLOAT math, on the
+    seeded kitti scenes (this rank's rows under `mesh`): (state, facts).
+    `fault` "local_rows": each rank steps the DetectNetTransformation on
+    its own rows (`Layer.host_ranks` gone), so a sample draws by its
+    local row index."""
+    from caffe_mpi_tpu_torch.layers.base import Layer
+    from caffe_mpi_tpu_torch.proto import NetParameter, SolverParameter
+    from caffe_mpi_tpu_torch.solver import Solver
+    sp = SolverParameter.from_text(
+        'type: "Adam" base_lr: 0.001 momentum: 0.9 momentum2: 0.999 '
+        f'lr_policy: "fixed" display: 0 max_iter: {KITTI_DP_ITERS} '
+        "random_seed: 3")
+    param = NetParameter.from_file(KITTI)
+    param.default_forward_math = param.default_backward_math = "FLOAT"
+    sp.net_param = param
+    solver = Solver(sp, device=None if mesh else "cuda", mesh=mesh)
+    feed = _kitti_feed(KITTI_DP_BATCH)
+    fn = feed if mesh is None else (lambda it: {
+        k: mesh.shard(v) for k, v in feed(it).items()})
+    real = Layer.host_ranks
+    if fault == "local_rows":
+        Layer.host_ranks = lambda self: None
+    try:
+        solver.step(KITTI_DP_ITERS, fn)
+        torch.cuda.synchronize()
+    finally:
+        Layer.host_ranks = real
+    facts = {"losses": list(solver.losses),
+             "step_ms": float(np.median(solver.iter_ms[1:])),
+             "graph_route": solver.graph_route,
+             "reduction": (solver.reduction_stats() or {}).get("mode")}
+    if not np.all(np.isfinite(facts["losses"])):
+        fail(f"dp kitti: losses {facts['losses']}")
+    state = _dp_state(solver)
+    state["loss"] = torch.tensor(solver.losses)
+    del solver
+    torch.cuda.empty_cache()
+    return state, facts
+
+
+def _kitti_rank_runs(mesh, tmp: str) -> dict:
+    """KITTI_DP_RUNS on this rank; rank 0's states to tmp/<run>.pt."""
+    out = {}
+    for name, fault in KITTI_DP_RUNS:
+        state, out[name] = _kitti_dp_run(mesh, fault)
+        out[name]["digest"] = _digest(state)
+        if mesh.rank == 0:
+            torch.save(state, os.path.join(tmp, f"{name}.pt"))
+        del state
+    return out
+
+
+def kitti_rank_main(rank: int, world: int, port: int, tmp: str) -> int:
+    """A rank of DetectNet over the cards (`--kitti-rank`, part (c)): NCCL,
+    one card a rank; its facts to tmp/rank<k>.json."""
+    from caffe_mpi_tpu_torch.parallel import mesh as mesh_mod
+    mesh_mod.init_distributed(f"127.0.0.1:{port}", world, rank,
+                              backend="nccl",
+                              device=torch.device(f"cuda:{rank}"))
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.set_device(rank)
+    mesh = mesh_mod.MeshPlan.from_shape(world)
+    out = _kitti_rank_runs(mesh, tmp)
+    mesh_mod.cluster_barrier("exit", 120)
+    mesh_mod.shutdown_distributed()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _kitti_rules(ref, tmp: str) -> dict:
+    """Each KITTI_DP_RUNS run's rule against the one-process state; a
+    planted fault must break it."""
+    out = {}
+    for name, fault in KITTI_DP_RUNS:
+        got = torch.load(os.path.join(tmp, f"{name}.pt"))
+        out[name] = _step_rule(ref, got, DP_RULE_BOUND)
+        if out[name]["held"] == bool(fault):
+            fail(f"dp {name} (planted fault {fault}) "
+                 f"{'held' if fault else 'broke'} the rule: {out[name]}")
+    return out
 
 
 def _step_rule(ref, got, bound, keys=None) -> dict:
@@ -5942,6 +6082,20 @@ def _stats_keys(state) -> list:
     """ResNet-50's forward after one iteration: every BatchNorm's running
     mean and variance (its global-batch statistics) and the loss."""
     return [k for k in state if k.endswith((".mean", ".var"))] + ["loss"]
+
+
+# part (b)'s param_sharding rule (fc6's weight split over 'data', gathered
+# on use) under ZeRO-1: (run, planted fault), each against the
+# one-process AlexNet run
+DP_RULE = {"fc6": ("data", None)}
+DP_RULE_ZERO_RUNS = (("alexnet_rule_zero", None),
+                     ("alexnet_rule_zero_fault", "rule_slice"))
+# part (b)'s host layer over the ranks: DetectNet as written, each run
+# against one process
+KITTI_DP_ITERS = 5
+KITTI_DP_BATCH = 8
+KITTI_DP_RUNS = (("kitti", None), ("kitti_local_rows", "local_rows"))
+KITTI_CARDS_DEADLINE = 300  # a --kitti-rank process over the cards
 
 
 # the rule's runs on the ranks: (name, net, planted fault, iterations);
@@ -6143,6 +6297,8 @@ def _bn_cards(n: int, card: str) -> dict:
             for proc in procs:
                 if proc.poll() is None:
                     proc.kill()
+                    # lint: ok(deadline-discipline) — the process was SIGKILLed
+                    # the line above: its wait returns
                     proc.wait()
         for r, (proc, (_, err)) in enumerate(zip(procs, outs)):
             if proc.returncode != 0:
@@ -6199,6 +6355,18 @@ def dp_rank_main(rank: int, port: int, tmp: str) -> int:
     def zero(sp):
         sp.zero_stage = 1
 
+    def rule_zero(sp):
+        _float_math(sp)
+        sp.zero_stage = 1
+
+    for name, fault in DP_RULE_ZERO_RUNS:
+        state, out[name] = _dp_run("alexnet", mesh, edit=rule_zero,
+                                   fault=fault, shardings=DP_RULE)
+        out[name]["digest"] = _digest(state)
+        if rank == 0:
+            torch.save(state, os.path.join(tmp, f"{name}.pt"))
+        del state
+    out.update(_kitti_rank_runs(mesh, tmp))
     exact = {}
     for name, edit in (("flat", None), ("overlap", overlap),
                        ("zero", zero)):
@@ -6286,7 +6454,8 @@ def _dp_two_ranks(card: str) -> dict:
     try:
         refs = {"alexnet": _dp_run("alexnet", edit=_float_math)[0],
                 "resnet50": _dp_run("resnet50", edit=_float_math,
-                                    iters=1)[0]}
+                                    iters=1)[0],
+                "kitti": _kitti_dp_run()[0]}
     finally:
         torch.backends.cudnn.deterministic = det
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dp2_")
@@ -6307,6 +6476,8 @@ def _dp_two_ranks(card: str) -> dict:
             for proc in procs:
                 if proc.poll() is None:
                     proc.kill()
+                    # lint: ok(deadline-discipline) — the process was SIGKILLed
+                    # the line above: its wait returns
                     proc.wait()
         for r, (proc, (_, err)) in enumerate(zip(procs, outs)):
             if proc.returncode != 0:
@@ -6321,6 +6492,14 @@ def _dp_two_ranks(card: str) -> dict:
             rules[name] = _step_rule(refs[net], got, DP_RULE_BOUND) \
                 if net == "alexnet" else _step_rule(
                     refs[net], got, DP_STATS_BOUND, _stats_keys(got))
+        for name, fault in DP_RULE_ZERO_RUNS:
+            got = torch.load(os.path.join(tmp, f"{name}.pt"))
+            rules[name] = _step_rule(refs["alexnet"], got, DP_RULE_BOUND)
+            if rules[name]["held"] == bool(fault):
+                fail(f"dp two ranks: {name} (planted fault {fault}) "
+                     f"{'held' if fault else 'broke'} the rule: "
+                     f"{rules[name]}")
+        rules.update(_kitti_rules(refs["kitti"], tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     del refs
@@ -6348,18 +6527,31 @@ def _dp_two_ranks(card: str) -> dict:
     red = r0["exact_overlap"]["reduction"]
     if red["mode"] != "bucketed" or red["reduce_buckets"] != 6:
         fail(f"dp two ranks: overlap {red}")
-    for name in ("alexnet", "exact_flat"):
+    for name in ("alexnet", "exact_flat", "alexnet_rule_zero"):
         for r in ranks:
             if not (r[name]["launches"]["K1"] and r[name]["launches"]["K2"]):
                 fail(f"dp two ranks: {name}: K1/K2 {r[name]['launches']}")
+    for r in ranks:  # fc6 split over 'data' with its slots, out of ZeRO-1
+        ru = r["alexnet_rule_zero"]
+        if ru["ruled_shard"] != [2048, 9216] or \
+                ru["ruled_slots"] != [[2048, 9216]] or \
+                "fc6.weight" in ru["reduction"]["zero_slots"] or \
+                "fc7.weight" not in ru["reduction"]["zero_slots"]:
+            fail(f"dp two ranks: fc6's rule placed {ru}")
+        for name, _ in KITTI_DP_RUNS:
+            if r[name]["reduction"] != "implicit" or \
+                    not r[name]["graph_route"].startswith("eager"):
+                fail(f"dp two ranks: {name}: {r[name]}")
     keep = ("step_ms", "collective_ms_per_step", "collectives_per_step",
-            "launches", "graphs")
+            "launches", "graphs", "ruled_shard", "ruled_slots")
     out = {"rule": rules, "card": card,
            "bn_alone": {f"rank{r}": facts.pop("bn_alone")
                         for r, facts in enumerate(ranks)}}
     for name in r0:
-        out[name] = {"rank0": {k: r0[name][k] for k in keep},
-                     "rank1": {k: r1[name][k] for k in keep},
+        out[name] = {"rank0": {k: r0[name][k] for k in keep
+                               if k in r0[name]},
+                     "rank1": {k: r1[name][k] for k in keep
+                               if k in r1[name]},
                      "reduction": r0[name]["reduction"]}
         if "equal_to_flat" in r0[name]:
             out[name]["equal_to_flat"] = r0[name]["equal_to_flat"]
@@ -6381,6 +6573,8 @@ def _dp_cli(tmp, name, gpu, extra=(), solver=SOLVER) -> dict:
     except subprocess.TimeoutExpired:
         # SIGTERM: the CLI kills its workers' process groups, then exits
         proc.terminate()
+        # lint: ok(deadline-discipline) — the process was signalled to die the
+        # lines above: this only drains its pipes
         out, err = proc.communicate()
         fail(f"dp -gpu {gpu} {' '.join(extra)}: over {DP_CARDS_DEADLINE} s: "
              f"{err[-3000:]}")
@@ -6428,7 +6622,63 @@ def _dp_cards(card: str) -> dict | None:
         fail(f"dp over {n} cards: overlap {out['overlap']['reduction']}")
     out["resnet50"] = _dp_cards_resnet50(n, card)
     out["bn_graphs_nccl"] = _bn_cards(n, card)
+    out["kitti"] = _kitti_cards(n, card)
     return out
+
+
+def _kitti_cards(n: int, card: str) -> dict:
+    """DetectNet (KITTI_DP_RUNS) over n cards under NCCL, a card a rank
+    (`--kitti-rank` processes), against one process on card 0 by the
+    rule of part (b)."""
+    from caffe_mpi_tpu_torch.parallel.mesh import free_port
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, ref_facts = _kitti_dp_run()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
+    try:
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--kitti-rank", str(r), "--kitti-world", str(n),
+             "--kitti-port", str(port), "--kitti-dir", tmp],
+            cwd=ROOT, env=dict(os.environ,
+                               CAFFE_TPU_COLLECTIVE_TIMEOUT="120"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(n)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=KITTI_CARDS_DEADLINE))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    # lint: ok(deadline-discipline) — SIGKILLed the line
+                    # above: its wait returns
+                    proc.wait()
+        for r, (proc, (_, err)) in enumerate(zip(procs, outs)):
+            if proc.returncode != 0:
+                fail(f"dp kitti rank {r} of {n} exited {proc.returncode}: "
+                     f"{err[-3000:]}")
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        rules = _kitti_rules(ref, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, _ in KITTI_DP_RUNS:
+        if len({r[name]["digest"] for r in ranks}) != 1:
+            fail(f"dp kitti over {n} cards: {name}: the ranks differ")
+    return {"cards": n, "batch": KITTI_DP_BATCH, "iters": KITTI_DP_ITERS,
+            "rule": rules, "losses": ranks[0]["kitti"]["losses"],
+            "one_card_losses": ref_facts["losses"],
+            "step_ms_rank0": ranks[0]["kitti"]["step_ms"],
+            "one_card_step_ms": ref_facts["step_ms"],
+            "reduction": ranks[0]["kitti"]["reduction"], "card": card}
 
 
 def _dp_cards_resnet50(n: int, card: str) -> dict:
@@ -6473,10 +6723,13 @@ def dp_phase(k1: dict, k2: dict, card: str) -> dict:
     k2["launches_by_path"]["dp_world1"] = out["world1_nccl"]["K2"]
     out["two_ranks_gloo"] = _dp_two_ranks(card)
     a = out["two_ranks_gloo"]["alexnet"]
+    rule = out["two_ranks_gloo"]["alexnet_rule_zero"]
     for k, counter in (("K1", k1), ("K2", k2)):
         for r in ("rank0", "rank1"):
             counter["launches_by_path"][f"dp_gloo_{r}"] = \
                 a[r]["launches"][k]
+            counter["launches_by_path"][f"dp_rule_zero_gloo_{r}"] = \
+                rule[r]["launches"][k]
     out["nccl_cards"] = _dp_cards(card)
     log(f"dp: {json.dumps(out)}")
     return out
@@ -7051,6 +7304,8 @@ def _mp_ranks(procs: list, tmp: str) -> list[dict]:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
+                # lint: ok(deadline-discipline) — the process was SIGKILLed the
+                # line above: its wait returns
                 proc.wait()
     for r, (proc, (_, err)) in enumerate(zip(procs, outs)):
         if proc.returncode != 0:
@@ -7099,6 +7354,8 @@ def _mp_one_card(card: str) -> dict:
             for proc in sum(procs.values(), []):
                 if proc.poll() is None:
                     proc.kill()
+                    # lint: ok(deadline-discipline) — the process was SIGKILLed
+                    # the line above: its wait returns
                     proc.wait()
         rules = {}
         for name, net, flash, _, fault in MP_RUNS + MP_PP_RUNS:
@@ -7233,6 +7490,8 @@ def _mp_cli(tmp, name, solver, extra=(), iters=MP_CARDS_ITERS,
         os.killpg(proc.pid, signal.SIGABRT)
         time.sleep(5)
         os.killpg(proc.pid, signal.SIGKILL)
+        # lint: ok(deadline-discipline) — the process was signalled to die the
+        # lines above: this only drains its pipes
         out, err = proc.communicate()
         fail(f"mp {name}: over {MP_CARDS_DEADLINE} s: {err[-6000:]}")
     lines = [l for l in out.splitlines() if l.startswith('{"train"')]
@@ -7952,6 +8211,8 @@ def _elastic_wait(procs, t_end) -> list:
         for p in procs:
             if p.poll() is None:
                 os.killpg(p.pid, signal.SIGKILL)
+                # lint: ok(deadline-discipline) — the process was SIGKILLed the
+                # line above: its wait returns
                 p.wait()
     return [p.returncode for p in procs]
 
@@ -8738,6 +8999,8 @@ def fleet_phase(card: str, quiet=None) -> dict:
         # the two-replica baseline, then the kill while traffic flows
         if quiet is not None:
             t0 = time.perf_counter()
+            # lint: ok(deadline-discipline) — main sets `quiet` in a finally
+            # once the runs beside the build end, whatever their outcome
             quiet.wait()
             out["waited_for_the_build_s"] = time.perf_counter() - t0
         probe = uploads[0]
@@ -9033,6 +9296,105 @@ def _fleet_cards(card: str) -> dict | None:
     return out
 
 
+# -- 30. lint ------------------------------------------------------------------
+
+LINT_DEADLINE = 300        # the lint's process and the probe's
+PROBE_REPLAYS = 50
+
+
+def start_lint():
+    """The port's lint over its tree and the concrete-init probe, each in a
+    process of its own, started beside the build: (lint, probe, t0)."""
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "caffe_mpi_tpu_torch.tools.lint", "--json"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    probe = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--concrete-probe"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return lint, probe, time.perf_counter()
+
+
+def concrete_probe_main() -> int:
+    """`--concrete-probe`: a 0-d card tensor in a scalar slot of an op under
+    a CUDA-graph capture (the concrete-init pass's shape), as
+    torch.tensor(v, device=...) and as torch.zeros((), device=...), beside
+    the Python scalar: whether each captures, whether a replay equals the
+    eager result, and a replay's device us. Prints one JSON line."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: no card")
+    x = torch.randn(1 << 20, device="cuda")
+    forms = {
+        "python_scalar": lambda t: torch.where(t > 0, t, 0.0) * 2.0,
+        "zeros_0d": lambda t: torch.where(
+            t > 0, t, torch.zeros((), device=t.device)) * 2.0,
+        "tensor_0d": lambda t: torch.where(t > 0, t, 0.0) * torch.tensor(
+            2.0, device=t.device)}
+    want = forms["python_scalar"](x)
+    out = {}
+    for name, fn in forms.items():
+        static = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(static)  # warm, outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                y = fn(static)
+        except RuntimeError as e:  # the capture refused the form
+            out[name] = {"captured": False,
+                         "error": f"{type(e).__name__}: {str(e)[:300]}"}
+            torch.cuda.synchronize()
+            continue
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        for _ in range(PROBE_REPLAYS):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = {"captured": True, "equal": bool(torch.equal(y, want)),
+                     "replay_us": start.elapsed_time(end) * 1e3
+                     / PROBE_REPLAYS}
+        del graph
+    print(json.dumps({"concrete_init_probe": out}), flush=True)
+    return 0
+
+
+def lint_phase(run, card: str) -> dict:
+    """Wait for `start_lint`'s processes: the lint must exit 0 with no
+    finding; the probe's result and the gated modules this machine lacks
+    are printed."""
+    import importlib.util
+    from caffe_mpi_tpu_torch.tools.lint.gated_imports import GATED_MODULES
+    lint, probe, t0 = run
+    out, err = lint.communicate(timeout=LINT_DEADLINE)
+    lint_s = time.perf_counter() - t0
+    findings = json.loads(out) if out.strip().startswith("[") else None
+    if lint.returncode != 0 or findings != []:
+        fail(f"lint: exit {lint.returncode}: {out[-3000:]} {err[-2000:]}")
+    pout, perr = probe.communicate(timeout=LINT_DEADLINE)
+    lines = [l for l in pout.splitlines()
+             if l.startswith('{"concrete_init_probe"')]
+    if probe.returncode != 0 or len(lines) != 1:
+        fail(f"lint: concrete-init probe exit {probe.returncode}: "
+             f"{perr[-3000:]}")
+    res = {"exit": lint.returncode, "findings": 0,
+           # from its start to its collection (after the build, in the
+           # whole script)
+           "seconds": round(lint_s, 1),
+           "gated_absent": sorted(m for m in GATED_MODULES
+                                  if importlib.util.find_spec(m) is None),
+           **json.loads(lines[0]), "card": card}
+    log(f"lint: {json.dumps(res)}")
+    return res
+
+
 class _PhaseClock:
     """Wall seconds of each group of phases, for the time limit."""
 
@@ -9058,7 +9420,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # the dp phase's gloo ranks
     ap.add_argument("--dp-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--dp-dir", default="", help=argparse.SUPPRESS)
-    for part in ("mp", "bn"):   # the mp phase's and the BatchNorm ranks
+    # the mp phase's, the BatchNorm and DetectNet ranks over the cards
+    for part in ("mp", "bn", "kitti"):
         ap.add_argument(f"--{part}-rank", type=int, default=None,
                         help=argparse.SUPPRESS)
         ap.add_argument(f"--{part}-world", type=int, default=0,
@@ -9067,14 +9430,19 @@ def main(argv=None) -> int:
                         help=argparse.SUPPRESS)
         ap.add_argument(f"--{part}-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--mp-nccl", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=["dp_cards", "mp", "mp_cards",
+    ap.add_argument("--concrete-probe", action="store_true",
+                    help=argparse.SUPPRESS)  # the lint phase's probe
+    ap.add_argument("--only", choices=["dp", "dp_cards", "mp", "mp_cards",
                                        "gpipe", "gpipe_cards", "eval",
                                        "elastic", "shapes", "fleet",
-                                       "fleet_cards"],
+                                       "fleet_cards", "lint"],
                     default=None,
                     help="run one part alone (prints no ok line): "
+                    "dp = the dp phase on one card (its NCCL runs over "
+                    "the cards where there are more); "
                     "dp_cards = the dp phase's NCCL runs (AlexNet, "
-                    "ResNet-50, BatchNorm in replayed graphs) over "
+                    "ResNet-50, BatchNorm in replayed graphs, DetectNet) "
+                    "over "
                     "min(cards, 4) cards against one card (needs more than "
                     "one card); mp = the mp phase's part (a), gloo ranks "
                     "sharing card 0; mp_cards = its part (b), NCCL over 4 "
@@ -9083,12 +9451,18 @@ def main(argv=None) -> int:
                     "over 4 cards against all stages on card 0 (needs 4); "
                     "shapes = the static engine against the card; "
                     "fleet = the serving fleet on card 0; fleet_cards = "
-                    "four replicas, one a card (needs 4)")
+                    "four replicas, one a card (needs 4); lint = the lint "
+                    "phase (the port's lint and the concrete-init probe)")
     args = ap.parse_args(argv)
+    if args.concrete_probe:
+        return concrete_probe_main()
     if args.dp_rank is not None or args.mp_rank is not None \
-            or args.bn_rank is not None:
+            or args.bn_rank is not None or args.kitti_rank is not None:
         if not torch.cuda.is_available():
             fail("torch.cuda.is_available() is False: no card")
+        if args.kitti_rank is not None:
+            return kitti_rank_main(args.kitti_rank, args.kitti_world,
+                                   args.kitti_port, args.kitti_dir)
         if args.mp_rank is not None:
             return mp_rank_main(args.mp_rank, args.mp_world, args.mp_port,
                                 args.mp_dir, args.mp_nccl)
@@ -9100,10 +9474,13 @@ def main(argv=None) -> int:
         os.chdir(ROOT)
         card, _ = device_phase()
         from caffe_mpi_tpu_torch.ops import build
-        if args.only == "dp_cards":
+        if args.only in ("dp", "dp_cards"):
             for src in ("lrn.cu", build.NATIVE):
                 build.build(src)
-            res = _dp_cards(card)
+            res = _dp_cards(card) if args.only == "dp_cards" else dp_phase(
+                {"launches_by_path": {}}, {"launches_by_path": {}}, card)
+        elif args.only == "lint":
+            res = lint_phase(start_lint(), card)
         elif args.only == "mp":
             with ThreadPoolExecutor(2) as ex:
                 list(ex.map(build.build, ("lrn.cu", "flash_attention.cu")))
@@ -9119,15 +9496,24 @@ def main(argv=None) -> int:
             nets_run = start_shapes_nets()
             with ThreadPoolExecutor(2) as ex:
                 list(ex.map(build.build, ("lrn.cu", "flash_attention.cu")))
+            # lint: ok(deadline-discipline) — a phase's future: each phase
+            # bounds its runs with its own deadlines, and the script's time
+            # limit bounds the whole
             res = shapes_phase(nets_run.result(), {}, [{}], card)
             res["seconds"] = round(time.perf_counter() - t0, 1)
         elif args.only == "fleet":
+            # lint: ok(deadline-discipline) — a phase's future: each phase
+            # bounds its runs with its own deadlines, and the script's time
+            # limit bounds the whole
             res = start_fleet_phase(card).result()
         elif args.only == "fleet_cards":
             res = _fleet_cards(card)
         elif args.only == "elastic":  # LeNet launches no kernel of the repo
             fut, tmp = start_elastic_case()
             try:
+                # lint: ok(deadline-discipline) — a phase's future: each phase
+                # bounds its runs with its own deadlines, and the script's time
+                # limit bounds the whole
                 res = elastic_phase(fut.result(), card)
             finally:
                 shutil.rmtree(tmp, ignore_errors=True)
@@ -9136,6 +9522,9 @@ def main(argv=None) -> int:
             with ThreadPoolExecutor(2) as ex:
                 built = [ex.submit(build.build, f)
                          for f in ("lrn.cu", "flash_attention.cu")]
+                # lint: ok(deadline-discipline) — a phase's future: each phase
+                # bounds its runs with its own deadlines, and the script's time
+                # limit bounds the whole
                 res = _mp_cards(card, lambda: [f.result() for f in built])
         if res is None:
             fail(f"--only {args.only} needs more cards than "
@@ -9155,20 +9544,38 @@ def main(argv=None) -> int:
     import threading
     quiet = threading.Event()
     fleet_run = start_fleet_phase(card, quiet)
+    lint_run = start_lint()
     with ThreadPoolExecutor(max_workers=1) as ex:
         build_run = ex.submit(build_phase)
         try:
+            # lint: ok(deadline-discipline) — a phase's future: each phase
+            # bounds its runs with its own deadlines, and the script's time
+            # limit bounds the whole
             lenet = lenet_run.result()
+            # lint: ok(deadline-discipline) — a phase's future: each phase
+            # bounds its runs with its own deadlines, and the script's time
+            # limit bounds the whole
             elastic_facts = elastic_run.result()
+            # lint: ok(deadline-discipline) — a phase's future: each phase
+            # bounds its runs with its own deadlines, and the script's time
+            # limit bounds the whole
             shapes_nets = shapes_run.result()
         finally:
             shutil.rmtree(lenet_tmp, ignore_errors=True)
             shutil.rmtree(elastic_tmp, ignore_errors=True)
-        # the runs beside the build are over (one nvcc may still run): the
-        # fleet's timed runs start
-        quiet.set()
+            # the runs beside the build are over (one nvcc may still
+            # run): the fleet's timed runs start, and a failed run above
+            # leaves no fleet thread waiting
+            quiet.set()
+        # lint: ok(deadline-discipline) — a phase's future: each phase bounds
+        # its runs with its own deadlines, and the script's time limit bounds
+        # the whole
         build_run.result()
     clock("build")
+    lint = lint_phase(lint_run, card)
+    clock("lint")  # the lint's wall past the build
+    # lint: ok(deadline-discipline) — a phase's future: each phase bounds its
+    # runs with its own deadlines, and the script's time limit bounds the whole
     fleet = fleet_run.result()
     clock("fleet")  # the fleet phase's wall past the build
     # the elastic runs, the shapes phase's builds and the fleet phase
@@ -9250,6 +9657,7 @@ def main(argv=None) -> int:
     print(json.dumps({"elastic": elastic}), flush=True)
     print(json.dumps({"shapes": shapes}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
+    print(json.dumps({"lint": lint}), flush=True)
     for pool in _CLIENTS:
         pool.shutdown()
     print(json.dumps({"phase_seconds": clock.seconds}), flush=True)

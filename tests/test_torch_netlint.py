@@ -60,9 +60,10 @@ def test_the_port_registers_the_six_net_passes():
     lint._load_passes()
     jlint._load_passes()
     assert set(netlint.NET_PASSES) == set(jnetlint.NET_PASSES)
-    # beside them, the three concurrency passes (tools/lint/concurrency.py)
-    assert set(lint.REGISTRY) == set(netlint.NET_PASSES) | set(
-        CONCURRENCY_PASSES)
+    # beside them, the concurrency passes and every other pass of the
+    # JAX package's lint (tests/test_torch_lint_passes.py)
+    assert set(lint.REGISTRY) == set(jlint.REGISTRY)
+    assert set(CONCURRENCY_PASSES) <= set(lint.REGISTRY)
     for name in netlint.NET_PASSES:
         assert lint.REGISTRY[name].description == \
             jlint.REGISTRY[name].description
@@ -237,11 +238,11 @@ def test_a_python_waiver_naming_an_unknown_pass_is_a_finding(tmp_path):
 def test_the_cli_lists_selects_and_prints_json(capsys):
     assert lint.main(["--list"]) == 0
     listed = capsys.readouterr().out.split("\n")
-    assert [l.split()[0] for l in listed if l] == sorted(
-        netlint.NET_PASSES + CONCURRENCY_PASSES)
+    jlint._load_passes()
+    assert [l.split()[0] for l in listed if l] == sorted(jlint.REGISTRY)
     assert lint.main(["--json", "--select", "net-shape,net-wiring"]) == 0
     assert json.loads(capsys.readouterr().out) == []
-    assert lint.main(["--select", "host-sync"]) == 2
+    assert lint.main(["--select", "no-such-pass"]) == 2
     assert "unknown pass" in capsys.readouterr().err
     assert lint.main(["no/such/path.py"]) == 2
 

@@ -283,6 +283,17 @@ def test_world_one_plan_shards_and_refuses_tensor_parallelism():
     # one model rank: the rules place nothing
     placement = plan.param_sharding_rules({"ip": ("model", None)})
     assert placement.spec("ip", "weight", 2) is None
+    # a ("data", None) rule: whole at world 1, split over two data ranks
+    # with a model axis of one rank (as the JAX PartitionSpec places it)
+    assert plan.param_sharding_rules({"ip": ("data", None)}).spec(
+        "ip", "weight", 2) is None
+    dp = MeshPlan(n_data=2, rank=1, device=torch.device("cpu"),
+                  backend="gloo")
+    rows = dp.param_sharding_rules({"ip": ("data", None)})
+    assert rows.spec("ip", "weight", 2) == (("data",), ())
+    assert torch.equal(rows.local_spec(rows.spec("ip", "weight", 2), x),
+                       x[2:])
+    assert rows.spec("ip", "bias", 1) is None
     # rank 3 of a 2 x 2 mesh: data index 1, model index 1; "rows" splits
     # the weight's dim 0 and the bias, a (None, "model") spec dim 1 only
     mp = MeshPlan(n_data=2, rank=3, device=torch.device("cpu"),

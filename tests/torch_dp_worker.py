@@ -11,7 +11,9 @@ pickled SPEC's "scenarios" (a list of dicts) and pickles {scenario
 name: result} to OUT/r<RANK>.pkl. A scenario ("kind") trains a port
 Solver from a solver prototxt on its data index's slice of the given
 global feeds (with the given global Dropout masks, JAX initial weights,
-`param_shardings` and optional NaN poison; "train", the default), checks
+`param_shardings`, optional NaN poison and, under "host_local", the
+planted fault of a host layer stepping on the rank's rows alone;
+"train", the default), checks
 BatchNorm alone ("bn"), runs the ring over the model ranks on global
 q, k, v with an upstream gradient ("ring"), pipeline_apply of a given
 stage function ("pipeline"), or moe_ffn with its experts split over the
@@ -54,6 +56,17 @@ def _state(solver) -> dict:
 
 
 def train(sc: dict, mesh) -> dict:
+    if sc.get("host_local"):
+        from caffe_mpi_tpu_torch.layers.base import Layer
+        real, Layer.host_ranks = Layer.host_ranks, lambda self: None
+        try:
+            return _train(sc, mesh)
+        finally:
+            Layer.host_ranks = real
+    return _train(sc, mesh)
+
+
+def _train(sc: dict, mesh) -> dict:
     solver = Solver(SolverParameter.from_text(sc["solver"]), mesh=mesh,
                     param_shardings=sc.get("param_shardings"))
     if sc.get("weights") is not None:
